@@ -1,0 +1,407 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (deepsee_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+1. Builds every CUDA kernel from deepsee_torch/csrc with nvcc.
+2. Kernel phase: holds each kernel against its plain PyTorch version at the
+   shapes the main path gives it, in bf16 and float32.
+3. Path phase: drives the main path -- 8x 256^2 independent inference
+   (preset 8x_independent_256x256, batch 32, bf16): preprocess -> mini style
+   encode -> generate, with seeded random weights (randomize_weights) -- and
+   checks the output,
+   that every kernel launch of the path happened, the bf16 output against a
+   float32 run, and a float32 card run against the plain CPU path.
+4. Times the path (ms per batch, img/s), traces one call with torch.profiler
+   (device time by kernel and category, the idle share), and times each
+   kernel shape (ms beside its bound, the plain version and, where one
+   exists, a library call).
+
+Prints the card's name and power limit, one {"kernels": [...]} line, and as
+the last line {"ok": true, "device": {...}}.  Any failure exits non-zero;
+without a CUDA device it exits non-zero at once and prints no result.  float32 comparisons
+run with TF32 off (torch.backends.cudnn.allow_tf32 and
+torch.backends.cuda.matmul.allow_tf32 False).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from deepsee_torch.config import ModelConfig, get_preset
+from deepsee_torch.ops import _build
+from deepsee_torch.ops import modnorm as mn
+from deepsee_torch.system import SRSystem
+from deepsee_torch.weights import randomize_weights
+
+PRESET = "8x_independent_256x256"
+BATCH = 32
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+
+# bf16 output vs the float32 output of the same weights and inputs, PSNR over
+# the [-1, 1] range.  The first H100 run measured 55.0 dB (PERF.md, PR 1);
+# 45 dB leaves room for other cuDNN algorithm choices.
+MIN_BF16_PSNR_DB = 45.0
+# float32 card path (cuDNN, TF32 off, kernels) vs float32 CPU path (plain
+# versions), batch 1: summation-order differences through ~25 convs; the
+# first H100 run measured 6.7e-6 (PERF.md, PR 1).
+MAX_F32_CPU_DIFF = 1e-4
+
+# name in the kernels line -> (modnorm mode, the one library call timed beside it)
+KERNEL_INFO = {
+    "modnorm_affine": ("affine", None),
+    "modnorm_instance": ("instance", "F.instance_norm (without the fused leaky ReLU)"),
+}
+KERNEL_SOURCE = "deepsee_torch/csrc/modnorm.cu"
+TPU_KERNEL = ("deepsee_tpu/ops/pallas/modnorm.py:38 "
+              "(git show fe9393d^:deepsee_tpu/ops/pallas/modnorm.py)")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# -- the main path's modnorm launches --------------------------------------
+
+def main_path_norms(cfg: ModelConfig, batch: int):
+    """Every modnorm launch of one main-path call, grouped by shape:
+    [(mode, (B, C, H, W), with_mod, lrelu, launches per call)]."""
+    s, c, nef = cfg.start_size, 16 * cfg.ngf, cfg.nef
+    gen_mode = "instance" if cfg.norm_g_spec.param_free_kind == "instance" else "affine"
+    # head_0 at s, G_middle_0/1 at 2s, up_i at 2^(i+2) s; two norms per block
+    blocks = [s, 2 * s, 2 * s] + [s * 2 ** (i + 2) for i in range(cfg.n_blocks - 1)]
+    out = [(gen_mode, (batch, c, hw, hw), True, True, 2 * blocks.count(hw))
+           for hw in sorted(set(blocks))]
+    # MiniTrunk initial/conv0/conv1 at s, conv2 at 2s; the final head at 2s
+    for ch, hw, lrelu in ((nef, s, True), (2 * nef, s, True), (4 * nef, s, True),
+                          (8 * nef, 2 * s, True), (cfg.regional_style_size, 2 * s, False)):
+        out.append(("instance", (batch, ch, hw, hw), False, lrelu, 1))
+    return out
+
+
+# -- kernel phase ------------------------------------------------------------
+
+def _kernel_inputs(shape, with_mod, dtype, gen):
+    b, c, h, w = shape
+    dev = torch.device("cuda")
+    x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.5).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    mod = None
+    if with_mod:
+        mod = torch.randn((b, 2 * c, h, w), generator=gen, device=dev).to(dtype)
+        mod = mod.contiguous(memory_format=torch.channels_last)
+    mean = torch.randn(c, generator=gen, device=dev) * 0.5
+    var = torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5
+    return x, mod, mean, var
+
+
+def _within_tolerance(got, want, mode, dtype):
+    """The affine mode does the plain version's float32 operations in the
+    same order (near-exact: 1e-6 of max|out|); the instance mode's Welford
+    statistics differ from the two-pass ones by a few float32 ulps (2e-5 of
+    max|out|).  bf16 adds the one rounding both make from float32, which
+    may fall on either side: 1 bf16 ulp of |out|, elementwise."""
+    diff = (got.float() - want.float()).abs()
+    slack = (1e-6 if mode == "affine" else 2e-5) * max(1.0, float(want.abs().max()))
+    if dtype == torch.bfloat16:
+        slack = slack + torch.finfo(torch.bfloat16).eps * want.float().abs()
+    return bool((diff <= slack).all())
+
+
+def _timed_ms(fns) -> float:
+    """Mean ms per call of cycling through `fns` (CUDA events, after warm-up);
+    the number of calls is chosen to fill about 100 ms."""
+    cycle = itertools.cycle(fns)
+    for _ in range(2):
+        next(cycle)()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        next(cycle)()
+    end.record()
+    end.synchronize()
+    reps = int(min(200, max(5, math.ceil(100.0 / max(start.elapsed_time(end) / 3, 1e-3)))))
+    start.record()
+    for _ in range(reps):
+        next(cycle)()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bound_ms(mode, shape, with_mod, lrelu, elt_bytes):
+    """Least time for the function: each input read once, the output written
+    once, over the HBM rate; or its float32 operations over the CUDA-core
+    rate; whichever is larger."""
+    b, c, h, w = shape
+    n = b * c * h * w
+    tensors = 2 + (2 if with_mod else 0)            # x, out (+ the 2C mod)
+    nbytes = n * tensors * elt_bytes + (2 * c * 4 if mode == "affine" else 0)
+    per_elt = (2 if mode == "affine" else 7) + (2 if with_mod else 0) + (1 if lrelu else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n * per_elt / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_phase(cfg: ModelConfig, batch: int):
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for mode, shape, with_mod, lrelu, per_call in main_path_norms(cfg, batch):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, mod, mean, var = _kernel_inputs(shape, with_mod, dtype, gen)
+            kw = dict(stats=mode, mean=mean, var=var, lrelu=lrelu)
+            got = mn.modnorm(x, mod, **kw)
+            torch.cuda.synchronize()
+            want = mn.modnorm_plain(x, mod, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            ok = _within_tolerance(got, want, mode, dtype)
+            row = {"mode": mode, "shape": list(shape), "mod": with_mod, "lrelu": lrelu,
+                   "dtype": str(dtype).replace("torch.", ""), "launches_per_call": per_call,
+                   "max_abs_err": err, "ok": ok}
+            del got, want
+            if dtype == torch.bfloat16:  # the main path's type: time it
+                set_bytes = x.numel() * x.element_size() * (4 if with_mod else 2)
+                pool = [(x, mod)] + [
+                    _kernel_inputs(shape, with_mod, dtype, gen)[:2]
+                    for _ in range(max(0, math.ceil(120e6 / set_bytes) - 1))]
+                row["ms"] = _timed_ms([lambda a=a, m=m: mn.modnorm(a, m, **kw)
+                                       for a, m in pool])
+                row["plain_ms"] = _timed_ms([lambda a=a, m=m: mn.modnorm_plain(a, m, **kw)
+                                             for a, m in pool])
+                row["library_ms"] = None
+                if mode == "instance" and not with_mod:
+                    # one library call for the normalization (without the
+                    # fused leaky ReLU where the path has one)
+                    row["library_ms"] = _timed_ms([lambda a=a: F.instance_norm(a, eps=1e-5)
+                                                   for a, _ in pool])
+                row["bound_ms"], row["bound_by"] = _bound_ms(
+                    mode, shape, with_mod, lrelu, x.element_size())
+                del pool
+            log("kernel " + json.dumps(row))
+            rows.append(row)
+            del x, mod
+            torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"modnorm disagrees with its plain version: {bad}")
+    return rows
+
+
+# -- path phase --------------------------------------------------------------
+
+def make_batch(cfg: ModelConfig, batch: int):
+    rng = np.random.RandomState(SEED)
+    return {"image_hr": np.tanh(rng.randn(batch, cfg.crop_size, cfg.crop_size, 3)
+                                ).astype(np.float32),
+            "label": rng.randint(0, cfg.label_nc, (batch, cfg.crop_size, cfg.crop_size)
+                                 ).astype(np.int32)}
+
+
+def run_path(system: SRSystem, batch):
+    """The main path once: preprocess -> mini style encode -> generate."""
+    with torch.inference_mode():
+        pre = system.preprocess(batch)
+        style = system.encode_style(pre, use_full=False, no_noise=True)
+        fake, _ = system.generate(pre, style=style)
+    return fake
+
+
+def _like(system: SRSystem, compute_dtype: str, device: str) -> SRSystem:
+    exp = system.exp.replace(model=dataclasses.replace(system.cfg,
+                                                       compute_dtype=compute_dtype))
+    other = SRSystem(exp, device=device)
+    for name, net in system.networks().items():
+        other.networks()[name].load_state_dict(net.state_dict())
+    return other
+
+
+def path_phase(batch_n: int):
+    exp = get_preset(PRESET).replace(is_train=False)
+    cfg = exp.model
+    system = SRSystem(exp)  # the card, bf16
+    system.init(torch.Generator().manual_seed(SEED))
+    randomize_weights(system.networks().values(), torch.Generator().manual_seed(SEED + 1))
+    batch = make_batch(cfg, batch_n)
+    expected = {mode: 0 for mode in mn.launches}
+    for mode, _, _, _, per_call in main_path_norms(cfg, batch_n):
+        expected[mode] += per_call
+
+    torch.cuda.reset_peak_memory_stats()
+    mn.reset_launches()
+    fake = run_path(system, batch)
+    torch.cuda.synchronize()
+    launches = dict(mn.launches)
+    log(f"path launches per call: {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"modnorm launches {launches} != {expected}")
+    shape = (batch_n, cfg.crop_size, cfg.crop_size, 3)
+    if tuple(fake.shape) != shape or not bool(torch.isfinite(fake).all()):
+        raise AssertionError(f"bad output: {tuple(fake.shape)}, finite="
+                             f"{bool(torch.isfinite(fake).all())}")
+    if float(fake.abs().max()) > 1.0:
+        raise AssertionError("output outside [-1, 1]")
+    log(f"path output {shape}: std {float(fake.std()):.4f}, "
+        f"saturated share {float((fake.abs() > 0.99).float().mean()):.4f}")
+
+    # timing: ms per batch of the whole path and of its stages
+    torch.cuda.synchronize()
+    reps = 10
+    run_path(system, batch)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        run_path(system, batch)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with torch.inference_mode():
+        pre = system.preprocess(batch)
+        style = system.encode_style(pre, use_full=False)
+        pre_ms = _timed_ms([lambda: system.preprocess(batch)])
+        enc_ms = _timed_ms([lambda: system.encode_style(pre, use_full=False)])
+        gen_ms = _timed_ms([lambda: system.generate(pre, style=style)])
+    timing = {"ms_per_batch": ms, "img_per_s": batch_n / ms * 1e3,
+              "host_ms_per_batch": host_ms, "preprocess_ms": pre_ms,
+              "encode_ms": enc_ms, "generate_ms": gen_ms,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("path timing " + json.dumps(timing))
+    profile_path(system, batch, ms)
+
+    # bf16 vs float32 (TF32 off) on the same weights and inputs
+    del pre, style
+    torch.cuda.empty_cache()
+    system32 = _like(system, "float32", "cuda")
+    fake32 = run_path(system32, batch)
+    mse = float(((fake - fake32) ** 2).mean())
+    psnr = 10 * math.log10(4.0 / mse) if mse > 0 else float("inf")
+    log(f"bf16 vs float32 path: PSNR {psnr:.2f} dB (min {MIN_BF16_PSNR_DB}), "
+        f"max abs diff {float((fake - fake32).abs().max()):.4f}")
+    if not psnr >= MIN_BF16_PSNR_DB:
+        raise AssertionError(f"bf16 path PSNR {psnr:.2f} dB < {MIN_BF16_PSNR_DB}")
+
+    # float32 card path vs the plain CPU path, one sample
+    one = {k: v[:1] for k, v in batch.items()}
+    card1 = run_path(system32, one).cpu()
+    cpu1 = run_path(_like(system32, "float32", "cpu"), one)
+    cpu_diff = float((card1 - cpu1).abs().max())
+    log(f"float32 card vs CPU plain path: max abs diff {cpu_diff:.2e} "
+        f"(max {MAX_F32_CPU_DIFF})")
+    if not cpu_diff <= MAX_F32_CPU_DIFF:
+        raise AssertionError(f"card path differs from the CPU path by {cpu_diff}")
+    return launches
+
+
+# -- profile ---------------------------------------------------------------
+
+KERNEL_CATEGORIES = (  # first match wins, on the lower-cased kernel name
+    ("modnorm", ("modnorm",)),
+    ("conv (cuDNN)", ("fprop", "conv", "implicit", "dgrad", "wgrad")),
+    ("matmul (bmm)", ("gemm", "gemv")),
+    ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("concat", ("catarray",)),
+    ("resize", ("upsample", "interpolate")),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def profile_path(system: SRSystem, batch, ms_per_batch: float) -> None:
+    """Device time of one main-path call by kernel and category
+    (torch.profiler); the idle share is 1 - kernel time / ms_per_batch,
+    the event-timed call without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run_path(system, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_path(system, batch)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                     key=lambda k: -k[1])
+    total = sum(ms for _, ms, _ in kernels)
+    categories: dict = {}
+    for name, ms, _ in kernels:
+        cat = next((c for c, keys in KERNEL_CATEGORIES
+                    if any(k in name.lower() for k in keys)), "other")
+        categories[cat] = categories.get(cat, 0.0) + ms
+    log("profile " + json.dumps({
+        "kernel_ms": total, "idle_share": 1.0 - total / ms_per_batch,
+        "categories_ms": dict(sorted(categories.items(), key=lambda kv: -kv[1]))}))
+    for name, ms, count in kernels[:15]:
+        log(f"profile kernel {ms:9.3f} ms  x{count:<4d} {name[:110]}")
+
+
+# -- main ----------------------------------------------------------------------
+
+def kernels_line(rows, launches):
+    out = []
+    for name, (mode, library_call) in KERNEL_INFO.items():
+        timed = [r for r in rows if r["mode"] == mode and "ms" in r]
+
+        def per_call(key):
+            if any(r[key] is None for r in timed):
+                return None
+            return sum(r[key] * r["launches_per_call"] for r in timed)
+
+        bound_by = {r["bound_by"] for r in timed}
+        out.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+            "launches": launches[mode],
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["mode"] == mode),
+            "ms": per_call("ms"), "plain_ms": per_call("plain_ms"),
+            "bound_ms": per_call("bound_ms"),
+            "bound_by": bound_by.pop() if len(bound_by) == 1 else "bytes",
+            "library_ms": per_call("library_ms"), "library_call": library_call,
+            "per": "one main-path call (sum over its launches)",
+        })
+    return {"kernels": out}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_preset(PRESET).model
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+
+    rows = kernel_phase(cfg, BATCH)
+    launches = path_phase(BATCH)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(smi)
+    log(json.dumps(kernels_line(rows, launches)))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

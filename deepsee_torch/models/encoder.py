@@ -1,0 +1,119 @@
+"""Style encoders producing the (B, label_nc, style_size) regional style
+matrix, port of deepsee_tpu/models/encoder.py (eval mode, no style noise).
+
+The module tree follows the reference's nesting so that state_dict keys
+match `export_torch_state`: a trunk layer is
+Sequential([Upsample,] Sequential(conv, norm), LeakyReLU), whose conv sits
+at "<layer>.0.0" (or ".1.0" after an upsample), and the shared head is
+Sequential(Sequential(conv, norm), Tanh) at "final.0.0".
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from deepsee_torch.config import ModelConfig
+from deepsee_torch.models.layers import NonSpadeNormConv
+from deepsee_torch.ops.resize import resize2d, upsample_nearest_2x
+
+
+def extract_style_matrix(x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) features x (B, N, Hs, Ws) one-hot -> (B, N, C) float32:
+    the masked mean over ALL H*W pixels (not the region's), encoder.py:37-47."""
+    b, c, h, w = x.shape
+    if tuple(seg.shape[-2:]) != (h, w):
+        seg = resize2d(seg, (h, w), method="nearest")
+    xf = x.float().permute(0, 2, 3, 1).reshape(b, h * w, c)
+    sf = seg.float().permute(0, 2, 3, 1).reshape(b, h * w, -1)
+    return torch.bmm(sf.transpose(1, 2), xf) / (h * w)
+
+
+class _TrunkLayer(nn.Module):
+    """[nearest 2x upsample ->] conv -> encoder norm -> leaky ReLU."""
+
+    def __init__(self, cfg: ModelConfig, fin: int, fout: int, stride: int = 1,
+                 upsample: bool = False):
+        super().__init__()
+        self.upsample = upsample
+        self.slot = "1" if upsample else "0"
+        self.add_module(self.slot, NonSpadeNormConv(fin, fout, 3, stride, 1, cfg.norm_e))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.upsample:
+            x = upsample_nearest_2x(x)
+        return self._modules[self.slot](x, lrelu=True)
+
+
+class FullTrunk(nn.Module):
+    """HR trunk: initial s1, down0 s2, down1 s2, upsample + conv."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        nf = cfg.nef
+        self.initial = _TrunkLayer(cfg, 3, nf)
+        self.down0 = _TrunkLayer(cfg, nf, nf * 2, stride=2)
+        self.down1 = _TrunkLayer(cfg, nf * 2, nf * 4, stride=2)
+        self.up_conv = _TrunkLayer(cfg, nf * 4, nf * 8, upsample=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.up_conv(self.down1(self.down0(self.initial(x))))
+
+
+class MiniTrunk(nn.Module):
+    """LR trunk: three stride-1 convs, then upsample + conv."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        nf = cfg.nef
+        self.initial = _TrunkLayer(cfg, 3, nf)
+        self.conv0 = _TrunkLayer(cfg, nf, nf * 2)
+        self.conv1 = _TrunkLayer(cfg, nf * 2, nf * 4)
+        self.conv2 = _TrunkLayer(cfg, nf * 4, nf * 8, upsample=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.conv1(self.conv0(self.initial(x))))
+
+
+class _FinalHead(nn.Module):
+    """Shared head: conv nef*8 -> style_size, encoder norm, tanh (float32)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.add_module("0", NonSpadeNormConv(cfg.nef * 8, cfg.regional_style_size,
+                                              3, 1, 1, cfg.norm_e))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self._modules["0"](x).float())
+
+
+class CombinedStyleEncoder(nn.Module):
+    """Both trunks and the shared head (encoder.py:184-233); a static
+    `use_full` picks the trunk that runs."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.compute_dtype)
+        self.encoder_full = FullTrunk(cfg)
+        self.encoder_mini = MiniTrunk(cfg)
+        self.final = _FinalHead(cfg)
+        if cfg.noisy_style_scale > 0:  # learned style-noise weights, carried
+            self.noise_weights = nn.Parameter(torch.zeros(cfg.label_nc))
+
+    def forward(self, x_full: torch.Tensor, seg_full: torch.Tensor,
+                x_mini: torch.Tensor, seg_mini: torch.Tensor, use_full: bool, *,
+                no_noise: bool = True) -> torch.Tensor:
+        if not no_noise and self.cfg.noisy_style_scale > 0:
+            raise NotImplementedError("style noise is not ported yet")
+        if use_full:
+            y, seg = self.encoder_full(x_full.to(self.dtype)), seg_full
+        else:
+            y, seg = self.encoder_mini(x_mini.to(self.dtype)), seg_mini
+        return extract_style_matrix(self.final(y), seg)
+
+
+def build_encoder(cfg: ModelConfig) -> nn.Module:
+    if cfg.net_e == "combinedstyle":
+        return CombinedStyleEncoder(cfg)
+    raise NotImplementedError(f"netE {cfg.net_e!r} is not ported yet")

@@ -1,0 +1,186 @@
+"""Semantic modulation blocks SPADE and SEAN, port of
+deepsee_tpu/models/normalization.py (eval mode).
+
+Each block computes norm(x) * scale + offset, where scale/offset come from
+ONE conv with 2C outputs (the +1 of the scale folded into its bias), and
+the whole epilogue -- normalize, modulate and the leaky ReLU that
+SPADEResnetBlock applies next -- is one `modnorm` kernel launch that reads
+the conv output as it is.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from deepsee_torch.config import ModelConfig
+from deepsee_torch.models.layers import Conv2d, conv2d, xavier_normal_
+from deepsee_torch.ops.modnorm import modnorm
+from deepsee_torch.ops.resize import resize2d
+
+_NHIDDEN = 128  # the reference's embedding width (normalization.py:38)
+
+
+class ConvParams(nn.Module):
+    """Weight and bias of a conv that is folded into another one at forward;
+    shaped like the reference's conv so checkpoints map one to one."""
+
+    def __init__(self, cin: int, cout: int, ks: int = 3):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cout, cin, ks, ks))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def init_params(self, generator: torch.Generator) -> None:
+        xavier_normal_(self.weight, generator)
+        nn.init.zeros_(self.bias)
+
+
+def style_to_pixels(segmap: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+    """One-hot segmap (B, N, H, W) x style matrix (B, N, S) -> style map
+    (B, S, H, W) in channels_last memory, as one batched matmul.
+
+    With contain_dontcare_label the segmap has one channel more than the
+    style has rows; the dontcare region gets a zero style row.
+    """
+    b, n, h, w = segmap.shape
+    if n == style.shape[1] + 1:
+        style = F.pad(style, (0, 0, 0, 1))
+    seg = segmap.permute(0, 2, 3, 1).reshape(b, h * w, n)
+    return torch.bmm(seg, style.to(seg.dtype)).view(b, h, w, -1).permute(0, 3, 1, 2)
+
+
+class ParamFreeNorm(nn.Module):
+    """The param-free part of SPADE/SEAN -- instance or (sync)batch norm --
+    applied together with the modulation and optional leaky ReLU.
+
+    The batch kinds carry `running_mean`/`running_var` (eval mode only).
+    """
+
+    def __init__(self, features: int, kind: str):
+        super().__init__()
+        self.kind = kind
+        if kind != "instance":
+            self.register_buffer("running_mean", torch.zeros(features))
+            self.register_buffer("running_var", torch.ones(features))
+
+    def init_params(self, generator: torch.Generator) -> None:
+        if self.kind != "instance":
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, mod: Optional[torch.Tensor] = None, *,
+                lrelu: bool = False) -> torch.Tensor:
+        if self.kind == "instance":
+            return modnorm(x, mod, stats="instance", lrelu=lrelu)
+        if self.training:
+            raise NotImplementedError("train-mode batch norm is not ported yet; "
+                                      "call .eval()")
+        return modnorm(x, mod, stats="affine", mean=self.running_mean,
+                       var=self.running_var, lrelu=lrelu)
+
+
+def _mlp_shared(cfg: ModelConfig) -> nn.Sequential:
+    ks = cfg.norm_g_spec.kernel_size
+    return nn.Sequential(Conv2d(cfg.semantic_nc, _NHIDDEN, ks, padding=ks // 2),
+                         nn.ReLU())
+
+
+class SPADE(nn.Module):
+    """Classic SPADE (normalization.py:179-212): gamma/beta convolved from the
+    nearest-resized one-hot segmap."""
+
+    def __init__(self, cfg: ModelConfig, norm_nc: int):
+        super().__init__()
+        spec = cfg.norm_g_spec
+        self.ks = spec.kernel_size
+        self.param_free_norm = ParamFreeNorm(norm_nc, spec.param_free_kind)
+        self.mlp_shared = _mlp_shared(cfg)
+        self.mlp_gamma = ConvParams(_NHIDDEN, norm_nc, self.ks)
+        self.mlp_beta = ConvParams(_NHIDDEN, norm_nc, self.ks)
+
+    def forward(self, x: torch.Tensor, segmap: torch.Tensor,
+                style: Optional[torch.Tensor] = None, *,
+                lrelu: bool = False) -> torch.Tensor:
+        seg = resize2d(segmap, x.shape[-2:], method="nearest")
+        actv = self.mlp_shared(seg.to(x.dtype))
+        weight = torch.cat([self.mlp_gamma.weight, self.mlp_beta.weight])
+        bias = torch.cat([self.mlp_gamma.bias + 1.0, self.mlp_beta.bias])
+        mod = conv2d(actv, weight, bias, padding=self.ks // 2)
+        return self.param_free_norm(x, mod, lrelu=lrelu)
+
+
+class _SEANCore(nn.Module):
+    """What SEAN blocks share (normalization.py:215-255): segmap features and
+    the per-pixel style map at a resolution capped by max_fm_size."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.fold_upsampled_mod_conv:
+            raise NotImplementedError("fold_upsampled_mod_conv is not ported yet")
+        self.cfg = cfg
+        self.mlp_shared = _mlp_shared(cfg)
+
+    def _maps(self, x_hw: Tuple[int, int], segmap: torch.Tensor,
+              style: torch.Tensor, dtype: torch.dtype):
+        cfg = self.cfg
+        x_hw = tuple(x_hw)
+        fm_hw = (min(x_hw[0], cfg.max_fm_size), min(x_hw[1], cfg.max_fm_size))
+        seg = resize2d(segmap, fm_hw, method="nearest")
+        actv = self.mlp_shared(seg.to(dtype))
+        style_map = style_to_pixels(seg, style).to(dtype)
+        if fm_hw != x_hw:
+            actv = resize2d(actv, x_hw, method="nearest")
+            if cfg.replicate_fm_resize_quirk:
+                # the reference assigns interpolate(actv) to the style map too
+                # (normalization.py:188-190); released checkpoints rely on it
+                style_map = actv
+            else:
+                style_map = resize2d(style_map, x_hw, method="nearest")
+        return actv, style_map
+
+
+class SEANBlock(_SEANCore):
+    """SEAN (normalization.py:258-310): segmap- and style-conditioned
+    gamma/beta blended by learned sigmoid weights.
+
+    The four convs and the blend fold into one 256 -> 2C conv at forward
+    (convolution is linear); the four parameter tensors stay separate.
+    """
+
+    def __init__(self, cfg: ModelConfig, norm_nc: int):
+        super().__init__(cfg)
+        spec = cfg.norm_g_spec
+        self.ks = spec.kernel_size
+        self.param_free_norm = ParamFreeNorm(norm_nc, spec.param_free_kind)
+        self.alpha_gamma = nn.Parameter(torch.zeros(1))
+        self.alpha_beta = nn.Parameter(torch.zeros(1))
+        self.mlp_gamma = ConvParams(_NHIDDEN, norm_nc, self.ks)
+        self.mlp_beta = ConvParams(_NHIDDEN, norm_nc, self.ks)
+        self.mlp_style_gamma = ConvParams(cfg.regional_style_size, norm_nc, self.ks)
+        self.mlp_style_beta = ConvParams(cfg.regional_style_size, norm_nc, self.ks)
+
+    def init_params(self, generator: torch.Generator) -> None:
+        # torch init: nn.Parameter(torch.rand(1))
+        with torch.no_grad():
+            self.alpha_gamma.copy_(torch.rand(1, generator=generator))
+            self.alpha_beta.copy_(torch.rand(1, generator=generator))
+
+    def forward(self, x: torch.Tensor, segmap: torch.Tensor, style: torch.Tensor,
+                *, lrelu: bool = False) -> torch.Tensor:
+        actv, style_map = self._maps(x.shape[-2:], segmap, style, x.dtype)
+        wg = torch.sigmoid(self.alpha_gamma)[0]
+        wb = torch.sigmoid(self.alpha_beta)[0]
+        g, b = self.mlp_gamma, self.mlp_beta
+        gs, bs = self.mlp_style_gamma, self.mlp_style_beta
+        weight = torch.cat([
+            torch.cat([(1.0 - wg) * g.weight, wg * gs.weight], dim=1),
+            torch.cat([(1.0 - wb) * b.weight, wb * bs.weight], dim=1)])
+        bias = torch.cat([(1.0 - wg) * g.bias + wg * gs.bias + 1.0,
+                          (1.0 - wb) * b.bias + wb * bs.bias])
+        inp = torch.cat([actv, style_map], dim=1).contiguous(
+            memory_format=torch.channels_last)
+        mod = conv2d(inp, weight, bias, padding=self.ks // 2)
+        return self.param_free_norm(x, mod, lrelu=lrelu)

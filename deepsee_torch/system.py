@@ -1,0 +1,131 @@
+"""SRSystem, the model facade: port of the inference subset of
+deepsee_tpu/system.py (preprocess, encode_style, generate).
+
+The public functions keep the JAX package's NHWC layout: batch entries are
+(B, H, W, C) arrays or tensors, and `generate` returns (B, H, W, 3).
+Inside, tensors are NCHW in channels_last memory, so the NHWC <-> NCHW
+moves at the boundary are views.
+
+Weights live in the modules.  They are zeros until `init` (the port's own
+seeded init) or `load_jax_variables` (the JAX package's trees) fills them.
+
+The system runs on CUDA unless the caller passes device="cpu", where every
+kernel is replaced by its plain version; without a card and without
+device="cpu" it raises rather than fall back.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from deepsee_torch.config import Experiment
+from deepsee_torch.models.encoder import build_encoder
+from deepsee_torch.models.generator import DeepSEEGenerator
+from deepsee_torch.ops.preprocess import downsample_image, one_hot_label
+from deepsee_torch.weights import jax_to_state_dict
+
+Batch = Dict[str, torch.Tensor]
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, C, H, W) in channels_last memory."""
+    return t.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
+class SRSystem:
+    def __init__(self, exp: Experiment, device: Optional[str | torch.device] = None):
+        if exp.is_train:
+            raise NotImplementedError("training is not ported yet; pass "
+                                      "exp.replace(is_train=False)")
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("SRSystem runs on CUDA and no CUDA device is "
+                               "available; pass device='cpu' for the plain "
+                               "CPU versions")
+        self.exp = exp
+        self.cfg = cfg = exp.model
+        self.generator = DeepSEEGenerator(cfg).to(self.device).eval()
+        self.encoder = (build_encoder(cfg).to(self.device).eval()
+                        if cfg.use_encoder else None)
+
+    def networks(self) -> Dict[str, torch.nn.Module]:
+        nets = {"g": self.generator}
+        if self.encoder is not None:
+            nets["e"] = self.encoder
+        return nets
+
+    # -- weights ----------------------------------------------------------
+
+    def init(self, generator: torch.Generator) -> None:
+        """Seeded init with the JAX package's initializers: xavier-normal
+        (gain 0.02) convs, zero biases, unit-normal spectral u/v, U[0, 1)
+        SEAN blend weights, running stats 0/1.  `generator` is a CPU
+        torch.Generator; the values do not depend on the device."""
+        for net in self.networks().values():
+            for module in net.modules():
+                if hasattr(module, "init_params"):
+                    module.init_params(generator)
+
+    def load_jax_variables(self, g_vars: Mapping, e_vars: Optional[Mapping] = None) -> None:
+        """Load the JAX package's `{"params", "batch_stats", "spectral"}`
+        trees (nested mappings of arrays) with strict key checking."""
+        self.generator.load_state_dict(jax_to_state_dict(g_vars), strict=True)
+        if self.encoder is not None:
+            if e_vars is None:
+                raise ValueError("this system has an encoder: pass e_vars")
+            self.encoder.load_state_dict(jax_to_state_dict(e_vars), strict=True)
+
+    # -- inference --------------------------------------------------------
+
+    def _tensor(self, value) -> torch.Tensor:
+        if isinstance(value, np.ndarray):
+            value = torch.from_numpy(value)
+        return value.to(self.device)
+
+    @torch.inference_mode()
+    def preprocess(self, batch: Mapping) -> Batch:
+        """One-hot the label map and synthesize the LR input from the HR
+        image (data/preprocessor.py semantics), on the device."""
+        cfg = self.cfg
+        out = {k: self._tensor(v) for k, v in batch.items()}
+        if "label" in out and "input_semantics" not in out:
+            out["input_semantics"] = one_hot_label(out["label"], cfg.semantic_nc)
+        if "image_hr" in out and "image_lr" not in out:
+            out["image_lr"] = downsample_image(
+                out["image_hr"].float(), (cfg.start_size, cfg.start_size),
+                method=cfg.downsampling_method)
+        return out
+
+    def encoder_inputs(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The HR style source and its semantics; zeros stand in for a
+        missing HR image (callers then use use_full=False)."""
+        sem = batch["input_semantics"]
+        hr = batch.get("image_hr")
+        if hr is None:
+            hr = torch.zeros(sem.shape[:3] + (3,), dtype=batch["image_lr"].dtype,
+                             device=sem.device)
+        return hr, sem
+
+    @torch.inference_mode()
+    def encode_style(self, batch: Batch, *, use_full: bool,
+                     no_noise: bool = True) -> torch.Tensor:
+        """(B, label_nc, style_size) float32 style matrix."""
+        x_full, seg_full = self.encoder_inputs(batch)
+        return self.encoder(_nchw(x_full), _nchw(seg_full),
+                            _nchw(batch["image_lr"]), _nchw(batch["input_semantics"]),
+                            use_full, no_noise=no_noise)
+
+    @torch.inference_mode()
+    def generate(self, batch: Batch, *, style: Optional[torch.Tensor] = None,
+                 use_full: bool = True, no_noise: bool = True
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Encode the style (unless given) and run the generator.
+        Returns (fake (B, H, W, 3) float32 in [-1, 1], style)."""
+        if style is None and self.encoder is not None:
+            style = self.encode_style(batch, use_full=use_full, no_noise=no_noise)
+        fake = self.generator(_nchw(batch["image_lr"]),
+                              _nchw(batch["input_semantics"]), style)
+        return fake.permute(0, 2, 3, 1), style

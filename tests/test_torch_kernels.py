@@ -1,0 +1,112 @@
+"""The port's CUDA kernels on the card; every test here is marked `cuda` and
+skips where no CUDA device is present.  The file imports no JAX package, so
+it runs where only torch is installed:
+
+    python -m pytest tests/test_torch_kernels.py -m cuda
+
+float32 comparisons run with TF32 off.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from deepsee_torch.config import tiny_test_experiment
+from deepsee_torch.ops import modnorm as mn
+from deepsee_torch.system import SRSystem
+from deepsee_torch.weights import randomize_weights
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield torch.device("cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+def _inputs(device, dtype, shape=(4, 64, 24, 40), with_mod=True, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, c, h, w = shape
+    x = (torch.randn(shape, generator=g, device=device) * 1.5 + 0.7).to(dtype)
+    mod = torch.randn((b, 2 * c, h, w), generator=g, device=device).to(dtype)
+    mean = torch.randn(c, generator=g, device=device) * 0.5
+    var = torch.rand(c, generator=g, device=device) * 1.5 + 0.5
+    cl = torch.channels_last
+    return (x.contiguous(memory_format=cl),
+            mod.contiguous(memory_format=cl) if with_mod else None, mean, var)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", ["affine", "instance"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_mod", [False, True])
+@pytest.mark.parametrize("lrelu", [False, True])
+def test_kernel_matches_plain_on_card(cuda_device, stats, dtype, with_mod, lrelu):
+    """Both compute in float32 and round once: the affine mode does the same
+    operations in the same order (exact); the instance mode's Welford
+    statistics differ from the two-pass ones by a few float32 ulps (2e-5 of
+    max|out|), and in bf16 the one rounding may then fall on either side
+    (1 bf16 ulp of |out|)."""
+    x, mod, mean, var = _inputs(cuda_device, dtype, with_mod=with_mod)
+    kw = dict(stats=stats, mean=mean, var=var, lrelu=lrelu)
+    before = mn.launches[stats]
+    got = mn.modnorm(x, mod, **kw)
+    torch.cuda.synchronize()
+    assert mn.launches[stats] == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last) and got.dtype == dtype
+    want = mn.modnorm_plain(x, mod, **kw)
+    slack = 0.0 if stats == "affine" else 2e-5 * float(want.float().abs().max())
+    if dtype == torch.bfloat16:
+        slack = slack + torch.finfo(torch.bfloat16).eps * want.float().abs()
+    assert bool(((got.float() - want.float()).abs() <= slack).all())
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    x, mod, mean, var = _inputs(cuda_device, torch.bfloat16)
+    kw = dict(stats="affine", mean=mean, var=var)
+    bad_calls = [
+        (x.contiguous(), mod),                        # NCHW memory: no silent copy
+        (x, mod[:, :64].contiguous(memory_format=torch.channels_last)),  # not 2C
+        (x, mod.float()),                             # mixed dtypes
+        (x.half(), mod.half()),                       # float16
+        (x[:, :60].contiguous(memory_format=torch.channels_last), None),  # C % 8
+    ]
+    for args in bad_calls:
+        with pytest.raises(ValueError):
+            mn.modnorm(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm_g", ["spectrallateseansyncbatch3x3",
+                                    "spectrallateseaninstance3x3"])
+def test_tiny_slice_on_card_matches_cpu(cuda_device, norm_g):
+    """The tiny float32 slice on the card (kernels, cuDNN) against the same
+    weights on the CPU (plain versions): 1e-4, float32 summation order.
+    nef=8, because the kernel takes channel counts that are multiples of 8."""
+    exp = tiny_test_experiment().replace(is_train=False)
+    exp = exp.replace(model=dataclasses.replace(exp.model, norm_g=norm_g, nef=8))
+    cpu = SRSystem(exp, device="cpu")
+    cpu.init(torch.Generator().manual_seed(0))
+    randomize_weights(cpu.networks().values(), torch.Generator().manual_seed(1))
+    card = SRSystem(exp, device=cuda_device)
+    for name, net in card.networks().items():
+        net.load_state_dict(cpu.networks()[name].state_dict())
+    rng = np.random.RandomState(0)
+    batch = {"image_hr": np.tanh(rng.randn(2, 32, 32, 3)).astype(np.float32),
+             "label": rng.randint(0, 19, (2, 32, 32)).astype(np.int32)}
+    mn.reset_launches()
+    got, _ = card.generate(card.preprocess(batch), use_full=False)
+    torch.cuda.synchronize()
+    # two norms in each of the 2 + n_blocks generator blocks, five in the encoder
+    assert sum(mn.launches.values()) == 2 * (2 + exp.model.n_blocks) + 5
+    want, _ = cpu.generate(cpu.preprocess(batch), use_full=False)
+    assert 0.1 < float(want.std()) < 0.9  # neither flat nor saturated
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
