@@ -4,18 +4,24 @@
     python3 chip_smoke.py
 
 1. Builds every CUDA kernel from deepsee_torch/csrc with nvcc.
-2. Kernel phase: holds each kernel against its plain PyTorch version at the
-   shapes the main path gives it, in bf16 and float32.
+2. Kernel phase: holds each kernel against its plain PyTorch version, in
+   bf16 and float32, at the shapes the main path gives it and, for the
+   instance mode, at batch 1, at the full trunk's shapes at 256^2 and 512^2
+   and at the generator's instance-norm shape (`kernel_shapes`).  Times each
+   shape in bf16 by device time: its calls are captured in a CUDA graph and
+   the replays timed with CUDA events (`_device_ms`), beside its bound, the
+   plain version and, where one exists, a library call; the host's own
+   microseconds per wrapper call are printed apart (`_host_us`).
 3. Path phase: drives the main path -- 8x 256^2 independent inference
    (preset 8x_independent_256x256, batch 32, bf16): preprocess -> mini style
    encode -> generate, with seeded random weights (randomize_weights) -- and
    checks the output,
    that every kernel launch of the path happened, the bf16 output against a
-   float32 run, and a float32 card run against the plain CPU path.
-4. Times the path (ms per batch, img/s), traces one call with torch.profiler
-   (device time by kernel and category, the idle share), and times each
-   kernel shape (ms beside its bound, the plain version and, where one
-   exists, a library call).
+   float32 run, and a float32 card run against the plain CPU path.  Then
+   drives the full-trunk style encode (use_full=True) on the same system:
+   5 instance launches, a finite style, bf16 against float32.
+4. Times the path (ms per batch, img/s) and traces one call with
+   torch.profiler (device time by kernel and category, the idle share).
 
 Prints the card's name and power limit, one {"kernels": [...]} line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero;
@@ -27,7 +33,6 @@ torch.backends.cuda.matmul.allow_tf32 False).
 from __future__ import annotations
 
 import dataclasses
-import itertools
 import json
 import math
 import subprocess
@@ -46,6 +51,8 @@ from deepsee_torch.weights import randomize_weights
 
 PRESET = "8x_independent_256x256"
 BATCH = 32
+PRESET_512 = "32x_guided_512x512"  # the full trunk at 512^2 (kernel shapes only)
+BATCH_512 = 8
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -58,6 +65,10 @@ MIN_BF16_PSNR_DB = 45.0
 # versions), batch 1: summation-order differences through ~25 convs; the
 # first H100 run measured 6.7e-6 (PERF.md, PR 1).
 MAX_F32_CPU_DIFF = 1e-4
+# bf16 full-trunk style vs the float32 one (TF32 off), relative to
+# max|float32 style|: five bf16 convs and norms at ~3 significant digits
+# each; the first H100 runs measured 9.5e-3 (PERF.md).
+MAX_FULL_STYLE_REL_DIFF = 0.05
 
 # name in the kernels line -> (modnorm mode, the one library call timed beside it)
 KERNEL_INFO = {
@@ -91,6 +102,37 @@ def main_path_norms(cfg: ModelConfig, batch: int):
     return out
 
 
+def full_trunk_norms(cfg: ModelConfig, batch: int):
+    """The five instance norms of a full-trunk style encode on the HR image:
+    [((B, C, H, W), lrelu)] of FullTrunk initial/down0/down1/up_conv and the
+    final head."""
+    s, nf = cfg.crop_size, cfg.nef
+    return [((batch, nf, s, s), True), ((batch, 2 * nf, s // 2, s // 2), True),
+            ((batch, 4 * nf, s // 4, s // 4), True),
+            ((batch, 8 * nf, s // 2, s // 2), True),
+            ((batch, cfg.regional_style_size, s // 2, s // 2), False)]
+
+
+def kernel_shapes(cfg: ModelConfig, batch: int):
+    """Every shape the kernel phase holds and times:
+    [(group, mode, (B, C, H, W), with_mod, lrelu, launches per main-path call)];
+    only the "main path" group has launches on the main path."""
+    rows = [("main path",) + r for r in main_path_norms(cfg, batch)]
+    mini = [r for r in rows if r[1] == "instance"]
+    rows += [("batch 1", mode, (1,) + shape[1:], m, lrelu, 0)
+             for _, mode, shape, m, lrelu, _ in mini]
+    rows += [(f"full trunk {cfg.crop_size}^2", "instance", shape, False, lrelu, 0)
+             for shape, lrelu in full_trunk_norms(cfg, batch)]
+    cfg512 = get_preset(PRESET_512).model
+    rows += [(f"full trunk {cfg512.crop_size}^2", "instance", shape, False, lrelu, 0)
+             for shape, lrelu in full_trunk_norms(cfg512, BATCH_512)]
+    # norm_g=...instance3x3: the generator's 512-channel trunk at 64^2, with
+    # its 1024-channel modulation
+    rows.append(("generator instance", "instance", (batch, 16 * cfg.ngf, 64, 64),
+                 True, True, 0))
+    return rows
+
+
 # -- kernel phase ------------------------------------------------------------
 
 def _kernel_inputs(shape, with_mod, dtype, gen):
@@ -109,37 +151,76 @@ def _kernel_inputs(shape, with_mod, dtype, gen):
 
 def _within_tolerance(got, want, mode, dtype):
     """The affine mode does the plain version's float32 operations in the
-    same order (near-exact: 1e-6 of max|out|); the instance mode's Welford
-    statistics differ from the two-pass ones by a few float32 ulps (2e-5 of
-    max|out|).  bf16 adds the one rounding both make from float32, which
-    may fall on either side: 1 bf16 ulp of |out|, elementwise."""
+    same order (near-exact: 1e-6 of max|out|); the instance mode's two-pass
+    chunk statistics, merged across the cluster, differ from the plain
+    version's reductions by a few float32 ulps (2e-6 of max|out|).  bf16
+    adds the one rounding both make from float32, which may fall on either
+    side: 1 bf16 ulp of |out|, elementwise."""
     diff = (got.float() - want.float()).abs()
-    slack = (1e-6 if mode == "affine" else 2e-5) * max(1.0, float(want.abs().max()))
+    slack = (1e-6 if mode == "affine" else 2e-6) * max(1.0, float(want.abs().max()))
     if dtype == torch.bfloat16:
         slack = slack + torch.finfo(torch.bfloat16).eps * want.float().abs()
     return bool((diff <= slack).all())
 
 
-def _timed_ms(fns) -> float:
-    """Mean ms per call of cycling through `fns` (CUDA events, after warm-up);
-    the number of calls is chosen to fill about 100 ms."""
-    cycle = itertools.cycle(fns)
-    for _ in range(2):
-        next(cycle)()
-    torch.cuda.synchronize()
+def _event_ms(fn, reps: int = 10) -> float:
+    """Mean ms per call of `fn` by CUDA events around a host loop, after
+    warm-up: for stages of the path, whose device work dwarfs the host's."""
+    fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
-        next(cycle)()
-    end.record()
-    end.synchronize()
-    reps = int(min(200, max(5, math.ceil(100.0 / max(start.elapsed_time(end) / 3, 1e-3)))))
+    torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
-        next(cycle)()
+        fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fns, target_ms: float = 20.0, max_calls: int = 1000) -> float:
+    """Device ms per call of cycling through `fns`: the calls are captured in
+    a CUDA graph and five replays timed with CUDA events, so the host's work
+    per call (checks, allocation, the ctypes call) is not in the number; the
+    gaps between the graph's kernels are.  The graph holds enough rounds of
+    `fns` to last about `target_ms`."""
+    for fn in fns:  # warm-up: builds, allocator, cuDNN plans
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for fn in fns:
+        fn()
+    end.record()
+    end.synchronize()
+    round_ms = max(start.elapsed_time(end), 1e-3)  # host-bound for small calls: an upper bound
+    rounds = int(max(1, min(max_calls // len(fns), math.ceil(target_ms / round_ms))))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            for fn in fns:
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (5 * rounds * len(fns))
+    del graph
+    return ms
+
+
+def _host_us(fn, calls: int = 20) -> float:
+    """Host microseconds per call of `fn` (wrapper checks, allocation, the
+    launch), with the device queue far from full."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _bound_ms(mode, shape, with_mod, lrelu, elt_bytes):
@@ -155,10 +236,17 @@ def _bound_ms(mode, shape, with_mod, lrelu, elt_bytes):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _instance_variant(shape, dtype) -> str:
+    # an earlier version of the package, timed by this script for comparison,
+    # has no plan
+    plan = getattr(mn, "instance_plan", None)
+    return plan(shape, dtype).variant if plan else "one block per slab"
+
+
 def kernel_phase(cfg: ModelConfig, batch: int):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for mode, shape, with_mod, lrelu, per_call in main_path_norms(cfg, batch):
+    for group, mode, shape, with_mod, lrelu, per_call in kernel_shapes(cfg, batch):
         for dtype in (torch.bfloat16, torch.float32):
             x, mod, mean, var = _kernel_inputs(shape, with_mod, dtype, gen)
             kw = dict(stats=mode, mean=mean, var=var, lrelu=lrelu)
@@ -168,27 +256,35 @@ def kernel_phase(cfg: ModelConfig, batch: int):
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             ok = _within_tolerance(got, want, mode, dtype)
-            row = {"mode": mode, "shape": list(shape), "mod": with_mod, "lrelu": lrelu,
-                   "dtype": str(dtype).replace("torch.", ""), "launches_per_call": per_call,
-                   "max_abs_err": err, "ok": ok}
+            row = {"group": group, "mode": mode, "shape": list(shape), "mod": with_mod,
+                   "lrelu": lrelu, "dtype": str(dtype).replace("torch.", ""),
+                   "launches_per_call": per_call, "max_abs_err": err,
+                   "max_abs_out": float(want.abs().max()), "ok": ok}
+            if mode == "instance":
+                row["variant"] = _instance_variant(shape, dtype)
+                if hasattr(mn, "clusters_in_flight"):
+                    row["clusters_in_flight"] = mn.clusters_in_flight(shape, dtype, with_mod,
+                                                                      lrelu)
             del got, want
             if dtype == torch.bfloat16:  # the main path's type: time it
                 set_bytes = x.numel() * x.element_size() * (4 if with_mod else 2)
                 pool = [(x, mod)] + [
                     _kernel_inputs(shape, with_mod, dtype, gen)[:2]
                     for _ in range(max(0, math.ceil(120e6 / set_bytes) - 1))]
-                row["ms"] = _timed_ms([lambda a=a, m=m: mn.modnorm(a, m, **kw)
-                                       for a, m in pool])
-                row["plain_ms"] = _timed_ms([lambda a=a, m=m: mn.modnorm_plain(a, m, **kw)
-                                             for a, m in pool])
+                row["ms"] = _device_ms([lambda a=a, m=m: mn.modnorm(a, m, **kw)
+                                        for a, m in pool])
+                row["host_us"] = _host_us(lambda: mn.modnorm(x, mod, **kw))
+                row["plain_ms"] = _device_ms([lambda a=a, m=m: mn.modnorm_plain(a, m, **kw)
+                                              for a, m in pool])
                 row["library_ms"] = None
-                if mode == "instance" and not with_mod:
-                    # one library call for the normalization (without the
-                    # fused leaky ReLU where the path has one)
-                    row["library_ms"] = _timed_ms([lambda a=a: F.instance_norm(a, eps=1e-5)
-                                                   for a, _ in pool])
+                if mode == "instance":
+                    # one library call for the normalization, without the
+                    # fused modulation and leaky ReLU where the row has them
+                    row["library_ms"] = _device_ms([lambda a=a: F.instance_norm(a, eps=1e-5)
+                                                    for a, _ in pool])
                 row["bound_ms"], row["bound_by"] = _bound_ms(
                     mode, shape, with_mod, lrelu, x.element_size())
+                row["bound_share"] = row["bound_ms"] / row["ms"]
                 del pool
             log("kernel " + json.dumps(row))
             rows.append(row)
@@ -273,20 +369,28 @@ def path_phase(batch_n: int):
     with torch.inference_mode():
         pre = system.preprocess(batch)
         style = system.encode_style(pre, use_full=False)
-        pre_ms = _timed_ms([lambda: system.preprocess(batch)])
-        enc_ms = _timed_ms([lambda: system.encode_style(pre, use_full=False)])
-        gen_ms = _timed_ms([lambda: system.generate(pre, style=style)])
+        pre_ms = _event_ms(lambda: system.preprocess(batch))
+        enc_ms = _event_ms(lambda: system.encode_style(pre, use_full=False))
+        gen_ms = _event_ms(lambda: system.generate(pre, style=style))
     timing = {"ms_per_batch": ms, "img_per_s": batch_n / ms * 1e3,
               "host_ms_per_batch": host_ms, "preprocess_ms": pre_ms,
               "encode_ms": enc_ms, "generate_ms": gen_ms,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     log("path timing " + json.dumps(timing))
     profile_path(system, batch, ms)
+    del style
+    style_full = full_trunk_encode(system, pre)
 
     # bf16 vs float32 (TF32 off) on the same weights and inputs
-    del pre, style
     torch.cuda.empty_cache()
     system32 = _like(system, "float32", "cuda")
+    style32 = system32.encode_style(pre, use_full=True)
+    rel = float((style_full - style32).abs().max() / style32.abs().max())
+    log(f"bf16 vs float32 full-trunk style: max abs diff / max|style| {rel:.2e} "
+        f"(max {MAX_FULL_STYLE_REL_DIFF}), max|style| {float(style32.abs().max()):.3e}")
+    if not rel <= MAX_FULL_STYLE_REL_DIFF:
+        raise AssertionError(f"bf16 full-trunk style differs from float32 by {rel}")
+    del pre, style_full, style32
     fake32 = run_path(system32, batch)
     mse = float(((fake - fake32) ** 2).mean())
     psnr = 10 * math.log10(4.0 / mse) if mse > 0 else float("inf")
@@ -305,6 +409,26 @@ def path_phase(batch_n: int):
     if not cpu_diff <= MAX_F32_CPU_DIFF:
         raise AssertionError(f"card path differs from the CPU path by {cpu_diff}")
     return launches
+
+
+def full_trunk_encode(system: SRSystem, pre):
+    """The full-trunk style encode (use_full=True) once, with its launch
+    check, then timed."""
+    cfg = system.cfg
+    mn.reset_launches()
+    style = system.encode_style(pre, use_full=True)
+    torch.cuda.synchronize()
+    launches = dict(mn.launches)
+    log(f"full-trunk encode launches: {launches} (expected 5 instance)")
+    if launches != {"affine": 0, "instance": 5}:
+        raise AssertionError(f"full-trunk encode: modnorm launches {launches}")
+    shape = (pre["image_lr"].shape[0], cfg.label_nc, cfg.regional_style_size)
+    if tuple(style.shape) != shape or not bool(torch.isfinite(style).all()):
+        raise AssertionError(f"bad full-trunk style: {tuple(style.shape)}, finite="
+                             f"{bool(torch.isfinite(style).all())}")
+    ms = _event_ms(lambda: system.encode_style(pre, use_full=True))
+    log("full-trunk encode " + json.dumps({"shape": list(shape), "ms": ms}))
+    return style
 
 
 # -- profile ---------------------------------------------------------------
@@ -355,7 +479,8 @@ def profile_path(system: SRSystem, batch, ms_per_batch: float) -> None:
 def kernels_line(rows, launches):
     out = []
     for name, (mode, library_call) in KERNEL_INFO.items():
-        timed = [r for r in rows if r["mode"] == mode and "ms" in r]
+        timed = [r for r in rows if r["mode"] == mode and r["group"] == "main path"
+                 and "ms" in r]
 
         def per_call(key):
             if any(r[key] is None for r in timed):
@@ -371,7 +496,7 @@ def kernels_line(rows, launches):
             "bound_ms": per_call("bound_ms"),
             "bound_by": bound_by.pop() if len(bound_by) == 1 else "bytes",
             "library_ms": per_call("library_ms"), "library_call": library_call,
-            "per": "one main-path call (sum over its launches)",
+            "per": "one main-path call (sum over its launches), device time",
         })
     return {"kernels": out}
 

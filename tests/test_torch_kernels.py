@@ -50,10 +50,10 @@ def _inputs(device, dtype, shape=(4, 64, 24, 40), with_mod=True, seed=0):
 @pytest.mark.parametrize("lrelu", [False, True])
 def test_kernel_matches_plain_on_card(cuda_device, stats, dtype, with_mod, lrelu):
     """Both compute in float32 and round once: the affine mode does the same
-    operations in the same order (exact); the instance mode's Welford
-    statistics differ from the two-pass ones by a few float32 ulps (2e-5 of
-    max|out|), and in bf16 the one rounding may then fall on either side
-    (1 bf16 ulp of |out|)."""
+    operations in the same order (exact); the instance mode's chunked
+    two-pass statistics differ from the plain version's reductions by a few
+    float32 ulps (2e-6 of max|out|), and in bf16 the one rounding may then
+    fall on either side (1 bf16 ulp of |out|)."""
     x, mod, mean, var = _inputs(cuda_device, dtype, with_mod=with_mod)
     kw = dict(stats=stats, mean=mean, var=var, lrelu=lrelu)
     before = mn.launches[stats]
@@ -62,7 +62,7 @@ def test_kernel_matches_plain_on_card(cuda_device, stats, dtype, with_mod, lrelu
     assert mn.launches[stats] == before + 1
     assert got.is_contiguous(memory_format=torch.channels_last) and got.dtype == dtype
     want = mn.modnorm_plain(x, mod, **kw)
-    slack = 0.0 if stats == "affine" else 2e-5 * float(want.float().abs().max())
+    slack = 0.0 if stats == "affine" else 2e-6 * float(want.float().abs().max())
     if dtype == torch.bfloat16:
         slack = slack + torch.finfo(torch.bfloat16).eps * want.float().abs()
     assert bool(((got.float() - want.float()).abs() <= slack).all())
@@ -110,3 +110,51 @@ def test_tiny_slice_on_card_matches_cpu(cuda_device, norm_g):
     want, _ = cpu.generate(cpu.preprocess(batch), use_full=False)
     assert 0.1 < float(want.std()) < 0.9  # neither flat nor saturated
     assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+
+# one shape per variant (and the on-chip one with registers), batch 1, a
+# prime H*W, and C=24 (an 8-channel tile)
+INSTANCE_SHAPES = {"on-chip": (2, 64, 64, 64), "registers": (1, 32, 256, 256),
+                   "streaming": (1, 16, 512, 512), "batch 1": (1, 32, 32, 32),
+                   "prime H*W": (2, 64, 37, 41), "C=24": (2, 24, 20, 20)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(INSTANCE_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_mod", [False, True])
+@pytest.mark.parametrize("lrelu", [False, True])
+def test_instance_kernel_matches_plain_on_card(cuda_device, case, dtype, with_mod, lrelu):
+    shape = INSTANCE_SHAPES[case]
+    plan = mn.instance_plan(shape, dtype)
+    if case in ("on-chip", "streaming"):
+        assert plan.variant == case
+    if case == "registers":
+        assert plan.variant == "on-chip" and plan.register_vectors > 0
+    x, mod, _, _ = _inputs(cuda_device, dtype, shape=shape, with_mod=with_mod)
+    before = mn.launches["instance"]
+    got = mn.modnorm(x, mod, stats="instance", lrelu=lrelu)
+    torch.cuda.synchronize()
+    assert mn.launches["instance"] == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last) and got.dtype == dtype
+    want = mn.modnorm_plain(x, mod, stats="instance", lrelu=lrelu)
+    slack = 2e-6 * float(want.float().abs().max())
+    if dtype == torch.bfloat16:
+        slack = slack + torch.finfo(torch.bfloat16).eps * want.float().abs()
+    assert bool(((got.float() - want.float()).abs() <= slack).all())
+
+
+@pytest.mark.cuda
+def test_instance_kernel_refuses_a_plan_it_cannot_take(cuda_device, monkeypatch):
+    """A plan the kernel cannot take raises before any launch; nothing falls
+    back to the plain version or to the other variant."""
+    x, _, _, _ = _inputs(cuda_device, torch.bfloat16, with_mod=False, shape=(2, 64, 64, 64))
+    good = mn.instance_plan(tuple(x.shape), x.dtype)
+    for change in (dict(cluster=32), dict(smem_bytes=300_000), dict(tile=24),
+                   dict(variant="split")):
+        bad = dataclasses.replace(good, **change)
+        monkeypatch.setattr(mn, "instance_plan", lambda shape, dtype, plan=bad: plan)
+        before = mn.launches["instance"]
+        with pytest.raises(ValueError):
+            mn.modnorm(x, stats="instance")
+        assert mn.launches["instance"] == before
