@@ -5,29 +5,37 @@
 
 1. Builds every CUDA kernel from deepsee_torch/csrc with nvcc.
 2. Kernel phase: holds each kernel against its plain PyTorch version, in
-   bf16 and float32, at the shapes the main path gives it and, for the
-   instance mode, at batch 1, at the full trunk's shapes at 256^2 and 512^2
-   and at the generator's instance-norm shape (`kernel_shapes`).  Times each
-   shape in bf16 by device time: its calls are captured in a CUDA graph and
-   the replays timed with CUDA events (`_device_ms`), beside its bound, the
-   plain version and, where one exists, a library call; the host's own
-   microseconds per wrapper call are printed apart (`_host_us`).
-3. Path phase: drives the main path -- 8x 256^2 independent inference
-   (preset 8x_independent_256x256, batch 32, bf16): preprocess -> mini style
-   encode -> generate, with seeded random weights (randomize_weights) -- and
-   checks the output,
-   that every kernel launch of the path happened, the bf16 output against a
-   float32 run, and a float32 card run against the plain CPU path.  Then
-   drives the full-trunk style encode (use_full=True) on the same system:
-   5 instance launches, a finite style, bf16 against float32.
-4. Times the path (ms per batch, img/s) and traces one call with
-   torch.profiler (device time by kernel and category, the idle share).
+   bf16 and float32, at the shapes the paths give it (`kernel_shapes`: the
+   main path, the full trunk at 256^2 b32 and 512^2 b8, the 32x generator
+   at b8) and, for the instance mode, at batch 1 and at the generator's
+   instance-norm shape.  Times each shape in bf16 by device time: its calls
+   are captured in a CUDA graph and the replays timed with CUDA events
+   (`_device_ms`), beside its bound, the plain version and one library call
+   (F.batch_norm or F.instance_norm); the host's own microseconds per
+   wrapper call are printed apart (`_host_us`).
+3. Main path: 8x 256^2 independent inference (preset 8x_independent_256x256,
+   batch 32, bf16): preprocess -> mini style encode -> generate, with seeded
+   random weights (randomize_weights).  Checks the output, that every
+   kernel launch of the path happened, the bf16 output against a float32
+   run, and a float32 card run against the plain CPU path.  Then the
+   full-trunk style encode (use_full=True) on the same system: 5 instance
+   launches, a finite style, bf16 against float32.
+4. Guided paths: 8x_guided_256x256 at batch 32 and 32x_guided_512x512 at
+   batch 8, bf16: preprocess (one-hot of the guiding label too) -> the full
+   trunk on the guiding image -> generate, with the same checks, and K1's
+   device time per call of each path beside its bound.  The 32x path runs
+   again with fold_upsampled_mod_conv=True: both timed, the outputs
+   compared.
+5. Times each path (ms per batch, img/s, stages, peak memory) and traces
+   one call with torch.profiler (device time by kernel and category, the
+   idle share).
 
-Prints the card's name and power limit, one {"kernels": [...]} line, and as
-the last line {"ok": true, "device": {...}}.  Any failure exits non-zero;
-without a CUDA device it exits non-zero at once and prints no result.  float32 comparisons
-run with TF32 off (torch.backends.cudnn.allow_tf32 and
-torch.backends.cuda.matmul.allow_tf32 False).
+Prints the card's name and power limit, one {"kernels": [...]} line (per
+main-path call), and as the last line {"ok": true, "device": {...}}.  Any
+failure exits non-zero; without a CUDA device it exits non-zero at once and
+prints no result.  float32 comparisons run with TF32 off
+(torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+False).
 """
 
 from __future__ import annotations
@@ -51,8 +59,12 @@ from deepsee_torch.weights import randomize_weights
 
 PRESET = "8x_independent_256x256"
 BATCH = 32
-PRESET_512 = "32x_guided_512x512"  # the full trunk at 512^2 (kernel shapes only)
+PRESET_512 = "32x_guided_512x512"
 BATCH_512 = 8
+# the guided paths: preset -> batch, and K1's launches per call of each
+GUIDED_PATHS = {"8x_guided_256x256": BATCH, PRESET_512: BATCH_512}
+GUIDED_LAUNCHES = {"8x_guided_256x256": {"affine": 10, "instance": 5},
+                   PRESET_512: {"affine": 14, "instance": 5}}
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -72,7 +84,8 @@ MAX_FULL_STYLE_REL_DIFF = 0.05
 
 # name in the kernels line -> (modnorm mode, the one library call timed beside it)
 KERNEL_INFO = {
-    "modnorm_affine": ("affine", None),
+    "modnorm_affine": ("affine", "F.batch_norm (eval, running stats; without the fused "
+                                 "modulation and leaky ReLU)"),
     "modnorm_instance": ("instance", "F.instance_norm (without the fused leaky ReLU)"),
 }
 KERNEL_SOURCE = "deepsee_torch/csrc/modnorm.cu"
@@ -84,22 +97,27 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-# -- the main path's modnorm launches --------------------------------------
+# -- the modnorm launches of each path -------------------------------------
 
-def main_path_norms(cfg: ModelConfig, batch: int):
-    """Every modnorm launch of one main-path call, grouped by shape:
+def generator_norms(cfg: ModelConfig, batch: int):
+    """Every modnorm launch of one generator call, grouped by shape:
     [(mode, (B, C, H, W), with_mod, lrelu, launches per call)]."""
-    s, c, nef = cfg.start_size, 16 * cfg.ngf, cfg.nef
-    gen_mode = "instance" if cfg.norm_g_spec.param_free_kind == "instance" else "affine"
+    s, c = cfg.start_size, 16 * cfg.ngf
+    mode = "instance" if cfg.norm_g_spec.param_free_kind == "instance" else "affine"
     # head_0 at s, G_middle_0/1 at 2s, up_i at 2^(i+2) s; two norms per block
     blocks = [s, 2 * s, 2 * s] + [s * 2 ** (i + 2) for i in range(cfg.n_blocks - 1)]
-    out = [(gen_mode, (batch, c, hw, hw), True, True, 2 * blocks.count(hw))
-           for hw in sorted(set(blocks))]
-    # MiniTrunk initial/conv0/conv1 at s, conv2 at 2s; the final head at 2s
-    for ch, hw, lrelu in ((nef, s, True), (2 * nef, s, True), (4 * nef, s, True),
-                          (8 * nef, 2 * s, True), (cfg.regional_style_size, 2 * s, False)):
-        out.append(("instance", (batch, ch, hw, hw), False, lrelu, 1))
-    return out
+    return [(mode, (batch, c, hw, hw), True, True, 2 * blocks.count(hw))
+            for hw in sorted(set(blocks))]
+
+
+def mini_trunk_norms(cfg: ModelConfig, batch: int):
+    """The five instance norms of a mini-trunk style encode on the LR image:
+    [((B, C, H, W), lrelu)] of MiniTrunk initial/conv0/conv1 at s, conv2 at
+    2s, and the final head at 2s."""
+    s, nef = cfg.start_size, cfg.nef
+    return [((batch, nef, s, s), True), ((batch, 2 * nef, s, s), True),
+            ((batch, 4 * nef, s, s), True), ((batch, 8 * nef, 2 * s, 2 * s), True),
+            ((batch, cfg.regional_style_size, 2 * s, 2 * s), False)]
 
 
 def full_trunk_norms(cfg: ModelConfig, batch: int):
@@ -113,11 +131,28 @@ def full_trunk_norms(cfg: ModelConfig, batch: int):
             ((batch, cfg.regional_style_size, s // 2, s // 2), False)]
 
 
+def path_norms(cfg: ModelConfig, batch: int, full_trunk: bool):
+    """Every modnorm launch of one call of a path (style encode, generate):
+    [(mode, (B, C, H, W), with_mod, lrelu, launches per call)]."""
+    trunk = full_trunk_norms if full_trunk else mini_trunk_norms
+    return generator_norms(cfg, batch) + [("instance", shape, False, lrelu, 1)
+                                          for shape, lrelu in trunk(cfg, batch)]
+
+
+def expected_launches(norms):
+    out = {mode: 0 for mode in mn.launches}
+    for mode, _, _, _, per_call in norms:
+        out[mode] += per_call
+    return out
+
+
 def kernel_shapes(cfg: ModelConfig, batch: int):
     """Every shape the kernel phase holds and times:
     [(group, mode, (B, C, H, W), with_mod, lrelu, launches per main-path call)];
-    only the "main path" group has launches on the main path."""
-    rows = [("main path",) + r for r in main_path_norms(cfg, batch)]
+    only the "main path" group has launches on the main path.  The guided
+    paths' shapes are the main path's generator shapes with the full trunk
+    at 256^2 b32 (8x), and the 32x generator with the full trunk at 512^2 b8."""
+    rows = [("main path",) + r for r in path_norms(cfg, batch, full_trunk=False)]
     mini = [r for r in rows if r[1] == "instance"]
     rows += [("batch 1", mode, (1,) + shape[1:], m, lrelu, 0)
              for _, mode, shape, m, lrelu, _ in mini]
@@ -130,6 +165,9 @@ def kernel_shapes(cfg: ModelConfig, batch: int):
     # its 1024-channel modulation
     rows.append(("generator instance", "instance", (batch, 16 * cfg.ngf, 64, 64),
                  True, True, 0))
+    # the 32x generator; at 512^2 its modulation has 2^31 elements
+    rows += [("32x generator", mode, shape, m, lrelu, 0)
+             for mode, shape, m, lrelu, _ in generator_norms(cfg512, BATCH_512)]
     return rows
 
 
@@ -276,12 +314,15 @@ def kernel_phase(cfg: ModelConfig, batch: int):
                 row["host_us"] = _host_us(lambda: mn.modnorm(x, mod, **kw))
                 row["plain_ms"] = _device_ms([lambda a=a, m=m: mn.modnorm_plain(a, m, **kw)
                                               for a, m in pool])
-                row["library_ms"] = None
+                # one library call for the normalization, without the fused
+                # modulation and leaky ReLU where the row has them
                 if mode == "instance":
-                    # one library call for the normalization, without the
-                    # fused modulation and leaky ReLU where the row has them
                     row["library_ms"] = _device_ms([lambda a=a: F.instance_norm(a, eps=1e-5)
                                                     for a, _ in pool])
+                else:
+                    row["library_ms"] = _device_ms([
+                        lambda a=a: F.batch_norm(a, mean, var, training=False, eps=1e-5)
+                        for a, _ in pool])
                 row["bound_ms"], row["bound_by"] = _bound_ms(
                     mode, shape, with_mod, lrelu, x.element_size())
                 row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -298,87 +339,134 @@ def kernel_phase(cfg: ModelConfig, batch: int):
 
 # -- path phase --------------------------------------------------------------
 
-def make_batch(cfg: ModelConfig, batch: int):
+def make_batch(cfg: ModelConfig, batch: int, guided: bool = False):
+    """A seeded batch as bench.py makes it: the HR image and its label map
+    and, for the guided model, a guiding image and its label map."""
     rng = np.random.RandomState(SEED)
-    return {"image_hr": np.tanh(rng.randn(batch, cfg.crop_size, cfg.crop_size, 3)
-                                ).astype(np.float32),
-            "label": rng.randint(0, cfg.label_nc, (batch, cfg.crop_size, cfg.crop_size)
-                                 ).astype(np.int32)}
+    hw = (batch, cfg.crop_size, cfg.crop_size)
+    keys = ("image_hr", "label") + (("guiding_image", "guiding_label") if guided else ())
+    return {k: (np.tanh(rng.randn(*hw, 3)).astype(np.float32) if "image" in k
+                else rng.randint(0, cfg.label_nc, hw).astype(np.int32)) for k in keys}
 
 
-def run_path(system: SRSystem, batch):
-    """The main path once: preprocess -> mini style encode -> generate."""
+def run_path(system: SRSystem, batch, use_full: bool = False):
+    """One call of a path: preprocess -> style encode (the mini trunk on the
+    LR image; with use_full the full trunk on the HR or guiding image) ->
+    generate."""
     with torch.inference_mode():
         pre = system.preprocess(batch)
-        style = system.encode_style(pre, use_full=False, no_noise=True)
+        style = system.encode_style(pre, use_full=use_full, no_noise=True)
         fake, _ = system.generate(pre, style=style)
     return fake
 
 
-def _like(system: SRSystem, compute_dtype: str, device: str) -> SRSystem:
-    exp = system.exp.replace(model=dataclasses.replace(system.cfg,
-                                                       compute_dtype=compute_dtype))
+def _like(system: SRSystem, compute_dtype: str, device: str, **model) -> SRSystem:
+    exp = system.exp.replace(model=dataclasses.replace(
+        system.cfg, compute_dtype=compute_dtype, **model))
     other = SRSystem(exp, device=device)
     for name, net in system.networks().items():
         other.networks()[name].load_state_dict(net.state_dict())
     return other
 
 
-def path_phase(batch_n: int):
-    exp = get_preset(PRESET).replace(is_train=False)
-    cfg = exp.model
-    system = SRSystem(exp)  # the card, bf16
+def seeded_system(preset: str) -> SRSystem:
+    """The preset's inference system on the card, bf16, with seeded random
+    weights."""
+    system = SRSystem(get_preset(preset).replace(is_train=False))
     system.init(torch.Generator().manual_seed(SEED))
     randomize_weights(system.networks().values(), torch.Generator().manual_seed(SEED + 1))
-    batch = make_batch(cfg, batch_n)
-    expected = {mode: 0 for mode in mn.launches}
-    for mode, _, _, _, per_call in main_path_norms(cfg, batch_n):
-        expected[mode] += per_call
+    return system
 
+
+def drive_path(tag: str, system: SRSystem, batch, norms, use_full: bool):
+    """Drive the path once with the launch counts set to 0 just before and
+    read just after; check the launches and the output; then time the path
+    and its stages and profile one call.  Returns (output, launches)."""
+    cfg = system.cfg
+    batch_n = len(batch["label"])
+    expected = expected_launches(norms)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mn.reset_launches()
-    fake = run_path(system, batch)
+    fake = run_path(system, batch, use_full)
     torch.cuda.synchronize()
     launches = dict(mn.launches)
-    log(f"path launches per call: {launches} (expected {expected})")
+    log(f"{tag} launches per call: {launches} (expected {expected})")
     if launches != expected:
-        raise AssertionError(f"modnorm launches {launches} != {expected}")
+        raise AssertionError(f"{tag}: modnorm launches {launches} != {expected}")
     shape = (batch_n, cfg.crop_size, cfg.crop_size, 3)
     if tuple(fake.shape) != shape or not bool(torch.isfinite(fake).all()):
-        raise AssertionError(f"bad output: {tuple(fake.shape)}, finite="
+        raise AssertionError(f"{tag}: bad output: {tuple(fake.shape)}, finite="
                              f"{bool(torch.isfinite(fake).all())}")
     if float(fake.abs().max()) > 1.0:
-        raise AssertionError("output outside [-1, 1]")
-    log(f"path output {shape}: std {float(fake.std()):.4f}, "
+        raise AssertionError(f"{tag}: output outside [-1, 1]")
+    log(f"{tag} output {shape}: std {float(fake.std()):.4f}, "
         f"saturated share {float((fake.abs() > 0.99).float().mean()):.4f}")
 
     # timing: ms per batch of the whole path and of its stages
     torch.cuda.synchronize()
     reps = 10
-    run_path(system, batch)
+    run_path(system, batch, use_full)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
     for _ in range(reps):
-        run_path(system, batch)
+        run_path(system, batch, use_full)
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / reps
     host_ms = (time.perf_counter() - t0) * 1e3 / reps
     with torch.inference_mode():
         pre = system.preprocess(batch)
-        style = system.encode_style(pre, use_full=False)
+        style = system.encode_style(pre, use_full=use_full)
         pre_ms = _event_ms(lambda: system.preprocess(batch))
-        enc_ms = _event_ms(lambda: system.encode_style(pre, use_full=False))
+        enc_ms = _event_ms(lambda: system.encode_style(pre, use_full=use_full))
         gen_ms = _event_ms(lambda: system.generate(pre, style=style))
     timing = {"ms_per_batch": ms, "img_per_s": batch_n / ms * 1e3,
               "host_ms_per_batch": host_ms, "preprocess_ms": pre_ms,
               "encode_ms": enc_ms, "generate_ms": gen_ms,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    log("path timing " + json.dumps(timing))
-    profile_path(system, batch, ms)
-    del style
+    log(f"{tag} timing " + json.dumps(timing))
+    profile_path(tag, system, batch, ms, use_full)
+    return fake, launches
+
+
+def check_bf16_psnr(tag: str, fake, fake32) -> None:
+    """The bf16 output against the float32 one (TF32 off)."""
+    mse = float(((fake - fake32) ** 2).mean())
+    psnr = 10 * math.log10(4.0 / mse) if mse > 0 else float("inf")
+    log(f"bf16 vs float32 {tag}: PSNR {psnr:.2f} dB (min {MIN_BF16_PSNR_DB}), "
+        f"max abs diff {float((fake - fake32).abs().max()):.4f}")
+    if not psnr >= MIN_BF16_PSNR_DB:
+        raise AssertionError(f"bf16 {tag} PSNR {psnr:.2f} dB < {MIN_BF16_PSNR_DB}")
+
+
+def check_card_vs_cpu(tag: str, system32: SRSystem, batch, use_full: bool):
+    """The float32 card path against the plain CPU path, one sample.
+    Returns the card's output."""
+    one = {k: v[:1] for k, v in batch.items()}
+    card1 = run_path(system32, one, use_full).cpu()
+    t0 = time.perf_counter()
+    cpu1 = run_path(_like(system32, "float32", "cpu"), one, use_full)
+    cpu_s = time.perf_counter() - t0
+    cpu_diff = float((card1 - cpu1).abs().max())
+    log(f"float32 card vs CPU plain {tag}: max abs diff {cpu_diff:.2e} "
+        f"(max {MAX_F32_CPU_DIFF}); the CPU took {cpu_s:.1f} s")
+    if not cpu_diff <= MAX_F32_CPU_DIFF:
+        raise AssertionError(f"card {tag} differs from the CPU path by {cpu_diff}")
+    return card1
+
+
+def path_phase(batch_n: int):
+    """The main path: 8x 256^2 independent inference, then the full-trunk
+    encode on the same system."""
+    system = seeded_system(PRESET)
+    cfg = system.cfg
+    batch = make_batch(cfg, batch_n)
+    fake, launches = drive_path("path", system, batch,
+                                path_norms(cfg, batch_n, full_trunk=False), use_full=False)
+    pre = system.preprocess(batch)
     style_full = full_trunk_encode(system, pre)
 
     # bf16 vs float32 (TF32 off) on the same weights and inputs
@@ -391,24 +479,66 @@ def path_phase(batch_n: int):
     if not rel <= MAX_FULL_STYLE_REL_DIFF:
         raise AssertionError(f"bf16 full-trunk style differs from float32 by {rel}")
     del pre, style_full, style32
-    fake32 = run_path(system32, batch)
-    mse = float(((fake - fake32) ** 2).mean())
-    psnr = 10 * math.log10(4.0 / mse) if mse > 0 else float("inf")
-    log(f"bf16 vs float32 path: PSNR {psnr:.2f} dB (min {MIN_BF16_PSNR_DB}), "
-        f"max abs diff {float((fake - fake32).abs().max()):.4f}")
-    if not psnr >= MIN_BF16_PSNR_DB:
-        raise AssertionError(f"bf16 path PSNR {psnr:.2f} dB < {MIN_BF16_PSNR_DB}")
-
-    # float32 card path vs the plain CPU path, one sample
-    one = {k: v[:1] for k, v in batch.items()}
-    card1 = run_path(system32, one).cpu()
-    cpu1 = run_path(_like(system32, "float32", "cpu"), one)
-    cpu_diff = float((card1 - cpu1).abs().max())
-    log(f"float32 card vs CPU plain path: max abs diff {cpu_diff:.2e} "
-        f"(max {MAX_F32_CPU_DIFF})")
-    if not cpu_diff <= MAX_F32_CPU_DIFF:
-        raise AssertionError(f"card path differs from the CPU path by {cpu_diff}")
+    check_bf16_psnr("path", fake, run_path(system32, batch))
+    check_card_vs_cpu("path", system32, batch, use_full=False)
     return launches
+
+
+def guided_phase(preset: str, batch_n: int, rows):
+    """A guided path: preprocess (one-hot of the guiding label too) -> the
+    full-trunk style encode on the guiding image -> generate, at full width.
+    For the 32x preset, also the path with fold_upsampled_mod_conv."""
+    system = seeded_system(preset)
+    cfg = system.cfg
+    batch = make_batch(cfg, batch_n, guided=True)
+    norms = path_norms(cfg, batch_n, full_trunk=True)
+    if expected_launches(norms) != GUIDED_LAUNCHES[preset]:
+        raise AssertionError(f"{preset}: the path's norms give {expected_launches(norms)}, "
+                             f"not {GUIDED_LAUNCHES[preset]}")
+    tag = f"{preset} path"
+    fake, launches = drive_path(tag, system, batch, norms, use_full=True)
+    log(f"{tag} kernels " + json.dumps({mode: path_kernel_times(rows, norms, mode)
+                                        for mode in mn.launches}))
+    if cfg.load_size >= 512:
+        fold_compare(tag, system, batch, fake, norms)
+    system32 = _like(system, "float32", "cuda")
+    del system
+    torch.cuda.empty_cache()
+    check_bf16_psnr(tag, fake, run_path(system32, batch, use_full=True))
+    del fake
+    torch.cuda.empty_cache()
+    card1 = check_card_vs_cpu(tag, system32, batch, use_full=True)
+    if cfg.load_size >= 512:
+        one = {k: v[:1] for k, v in batch.items()}
+        fold1 = run_path(_like(system32, "float32", "cuda", fold_upsampled_mod_conv=True),
+                         one, use_full=True).cpu()
+        diff = float((fold1 - card1).abs().max())
+        log(f"{tag}: float32 folded vs literal, one sample: max abs diff {diff:.2e} "
+            f"(max {MAX_F32_CPU_DIFF})")
+        if not diff <= MAX_F32_CPU_DIFF:
+            raise AssertionError(f"{tag}: the folded conv differs by {diff}")
+    return launches
+
+
+def fold_compare(tag: str, system: SRSystem, batch, fake, norms) -> None:
+    """The path with fold_upsampled_mod_conv=True on the same weights: its
+    launches, the two outputs' difference (bf16), and both timed in turns
+    (literal, fold, fold, literal)."""
+    fold = _like(system, system.cfg.compute_dtype, "cuda", fold_upsampled_mod_conv=True)
+    mn.reset_launches()
+    fake_fold = run_path(fold, batch, use_full=True)
+    torch.cuda.synchronize()
+    if dict(mn.launches) != expected_launches(norms):
+        raise AssertionError(f"{tag} folded: modnorm launches {dict(mn.launches)}")
+    if not bool(torch.isfinite(fake_fold).all()):
+        raise AssertionError(f"{tag} folded: output not finite")
+    times = {"literal": [], "fold": []}
+    for name in ("literal", "fold", "fold", "literal"):
+        sys_ = fold if name == "fold" else system
+        times[name].append(_event_ms(lambda: run_path(sys_, batch, use_full=True), reps=5))
+    log(f"{tag} fold_upsampled_mod_conv " + json.dumps({
+        "literal_ms_per_batch": times["literal"], "fold_ms_per_batch": times["fold"],
+        "max_abs_diff_bf16": float((fake_fold - fake).abs().max())}))
 
 
 def full_trunk_encode(system: SRSystem, pre):
@@ -445,17 +575,18 @@ KERNEL_CATEGORIES = (  # first match wins, on the lower-cased kernel name
 )
 
 
-def profile_path(system: SRSystem, batch, ms_per_batch: float) -> None:
-    """Device time of one main-path call by kernel and category
+def profile_path(tag: str, system: SRSystem, batch, ms_per_batch: float,
+                 use_full: bool) -> None:
+    """Device time of one call of a path by kernel and category
     (torch.profiler); the idle share is 1 - kernel time / ms_per_batch,
     the event-timed call without the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run_path(system, batch)
+    run_path(system, batch, use_full)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_path(system, batch)
+        run_path(system, batch, use_full)
         torch.cuda.synchronize()
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                       for e in prof.key_averages()
@@ -467,35 +598,46 @@ def profile_path(system: SRSystem, batch, ms_per_batch: float) -> None:
         cat = next((c for c, keys in KERNEL_CATEGORIES
                     if any(k in name.lower() for k in keys)), "other")
         categories[cat] = categories.get(cat, 0.0) + ms
-    log("profile " + json.dumps({
+    log(f"{tag} profile " + json.dumps({
         "kernel_ms": total, "idle_share": 1.0 - total / ms_per_batch,
         "categories_ms": dict(sorted(categories.items(), key=lambda kv: -kv[1]))}))
     for name, ms, count in kernels[:15]:
-        log(f"profile kernel {ms:9.3f} ms  x{count:<4d} {name[:110]}")
+        log(f"{tag} profile kernel {ms:9.3f} ms  x{count:<4d} {name[:110]}")
 
 
 # -- main ----------------------------------------------------------------------
 
-def kernels_line(rows, launches):
+def path_kernel_times(rows, norms, mode: str):
+    """One mode of K1 per call of a path: the bf16 device ms, bound, plain
+    and library ms of the kernel phase's row for each of the path's shapes,
+    times its launches per call, summed."""
+    out = {"launches": 0, "ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    bound_by = set()
+    for m, shape, with_mod, lrelu, n in norms:
+        if m != mode:
+            continue
+        row = next(r for r in rows if "ms" in r and r["mode"] == m and r["mod"] == with_mod
+                   and r["lrelu"] == lrelu and tuple(r["shape"]) == shape)
+        out["launches"] += n
+        for key in ("ms", "bound_ms", "plain_ms", "library_ms"):
+            out[key] += row[key] * n
+        bound_by.add(row["bound_by"])
+    out["bound_by"] = bound_by.pop() if len(bound_by) == 1 else "bytes"
+    out["bound_share"] = out["bound_ms"] / out["ms"] if out["ms"] else None
+    return out
+
+
+def kernels_line(rows, launches, norms):
     out = []
     for name, (mode, library_call) in KERNEL_INFO.items():
-        timed = [r for r in rows if r["mode"] == mode and r["group"] == "main path"
-                 and "ms" in r]
-
-        def per_call(key):
-            if any(r[key] is None for r in timed):
-                return None
-            return sum(r[key] * r["launches_per_call"] for r in timed)
-
-        bound_by = {r["bound_by"] for r in timed}
+        per_call = path_kernel_times(rows, norms, mode)
         out.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
             "launches": launches[mode],
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["mode"] == mode),
-            "ms": per_call("ms"), "plain_ms": per_call("plain_ms"),
-            "bound_ms": per_call("bound_ms"),
-            "bound_by": bound_by.pop() if len(bound_by) == 1 else "bytes",
-            "library_ms": per_call("library_ms"), "library_call": library_call,
+            "ms": per_call["ms"], "plain_ms": per_call["plain_ms"],
+            "bound_ms": per_call["bound_ms"], "bound_by": per_call["bound_by"],
+            "library_ms": per_call["library_ms"], "library_call": library_call,
             "per": "one main-path call (sum over its launches), device time",
         })
     return {"kernels": out}
@@ -515,13 +657,15 @@ def main() -> int:
 
     rows = kernel_phase(cfg, BATCH)
     launches = path_phase(BATCH)
+    for preset, batch_n in GUIDED_PATHS.items():
+        guided_phase(preset, batch_n, rows)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
-    log(json.dumps(kernels_line(rows, launches)))
+    log(json.dumps(kernels_line(rows, launches, path_norms(cfg, BATCH, full_trunk=False))))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -79,7 +79,10 @@ class ModelConfig:
     norm_g: str = "spectrallateseansyncbatch3x3"
     norm_e: str = "spectralinstance"
 
+    # encoder variant: "combinedstyle" (independent) | "fullstyle" (guided)
     net_e: str = "combinedstyle"
+    guiding_style_image: bool = False   # guided: style from a guiding image
+    random_style_matrix: bool = False
 
     # SEAN feature-map cap and the reference's fm-resize quirk
     max_fm_size: int = 256
@@ -88,6 +91,7 @@ class ModelConfig:
 
     add_noise: bool = False
     noisy_style_scale: float = 0.2
+    noisy_style_dist: str = "uniform"
 
     downsampling_method: str = "bicubic"
 
@@ -127,7 +131,8 @@ def _apply_variant(exp: Experiment, name: str) -> Experiment:
             exp.model, net_e="combinedstyle", noisy_style_scale=0.2))
     if "guided" in name:
         return exp.replace(model=dataclasses.replace(
-            exp.model, net_e="fullstyle", noisy_style_scale=0.05))
+            exp.model, net_e="fullstyle", noisy_style_scale=0.05,
+            guiding_style_image=True))
     raise ValueError(f"Preset name must contain 'independent' or 'guided': {name}")
 
 

@@ -1,5 +1,7 @@
 """Style encoders producing the (B, label_nc, style_size) regional style
-matrix, port of deepsee_tpu/models/encoder.py (eval mode, no style noise).
+matrix, port of deepsee_tpu/models/encoder.py (eval mode, no style noise):
+`CombinedStyleEncoder` for the independent model, `FullStyleEncoder` (the
+full trunk on the HR guiding image) for the guided one.
 
 The module tree follows the reference's nesting so that state_dict keys
 match `export_torch_state`: a trunk layer is
@@ -113,7 +115,35 @@ class CombinedStyleEncoder(nn.Module):
         return extract_style_matrix(self.final(y), seg)
 
 
+class FullStyleEncoder(FullTrunk):
+    """Standalone HR encoder, the guided model's netE (encoder.py:137-165).
+
+    The full trunk's layers sit at the top level of this module, where the
+    reference's standalone encoder has them (`initial.0.0`, ..., `final.0.0`,
+    `noise_weights`), so it subclasses FullTrunk instead of holding one."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.compute_dtype)
+        self.final = _FinalHead(cfg)
+        if cfg.noisy_style_scale > 0:  # learned style-noise weights, carried
+            self.noise_weights = nn.Parameter(torch.zeros(cfg.label_nc))
+
+    def forward(self, x_full: torch.Tensor, seg_full: torch.Tensor, *,
+                no_noise: bool = True) -> torch.Tensor:
+        if self.cfg.random_style_matrix:
+            raise NotImplementedError("random_style_matrix is not ported yet")
+        if not no_noise and self.cfg.noisy_style_scale > 0:
+            raise NotImplementedError("style noise is not ported yet")
+        y = super().forward(x_full.to(self.dtype))
+        return extract_style_matrix(self.final(y), seg_full)
+
+
 def build_encoder(cfg: ModelConfig) -> nn.Module:
+    """netE factory (encoder.py:236-242)."""
     if cfg.net_e == "combinedstyle":
         return CombinedStyleEncoder(cfg)
-    raise NotImplementedError(f"netE {cfg.net_e!r} is not ported yet")
+    if cfg.net_e == "fullstyle":
+        return FullStyleEncoder(cfg)
+    raise ValueError(f"Unknown netE: {cfg.net_e!r}")

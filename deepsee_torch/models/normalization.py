@@ -1,11 +1,11 @@
-"""Semantic modulation blocks SPADE and SEAN, port of
+"""Semantic modulation blocks SPADE, SEAN and PureSEAN, port of
 deepsee_tpu/models/normalization.py (eval mode).
 
 Each block computes norm(x) * scale + offset, where scale/offset come from
-ONE conv with 2C outputs (the +1 of the scale folded into its bias), and
-the whole epilogue -- normalize, modulate and the leaky ReLU that
-SPADEResnetBlock applies next -- is one `modnorm` kernel launch that reads
-the conv output as it is.
+ONE conv with 2C outputs (SPADE and SEAN fold the +1 of the scale into its
+bias; PureSEAN has none), and the whole epilogue -- normalize, modulate and
+the leaky ReLU that SPADEResnetBlock applies next -- is one `modnorm` kernel
+launch that reads the conv output as it is.
 """
 
 from __future__ import annotations
@@ -22,6 +22,30 @@ from deepsee_torch.ops.modnorm import modnorm
 from deepsee_torch.ops.resize import resize2d
 
 _NHIDDEN = 128  # the reference's embedding width (normalization.py:38)
+
+
+# Per dimension, row s of the 4-tap kernel of `conv_on_nearest_up2` sums the
+# 3x3 taps that read the same source pixel (the JAX package's _UP2_FOLD:
+# W4[0]=K[0], W4[1]=K[0]+K[1], W4[2]=K[1]+K[2], W4[3]=K[2]), here in the
+# reverse order, because a transposed conv applies its kernel flipped.
+_UP2_FOLD_FLIPPED = torch.tensor([[0.0, 0.0, 1.0],
+                                  [0.0, 1.0, 1.0],
+                                  [1.0, 1.0, 0.0],
+                                  [1.0, 0.0, 0.0]])
+
+
+def conv_on_nearest_up2(a: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
+    """conv3x3(nearest_up2(a), weight, padding=1) + bias without the upsample
+    (normalization.py:98-144): one stride-2 transposed conv with the composed
+    4x4 kernel, so each output pixel reads the 2x2 source pixels its 3x3
+    window touched -- 4/9 of the MACs, and the duplicated map is never
+    made.  The taps are summed in float32 before the cast to a's dtype.
+    weight (Cout, Cin, 3, 3) -> (Cin, Cout, 4, 4) for conv_transpose2d."""
+    fold = _UP2_FOLD_FLIPPED.to(weight.device)
+    w4 = torch.einsum("su,rv,oiuv->iosr", fold, fold, weight.float())
+    y = F.conv_transpose2d(a, w4.to(a.dtype), bias.to(a.dtype), stride=2, padding=1)
+    return y.contiguous(memory_format=torch.channels_last)
 
 
 class ConvParams(nn.Module):
@@ -113,33 +137,45 @@ class SPADE(nn.Module):
 
 
 class _SEANCore(nn.Module):
-    """What SEAN blocks share (normalization.py:215-255): segmap features and
-    the per-pixel style map at a resolution capped by max_fm_size."""
+    """What SEAN and PureSEAN blocks share (normalization.py:215-255):
+    segmap features and the per-pixel style map at a resolution capped by
+    max_fm_size, and the modulation conv on them."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.fold_upsampled_mod_conv:
-            raise NotImplementedError("fold_upsampled_mod_conv is not ported yet")
         self.cfg = cfg
+        self.ks = cfg.norm_g_spec.kernel_size
         self.mlp_shared = _mlp_shared(cfg)
 
     def _maps(self, x_hw: Tuple[int, int], segmap: torch.Tensor,
               style: torch.Tensor, dtype: torch.dtype):
+        """(actv, style_map, up2).  With up2 the maps are at half of x_hw and
+        `_mod_conv` computes the conv of their nearest 2x upsample."""
         cfg = self.cfg
         x_hw = tuple(x_hw)
         fm_hw = (min(x_hw[0], cfg.max_fm_size), min(x_hw[1], cfg.max_fm_size))
         seg = resize2d(segmap, fm_hw, method="nearest")
         actv = self.mlp_shared(seg.to(dtype))
         style_map = style_to_pixels(seg, style).to(dtype)
-        if fm_hw != x_hw:
+        if fm_hw == x_hw:
+            return actv, style_map, False
+        up2 = (cfg.fold_upsampled_mod_conv and self.ks == 3
+               and x_hw == (2 * fm_hw[0], 2 * fm_hw[1]))
+        if not up2:
             actv = resize2d(actv, x_hw, method="nearest")
-            if cfg.replicate_fm_resize_quirk:
-                # the reference assigns interpolate(actv) to the style map too
-                # (normalization.py:188-190); released checkpoints rely on it
-                style_map = actv
-            else:
-                style_map = resize2d(style_map, x_hw, method="nearest")
-        return actv, style_map
+        if cfg.replicate_fm_resize_quirk:
+            # the reference assigns interpolate(actv) to the style map too
+            # (normalization.py:188-190); released checkpoints rely on it
+            style_map = actv
+        elif not up2:
+            style_map = resize2d(style_map, x_hw, method="nearest")
+        return actv, style_map, up2
+
+    def _mod_conv(self, inp: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  up2: bool) -> torch.Tensor:
+        if up2:
+            return conv_on_nearest_up2(inp, weight, bias)
+        return conv2d(inp, weight, bias, padding=self.ks // 2)
 
 
 class SEANBlock(_SEANCore):
@@ -152,9 +188,7 @@ class SEANBlock(_SEANCore):
 
     def __init__(self, cfg: ModelConfig, norm_nc: int):
         super().__init__(cfg)
-        spec = cfg.norm_g_spec
-        self.ks = spec.kernel_size
-        self.param_free_norm = ParamFreeNorm(norm_nc, spec.param_free_kind)
+        self.param_free_norm = ParamFreeNorm(norm_nc, cfg.norm_g_spec.param_free_kind)
         self.alpha_gamma = nn.Parameter(torch.zeros(1))
         self.alpha_beta = nn.Parameter(torch.zeros(1))
         self.mlp_gamma = ConvParams(_NHIDDEN, norm_nc, self.ks)
@@ -170,7 +204,7 @@ class SEANBlock(_SEANCore):
 
     def forward(self, x: torch.Tensor, segmap: torch.Tensor, style: torch.Tensor,
                 *, lrelu: bool = False) -> torch.Tensor:
-        actv, style_map = self._maps(x.shape[-2:], segmap, style, x.dtype)
+        actv, style_map, up2 = self._maps(x.shape[-2:], segmap, style, x.dtype)
         wg = torch.sigmoid(self.alpha_gamma)[0]
         wb = torch.sigmoid(self.alpha_beta)[0]
         g, b = self.mlp_gamma, self.mlp_beta
@@ -182,5 +216,26 @@ class SEANBlock(_SEANCore):
                           (1.0 - wb) * b.bias + wb * bs.bias])
         inp = torch.cat([actv, style_map], dim=1).contiguous(
             memory_format=torch.channels_last)
-        mod = conv2d(inp, weight, bias, padding=self.ks // 2)
+        mod = self._mod_conv(inp, weight, bias, up2)
+        return self.param_free_norm(x, mod, lrelu=lrelu)
+
+
+class PureSEANBlock(_SEANCore):
+    """Style-only SEAN (normalization.py:313-346): norm(x) * g_s + b_s, the
+    top-resolution blocks of >=512px models.  Its scale has no +1: the
+    modulation bias is concat(b_gamma_s, b_beta_s) as it is, and `modnorm`
+    takes mod[:, :C] as the scale itself."""
+
+    def __init__(self, cfg: ModelConfig, norm_nc: int):
+        super().__init__(cfg)
+        self.param_free_norm = ParamFreeNorm(norm_nc, cfg.norm_g_spec.param_free_kind)
+        self.mlp_style_gamma = ConvParams(cfg.regional_style_size, norm_nc, self.ks)
+        self.mlp_style_beta = ConvParams(cfg.regional_style_size, norm_nc, self.ks)
+
+    def forward(self, x: torch.Tensor, segmap: torch.Tensor, style: torch.Tensor,
+                *, lrelu: bool = False) -> torch.Tensor:
+        _, style_map, up2 = self._maps(x.shape[-2:], segmap, style, x.dtype)
+        gs, bs = self.mlp_style_gamma, self.mlp_style_beta
+        mod = self._mod_conv(style_map, torch.cat([gs.weight, bs.weight]),
+                             torch.cat([gs.bias, bs.bias]), up2)
         return self.param_free_norm(x, mod, lrelu=lrelu)

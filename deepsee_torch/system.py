@@ -87,12 +87,15 @@ class SRSystem:
 
     @torch.inference_mode()
     def preprocess(self, batch: Mapping) -> Batch:
-        """One-hot the label map and synthesize the LR input from the HR
-        image (data/preprocessor.py semantics), on the device."""
+        """One-hot the label maps (the guiding label too, unless it is one
+        already) and synthesize the LR input from the HR image
+        (data/preprocessor.py semantics), on the device."""
         cfg = self.cfg
         out = {k: self._tensor(v) for k, v in batch.items()}
         if "label" in out and "input_semantics" not in out:
             out["input_semantics"] = one_hot_label(out["label"], cfg.semantic_nc)
+        if "guiding_label" in out and out["guiding_label"].dim() <= 3:
+            out["guiding_label"] = one_hot_label(out["guiding_label"], cfg.semantic_nc)
         if "image_hr" in out and "image_lr" not in out:
             out["image_lr"] = downsample_image(
                 out["image_hr"].float(), (cfg.start_size, cfg.start_size),
@@ -100,8 +103,12 @@ class SRSystem:
         return out
 
     def encoder_inputs(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The HR style source and its semantics; zeros stand in for a
-        missing HR image (callers then use use_full=False)."""
+        """The HR style source and its semantics: the guiding image and label
+        when the model is guided and the batch has them, else the HR image;
+        zeros stand in for a missing HR image (callers then use
+        use_full=False)."""
+        if self.cfg.guiding_style_image and "guiding_image" in batch:
+            return batch["guiding_image"], batch["guiding_label"]
         sem = batch["input_semantics"]
         hr = batch.get("image_hr")
         if hr is None:
@@ -112,8 +119,11 @@ class SRSystem:
     @torch.inference_mode()
     def encode_style(self, batch: Batch, *, use_full: bool,
                      no_noise: bool = True) -> torch.Tensor:
-        """(B, label_nc, style_size) float32 style matrix."""
+        """(B, label_nc, style_size) float32 style matrix.  The guided model's
+        encoder ("fullstyle") always runs the full trunk on the HR source."""
         x_full, seg_full = self.encoder_inputs(batch)
+        if self.cfg.net_e == "fullstyle":
+            return self.encoder(_nchw(x_full), _nchw(seg_full), no_noise=no_noise)
         return self.encoder(_nchw(x_full), _nchw(seg_full),
                             _nchw(batch["image_lr"]), _nchw(batch["input_semantics"]),
                             use_full, no_noise=no_noise)

@@ -47,6 +47,9 @@ _RULES = (
     (re.compile(r"(^|\.)final\.conv\.norm$"), r"\1final.0.1"),
     # the style-noise wrapper is flattened into the encoder
     (re.compile(r"(^|\.)style_noise$"), r"\1"),
+    # pix2pixHD block: Sequential(pad, Seq(conv, norm), relu, pad, Seq(conv, norm))
+    (re.compile(r"(^|\.)conv_block_0\.conv$"), r"\1conv_block.1.0"),
+    (re.compile(r"(^|\.)conv_block_1\.conv$"), r"\1conv_block.4.0"),
 )
 
 _LEAF = {"kernel": "weight", "bias": "bias", "mean": "running_mean",

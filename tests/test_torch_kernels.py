@@ -112,6 +112,77 @@ def test_tiny_slice_on_card_matches_cpu(cuda_device, norm_g):
     assert float((got.cpu() - want).abs().max()) <= 1e-4
 
 
+@pytest.mark.cuda
+def test_tiny_guided_slice_on_card_matches_cpu(cuda_device):
+    """The guided tiny slice (the full trunk on a guiding image) on the card
+    against the CPU: 1e-4, as above."""
+    exp = tiny_test_experiment().replace(is_train=False)
+    exp = exp.replace(model=dataclasses.replace(
+        exp.model, nef=8, net_e="fullstyle", guiding_style_image=True,
+        noisy_style_scale=0.05))
+    cpu = SRSystem(exp, device="cpu")
+    cpu.init(torch.Generator().manual_seed(0))
+    randomize_weights(cpu.networks().values(), torch.Generator().manual_seed(1))
+    card = SRSystem(exp, device=cuda_device)
+    for name, net in card.networks().items():
+        net.load_state_dict(cpu.networks()[name].state_dict())
+    rng = np.random.RandomState(0)
+    batch = {"image_hr": np.tanh(rng.randn(2, 32, 32, 3)).astype(np.float32),
+             "label": rng.randint(0, 19, (2, 32, 32)).astype(np.int32),
+             "guiding_image": np.tanh(rng.randn(2, 32, 32, 3)).astype(np.float32),
+             "guiding_label": rng.randint(0, 19, (2, 32, 32)).astype(np.int32)}
+    mn.reset_launches()
+    got, _ = card.generate(card.preprocess(batch))
+    torch.cuda.synchronize()
+    assert mn.launches == {"affine": 2 * (2 + exp.model.n_blocks), "instance": 5}
+    want, _ = cpu.generate(cpu.preprocess(batch))
+    assert 0.1 < float(want.std()) < 0.9
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+
+# generator cases: an ablation variant, or the 32x tail at 512^2 (ngf=1:
+# 16 channels, the PureSEAN block at 512^2 on maps capped at 256^2)
+GENERATOR_CASES = {"nostyle": {}, "nospade": {}, "puresean": {},
+                   "32x": dict(start_size=16, crop_size=512, load_size=512, ngf=1,
+                               regional_style_size=128, max_fm_size=256, add_noise=False),
+                   "32x fold": dict(start_size=16, crop_size=512, load_size=512, ngf=1,
+                                    regional_style_size=128, max_fm_size=256,
+                                    add_noise=False, fold_upsampled_mod_conv=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GENERATOR_CASES))
+def test_generator_on_card_matches_cpu(cuda_device, case):
+    """Generators beyond the main path's, float32, on the card (kernels,
+    cuDNN, the folded conv as a cuDNN transposed conv) against the CPU:
+    1e-4, float32 summation order."""
+    from deepsee_torch.models.generator import DeepSEEGenerator
+
+    cfg = dataclasses.replace(tiny_test_experiment().model, **GENERATOR_CASES[case])
+    variant = case if case in ("nostyle", "nospade", "puresean") else "deepsee"
+    cpu = DeepSEEGenerator(cfg, variant=variant).eval()
+    for m in cpu.modules():
+        if hasattr(m, "init_params"):
+            m.init_params(torch.Generator().manual_seed(0))
+    randomize_weights([cpu], torch.Generator().manual_seed(1))
+    card = DeepSEEGenerator(cfg, variant=variant).to(cuda_device).eval()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(0)
+    s, h = cfg.start_size, cfg.crop_size
+    lr = torch.from_numpy(np.tanh(rng.randn(1, 3, s, s)).astype(np.float32))
+    seg = torch.from_numpy(np.eye(19, dtype=np.float32)[rng.randint(0, 19, (1, h, h))])
+    seg = seg.permute(0, 3, 1, 2)
+    style = torch.from_numpy(np.tanh(rng.randn(1, 19, cfg.regional_style_size))
+                             .astype(np.float32))
+    cl = torch.channels_last
+    args = [lr.contiguous(memory_format=cl), seg.contiguous(memory_format=cl), style]
+    with torch.inference_mode():
+        got = card(*[a.to(cuda_device) for a in args])
+        want = cpu(*args)
+    assert float(want.std()) > 0.05
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+
 # one shape per variant (and the on-chip one with registers), batch 1, a
 # prime H*W, and C=24 (an 8-channel tile)
 INSTANCE_SHAPES = {"on-chip": (2, 64, 64, 64), "registers": (1, 32, 256, 256),

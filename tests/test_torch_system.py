@@ -74,10 +74,34 @@ def test_slice_matches_jax(norm_g, use_full):
     np.testing.assert_allclose(fake.numpy(), np.asarray(want_fake), rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("net", ["g", "e"])
-def test_state_dict_is_the_export_layout(net):
+def _preset_layout(name, net):
+    """A preset's export_torch_state keys and the port's module for it.  The
+    key set does not depend on the widths, so ngf and nef are narrowed to 4;
+    the JAX tree's shapes come from jax.eval_shape and its values are zeros."""
+    def narrow(get):
+        exp = get(name).replace(is_train=False)
+        return exp.replace(model=dataclasses.replace(exp.model, ngf=4, nef=4))
+
+    shapes = jax.eval_shape(JaxSystem(narrow(jax_get_preset)).init, jax.random.PRNGKey(0))
+    tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
+                                  {"g": shapes.g, "e": shapes.e}[net])
+    port = SRSystem(narrow(get_preset), device="cpu")
+    return export_torch_state(tree), {"g": port.generator, "e": port.encoder}[net]
+
+
+@pytest.mark.parametrize("preset,net", [
+    pytest.param("tiny", "g", id="g"), pytest.param("tiny", "e", id="e")] + [
+    pytest.param(name, net, id=f"{name}-{net}")
+    for name in ("8x_guided_256x256", "32x_guided_512x512") for net in ("g", "e")])
+def test_state_dict_is_the_export_layout(preset, net):
     """The port's keys are exactly export_torch_state's, so an exported (or
-    released) state dict loads with strict=True and equals the bridge's."""
+    released) state dict loads with strict=True and equals the bridge's; for
+    the guided presets, the standalone HR encoder and the PureSEAN tail."""
+    if preset != "tiny":
+        exported, module = _preset_layout(preset, net)
+        assert set(module.state_dict()) == set(exported)
+        module.load_state_dict(exported, strict=True)
+        return
     _, variables, g, e, port = _systems(NORMS[0])
     module = {"g": port.generator, "e": port.encoder}[net]
     tree = {"g": variables.g, "e": variables.e}[net]
@@ -110,7 +134,7 @@ def test_port_init_is_seeded():
 
 
 @pytest.mark.parametrize("name", ["8x_independent_256x256", "8x_independent_128x128",
-                                  "32x_guided_512x512", "tiny"])
+                                  "32x_guided_512x512", "8x_guided_256x256", "tiny"])
 def test_config_copy_matches_jax(name):
     """The port's own config copy gives the JAX package's values for every
     field it keeps, and the same derived properties."""
