@@ -29,6 +29,22 @@
 5. Times each path (ms per batch, img/s, stages, peak memory) and traces
    one call with torch.profiler (device time by kernel and category, the
    idle share).
+6. Explorative phase: the 12 modes of deepsee_torch/inference/modes.py and
+   baseline_upscale on the main path's system (bf16, B=4, n=5): shapes,
+   finite values, the K1 launches each mode's own calls imply (one encode
+   and one generator call, or fewer), the same torch.Generator seed twice
+   gives the same output and another seed another one (inference_noise,
+   inference_multi_modal); ms per mode by CUDA events after one warm-up.
+7. Serving phase (as scripts/bench_server.py drives the JAX daemon):
+   exports 8x_independent_256x256 and 8x_guided_256x256 (seeded weights,
+   trace batch 8) with torch.export on the card, holds each program
+   against the live system (bf16 PSNR; float32 with TF32 off), starts one
+   ServingServer with both, and sends 128 mixed independent / styled /
+   guided requests from 16 client threads over /v1/super_resolve_bin.
+   Every response is held against the loaded program called directly on
+   the batch the daemon formed for it; no request may fail; K1's launches in the window must be
+   each program's batches times its launches per batch.  Prints
+   requests/s, p50/p99 latency and batch fill per program.
 
 Prints the card's name and power limit, one {"kernels": [...]} line (per
 main-path call), and as the last line {"ok": true, "device": {...}}.  Any
@@ -41,20 +57,30 @@ False).
 from __future__ import annotations
 
 import dataclasses
+import http.client
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepsee_torch import serve
+from deepsee_torch import server as server_mod
+from deepsee_torch import system as system_mod
 from deepsee_torch.config import ModelConfig, get_preset
+from deepsee_torch.inference import modes
 from deepsee_torch.ops import _build
 from deepsee_torch.ops import modnorm as mn
 from deepsee_torch.system import SRSystem
+from deepsee_torch.utils.images import tensor2im
 from deepsee_torch.weights import randomize_weights
 
 PRESET = "8x_independent_256x256"
@@ -77,6 +103,21 @@ MIN_BF16_PSNR_DB = 45.0
 # versions), batch 1: summation-order differences through ~25 convs; the
 # first H100 run measured 6.7e-6 (PERF.md, PR 1).
 MAX_F32_CPU_DIFF = 1e-4
+# the serving programs, float32 (TF32 off), against the live system on the
+# same inputs: the same operations on the same device
+MAX_F32_SERVED_DIFF = 1e-5
+# a served response against the loaded program called directly on the
+# batch the daemon formed for it: uint8 levels (tensor2im truncates)
+MAX_SERVED_U8_DIFF = 1
+# the explorative phase: batch, variants per sample, noise
+MODES_B, MODES_N = 4, 5
+MODES_KNOBS = dict(noise_delta=0.3, n_interpolation=MODES_N)
+# the serving phase (scripts/bench_server.py's defaults)
+SERVE_PRESETS = {"indep": PRESET, "guided": "8x_guided_256x256"}
+SERVE_BATCH, SERVE_CLIENTS, SERVE_REQUESTS = 8, 16, 128
+# the device of the explorative and serving phases
+DEVICE = "cuda"
+
 # bf16 full-trunk style vs the float32 one (TF32 off), relative to
 # max|float32 style|: five bf16 convs and norms at ~3 significant digits
 # each; the first H100 runs measured 9.5e-3 (PERF.md).
@@ -432,6 +473,12 @@ def drive_path(tag: str, system: SRSystem, batch, norms, use_full: bool):
     return fake, launches
 
 
+def psnr_db(a, b) -> float:
+    """PSNR of a against b over the [-1, 1] range."""
+    mse = float(((a.float() - b.float()) ** 2).mean())
+    return 10 * math.log10(4.0 / mse) if mse > 0 else float("inf")
+
+
 def check_bf16_psnr(tag: str, fake, fake32) -> None:
     """The bf16 output against the float32 one (TF32 off)."""
     mse = float(((fake - fake32) ** 2).mean())
@@ -481,7 +528,7 @@ def path_phase(batch_n: int):
     del pre, style_full, style32
     check_bf16_psnr("path", fake, run_path(system32, batch))
     check_card_vs_cpu("path", system32, batch, use_full=False)
-    return launches
+    return launches, system
 
 
 def guided_phase(preset: str, batch_n: int, rows):
@@ -559,6 +606,412 @@ def full_trunk_encode(system: SRSystem, pre):
     ms = _event_ms(lambda: system.encode_style(pre, use_full=True))
     log("full-trunk encode " + json.dumps({"shape": list(shape), "ms": ms}))
     return style
+
+
+# -- explorative phase -------------------------------------------------------
+
+def mode_table(system: SRSystem, batch, gen):
+    """The 12 modes and baseline_upscale: name -> (call, encodes, generator
+    calls, leading dims of each image output).  Every mode is one batched
+    call; `gen` is the torch.Generator of the noisy modes."""
+    b, n = MODES_B, MODES_N
+    style = modes.encode_only(system, batch)
+    other = torch.roll(style, shifts=1, dims=0)
+    return {
+        "encode_only": (lambda: modes.encode_only(system, batch), 1, 0, None),
+        "generate_with_style": (lambda: modes.generate_with_style(system, batch, style),
+                                0, 1, (b,)),
+        "baseline_upscale": (lambda: modes.baseline_upscale(system, batch), 0, 0, (b,)),
+        "inference_noise": (lambda: modes.inference_noise(system, batch, gen(), n),
+                            1, 1, (b, n)),
+        "inference_multi_modal": (lambda: modes.inference_multi_modal(system, batch, gen()),
+                                  1, 1, (b, n)),
+        "inference_replace_semantics": (
+            lambda: modes.inference_replace_semantics(system, batch), 1, 1, (b,)),
+        "inference_reference_semantics": (
+            lambda: modes.inference_reference_semantics(system, batch), 1, 1, (b, b)),
+        "inference_interpolation": (lambda: modes.inference_interpolation(system, batch),
+                                    1, 1, (b, n)),
+        "inference_interpolation_style": (
+            lambda: modes.inference_interpolation_style(system, batch, style, other),
+            0, 1, (b, n)),
+        "inference_particular_combined": (
+            lambda: modes.inference_particular_combined(system, batch, gen()), 1, 1, (b,)),
+        "inference_particular_full": (
+            lambda: modes.inference_particular_full(system, batch), 1, 1, (b,)),
+        "inference_reference": (lambda: modes.inference_reference(system, batch),
+                                1, 1, (b, b)),
+        "inference_reference_interpolation": (
+            lambda: modes.inference_reference_interpolation(system, batch), 1, 1, (b, n)),
+    }
+
+
+def _tensors_of(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        out = list(out.values())
+    return [t for o in out for t in _tensors_of(o)]
+
+
+def _generator(seed: int) -> torch.Generator:
+    return torch.Generator(device=DEVICE).manual_seed(seed)
+
+
+def _noise_seeds(count: int):
+    """Seeds whose first draw, inference_noise's coin, turns the style
+    noise on (the coin is 1/2 either way), so that two of them must give
+    two different outputs."""
+    seeds = [s for s in range(100) if not system_mod.draw_coin(_generator(s))]
+    return seeds[:count]
+
+
+def launches_per_call(cfg: ModelConfig, encodes: int, gens: int):
+    """K1 launches of `encodes` style encodes (five instance norms, either
+    trunk) and `gens` generator calls (the path's affine or instance
+    norms) of one model."""
+    out = {mode: 5 * encodes if mode == "instance" else 0 for mode in mn.launches}
+    for mode, n in expected_launches(generator_norms(cfg, 1)).items():
+        out[mode] += gens * n
+    return out
+
+
+def explorative_phase(system: SRSystem):
+    """Each mode once with its launch count and output check; same seed
+    twice, another seed once for the two noisy modes; ms per mode."""
+    t0 = time.perf_counter()
+    cfg = system.cfg
+    system.exp = system.exp.replace(**MODES_KNOBS)
+    batch = system.preprocess(make_batch(cfg, MODES_B))
+    seed = {"value": _noise_seeds(1)[0]}
+    table = mode_table(system, batch, lambda: _generator(seed["value"]))
+    image = (cfg.crop_size, cfg.crop_size, 3)
+    timings = {}
+    for name, (call, encodes, gens, lead) in table.items():
+        torch.cuda.synchronize()
+        mn.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        launches = dict(mn.launches)
+        expected = launches_per_call(cfg, encodes, gens)
+        if launches != expected:
+            raise AssertionError(f"mode {name}: modnorm launches {launches} != {expected}")
+        tensors = _tensors_of(out)
+        if not all(bool(torch.isfinite(t).all()) for t in tensors):
+            raise AssertionError(f"mode {name}: output not finite")
+        if lead is None:
+            shapes_ok = tuple(out.shape) == (MODES_B, cfg.label_nc, cfg.regional_style_size)
+        else:
+            imgs = [t for t in tensors if tuple(t.shape[-3:]) == image]
+            shapes_ok = bool(imgs) and all(tuple(t.shape[:-3]) == lead for t in imgs) and all(
+                float(t.abs().max()) <= 1.0 for t in imgs)
+        if not shapes_ok:
+            raise AssertionError(f"mode {name}: bad output shapes "
+                                 f"{[tuple(t.shape) for t in tensors]}")
+        timings[name] = {"ms": _event_ms(call, reps=3), "launches": launches,
+                         "shapes": [list(t.shape) for t in tensors]}
+        log(f"mode {name} " + json.dumps(timings[name]))
+        del out, tensors
+
+    # the generator decides the noise: same seed, same output; another, another
+    seed_a, seed_b = _noise_seeds(2)
+    for name in ("inference_noise", "inference_multi_modal"):
+        call = table[name][0]
+        runs = []
+        for s in (seed_a, seed_a, seed_b):
+            seed["value"] = s
+            runs.append(_tensors_of(call())[0].float())
+        same = float((runs[0] - runs[1]).abs().max())
+        apart = float((runs[0] - runs[2]).abs().max())
+        log(f"mode {name} seeds {seed_a}, {seed_a}, {seed_b}: max abs diff same seed "
+            f"{same:.3e}, other seed {apart:.3e}")
+        if same != 0.0 or not apart > 1e-2:
+            raise AssertionError(f"mode {name}: the generator does not decide the noise "
+                                 f"(same seed {same}, other seed {apart})")
+    log("explorative phase " + json.dumps({
+        "batch": MODES_B, "n": MODES_N, "ms_per_mode": {k: v["ms"] for k, v in timings.items()},
+        "wall_s": time.perf_counter() - t0}))
+
+
+# -- serving phase -------------------------------------------------------------
+
+def _serve_requests(manifests):
+    """The window's requests, seeded: (program, alias, headers, raw body,
+    per-sample args as the daemon decodes them)."""
+    rng = np.random.RandomState(SEED + 2)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        kind = ("indep", "styled", "guided")[i % 3]
+        alias = "guided" if kind == "guided" else "indep"
+        m = manifests[alias]
+        crop, start, nc = m["crop_size"], m["start_size"], m["label_nc"]
+        lr = rng.randint(0, 256, (start, start, 3), dtype=np.uint8)
+        lab = rng.randint(0, nc, (crop, crop), dtype=np.uint8)
+        parts, headers = [lr.tobytes(), lab.tobytes()], {"X-DS-Model": alias}
+        args = [server_mod.image_from_u8(lr.reshape(-1), start),
+                server_mod.label_from_u8(lab.reshape(-1), crop, nc)]
+        if kind == "styled":
+            style = (0.5 * np.tanh(rng.randn(nc, m["regional_style_size"]))).astype("<f4")
+            parts.append(style.tobytes())
+            headers["X-DS-Style"] = "1"
+            args.append(style[None])
+        elif kind == "guided":
+            g_img = rng.randint(0, 256, (crop, crop, 3), dtype=np.uint8)
+            g_lab = rng.randint(0, nc, (crop, crop), dtype=np.uint8)
+            parts += [g_img.tobytes(), g_lab.tobytes()]
+            args += [server_mod.image_from_u8(g_img.reshape(-1), crop),
+                     server_mod.label_from_u8(g_lab.reshape(-1), crop, nc)]
+        program = f"{alias}/{'styled' if kind == 'styled' else 'end_to_end'}"
+        out.append((program, headers, b"".join(parts), args))
+    return out
+
+
+def _client(port: int, requests, results, lock) -> None:
+    """One client thread: its share of the requests over one keep-alive
+    connection; (index, status, body, style bytes, seconds) per request."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        for i, (_, headers, raw, _) in requests:
+            t = time.perf_counter()
+            conn.request("POST", "/v1/super_resolve_bin", body=raw,
+                         headers=dict(headers, **{"Content-Type": "application/octet-stream"}))
+            resp = conn.getresponse()
+            body = resp.read()
+            style_n = int(resp.getheader("X-DS-Style-Bytes") or 0)
+            with lock:
+                results[i] = (resp.status, body, style_n, time.perf_counter() - t)
+    finally:
+        conn.close()
+
+
+def check_served_program(tag: str, fn, args, want) -> None:
+    """A loaded bf16 program against the live system on one trace batch."""
+    with torch.inference_mode():
+        got = fn(*(torch.from_numpy(a).to(DEVICE) for a in args))
+    got = got if isinstance(got, tuple) else (got,)
+    psnr = psnr_db(got[0], want[0])
+    style_diff = float((got[1] - want[1]).abs().max()) if len(got) > 1 else 0.0
+    log(f"served {tag} vs live system: PSNR {psnr:.2f} dB (min {MIN_BF16_PSNR_DB}), "
+        f"max abs diff {float((got[0] - want[0]).abs().max()):.3e}, style {style_diff:.3e}")
+    if not psnr >= MIN_BF16_PSNR_DB:
+        raise AssertionError(f"served {tag}: PSNR {psnr:.2f} dB against the live system")
+
+
+def _trace_batch_args(cfg, guided: bool):
+    rng = np.random.RandomState(SEED + 3)
+    b, crop, start = SERVE_BATCH, cfg.crop_size, cfg.start_size
+    lr = np.tanh(rng.randn(b, start, start, 3)).astype(np.float32)
+    lab = rng.randint(0, cfg.label_nc, (b, crop, crop)).astype(np.int32)
+    style = (0.5 * np.tanh(rng.randn(b, cfg.label_nc, cfg.regional_style_size))
+             ).astype(np.float32)
+    e2e = (lr, lab)
+    if guided:
+        e2e += (np.tanh(rng.randn(b, crop, crop, 3)).astype(np.float32),
+                rng.randint(0, cfg.label_nc, (b, crop, crop)).astype(np.int32))
+    return e2e, (lr, lab, style)
+
+
+def _live(system: SRSystem, args, styled: bool):
+    keys = ("image_lr", "label", "guiding_image", "guiding_label")
+    batch = system.preprocess(dict(zip(keys, args[:2] if styled else args)))
+    if styled:
+        style = torch.from_numpy(args[2]).to(DEVICE)
+        return system.generate(batch, style=style)[0], None
+    return system.generate(batch, use_full=system.cfg.guiding_style_image)
+
+
+def export_and_check(alias: str, system: SRSystem, out_dir: str):
+    """Export the model's two programs on the card (bf16), save, load, and
+    hold them against the live system; then the float32 programs (TF32
+    off) against the float32 system.  Returns the export record."""
+    cfg = system.cfg
+    guided = cfg.guiding_style_image
+    t0 = time.perf_counter()
+    programs = serve.export_serving(system, SERVE_BATCH)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve.save_serving(out_dir, system.exp, programs, SERVE_BATCH, system.device)
+    save_s = time.perf_counter() - t0
+    sizes = {name: os.path.getsize(os.path.join(out_dir, f"{name}.pt2")) / 2 ** 20
+             for name in programs}
+    t0 = time.perf_counter()
+    loaded = {name: serve.load_serving(out_dir, name) for name in programs}
+    load_s = time.perf_counter() - t0
+    del programs
+    e2e_args, styled_args = _trace_batch_args(cfg, guided)
+    for name, args in (("end_to_end", e2e_args), ("styled", styled_args)):
+        want = _live(system, args, name == "styled")
+        check_served_program(f"{alias}/{name} bf16", loaded[name], args, want)
+
+    system32 = _like(system, "float32", DEVICE)
+    programs32 = serve.export_serving(system32, SERVE_BATCH)
+    f32_diff = {}
+    for name, args in (("end_to_end", e2e_args), ("styled", styled_args)):
+        with torch.inference_mode():
+            got = programs32[name].module()(*(torch.from_numpy(a).to(DEVICE) for a in args))
+        got = got[0] if isinstance(got, tuple) else got
+        f32_diff[name] = float((got - _live(system32, args, name == "styled")[0]).abs().max())
+    del programs32, system32
+    torch.cuda.empty_cache()
+    log(f"served {alias} float32 (TF32 off) vs live system: max abs diff "
+        f"{json.dumps(f32_diff)} (max {MAX_F32_SERVED_DIFF})")
+    if not all(d <= MAX_F32_SERVED_DIFF for d in f32_diff.values()):
+        raise AssertionError(f"served {alias} float32 differs from the live system: {f32_diff}")
+    record = {"export_s": export_s, "save_s": save_s, "load_s": load_s, "size_mib": sizes,
+              "f32_max_abs_diff": f32_diff}
+    log(f"export {alias} ({system.exp.name}, trace batch {SERVE_BATCH}) " + json.dumps(record))
+    return record
+
+
+def serving_phase(indep: SRSystem, smi: str):
+    """Export both models, serve them from one daemon, drive it with 16
+    clients, check every response and the window's K1 launches."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="deepsee_serving_")
+    try:
+        systems = {"indep": indep, "guided": seeded_system(SERVE_PRESETS["guided"])}
+        dirs = {alias: os.path.join(root, alias) for alias in systems}
+        exports = {alias: export_and_check(alias, system, dirs[alias])
+                   for alias, system in systems.items()}
+
+        per_batch = {f"{alias}/{name}": launches_per_call(system.cfg, int(name != "styled"), 1)
+                     for alias, system in systems.items() for name in serve.PROGRAMS}
+        log(f"serving: K1 launches per batch {json.dumps(per_batch)}")
+        del systems["guided"]
+        torch.cuda.empty_cache()
+
+        srv = server_mod.ServingServer([f"{a}={d}" for a, d in dirs.items()], port=0,
+                                       host="127.0.0.1", batch_window_ms=5.0, device=DEVICE)
+        srv.start()
+        try:
+            requests = _serve_requests(srv.manifests)
+            # warm-up: one request of each program, outside the window
+            warm = {}
+            for i, req in enumerate(requests):
+                warm.setdefault(req[0], (i, req))
+            _client(srv.port, list(warm.values()), {}, threading.Lock())
+            programs = {name: fn for name, (fn, _) in srv.batcher.programs.items()}
+            served = record_batches(srv)
+            srv.batcher.reset_stats()
+            mn.reset_launches()
+            results, lock = {}, threading.Lock()
+            shares = [[(i, requests[i]) for i in range(k, SERVE_REQUESTS, SERVE_CLIENTS)]
+                      for k in range(SERVE_CLIENTS)]
+            threads = [threading.Thread(target=_client, args=(srv.port, share, results, lock))
+                       for share in shares]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            window_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = dict(mn.launches)
+            stats = srv.batcher.stats_snapshot()
+            prog_stats = srv.health()["programs"]
+            if any(t.is_alive() for t in threads) or len(results) != SERVE_REQUESTS:
+                raise AssertionError(f"serving: {len(results)} of {SERVE_REQUESTS} answered")
+            bad = {i: r[1][:200] for i, r in results.items() if r[0] != 200}
+            if bad or stats["errors"]:
+                raise AssertionError(f"serving: {stats['errors']} errors, failed: {bad}")
+            expected = {"affine": 0, "instance": 0}
+            for prog, ps in prog_stats.items():
+                for mode, n in per_batch[prog].items():
+                    expected[mode] += ps["batches"] * n
+            log(f"serving launches in the window: {launches} (expected {expected} from "
+                f"{json.dumps({p: ps['batches'] for p, ps in prog_stats.items()})} batches)")
+            if launches != expected:
+                raise AssertionError(f"serving: modnorm launches {launches} != {expected}")
+            u8_diff, style_diff, regrouped, call_s = check_responses(programs, served,
+                                                                     requests, results)
+            lat = np.sort([r[3] for r in results.values()]) * 1e3
+            record = {
+                "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
+                "trace_batch": SERVE_BATCH, "wire": "/v1/super_resolve_bin",
+                "window_s": window_s, "requests_per_s": SERVE_REQUESTS / window_s,
+                "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+                "batches": stats["batches"], "batch_fill": srv.health()["stats"]["batch_fill"],
+                "batch_fill_per_program": {p: ps["batch_fill"] for p, ps in prog_stats.items()},
+                "batches_per_program": {p: ps["batches"] for p, ps in prog_stats.items()},
+                "errors": stats["errors"], "max_u8_diff_vs_direct": u8_diff,
+                "max_style_diff_vs_direct": style_diff,
+                "max_u8_diff_in_other_batches": regrouped,
+                # the served batches called again one by one, host wall per
+                # call (copies in, the program, the copy out), and the share
+                # of the window the device thread needs for them
+                "direct_call_ms": {p: float(np.median(v)) * 1e3 for p, v in call_s.items()},
+                "device_thread_busy_share": sum(map(sum, call_s.values())) / window_s,
+                "export": exports, "card": smi, "wall_s": time.perf_counter() - t_phase}
+            log("serving " + json.dumps(record))
+        finally:
+            srv.stop()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def record_batches(srv):
+    """Wrap the daemon's programs so that each served batch's arguments are
+    kept: [(program, args)] in serving order."""
+    served = []
+    for name, (fn, cap) in list(srv.batcher.programs.items()):
+        def logged(*args, fn=fn, name=name):
+            out = fn(*args)
+            served.append((name, args))
+            return out
+        srv.batcher.programs[name] = (logged, cap)
+    return served
+
+
+def _sample_key(args, row: int) -> bytes:
+    return b"".join(np.ascontiguousarray(a[row]).tobytes() for a in args)
+
+
+def check_responses(programs, served, requests, results):
+    """Every response against the loaded program called directly on the
+    batch the daemon formed for it, at its row: uint8 within
+    MAX_SERVED_U8_DIFF (the same call gives the same bytes).  Beside it,
+    informational: the same samples in other batches of 8 (request order,
+    padded by repetition), where bf16 convs may round a sample differently
+    at another position in the batch."""
+    where = {}
+    direct, call_s = [], {}
+    for k, (program, args) in enumerate(served):
+        t0 = time.perf_counter()
+        direct.append(programs[program](*args))
+        call_s.setdefault(program, []).append(time.perf_counter() - t0)
+        for row in range(len(args[0])):
+            where.setdefault((program, _sample_key(args, row)), (k, row))
+    u8_max, style_max, regrouped_max = 0, 0.0, 0
+    by_program = {}
+    for i, (program, _, _, args) in enumerate(requests):
+        by_program.setdefault(program, []).append(i)
+        k, row = where[(program, _sample_key(args, 0))]
+        _, body, style_n, _ = results[i]
+        img_n = len(body) - style_n
+        outs = direct[k]
+        got = np.frombuffer(body[:img_n], np.uint8).reshape(outs[0][row].shape)
+        u8_max = max(u8_max, int(np.abs(got.astype(int) - tensor2im(outs[0][row])).max()))
+        if style_n:
+            style = np.frombuffer(body[img_n:], "<f4").reshape(outs[1][row].shape)
+            style_max = max(style_max, float(np.abs(style - outs[1][row]).max()))
+    for program, idx in by_program.items():
+        for c in range(0, len(idx), SERVE_BATCH):
+            chunk = idx[c:c + SERVE_BATCH]
+            pad = chunk + [chunk[-1]] * (SERVE_BATCH - len(chunk))
+            outs = programs[program](*[np.concatenate([requests[i][3][j] for i in pad])
+                                       for j in range(len(requests[pad[0]][3]))])
+            for row, i in enumerate(chunk):
+                body, style_n = results[i][1], results[i][2]
+                got = np.frombuffer(body[:len(body) - style_n], np.uint8)
+                want = tensor2im(outs[0][row]).reshape(-1)
+                regrouped_max = max(regrouped_max,
+                                    int(np.abs(got.astype(int) - want.astype(int)).max()))
+    log(f"served responses vs the program called directly on their batches: max uint8 "
+        f"diff {u8_max} (max {MAX_SERVED_U8_DIFF}), max style diff {style_max:.3e}; "
+        f"in other batches of {SERVE_BATCH}: max uint8 diff {regrouped_max}")
+    if u8_max > MAX_SERVED_U8_DIFF:
+        raise AssertionError(f"served responses differ from the program by {u8_max} levels")
+    return u8_max, style_max, regrouped_max, call_s
 
 
 # -- profile ---------------------------------------------------------------
@@ -655,14 +1108,22 @@ def main() -> int:
     libs = _build.build_all()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
-    rows = kernel_phase(cfg, BATCH)
-    launches = path_phase(BATCH)
-    for preset, batch_n in GUIDED_PATHS.items():
-        guided_phase(preset, batch_n, rows)
-
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    rows = kernel_phase(cfg, BATCH)
+    t0 = time.perf_counter()
+    launches, system = path_phase(BATCH)
+    log(f"main path phase: {time.perf_counter() - t0:.1f} s")
+    for preset, batch_n in GUIDED_PATHS.items():
+        t0 = time.perf_counter()
+        guided_phase(preset, batch_n, rows)
+        log(f"{preset} phase: {time.perf_counter() - t0:.1f} s")
+    explorative_phase(system)
+    serving_phase(system, smi)
+    del system
+    torch.cuda.empty_cache()
+
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
     log(json.dumps(kernels_line(rows, launches, path_norms(cfg, BATCH, full_trunk=False))))

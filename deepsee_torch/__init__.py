@@ -2,14 +2,22 @@
 
 A second package beside the JAX one, ported slice by slice and held against
 it by tests/test_torch_*.py.  It imports torch and numpy, never JAX or
-deepsee_tpu.  This slice carries 8x 256^2 independent inference:
+deepsee_tpu.  It carries eval-mode inference of every preset and the
+serving entry points:
 
   config.py      own copy of the configuration the ported modules read
   ops/           resize, one-hot/HR->LR, plain norms, and `modnorm`, the
-                 normalize -> modulate -> leaky-ReLU kernel (csrc/modnorm.cu)
+                 normalize -> modulate -> leaky-ReLU kernel (csrc/modnorm.cu),
+                 registered as the custom op torch.ops.deepsee.modnorm
   models/        layers, SPADE/SEAN, resblock, generator, style encoders
+                 (with the learned style noise and random_style_matrix)
   system.py      SRSystem: preprocess, encode_style, generate
-  weights.py     JAX variable trees -> the port's (reference-layout) state_dict
+  weights.py     JAX variable trees and reference .pth files -> state_dicts
+  inference/     the explorative modes
+  regions.py, utils/images.py   region table, image and style-CSV IO
+  demo.py        python -m deepsee_torch.demo
+  serve.py       torch.export serving programs (python -m deepsee_torch.serve)
+  server.py      the micro-batching HTTP daemon (python -m deepsee_torch.server)
 
 Activations are NCHW tensors in channels_last memory; public functions keep
 the JAX package's NHWC layout.  Kernels are built with nvcc at first use

@@ -2,9 +2,10 @@
 
 An own copy of the parts of `deepsee_tpu/config.py` that the ported modules
 read: the norm-string parsers, the model hyper-parameters, the experiment
-bundle and the presets.  Field names and defaults are those of the JAX
-package, so one preset name gives the same model in both packages.  Fields
-of slices not yet ported (training, data, mesh, discriminator) are absent.
+bundle with its explorative-inference knobs, and the presets.  Field names
+and defaults are those of the JAX package, so one preset name gives the
+same model in both packages.  Fields of slices not yet ported (training,
+data, mesh, discriminator) are absent.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import dataclasses
 import math
 import re
 from dataclasses import dataclass, field
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 __all__ = ["NormGSpec", "parse_nonspade_norm", "ModelConfig", "Experiment",
            "get_preset", "tiny_test_experiment"]
@@ -82,6 +83,7 @@ class ModelConfig:
     # encoder variant: "combinedstyle" (independent) | "fullstyle" (guided)
     net_e: str = "combinedstyle"
     guiding_style_image: bool = False   # guided: style from a guiding image
+    full_style_image: bool = False      # explorative modes: encode the HR image
     random_style_matrix: bool = False
 
     # SEAN feature-map cap and the reference's fm-resize quirk
@@ -120,6 +122,13 @@ class Experiment:
     name: str = "8x_independent_128x128"
     model: ModelConfig = field(default_factory=ModelConfig)
     is_train: bool = True
+
+    # explorative-inference knobs (deepsee_tpu/config.py:346-351)
+    region_idx: Optional[Tuple[int, ...]] = None
+    n_interpolation: int = 5
+    noise_delta: float = 0.0
+    noise_dist: str = "normal"
+    manipulate_scale: float = 1.0
 
     def replace(self, **kw: Any) -> "Experiment":
         return dataclasses.replace(self, **kw)

@@ -10,11 +10,13 @@ norm(x) is either the eval-mode batch norm from running statistics
 conv returns it (scale first, its +1 already in the conv bias); mod=None
 means scale 1 and offset 0.
 
-On a CUDA tensor `modnorm` launches the hand-written kernel in
+`modnorm` is the registered custom op `torch.ops.deepsee.modnorm`, so a
+program exported with `torch.export` keeps it as one node.  On a CUDA
+tensor the op launches the hand-written kernel in
 deepsee_torch/csrc/modnorm.cu (the port of the TPU kernel
 modulated_instance_norm) or raises; on a CPU tensor it computes
 `modnorm_plain`, the same float32 arithmetic in eager torch.  There is no
-fallback from one to the other.
+fallback from one to the other.  Importing this module registers the op.
 
 The instance mode's launch is planned here, by shape, before the launch
 (`instance_plan`): each (sample, channel tile) slab is split along H*W over
@@ -267,11 +269,24 @@ def modnorm(x: torch.Tensor, mod: Optional[torch.Tensor] = None, *,
             lrelu: bool = False) -> torch.Tensor:
     """x: (B, C, H, W) channels_last, bf16 or f32; mod: (B, 2C, H, W) of the
     same type and layout, or None; mean/var: (C,) running stats for
-    stats="affine".  Returns a new channels_last tensor of x's type."""
+    stats="affine".  Returns a new channels_last tensor of x's type.
+
+    Calls the registered op `torch.ops.deepsee.modnorm`, so `torch.export`
+    records the op itself (not its plain version) and an exported program
+    launches the kernel where it runs on CUDA."""
     if stats not in ("affine", "instance"):
         raise ValueError(f"stats must be 'affine' or 'instance', got {stats!r}")
     if stats == "affine" and (mean is None or var is None):
         raise ValueError("stats='affine' needs the running mean and var")
+    return torch.ops.deepsee.modnorm(x, mod, mean, var, stats, eps, lrelu)
+
+
+@torch.library.custom_op("deepsee::modnorm", mutates_args=())
+def _modnorm_op(x: torch.Tensor, mod: Optional[torch.Tensor],
+                mean: Optional[torch.Tensor], var: Optional[torch.Tensor],
+                stats: str, eps: float, lrelu: bool) -> torch.Tensor:
+    """The op's implementation: the plain version on CPU tensors; on CUDA
+    tensors the checks, the launch and the launch count, or a raise."""
     if x.device.type == "cpu":
         return modnorm_plain(x, mod, stats=stats, mean=mean, var=var, eps=eps,
                              lrelu=lrelu)
@@ -310,3 +325,9 @@ def modnorm(x: torch.Tensor, mod: Optional[torch.Tensor] = None, *,
         raise RuntimeError(f"modnorm ({stats}) launch failed with CUDA error {err}")
     launches[stats] += 1
     return out
+
+
+@_modnorm_op.register_fake
+def _modnorm_fake(x, mod, mean, var, stats, eps, lrelu):
+    """Shape, type and layout of the output, for tracing (torch.export)."""
+    return torch.empty_like(x, memory_format=torch.channels_last)

@@ -1,5 +1,6 @@
 """SRSystem, the model facade: port of the inference subset of
-deepsee_tpu/system.py (preprocess, encode_style, generate).
+deepsee_tpu/system.py (preprocess, encode_style, generate, and the
+eval-time style-noise coin of generate_coin_jit).
 
 The public functions keep the JAX package's NHWC layout: batch entries are
 (B, H, W, C) arrays or tensors, and `generate` returns (B, H, W, 3).
@@ -12,6 +13,9 @@ seeded init) or `load_jax_variables` (the JAX package's trees) fills them.
 The system runs on CUDA unless the caller passes device="cpu", where every
 kernel is replaced by its plain version; without a card and without
 device="cpu" it raises rather than fall back.
+
+Random draws (style noise, random_style_matrix, the coin) take an explicit
+torch.Generator on the system's device; `no_noise=True` draws nothing.
 """
 
 from __future__ import annotations
@@ -28,6 +32,14 @@ from deepsee_torch.ops.preprocess import downsample_image, one_hot_label
 from deepsee_torch.weights import jax_to_state_dict
 
 Batch = Dict[str, torch.Tensor]
+
+
+def draw_coin(generator: torch.Generator) -> bool:
+    """The reference's host coin (sr_model.py:641-644): True (no style noise)
+    with probability 1/2, one draw from `generator`."""
+    if generator is None:
+        raise ValueError("the style-noise coin needs an explicit torch.Generator")
+    return bool(torch.rand((), generator=generator, device=generator.device) < 0.5)
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:
@@ -80,7 +92,8 @@ class SRSystem:
 
     # -- inference --------------------------------------------------------
 
-    def _tensor(self, value) -> torch.Tensor:
+    def to_device(self, value) -> torch.Tensor:
+        """A numpy array or tensor as a tensor on the system's device."""
         if isinstance(value, np.ndarray):
             value = torch.from_numpy(value)
         return value.to(self.device)
@@ -91,7 +104,7 @@ class SRSystem:
         already) and synthesize the LR input from the HR image
         (data/preprocessor.py semantics), on the device."""
         cfg = self.cfg
-        out = {k: self._tensor(v) for k, v in batch.items()}
+        out = {k: self.to_device(v) for k, v in batch.items()}
         if "label" in out and "input_semantics" not in out:
             out["input_semantics"] = one_hot_label(out["label"], cfg.semantic_nc)
         if "guiding_label" in out and out["guiding_label"].dim() <= 3:
@@ -117,25 +130,39 @@ class SRSystem:
         return hr, sem
 
     @torch.inference_mode()
-    def encode_style(self, batch: Batch, *, use_full: bool,
-                     no_noise: bool = True) -> torch.Tensor:
+    def encode_style(self, batch: Batch, *, use_full: bool, no_noise: bool = True,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, label_nc, style_size) float32 style matrix.  The guided model's
-        encoder ("fullstyle") always runs the full trunk on the HR source."""
+        encoder ("fullstyle") always runs the full trunk on the HR source.
+        `no_noise` is a host bool (a coin from `draw_coin` where the
+        reference flips one); style noise draws from `generator`."""
         x_full, seg_full = self.encoder_inputs(batch)
         if self.cfg.net_e == "fullstyle":
-            return self.encoder(_nchw(x_full), _nchw(seg_full), no_noise=no_noise)
+            return self.encoder(_nchw(x_full), _nchw(seg_full), no_noise=no_noise,
+                                generator=generator)
         return self.encoder(_nchw(x_full), _nchw(seg_full),
                             _nchw(batch["image_lr"]), _nchw(batch["input_semantics"]),
-                            use_full, no_noise=no_noise)
+                            use_full, no_noise=no_noise, generator=generator)
 
     @torch.inference_mode()
     def generate(self, batch: Batch, *, style: Optional[torch.Tensor] = None,
-                 use_full: bool = True, no_noise: bool = True
+                 use_full: bool = True, no_noise: bool = True,
+                 generator: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Encode the style (unless given) and run the generator.
         Returns (fake (B, H, W, 3) float32 in [-1, 1], style)."""
         if style is None and self.encoder is not None:
-            style = self.encode_style(batch, use_full=use_full, no_noise=no_noise)
+            style = self.encode_style(batch, use_full=use_full, no_noise=no_noise,
+                                      generator=generator)
         fake = self.generator(_nchw(batch["image_lr"]),
                               _nchw(batch["input_semantics"]), style)
         return fake.permute(0, 2, 3, 1), style
+
+    def generate_coin(self, batch: Batch, generator: torch.Generator) -> torch.Tensor:
+        """generate_coin_jit: the mini-trunk encode with the eval-time 50 %
+        style-noise coin, one host draw per call, then the generator.
+        Returns the fake (B, H, W, 3)."""
+        no_noise = draw_coin(generator)
+        fake, _ = self.generate(batch, use_full=False, no_noise=no_noise,
+                                generator=generator)
+        return fake

@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's variable trees -> the port's state_dict.
+"""Weight bridge: the JAX package's variable trees -> the port's state_dict,
+and the reference's released `<epoch>_net_{SR,E}.pth` files -> the port.
 
 Takes one network's `{"params", "batch_stats", "spectral"}` tree as nested
 mappings of arrays (numpy, or anything `np.asarray` accepts) and returns a
@@ -15,6 +16,7 @@ rules are an own copy of deepsee_tpu/utils/torch_import.py:35-75:
 from __future__ import annotations
 
 import math
+import os
 import re
 from typing import Any, Dict, Iterable, Mapping, Tuple
 
@@ -25,7 +27,8 @@ import torch.nn.functional as F
 from deepsee_torch.models.layers import Conv2d
 from deepsee_torch.models.normalization import ConvParams, ParamFreeNorm
 
-__all__ = ["jax_to_state_dict", "randomize_weights"]
+__all__ = ["jax_to_state_dict", "randomize_weights", "load_reference_checkpoint",
+           "reference_state_dict"]
 
 _RULES = (
     # generator: up_<i> modules live in an nn.ModuleList named up_list
@@ -126,3 +129,34 @@ def randomize_weights(nets: Iterable[torch.nn.Module], generator: torch.Generato
                                                            generator=generator))
                     m.running_var.copy_(0.5 + 1.5 * torch.rand(m.running_var.shape,
                                                                generator=generator))
+
+
+# Keys of the reference's modules with no counterpart in the port (an own
+# copy of deepsee_tpu/utils/torch_import.py:249-282): torch's batch-norm
+# bookkeeping, the dead `style_conv` Conv1d of every SEAN/PureSEAN block,
+# and the dead per-trunk `final` heads of the combined encoder, which the
+# reference builds but its forward never reads.
+_DEAD_KEY = re.compile(r"(^|\.)num_batches_tracked$|(^|\.)style_conv\.(weight|bias)$"
+                       r"|^encoder_(full|mini)\.final\.")
+
+
+def reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """One reference `.pth` file -> the port's state_dict: unwraps the
+    reference's {"model": sd} (util/util.py:217-224) and drops the keys
+    that have no port counterpart."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and set(sd) == {"model"}:
+        sd = sd["model"]
+    return {k: v for k, v in sd.items() if not _DEAD_KEY.search(k)}
+
+
+def load_reference_checkpoint(system, checkpoint_dir: str, epoch: str = "latest") -> None:
+    """Load `<epoch>_net_SR.pth` (and `<epoch>_net_E.pth` where the system
+    has an encoder) from `checkpoint_dir` into `system`'s networks with
+    strict key checking."""
+    nets = {"SR": system.generator, "E": system.encoder}
+    for tag, net in nets.items():
+        if net is None:
+            continue
+        path = os.path.join(checkpoint_dir, f"{epoch}_net_{tag}.pth")
+        net.load_state_dict(reference_state_dict(path), strict=True)

@@ -92,17 +92,6 @@ def test_guided_system_matches_jax(norm_g, source):
         assert float((port.encode_style(hr_only, use_full=True) - style).abs().max()) > 1e-3
 
 
-def test_guided_encoder_refuses_what_is_not_ported():
-    _, _, _, port = _guided_systems(NORMS[0])
-    pre = port.preprocess(_guided_batch(port.cfg))
-    with pytest.raises(NotImplementedError, match="noise"):
-        port.encode_style(pre, use_full=True, no_noise=False)
-    exp = _guided_exp(torch_tiny, NORMS[0])
-    exp = exp.replace(model=dataclasses.replace(exp.model, random_style_matrix=True))
-    with pytest.raises(NotImplementedError, match="random_style_matrix"):
-        SRSystem(exp, device="cpu").encode_style(pre, use_full=True)
-
-
 # 16 -> 512 in five blocks: up_3 at 512^2 is PureSEAN; with max_fm_size=64
 # the SEAN blocks at 128^2 and 256^2 and the PureSEAN block take the capped
 # maps and the quirk (regional_style_size == 128); max_fm_size=256 is the

@@ -212,3 +212,29 @@ def test_chunked_statistics_match_jax_instance_norm(shape, dtype):
     assert got.dtype == np.float32
     want = np.asarray(jax_instance_norm_2d(jnp.asarray(x)))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("stats", ["affine", "instance"])
+def test_export_records_the_op_not_its_plain_version(stats):
+    """torch.export of a module that calls modnorm keeps one
+    deepsee::modnorm node (a fake implementation gives its output's shape
+    and layout) and none of the plain version's arithmetic; the exported
+    program computes what the module does."""
+    x, mod, mean, var = _inputs(2)
+
+    class Block(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("mean", torch.from_numpy(mean))
+            self.register_buffer("var", torch.from_numpy(var))
+
+        def forward(self, x, mod):
+            return mn.modnorm(x, mod, stats=stats, mean=self.mean, var=self.var, lrelu=True)
+
+    args = (_nchw(x), _nchw(mod))
+    program = torch.export.export(Block(), args)
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert targets == ["deepsee.modnorm.default"]
+    out = program.module()(*args)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(out, Block()(*args), rtol=0, atol=0)

@@ -137,11 +137,16 @@ def test_port_init_is_seeded():
                                   "32x_guided_512x512", "8x_guided_256x256", "tiny"])
 def test_config_copy_matches_jax(name):
     """The port's own config copy gives the JAX package's values for every
-    field it keeps, and the same derived properties."""
+    field it keeps (the model's and the experiment's explorative knobs),
+    and the same derived properties."""
     if name == "tiny":
-        port, ref = torch_tiny().model, jax_tiny().model
+        port_exp, ref_exp = torch_tiny(), jax_tiny()
     else:
-        port, ref = get_preset(name).model, jax_get_preset(name).model
+        port_exp, ref_exp = get_preset(name), jax_get_preset(name)
+    for f in dataclasses.fields(port_exp):
+        if f.name != "model":
+            assert getattr(port_exp, f.name) == getattr(ref_exp, f.name), f.name
+    port, ref = port_exp.model, ref_exp.model
     for f in dataclasses.fields(port):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
     assert (port.semantic_nc, port.n_blocks, port.use_encoder) == (
