@@ -45,9 +45,19 @@
    the batch the daemon formed for it; no request may fail; K1's launches in the window must be
    each program's batches times its launches per batch.  Prints
    requests/s, p50/p99 latency and batch fill per program.
+8. Training phase (`training_phase`): each training kernel (batch
+   statistics, instance with statistics out, both backwards) against its
+   plain version at every shape of the b4 and b16 steps, bf16 and float32,
+   timed at b4; a float32 step on the card against the CPU, beside the
+   CPU's own spread under weights nudged by 1 and 8 float32 ulps; bf16
+   step gradients against float32; the faithful b4 and b16 and reuse_fake
+   b4 steps with K1's launches per step checked against `train_norms`,
+   timed and profiled; faithful against reuse_fake at b16 in turns; the
+   Trainer with a save and a resume; the training CLI for 20 steps.
 
-Prints the card's name and power limit, one {"kernels": [...]} line (per
-main-path call), and as the last line {"ok": true, "device": {...}}.  Any
+Prints the card's name and power limit, one {"kernels": [...]} line (the
+inference kernels per main-path call, the training kernels per faithful b4
+step), and as the last line {"ok": true, "device": {...}}.  Any
 failure exits non-zero; without a CUDA device it exits non-zero at once and
 prints no result.  float32 comparisons run with TF32 off
 (torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
@@ -67,6 +77,8 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -80,8 +92,11 @@ from deepsee_torch.inference import modes
 from deepsee_torch.ops import _build
 from deepsee_torch.ops import modnorm as mn
 from deepsee_torch.system import SRSystem
+from deepsee_torch.train import steps as train_steps
+from deepsee_torch.train.loop import Trainer
+from deepsee_torch.train.state import create_train_state, g_params
 from deepsee_torch.utils.images import tensor2im
-from deepsee_torch.weights import randomize_weights
+from deepsee_torch.weights import load_reference_checkpoint, randomize_weights
 
 PRESET = "8x_independent_256x256"
 BATCH = 32
@@ -539,13 +554,13 @@ def guided_phase(preset: str, batch_n: int, rows):
     cfg = system.cfg
     batch = make_batch(cfg, batch_n, guided=True)
     norms = path_norms(cfg, batch_n, full_trunk=True)
-    if expected_launches(norms) != GUIDED_LAUNCHES[preset]:
+    if expected_launches(norms) != dict(dict.fromkeys(mn.launches, 0), **GUIDED_LAUNCHES[preset]):
         raise AssertionError(f"{preset}: the path's norms give {expected_launches(norms)}, "
                              f"not {GUIDED_LAUNCHES[preset]}")
     tag = f"{preset} path"
     fake, launches = drive_path(tag, system, batch, norms, use_full=True)
     log(f"{tag} kernels " + json.dumps({mode: path_kernel_times(rows, norms, mode)
-                                        for mode in mn.launches}))
+                                        for mode in ("affine", "instance")}))
     if cfg.load_size >= 512:
         fold_compare(tag, system, batch, fake, norms)
     system32 = _like(system, "float32", "cuda")
@@ -597,7 +612,7 @@ def full_trunk_encode(system: SRSystem, pre):
     torch.cuda.synchronize()
     launches = dict(mn.launches)
     log(f"full-trunk encode launches: {launches} (expected 5 instance)")
-    if launches != {"affine": 0, "instance": 5}:
+    if launches != dict(dict.fromkeys(mn.launches, 0), instance=5):
         raise AssertionError(f"full-trunk encode: modnorm launches {launches}")
     shape = (pre["image_lr"].shape[0], cfg.label_nc, cfg.regional_style_size)
     if tuple(style.shape) != shape or not bool(torch.isfinite(style).all()):
@@ -914,7 +929,7 @@ def serving_phase(indep: SRSystem, smi: str):
             bad = {i: r[1][:200] for i, r in results.items() if r[0] != 200}
             if bad or stats["errors"]:
                 raise AssertionError(f"serving: {stats['errors']} errors, failed: {bad}")
-            expected = {"affine": 0, "instance": 0}
+            expected = dict.fromkeys(mn.launches, 0)
             for prog, ps in prog_stats.items():
                 for mode, n in per_batch[prog].items():
                     expected[mode] += ps["batches"] * n
@@ -1014,6 +1029,618 @@ def check_responses(programs, served, requests, results):
     return u8_max, style_max, regrouped_max, call_s
 
 
+# -- training phase ------------------------------------------------------------
+
+TRAIN_BATCH = 4                # the preset's batch_size
+TRAIN_BATCH_LARGE = 16
+# the float32 card step against the CPU: the main preset's widths, one block
+# fewer (the CPU's step at 256^2 takes minutes)
+TRAIN_F32_PRESET = "8x_independent_128x128"
+# K1's launches per faithful independent step (G step, then D step with the
+# regenerated fake), from the code: see `train_norms`
+TRAIN_LAUNCHES = {"batch": 20, "backward_batch": 10, "instance_train": 32,
+                  "backward_instance": 17}
+TRAIN_LAUNCHES_REUSE = {"batch": 10, "backward_batch": 10, "instance_train": 22,
+                        "backward_instance": 17}
+TRAIN_MODES = ("batch", "instance_train", "backward_batch", "backward_instance")
+# float32 step gradients, card (kernels, cuDNN, TF32 off) against the CPU
+# (plain versions), relative L2 per network.  The H100 runs measured G
+# 1.7e-3, E 5.0e-3, D 4.9e-4, the same in every run, and the CPU's own step
+# with its weights nudged by one float32 ulp spreads G 3.7e-4, E 1.3e-3, D
+# 4.9e-4 (PERF.md).  2x room.
+MAX_F32_TRAIN_GRAD_REL = 0.01
+# the CPU's own spread beside it: every G, E and D parameter scaled by
+# (1 + n * 2^-23 * r), r ~ N(0, 1), for n float32 ulps
+NUDGE_ULPS = (1, 8)
+# bf16 step gradients against float32 ones at the same weights and inputs,
+# relative L2 per network: set from the first H100 run, which measured G
+# 0.023, E 0.152, D 0.118 (bf16 keeps ~3 digits), with ~2x room.
+MAX_BF16_TRAIN_GRAD_REL = 0.3
+TRAIN_STEP_REPS = 5
+TRAIN_CLI_STEPS = 20
+
+
+def disc_norms(cfg: ModelConfig, batch2: int):
+    """The normed layers of the multiscale discriminator on a 2B batch:
+    [(2B, C, H, W)] per scale (4x4 convs with padding 2; the input of each
+    coarser scale avg-pooled 3x3 / 2 with padding 1)."""
+    out, h = [], cfg.crop_size
+    for scale in range(cfg.num_d):
+        if scale:
+            h = (h + 2 - 3) // 2 + 1
+        hh, nf = h // 2 + 1, cfg.ndf          # model0, stride 2
+        for n in range(1, cfg.n_layers_d):
+            nf = min(nf * 2, 512)
+            hh = hh // 2 + 1 if n < cfg.n_layers_d - 1 else hh + 1
+            out.append((batch2, nf, hh, hh))
+    return out
+
+
+def train_norms(cfg: ModelConfig, batch: int, g_full: bool, regen: bool = True):
+    """Every K1 launch of one training step of the independent model:
+    [(stats, (B, C, H, W), with_mod, lrelu, forwards, backwards)].  The G
+    step runs G, both trunks and D (on 2B) forward, and backward through
+    G, the trunk its coin picked (`g_full`) and D; the D step regenerates
+    the fake (G and both trunks, forward only; not with reuse_fake) and runs
+    D forward and backward."""
+    fwd = 2 if regen else 1
+    rows = [("batch", shape, True, True, fwd * n, n)
+            for _, shape, _, _, n in generator_norms(cfg, batch)]
+    for full, trunk in ((True, full_trunk_norms), (False, mini_trunk_norms)):
+        rows += [("instance", shape, False, lrelu, fwd, int(full == g_full))
+                 for shape, lrelu in trunk(cfg, batch)]
+    rows += [("instance", shape, False, True, 2, 2) for shape in disc_norms(cfg, 2 * batch)]
+    return rows
+
+
+def train_launches(norms):
+    out = dict.fromkeys(TRAIN_MODES, 0)
+    for stats, _, _, _, fwd, bwd in norms:
+        out["batch" if stats == "batch" else "instance_train"] += fwd
+        out["backward_" + stats] += bwd
+    return out
+
+
+def _train_bound_ms(backward: bool, shape, with_mod, lrelu, elt_bytes):
+    """Least time: each input read once, each output written once (forward:
+    x, mod -> out; backward: x, mod, gout -> grad_x, grad_mod), or the
+    float32 operations per element, over the CUDA cores' rate."""
+    b, c, h, w = shape
+    n = b * c * h * w
+    if backward:
+        tensors = 3 + (4 if with_mod else 0)
+        per_elt = 9 + (4 if with_mod else 0) + (1 if lrelu else 0)
+    else:
+        tensors = 2 + (2 if with_mod else 0)
+        per_elt = 6 + (2 if with_mod else 0) + (1 if lrelu else 0)
+    t_bytes, t_ops = n * tensors * elt_bytes / HBM_BYTES_PER_S, n * per_elt / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _train_within(got, want, dtype):
+    """As tests/test_torch_kernels.py::_train_within: 1e-5 of max|want|
+    (statistics and sums taken in other orders), plus 1 bf16 ulp of |want|."""
+    want = want.float()
+    slack = 1e-5 * float(want.abs().max())
+    if dtype == torch.bfloat16:
+        slack = slack + torch.finfo(torch.bfloat16).eps * want.abs()
+    return bool(((got.float() - want).abs() <= slack).all())
+
+
+def _library_train(stats, backward, x, gout, mean, rstd):
+    """One PyTorch call for the same normalization, without the fused
+    modulation and leaky ReLU: F.batch_norm(training=True) /
+    F.instance_norm forward; aten.native_batch_norm_backward for the batch
+    backward, and on the (1, B*C, H, W) view that F.instance_norm's
+    backward uses for the instance one."""
+    c = x.shape[1]
+    if not backward:
+        if stats == "batch":
+            rm = torch.zeros(c, device=x.device)
+            rv = torch.ones(c, device=x.device)
+            return lambda: F.batch_norm(x, rm, rv, training=True, eps=1e-5)
+        return lambda: F.instance_norm(x, eps=1e-5)
+    mask = [True, False, False]
+    if stats == "batch":
+        return lambda: torch.ops.aten.native_batch_norm_backward(
+            gout, x, None, None, None, mean, rstd, True, 1e-5, mask)
+    b, _, h, w = x.shape
+    x1 = x.contiguous().view(1, b * c, h, w)
+    g1 = gout.contiguous().view(1, b * c, h, w)
+    m1, r1 = mean.reshape(-1).contiguous(), rstd.reshape(-1).contiguous()
+    return lambda: torch.ops.aten.native_batch_norm_backward(
+        g1, x1, None, None, None, m1, r1, True, 1e-5, mask)
+
+
+def train_kernel_phase(cfg: ModelConfig, batch: int, timed: bool = True):
+    """Each training kernel against its plain version at every shape of the
+    training step at `batch` (either coin), bf16 and float32: the forward
+    (out, mean, rstd) and the backward (grad_x, grad_mod) on the plain
+    version's statistics.  Where `timed`, bf16: device ms, plain ms, library
+    ms and bound of each, forward and backward."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    shapes = {}
+    for g_full in (True, False):
+        for stats, shape, m, lrelu, _, _ in train_norms(cfg, batch, g_full):
+            shapes[(stats, shape, m, lrelu)] = None
+    rows = []
+    for stats, shape, with_mod, lrelu in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, mod, _, _ = _kernel_inputs(shape, with_mod, dtype, gen)
+            gout = _kernel_inputs(shape, False, dtype, gen)[0]
+            kw = dict(stats=stats, lrelu=lrelu)
+            out, mean, rstd = mn.modnorm_train(x, mod, **kw)
+            torch.cuda.synchronize()
+            want, wmean, wrstd = mn.modnorm_train_plain(x, mod, **kw)
+            gx, gmod = mn.modnorm_backward(x, mod, gout, wmean, wrstd, **kw)
+            torch.cuda.synchronize()
+            wgx, wgmod = mn.modnorm_backward_plain(x, mod, gout, wmean, wrstd, **kw)
+            stat_err = max(float(((mean - wmean).abs() / (wmean.abs() + 1e-3)).max()),
+                           float(((rstd - wrstd).abs() / wrstd.abs()).max()))
+            ok = (_train_within(out, want, dtype) and stat_err <= 1e-4
+                  and _train_within(gx, wgx, dtype)
+                  and (gmod is None or _train_within(gmod, wgmod, dtype)))
+            row = {"stats": stats, "shape": list(shape), "mod": with_mod, "lrelu": lrelu,
+                   "dtype": str(dtype).replace("torch.", ""), "ok": ok,
+                   "max_abs_err": float((out.float() - want.float()).abs().max()),
+                   "stats_rel_err": stat_err,
+                   "bwd_max_abs_err": float((gx.float() - wgx.float()).abs().max()),
+                   "bwd_mod_max_abs_err": (0.0 if gmod is None else
+                                           float((gmod.float() - wgmod.float()).abs().max())),
+                   "max_abs_out": float(want.abs().max()),
+                   "max_abs_grad_x": float(wgx.abs().max())}
+            del out, want, gx, gmod, wgx, wgmod
+            if timed and dtype == torch.bfloat16:
+                set_bytes = x.numel() * x.element_size() * (5 if with_mod else 2)
+                pool = [(x, mod, gout)] + [
+                    _kernel_inputs(shape, with_mod, dtype, gen)[:2]
+                    + (_kernel_inputs(shape, False, dtype, gen)[0],)
+                    for _ in range(max(0, math.ceil(120e6 / set_bytes) - 1))]
+                row["fwd_ms"] = _device_ms([lambda a=a, m=m: mn.modnorm_train(a, m, **kw)
+                                            for a, m, _ in pool])
+                row["fwd_plain_ms"] = _device_ms([
+                    lambda a=a, m=m: mn.modnorm_train_plain(a, m, **kw) for a, m, _ in pool])
+                row["fwd_library_ms"] = _device_ms([_library_train(stats, False, a, g, None, None)
+                                                    for a, _, g in pool])
+                row["bwd_ms"] = _device_ms([
+                    lambda a=a, m=m, g=g: mn.modnorm_backward(a, m, g, wmean, wrstd, **kw)
+                    for a, m, g in pool])
+                row["bwd_plain_ms"] = _device_ms([
+                    lambda a=a, m=m, g=g: mn.modnorm_backward_plain(a, m, g, wmean, wrstd, **kw)
+                    for a, m, g in pool])
+                row["bwd_library_ms"] = _device_ms([
+                    _library_train(stats, True, a, g, wmean, wrstd) for a, _, g in pool])
+                for key, backward in (("fwd", False), ("bwd", True)):
+                    bound, by = _train_bound_ms(backward, shape, with_mod, lrelu,
+                                                x.element_size())
+                    row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound, by
+                    row[f"{key}_bound_share"] = bound / row[f"{key}_ms"]
+                del pool
+            log("train kernel " + json.dumps(row))
+            rows.append(row)
+            del x, mod, gout, mean, rstd, wmean, wrstd
+            torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"a training kernel disagrees with its plain version: {bad}")
+    return rows
+
+
+def train_kernel_times(rows, norms):
+    """Per training step, each training kernel: launches, and the bf16
+    device, plain, library and bound ms of the kernel phase's rows times the
+    step's launches of each shape, summed."""
+    out = {mode: {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                  "bound_ms": 0.0, "bound_by": "bytes"} for mode in TRAIN_MODES}
+    for stats, shape, with_mod, lrelu, fwd, bwd in norms:
+        row = next(r for r in rows if "fwd_ms" in r and r["stats"] == stats
+                   and tuple(r["shape"]) == shape and r["mod"] == with_mod
+                   and r["lrelu"] == lrelu)
+        for mode, key, n in (("batch" if stats == "batch" else "instance_train", "fwd", fwd),
+                             ("backward_" + stats, "bwd", bwd)):
+            acc = out[mode]
+            acc["launches"] += n
+            acc["ms"] += row[f"{key}_ms"] * n
+            acc["plain_ms"] += row[f"{key}_plain_ms"] * n
+            acc["library_ms"] += row[f"{key}_library_ms"] * n
+            acc["bound_ms"] += row[f"{key}_bound_ms"] * n
+    for acc in out.values():
+        acc["bound_share"] = acc["bound_ms"] / acc["ms"] if acc["ms"] else None
+    return out
+
+
+def train_system(preset: str, batch: int, model=(), **train) -> SRSystem:
+    """The preset's training system on the card with seeded random weights
+    (as `seeded_system`) and seeded VGG features; `model` and `train`
+    override configuration fields."""
+    exp = get_preset(preset)
+    exp = exp.replace(model=dataclasses.replace(exp.model, **dict(model)),
+                      train=dataclasses.replace(exp.train, batch_size=batch, **train))
+    system = SRSystem(exp, device=DEVICE)
+    system.init(torch.Generator().manual_seed(SEED))
+    randomize_weights(system.networks().values(), torch.Generator().manual_seed(SEED + 1))
+    return system
+
+
+class _RecordingSGD(torch.optim.SGD):
+    """Plain SGD that keeps a copy of the gradients of its last step, by
+    parameter."""
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, lr=lr)
+        self.grads = {}
+
+    def step(self, closure=None):
+        self.grads = {p: p.grad.detach().clone() for group in self.param_groups
+                      for p in group["params"]}
+        return super().step(closure)
+
+
+def _state_of(system: SRSystem, lr: Optional[float] = None):
+    """A train state of `system` (its weights as they are); with `lr`, plain
+    SGD at that rate for both networks instead of the TTUR Adams, keeping
+    each step's gradients (`_RecordingSGD`)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random-VGG warning
+        state = create_train_state(system, init=False)
+    if lr is not None:
+        state.opt_g = _RecordingSGD(g_params(system), lr)
+        state.opt_d = _RecordingSGD(system.discriminator.parameters(), lr)
+    return state
+
+
+def _one_step_grads(system: SRSystem, batch, coins):
+    """Logs and the G, E and D gradients of one step of `system` with
+    fixed coins and SGD at lr 0 (the D step's regeneration sees the same
+    G)."""
+    state = _state_of(system, 0.0)
+    draw = train_steps.draw_coins
+    train_steps.draw_coins = lambda system_, generator: coins
+    try:
+        logs = train_steps.make_train_step(system)(state, batch)
+    finally:
+        train_steps.draw_coins = draw
+    grads = {net: {n: opt.grads[p] for n, p in module.named_parameters()}
+             for net, module, opt in (("g", system.generator, state.opt_g),
+                                      ("e", system.encoder, state.opt_g),
+                                      ("d", system.discriminator, state.opt_d))}
+    return {k: float(v) for k, v in logs.items()}, grads
+
+
+def _grads_rel(got, want):
+    """Relative L2 of each network's concatenated gradients, without the
+    resblocks' conv_0 biases: a batch norm follows them, so their true
+    gradient is 0 and both sides return float noise."""
+    out = {}
+    for net in want:
+        keys = [k for k in want[net] if not k.endswith("conv_0.bias")]
+        a = torch.cat([got[net][k].float().reshape(-1).cpu() for k in keys])
+        b = torch.cat([want[net][k].float().reshape(-1).cpu() for k in keys])
+        out[net] = float((a - b).norm() / b.norm())
+    return out
+
+
+def _nudge(system: SRSystem, ulps: int, generator: torch.Generator) -> None:
+    """Scale every G, E and D parameter by (1 + ulps * 2^-23 * r),
+    r ~ N(0, 1): a change at float32's rounding level."""
+    with torch.no_grad():
+        for net in (system.generator, system.encoder, system.discriminator):
+            for p in net.parameters():
+                p.mul_(1 + ulps * 2.0 ** -23 * torch.randn(p.shape, generator=generator))
+
+
+def _worst_leaves(got, want, nudged, n: int = 4):
+    """Per network, the `n` leaves that hold most of the squared difference
+    got - want: that share, the leaf's relative L2 got vs want, and each
+    nudged CPU step's (`nudged`: ulps -> gradients) relative L2 vs want on
+    the same leaf."""
+    out = {}
+    for net in want:
+        diff = {k: float((got[net][k].float().cpu() - want[net][k]).norm() ** 2)
+                for k in want[net] if not k.endswith("conv_0.bias")}
+        total = sum(diff.values()) or 1.0
+        out[net] = {}
+        for k in sorted(diff, key=lambda k: -diff[k])[:n]:
+            norm = float(want[net][k].norm()) or math.inf  # a leaf without gradient: rel 0
+            out[net][k] = {"share": diff[k] / total, "rel": math.sqrt(diff[k]) / norm}
+            for ulps, g in nudged.items():
+                out[net][k][f"nudged_{ulps}ulp_rel"] = float(
+                    (g[net][k] - want[net][k]).norm()) / norm
+    return out
+
+
+def train_gradient_checks(batch_n: int):
+    """(1) float32 step on the card against the CPU: TRAIN_F32_PRESET,
+    batch 1, TF32 off, coins fixed (mini trunk, no style noise), noise
+    injection off; losses, G/E/D gradients (relative L2), running
+    statistics and spectral u/v after the step.  Beside it the CPU's own
+    spread: the same step on the CPU with the weights nudged by 1 and 8
+    float32 ulps (`_nudge`), against the CPU step, per network and on the
+    leaves where the card differs most.  (2) bf16 gradients against float32 ones at the
+    same weights, the main preset at batch_n."""
+    coins = (False, True)
+    t0 = time.perf_counter()
+    card32 = train_system(TRAIN_F32_PRESET, 1, model=dict(add_noise=False,
+                                                         compute_dtype="float32"))
+    cpu32 = _like(card32, "float32", "cpu")
+    nudged = {ulps: _like(card32, "float32", "cpu") for ulps in NUDGE_ULPS}
+    for ulps, system in nudged.items():
+        _nudge(system, ulps, torch.Generator().manual_seed(SEED + 7))
+    one = make_batch(card32.cfg, 1)
+    logs_card, g_card = _one_step_grads(card32, one, coins)
+    t_cpu = time.perf_counter()
+    logs_cpu, g_cpu = _one_step_grads(cpu32, one, coins)
+    cpu_s = time.perf_counter() - t_cpu
+    g_nudged = {ulps: _one_step_grads(system, one, coins)[1]
+                for ulps, system in nudged.items()}
+    rel = _grads_rel(g_card, g_cpu)
+    nudged_rel = {ulps: _grads_rel(g, g_cpu) for ulps, g in g_nudged.items()}
+    log("train float32 leaves " + json.dumps(_worst_leaves(g_card, g_cpu, g_nudged)))
+    loss_rel = max(abs(logs_card[k] - logs_cpu[k]) / max(abs(logs_cpu[k]), 1e-6)
+                   for k in logs_cpu)
+    buf = 0.0
+    for name, net in card32.networks().items():
+        other = cpu32.networks()[name].state_dict()
+        for key, value in net.state_dict().items():
+            if key.endswith(("running_mean", "running_var", "weight_u", "weight_v")):
+                buf = max(buf, float((value.cpu() - other[key]).abs().max()))
+    record = {"preset": TRAIN_F32_PRESET, "batch": 1, "grad_rel_l2": rel,
+              "nudged_cpu_grad_rel_l2": nudged_rel, "loss_rel_err": loss_rel,
+              "buffer_max_abs_diff": buf, "cpu_s": cpu_s,
+              "logs_card": logs_card, "logs_cpu": logs_cpu}
+    log("train float32 card vs CPU " + json.dumps(record))
+    if not (max(rel.values()) <= MAX_F32_TRAIN_GRAD_REL and loss_rel <= 1e-4 and buf <= 1e-4):
+        raise AssertionError(f"float32 training step on the card differs from the CPU: {record}")
+    del card32, cpu32, nudged
+    torch.cuda.empty_cache()
+
+    bf16 = train_system(PRESET, batch_n, model=dict(add_noise=False))
+    f32 = _like(bf16, "float32", DEVICE)
+    batch = make_batch(bf16.cfg, batch_n)
+    logs16, g16 = _one_step_grads(bf16, batch, coins)
+    logs32, g32 = _one_step_grads(f32, batch, coins)
+    rel16 = _grads_rel(g16, g32)
+    record = {"preset": PRESET, "batch": batch_n, "grad_rel_l2": rel16,
+              "logs_bf16": logs16, "logs_f32": logs32, "wall_s": time.perf_counter() - t0}
+    log("train bf16 vs float32 " + json.dumps(record))
+    if not max(rel16.values()) <= MAX_BF16_TRAIN_GRAD_REL:
+        raise AssertionError(f"bf16 training gradients differ from float32: {record}")
+    del bf16, f32
+    torch.cuda.empty_cache()
+
+
+def _step_events_ms(step, state, batch, reps: int) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        step(state, batch)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare_schedules(batch_n: int) -> None:
+    """The faithful schedule against reuse_fake at batch_n from the same
+    seeded weights, ms per step by CUDA events in turns (faithful, reuse,
+    reuse, faithful), TRAIN_STEP_REPS steps each after one warm-up step."""
+    runs = {}
+    for reuse in (False, True):
+        system = train_system(PRESET, batch_n, reuse_fake=reuse)
+        runs[reuse] = (train_steps.make_train_step(system), _state_of(system))
+    batch = make_batch(get_preset(PRESET).model, batch_n)
+    times = {False: [], True: []}
+    for reuse in (False, True, True, False):
+        step, state = runs[reuse]
+        step(state, batch)
+        times[reuse].append(_step_events_ms(step, state, batch, TRAIN_STEP_REPS))
+    f, r = sum(times[False]) / 2, sum(times[True]) / 2
+    log(f"train schedules b{batch_n} " + json.dumps({
+        "faithful_ms_per_step": times[False], "reuse_fake_ms_per_step": times[True],
+        "reuse_fake_speedup": f / r}))
+    del runs
+    torch.cuda.empty_cache()
+
+
+def drive_train(tag: str, batch_n: int, reuse_fake: bool = False, rows=None,
+                profile: bool = True):
+    """One schedule at full width, bf16 (seeded weights and batch): one step
+    with the launch counts set to 0 just before and read just after, checked
+    against the launches `train_norms` derives for the step's coins, finite
+    losses; then ms per step and img/s by CUDA events after warm-up, peak
+    memory, and one step profiled.  Returns the launches, the per-step
+    kernel times (with `rows`, the kernel phase's) and the timing."""
+    system = train_system(PRESET, batch_n, reuse_fake=reuse_fake)
+    state = _state_of(system)
+    step = train_steps.make_train_step(system)
+    batch = make_batch(system.cfg, batch_n)
+    step(state, batch)  # warm-up: cuDNN plans, the allocator
+    drawn = []
+    draw = train_steps.draw_coins
+    train_steps.draw_coins = (lambda system_, generator:
+                              drawn.append(draw(system_, generator)) or drawn[-1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mn.reset_launches()
+    try:
+        logs = step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        train_steps.draw_coins = draw
+    launches = {k: mn.launches[k] for k in TRAIN_MODES}
+    layout = mn.layout_copies["backward"]
+    others = {k: n for k, n in mn.launches.items() if k not in TRAIN_MODES and n}
+    logs = {k: float(v) for k, v in logs.items()}
+    norms = train_norms(system.cfg, batch_n, g_full=drawn[0][0], regen=not reuse_fake)
+    expected = train_launches(norms)
+    log(f"{tag} launches per step: {launches} (expected {expected}), other K1 launches "
+        f"{others}, layout copies {layout}, coins {drawn}, losses {logs}")
+    if launches != expected or others:
+        raise AssertionError(f"{tag}: K1 launches {launches} {others} != {expected}")
+    if not all(math.isfinite(v) for v in logs.values()):
+        raise AssertionError(f"{tag}: a loss is not finite: {logs}")
+    times = None
+    if rows is not None:
+        times = train_kernel_times(rows, norms)
+        log(f"{tag} kernels per step " + json.dumps(times))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    host0 = time.perf_counter()
+    ms = _step_events_ms(step, state, batch, TRAIN_STEP_REPS)
+    host_ms = (time.perf_counter() - host0) * 1e3 / TRAIN_STEP_REPS
+    timing = {"batch": batch_n, "ms_per_step": ms, "img_per_s": batch_n / ms * 1e3,
+              "host_ms_per_step": host_ms, "peak_mem_gib": peak,
+              "layout_copies_per_step": layout}
+    log(f"{tag} timing " + json.dumps(timing))
+    if profile:
+        profile_train(tag, system, state, step, batch, ms)
+    del system, state, step
+    torch.cuda.empty_cache()
+    return launches, times, timing
+
+
+TRAIN_CATEGORIES = (  # first match wins, on the lower-cased kernel name
+    ("K1 backward", ("backward_partial", "backward_final", "backward_apply")),
+    ("K1 forward", ("modnorm", "batch_stats")),
+    ("conv backward (cuDNN)", ("dgrad", "wgrad")),
+    ("conv forward (cuDNN)", ("fprop", "conv", "implicit")),
+    ("optimizer", ("multi_tensor", "foreach", "adam")),
+    ("matmul (bmm)", ("gemm", "gemv")),
+    ("layout copies and transposes", ("nchwtonhwc", "nhwctonchw", "transpose", "copy")),
+    ("pooling", ("pool",)),
+    ("resize", ("upsample", "interpolate")),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def profile_train(tag: str, system: SRSystem, state, step, batch, ms_per_step: float) -> None:
+    """Device time of one step by category (torch.profiler), the VGG's and
+    the optimizers' device time by record_function range, and the idle share
+    = 1 - kernel time / the event-timed ms per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    vgg = system.vgg_features
+    opt_steps = (state.opt_g.step, state.opt_d.step)
+
+    def ranged(name, fn):
+        def call(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return call
+
+    system.vgg_features = ranged("vgg", vgg)
+    state.opt_g.step = ranged("optimizer", opt_steps[0])
+    state.opt_d.step = ranged("optimizer", opt_steps[1])
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        system.vgg_features = vgg
+        state.opt_g.step, state.opt_d.step = opt_steps
+    events = prof.key_averages()
+    ranges = {e.key: e.device_time_total / 1e3 for e in events if e.key in ("vgg", "optimizer")}
+
+    def annotation(e) -> bool:  # a range on the device timeline, not a kernel
+        return (getattr(e, "is_user_annotation", False) or e.key in ranges
+                or e.key.startswith("Optimizer."))
+
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in events
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                      and not annotation(e)), key=lambda k: -k[1])
+    total = sum(t for _, t, _ in kernels)
+    categories: dict = {}
+    for name, t, _ in kernels:
+        cat = next((c for c, keys in TRAIN_CATEGORIES if any(k in name.lower() for k in keys)),
+                   "other")
+        categories[cat] = categories.get(cat, 0.0) + t
+    log(f"{tag} profile " + json.dumps({
+        "kernel_ms": total, "idle_share": 1.0 - total / ms_per_step,
+        "categories_ms": dict(sorted(categories.items(), key=lambda kv: -kv[1])),
+        "ranges_ms (device time launched inside)": ranges}))
+    for name, t, count in kernels[:12]:
+        log(f"{tag} profile kernel {t:9.3f} ms  x{count:<4d} {name[:110]}")
+
+
+def trainer_phase(smi: str) -> None:
+    """Trainer.run on seeded batches for a few steps with a save, a resume
+    and one more step; the saved net_SR / net_E load into an inference
+    SRSystem that generates a finite image.  Then the CLI,
+    `python -m deepsee_torch.train --synthetic`, for TRAIN_CLI_STEPS steps
+    in a process of its own."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="deepsee_train_")
+    try:
+        exp = get_preset(PRESET).replace(checkpoints_dir=root)
+        exp = exp.replace(train=dataclasses.replace(exp.train, batch_size=TRAIN_BATCH))
+        data = [make_batch(exp.model, TRAIN_BATCH)] * 3
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            first = Trainer(exp, device=DEVICE)
+            first.run(data, max_steps=2)
+            del first
+            resumed = Trainer(exp, device=DEVICE, continue_train=True)
+        if resumed.state.step != 2:
+            raise AssertionError(f"trainer: resumed at step {resumed.state.step}, not 2")
+        resumed.run(data, max_steps=3)
+        if resumed.state.step != 3:
+            raise AssertionError(f"trainer: stopped at step {resumed.state.step}")
+        del resumed
+        torch.cuda.empty_cache()
+        run_dir = os.path.join(root, exp.name)
+        files = sorted(os.listdir(run_dir))
+        inference = SRSystem(exp.replace(is_train=False), device=DEVICE)
+        load_reference_checkpoint(inference, run_dir)
+        fake = run_path(inference, make_batch(exp.model, 2))
+        if not bool(torch.isfinite(fake).all()):
+            raise AssertionError("trainer: the trained weights generate a non-finite image")
+        del inference
+        cli = [sys.executable, "-m", "deepsee_torch.train", "--name", PRESET, "--synthetic",
+               "--max_steps", str(TRAIN_CLI_STEPS), "--device", DEVICE, "--checkpoints_dir",
+               os.path.join(root, "cli")]
+        t_cli = time.perf_counter()
+        run = subprocess.run(cli, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t_cli
+        if run.returncode != 0 or f"trained {TRAIN_CLI_STEPS} steps on {DEVICE}" not in run.stdout:
+            raise AssertionError(f"the training CLI failed: {run.stdout[-2000:]}"
+                                 f"{run.stderr[-2000:]}")
+        cli_files = sorted(os.listdir(os.path.join(root, "cli", PRESET)))
+        log("trainer " + json.dumps({"files": files, "cli": " ".join(cli[1:]),
+                                     "cli_s": cli_s, "cli_files": cli_files, "card": smi,
+                                     "wall_s": time.perf_counter() - t0}))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def training_phase(smi: str):
+    """Kernels (at the b4 and b16 shapes; timed at b4), the float32 and
+    bf16 gradient checks, the three schedules
+    (faithful b4 and b16, reuse_fake b4), faithful against reuse_fake at
+    b16 in turns, the trainer and the CLI.  Returns
+    the faithful b4 step's launches and per-step kernel times, and the
+    kernel rows."""
+    t0 = time.perf_counter()
+    cfg = get_preset(PRESET).model
+    for regen, want in ((True, TRAIN_LAUNCHES), (False, TRAIN_LAUNCHES_REUSE)):
+        for g_full in (True, False):
+            got = train_launches(train_norms(cfg, TRAIN_BATCH, g_full, regen))
+            if got != want:
+                raise AssertionError(f"the training step's norms give {got}, not {want}")
+    rows = train_kernel_phase(cfg, TRAIN_BATCH)
+    rows += train_kernel_phase(cfg, TRAIN_BATCH_LARGE, timed=False)
+    log(f"train kernel phase: {time.perf_counter() - t0:.1f} s")
+    train_gradient_checks(TRAIN_BATCH)
+    launches, times, _ = drive_train("train b4", TRAIN_BATCH, rows=rows)
+    drive_train("train b16", TRAIN_BATCH_LARGE)
+    drive_train("train reuse_fake b4", TRAIN_BATCH, reuse_fake=True, profile=False)
+    compare_schedules(TRAIN_BATCH_LARGE)
+    trainer_phase(smi)
+    log(f"training phase: {time.perf_counter() - t0:.1f} s")
+    return launches, times, rows
+
+
 # -- profile ---------------------------------------------------------------
 
 KERNEL_CATEGORIES = (  # first match wins, on the lower-cased kernel name
@@ -1080,7 +1707,23 @@ def path_kernel_times(rows, norms, mode: str):
     return out
 
 
-def kernels_line(rows, launches, norms):
+# name in the kernels line -> (launch counter, the one library call timed beside it)
+TRAIN_KERNEL_INFO = {
+    "modnorm_batch": ("batch", "F.batch_norm (training=True; without the fused modulation "
+                               "and leaky ReLU)"),
+    "modnorm_instance_train": ("instance_train", "F.instance_norm (without the fused leaky "
+                                                 "ReLU)"),
+    "modnorm_backward_batch": ("backward_batch", "aten.native_batch_norm_backward (without "
+                                                 "the modulation's and leaky ReLU's gradient)"),
+    "modnorm_backward_instance": ("backward_instance", "aten.native_batch_norm_backward on "
+                                  "the (1, B*C, H, W) view of F.instance_norm's backward"),
+}
+
+
+def kernels_line(rows, launches, norms, train=None):
+    """Every kernel: the inference modes per main-path call; the training
+    kernels per faithful training step (`train`: its launches, per-step
+    times and the training kernel rows)."""
     out = []
     for name, (mode, library_call) in KERNEL_INFO.items():
         per_call = path_kernel_times(rows, norms, mode)
@@ -1092,6 +1735,24 @@ def kernels_line(rows, launches, norms):
             "bound_ms": per_call["bound_ms"], "bound_by": per_call["bound_by"],
             "library_ms": per_call["library_ms"], "library_call": library_call,
             "per": "one main-path call (sum over its launches), device time",
+        })
+    train_launches_, train_times, train_rows = train
+    for name, (mode, library_call) in TRAIN_KERNEL_INFO.items():
+        t = train_times[mode]
+        if mode.startswith("backward"):
+            errs = [max(r["bwd_max_abs_err"], r["bwd_mod_max_abs_err"]) for r in train_rows
+                    if r["stats"] == mode.removeprefix("backward_")]
+        else:
+            errs = [r["max_abs_err"] for r in train_rows
+                    if r["stats"] == ("batch" if mode == "batch" else "instance")]
+        out.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+            "launches": train_launches_[mode], "max_abs_err": max(errs),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_call": library_call,
+            "per": f"one training step ({PRESET} b{TRAIN_BATCH}, faithful schedule; sum over "
+                   "its launches), device time",
         })
     return {"kernels": out}
 
@@ -1123,10 +1784,12 @@ def main() -> int:
     serving_phase(system, smi)
     del system
     torch.cuda.empty_cache()
+    train = training_phase(smi)
 
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
-    log(json.dumps(kernels_line(rows, launches, path_norms(cfg, BATCH, full_trunk=False))))
+    log(json.dumps(kernels_line(rows, launches, path_norms(cfg, BATCH, full_trunk=False),
+                                train)))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

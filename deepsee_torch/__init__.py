@@ -2,19 +2,28 @@
 
 A second package beside the JAX one, ported slice by slice and held against
 it by tests/test_torch_*.py.  It imports torch and numpy, never JAX or
-deepsee_tpu.  It carries eval-mode inference of every preset and the
-serving entry points:
+deepsee_tpu.  It carries eval-mode inference of every preset, the serving
+entry points and GAN training on one card:
 
   config.py      own copy of the configuration the ported modules read
-  ops/           resize, one-hot/HR->LR, plain norms, and `modnorm`, the
-                 normalize -> modulate -> leaky-ReLU kernel (csrc/modnorm.cu),
-                 registered as the custom op torch.ops.deepsee.modnorm
+  ops/           resize, one-hot/HR->LR, plain norms, pooling, and
+                 `modnorm`, the normalize -> modulate -> leaky-ReLU kernel
+                 (csrc/modnorm.cu), registered as the custom op
+                 torch.ops.deepsee.modnorm, with its training forward and
+                 backward (torch.ops.deepsee.modnorm_train / _backward)
   models/        layers, SPADE/SEAN, resblock, generator, style encoders
-                 (with the learned style noise and random_style_matrix)
-  system.py      SRSystem: preprocess, encode_style, generate
-  weights.py     JAX variable trees and reference .pth files -> state_dicts
+                 (with the learned style noise and random_style_matrix),
+                 the multiscale discriminator, the VGG19 features
+  system.py      SRSystem: preprocess, encode_style, generate; in training
+                 also discriminate and the VGG features
+  losses.py      GAN, feature-matching and VGG losses
+  train/         train state and TTUR Adam, the step, the trainer,
+                 python -m deepsee_torch.train
+  data.py        the synthetic training data
+  weights.py     JAX variable trees and reference .pth files <-> state_dicts
   inference/     the explorative modes
-  regions.py, utils/images.py   region table, image and style-CSV IO
+  regions.py, utils/   region table, image and style-CSV IO, the
+                 iteration counter, loss log and checkpoints of training
   demo.py        python -m deepsee_torch.demo
   serve.py       torch.export serving programs (python -m deepsee_torch.serve)
   server.py      the micro-batching HTTP daemon (python -m deepsee_torch.server)

@@ -1,22 +1,24 @@
 """Typed configuration for deepsee_torch.
 
 An own copy of the parts of `deepsee_tpu/config.py` that the ported modules
-read: the norm-string parsers, the model hyper-parameters, the experiment
+read: the norm-string parsers, the model hyper-parameters (the
+discriminator's included), the training hyper-parameters, the experiment
 bundle with its explorative-inference knobs, and the presets.  Field names
 and defaults are those of the JAX package, so one preset name gives the
-same model in both packages.  Fields of slices not yet ported (training,
-data, mesh, discriminator) are absent.
+same model in both packages.  Fields of slices not yet ported (data, mesh,
+evaluation weights) are absent.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import re
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
-__all__ = ["NormGSpec", "parse_nonspade_norm", "ModelConfig", "Experiment",
+__all__ = ["NormGSpec", "parse_nonspade_norm", "ModelConfig", "TrainConfig", "Experiment",
            "get_preset", "tiny_test_experiment"]
 
 
@@ -73,11 +75,14 @@ class ModelConfig:
 
     label_nc: int = 19
     contain_dontcare_label: bool = False
+    output_nc: int = 3
     ngf: int = 32
     nef: int = 32
+    ndf: int = 32
     regional_style_size: int = 128
 
     norm_g: str = "spectrallateseansyncbatch3x3"
+    norm_d: str = "spectralinstance"
     norm_e: str = "spectralinstance"
 
     # encoder variant: "combinedstyle" (independent) | "fullstyle" (guided)
@@ -94,6 +99,10 @@ class ModelConfig:
     add_noise: bool = False
     noisy_style_scale: float = 0.2
     noisy_style_dist: str = "uniform"
+
+    # discriminator: scales, and layers per scale
+    num_d: int = 2
+    n_layers_d: int = 4
 
     downsampling_method: str = "bicubic"
 
@@ -116,11 +125,64 @@ class ModelConfig:
     def use_encoder(self) -> bool:
         return bool(self.net_e) and self.net_e != "none"
 
+    @property
+    def model_variant(self) -> str:
+        return "guided" if "full" in self.net_e else "independent"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimization hyper-parameters (deepsee_tpu/config.py:184-254)."""
+
+    batch_size: int = 4
+    lr: float = 2e-4
+    beta1: float = 0.0
+    beta2: float = 0.9
+    no_ttur: bool = False             # TTUR: G at lr/2, D at 2 lr
+    d_steps_per_g: int = 1
+    niter: int = 50
+    niter_decay: int = 25
+    lambda_feat: float = 10.0
+    lambda_vgg: float = 10.0
+    no_ganfeat_loss: bool = False
+    no_vgg_loss: bool = False
+    gan_mode: str = "hinge"
+    gradient_clip: float = -1.0       # clip-by-value before Adam; -1 = off
+    remat: bool = False               # not ported: the port raises on True
+    # train D on the G step's fake instead of regenerating it with the
+    # updated G (an opt-in deviation from the reference's schedule)
+    reuse_fake: bool = False
+    vgg_weights: str = ""             # torchvision-format VGG19 .pth or .npz
+
+    display_freq: int = 20000
+    print_freq: int = 1000
+    save_latest_freq: int = 3000
+    save_epoch_freq: int = 1
+    evaluation_freq: int = 100000
+    evaluation_start_epoch: int = 0
+
+    seed: int = 0
+
+    def g_lr(self) -> float:
+        return self.lr if self.no_ttur else self.lr / 2
+
+    def d_lr(self) -> float:
+        return self.lr if self.no_ttur else self.lr * 2
+
+    def epoch_lr_scale(self, epoch: int) -> float:
+        """Linear decay to zero over niter_decay epochs after niter epochs."""
+        if epoch <= self.niter:
+            return 1.0
+        total = self.niter + self.niter_decay
+        return max(0.0, (total - epoch) / max(1, self.niter_decay))
+
 
 @dataclass(frozen=True)
 class Experiment:
     name: str = "8x_independent_128x128"
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    checkpoints_dir: str = "./checkpoints"
     is_train: bool = True
 
     # explorative-inference knobs (deepsee_tpu/config.py:346-351)
@@ -132,6 +194,9 @@ class Experiment:
 
     def replace(self, **kw: Any) -> "Experiment":
         return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
 
 
 def _apply_variant(exp: Experiment, name: str) -> Experiment:
@@ -168,8 +233,9 @@ def tiny_test_experiment(**overrides: Any) -> Experiment:
     exp = Experiment(
         name="tiny_test",
         model=ModelConfig(start_size=8, crop_size=32, load_size=32,
-                          ngf=4, nef=4, regional_style_size=16,
+                          ngf=4, nef=4, ndf=4, regional_style_size=16,
                           max_fm_size=32, add_noise=True,
                           compute_dtype="float32"),
+        train=TrainConfig(batch_size=2),
     )
     return exp.replace(**overrides) if overrides else exp

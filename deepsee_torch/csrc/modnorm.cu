@@ -19,6 +19,9 @@
 //     norm(x) = x * inv[c] + shift[c] with inv = rsqrt(var + eps) and
 //     shift = -mean * inv precomputed by the wrapper from the running stats.
 //   * instance (per sample and channel over H*W, the encoder's norm).
+// Training adds batch statistics (per channel over N*H*W, then the affine
+// kernel), the instance kernel's statistics written out, and the backward
+// of both: see "training" below.
 //
 // Bound: device-memory bytes.  Each mode must read x once (and the 2C
 // modulation once) and write out once, at about 1 flop per byte.
@@ -332,7 +335,8 @@ __device__ __forceinline__ void block_sum(float* v, int L, int tile, float div,
 template <typename T, bool STREAM, int REG, bool HAS_MOD, bool LRELU>
 __global__ void __launch_bounds__(kThreads, REG > 0 ? 2 : 1)
 modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
-                        T* __restrict__ out, int64_t HW, int C, int tile,
+                        T* __restrict__ out, float* __restrict__ mean_out,
+                        float* __restrict__ rstd_out, int64_t HW, int C, int tile,
                         float eps, float slope) {
   constexpr int V = 16 / sizeof(T);       // channels per 16-byte vector
   constexpr int U = kStep;
@@ -539,9 +543,15 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
         chan_merge<1>(n, &m, &q, nk_, &mk, &qk);
       }
       if (r == 0 && j < tile) {
-        s_stat[j] = m;
-        s_stat[kMaxTile + j] =
+        const float inv =
             __frcp_rn(__fsqrt_rn(__fadd_rn(__fdiv_rn(q, static_cast<float>(HW)), eps)));
+        s_stat[j] = m;
+        s_stat[kMaxTile + j] = inv;
+        if (mean_out != nullptr && rank == 0) {  // training: the statistics for backward
+          const int64_t i = static_cast<int64_t>(blockIdx.y) * C + (blockIdx.x / K) * tile + j;
+          mean_out[i] = m;
+          rstd_out[i] = inv;
+        }
       }
     }
   }
@@ -594,6 +604,305 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
     }
   }
   cluster_wait();
+}
+
+
+// ---- training: batch statistics and the backward ---------------------------
+//
+// In training, norm(x) takes its statistics from the batch: per channel over
+// all N*H*W pixels ("batch", one statistics set per channel) or per sample and
+// channel over H*W ("instance", B sets per channel).  The gradient of
+//
+//     out = lrelu?( x_hat * s + b ),  x_hat = (x - mean) * rstd
+//
+// with gz = d out / d z (z = x_hat * s + b, slope 0.2 below 0) and gy = gz * s
+// is, over each set S,
+//
+//     grad_x     = rstd * (gy - mean_S(gy) - x_hat * mean_S(gy * x_hat))
+//     grad_mod   = [gz * x_hat | gz]   (the 2C layout the modulation conv gave)
+//
+// Nothing but (mean, rstd) per set is saved by the forward: the backward
+// recomputes x_hat and z from x and mod with the forward's own operations,
+// so the leaky ReLU's mask is the forward's.
+//
+// The reductions (the batch statistics; the backward's mean_S(gy) and
+// mean_S(gy * x_hat)) cut each set's pixels into chunks; a block takes one
+// chunk for L 8-channel vectors (L = 1, 2, 4 or 8): thread tid reads lane
+// tid % L at rows tid / L, tid / L + R, ... of its chunk (R = kThreads / L),
+// 16-byte vector loads, neighbouring threads on neighbouring channels.  A
+// thread's partials combine over its warp's rows by shuffles and over the
+// block's warps in warp order; a second kernel combines the blocks' partials
+// over the chunks in chunk order.  Every sum is taken in a fixed order, so a
+// result never changes from run to run (no float atomics).  The statistics
+// are (count, mean, centred M2) partials merged with Chan's formula, never
+// E[x^2] - E[x]^2.  The batch forward then runs the affine kernel above with
+// inv = rstd and shift = -mean * rstd: two reads of x where the bound has
+// one.  The backward reads x, mod and gout twice (reduce, apply) where the
+// bound reads them once.
+//
+// Bound: device-memory bytes, as above.
+
+constexpr int kRowsInFlight = 8;  // pixels per thread loaded before they are reduced
+constexpr int kTileChannels = kMaxLanes * kVec;  // channels per block, at most
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+batch_stats_partial_kernel(const T* __restrict__ x, float* __restrict__ part, int64_t P,
+                           int C, int L, int64_t chunk) {
+  __shared__ float s_n[kWarps][kMaxLanes];
+  __shared__ float s_mean[kWarps][kTileChannels];
+  __shared__ float s_m2[kWarps][kTileChannels];
+  const int tid = threadIdx.x, lane = tid % L, R = kThreads / L;
+  const int c0 = blockIdx.y * L * kVec;
+  const int64_t start = blockIdx.x * chunk;
+  const int64_t end = start + chunk < P ? start + chunk : P;
+  const T* xs = x + c0 + lane * kVec;
+  float n = 0.f, mean[kVec], m2[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) mean[j] = m2[j] = 0.f;
+  for (int64_t p0 = start + tid / L; p0 < end; p0 += static_cast<int64_t>(R) * kRowsInFlight) {
+    float v[kRowsInFlight][kVec];
+    int cnt = 0;
+#pragma unroll
+    for (int u = 0; u < kRowsInFlight; ++u) {
+      const int64_t p = p0 + static_cast<int64_t>(u) * R;
+      if (p < end) {
+        load8(xs + p * C, v[u]);
+        cnt = u + 1;
+      }
+    }
+    float gm[kVec], gq[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) gm[j] = gq[j] = 0.f;
+#pragma unroll
+    for (int u = 0; u < kRowsInFlight; ++u)
+      if (u < cnt) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) gm[j] += v[u][j];
+      }
+    const float fc = static_cast<float>(cnt);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) gm[j] /= fc;
+#pragma unroll
+    for (int u = 0; u < kRowsInFlight; ++u)
+      if (u < cnt) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          const float d = v[u][j] - gm[j];
+          gq[j] += d * d;
+        }
+      }
+    chan_merge<kVec>(n, mean, m2, fc, gm, gq);
+  }
+  for (int off = 16; off >= L; off >>= 1) {
+    float mb[kVec], m2b[kVec];
+    const float nb = __shfl_xor_sync(0xffffffffu, n, off);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      mb[j] = __shfl_xor_sync(0xffffffffu, mean[j], off);
+      m2b[j] = __shfl_xor_sync(0xffffffffu, m2[j], off);
+    }
+    chan_merge<kVec>(n, mean, m2, nb, mb, m2b);
+  }
+  const int wl = tid & 31;
+  if (wl < L) {
+    s_n[tid >> 5][wl] = n;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      s_mean[tid >> 5][wl * kVec + j] = mean[j];
+      s_m2[tid >> 5][wl * kVec + j] = m2[j];
+    }
+  }
+  __syncthreads();
+  if (tid < L * kVec) {
+    float cn = 0.f, cm = 0.f, cq = 0.f;
+    for (int w = 0; w < kWarps; ++w)
+      chan_merge<1>(cn, &cm, &cq, s_n[w][tid / kVec], &s_mean[w][tid], &s_m2[w][tid]);
+    const int64_t total = static_cast<int64_t>(gridDim.x) * C;
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * C + c0 + tid;
+    part[i] = cn;
+    part[total + i] = cm;
+    part[2 * total + i] = cq;
+  }
+}
+
+// One thread per channel: the chunks' partials in chunk order -> mean,
+// rstd = 1/sqrt(biased var + eps) and shift = -mean * rstd.
+__global__ void batch_stats_final_kernel(const float* __restrict__ part, int chunks, int C,
+                                         float eps, float* __restrict__ mean_out,
+                                         float* __restrict__ rstd_out,
+                                         float* __restrict__ shift_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= C) return;
+  const int64_t total = static_cast<int64_t>(chunks) * C;
+  float n = 0.f, m = 0.f, q = 0.f;
+  for (int k = 0; k < chunks; ++k) {
+    const int64_t j = static_cast<int64_t>(k) * C + i;
+    chan_merge<1>(n, &m, &q, part[j], &part[total + j], &part[2 * total + j]);
+  }
+  const float r = __frcp_rn(__fsqrt_rn(__fadd_rn(__fdiv_rn(q, n), eps)));
+  mean_out[i] = m;
+  rstd_out[i] = r;
+  shift_out[i] = __fmul_rn(-m, r);
+}
+
+// x_hat, gz and gy of 8 channels, with the forward's operations: the affine
+// kernel's x * rstd + shift (batch) or the instance kernel's
+// (x - mean) * rstd, then the modulation.
+template <bool HAS_MOD, bool LRELU, bool INSTANCE>
+__device__ __forceinline__ void backward_terms(const float* xv, const float* gv,
+                                               const float* sv, const float* bv,
+                                               const float* m, const float* r, float slope,
+                                               float* xh, float* gz, float* gy) {
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    const float h = INSTANCE ? __fmul_rn(__fsub_rn(xv[k], m[k]), r[k])
+                             : __fadd_rn(__fmul_rn(xv[k], r[k]), __fmul_rn(-m[k], r[k]));
+    const float z = HAS_MOD ? __fadd_rn(__fmul_rn(h, sv[k]), bv[k]) : h;
+    const float g = (LRELU && !(z >= 0.f)) ? __fmul_rn(slope, gv[k]) : gv[k];
+    xh[k] = h;
+    gz[k] = g;
+    gy[k] = HAS_MOD ? __fmul_rn(g, sv[k]) : g;
+  }
+}
+
+// Partial sums of gy and gy * x_hat per (set, chunk, channel).
+template <typename T, bool HAS_MOD, bool LRELU, bool INSTANCE>
+__global__ void __launch_bounds__(kThreads)
+backward_partial_kernel(const T* __restrict__ x, const T* __restrict__ mod,
+                        const T* __restrict__ gout, const float* __restrict__ mean,
+                        const float* __restrict__ rstd, float* __restrict__ part, int64_t HW,
+                        int C, int L, int64_t chunk, float slope) {
+  __shared__ float s_a[kWarps][kTileChannels];
+  __shared__ float s_b[kWarps][kTileChannels];
+  const int tid = threadIdx.x, lane = tid % L, R = kThreads / L;
+  const int c0 = blockIdx.y * L * kVec, c = c0 + lane * kVec;
+  const int64_t start = blockIdx.x * chunk;
+  const int64_t end = start + chunk < HW ? start + chunk : HW;
+  const int64_t base = static_cast<int64_t>(blockIdx.z) * HW;  // the set's first pixel
+  float m[kVec], r[kVec];
+  load8(mean + static_cast<int64_t>(blockIdx.z) * C + c, m);
+  load8(rstd + static_cast<int64_t>(blockIdx.z) * C + c, r);
+  float a[kVec], b[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) a[j] = b[j] = 0.f;
+#pragma unroll 2
+  for (int64_t p = start + tid / L; p < end; p += R) {
+    const int64_t q = base + p;
+    float xv[kVec], gv[kVec], sv[kVec], bv[kVec], xh[kVec], gz[kVec], gy[kVec];
+    load8(x + q * C + c, xv);
+    load8(gout + q * C + c, gv);
+    if (HAS_MOD) {
+      load8(mod + q * 2 * C + c, sv);
+      load8(mod + q * 2 * C + C + c, bv);
+    }
+    backward_terms<HAS_MOD, LRELU, INSTANCE>(xv, gv, sv, bv, m, r, slope, xh, gz, gy);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      a[j] += gy[j];
+      b[j] += __fmul_rn(gy[j], xh[j]);
+    }
+  }
+  for (int off = 16; off >= L; off >>= 1) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      a[j] += __shfl_xor_sync(0xffffffffu, a[j], off);
+      b[j] += __shfl_xor_sync(0xffffffffu, b[j], off);
+    }
+  }
+  const int wl = tid & 31;
+  if (wl < L) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      s_a[tid >> 5][wl * kVec + j] = a[j];
+      s_b[tid >> 5][wl * kVec + j] = b[j];
+    }
+  }
+  __syncthreads();
+  if (tid < L * kVec) {
+    float sa = 0.f, sb = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      sa += s_a[w][tid];
+      sb += s_b[w][tid];
+    }
+    const int64_t total = static_cast<int64_t>(gridDim.z) * gridDim.x * C;
+    const int64_t i = (static_cast<int64_t>(blockIdx.z) * gridDim.x + blockIdx.x) * C + c0 + tid;
+    part[i] = sa;
+    part[total + i] = sb;
+  }
+}
+
+// One thread per (set, channel): coef = [mean_S(gy) | mean_S(gy * x_hat)].
+__global__ void backward_final_kernel(const float* __restrict__ part, int chunks, int sets,
+                                      int C, float count, float* __restrict__ coef) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= sets * C) return;
+  const int s = i / C, c = i - s * C;
+  const int64_t total = static_cast<int64_t>(sets) * chunks * C;
+  float a = 0.f, b = 0.f;
+  for (int k = 0; k < chunks; ++k) {
+    const int64_t j = (static_cast<int64_t>(s) * chunks + k) * C + c;
+    a += part[j];
+    b += part[total + j];
+  }
+  coef[i] = __fdiv_rn(a, count);
+  coef[static_cast<int64_t>(sets) * C + i] = __fdiv_rn(b, count);
+}
+
+// grad_x and grad_mod, one elementwise pass; grid (blocks, sets), each block
+// striding over its set's (pixel, 8-channel vector) pairs.
+template <typename T, bool HAS_MOD, bool LRELU, bool INSTANCE>
+__global__ void __launch_bounds__(kThreads)
+backward_apply_kernel(const T* __restrict__ x, const T* __restrict__ mod,
+                      const T* __restrict__ gout, const float* __restrict__ mean,
+                      const float* __restrict__ rstd, const float* __restrict__ coef,
+                      T* __restrict__ gx, T* __restrict__ gmod, int64_t HW, int C,
+                      float slope) {
+  const int C8 = C / kVec;
+  const int64_t total = HW * C8;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int64_t set = blockIdx.y, sc = set * C;
+  const int64_t coef2 = static_cast<int64_t>(gridDim.y) * C;
+  int64_t p = t / C8;
+  int c8 = static_cast<int>(t - p * C8);
+  const int64_t dp = stride / C8;
+  const int dc = static_cast<int>(stride - dp * C8);
+  for (; t < total; t += stride) {
+    const int c = c8 * kVec;
+    const int64_t q = set * HW + p;
+    float xv[kVec], gv[kVec], sv[kVec], bv[kVec], m[kVec], r[kVec], ca[kVec], cb[kVec];
+    float xh[kVec], gz[kVec], gy[kVec];
+    load8(x + q * C + c, xv);
+    load8(gout + q * C + c, gv);
+    if (HAS_MOD) {
+      load8(mod + q * 2 * C + c, sv);
+      load8(mod + q * 2 * C + C + c, bv);
+    }
+    load8(mean + sc + c, m);
+    load8(rstd + sc + c, r);
+    load8(coef + sc + c, ca);
+    load8(coef + coef2 + sc + c, cb);
+    backward_terms<HAS_MOD, LRELU, INSTANCE>(xv, gv, sv, bv, m, r, slope, xh, gz, gy);
+    float o[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+      o[k] = __fmul_rn(r[k], __fsub_rn(__fsub_rn(gy[k], ca[k]), __fmul_rn(xh[k], cb[k])));
+    store8(gx + q * C + c, o);
+    if (HAS_MOD) {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) o[k] = __fmul_rn(gz[k], xh[k]);
+      store8(gmod + q * 2 * C + c, o);
+      store8(gmod + q * 2 * C + C + c, gz);
+    }
+    p += dp;
+    c8 += dc;
+    if (c8 >= C8) {
+      c8 -= C8;
+      ++p;
+    }
+  }
 }
 
 int sm_count() {
@@ -688,6 +997,58 @@ struct Affine {
   template <typename... A> static void run(A... a) { launch_affine<T, M, R>(a...); }
 };
 
+
+// The reductions' launch: grid (chunks, C / (8 L), sets); false if the
+// shape is one the kernels do not take.
+bool reduce_grid(int sets, int64_t HW, int C, int L, int chunks, int64_t chunk, dim3* grid) {
+  if (sets < 1 || sets > 65535 || HW < 1 || chunks < 1 || chunk < 1 ||
+      chunk * chunks < HW || (chunks - 1) * chunk >= HW ||
+      (L != 1 && L != 2 && L != 4 && L != 8) || C < kVec * L || C % (kVec * L))
+    return false;
+  *grid = dim3(chunks, C / (kVec * L), sets);
+  return true;
+}
+
+template <typename T>
+void launch_batch_stats(const void* x, float* part, float* mean, float* rstd, float* shift,
+                        int64_t P, int C, int L, int chunks, int64_t chunk, float eps,
+                        dim3 grid, cudaStream_t stream) {
+  batch_stats_partial_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), part,
+                                                               P, C, L, chunk);
+  batch_stats_final_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      part, chunks, C, eps, mean, rstd, shift);
+}
+
+template <typename T, bool HAS_MOD, bool LRELU, bool INSTANCE>
+void launch_backward(const void* x, const void* mod, const void* gout, const float* mean,
+                     const float* rstd, float* part, float* coef, void* gx, void* gmod,
+                     int sets, int64_t HW, int C, int L, int chunks, int64_t chunk,
+                     float slope, dim3 grid, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const T* mt = static_cast<const T*>(mod);
+  const T* gt = static_cast<const T*>(gout);
+  backward_partial_kernel<T, HAS_MOD, LRELU, INSTANCE><<<grid, kThreads, 0, stream>>>(
+      xt, mt, gt, mean, rstd, part, HW, C, L, chunk, slope);
+  const int n = sets * C;
+  backward_final_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      part, chunks, sets, C, static_cast<float>(HW), coef);
+  const int64_t want = (HW * (C / kVec) + kThreads - 1) / kThreads;
+  const int64_t cap = static_cast<int64_t>(sm_count()) * (2048 / kThreads);
+  const int64_t per_set = (cap + sets - 1) / sets;
+  const int blocks = static_cast<int>(want < per_set ? want : per_set);
+  backward_apply_kernel<T, HAS_MOD, LRELU, INSTANCE><<<dim3(blocks, sets), kThreads, 0, stream>>>(
+      xt, mt, gt, mean, rstd, coef, static_cast<T*>(gx), static_cast<T*>(gmod), HW, C, slope);
+}
+
+template <typename T, bool M, bool R>
+struct Backward {
+  template <typename... A>
+  static void run(bool instance, A... a) {
+    if (instance) launch_backward<T, M, R, true>(a...);
+    else launch_backward<T, M, R, false>(a...);
+  }
+};
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  `mod` may be null (scale 1, offset 0).
@@ -706,16 +1067,17 @@ extern "C" int modnorm_affine(const void* x, const void* mod, const void* inv,
 }
 
 // The instance mode with the plan of deepsee_torch/ops/modnorm.py::
-// instance_plan: `tile` channels per slab (one or two 16-byte vectors per
+// instance_plan (training: `mean` and `rstd`, float32 (N, C), receive each
+// slab's statistics; null at inference): `tile` channels per slab (one or two 16-byte vectors per
 // pixel), `cluster` blocks per slab, `smem` bytes of dynamic shared memory
 // per block (the on-chip variant's chunk beyond `regs` 16-byte vectors per
 // thread held in registers: 0 or kRegVectors), `streaming` 0 or 1.  Returns the
 // launch's error, then cudaGetLastError(); cudaErrorInvalidValue for a plan
 // the kernel cannot take.
-extern "C" int modnorm_instance(const void* x, const void* mod, void* out, int N,
-                                int64_t HW, int C, int tile, int cluster, int smem,
-                                int streaming, int regs, float eps, int dtype, int lrelu,
-                                float slope, void* stream) {
+extern "C" int modnorm_instance(const void* x, const void* mod, void* out, void* mean,
+                                void* rstd, int N, int64_t HW, int C, int tile, int cluster,
+                                int smem, int streaming, int regs, float eps, int dtype,
+                                int lrelu, float slope, void* stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   const void* kernel = instance_launch(N, HW, C, tile, cluster, smem, streaming, regs, dtype,
@@ -725,7 +1087,7 @@ extern "C" int modnorm_instance(const void* x, const void* mod, void* out, int N
     cudaGetLastError();
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  void* args[] = {&x, &mod, &out, &HW, &C, &tile, &eps, &slope};
+  void* args[] = {&x, &mod, &out, &mean, &rstd, &HW, &C, &tile, &eps, &slope};
   const cudaError_t e = cudaLaunchKernelExC(&cfg, kernel, args);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
@@ -745,4 +1107,57 @@ extern "C" int modnorm_instance_clusters(int N, int64_t HW, int C, int tile, int
     n = -1;
   cudaGetLastError();
   return n;
+}
+
+// Training, batch statistics: per channel over the P = N*H*W pixels,
+// float32 mean, rstd and shift = -mean * rstd, for the affine kernel to
+// apply.  `part` is scratch of 3 * chunks * C floats; the plan (L, chunks,
+// chunk) is deepsee_torch/ops/modnorm.py::reduce_plan's for one set.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a plan the
+// kernels do not take.
+extern "C" int modnorm_batch_stats(const void* x, void* part, void* mean, void* rstd,
+                                   void* shift, int64_t P, int C, int L, int chunks,
+                                   int64_t chunk, float eps, int dtype, void* stream) {
+  dim3 grid;
+  if (!reduce_grid(1, P, C, L, chunks, chunk, &grid)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  float* m = static_cast<float*>(mean);
+  float* r = static_cast<float*>(rstd);
+  float* sh = static_cast<float*>(shift);
+  if (dtype == 0)
+    launch_batch_stats<float>(x, p, m, r, sh, P, C, L, chunks, chunk, eps, grid, s);
+  else
+    launch_batch_stats<__nv_bfloat16>(x, p, m, r, sh, P, C, L, chunks, chunk, eps, grid, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Training, the backward of either mode: grad_x (x's layout) and, where `mod`
+// is given, grad_mod (its 2C layout) from x, mod, gout and the forward's
+// float32 (sets, C) mean and rstd.  `instance` picks the forward's x_hat
+// formula.  `part` is scratch of 2 * sets * chunks * C floats, `coef` of
+// 2 * sets * C.  Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// plan the kernels do not take.
+extern "C" int modnorm_backward(const void* x, const void* mod, const void* gout,
+                                const void* mean, const void* rstd, void* part, void* coef,
+                                void* gx, void* gmod, int sets, int64_t HW, int C, int L,
+                                int chunks, int64_t chunk, int instance, int dtype, int lrelu,
+                                float slope, void* stream) {
+  dim3 grid;
+  if (!reduce_grid(sets, HW, C, L, chunks, chunk, &grid) || (mod != nullptr) != (gmod != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mean);
+  const float* r = static_cast<const float*>(rstd);
+  float* p = static_cast<float*>(part);
+  float* cf = static_cast<float*>(coef);
+  if (dtype == 0)
+    dispatch_flags<float, Backward>(mod != nullptr, lrelu != 0, instance != 0, x, mod, gout, m,
+                                    r, p, cf, gx, gmod, sets, HW, C, L, chunks, chunk, slope,
+                                    grid, s);
+  else
+    dispatch_flags<__nv_bfloat16, Backward>(mod != nullptr, lrelu != 0, instance != 0, x, mod,
+                                            gout, m, r, p, cf, gx, gmod, sets, HW, C, L,
+                                            chunks, chunk, slope, grid, s);
+  return static_cast<int>(cudaGetLastError());
 }

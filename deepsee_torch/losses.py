@@ -1,0 +1,68 @@
+"""GAN, feature-matching and perceptual losses, port of deepsee_tpu/losses.py
+(reference: networks/loss.py, sr_model.py:518-564).
+
+Discriminator outputs are list[scale] of list[layer] tensors with the logit
+last (the MultiscaleDiscriminator contract).  Loss arithmetic is float32;
+the real side of the feature-matching and VGG losses is detached.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+DiscOut = List[List[torch.Tensor]]
+
+
+def _logit_loss(logit: torch.Tensor, target_is_real: bool, for_discriminator: bool,
+                mode: str) -> torch.Tensor:
+    """One scale's loss on its final logit (loss.py:60-85)."""
+    x = logit.float()
+    if mode == "hinge":
+        if for_discriminator:
+            return torch.relu(1.0 - x).mean() if target_is_real else torch.relu(1.0 + x).mean()
+        if not target_is_real:
+            raise ValueError("the generator's hinge loss aims for real")
+        return -x.mean()
+    if mode == "ls":
+        return torch.square(x - (1.0 if target_is_real else 0.0)).mean()
+    if mode == "original":
+        target = 1.0 if target_is_real else 0.0
+        return (torch.clamp(x, min=0) - x * target + torch.log1p(torch.exp(-x.abs()))).mean()
+    if mode == "w":
+        return -x.mean() if target_is_real else x.mean()
+    raise ValueError(f"Unexpected gan_mode {mode}")
+
+
+def gan_loss(pred: DiscOut, target_is_real: bool, *, mode: str = "hinge",
+             for_discriminator: bool = True) -> torch.Tensor:
+    """Multiscale GAN loss: each scale's loss on its logit, summed, / num_D."""
+    per_scale = [_logit_loss(scale[-1], target_is_real, for_discriminator, mode)
+                 for scale in pred]
+    return torch.stack(per_scale).sum() / len(pred)
+
+
+def feature_matching_loss(pred_fake: DiscOut, pred_real: DiscOut,
+                          lambda_feat: float = 10.0) -> torch.Tensor:
+    """L1 between fake and detached real D features, every layer but the
+    logit, each * lambda / num_D (sr_model.py:529-539)."""
+    num_d = len(pred_fake)
+    total = torch.zeros((), device=pred_fake[0][0].device)
+    for fake_scale, real_scale in zip(pred_fake, pred_real):
+        for f, r in zip(fake_scale[:-1], real_scale[:-1]):
+            l1 = (f.float() - r.detach().float()).abs().mean()
+            total = total + l1 * (lambda_feat / num_d)
+    return total
+
+
+_VGG_WEIGHTS = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)  # loss.py:112
+
+
+def vgg_loss(feats_x: Sequence[torch.Tensor], feats_y: Sequence[torch.Tensor],
+             lambda_vgg: float = 10.0) -> torch.Tensor:
+    """Weighted L1 over the five VGG19 taps, y detached (loss.py:114-119)."""
+    total = torch.zeros((), device=feats_x[0].device)
+    for w, fx, fy in zip(_VGG_WEIGHTS, feats_x, feats_y):
+        total = total + w * (fx.float() - fy.detach().float()).abs().mean()
+    return total * lambda_vgg

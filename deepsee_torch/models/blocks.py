@@ -1,8 +1,11 @@
-"""SPADE residual block, port of deepsee_tpu/models/blocks.py (eval mode).
+"""SPADE residual block, port of deepsee_tpu/models/blocks.py.
 
 norm -> leaky ReLU -> conv, twice, plus the shortcut: the identity, or with
 fin != fout the learned one, norm_s -> spectral 1x1 conv_s (no leaky ReLU).
 Each norm -> leaky ReLU pair is one `modnorm` launch inside the norm module.
+Training with add_noise injects noise (blocks.py:49-69): noise_in on the
+input, noise_skip on the shortcut's input (the identity's too) and
+noise_middle after conv_0, drawn in that order from the caller's generator.
 """
 
 from __future__ import annotations
@@ -44,11 +47,15 @@ class SPADEResnetBlock(nn.Module):
         self.conv_1 = Conv2d(fmiddle, fout, 3, padding=1, spectral=spec.spectral)
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor,
-                style: Optional[torch.Tensor]) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("the training forward (noise injection) "
-                                      "is not ported yet; call .eval()")
-        x_s = self.conv_s(self.norm_s(x, seg, style)) if self.learned_shortcut else x
+                style: Optional[torch.Tensor], *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        add_noise = self.training and hasattr(self, "noise_in")
+        if add_noise:
+            x = self.noise_in(x, generator)
+        x_skip = self.noise_skip(x, generator) if add_noise else x
+        x_s = self.conv_s(self.norm_s(x_skip, seg, style)) if self.learned_shortcut else x_skip
         dx = self.conv_0(self.norm_0(x, seg, style, lrelu=True))
+        if add_noise:
+            dx = self.noise_middle(dx, generator)
         dx = self.conv_1(self.norm_1(dx, seg, style, lrelu=True))
         return x_s + dx

@@ -1,0 +1,91 @@
+"""Multiscale PatchGAN discriminator, port of
+deepsee_tpu/models/discriminator.py (reference: networks/discriminator.py).
+
+num_d NLayer discriminators; each coarser scale sees the input avg-pooled
+(3x3, stride 2, count_include_pad=False).  The input is the one-hot
+semantics concatenated with the image (semantic_nc + output_nc channels).
+Each NLayer discriminator returns all its activations, the logit last, for
+the feature-matching loss.
+
+The module tree follows the reference's nesting, so state_dict keys are the
+reference's: `discriminator_<i>.model<n>` is Sequential(layer, LeakyReLU),
+whose layer is the first or last raw conv (`model<n>.0.weight`) or a normed
+conv Sequential(conv, norm) (`model<n>.0.0.weight_orig`, `model<n>.0.1.*`).
+The normed layers' instance norm and leaky ReLU run as one `modnorm` launch
+(`modnorm_train` in training).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn as nn
+
+from deepsee_torch.config import ModelConfig
+from deepsee_torch.models.layers import Conv2d, NonSpadeNormConv
+from deepsee_torch.ops.norms import leaky_relu
+from deepsee_torch.ops.pooling import avg_pool_3x3_s2
+
+
+class _Layer(nn.Module):
+    """model<n>: a conv (raw, or conv + norm) at slot "0", then a leaky ReLU
+    (none after the last conv)."""
+
+    def __init__(self, layer: nn.Module, lrelu: bool):
+        super().__init__()
+        self.add_module("0", layer)
+        self.lrelu = lrelu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        layer = self._modules["0"]
+        if isinstance(layer, NonSpadeNormConv):
+            return layer(x, lrelu=self.lrelu)
+        y = layer(x)
+        return leaky_relu(y) if self.lrelu else y
+
+
+class NLayerDiscriminator(nn.Module):
+    """4-layer PatchGAN (discriminator.py:24-53): 4x4 convs with padding 2,
+    stride 2 (stride 1 on the last hidden layer), ndf -> min(2x, 512)
+    channels, norm_d on the hidden layers, not on the first and last."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.dtype = getattr(torch, cfg.compute_dtype)
+        nf = cfg.ndf
+        self.add_module("model0", _Layer(Conv2d(cfg.semantic_nc + cfg.output_nc, nf, 4, 2, 2),
+                                         lrelu=True))
+        for n in range(1, cfg.n_layers_d):
+            nf_prev, nf = nf, min(nf * 2, 512)
+            stride = 1 if n == cfg.n_layers_d - 1 else 2
+            self.add_module(f"model{n}", _Layer(
+                NonSpadeNormConv(nf_prev, nf, 4, stride, 2, cfg.norm_d), lrelu=True))
+        self.add_module(f"model{cfg.n_layers_d}", _Layer(Conv2d(nf, 1, 4, 1, 2), lrelu=False))
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        results = []
+        y = x.to(self.dtype)
+        for layer in self.children():
+            y = layer(y)
+            results.append(y)
+        return results
+
+
+class MultiscaleDiscriminator(nn.Module):
+    """num_d NLayer discriminators over progressively pooled inputs
+    (discriminator.py:56-73).  Returns a list (per scale) of lists (per
+    layer) of activations; the last of each inner list is the logit."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        for i in range(cfg.num_d):
+            self.add_module(f"discriminator_{i}", NLayerDiscriminator(cfg))
+
+    def forward(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
+        out = []
+        for i, d in enumerate(self.children()):
+            if i:
+                x = avg_pool_3x3_s2(x)
+            out.append(d(x))
+        return out

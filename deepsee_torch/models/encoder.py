@@ -1,7 +1,10 @@
 """Style encoders producing the (B, label_nc, style_size) regional style
-matrix, port of deepsee_tpu/models/encoder.py (eval mode):
+matrix, port of deepsee_tpu/models/encoder.py:
 `CombinedStyleEncoder` for the independent model, `FullStyleEncoder` (the
-full trunk on the HR guiding image) for the guided one.
+full trunk on the HR guiding image) for the guided one.  In training, the
+combined encoder runs both trunks, full then mini, as the JAX package does
+(encoder.py:207-227), so both trunks' and the shared head's spectral u/v
+advance on every forward; `use_full` picks the style.
 
 Both add the learned per-region style noise (encoder.py:50-70) unless
 no_noise: sigmoid(noise_weights)-gated noise, clipped to [-1, 1].  Every
@@ -122,8 +125,8 @@ class _FinalHead(nn.Module):
 
 
 class CombinedStyleEncoder(nn.Module):
-    """Both trunks and the shared head (encoder.py:184-233); a static
-    `use_full` picks the trunk that runs."""
+    """Both trunks and the shared head (encoder.py:184-233); in eval mode a
+    static `use_full` picks the trunk that runs, in train mode both run."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -139,11 +142,14 @@ class CombinedStyleEncoder(nn.Module):
                 x_mini: torch.Tensor, seg_mini: torch.Tensor, use_full: bool, *,
                 no_noise: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if use_full:
-            y, seg = self.encoder_full(x_full.to(self.dtype)), seg_full
-        else:
-            y, seg = self.encoder_mini(x_mini.to(self.dtype)), seg_mini
-        style = extract_style_matrix(self.final(y), seg)
+        styles = {}
+        if use_full or self.training:
+            styles[True] = extract_style_matrix(
+                self.final(self.encoder_full(x_full.to(self.dtype))), seg_full)
+        if not use_full or self.training:
+            styles[False] = extract_style_matrix(
+                self.final(self.encoder_mini(x_mini.to(self.dtype))), seg_mini)
+        style = styles[bool(use_full)]
         if not no_noise and self.cfg.noisy_style_scale > 0:
             style = style_noise(style, self.noise_weights, self.cfg, generator)
         return style

@@ -1,5 +1,4 @@
-"""DeepSEE super-resolution generator, port of deepsee_tpu/models/generator.py
-(eval mode).
+"""DeepSEE super-resolution generator, port of deepsee_tpu/models/generator.py.
 
 A constant 16*ngf-channel trunk: initial 3x3 conv on the LR input, a head
 block, nearest-2x upsample, two middle blocks, then (n_blocks - 1)
@@ -42,7 +41,8 @@ class Pix2PixResnetBlock(nn.Module):
                                                               "spectralinstance"))
 
     def forward(self, x: torch.Tensor, seg: Optional[torch.Tensor] = None,
-                style: Optional[torch.Tensor] = None) -> torch.Tensor:
+                style: Optional[torch.Tensor] = None, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         conv0, conv1 = self.conv_block._modules["1"], self.conv_block._modules["4"]
         y = torch.relu(conv0(F.pad(x, (1, 1, 1, 1), mode="reflect")))
         return x + conv1(F.pad(y, (1, 1, 1, 1), mode="reflect"))
@@ -77,15 +77,18 @@ class DeepSEEGenerator(nn.Module):
         self.conv_img = Conv2d(nf16, 3, 3, padding=1)
 
     def forward(self, lr_image: torch.Tensor, seg: torch.Tensor,
-                style: Optional[torch.Tensor]) -> torch.Tensor:
+                style: Optional[torch.Tensor], *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """lr_image (B, 3, h, w) in [-1, 1]; seg (B, semantic_nc, H, W)
         one-hot; style (B, label_nc, style_size).  NCHW in channels_last
-        memory.  Returns (B, 3, H, W) float32."""
+        memory.  Returns (B, 3, H, W) float32.  `generator` feeds the noise
+        injection of a train-mode forward with add_noise."""
+        kw = dict(generator=generator)
         x = self.initial(lr_image.to(self.dtype))
-        x = self.head_0(x, seg, style)
+        x = self.head_0(x, seg, style, **kw)
         x = upsample_nearest_2x(x)
-        x = self.G_middle_0(x, seg, style)
-        x = self.G_middle_1(x, seg, style)
+        x = self.G_middle_0(x, seg, style, **kw)
+        x = self.G_middle_1(x, seg, style, **kw)
         for block in self.up_list:
-            x = block(upsample_nearest_2x(x), seg, style)
+            x = block(upsample_nearest_2x(x), seg, style, **kw)
         return torch.tanh(self.conv_img(leaky_relu(x)).float())

@@ -1,4 +1,4 @@
-"""Foundational layers, port of deepsee_tpu/models/layers.py (eval mode).
+"""Foundational layers, port of deepsee_tpu/models/layers.py.
 
 Conventions of the port: activations are NCHW tensors held in channels_last
 memory; conv weights are OIHW float32 parameters, cast to the activation's
@@ -7,8 +7,11 @@ modules, so `state_dict()` keys are the layout `export_torch_state` writes.
 
 Parameters are created as zeros; `init_params(generator)` gives each module
 the JAX package's initializers from an explicit torch.Generator (see
-deepsee_torch/system.py::SRSystem.init).  Training mode (spectral power
-iteration, batch statistics) belongs to the training slice and raises.
+deepsee_torch/system.py::SRSystem.init).  In training mode (`.train()`)
+spectral convs run one power iteration per forward and batch norms use and
+update batch statistics, as torch and the JAX package do on any train-mode
+forward, under torch.no_grad too; a training forward refuses to run under
+torch.inference_mode, whose tensors autograd cannot save.
 """
 
 from __future__ import annotations
@@ -21,8 +24,36 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deepsee_torch.config import parse_nonspade_norm
-from deepsee_torch.ops.modnorm import modnorm
+from deepsee_torch.ops.modnorm import modnorm, modnorm_train
 from deepsee_torch.ops.norms import leaky_relu
+
+BN_MOMENTUM = 0.1
+
+
+def check_training_forward(module: nn.Module) -> None:
+    """Raise where a train-mode forward runs under torch.inference_mode."""
+    if torch.is_inference_mode_enabled():
+        raise RuntimeError(f"{type(module).__name__}: a training-mode forward cannot run "
+                           "under torch.inference_mode; use torch.no_grad")
+
+
+def update_running_stats(running_mean: torch.Tensor, running_var: torch.Tensor,
+                         mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+    """torch's running-stat update: momentum 0.1, the unbiased variance of
+    the n values per channel."""
+    with torch.no_grad():
+        m = BN_MOMENTUM
+        running_mean.copy_((1 - m) * running_mean + m * mean)
+        running_var.copy_((1 - m) * running_var + m * (var * (n / max(1, n - 1))))
+
+
+def draw_injection_noise(shape, generator: Optional[torch.Generator],
+                         device: torch.device) -> torch.Tensor:
+    """The noise injection's one random draw: N(0, 1) float32 of the NHWC
+    `shape` (the JAX package's layout), from `generator` on `device`."""
+    if generator is None:
+        raise ValueError("noise injection needs an explicit torch.Generator")
+    return torch.randn(shape, generator=generator, device=device)
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -42,9 +73,12 @@ def xavier_normal_(w: torch.Tensor, generator: torch.Generator,
         w.copy_(torch.randn(w.shape, generator=generator) * std)
 
 
+def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return v / (v.norm() + eps)
+
+
 def _unit_normal(n: int, generator: torch.Generator) -> torch.Tensor:
-    v = torch.randn(n, generator=generator)
-    return v / (v.norm() + 1e-12)
+    return _l2_normalize(torch.randn(n, generator=generator))
 
 
 class Conv2d(nn.Module):
@@ -52,8 +86,11 @@ class Conv2d(nn.Module):
 
     With `spectral`, the weight is `weight_orig` and the buffers `weight_u`
     (out,) and `weight_v` (in*kh*kw, torch's flatten order), as
-    torch.nn.utils.spectral_norm stores them; the eval forward divides by
-    sigma = u . W v with the stored vectors.
+    torch.nn.utils.spectral_norm stores them; the forward divides by
+    sigma = u . W v.  In training, one power iteration on the detached W
+    first updates u and v in place; sigma then uses clones of them, as
+    torch.nn.utils.spectral_norm does, so the next forward's update does
+    not touch tensors autograd saved, and the gradient flows through W only.
     """
 
     def __init__(self, fin: int, fout: int, kernel_size: int = 3, stride: int = 1,
@@ -80,11 +117,18 @@ class Conv2d(nn.Module):
     def effective_weight(self) -> torch.Tensor:
         if not self.spectral:
             return self.weight
-        if self.training:
-            raise NotImplementedError("spectral-norm power iteration (training) "
-                                      "is not ported yet; call .eval()")
         w = self.weight_orig
-        sigma = torch.dot(self.weight_u, w.reshape(w.shape[0], -1) @ self.weight_v)
+        w_mat = w.reshape(w.shape[0], -1)
+        u, v = self.weight_u, self.weight_v
+        if self.training:
+            check_training_forward(self)
+            with torch.no_grad():
+                v = _l2_normalize(w_mat.t() @ u)
+                u = _l2_normalize(w_mat @ v)
+                self.weight_u.copy_(u)
+                self.weight_v.copy_(v)
+            u, v = self.weight_u.clone(), self.weight_v.clone()
+        sigma = torch.dot(u, w_mat @ v)
         return w / sigma
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -92,7 +136,11 @@ class Conv2d(nn.Module):
 
 
 class TorchBatchNorm(nn.Module):
-    """Eval-mode BatchNorm2d from running statistics (layers.py:214-263).
+    """BatchNorm2d with torch's train/eval semantics (layers.py:214-263):
+    eval normalizes with the running statistics; train with the batch's
+    (biased variance, float32) and updates the running ones.  Plain PyTorch:
+    only the encoder and discriminator norm strings "batch"/"sync_batch",
+    which no preset uses, reach it.
 
     With `affine`, `weight` holds the JAX package's `scale` parameter: the
     multiplier applied is weight + 1 (its init N(0, 0.02) mirrors torch's
@@ -117,11 +165,17 @@ class TorchBatchNorm(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean, var = self.running_mean, self.running_var
         if self.training:
-            raise NotImplementedError("train-mode batch norm is not ported yet; "
-                                      "call .eval()")
-        inv = torch.rsqrt(self.running_var + self.eps)
-        scale, offset = inv, -self.running_mean * inv
+            check_training_forward(self)
+            xf = x.float()
+            mean = xf.mean((0, 2, 3))
+            d = xf - mean[:, None, None]
+            var = (d * d).mean((0, 2, 3))
+            update_running_stats(self.running_mean, self.running_var, mean, var,
+                                 x.shape[0] * x.shape[2] * x.shape[3])
+        inv = torch.rsqrt(var + self.eps)
+        scale, offset = inv, -mean * inv
         if self.affine:
             w = self.weight + 1.0
             scale, offset = scale * w, offset * w + self.bias
@@ -130,10 +184,11 @@ class TorchBatchNorm(nn.Module):
 
 
 class NoiseInjection(nn.Module):
-    """Per-channel StyleGAN2 noise weight (layers.py:266-282).
+    """x + w_c * N(0, 1), the per-channel StyleGAN2 noise (layers.py:266-282).
 
-    Only training with add_noise injects noise; inference carries the weight
-    so checkpoints map one to one.
+    Only training with add_noise calls it; inference carries the weight so
+    checkpoints map one to one.  The noise is drawn in the JAX package's
+    NHWC layout by `draw_injection_noise` from the caller's generator.
     """
 
     def __init__(self, features: int):
@@ -143,6 +198,12 @@ class NoiseInjection(nn.Module):
     def init_params(self, generator: torch.Generator) -> None:
         nn.init.zeros_(self.weight)
 
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        b, c, h, w = x.shape
+        noise = draw_injection_noise((b, h, w, c), generator, x.device).permute(0, 3, 1, 2)
+        y = x + self.weight.to(x.dtype)[:, None, None] * noise.to(x.dtype)
+        return y.contiguous(memory_format=torch.channels_last)
+
 
 class NonSpadeNormConv(nn.Module):
     """A conv followed by the encoder norm string's norm (layers.py:285-315).
@@ -150,7 +211,7 @@ class NonSpadeNormConv(nn.Module):
     Children follow the reference's Sequential(conv, norm): the conv is "0"
     and a batch norm "1"; the conv has a bias only when no norm follows.
     The instance norm and the optional leaky ReLU after it run as one
-    `modnorm` launch.
+    `modnorm` launch (`modnorm_train` in training).
     """
 
     def __init__(self, fin: int, fout: int, kernel_size: int = 3, stride: int = 1,
@@ -165,6 +226,8 @@ class NonSpadeNormConv(nn.Module):
     def forward(self, x: torch.Tensor, *, lrelu: bool = False) -> torch.Tensor:
         y = self._modules["0"](x)
         if self.sub == "instance":
+            if self.training:
+                return modnorm_train(y, stats="instance", lrelu=lrelu)[0]
             return modnorm(y, stats="instance", lrelu=lrelu)
         if self.sub != "none":
             y = self._modules["1"](y)

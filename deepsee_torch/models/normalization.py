@@ -1,11 +1,12 @@
 """Semantic modulation blocks SPADE, SEAN and PureSEAN, port of
-deepsee_tpu/models/normalization.py (eval mode).
+deepsee_tpu/models/normalization.py.
 
 Each block computes norm(x) * scale + offset, where scale/offset come from
 ONE conv with 2C outputs (SPADE and SEAN fold the +1 of the scale into its
 bias; PureSEAN has none), and the whole epilogue -- normalize, modulate and
 the leaky ReLU that SPADEResnetBlock applies next -- is one `modnorm` kernel
-launch that reads the conv output as it is.
+launch that reads the conv output as it is (`modnorm_train` in training,
+with batch statistics and a backward kernel).
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deepsee_torch.config import ModelConfig
-from deepsee_torch.models.layers import Conv2d, conv2d, xavier_normal_
-from deepsee_torch.ops.modnorm import modnorm
+from deepsee_torch.models.layers import (Conv2d, check_training_forward, conv2d,
+                                         update_running_stats, xavier_normal_)
+from deepsee_torch.ops.modnorm import modnorm, modnorm_train
 from deepsee_torch.ops.resize import resize2d
 
 _NHIDDEN = 128  # the reference's embedding width (normalization.py:38)
@@ -80,8 +82,13 @@ class ParamFreeNorm(nn.Module):
     """The param-free part of SPADE/SEAN -- instance or (sync)batch norm --
     applied together with the modulation and optional leaky ReLU.
 
-    The batch kinds carry `running_mean`/`running_var` (eval mode only).
+    The batch kinds carry `running_mean`/`running_var`: eval mode normalizes
+    with them; train mode with the batch's statistics over (N, H, W), which
+    the kernel returns, and then updates them (momentum 0.1, unbiased
+    variance).
     """
+
+    EPS = 1e-5
 
     def __init__(self, features: int, kind: str):
         super().__init__()
@@ -97,13 +104,19 @@ class ParamFreeNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mod: Optional[torch.Tensor] = None, *,
                 lrelu: bool = False) -> torch.Tensor:
+        if self.training:
+            check_training_forward(self)
+            stats = "instance" if self.kind == "instance" else "batch"
+            out, mean, rstd = modnorm_train(x, mod, stats=stats, eps=self.EPS, lrelu=lrelu)
+            if stats == "batch":
+                b, _, h, w = x.shape
+                var = rstd.pow(-2) - self.EPS
+                update_running_stats(self.running_mean, self.running_var, mean, var, b * h * w)
+            return out
         if self.kind == "instance":
             return modnorm(x, mod, stats="instance", lrelu=lrelu)
-        if self.training:
-            raise NotImplementedError("train-mode batch norm is not ported yet; "
-                                      "call .eval()")
         return modnorm(x, mod, stats="affine", mean=self.running_mean,
-                       var=self.running_var, lrelu=lrelu)
+                       var=self.running_var, eps=self.EPS, lrelu=lrelu)
 
 
 def _mlp_shared(cfg: ModelConfig) -> nn.Sequential:

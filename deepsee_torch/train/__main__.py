@@ -1,0 +1,102 @@
+"""python -m deepsee_torch.train: the training entry point of the port (the
+flags of the root train.py that this slice serves).
+
+    python -m deepsee_torch.train --name 8x_independent_256x256 --synthetic --max_steps 20
+
+Runs on the card unless --device cpu is given, and raises without one.  The
+flags of slices not ported yet are refused with a message naming the slice:
+real datasets (--image_dir and the rest: the data path), mesh and
+multi-host flags (multi-GPU), the evaluation flags (evaluation), remat.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+from typing import List, Optional
+
+from deepsee_torch.config import get_preset
+
+# flag -> the slice it waits for
+_LATER = {
+    "image_dir": "the data-path slice", "label_dir": "the data-path slice",
+    "image_dir_val": "the data-path slice", "label_dir_val": "the data-path slice",
+    "identities_file": "the data-path slice",
+    "data_axis": "the multi-GPU slice", "model_axis": "the multi-GPU slice",
+    "dcn_axis": "the multi-GPU slice", "multihost": "the multi-GPU slice",
+    "partition": "the multi-GPU slice",
+    "inception_weights": "the evaluation slice", "alexnet_weights": "the evaluation slice",
+    "evaluate_val_set": "the evaluation slice", "num_evaluation_samples": "the evaluation slice",
+    "remat": "a later PR (a recompute would advance the batch statistics twice)",
+    "remat_policy": "a later PR (a recompute would advance the batch statistics twice)",
+}
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--name", default="8x_independent_256x256", help="preset name")
+    p.add_argument("--checkpoints_dir", default="./checkpoints")
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--niter", type=int, default=None)
+    p.add_argument("--niter_decay", type=int, default=None)
+    p.add_argument("--continue_train", action="store_true")
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on synthetic data (the only data of this slice)")
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--compute_dtype", default=None, choices=("bfloat16", "float32"))
+    p.add_argument("--vgg_weights", default="",
+                   help="torchvision vgg19 state dict (.pth/.npz) for the perceptual loss; "
+                        "random features and a warning without it")
+    p.add_argument("--evaluation_freq", type=int, default=None,
+                   help="samples between in-training evaluations (not ported: 0 disables "
+                        "them, a trigger raises)")
+    p.add_argument("--reuse_fake", action="store_true",
+                   help="train D on the G step's fake instead of regenerating it with the "
+                        "updated G (an opt-in deviation from the reference's schedule)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    for flag in ("image_dir", "label_dir", "image_dir_val", "label_dir_val", "identities_file",
+                 "partition", "inception_weights", "alexnet_weights", "remat_policy"):
+        p.add_argument(f"--{flag}", default=None, help=f"not ported: {_LATER[flag]}")
+    for flag in ("data_axis", "model_axis", "dcn_axis", "num_evaluation_samples"):
+        p.add_argument(f"--{flag}", type=int, default=None, help=f"not ported: {_LATER[flag]}")
+    for flag in ("multihost", "evaluate_val_set", "remat"):
+        p.add_argument(f"--{flag}", action="store_true", default=None,
+                       help=f"not ported: {_LATER[flag]}")
+    args = p.parse_args(argv)
+    for flag, slice_name in _LATER.items():
+        if getattr(args, flag) is not None:
+            p.error(f"--{flag} belongs to {slice_name} of the port, which this package "
+                    "does not have yet")
+    if not args.synthetic:
+        p.error("real datasets belong to the data-path slice of the port; pass --synthetic")
+    return args
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = parse_args(argv)
+    from deepsee_torch.train.loop import Trainer
+
+    exp = get_preset(args.name)
+    train = exp.train
+    for field, value in (("batch_size", args.batch_size), ("lr", args.lr),
+                         ("niter", args.niter), ("niter_decay", args.niter_decay),
+                         ("evaluation_freq", args.evaluation_freq)):
+        if value is not None:
+            train = dataclasses.replace(train, **{field: value})
+    train = dataclasses.replace(train, vgg_weights=args.vgg_weights,
+                                reuse_fake=args.reuse_fake or train.reuse_fake)
+    model = exp.model
+    if args.compute_dtype:
+        model = dataclasses.replace(model, compute_dtype=args.compute_dtype)
+    exp = exp.replace(train=train, model=model, checkpoints_dir=args.checkpoints_dir)
+    trainer = Trainer(exp, device=args.device, continue_train=args.continue_train)
+    state = trainer.run(max_steps=args.max_steps)
+    print(f"trained {state.step} steps on {trainer.system.device}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

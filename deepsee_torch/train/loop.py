@@ -1,0 +1,123 @@
+"""The trainer, port of deepsee_tpu/train/loop.py (reference: train.py:18-127).
+
+Epoch/iteration loop over the GAN step with:
+  * a G step every `d_steps_per_g`-th iteration, a D step every iteration
+    (train.py:40-44);
+  * the per-epoch TTUR lr decay (trainer_manager.py:76-96);
+  * the periodic print / display / save triggers of IterationCounter
+    (train.py:49-105); an evaluation trigger raises, since in-training
+    evaluation (FID, LPIPS) belongs to the evaluation slice;
+  * a crash-safe save of "latest" in a finally block (train.py:119-127).
+
+It runs on one card (or the CPU with device="cpu") on any iterable of NHWC
+numpy batch dicts with a length, by default the synthetic dataset.
+"""
+
+from __future__ import annotations
+
+import traceback
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from deepsee_torch.config import Experiment
+from deepsee_torch.data import Batches, SyntheticDataset
+from deepsee_torch.system import SRSystem
+from deepsee_torch.train.state import TrainState, create_train_state, set_epoch_lr
+from deepsee_torch.train.steps import make_train_step
+from deepsee_torch.utils.checkpoint import CheckpointManager
+from deepsee_torch.utils.iter_counter import IterationCounter
+from deepsee_torch.utils.visualizer import Visualizer
+
+
+class Trainer:
+    def __init__(self, exp: Experiment, device: Optional[str | torch.device] = None,
+                 continue_train: bool = False):
+        if not exp.is_train:
+            raise ValueError("Trainer needs a training experiment (is_train=True)")
+        self.exp = exp
+        self.continue_train = continue_train
+        self.system = SRSystem(exp, device=device)
+        self.state: TrainState = create_train_state(self.system)
+        self.ckpt = CheckpointManager(exp)
+        if continue_train and self.ckpt.exists("latest"):
+            self.ckpt.restore(self.state, "latest")
+            print(f"Restored checkpoint at step {self.state.step}")
+        self.step_gd = make_train_step(self.system, do_g=True)
+        self.step_d = (make_train_step(self.system, do_g=False)
+                       if exp.train.d_steps_per_g > 1 else None)
+
+    def run(self, batches=None, max_steps: Optional[int] = None) -> TrainState:
+        """Train over `batches` (an iterable of NHWC numpy batch dicts with a
+        length, iterated once per epoch; by default the synthetic dataset in
+        batches of batch_size) until the last epoch or `max_steps`."""
+        exp, tc = self.exp, self.exp.train
+        if batches is None:
+            batches = Batches(SyntheticDataset(exp), tc.batch_size)
+        steps_per_epoch = len(batches)
+        counter = IterationCounter(exp, steps_per_epoch * tc.batch_size,
+                                   continue_train=self.continue_train)
+        visualizer = Visualizer(exp)
+        logs: Dict[str, torch.Tensor] = {}
+        try:
+            for epoch in counter.training_epochs():
+                counter.record_epoch_start(epoch)
+                self.state.epoch = epoch
+                set_epoch_lr(self.state, epoch)
+                for i, batch in enumerate(batches):
+                    if i >= steps_per_epoch:
+                        break
+                    do_g = i % tc.d_steps_per_g == 0
+                    step_fn = self.step_gd if do_g or self.step_d is None else self.step_d
+                    logs = step_fn(self.state, batch)
+                    counter.record_one_iteration()
+                    if counter.needs_printing():
+                        visualizer.print_current_errors(
+                            epoch, counter.epoch_iter, {k: float(v) for k, v in logs.items()},
+                            counter.time_per_iter)
+                    if counter.needs_displaying():
+                        self._display(visualizer, batch, epoch, counter.total_steps_so_far)
+                    if counter.needs_saving():
+                        self.ckpt.save(self.state, "latest")
+                        counter.record_current_iter()
+                    if counter.needs_evaluation() and epoch >= tc.evaluation_start_epoch:
+                        raise NotImplementedError(
+                            "in-training evaluation (FID, LPIPS) belongs to the evaluation "
+                            "slice, not ported yet; set evaluation_freq to 0 to train without")
+                    if max_steps and self.state.step >= max_steps:
+                        return self.state
+                counter.record_epoch_end()
+                if epoch % tc.save_epoch_freq == 0:
+                    self.ckpt.save(self.state, str(epoch))
+        except KeyboardInterrupt:
+            print("Interrupted: saving 'latest' before exit (train.py:119-127)")
+            raise
+        except Exception:
+            traceback.print_exc()
+            raise
+        finally:
+            try:
+                self.ckpt.save(self.state, "latest")
+                counter.record_current_iter()
+            except Exception as e:  # noqa: BLE001 - report, keep the first error
+                print(f"crash-save failed: {e}")
+        print("Training was successfully finished.")
+        return self.state
+
+    def _display(self, visualizer: Visualizer, batch: Dict, epoch: int, step: int) -> None:
+        """The first sample's label, LR input, eval-mode output and HR image."""
+        system = self.system
+        nets = [n for n in (system.generator, system.encoder) if n is not None]
+        for n in nets:
+            n.eval()
+        try:
+            pre = system.preprocess(batch)
+            fake, _ = system.generate(pre, use_full=system.cfg.full_style_image)
+        finally:
+            for n in nets:
+                n.train()
+        visuals = {"input_label": pre["label"], "image_lr": pre["image_lr"],
+                   "synthesized_image": fake, "real_image": pre["image_hr"]}
+        visualizer.display_current_results(
+            {k: np.asarray(v[0].float().cpu()) for k, v in visuals.items()}, epoch, step)

@@ -1,5 +1,5 @@
 """Weight bridge: the JAX package's variable trees -> the port's state_dict,
-and the reference's released `<epoch>_net_{SR,E}.pth` files -> the port.
+and the reference's `<epoch>_net_{SR,E,D}.pth` files <-> the port.
 
 Takes one network's `{"params", "batch_stats", "spectral"}` tree as nested
 mappings of arrays (numpy, or anything `np.asarray` accepts) and returns a
@@ -27,8 +27,9 @@ import torch.nn.functional as F
 from deepsee_torch.models.layers import Conv2d
 from deepsee_torch.models.normalization import ConvParams, ParamFreeNorm
 
-__all__ = ["jax_to_state_dict", "randomize_weights", "load_reference_checkpoint",
-           "reference_state_dict"]
+__all__ = ["jax_to_state_dict", "vgg_jax_to_state_dict", "randomize_weights",
+           "load_reference_checkpoint", "reference_state_dict", "complete_for_reference",
+           "save_reference_checkpoint"]
 
 _RULES = (
     # generator: up_<i> modules live in an nn.ModuleList named up_list
@@ -53,6 +54,11 @@ _RULES = (
     # pix2pixHD block: Sequential(pad, Seq(conv, norm), relu, pad, Seq(conv, norm))
     (re.compile(r"(^|\.)conv_block_0\.conv$"), r"\1conv_block.1.0"),
     (re.compile(r"(^|\.)conv_block_1\.conv$"), r"\1conv_block.4.0"),
+    # discriminator: Sequential(layer, LeakyReLU), the hidden layers'
+    # layer itself Sequential(conv, norm)
+    (re.compile(r"(^|\.)(model\d+)\.conv$"), r"\1\2.0.0"),
+    (re.compile(r"(^|\.)(model\d+)\.norm$"), r"\1\2.0.1"),
+    (re.compile(r"(^|\.)(model\d+)$"), r"\1\2.0"),
 )
 
 _LEAF = {"kernel": "weight", "bias": "bias", "mean": "running_mean",
@@ -98,6 +104,24 @@ def jax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                 kh, kw, cin, _ = params[path[:-1] + ("kernel",)].shape
                 arr = arr.reshape(kh, kw, cin).transpose(2, 0, 1).reshape(-1)
             sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return sd
+
+
+def vgg_jax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's VGG19 tree ({"params": {"conv<i>_kernel" (HWIO),
+    "conv<i>_bias"}}) -> the port's torchvision-layout state_dict
+    (`features.<N>.weight` OIHW, `features.<N>.bias`)."""
+    from deepsee_torch.models.vgg import VGG19Features
+
+    params = variables.get("params", variables)
+    index = [int(k.split(".")[1]) for k in VGG19Features().state_dict() if k.endswith("weight")]
+    sd = {}
+    for i, n in enumerate(index):
+        kernel = np.array(params[f"conv{i}_kernel"], dtype=np.float32)
+        sd[f"features.{n}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+        sd[f"features.{n}.bias"] = torch.from_numpy(
+            np.array(params[f"conv{i}_bias"], dtype=np.float32))
     return sd
 
 
@@ -150,13 +174,56 @@ def reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return {k: v for k, v in sd.items() if not _DEAD_KEY.search(k)}
 
 
-def load_reference_checkpoint(system, checkpoint_dir: str, epoch: str = "latest") -> None:
+def load_reference_checkpoint(system, checkpoint_dir: str, epoch: str = "latest",
+                              include_d: bool = False) -> None:
     """Load `<epoch>_net_SR.pth` (and `<epoch>_net_E.pth` where the system
-    has an encoder) from `checkpoint_dir` into `system`'s networks with
-    strict key checking."""
+    has an encoder, `<epoch>_net_D.pth` with include_d) from
+    `checkpoint_dir` into `system`'s networks with strict key checking."""
     nets = {"SR": system.generator, "E": system.encoder}
+    if include_d:
+        nets["D"] = system.discriminator
     for tag, net in nets.items():
         if net is None:
             continue
         path = os.path.join(checkpoint_dir, f"{epoch}_net_{tag}.pth")
         net.load_state_dict(reference_state_dict(path), strict=True)
+
+
+def complete_for_reference(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The port's state_dict plus the keys of the reference's modules that
+    the port does not build (an own copy of
+    deepsee_tpu/utils/torch_import.py:249-280), as zeros the reference never
+    reads, so its strict `load_state_dict` takes the file: torch's
+    `num_batches_tracked` beside every running mean, the dead `style_conv`
+    of every SEAN/PureSEAN block, the dead per-trunk `final` heads of the
+    combined encoder."""
+    out = {k: v.detach().cpu() for k, v in sd.items()}
+    if any(k.startswith("encoder_full.") for k in sd):
+        for key, val in sd.items():
+            if key.startswith("final."):
+                out["encoder_full." + key] = torch.zeros_like(out[key])
+                out["encoder_mini." + key] = torch.zeros_like(out[key])
+    for key in list(out):
+        if key.endswith("running_mean"):
+            out[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(
+                0, dtype=torch.int64)
+        if key.endswith("mlp_style_gamma.weight"):
+            base = key[: -len("mlp_style_gamma.weight")]
+            out[base + "style_conv.weight"] = torch.zeros(19, 19, 1)
+            out[base + "style_conv.bias"] = torch.zeros(19)
+    return out
+
+
+def save_reference_checkpoint(nets: Mapping[str, torch.nn.Module], checkpoint_dir: str,
+                              epoch: str = "latest") -> Dict[str, str]:
+    """Write `<epoch>_net_<tag>.pth` for each {tag: network} in the
+    reference's save_network format ({"model": state_dict}, util/util.py:
+    217-224); returns {tag: path}."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    written = {}
+    for tag, net in nets.items():
+        path = os.path.join(checkpoint_dir, f"{epoch}_net_{tag}.pth")
+        torch.save({"model": complete_for_reference(net.state_dict())}, path + ".tmp")
+        os.replace(path + ".tmp", path)  # a crash never leaves half a file
+        written[tag] = path
+    return written

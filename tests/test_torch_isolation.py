@@ -3,6 +3,7 @@ deepsee_tpu, it refuses to fall back to the CPU, and chip_smoke.py fails
 without a card and outside a checkout."""
 
 import ast
+import dataclasses
 import os
 import pathlib
 import shutil
@@ -59,8 +60,25 @@ def test_system_without_card_raises(monkeypatch):
 
 
 def test_system_refuses_training_config():
-    with pytest.raises(NotImplementedError):
-        SRSystem(tiny_test_experiment(), device="cpu")
+    """The training system is built (D and VGG beside G and E, in train
+    mode); what it refuses is remat, which is not ported."""
+    exp = tiny_test_experiment()
+    with pytest.raises(NotImplementedError, match="remat"):
+        SRSystem(exp.replace(train=dataclasses.replace(exp.train, remat=True)), device="cpu")
+    system = SRSystem(exp, device="cpu")
+    assert system.discriminator.training and system.generator.training
+    assert not system.vgg.training
+    assert not any(p.requires_grad for p in system.vgg.parameters())
+
+
+def test_training_entry_points_without_card_raise(monkeypatch):
+    from deepsee_torch.train.loop import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SRSystem(tiny_test_experiment())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(tiny_test_experiment())
 
 
 def _chip_smoke(cwd, env):

@@ -134,7 +134,8 @@ def test_tiny_guided_slice_on_card_matches_cpu(cuda_device):
     mn.reset_launches()
     got, _ = card.generate(card.preprocess(batch))
     torch.cuda.synchronize()
-    assert mn.launches == {"affine": 2 * (2 + exp.model.n_blocks), "instance": 5}
+    assert {k: n for k, n in mn.launches.items() if n} == {
+        "affine": 2 * (2 + exp.model.n_blocks), "instance": 5}
     want, _ = cpu.generate(cpu.preprocess(batch))
     assert 0.1 < float(want.std()) < 0.9
     assert float((got.cpu() - want).abs().max()) <= 1e-4
@@ -229,3 +230,121 @@ def test_instance_kernel_refuses_a_plan_it_cannot_take(cuda_device, monkeypatch)
         with pytest.raises(ValueError):
             mn.modnorm(x, stats="instance")
         assert mn.launches["instance"] == before
+
+
+# -- training: batch statistics, statistics out, the backward -----------------
+
+# (B, C, H, W): the discriminator's odd sizes (65^2, 17^2, 18^2), a
+# generator-like batch shape, an 8-channel tile
+TRAIN_SHAPES = {"65x65": (4, 64, 65, 65), "17x17": (4, 128, 17, 17), "18x18": (2, 256, 18, 18),
+                "generator": (2, 512, 32, 32), "C=24": (3, 24, 20, 20)}
+
+
+def _train_within(got, want, dtype, rel=1e-5):
+    """Both sides compute in float32 from the same inputs and round once;
+    the statistics and the backward's sums are taken in other orders (chunk
+    partials merged with Chan's formula against the plain version's
+    reductions): 1e-5 of max|want|; bf16 adds 1 bf16 ulp of |want|."""
+    want = want.float()
+    slack = rel * float(want.abs().max())
+    if dtype == torch.bfloat16:
+        slack = slack + torch.finfo(torch.bfloat16).eps * want.abs()
+    return bool(((got.float() - want).abs() <= slack).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TRAIN_SHAPES))
+@pytest.mark.parametrize("stats", ["batch", "instance"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_mod,lrelu", [(False, True), (True, True), (True, False)])
+def test_train_kernels_match_plain_on_card(cuda_device, case, stats, dtype, with_mod, lrelu):
+    shape = TRAIN_SHAPES[case]
+    x, mod, _, _ = _inputs(cuda_device, dtype, shape=shape, with_mod=with_mod)
+    gout = _inputs(cuda_device, dtype, shape=shape, with_mod=False, seed=1)[0]
+    key = "batch" if stats == "batch" else "instance_train"
+    before = dict(mn.launches)
+    out, mean, rstd = mn.modnorm_train(x, mod, stats=stats, lrelu=lrelu)
+    torch.cuda.synchronize()
+    assert mn.launches[key] == before[key] + 1
+    assert out.is_contiguous(memory_format=torch.channels_last) and out.dtype == dtype
+    want, wmean, wrstd = mn.modnorm_train_plain(x, mod, stats=stats, lrelu=lrelu)
+    assert mean.shape == wmean.shape and rstd.shape == wrstd.shape
+    torch.testing.assert_close(mean, wmean, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, wrstd, rtol=1e-5, atol=0)
+    assert _train_within(out, want, dtype)
+    # the backward on the plain version's statistics, against its plain version
+    gx, gmod = mn.modnorm_backward(x, mod, gout, wmean, wrstd, stats=stats, lrelu=lrelu)
+    torch.cuda.synchronize()
+    assert mn.launches["backward_" + stats] == before["backward_" + stats] + 1
+    wgx, wgmod = mn.modnorm_backward_plain(x, mod, gout, wmean, wrstd, stats=stats,
+                                           lrelu=lrelu)
+    assert gx.is_contiguous(memory_format=torch.channels_last) and gx.dtype == dtype
+    assert _train_within(gx, wgx, dtype)
+    assert (gmod is None) == (not with_mod)
+    if with_mod:
+        assert _train_within(gmod, wgmod, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", ["batch", "instance"])
+def test_train_autograd_on_card_matches_cpu(cuda_device, stats):
+    """A conv -> modnorm_train -> loss graph, float32: the gradients of x,
+    the conv weight and mod on the card (kernels) against the CPU (plain
+    versions), 1e-4 of the largest; an incoming gradient in NCHW memory is
+    copied into channels_last and counted."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(2, 8, 17, 17).astype(np.float32))
+    w = torch.from_numpy(0.2 * rng.randn(16, 8, 3, 3).astype(np.float32))
+    mod = torch.from_numpy(rng.randn(2, 32, 17, 17).astype(np.float32))
+    target = torch.from_numpy(rng.randn(2, 16, 17, 17).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        cl = torch.channels_last
+        xs, ws, ms = [t.to(dev).contiguous(memory_format=cl).requires_grad_()
+                      for t in (x, w, mod)]
+        y = torch.nn.functional.conv2d(xs, ws, padding=1).contiguous(memory_format=cl)
+        out, _, _ = mn.modnorm_train(y, ms, stats=stats, lrelu=True)
+        mn.reset_launches()
+        loss = ((out.contiguous() - target.to(dev)) ** 2).sum()  # NCHW gradient
+        grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(loss, [xs, ws, ms])]
+    assert mn.launches["backward_" + stats] == 1 and mn.layout_copies["backward"] == 1
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_train_kernels_refuse_what_they_do_not_take(cuda_device):
+    x, mod, _, _ = _inputs(cuda_device, torch.bfloat16, shape=(2, 64, 9, 9))
+    out, mean, rstd = mn.modnorm_train(x, mod, stats="batch")
+    bad = [
+        lambda: mn.modnorm_train(x.contiguous(), mod, stats="batch"),        # NCHW memory
+        lambda: mn.modnorm_train(x, mod.float(), stats="instance"),          # mixed dtypes
+        lambda: mn.modnorm_backward(x, mod, out.contiguous(), mean, rstd, stats="batch"),
+        lambda: mn.modnorm_backward(x, mod, out, mean[:32], rstd[:32], stats="batch"),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+
+
+@pytest.mark.cuda
+def test_avg_pool_gradient_on_card_matches_float64(cuda_device):
+    """The discriminator's 3x3 / 2 pooling (count_include_pad=False) from a
+    channels_last float32 input on the card: output and input gradient
+    against float64 on the CPU, 1e-6 relative L2 (PyTorch's channels_last
+    CUDA backward of this pooling is wrong; the port pools contiguous
+    memory)."""
+    from deepsee_torch.ops.pooling import avg_pool_3x3_s2
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(2, 22, 128, 128))
+    r = torch.from_numpy(rng.randn(2, 22, 64, 64))
+    xd = x.clone().requires_grad_()
+    want = torch.nn.functional.avg_pool2d(xd, 3, 2, 1, count_include_pad=False)
+    (gwant,) = torch.autograd.grad((want * r).sum(), [xd])
+    xc = x.float().to(cuda_device).contiguous(memory_format=torch.channels_last)
+    xc.requires_grad_()
+    got = avg_pool_3x3_s2(xc)
+    (gx,) = torch.autograd.grad((got * r.float().to(cuda_device)).sum(), [xc])
+    for a, b in ((got.detach(), want.detach()), (gx, gwant)):
+        assert float((a.double().cpu() - b).norm() / b.norm()) <= 1e-6

@@ -107,14 +107,25 @@ def test_torch_batch_norm_eval_matches_jax(affine):
     port = load(tlayers.TorchBatchNorm(8, affine=affine), v)
     np.testing.assert_allclose(nhwc(port(nchw(x)).detach()), np.asarray(want),
                                rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        port.train()(nchw(x))
+    # eval mode leaves the running statistics as they are
+    np.testing.assert_array_equal(port.running_mean.numpy(),
+                                  np.asarray(v["batch_stats"]["mean"]))
 
 
 def test_spectral_conv_refuses_training_mode():
+    """A training-mode forward (power iteration, batch statistics) refuses
+    to run under torch.inference_mode, whose tensors autograd cannot save;
+    under torch.no_grad it runs and updates u and v."""
     conv = tlayers.Conv2d(4, 4, spectral=True)
-    with pytest.raises(NotImplementedError):
-        conv(torch.zeros(1, 4, 4, 4))
+    conv.init_params(torch.Generator().manual_seed(0))
+    x = torch.randn(1, 4, 4, 4).contiguous(memory_format=torch.channels_last)
+    u = conv.weight_u.clone()
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="inference_mode"):
+        conv(x)
+    torch.testing.assert_close(conv.weight_u, u, rtol=0, atol=0)
+    with torch.no_grad():
+        conv(x)
+    assert not torch.equal(conv.weight_u, u)
 
 
 @pytest.mark.parametrize("trunk", ["mini", "full"])

@@ -10,6 +10,7 @@ matrix 1e-6 (values of order 1e-2).
 
 import dataclasses
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -144,11 +145,18 @@ def test_config_copy_matches_jax(name):
     else:
         port_exp, ref_exp = get_preset(name), jax_get_preset(name)
     for f in dataclasses.fields(port_exp):
-        if f.name != "model":
+        if f.name not in ("model", "train"):
             assert getattr(port_exp, f.name) == getattr(ref_exp, f.name), f.name
+    for f in dataclasses.fields(port_exp.train):
+        assert getattr(port_exp.train, f.name) == getattr(ref_exp.train, f.name), f.name
+    for method in ("g_lr", "d_lr"):
+        assert getattr(port_exp.train, method)() == getattr(ref_exp.train, method)()
+    for epoch in (1, 50, 51, 60, 75, 80):
+        assert port_exp.train.epoch_lr_scale(epoch) == ref_exp.train.epoch_lr_scale(epoch)
+    assert json.loads(port_exp.to_json())["train"] == dataclasses.asdict(port_exp.train)
     port, ref = port_exp.model, ref_exp.model
     for f in dataclasses.fields(port):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
-    assert (port.semantic_nc, port.n_blocks, port.use_encoder) == (
-        ref.semantic_nc, ref.n_blocks, ref.use_encoder)
+    assert (port.semantic_nc, port.n_blocks, port.use_encoder, port.model_variant) == (
+        ref.semantic_nc, ref.n_blocks, ref.use_encoder, ref.model_variant)
     assert dataclasses.asdict(port.norm_g_spec) == dataclasses.asdict(ref.norm_g_spec)
