@@ -19,8 +19,8 @@
 //     norm(x) = x * inv[c] + shift[c] with inv = rsqrt(var + eps) and
 //     shift = -mean * inv precomputed by the wrapper from the running stats.
 //   * instance (per sample and channel over H*W, the encoder's norm).
-// Training adds batch statistics (per channel over N*H*W, then the affine
-// kernel), the instance kernel's statistics written out, and the backward
+// Training adds batch statistics (per channel over N*H*W, one cooperative
+// launch), the instance kernel's statistics written out, and the backward
 // of both: see "training" below.
 //
 // Bound: device-memory bytes.  Each mode must read x once (and the 2C
@@ -276,15 +276,19 @@ __device__ __forceinline__ void chan_merge(float& n, float* mean, float* m2, flo
 }
 
 // y <- normalize, modulate, leaky ReLU, for the V = 16 / sizeof(T) channels
-// of one 16-byte vector; sc/of are the raw 16-byte scale and offset.
-template <typename T, bool HAS_MOD, bool LRELU>
-__device__ __forceinline__ uint4 apply16(const uint4 xr, const float* mean, const float* inv,
+// of one 16-byte vector; sc/of are the raw 16-byte scale and offset.  The
+// instance mode normalizes as (x - p) * q with p = mean, q = 1/std; AFFINE
+// (batch statistics) as the affine kernel does, x * p + q with p = rstd,
+// q = -mean * rstd.
+template <typename T, bool AFFINE, bool HAS_MOD, bool LRELU>
+__device__ __forceinline__ uint4 apply16(const uint4 xr, const float* p, const float* q,
                                          const uint4 sc, const uint4 of, float slope) {
   constexpr int V = 16 / sizeof(T);
   float y[V];
   unpack16<T>(xr, y);
 #pragma unroll
-  for (int k = 0; k < V; ++k) y[k] = __fmul_rn(__fsub_rn(y[k], mean[k]), inv[k]);
+  for (int k = 0; k < V; ++k)
+    y[k] = AFFINE ? __fadd_rn(__fmul_rn(y[k], p[k]), q[k]) : __fmul_rn(__fsub_rn(y[k], p[k]), q[k]);
   if (HAS_MOD) {
     float s[V], o[V];
     unpack16<T>(sc, s);
@@ -577,7 +581,7 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
         of = __ldcs(reinterpret_cast<const uint4*>(mt + q * 2 * C + C));
       }
       __stcs(reinterpret_cast<uint4*>(ot + q * C),
-             apply16<T, HAS_MOD, LRELU>(reg[k], mean, inv, sc, of, slope));
+             apply16<T, false, HAS_MOD, LRELU>(reg[k], mean, inv, sc, of, slope));
     }
   }
   const int steps = (ns + U - 1) / U;
@@ -600,7 +604,7 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
     for (int u = 0; u < U; ++u) {
       if (k0 + u < nk)
         __stcs(reinterpret_cast<uint4*>(ot + pix(k0 + u) * C),
-               apply16<T, HAS_MOD, LRELU>(xr[u], mean, inv, sc[u], of[u], slope));
+               apply16<T, false, HAS_MOD, LRELU>(xr[u], mean, inv, sc[u], of[u], slope));
     }
   }
   cluster_wait();
@@ -625,137 +629,248 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
 // recomputes x_hat and z from x and mod with the forward's own operations,
 // so the leaky ReLU's mask is the forward's.
 //
-// The reductions (the batch statistics; the backward's mean_S(gy) and
-// mean_S(gy * x_hat)) cut each set's pixels into chunks; a block takes one
+// Every sum is taken in a fixed order, so a result never changes from run to
+// run (no float atomics).  Bound: device-memory bytes, as above.
+//
+// The batch forward (modnorm_batch_kernel) is one cooperative launch of at
+// most the blocks the card holds at once (cudaLaunchKernelEx with
+// cudaLaunchAttributeCooperative; the host's plan, deepsee_torch/ops/
+// modnorm.py::batch_plan, sizes the grid from the blocks per SM that
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor reports).  Block i takes
+// channel tile i % (C / tile), up to one 128-byte line of each pixel, over
+// run i / (C / tile) of the N*H*W pixels, so that the blocks in flight
+// together read whole pixel rows.  On the H100 a three-launch design
+// (statistics partials, a serial merge, the affine kernel) lost half its
+// time in the statistics: the partials streamed at 17-47 % of the HBM rate
+// (one group of loads in flight per thread, then a dependent chain with
+// divisions) and the one-thread-per-channel merge took as long again.
+// Here:
+//   * the run's first pixels, as many as the block's shared memory holds,
+//     are copied there once with cp.async (all in flight at once); the rest
+//     streams through registers, a group of kInFlight 16-byte loads per
+//     thread issued while the previous group is summed;
+//   * a thread sums d = x - K and d * d, with K the run's first pixel (the
+//     shifted-data form: no division in the loop, and no cancellation
+//     beyond the data's own spread); the block turns its sums into the
+//     run's (mean, centred M2) once;
+//   * the runs' partials go to device memory, the grid synchronizes
+//     (cg::this_grid().sync()), and every block of a channel tile merges its
+//     tile's runs with Chan's formula in run order (never E[x^2] - E[x]^2),
+//     so all of them hold the same statistics;
+//   * the apply pass, x * rstd + (-mean * rstd) as the affine kernel and
+//     the backward compute it, reads the streamed pixels again in reverse
+//     (the newest lines come from L2) and the rest from shared memory.
+// Where every run fits its block's shared memory (32^2 and 64^2 at batch 4
+// for 512 bf16 channels), x leaves device memory once.
+//
+// The instance backward (modnorm_instance_backward_kernel) mirrors the
+// instance forward: one cluster launch, each (sample, channel tile) slab
+// split along H*W over the blocks of a cluster (deepsee_torch/ops/
+// modnorm.py::instance_backward_plan).  On-chip, each block copies its
+// chunk of x and gout (and mod) into shared memory once with cp.async, sums
+// gy and gy * x_hat from the copy, adds the ranks' sums in rank order
+// through distributed shared memory, and writes grad_x and grad_mod from
+// the copy: the traffic is the bound's.  Slabs whose chunks would not leave
+// room for two blocks per SM stream, and read the chunk again in reverse
+// for the apply pass (the newest lines come from L2).  Where the slabs are
+// small (the discriminator's) the launch is bound by latency, not bytes:
+// one cluster launch where the earlier design made three.
+//
+// The batch backward cuts the N*H*W pixels into chunks; a block takes one
 // chunk for L 8-channel vectors (L = 1, 2, 4 or 8): thread tid reads lane
 // tid % L at rows tid / L, tid / L + R, ... of its chunk (R = kThreads / L),
 // 16-byte vector loads, neighbouring threads on neighbouring channels.  A
 // thread's partials combine over its warp's rows by shuffles and over the
-// block's warps in warp order; a second kernel combines the blocks' partials
-// over the chunks in chunk order.  Every sum is taken in a fixed order, so a
-// result never changes from run to run (no float atomics).  The statistics
-// are (count, mean, centred M2) partials merged with Chan's formula, never
-// E[x^2] - E[x]^2.  The batch forward then runs the affine kernel above with
-// inv = rstd and shift = -mean * rstd: two reads of x where the bound has
-// one.  The backward reads x, mod and gout twice (reduce, apply) where the
-// bound reads them once.
-//
-// Bound: device-memory bytes, as above.
+// block's warps in warp order; a second kernel adds the blocks' partials in
+// chunk order, and a third writes the gradients.  It reads x, mod and gout
+// twice (reduce, apply) where the bound reads them once: 11 tensor passes
+// where the bound has 7 with mod.
 
-constexpr int kRowsInFlight = 8;  // pixels per thread loaded before they are reduced
 constexpr int kTileChannels = kMaxLanes * kVec;  // channels per block, at most
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-batch_stats_partial_kernel(const T* __restrict__ x, float* __restrict__ part, int64_t P,
-                           int C, int L, int64_t chunk) {
-  __shared__ float s_n[kWarps][kMaxLanes];
-  __shared__ float s_mean[kWarps][kTileChannels];
-  __shared__ float s_m2[kWarps][kTileChannels];
-  const int tid = threadIdx.x, lane = tid % L, R = kThreads / L;
-  const int c0 = blockIdx.y * L * kVec;
-  const int64_t start = blockIdx.x * chunk;
-  const int64_t end = start + chunk < P ? start + chunk : P;
-  const T* xs = x + c0 + lane * kVec;
-  float n = 0.f, mean[kVec], m2[kVec];
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// The batch forward.  Grid: runs * (C / tile) blocks, launched cooperatively;
+// block i takes channel tile ct = i % (C / tile) over the pixels
+// [r * P / runs, (r + 1) * P / runs) of x, r = i / (C / tile).  Thread tid
+// takes the run's 16-byte vectors v = tid + k * kThreads (pixel v / L at
+// channels lane * V.. of the tile, lane = tid % L); the run's first
+// `resident` vectors live in shared-memory slot v.  `part` receives each
+// run's (mean, M2) per channel: [2][runs][C].
+template <typename T, bool HAS_MOD, bool LRELU>
+__global__ void __launch_bounds__(kThreads, 2)
+modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __restrict__ out,
+                     float* __restrict__ part, float* __restrict__ mean_out,
+                     float* __restrict__ rstd_out, int64_t P, int C, int tile, int runs,
+                     int resident, float eps, float slope) {
+  constexpr int V = 16 / sizeof(T);        // channels per 16-byte vector
+  constexpr int U = kStep;
+  extern __shared__ uint4 s_x[];           // the run's first `resident` vectors
+  __shared__ float s_red[kWarps][kMaxTile];
+  __shared__ float s_sum[2][kMaxTile];     // the block's sums of d and d * d per channel
+  __shared__ float s_grp[3][kThreads];     // (count, mean, M2) of each group of runs
+  __shared__ float s_stat[2 * kMaxTile];   // rstd[tile], -mean * rstd[tile]
+
+  const int tid = threadIdx.x;
+  const int tiles = C / tile;
+  const int ct = blockIdx.x % tiles, r = blockIdx.x / tiles;
+  const int L = tile / V;                  // vectors per pixel: 1, 2, 4 or 8
+  const int shift = __ffs(L) - 1;
+  const int lane = tid & (L - 1);
+  const int64_t start = r * P / runs;
+  const int npix = static_cast<int>((r + 1) * P / runs - start);
+  const int nvec = npix * L;
+  const int nk = tid < nvec ? (nvec - 1 - tid) / kThreads + 1 : 0;
+  const int rv = min(nvec, resident);
+  const int nks = tid < rv ? (rv - 1 - tid) / kThreads + 1 : 0;  // k < nks: in shared memory
+  const int c0 = ct * tile + lane * V;
+  const T* xt = x + start * C + c0;        // pixel q of the run: xt + q * C
+  auto pix = [&](int k) { return static_cast<int64_t>((tid + k * kThreads) >> shift); };
+  auto slot = [&](int k) { return tid + k * kThreads; };
+  auto group = [&](int g) { return nks * g / kGroups; };  // first vector of commit group g
+
+  // the resident vectors: every copy in flight at once, in kGroups groups
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) mean[j] = m2[j] = 0.f;
-  for (int64_t p0 = start + tid / L; p0 < end; p0 += static_cast<int64_t>(R) * kRowsInFlight) {
-    float v[kRowsInFlight][kVec];
-    int cnt = 0;
+  for (int g = 0; g < kGroups; ++g) {
+    for (int k = group(g); k < group(g + 1); ++k) cp_async16(&s_x[slot(k)], xt + pix(k) * C);
+    cp_async_commit();
+  }
+  // sums of d = x - K and d * d, K the run's first pixel
+  float K[V], s1[V], s2[V];
+  unpack16<T>(__ldg(reinterpret_cast<const uint4*>(xt)), K);
 #pragma unroll
-    for (int u = 0; u < kRowsInFlight; ++u) {
-      const int64_t p = p0 + static_cast<int64_t>(u) * R;
-      if (p < end) {
-        load8(xs + p * C, v[u]);
-        cnt = u + 1;
+  for (int j = 0; j < V; ++j) s1[j] = s2[j] = 0.f;
+  auto add = [&](const uint4 raw) {
+    float v[V];
+    unpack16<T>(raw, v);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float d = v[j] - K[j];
+      s1[j] += d;
+      s2[j] = fmaf(d, d, s2[j]);
+    }
+  };
+  // the streamed vectors: the next group's loads in flight while one is summed
+  if (nks < nk) {
+    uint4 cur[kInFlight] = {}, nxt[kInFlight] = {};
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u)
+      if (nks + u < nk) cur[u] = __ldg(reinterpret_cast<const uint4*>(xt + pix(nks + u) * C));
+    for (int k0 = nks; k0 < nk; k0 += kInFlight) {
+      const int kn = k0 + kInFlight;
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u)
+        if (kn + u < nk) nxt[u] = __ldg(reinterpret_cast<const uint4*>(xt + pix(kn + u) * C));
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u)
+        if (k0 + u < nk) add(cur[u]);
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) cur[u] = nxt[u];
+    }
+  }
+  // the resident vectors, each group as it lands (a thread reads only the
+  // vectors it copied itself, so its own wait suffices)
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    if (g == 0) cp_async_wait<kGroups - 1>();
+    else if (g == 1) cp_async_wait<kGroups - 2>();
+    else if (g == 2) cp_async_wait<kGroups - 3>();
+    else cp_async_wait<0>();
+#pragma unroll 4
+    for (int k = group(g); k < group(g + 1); ++k) add(s_x[slot(k)]);
+  }
+  block_sum<V>(s1, L, tile, 1.f, s_red, s_sum[0]);
+  block_sum<V>(s2, L, tile, 1.f, s_red, s_sum[1]);
+  if (tid < tile) {  // the run's mean and centred M2 of channel tid
+    const int c = ct * tile + tid;
+    const float n = static_cast<float>(npix), a = s_sum[0][tid];
+    const float da = a / n;
+    part[static_cast<int64_t>(r) * C + c] = to_float(x[start * C + c]) + da;
+    part[static_cast<int64_t>(runs + r) * C + c] = fmaxf(s_sum[1][tid] - a * da, 0.f);
+  }
+  cg::this_grid().sync();
+
+  // the tile's runs merged in run order: thread (g, j) merges runs
+  // [g * runs / G, (g + 1) * runs / G) of channel j, then thread j the G
+  // groups.  Every block of the tile does the same, so all hold the same
+  // statistics.
+  {
+    const int G = kThreads / tile, j = tid % tile, g = tid / tile;
+    const int c = ct * tile + j;
+    float n = 0.f, m = 0.f, q = 0.f;
+    for (int i = g * runs / G; i < (g + 1) * runs / G; ++i) {
+      const float ni = static_cast<float>((i + 1) * P / runs - i * P / runs);
+      const float mi = __ldcg(part + static_cast<int64_t>(i) * C + c);
+      const float qi = __ldcg(part + static_cast<int64_t>(runs + i) * C + c);
+      chan_merge<1>(n, &m, &q, ni, &mi, &qi);
+    }
+    s_grp[0][tid] = n;
+    s_grp[1][tid] = m;
+    s_grp[2][tid] = q;
+    __syncthreads();
+    if (tid < tile) {
+      n = m = q = 0.f;
+      for (int h = 0; h < G; ++h)
+        chan_merge<1>(n, &m, &q, s_grp[0][h * tile + tid], &s_grp[1][h * tile + tid],
+                      &s_grp[2][h * tile + tid]);
+      const float rs = __frcp_rn(__fsqrt_rn(__fadd_rn(__fdiv_rn(q, static_cast<float>(P)), eps)));
+      s_stat[tid] = rs;
+      s_stat[kMaxTile + tid] = __fmul_rn(-m, rs);
+      if (r == 0) {
+        mean_out[c] = m;
+        rstd_out[c] = rs;
       }
     }
-    float gm[kVec], gq[kVec];
+    __syncthreads();
+  }
+
+  // apply: the streamed vectors again, newest first (they come from L2),
+  // then the resident ones from shared memory
+  float a[V], b[V];
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) gm[j] = gq[j] = 0.f;
+  for (int j = 0; j < V; ++j) {
+    a[j] = s_stat[lane * V + j];
+    b[j] = s_stat[kMaxTile + lane * V + j];
+  }
+  const T* mt = HAS_MOD ? mod + start * 2 * C + c0 : nullptr;  // pixel q: mt + q * 2C
+  T* ot = out + start * C + c0;
+  auto apply_step = [&](int k0, int end, bool resident_step) {
+    uint4 xr[U], sc[U] = {}, of[U] = {};
 #pragma unroll
-    for (int u = 0; u < kRowsInFlight; ++u)
-      if (u < cnt) {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) gm[j] += v[u][j];
-      }
-    const float fc = static_cast<float>(cnt);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) gm[j] /= fc;
-#pragma unroll
-    for (int u = 0; u < kRowsInFlight; ++u)
-      if (u < cnt) {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          const float d = v[u][j] - gm[j];
-          gq[j] += d * d;
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u < end) {
+        const int64_t q = pix(k0 + u);
+        xr[u] = resident_step ? s_x[slot(k0 + u)]
+                              : __ldcs(reinterpret_cast<const uint4*>(xt + q * C));
+        if (HAS_MOD) {
+          sc[u] = __ldcs(reinterpret_cast<const uint4*>(mt + q * 2 * C));
+          of[u] = __ldcs(reinterpret_cast<const uint4*>(mt + q * 2 * C + C));
         }
       }
-    chan_merge<kVec>(n, mean, m2, fc, gm, gq);
-  }
-  for (int off = 16; off >= L; off >>= 1) {
-    float mb[kVec], m2b[kVec];
-    const float nb = __shfl_xor_sync(0xffffffffu, n, off);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      mb[j] = __shfl_xor_sync(0xffffffffu, mean[j], off);
-      m2b[j] = __shfl_xor_sync(0xffffffffu, m2[j], off);
     }
-    chan_merge<kVec>(n, mean, m2, nb, mb, m2b);
-  }
-  const int wl = tid & 31;
-  if (wl < L) {
-    s_n[tid >> 5][wl] = n;
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      s_mean[tid >> 5][wl * kVec + j] = mean[j];
-      s_m2[tid >> 5][wl * kVec + j] = m2[j];
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u < end)
+        __stcs(reinterpret_cast<uint4*>(ot + pix(k0 + u) * C),
+               apply16<T, true, HAS_MOD, LRELU>(xr[u], a, b, sc[u], of[u], slope));
     }
-  }
-  __syncthreads();
-  if (tid < L * kVec) {
-    float cn = 0.f, cm = 0.f, cq = 0.f;
-    for (int w = 0; w < kWarps; ++w)
-      chan_merge<1>(cn, &cm, &cq, s_n[w][tid / kVec], &s_mean[w][tid], &s_m2[w][tid]);
-    const int64_t total = static_cast<int64_t>(gridDim.x) * C;
-    const int64_t i = static_cast<int64_t>(blockIdx.x) * C + c0 + tid;
-    part[i] = cn;
-    part[total + i] = cm;
-    part[2 * total + i] = cq;
-  }
+  };
+  const int steps = (nk - nks + U - 1) / U;
+  for (int i = steps - 1; i >= 0; --i) apply_step(nks + i * U, nk, false);
+  for (int k0 = 0; k0 < nks; k0 += U) apply_step(k0, nks, true);
 }
 
-// One thread per channel: the chunks' partials in chunk order -> mean,
-// rstd = 1/sqrt(biased var + eps) and shift = -mean * rstd.
-__global__ void batch_stats_final_kernel(const float* __restrict__ part, int chunks, int C,
-                                         float eps, float* __restrict__ mean_out,
-                                         float* __restrict__ rstd_out,
-                                         float* __restrict__ shift_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C) return;
-  const int64_t total = static_cast<int64_t>(chunks) * C;
-  float n = 0.f, m = 0.f, q = 0.f;
-  for (int k = 0; k < chunks; ++k) {
-    const int64_t j = static_cast<int64_t>(k) * C + i;
-    chan_merge<1>(n, &m, &q, part[j], &part[total + j], &part[2 * total + j]);
-  }
-  const float r = __frcp_rn(__fsqrt_rn(__fadd_rn(__fdiv_rn(q, n), eps)));
-  mean_out[i] = m;
-  rstd_out[i] = r;
-  shift_out[i] = __fmul_rn(-m, r);
-}
-
-// x_hat, gz and gy of 8 channels, with the forward's operations: the affine
-// kernel's x * rstd + shift (batch) or the instance kernel's
+// x_hat, gz and gy of V channels, with the forward's operations: the affine
+// kernel's x * rstd + (-mean * rstd) (batch) or the instance kernel's
 // (x - mean) * rstd, then the modulation.
-template <bool HAS_MOD, bool LRELU, bool INSTANCE>
+template <int V, bool HAS_MOD, bool LRELU, bool INSTANCE>
 __device__ __forceinline__ void backward_terms(const float* xv, const float* gv,
                                                const float* sv, const float* bv,
                                                const float* m, const float* r, float slope,
                                                float* xh, float* gz, float* gy) {
 #pragma unroll
-  for (int k = 0; k < kVec; ++k) {
+  for (int k = 0; k < V; ++k) {
     const float h = INSTANCE ? __fmul_rn(__fsub_rn(xv[k], m[k]), r[k])
                              : __fadd_rn(__fmul_rn(xv[k], r[k]), __fmul_rn(-m[k], r[k]));
     const float z = HAS_MOD ? __fadd_rn(__fmul_rn(h, sv[k]), bv[k]) : h;
@@ -766,29 +881,230 @@ __device__ __forceinline__ void backward_terms(const float* xv, const float* gv,
   }
 }
 
-// Partial sums of gy and gy * x_hat per (set, chunk, channel).
-template <typename T, bool HAS_MOD, bool LRELU, bool INSTANCE>
+// The instance backward.  Grid (cluster * C / tile, B), cluster (cluster, 1,
+// 1); blocks and threads as modnorm_instance_kernel's.  Tensor t of (x, gout,
+// scale, offset) has the thread's vector k in shared-memory slot
+// t * stride + tid + k * kThreads (on-chip), stride = the largest chunk's
+// vectors per thread times kThreads.  On-chip without mod, registers are
+// held to three blocks per SM (chunks up to ~64 KB), so that one block's
+// cluster barrier overlaps the others' traffic.
+template <typename T, bool STREAM, bool HAS_MOD, bool LRELU>
+__global__ void __launch_bounds__(kThreads, STREAM || HAS_MOD ? 2 : 3)
+modnorm_instance_backward_kernel(const T* __restrict__ x, const T* __restrict__ mod,
+                                 const T* __restrict__ gout, const float* __restrict__ mean,
+                                 const float* __restrict__ rstd, T* __restrict__ gx,
+                                 T* __restrict__ gmod, int64_t HW, int C, int tile,
+                                 float slope) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int NT = HAS_MOD ? 4 : 2;      // tensors read per pixel
+  // vectors a step, U * NT loads in flight: streaming without mod keeps 16
+  // per thread (its grids hold about one block per SM)
+  constexpr int U = STREAM && !HAS_MOD ? 2 * kStep : 2;
+  extern __shared__ uint4 s_x[];
+  __shared__ float s_red[kWarps][kMaxTile];
+  __shared__ float s_red2[kWarps][kMaxTile];
+  __shared__ float s_part[2 * kMaxTile];   // sums of gy and gy * x_hat, read by the cluster
+  __shared__ float s_coef[2 * kMaxTile];   // their means over the slab
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int L = tile / V;
+  const int shift = __ffs(L) - 1;
+  const int lane = tid & (L - 1);
+  const int64_t start = rank * HW / K;
+  const int npix = static_cast<int>((rank + 1) * HW / K - start);
+  const int nvec = npix * L;
+  const int nk = tid < nvec ? (nvec - 1 - tid) / kThreads + 1 : 0;
+  const int stride =
+      static_cast<int>(((HW + K - 1) / K * L + kThreads - 1) / kThreads * kThreads);
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * HW + start;  // first pixel
+  const int c0 = (blockIdx.x / K) * tile + lane * V;
+  auto pix = [&](int k) { return static_cast<int64_t>((tid + k * kThreads) >> shift); };
+  auto slot = [&](int t, int k) { return t * stride + tid + k * kThreads; };
+  auto group = [&](int g) { return nk * g / kGroups; };
+  auto at = [&](int t, int k) {  // tensor t's vector k in device memory
+    const int64_t q = base + pix(k);
+    const T* p = t == 0 ? x + q * C : t == 1 ? gout + q * C : mod + q * 2 * C + (t == 3 ? C : 0);
+    return reinterpret_cast<const uint4*>(p + c0);
+  };
+  float m[V], r[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    m[j] = mean[static_cast<int64_t>(blockIdx.y) * C + c0 + j];
+    r[j] = rstd[static_cast<int64_t>(blockIdx.y) * C + c0 + j];
+  }
+  auto terms = [&](const uint4* raw, float* h, float* gz, float* gy) {
+    float xv[V], gv[V], sv[V], bv[V];
+    unpack16<T>(raw[0], xv);
+    unpack16<T>(raw[1], gv);
+    if constexpr (HAS_MOD) {
+      unpack16<T>(raw[2], sv);
+      unpack16<T>(raw[3], bv);
+    }
+    backward_terms<V, HAS_MOD, LRELU, true>(xv, gv, sv, bv, m, r, slope, h, gz, gy);
+  };
+
+  // the sums of gy and gy * x_hat over the chunk
+  float sa[V], sb[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) sa[j] = sb[j] = 0.f;
+  auto accumulate = [&](const uint4* raw) {
+    float h[V], gz[V], gy[V];
+    terms(raw, h, gz, gy);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      sa[j] += gy[j];
+      sb[j] += __fmul_rn(gy[j], h[j]);
+    }
+  };
+  if (!STREAM) {
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      for (int k = group(g); k < group(g + 1); ++k) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t) cp_async16(&s_x[slot(t, k)], at(t, k));
+      }
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      if (g == 0) cp_async_wait<kGroups - 1>();
+      else if (g == 1) cp_async_wait<kGroups - 2>();
+      else if (g == 2) cp_async_wait<kGroups - 3>();
+      else cp_async_wait<0>();
+      for (int k = group(g); k < group(g + 1); ++k) {
+        uint4 raw[NT];
+#pragma unroll
+        for (int t = 0; t < NT; ++t) raw[t] = s_x[slot(t, k)];
+        accumulate(raw);
+      }
+    }
+  } else {
+    for (int k0 = 0; k0 < nk; k0 += U) {
+      uint4 raw[U][NT];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (k0 + u < nk) {
+#pragma unroll
+          for (int t = 0; t < NT; ++t) raw[u][t] = __ldg(at(t, k0 + u));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (k0 + u < nk) accumulate(raw[u]);
+    }
+  }
+  // both sums over the block at once: shuffles within the warp, then the
+  // warps in order (one barrier pair where block_sum would take two)
+  for (int off = 16; off >= L; off >>= 1) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      sa[j] += __shfl_xor_sync(0xffffffffu, sa[j], off);
+      sb[j] += __shfl_xor_sync(0xffffffffu, sb[j], off);
+    }
+  }
+  if ((tid & 31) < L) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      s_red[tid >> 5][(tid & 31) * V + j] = sa[j];
+      s_red2[tid >> 5][(tid & 31) * V + j] = sb[j];
+    }
+  }
+  __syncthreads();
+  if (tid < tile) {
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      a += s_red[w][tid];
+      b += s_red2[w][tid];
+    }
+    s_part[tid] = a;
+    s_part[tile + tid] = b;
+  }
+
+  // the slab's sums: every rank's, read from its shared memory all at once,
+  // added in rank order (every block of the cluster gets the same numbers)
+  cluster.sync();
+  if (tid < 2 * tile) {
+    float v[kMaxCluster];
+#pragma unroll
+    for (int k = 0; k < kMaxCluster; ++k)
+      v[k] = k < K ? cluster.map_shared_rank(s_part, k)[tid] : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxCluster; ++k)
+      if (k < K) s += v[k];
+    s_coef[tid] = __fdiv_rn(s, static_cast<float>(HW));
+  }
+  cluster_arrive();
+  __syncthreads();
+
+  // grad_x and grad_mod: from shared memory, or streaming, re-reading the
+  // chunk backwards (its tail was loaded last and is likeliest in L2)
+  float ca[V], cb[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    ca[j] = s_coef[lane * V + j];
+    cb[j] = s_coef[tile + lane * V + j];
+  }
+  T* gxt = gx + base * C + c0;
+  T* gmt = HAS_MOD ? gmod + base * 2 * C + c0 : nullptr;
+  const int steps = (nk + U - 1) / U;
+  for (int i = 0; i < steps; ++i) {
+    const int k0 = (STREAM ? steps - 1 - i : i) * U;
+    uint4 raw[U][NT];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u < nk) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+          raw[u][t] = STREAM ? __ldcs(at(t, k0 + u)) : s_x[slot(t, k0 + u)];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u >= nk) continue;
+      float h[V], gz[V], gy[V], o[V];
+      terms(raw[u], h, gz, gy);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        o[j] = __fmul_rn(r[j], __fsub_rn(__fsub_rn(gy[j], ca[j]), __fmul_rn(h[j], cb[j])));
+      const int64_t q = pix(k0 + u);
+      __stcs(reinterpret_cast<uint4*>(gxt + q * C), pack16<T>(o));
+      if constexpr (HAS_MOD) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) o[j] = __fmul_rn(gz[j], h[j]);
+        __stcs(reinterpret_cast<uint4*>(gmt + q * 2 * C), pack16<T>(o));
+        __stcs(reinterpret_cast<uint4*>(gmt + q * 2 * C + C), pack16<T>(gz));
+      }
+    }
+  }
+  cluster_wait();
+}
+
+// The batch backward's partial sums of gy and gy * x_hat per (chunk, channel).
+template <typename T, bool HAS_MOD, bool LRELU>
 __global__ void __launch_bounds__(kThreads)
 backward_partial_kernel(const T* __restrict__ x, const T* __restrict__ mod,
                         const T* __restrict__ gout, const float* __restrict__ mean,
-                        const float* __restrict__ rstd, float* __restrict__ part, int64_t HW,
+                        const float* __restrict__ rstd, float* __restrict__ part, int64_t P,
                         int C, int L, int64_t chunk, float slope) {
   __shared__ float s_a[kWarps][kTileChannels];
   __shared__ float s_b[kWarps][kTileChannels];
   const int tid = threadIdx.x, lane = tid % L, R = kThreads / L;
   const int c0 = blockIdx.y * L * kVec, c = c0 + lane * kVec;
   const int64_t start = blockIdx.x * chunk;
-  const int64_t end = start + chunk < HW ? start + chunk : HW;
-  const int64_t base = static_cast<int64_t>(blockIdx.z) * HW;  // the set's first pixel
+  const int64_t end = start + chunk < P ? start + chunk : P;
   float m[kVec], r[kVec];
-  load8(mean + static_cast<int64_t>(blockIdx.z) * C + c, m);
-  load8(rstd + static_cast<int64_t>(blockIdx.z) * C + c, r);
+  load8(mean + c, m);
+  load8(rstd + c, r);
   float a[kVec], b[kVec];
 #pragma unroll
   for (int j = 0; j < kVec; ++j) a[j] = b[j] = 0.f;
 #pragma unroll 2
-  for (int64_t p = start + tid / L; p < end; p += R) {
-    const int64_t q = base + p;
+  for (int64_t q = start + tid / L; q < end; q += R) {
     float xv[kVec], gv[kVec], sv[kVec], bv[kVec], xh[kVec], gz[kVec], gy[kVec];
     load8(x + q * C + c, xv);
     load8(gout + q * C + c, gv);
@@ -796,7 +1112,7 @@ backward_partial_kernel(const T* __restrict__ x, const T* __restrict__ mod,
       load8(mod + q * 2 * C + c, sv);
       load8(mod + q * 2 * C + C + c, bv);
     }
-    backward_terms<HAS_MOD, LRELU, INSTANCE>(xv, gv, sv, bv, m, r, slope, xh, gz, gy);
+    backward_terms<kVec, HAS_MOD, LRELU, false>(xv, gv, sv, bv, m, r, slope, xh, gz, gy);
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
       a[j] += gy[j];
@@ -825,53 +1141,49 @@ backward_partial_kernel(const T* __restrict__ x, const T* __restrict__ mod,
       sa += s_a[w][tid];
       sb += s_b[w][tid];
     }
-    const int64_t total = static_cast<int64_t>(gridDim.z) * gridDim.x * C;
-    const int64_t i = (static_cast<int64_t>(blockIdx.z) * gridDim.x + blockIdx.x) * C + c0 + tid;
+    const int64_t total = static_cast<int64_t>(gridDim.x) * C;
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * C + c0 + tid;
     part[i] = sa;
     part[total + i] = sb;
   }
 }
 
-// One thread per (set, channel): coef = [mean_S(gy) | mean_S(gy * x_hat)].
-__global__ void backward_final_kernel(const float* __restrict__ part, int chunks, int sets,
-                                      int C, float count, float* __restrict__ coef) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= sets * C) return;
-  const int s = i / C, c = i - s * C;
-  const int64_t total = static_cast<int64_t>(sets) * chunks * C;
+// One thread per channel: coef = [mean(gy) | mean(gy * x_hat)] over the chunks
+// in chunk order.
+__global__ void backward_final_kernel(const float* __restrict__ part, int chunks, int C,
+                                      float count, float* __restrict__ coef) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const int64_t total = static_cast<int64_t>(chunks) * C;
   float a = 0.f, b = 0.f;
   for (int k = 0; k < chunks; ++k) {
-    const int64_t j = (static_cast<int64_t>(s) * chunks + k) * C + c;
-    a += part[j];
-    b += part[total + j];
+    a += part[static_cast<int64_t>(k) * C + c];
+    b += part[total + static_cast<int64_t>(k) * C + c];
   }
-  coef[i] = __fdiv_rn(a, count);
-  coef[static_cast<int64_t>(sets) * C + i] = __fdiv_rn(b, count);
+  coef[c] = __fdiv_rn(a, count);
+  coef[C + c] = __fdiv_rn(b, count);
 }
 
-// grad_x and grad_mod, one elementwise pass; grid (blocks, sets), each block
-// striding over its set's (pixel, 8-channel vector) pairs.
-template <typename T, bool HAS_MOD, bool LRELU, bool INSTANCE>
+// grad_x and grad_mod, one elementwise pass over the (pixel, 8-channel
+// vector) pairs.
+template <typename T, bool HAS_MOD, bool LRELU>
 __global__ void __launch_bounds__(kThreads)
 backward_apply_kernel(const T* __restrict__ x, const T* __restrict__ mod,
                       const T* __restrict__ gout, const float* __restrict__ mean,
                       const float* __restrict__ rstd, const float* __restrict__ coef,
-                      T* __restrict__ gx, T* __restrict__ gmod, int64_t HW, int C,
+                      T* __restrict__ gx, T* __restrict__ gmod, int64_t P, int C,
                       float slope) {
   const int C8 = C / kVec;
-  const int64_t total = HW * C8;
+  const int64_t total = P * C8;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= total) return;
-  const int64_t set = blockIdx.y, sc = set * C;
-  const int64_t coef2 = static_cast<int64_t>(gridDim.y) * C;
-  int64_t p = t / C8;
-  int c8 = static_cast<int>(t - p * C8);
-  const int64_t dp = stride / C8;
-  const int dc = static_cast<int>(stride - dp * C8);
+  int64_t q = t / C8;
+  int c8 = static_cast<int>(t - q * C8);
+  const int64_t dq = stride / C8;
+  const int dc = static_cast<int>(stride - dq * C8);
   for (; t < total; t += stride) {
     const int c = c8 * kVec;
-    const int64_t q = set * HW + p;
     float xv[kVec], gv[kVec], sv[kVec], bv[kVec], m[kVec], r[kVec], ca[kVec], cb[kVec];
     float xh[kVec], gz[kVec], gy[kVec];
     load8(x + q * C + c, xv);
@@ -880,11 +1192,11 @@ backward_apply_kernel(const T* __restrict__ x, const T* __restrict__ mod,
       load8(mod + q * 2 * C + c, sv);
       load8(mod + q * 2 * C + C + c, bv);
     }
-    load8(mean + sc + c, m);
-    load8(rstd + sc + c, r);
-    load8(coef + sc + c, ca);
-    load8(coef + coef2 + sc + c, cb);
-    backward_terms<HAS_MOD, LRELU, INSTANCE>(xv, gv, sv, bv, m, r, slope, xh, gz, gy);
+    load8(mean + c, m);
+    load8(rstd + c, r);
+    load8(coef + c, ca);
+    load8(coef + C + c, cb);
+    backward_terms<kVec, HAS_MOD, LRELU, false>(xv, gv, sv, bv, m, r, slope, xh, gz, gy);
     float o[kVec];
 #pragma unroll
     for (int k = 0; k < kVec; ++k)
@@ -896,11 +1208,11 @@ backward_apply_kernel(const T* __restrict__ x, const T* __restrict__ mod,
       store8(gmod + q * 2 * C + c, o);
       store8(gmod + q * 2 * C + C + c, gz);
     }
-    p += dp;
+    q += dq;
     c8 += dc;
     if (c8 >= C8) {
       c8 -= C8;
-      ++p;
+      ++q;
     }
   }
 }
@@ -926,13 +1238,18 @@ void launch_affine(const void* x, const void* mod, const void* inv,
       static_cast<T*>(out), P, C, slope);
 }
 
+template <typename F>
+const void* fn(F* f) {
+  return reinterpret_cast<const void*>(f);
+}
+
 template <typename T, bool STREAM, int REG>
 const void* instance_kernel(bool has_mod, bool lrelu) {
   if (has_mod)
-    return lrelu ? reinterpret_cast<const void*>(modnorm_instance_kernel<T, STREAM, REG, true, true>)
-                 : reinterpret_cast<const void*>(modnorm_instance_kernel<T, STREAM, REG, true, false>);
-  return lrelu ? reinterpret_cast<const void*>(modnorm_instance_kernel<T, STREAM, REG, false, true>)
-               : reinterpret_cast<const void*>(modnorm_instance_kernel<T, STREAM, REG, false, false>);
+    return lrelu ? fn(modnorm_instance_kernel<T, STREAM, REG, true, true>)
+                 : fn(modnorm_instance_kernel<T, STREAM, REG, true, false>);
+  return lrelu ? fn(modnorm_instance_kernel<T, STREAM, REG, false, true>)
+               : fn(modnorm_instance_kernel<T, STREAM, REG, false, false>);
 }
 
 template <typename T>
@@ -942,26 +1259,52 @@ const void* instance_kernel(int streaming, int regs, bool has_mod, bool lrelu) {
   return regs == kRegVectors ? instance_kernel<T, false, kRegVectors>(has_mod, lrelu) : nullptr;
 }
 
-// The kernel for (dtype, variant, flags) with its attributes set, and its
-// cluster launch for the plan; null if the plan is not one the kernel takes.
-const void* instance_launch(int N, int64_t HW, int C, int tile, int cluster, int smem,
-                            int streaming, int regs, int dtype, bool has_mod, bool lrelu,
-                            cudaStream_t stream, cudaLaunchConfig_t* cfg,
-                            cudaLaunchAttribute* attr) {
+template <typename T>
+const void* batch_kernel(bool has_mod, bool lrelu) {
+  if (has_mod)
+    return lrelu ? fn(modnorm_batch_kernel<T, true, true>)
+                 : fn(modnorm_batch_kernel<T, true, false>);
+  return lrelu ? fn(modnorm_batch_kernel<T, false, true>)
+               : fn(modnorm_batch_kernel<T, false, false>);
+}
+
+const void* batch_kernel(int dtype, bool has_mod, bool lrelu) {
+  return dtype == 0 ? batch_kernel<float>(has_mod, lrelu)
+                    : batch_kernel<__nv_bfloat16>(has_mod, lrelu);
+}
+
+template <typename T, bool STREAM>
+const void* instance_backward_kernel(bool has_mod, bool lrelu) {
+  if (has_mod)
+    return lrelu ? fn(modnorm_instance_backward_kernel<T, STREAM, true, true>)
+                 : fn(modnorm_instance_backward_kernel<T, STREAM, true, false>);
+  return lrelu ? fn(modnorm_instance_backward_kernel<T, STREAM, false, true>)
+               : fn(modnorm_instance_backward_kernel<T, STREAM, false, false>);
+}
+
+const void* instance_backward_kernel(int dtype, int streaming, bool has_mod, bool lrelu) {
+  if (dtype == 0)
+    return streaming ? instance_backward_kernel<float, true>(has_mod, lrelu)
+                     : instance_backward_kernel<float, false>(has_mod, lrelu);
+  return streaming ? instance_backward_kernel<__nv_bfloat16, true>(has_mod, lrelu)
+                   : instance_backward_kernel<__nv_bfloat16, false>(has_mod, lrelu);
+}
+
+// A (sample, channel tile) split the cluster kernels take: a tile of one to
+// kMaxLanes 16-byte vectors (a power of two) dividing C, 1 to kMaxCluster
+// blocks per slab, none of them empty.
+bool cluster_split_ok(int N, int64_t HW, int C, int tile, int cluster, int dtype) {
   const int vec = dtype == 0 ? 4 : 8, lanes = tile / vec;
-  if (tile % vec || lanes < 1 || lanes > kMaxLanes || (lanes & (lanes - 1)) ||
-      tile > kMaxTile || C % tile ||
-      cluster < 1 || cluster > kMaxCluster || cluster > HW || N < 1 || N > 65535)
-    return nullptr;
-  // on-chip, shared memory must hold the largest chunk beyond its registers
-  const int64_t vectors = (HW + cluster - 1) / cluster * lanes;
-  const int64_t per_thread = (vectors + kThreads - 1) / kThreads;
-  const int64_t need = regs == 0 ? vectors * 16
-                                 : (per_thread > regs ? per_thread - regs : 0) * kThreads * 16;
-  if (!streaming && smem < need) return nullptr;
-  const void* kernel = dtype == 0
-                           ? instance_kernel<float>(streaming, regs, has_mod, lrelu)
-                           : instance_kernel<__nv_bfloat16>(streaming, regs, has_mod, lrelu);
+  return !(tile % vec || lanes < 1 || lanes > kMaxLanes || (lanes & (lanes - 1)) ||
+           tile > kMaxTile || C % tile || cluster < 1 || cluster > kMaxCluster ||
+           cluster > HW || N < 1 || N > 65535);
+}
+
+// `kernel`'s cluster launch of (cluster * C / tile, N) blocks with its
+// attributes set; null if they cannot be.
+const void* cluster_launch(const void* kernel, int N, int C, int tile, int cluster, int smem,
+                           cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
   if (kernel == nullptr ||
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
           cudaSuccess ||
@@ -983,6 +1326,58 @@ const void* instance_launch(int N, int64_t HW, int C, int tile, int cluster, int
   return kernel;
 }
 
+// The instance kernel for (dtype, variant, flags) with its attributes set,
+// and its cluster launch for the plan; null if the plan is not one the
+// kernel takes.
+const void* instance_launch(int N, int64_t HW, int C, int tile, int cluster, int smem,
+                            int streaming, int regs, int dtype, bool has_mod, bool lrelu,
+                            cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                            cudaLaunchAttribute* attr) {
+  if (!cluster_split_ok(N, HW, C, tile, cluster, dtype)) return nullptr;
+  // on-chip, shared memory must hold the largest chunk beyond its registers
+  const int64_t vectors = (HW + cluster - 1) / cluster * (tile / (dtype == 0 ? 4 : 8));
+  const int64_t per_thread = (vectors + kThreads - 1) / kThreads;
+  const int64_t need = regs == 0 ? vectors * 16
+                                 : (per_thread > regs ? per_thread - regs : 0) * kThreads * 16;
+  if (!streaming && smem < need) return nullptr;
+  const void* kernel = dtype == 0
+                           ? instance_kernel<float>(streaming, regs, has_mod, lrelu)
+                           : instance_kernel<__nv_bfloat16>(streaming, regs, has_mod, lrelu);
+  return cluster_launch(kernel, N, C, tile, cluster, smem, stream, cfg, attr);
+}
+
+// Blocks of `kernel` (kThreads each, `smem` bytes of dynamic shared memory)
+// an SM holds at once, as the card reports it; -1 where it cannot say.
+int blocks_per_sm(const void* kernel, int smem) {
+  int n = -1;
+  if (kernel == nullptr ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem) != cudaSuccess)
+    n = -1;
+  return n;
+}
+
+template <typename T, bool HAS_MOD, bool LRELU>
+void launch_backward(const void* x, const void* mod, const void* gout, const float* mean,
+                     const float* rstd, float* part, float* coef, void* gx, void* gmod,
+                     int64_t P, int C, int L, int chunks, int64_t chunk, float slope,
+                     cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const T* mt = static_cast<const T*>(mod);
+  const T* gt = static_cast<const T*>(gout);
+  backward_partial_kernel<T, HAS_MOD, LRELU>
+      <<<dim3(chunks, C / (kVec * L)), kThreads, 0, stream>>>(xt, mt, gt, mean, rstd, part, P,
+                                                              C, L, chunk, slope);
+  backward_final_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      part, chunks, C, static_cast<float>(P), coef);
+  const int64_t want = (P * (C / kVec) + kThreads - 1) / kThreads;
+  const int64_t cap = static_cast<int64_t>(sm_count()) * (2048 / kThreads);
+  const int blocks = static_cast<int>(want < cap ? want : cap);
+  backward_apply_kernel<T, HAS_MOD, LRELU><<<blocks, kThreads, 0, stream>>>(
+      xt, mt, gt, mean, rstd, coef, static_cast<T*>(gx), static_cast<T*>(gmod), P, C, slope);
+}
+
 template <typename T, template <typename, bool, bool> class L, typename... A>
 void dispatch_flags(bool has_mod, bool lrelu, A... args) {
   if (has_mod) {
@@ -997,57 +1392,15 @@ struct Affine {
   template <typename... A> static void run(A... a) { launch_affine<T, M, R>(a...); }
 };
 
-
-// The reductions' launch: grid (chunks, C / (8 L), sets); false if the
-// shape is one the kernels do not take.
-bool reduce_grid(int sets, int64_t HW, int C, int L, int chunks, int64_t chunk, dim3* grid) {
-  if (sets < 1 || sets > 65535 || HW < 1 || chunks < 1 || chunk < 1 ||
-      chunk * chunks < HW || (chunks - 1) * chunk >= HW ||
-      (L != 1 && L != 2 && L != 4 && L != 8) || C < kVec * L || C % (kVec * L))
-    return false;
-  *grid = dim3(chunks, C / (kVec * L), sets);
-  return true;
-}
-
-template <typename T>
-void launch_batch_stats(const void* x, float* part, float* mean, float* rstd, float* shift,
-                        int64_t P, int C, int L, int chunks, int64_t chunk, float eps,
-                        dim3 grid, cudaStream_t stream) {
-  batch_stats_partial_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), part,
-                                                               P, C, L, chunk);
-  batch_stats_final_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      part, chunks, C, eps, mean, rstd, shift);
-}
-
-template <typename T, bool HAS_MOD, bool LRELU, bool INSTANCE>
-void launch_backward(const void* x, const void* mod, const void* gout, const float* mean,
-                     const float* rstd, float* part, float* coef, void* gx, void* gmod,
-                     int sets, int64_t HW, int C, int L, int chunks, int64_t chunk,
-                     float slope, dim3 grid, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const T* mt = static_cast<const T*>(mod);
-  const T* gt = static_cast<const T*>(gout);
-  backward_partial_kernel<T, HAS_MOD, LRELU, INSTANCE><<<grid, kThreads, 0, stream>>>(
-      xt, mt, gt, mean, rstd, part, HW, C, L, chunk, slope);
-  const int n = sets * C;
-  backward_final_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      part, chunks, sets, C, static_cast<float>(HW), coef);
-  const int64_t want = (HW * (C / kVec) + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sm_count()) * (2048 / kThreads);
-  const int64_t per_set = (cap + sets - 1) / sets;
-  const int blocks = static_cast<int>(want < per_set ? want : per_set);
-  backward_apply_kernel<T, HAS_MOD, LRELU, INSTANCE><<<dim3(blocks, sets), kThreads, 0, stream>>>(
-      xt, mt, gt, mean, rstd, coef, static_cast<T*>(gx), static_cast<T*>(gmod), HW, C, slope);
-}
-
 template <typename T, bool M, bool R>
 struct Backward {
-  template <typename... A>
-  static void run(bool instance, A... a) {
-    if (instance) launch_backward<T, M, R, true>(a...);
-    else launch_backward<T, M, R, false>(a...);
-  }
+  template <typename... A> static void run(A... a) { launch_backward<T, M, R>(a...); }
 };
+
+int invalid() {
+  cudaGetLastError();
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 }  // namespace
 
@@ -1083,10 +1436,7 @@ extern "C" int modnorm_instance(const void* x, const void* mod, void* out, void*
   const void* kernel = instance_launch(N, HW, C, tile, cluster, smem, streaming, regs, dtype,
                                        mod != nullptr, lrelu != 0,
                                        static_cast<cudaStream_t>(stream), &cfg, &attr);
-  if (kernel == nullptr) {
-    cudaGetLastError();
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (kernel == nullptr) return invalid();
   void* args[] = {&x, &mod, &out, &mean, &rstd, &HW, &C, &tile, &eps, &slope};
   const cudaError_t e = cudaLaunchKernelExC(&cfg, kernel, args);
   const cudaError_t last = cudaGetLastError();
@@ -1109,55 +1459,109 @@ extern "C" int modnorm_instance_clusters(int N, int64_t HW, int C, int tile, int
   return n;
 }
 
-// Training, batch statistics: per channel over the P = N*H*W pixels,
-// float32 mean, rstd and shift = -mean * rstd, for the affine kernel to
-// apply.  `part` is scratch of 3 * chunks * C floats; the plan (L, chunks,
-// chunk) is deepsee_torch/ops/modnorm.py::reduce_plan's for one set.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a plan the
-// kernels do not take.
-extern "C" int modnorm_batch_stats(const void* x, void* part, void* mean, void* rstd,
-                                   void* shift, int64_t P, int C, int L, int chunks,
-                                   int64_t chunk, float eps, int dtype, void* stream) {
-  dim3 grid;
-  if (!reduce_grid(1, P, C, L, chunks, chunk, &grid)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(part);
-  float* m = static_cast<float*>(mean);
-  float* r = static_cast<float*>(rstd);
-  float* sh = static_cast<float*>(shift);
-  if (dtype == 0)
-    launch_batch_stats<float>(x, p, m, r, sh, P, C, L, chunks, chunk, eps, grid, s);
-  else
-    launch_batch_stats<__nv_bfloat16>(x, p, m, r, sh, P, C, L, chunks, chunk, eps, grid, s);
-  return static_cast<int>(cudaGetLastError());
+// Blocks of the batch forward an SM holds at once with `smem` bytes of
+// dynamic shared memory per block (registers and shared memory both
+// counted), or -1: deepsee_torch/ops/modnorm.py::batch_plan sizes the
+// cooperative grid by it.
+extern "C" int modnorm_batch_blocks_per_sm(int dtype, int has_mod, int lrelu, int smem) {
+  const int n = blocks_per_sm(batch_kernel(dtype, has_mod != 0, lrelu != 0), smem);
+  cudaGetLastError();
+  return n;
 }
 
-// Training, the backward of either mode: grad_x (x's layout) and, where `mod`
-// is given, grad_mod (its 2C layout) from x, mod, gout and the forward's
-// float32 (sets, C) mean and rstd.  `instance` picks the forward's x_hat
-// formula.  `part` is scratch of 2 * sets * chunks * C floats, `coef` of
-// 2 * sets * C.  Returns cudaGetLastError(), or cudaErrorInvalidValue for a
-// plan the kernels do not take.
-extern "C" int modnorm_backward(const void* x, const void* mod, const void* gout,
-                                const void* mean, const void* rstd, void* part, void* coef,
-                                void* gx, void* gmod, int sets, int64_t HW, int C, int L,
-                                int chunks, int64_t chunk, int instance, int dtype, int lrelu,
-                                float slope, void* stream) {
-  dim3 grid;
-  if (!reduce_grid(sets, HW, C, L, chunks, chunk, &grid) || (mod != nullptr) != (gmod != nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+// Training, batch statistics, one cooperative launch: per channel over the
+// P = N*H*W pixels, float32 mean and rstd into `mean` and `rstd` (C,), and
+// out = lrelu?((x * rstd + (-mean * rstd)) * scale + offset).  The plan is
+// deepsee_torch/ops/modnorm.py::batch_plan's: `tile` channels per block (one
+// to eight 16-byte vectors), `runs` blocks along the pixels of each channel
+// tile, `smem` bytes of dynamic shared memory per block (the run's first
+// smem / 16 vectors stay there).  `part` is scratch of 2 * runs * C floats.
+// Returns the launch's error, then cudaGetLastError(); cudaErrorInvalidValue
+// for a plan the kernel cannot take, or a grid larger than the blocks the
+// card holds at once.
+extern "C" int modnorm_batch(const void* x, const void* mod, void* out, void* part, void* mean,
+                             void* rstd, int64_t P, int C, int tile, int runs, int smem,
+                             float eps, int dtype, int lrelu, float slope, void* stream) {
+  const int vec = dtype == 0 ? 4 : 8, lanes = tile / vec;
+  if (tile % vec || lanes < 1 || lanes > kMaxLanes || (lanes & (lanes - 1)) || C % tile ||
+      runs < 1 || runs > P || smem < 0 || smem % 16)
+    return invalid();
+  const void* kernel = batch_kernel(dtype, mod != nullptr, lrelu != 0);
+  const int64_t grid = static_cast<int64_t>(runs) * (C / tile);
+  const int per_sm = blocks_per_sm(kernel, smem);
+  if (per_sm < 1 || grid > static_cast<int64_t>(per_sm) * sm_count()) return invalid();
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int resident = smem / 16;
+  void* args[] = {&x, &mod, &out, &part, &mean, &rstd, &P, &C, &tile, &runs, &resident,
+                  &eps, &slope};
+  const cudaError_t e = cudaLaunchKernelExC(&cfg, kernel, args);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// Training, the instance backward, one cluster launch: grad_x (x's layout)
+// and, where `mod` is given, grad_mod (its 2C layout) from x, mod, gout and
+// the forward's float32 (N, C) mean and rstd, with the plan of
+// deepsee_torch/ops/modnorm.py::instance_backward_plan (`tile`, `cluster`,
+// `smem`, `streaming` as modnorm_instance's; on-chip, shared memory holds the
+// chunk of each tensor read).  Returns the launch's error, then
+// cudaGetLastError(); cudaErrorInvalidValue for a plan the kernel cannot take.
+extern "C" int modnorm_backward_instance(const void* x, const void* mod, const void* gout,
+                                         const void* mean, const void* rstd, void* gx,
+                                         void* gmod, int N, int64_t HW, int C, int tile,
+                                         int cluster, int smem, int streaming, int dtype,
+                                         int lrelu, float slope, void* stream) {
+  if ((mod != nullptr) != (gmod != nullptr) || !cluster_split_ok(N, HW, C, tile, cluster, dtype))
+    return invalid();
+  const int64_t vectors = (HW + cluster - 1) / cluster * (tile / (dtype == 0 ? 4 : 8));
+  const int64_t stride = (vectors + kThreads - 1) / kThreads * kThreads;
+  if (!streaming && smem < (mod != nullptr ? 4 : 2) * stride * 16) return invalid();
+  const void* kernel = instance_backward_kernel(dtype, streaming, mod != nullptr, lrelu != 0);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (cluster_launch(kernel, N, C, tile, cluster, smem, static_cast<cudaStream_t>(stream), &cfg,
+                     &attr) == nullptr)
+    return invalid();
+  void* args[] = {&x, &mod, &gout, &mean, &rstd, &gx, &gmod, &HW, &C, &tile, &slope};
+  const cudaError_t e = cudaLaunchKernelExC(&cfg, kernel, args);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// Training, the batch backward: grad_x (x's layout) and, where `mod` is
+// given, grad_mod (its 2C layout) from x, mod, gout and the forward's float32
+// (C,) mean and rstd, over the P = N*H*W pixels.  The plan (L, chunks, chunk)
+// is deepsee_torch/ops/modnorm.py::reduce_plan's; `part` is scratch of
+// 2 * chunks * C floats, `coef` of 2 * C.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a plan the kernels do not take.
+extern "C" int modnorm_backward_batch(const void* x, const void* mod, const void* gout,
+                                      const void* mean, const void* rstd, void* part,
+                                      void* coef, void* gx, void* gmod, int64_t P, int C, int L,
+                                      int chunks, int64_t chunk, int dtype, int lrelu,
+                                      float slope, void* stream) {
+  if (P < 1 || chunks < 1 || chunk < 1 || chunk * chunks < P ||
+      (chunks - 1) * chunk >= P || (L != 1 && L != 2 && L != 4 && L != 8) || C < kVec * L ||
+      C % (kVec * L) || C / (kVec * L) > 65535 || (mod != nullptr) != (gmod != nullptr))
+    return invalid();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mean);
   const float* r = static_cast<const float*>(rstd);
   float* p = static_cast<float*>(part);
   float* cf = static_cast<float*>(coef);
   if (dtype == 0)
-    dispatch_flags<float, Backward>(mod != nullptr, lrelu != 0, instance != 0, x, mod, gout, m,
-                                    r, p, cf, gx, gmod, sets, HW, C, L, chunks, chunk, slope,
-                                    grid, s);
+    dispatch_flags<float, Backward>(mod != nullptr, lrelu != 0, x, mod, gout, m, r, p, cf, gx,
+                                    gmod, P, C, L, chunks, chunk, slope, s);
   else
-    dispatch_flags<__nv_bfloat16, Backward>(mod != nullptr, lrelu != 0, instance != 0, x, mod,
-                                            gout, m, r, p, cf, gx, gmod, sets, HW, C, L,
-                                            chunks, chunk, slope, grid, s);
+    dispatch_flags<__nv_bfloat16, Backward>(mod != nullptr, lrelu != 0, x, mod, gout, m, r, p,
+                                            cf, gx, gmod, P, C, L, chunks, chunk, slope, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,11 +21,15 @@ modulated_instance_norm) or raises; on a CPU tensor it computes
 `modnorm_plain`, the same float32 arithmetic in eager torch.  There is no
 fallback from one to the other.  Importing this module registers the op.
 
-The instance mode's launch is planned here, by shape, before the launch
-(`instance_plan`): each (sample, channel tile) slab is split along H*W over
-the blocks of a thread-block cluster, which either hold their chunks in
-shared memory ("on-chip": x is read from device memory once) or stream them
-("streaming", for slabs beyond a cluster's shared memory).
+The launches are planned here, by shape, before the launch.  The instance
+mode and its backward (`instance_plan`, `instance_backward_plan`): each
+(sample, channel tile) slab is split along H*W over the blocks of a
+thread-block cluster, which either hold their chunks in shared memory
+("on-chip": each tensor is read from device memory once) or stream them
+("streaming", for slabs too large for that).  The batch
+forward (`batch_plan`): one cooperative grid of at most the blocks the card
+holds at once, each block a channel tile over a run of the N*H*W pixels,
+kept in shared memory across the grid barrier where it fits.
 """
 
 from __future__ import annotations
@@ -45,17 +49,19 @@ __all__ = ["modnorm", "modnorm_plain", "launches", "reset_launches",
            "InstancePlan", "instance_plan", "instance_chunks", "check_instance_plan",
            "clusters_in_flight", "modnorm_train", "modnorm_train_plain",
            "modnorm_backward", "modnorm_backward_plain", "ReducePlan", "reduce_plan",
-           "layout_copies"]
+           "BatchPlan", "batch_plan", "check_batch_plan", "batch_blocks_per_sm",
+           "instance_backward_plan", "check_instance_backward_plan", "layout_copies"]
 
 LRELU_SLOPE = 0.2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches per mode; each wrapper adds one where it launches its
 # kernels and nowhere else, so a caller can show that a run went through
-# them.  "batch" is the training forward with batch statistics (the
-# statistics kernels, then the affine kernel), "instance_train" the
-# instance kernel with its statistics written out, "backward_*" the backward
-# of either (reduction, then the elementwise pass).
+# them.  "batch" is the training forward with batch statistics (one
+# cooperative launch), "instance_train" the instance kernel with its
+# statistics written out, "backward_batch" the batch backward (reduction,
+# then the elementwise pass), "backward_instance" the instance backward (one
+# cluster launch).
 launches = {"affine": 0, "instance": 0, "batch": 0, "instance_train": 0,
             "backward_batch": 0, "backward_instance": 0}
 # Incoming gradients the backward had to copy into channels_last first.
@@ -68,7 +74,7 @@ def reset_launches() -> None:
     layout_copies["backward"] = 0
 
 
-# The instance mode's launch plan.  Hopper (H100): 132 SMs with 233,472
+# The launch plans.  Hopper (H100): 132 SMs with 233,472
 # bytes of shared memory each, of which a block may use 232,448 and the
 # kernel's static arrays take under STATIC_SMEM (the runtime keeps 1 KB more
 # per block); a cluster holds at most 16 blocks (above 8 as a non-portable
@@ -100,7 +106,8 @@ class InstancePlan:
 
 def instance_chunks(hw: int, cluster: int) -> List[Tuple[int, int]]:
     """The [start, end) pixels of each cluster rank, as the kernel computes
-    them: sizes differ by at most one, and none is empty while cluster <= hw."""
+    them: sizes differ by at most one, and none is empty while cluster <= hw.
+    The batch forward splits N*H*W into its runs the same way."""
     return [(r * hw // cluster, (r + 1) * hw // cluster) for r in range(cluster)]
 
 
@@ -156,33 +163,59 @@ def instance_plan(shape: Tuple[int, int, int, int], dtype: torch.dtype) -> Insta
     a cluster's shared memory holds the slab; otherwise streaming, at the
     widest tile up to a 128-byte line."""
     b, c, h, w = shape
-    if dtype not in _DTYPE_CODE:
-        raise ValueError(f"modnorm: dtype must be float32 or bfloat16, got {dtype}")
-    if c % 8 or b < 1 or h * w < 1:
-        raise ValueError(f"modnorm: x must be (B, C, H, W) with C % 8 == 0, got {shape}")
+    esize = _check_shape(shape, dtype)
     if b > 65535:
         raise ValueError("modnorm: instance mode takes at most 65535 samples")
-    esize = torch.finfo(dtype).bits // 8
-
-    def widest(*sizes: int) -> int:
-        return next(n // esize for n in sizes if n // esize >= 8 and c % (n // esize) == 0)
-
-    sector = widest(SECTOR, SECTOR // 2)
+    sector = _widest(c, esize, SECTOR, SECTOR // 2)
     if _fits_on_chip(shape, esize, sector):
-        tile = widest(2 * SECTOR, SECTOR, SECTOR // 2)
+        tile = _widest(c, esize, 2 * SECTOR, SECTOR, SECTOR // 2)
         if (h * w * tile * esize > WIDE_SLAB
                 or b * c // tile * min(MAX_CLUSTER, h * w) < SMS):
             tile = sector
         return _layout(shape, esize, tile, "on-chip")
-    return _layout(shape, esize, widest(LINE, 2 * SECTOR, SECTOR, SECTOR // 2), "streaming")
+    return _layout(shape, esize, _widest(c, esize, LINE, 2 * SECTOR, SECTOR, SECTOR // 2),
+                   "streaming")
+
+
+def _check_shape(shape: Tuple[int, int, int, int], dtype: torch.dtype) -> int:
+    """Raise ValueError unless the kernels take x of `shape` and `dtype`;
+    return the element size in bytes."""
+    b, c, h, w = shape
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"modnorm: dtype must be float32 or bfloat16, got {dtype}")
+    if c % 8 or c < 8 or b < 1 or h * w < 1:
+        raise ValueError(f"modnorm: x must be (B, C, H, W) with C % 8 == 0, got {shape}")
+    return torch.finfo(dtype).bits // 8
+
+
+def _widest(c: int, esize: int, *sizes: int) -> int:
+    """The channel tile: the channels in the first of `sizes` (bytes of a
+    pixel) that holds at least 8 channels and divides C."""
+    return next(n // esize for n in sizes if n // esize >= 8 and c % (n // esize) == 0)
 
 
 def check_instance_plan(plan: InstancePlan, shape: Tuple[int, int, int, int],
                         dtype: torch.dtype) -> None:
     """Raise ValueError unless the kernel can take `plan` for x of `shape`."""
+    esize = torch.finfo(dtype).bits // 8
+    on_chip = plan.variant == "on-chip"
+    problems = []
+    if plan.register_vectors not in ((0, REG_VECTORS) if on_chip else (0,)):
+        problems.append(f"{plan.register_vectors} vectors per thread in registers")
+    elif on_chip and plan.tile >= 1:
+        need = _smem_beyond_registers(plan.pixels_per_cta, plan.tile * esize,
+                                      plan.register_vectors)
+        if plan.smem_bytes != need:
+            problems.append(f"{plan.smem_bytes} bytes of shared memory")
+    _check_cluster_plan("instance", plan, shape, dtype, problems)
+
+
+def _check_cluster_plan(kernel: str, plan: InstancePlan, shape: Tuple[int, int, int, int],
+                        dtype: torch.dtype, problems: List[str]) -> None:
+    """Raise ValueError, with `problems` and those of the split that both
+    cluster kernels share, unless there are none."""
     b, c, h, w = shape
     esize = torch.finfo(dtype).bits // 8
-    problems = []
     if plan.variant not in ("on-chip", "streaming"):
         problems.append(f"unknown variant {plan.variant!r}")
     if plan.tile < 1 or c % plan.tile or plan.tile * esize not in (16, SECTOR, 2 * SECTOR, LINE):
@@ -191,20 +224,14 @@ def check_instance_plan(plan: InstancePlan, shape: Tuple[int, int, int, int],
         problems.append(f"cluster {plan.cluster}")
     elif plan.pixels_per_cta != math.ceil(h * w / plan.cluster):
         problems.append(f"{plan.pixels_per_cta} pixels per block")
-    on_chip = plan.variant == "on-chip"
-    if plan.register_vectors not in ((0, REG_VECTORS) if on_chip else (0,)):
-        problems.append(f"{plan.register_vectors} vectors per thread in registers")
-    elif on_chip:
-        need = _smem_beyond_registers(plan.pixels_per_cta, plan.tile * esize,
-                                      plan.register_vectors)
-        if plan.smem_bytes != need or need > SMEM_PER_BLOCK - STATIC_SMEM:
-            problems.append(f"{plan.smem_bytes} bytes of shared memory")
-    elif plan.smem_bytes:
+    if plan.variant == "streaming" and plan.smem_bytes:
+        problems.append(f"{plan.smem_bytes} bytes of shared memory")
+    if plan.smem_bytes > SMEM_PER_BLOCK - STATIC_SMEM:
         problems.append(f"{plan.smem_bytes} bytes of shared memory")
     if plan.tile >= 1 and tuple(plan.grid) != (plan.cluster * c // plan.tile, b):
         problems.append(f"grid {plan.grid}")
     if problems:
-        raise ValueError(f"modnorm: the instance kernel cannot take {plan} for "
+        raise ValueError(f"modnorm: the {kernel} kernel cannot take {plan} for "
                          f"{dtype} {tuple(shape)}: {'; '.join(problems)}")
 
 
@@ -249,11 +276,17 @@ def _lib() -> ctypes.CDLL:
     lib.modnorm_instance_clusters.argtypes = [i32, i64, i32, i32, i32, i32, i32, i32, i32,
                                               i32, i32]
     lib.modnorm_instance_clusters.restype = ctypes.c_int
-    lib.modnorm_batch_stats.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i64, f32, i32, p]
-    lib.modnorm_batch_stats.restype = ctypes.c_int
-    lib.modnorm_backward.argtypes = [p, p, p, p, p, p, p, p, p, i32, i64, i32, i32, i32,
-                                     i64, i32, i32, i32, f32, p]
-    lib.modnorm_backward.restype = ctypes.c_int
+    lib.modnorm_batch_blocks_per_sm.argtypes = [i32, i32, i32, i32]
+    lib.modnorm_batch_blocks_per_sm.restype = ctypes.c_int
+    lib.modnorm_batch.argtypes = [p, p, p, p, p, p, i64, i32, i32, i32, i32, f32, i32, i32,
+                                  f32, p]
+    lib.modnorm_batch.restype = ctypes.c_int
+    lib.modnorm_backward_instance.argtypes = [p, p, p, p, p, p, p, i32, i64, i32, i32, i32,
+                                              i32, i32, i32, i32, f32, p]
+    lib.modnorm_backward_instance.restype = ctypes.c_int
+    lib.modnorm_backward_batch.argtypes = [p, p, p, p, p, p, p, p, p, i64, i32, i32, i32, i64,
+                                           i32, i32, f32, p]
+    lib.modnorm_backward_batch.restype = ctypes.c_int
     return lib
 
 
@@ -355,35 +388,182 @@ def _modnorm_fake(x, mod, mean, var, stats, eps, lrelu):
 
 TRAIN_STATS = ("batch", "instance")
 REDUCE_BLOCKS = 8 * SMS       # one wave of 256-thread blocks, 8 per SM
+# The batch forward's aim in blocks per SM; the card's own figure for the
+# kernel's registers and shared memory (batch_blocks_per_sm) decides.
+BATCH_BLOCKS_PER_SM = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPlan:
+    tile: int                 # channels per block: 16 to 128 bytes of a pixel
+    runs: int                 # blocks along the N*H*W pixels of each channel tile
+    pixels_per_run: int       # the longest run (runs differ by at most one pixel)
+    resident_pixels: int      # of a run, the first pixels kept in shared memory
+    smem_bytes: int           # dynamic shared memory per block: the resident pixels
+    blocks_per_sm: int        # blocks an SM holds at once, as the grid was sized
+    grid: int                 # runs * C / tile blocks, all resident at once
+
+    @property
+    def variant(self) -> str:
+        """"on-chip" where every run stays in shared memory (x is read from
+        device memory once), else "re-read"."""
+        return "on-chip" if self.resident_pixels >= self.pixels_per_run else "re-read"
+
+
+def _batch_room(blocks_per_sm: int) -> int:
+    """Dynamic shared memory per block with `blocks_per_sm` blocks on an SM."""
+    return min(SMEM_PER_SM // blocks_per_sm - STATIC_SMEM - 1024,
+               SMEM_PER_BLOCK - STATIC_SMEM)
+
+
+def batch_plan(shape: Tuple[int, int, int, int], dtype: torch.dtype,
+               blocks_per_sm: int = BATCH_BLOCKS_PER_SM) -> BatchPlan:
+    """The batch forward's cooperative launch for x of `shape` (B, C, H, W):
+    the widest channel tile up to a 128-byte line of a pixel; as many runs of
+    the P = N*H*W pixels per tile as fill the `blocks_per_sm` * 132 blocks
+    the card holds at once (none shorter than one 16-byte vector per
+    thread); and each run's first pixels, as many as a block's share of the
+    SM's shared memory holds, kept there across the grid barrier."""
+    b, c, h, w = shape
+    esize = _check_shape(shape, dtype)
+    tile = _widest(c, esize, LINE, 2 * SECTOR, SECTOR, SECTOR // 2)
+    tiles, capacity = c // tile, blocks_per_sm * SMS
+    if blocks_per_sm < 1 or tiles > capacity:
+        raise ValueError(f"modnorm: the batch forward holds at most {capacity} channel tiles "
+                         f"of {tile} at once, got C={c}")
+    p, pixel_bytes = b * h * w, tile * esize
+    runs = max(1, min(capacity // tiles, math.ceil(p / (THREADS // (pixel_bytes // 16)))))
+    pixels = math.ceil(p / runs)
+    resident = min(pixels, _batch_room(blocks_per_sm) // pixel_bytes)
+    return BatchPlan(tile, runs, pixels, resident, resident * pixel_bytes, blocks_per_sm,
+                     runs * tiles)
+
+
+def check_batch_plan(plan: BatchPlan, shape: Tuple[int, int, int, int],
+                     dtype: torch.dtype) -> None:
+    """Raise ValueError unless the batch forward can take `plan` for x of
+    `shape`: every run nonempty, the grid within the blocks an SM holds."""
+    b, c, h, w = shape
+    esize = torch.finfo(dtype).bits // 8
+    p = b * h * w
+    problems = []
+    if plan.tile < 1 or c % plan.tile or plan.tile * esize not in (16, SECTOR, 2 * SECTOR, LINE):
+        problems.append(f"tile {plan.tile} for C={c} {dtype}")
+    elif plan.grid != plan.runs * c // plan.tile:
+        problems.append(f"grid {plan.grid}")
+    if not 1 <= plan.runs <= p:
+        problems.append(f"{plan.runs} runs of {p} pixels")
+    elif plan.pixels_per_run != math.ceil(p / plan.runs):
+        problems.append(f"{plan.pixels_per_run} pixels per run")
+    if not 1 <= plan.blocks_per_sm or plan.grid > plan.blocks_per_sm * SMS:
+        problems.append(f"{plan.grid} blocks at {plan.blocks_per_sm} per SM")
+    elif (not 0 <= plan.resident_pixels <= plan.pixels_per_run
+          or plan.smem_bytes != plan.resident_pixels * plan.tile * esize
+          or plan.smem_bytes > _batch_room(plan.blocks_per_sm)):
+        problems.append(f"{plan.resident_pixels} resident pixels in {plan.smem_bytes} bytes")
+    if problems:
+        raise ValueError(f"modnorm: the batch forward cannot take {plan} for "
+                         f"{dtype} {tuple(shape)}: {'; '.join(problems)}")
+
+
+@functools.cache
+def batch_blocks_per_sm(dtype: torch.dtype, with_mod: bool, lrelu: bool) -> int:
+    """Blocks of the batch forward the current card holds per SM with the
+    shared memory its plan gives them (cudaOccupancyMaxActiveBlocksPerMultiprocessor):
+    BATCH_BLOCKS_PER_SM where they fit, else fewer."""
+    for n in range(BATCH_BLOCKS_PER_SM, 0, -1):
+        if _lib().modnorm_batch_blocks_per_sm(_DTYPE_CODE[dtype], int(with_mod), int(lrelu),
+                                              _batch_room(n)) >= n:
+            return n
+    raise RuntimeError("modnorm: the card holds no block of the batch forward")
+
+
+def _backward_smem(pixels: int, lanes: int, tensors: int) -> int:
+    """Shared memory of the on-chip instance backward: each tensor's chunk
+    in slots tid + k * THREADS, padded to whole rounds of THREADS vectors."""
+    return tensors * math.ceil(pixels * lanes / THREADS) * THREADS * 16
+
+
+def instance_backward_plan(shape: Tuple[int, int, int, int], dtype: torch.dtype,
+                           with_mod: bool) -> InstancePlan:
+    """The instance backward's cluster launch for x of `shape` (B, C, H, W).
+
+    On-chip where a cluster's blocks hold the slab of x and gout (and mod)
+    with two blocks per SM, at a tile of two 32-byte sectors of a pixel for
+    slabs of up to 2 * WIDE_SLAB bytes per tensor and of one sector beyond
+    (16 bytes where C forces it); split as `_layout` splits the forward's
+    (the least split that fits, keeps chunks near CHUNK_TARGET) but filling
+    only half the card, since small slabs (the discriminator's) lose more
+    to a larger cluster than they gain from more blocks.  Otherwise
+    streaming, at the widest tile up to a 128-byte line that still gives
+    half as many blocks as the card has SMs: on the H100 the full trunk's
+    (4, 32, 256, 256) bf16 streamed faster at a 32-byte tile than on-chip at
+    the 16-byte tile its slab would need, one block per SM over several
+    waves."""
+    b, c, h, w = shape
+    esize = _check_shape(shape, dtype)
+    if b > 65535:
+        raise ValueError("modnorm: instance mode takes at most 65535 samples")
+    hw, tensors = h * w, 4 if with_mod else 2
+    wide = _widest(c, esize, 2 * SECTOR, SECTOR, SECTOR // 2)
+    tiles = [wide] if hw * wide * esize <= 2 * WIDE_SLAB else []
+    for tile in dict.fromkeys(tiles + [_widest(c, esize, SECTOR, SECTOR // 2)]):
+        lanes = tile * esize // 16
+        fit = next((k for k in range(1, min(MAX_CLUSTER, hw) + 1) if _backward_smem(
+            math.ceil(hw / k), lanes, tensors) <= TWO_BLOCKS_SMEM), None)
+        if fit is None:
+            continue
+        fill = math.ceil(SMS // 2 / (b * c // tile))
+        near = math.ceil(hw * tile * esize * tensors / CHUNK_TARGET)
+        cluster = min(MAX_CLUSTER, hw, max(fit, fill, near))
+        pixels = math.ceil(hw / cluster)
+        return InstancePlan("on-chip", tile, cluster, pixels,
+                            _backward_smem(pixels, lanes, tensors), 0,
+                            (cluster * c // tile, b))
+    cluster = min(MAX_CLUSTER, hw)
+    tiles = [t for t in (LINE // esize, 2 * SECTOR // esize, SECTOR // esize, 16 // esize)
+             if t >= 8 and c % t == 0]
+    tile = next((t for t in tiles if b * c // t * cluster >= SMS // 2), tiles[-1])
+    return InstancePlan("streaming", tile, cluster, math.ceil(hw / cluster), 0, 0,
+                        (cluster * c // tile, b))
+
+
+def check_instance_backward_plan(plan: InstancePlan, shape: Tuple[int, int, int, int],
+                                 dtype: torch.dtype, with_mod: bool) -> None:
+    """Raise ValueError unless the instance backward can take `plan`."""
+    esize = torch.finfo(dtype).bits // 8
+    problems = []
+    if plan.register_vectors:
+        problems.append(f"{plan.register_vectors} vectors per thread in registers")
+    if plan.variant == "on-chip" and plan.tile >= 1 and plan.smem_bytes != _backward_smem(
+            plan.pixels_per_cta, max(1, plan.tile * esize // 16), 4 if with_mod else 2):
+        problems.append(f"{plan.smem_bytes} bytes of shared memory")
+    _check_cluster_plan("instance backward", plan, shape, dtype, problems)
 
 
 @dataclasses.dataclass(frozen=True)
 class ReducePlan:
     lanes: int                # 8-channel vectors per block: 1, 2, 4 or 8
-    chunks: int               # blocks along each statistics set's pixels
+    chunks: int               # blocks along the pixels
     chunk: int                # pixels per chunk (the last may have fewer)
-    grid: Tuple[int, int, int]  # (chunks, C / (8 * lanes), sets)
+    grid: Tuple[int, int]     # (chunks, C / (8 * lanes))
 
 
-def reduce_plan(sets: int, hw: int, c: int) -> ReducePlan:
-    """The launch of the training reductions (batch statistics; the
-    backward's sums) over `sets` statistics sets of `hw` pixels and `c`
-    channels: the widest channel tile up to 64 channels, and enough chunks
-    of each set's pixels for one wave of blocks, each chunk at least 8
+def reduce_plan(p: int, c: int) -> ReducePlan:
+    """The launch of the batch backward's reduction over `p` = N*H*W pixels
+    and `c` channels: the widest channel tile up to 64 channels, and enough
+    chunks of the pixels for one wave of blocks, each chunk at least 8
     pixels per thread."""
-    if c % 8 or c < 8 or sets < 1 or hw < 1:
+    if c % 8 or c < 8 or p < 1:
         raise ValueError(f"modnorm: training needs C % 8 == 0 and a nonempty x, got "
-                         f"{sets} sets of {hw} pixels x {c} channels")
-    if sets > 65535:
-        raise ValueError("modnorm: training takes at most 65535 statistics sets")
+                         f"{p} pixels x {c} channels")
     lanes = next(n for n in (8, 4, 2, 1) if (c // 8) % n == 0)
     rows = THREADS // lanes
     groups = c // (8 * lanes)
-    chunks = max(1, min(math.ceil(REDUCE_BLOCKS / (sets * groups)),
-                        math.ceil(hw / (8 * rows))))
-    chunk = math.ceil(hw / chunks)
-    chunks = math.ceil(hw / chunk)
-    return ReducePlan(lanes, chunks, chunk, (chunks, groups, sets))
+    chunks = max(1, min(math.ceil(REDUCE_BLOCKS / groups), math.ceil(p / (8 * rows))))
+    chunk = math.ceil(p / chunks)
+    chunks = math.ceil(p / chunk)
+    return ReducePlan(lanes, chunks, chunk, (chunks, groups))
 
 
 def _set_dims(stats: str) -> Tuple[int, ...]:
@@ -524,17 +704,14 @@ def _modnorm_train_op(x: torch.Tensor, mod: Optional[torch.Tensor], stats: str,
     code = _DTYPE_CODE[x.dtype]
     with torch.cuda.device(x.device):
         if stats == "batch":
-            plan = reduce_plan(1, b * h * w, c)
-            part = torch.empty(3 * plan.chunks * c, **f32)
-            shift = torch.empty(c, **f32)
-            err = _lib().modnorm_batch_stats(
-                x.data_ptr(), part.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                shift.data_ptr(), b * h * w, c, plan.lanes, plan.chunks, plan.chunk,
-                eps, code, stream)
-            if err == 0:
-                err = _lib().modnorm_affine(x.data_ptr(), mod_ptr, rstd.data_ptr(),
-                                            shift.data_ptr(), out.data_ptr(), b * h * w, c,
-                                            code, int(lrelu), LRELU_SLOPE, stream)
+            plan = batch_plan((b, c, h, w), x.dtype,
+                              batch_blocks_per_sm(x.dtype, mod is not None, lrelu))
+            check_batch_plan(plan, (b, c, h, w), x.dtype)
+            part = torch.empty(2 * plan.runs * c, **f32)
+            err = _lib().modnorm_batch(
+                x.data_ptr(), mod_ptr, out.data_ptr(), part.data_ptr(), mean.data_ptr(),
+                rstd.data_ptr(), b * h * w, c, plan.tile, plan.runs, plan.smem_bytes, eps,
+                code, int(lrelu), LRELU_SLOPE, stream)
         else:
             plan = instance_plan((b, c, h, w), x.dtype)
             check_instance_plan(plan, (b, c, h, w), x.dtype)
@@ -570,27 +747,34 @@ def _modnorm_backward_op(x: torch.Tensor, mod: Optional[torch.Tensor], gout: tor
     _check_train(x, mod)
     b, c, h, w = x.shape
     _check_nhwc("gout", gout, x.device, x.dtype, (b, c, h, w))
-    sets, hw = (1, b * h * w) if stats == "batch" else (b, h * w)
     for name, v in (("mean", mean), ("rstd", rstd)):
         if (v.device != x.device or v.dtype != torch.float32
                 or tuple(v.shape) != _stats_shape(x, stats) or not v.is_contiguous()):
             raise ValueError(f"modnorm: {name} must be contiguous float32 "
                              f"{_stats_shape(x, stats)} on {x.device}")
-    plan = reduce_plan(sets, hw, c)
     f32 = dict(dtype=torch.float32, device=x.device)
-    part = torch.empty(2 * sets * plan.chunks * c, **f32)
-    coef = torch.empty(2 * sets * c, **f32)
     gx = torch.empty_like(x, memory_format=torch.channels_last)
     gmod = (torch.empty_like(mod, memory_format=torch.channels_last) if mod is not None
             else x.new_empty(0))
+    ptrs = (x.data_ptr(), None if mod is None else mod.data_ptr(), gout.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr())
+    out_ptrs = (gx.data_ptr(), None if mod is None else gmod.data_ptr())
+    code = _DTYPE_CODE[x.dtype]
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
     with torch.cuda.device(x.device):
-        err = _lib().modnorm_backward(
-            x.data_ptr(), None if mod is None else mod.data_ptr(), gout.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), part.data_ptr(), coef.data_ptr(),
-            gx.data_ptr(), None if mod is None else gmod.data_ptr(), sets, hw, c,
-            plan.lanes, plan.chunks, plan.chunk, int(stats == "instance"),
-            _DTYPE_CODE[x.dtype], int(lrelu), LRELU_SLOPE, stream)
+        if stats == "batch":
+            plan = reduce_plan(b * h * w, c)
+            part = torch.empty(2 * plan.chunks * c, **f32)
+            coef = torch.empty(2 * c, **f32)
+            err = _lib().modnorm_backward_batch(
+                *ptrs, part.data_ptr(), coef.data_ptr(), *out_ptrs, b * h * w, c, plan.lanes,
+                plan.chunks, plan.chunk, code, int(lrelu), LRELU_SLOPE, stream)
+        else:
+            plan = instance_backward_plan((b, c, h, w), x.dtype, mod is not None)
+            check_instance_backward_plan(plan, (b, c, h, w), x.dtype, mod is not None)
+            err = _lib().modnorm_backward_instance(
+                *ptrs, *out_ptrs, b, h * w, c, plan.tile, plan.cluster, plan.smem_bytes,
+                int(plan.variant == "streaming"), code, int(lrelu), LRELU_SLOPE, stream)
     if err != 0:
         raise RuntimeError(f"modnorm_backward ({stats}) launch failed with CUDA error {err}")
     launches["backward_" + stats] += 1

@@ -235,9 +235,13 @@ def test_instance_kernel_refuses_a_plan_it_cannot_take(cuda_device, monkeypatch)
 # -- training: batch statistics, statistics out, the backward -----------------
 
 # (B, C, H, W): the discriminator's odd sizes (65^2, 17^2, 18^2), a
-# generator-like batch shape, an 8-channel tile
+# generator-like batch shape, an 8-channel tile; the b4 step's generator at
+# 64^2 (the batch forward on chip) and 256^2 (re-read), and the full trunk
+# at 256^2 (the instance backward at an 8-channel bf16 tile)
 TRAIN_SHAPES = {"65x65": (4, 64, 65, 65), "17x17": (4, 128, 17, 17), "18x18": (2, 256, 18, 18),
-                "generator": (2, 512, 32, 32), "C=24": (3, 24, 20, 20)}
+                "generator": (2, 512, 32, 32), "C=24": (3, 24, 20, 20),
+                "generator 64^2": (4, 512, 64, 64), "generator 256^2": (4, 512, 256, 256),
+                "full trunk": (4, 32, 256, 256)}
 
 
 def _train_within(got, want, dtype, rel=1e-5):
@@ -325,6 +329,75 @@ def test_train_kernels_refuse_what_they_do_not_take(cuda_device):
     for call in bad:
         with pytest.raises(ValueError):
             call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,variant", [("generator 64^2", "on-chip"),
+                                          ("generator 256^2", "re-read")])
+def test_batch_forward_plan_on_card(cuda_device, case, variant):
+    """The card holds the planned blocks per SM, and the b4 step's 64^2
+    shape keeps x on chip while the 256^2 one reads it again."""
+    assert mn.batch_blocks_per_sm(torch.bfloat16, True, True) == mn.BATCH_BLOCKS_PER_SM
+    plan = mn.batch_plan(TRAIN_SHAPES[case], torch.bfloat16,
+                         mn.batch_blocks_per_sm(torch.bfloat16, True, True))
+    assert plan.variant == variant
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["generator 64^2", "generator 256^2", "full trunk", "65x65"])
+def test_train_kernels_are_deterministic_on_card(cuda_device, case, dtype):
+    """Two calls of the batch forward and of the instance backward give
+    bit-identical outputs, statistics and gradients (fixed merge orders, no
+    float atomics)."""
+    shape = TRAIN_SHAPES[case]
+    stats = "instance" if case in ("full trunk", "65x65") else "batch"
+    x, mod, _, _ = _inputs(cuda_device, dtype, shape=shape, with_mod=stats == "batch")
+    gout = _inputs(cuda_device, dtype, shape=shape, with_mod=False, seed=1)[0]
+    if stats == "batch":
+        first = mn.modnorm_train(x, mod, stats=stats, lrelu=True)
+        second = mn.modnorm_train(x, mod, stats=stats, lrelu=True)
+    else:
+        _, mean, rstd = mn.modnorm_train(x, mod, stats=stats, lrelu=True)
+        first = mn.modnorm_backward(x, mod, gout, mean, rstd, stats=stats, lrelu=True)
+        second = mn.modnorm_backward(x, mod, gout, mean, rstd, stats=stats, lrelu=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_train_kernels_refuse_a_plan_they_cannot_take(cuda_device, monkeypatch):
+    """A plan the batch forward or the instance backward cannot take raises
+    before any launch, from the Python check or, past it, from the C entry;
+    nothing falls back to the plain version or to another kernel."""
+    x, mod, _, _ = _inputs(cuda_device, torch.bfloat16, shape=(4, 64, 32, 32))
+    gout = _inputs(cuda_device, torch.bfloat16, shape=(4, 64, 32, 32), with_mod=False)[0]
+    _, mean, rstd = mn.modnorm_train(x, mod, stats="instance")
+    good = mn.batch_plan(tuple(x.shape), x.dtype)
+    bad_batch = [dataclasses.replace(good, runs=good.runs * 40, grid=good.grid * 40),
+                 dataclasses.replace(good, tile=24)]
+    good_bwd = mn.instance_backward_plan(tuple(x.shape), x.dtype, True)
+    bad_bwd = [dataclasses.replace(good_bwd, smem_bytes=16), dataclasses.replace(good_bwd,
+                                                                                 cluster=32)]
+    for checked in (True, False):
+        if not checked:  # past the Python check, the C entry refuses
+            monkeypatch.setattr(mn, "check_batch_plan", lambda *a: None)
+            monkeypatch.setattr(mn, "check_instance_backward_plan", lambda *a: None)
+        for bad in bad_batch:
+            monkeypatch.setattr(mn, "batch_plan", lambda *a, plan=bad: plan)
+            before = dict(mn.launches)
+            with pytest.raises(ValueError if checked else RuntimeError):
+                mn.modnorm_train(x, mod, stats="batch")
+            assert mn.launches == before
+        for bad in bad_bwd:
+            monkeypatch.setattr(mn, "instance_backward_plan", lambda *a, plan=bad: plan)
+            before = dict(mn.launches)
+            with pytest.raises(ValueError if checked else RuntimeError):
+                mn.modnorm_backward(x, mod, gout, mean, rstd, stats="instance")
+            assert mn.launches == before
 
 
 @pytest.mark.cuda

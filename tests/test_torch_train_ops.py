@@ -153,29 +153,28 @@ def test_avg_pool_3x3_s2_matches_jax(shape):
                                atol=1e-6)
 
 
-# every training shape of the 8x 256^2 step at b4 (sets, H*W, C): the
-# generator's batch statistics, the trunks' and D's instance ones, and
-# edges (one pixel, an 8-channel tile, many sets)
-PLAN_SHAPES = [(1, 4 * 32 * 32, 512), (1, 4 * 256 * 256, 512), (4, 256 * 256, 32),
-               (4, 32 * 32, 64), (8, 65 * 65, 64), (8, 17 * 17, 128), (8, 18 * 18, 256),
-               (1, 1, 8), (3, 20 * 20, 24), (65535, 4, 8)]
+# the batch backward's (N*H*W, C): the generator's shapes of the 8x 256^2
+# step at b4 and b16, and edges (one pixel, an 8-channel tile, odd sizes,
+# many pixels of few channels)
+PLAN_SHAPES = [(4 * 32 * 32, 512), (4 * 64 * 64, 512), (4 * 128 * 128, 512),
+               (4 * 256 * 256, 512), (16 * 256 * 256, 512), (1, 8), (3 * 20 * 20, 24),
+               (8 * 17 * 17, 128), (7, 64), (65535 * 4, 8)]
 
 
-@pytest.mark.parametrize("sets,hw,c", PLAN_SHAPES)
-def test_reduce_plan_covers_every_pixel(sets, hw, c):
-    """The chunks tile each set's pixels with none empty; the channel tile
-    is 8, 16, 32 or 64 channels dividing C; the grid is what the C entry
-    computes and within CUDA's limits."""
-    plan = mn.reduce_plan(sets, hw, c)
+@pytest.mark.parametrize("p,c", PLAN_SHAPES)
+def test_reduce_plan_covers_every_pixel(p, c):
+    """The chunks tile the pixels with none empty; the channel tile is 8,
+    16, 32 or 64 channels dividing C; the grid is what the C entry computes
+    and within CUDA's limits."""
+    plan = mn.reduce_plan(p, c)
     assert plan.lanes in (1, 2, 4, 8) and c % (8 * plan.lanes) == 0
-    assert plan.chunks * plan.chunk >= hw > (plan.chunks - 1) * plan.chunk
-    assert plan.grid == (plan.chunks, c // (8 * plan.lanes), sets)
-    assert plan.grid[1] <= 65535 and plan.grid[2] <= 65535
-    blocks = math.prod(plan.grid)
-    assert blocks <= max(mn.REDUCE_BLOCKS, sets * plan.grid[1])
+    assert plan.chunks * plan.chunk >= p > (plan.chunks - 1) * plan.chunk
+    assert plan.grid == (plan.chunks, c // (8 * plan.lanes))
+    assert plan.grid[1] <= 65535
+    assert math.prod(plan.grid) <= max(mn.REDUCE_BLOCKS, plan.grid[1])
 
 
 def test_reduce_plan_refuses_what_the_kernels_do_not_take():
-    for args in ((1, 16, 12), (0, 16, 8), (1, 0, 8), (65536, 4, 8)):
+    for args in ((16, 12), (0, 8), (16, 0), (4, -8)):
         with pytest.raises(ValueError):
             mn.reduce_plan(*args)
