@@ -49,9 +49,7 @@
    statistics, instance with statistics out, both backwards) against its
    plain version at every shape of the b4 and b16 steps, bf16 and float32,
    timed at b4 with its launch plan and the GB/s of the bytes its design
-   moves (the batch forward's kernels apart, by torch.profiler at each b4
-   generator shape, run first of all phases); a float32 step on the card
-   against the CPU, beside the
+   moves; a float32 step on the card against the CPU, beside the
    CPU's own spread under weights nudged by 1 and 8 float32 ulps; bf16
    step gradients against float32; the faithful b4 and b16 and reuse_fake
    b4 steps with K1's launches per step checked against `train_norms`,
@@ -1218,8 +1216,8 @@ def train_kernel_phase(cfg: ModelConfig, batch: int, timed: bool = True):
                                                 x.element_size())
                     row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound, by
                     row[f"{key}_bound_share"] = bound / row[f"{key}_ms"]
-                    plan = _train_plan(key, stats, shape, with_mod, lrelu, dtype)
-                    row[f"{key}_plan"] = None if plan is None else dataclasses.asdict(plan)
+                    row[f"{key}_plan"] = dataclasses.asdict(
+                        _train_plan(key, stats, shape, with_mod, lrelu, dtype))
                     row[f"{key}_gb_per_s"] = _design_bytes(
                         key, stats, shape, with_mod, lrelu, dtype) / row[f"{key}_ms"] / 1e6
                 del pool
@@ -1233,66 +1231,19 @@ def train_kernel_phase(cfg: ModelConfig, batch: int, timed: bool = True):
     return rows
 
 
-def batch_forward_passes(cfg: ModelConfig, batch: int, calls: int = 8):
-    """The batch-statistics forward's kernels apart, bf16, at each generator
-    shape of the step at `batch`: `calls` calls over inputs larger than the
-    L2 traced with torch.profiler; per kernel name the device us per call
-    and the GB/s of the bytes that kernel moves (the statistics pass reads
-    x; the affine pass reads x and mod and writes out; the one-launch
-    kernel moves what its plan says)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
-    out = []
-    for _, shape, with_mod, lrelu, _ in generator_norms(cfg, batch):
-        x, mod, _, _ = _kernel_inputs(shape, with_mod, torch.bfloat16, gen)
-        x_bytes = x.numel() * x.element_size()
-        pool = [(x, mod)] + [_kernel_inputs(shape, with_mod, torch.bfloat16, gen)[:2]
-                             for _ in range(max(0, math.ceil(120e6 / (4 * x_bytes)) - 1))]
-        for a, m in pool:  # warm-up
-            mn.modnorm_train(a, m, stats="batch", lrelu=lrelu)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(calls):
-                a, m = pool[i % len(pool)]
-                mn.modnorm_train(a, m, stats="batch", lrelu=lrelu)
-            torch.cuda.synchronize()
-        moved = {"batch_stats_partial": x_bytes,
-                 "modnorm_affine": x_bytes * (4 if with_mod else 2),
-                 "modnorm_batch": _design_bytes("fwd", "batch", shape, with_mod, lrelu,
-                                                torch.bfloat16)}
-        kernels = {}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
-                continue
-            us = e.self_device_time_total / calls
-            nbytes = next((n for k, n in moved.items() if k in e.key), None)
-            kernels[e.key[:60]] = {"us_per_call": us, "count": e.count,
-                                   "gb_per_s": nbytes / us / 1e3 if nbytes else None}
-        row = {"shape": list(shape), "x_mb": x_bytes / 1e6, "kernels": kernels}
-        log("batch forward passes " + json.dumps(row))
-        out.append(row)
-        del pool, x, mod
-        torch.cuda.empty_cache()
-    return out
-
-
 def _train_plan(key: str, stats: str, shape, with_mod: bool, lrelu: bool, dtype):
     """The launch plan of a training kernel: the batch forward's for the
-    card's blocks per SM, the instance kernels', the batch backward's
-    reduction; None for an earlier version of the package, timed by this
-    script for comparison, without the plan."""
-    if key == "fwd" and stats == "batch" and hasattr(mn, "batch_plan"):
-        return mn.batch_plan(shape, dtype, mn.batch_blocks_per_sm(dtype, with_mod, lrelu))
-    if key == "fwd" and stats == "instance":
+    card's blocks per SM and SMs, the instance kernels', the batch
+    backward's reduction."""
+    if key == "fwd" and stats == "batch":
+        return mn.batch_plan(shape, dtype, mn.batch_blocks_per_sm(dtype, with_mod, lrelu),
+                             mn.card_sms(torch.device(DEVICE)))
+    if key == "fwd":
         return mn.instance_plan(shape, dtype)
-    if key == "bwd" and stats == "instance" and hasattr(mn, "instance_backward_plan"):
+    if stats == "instance":
         return mn.instance_backward_plan(shape, dtype, with_mod)
-    if key == "bwd" and stats == "batch" and hasattr(mn, "batch_plan"):
-        b, c, h, w = shape
-        return mn.reduce_plan(b * h * w, c)
-    return None
+    b, c, h, w = shape
+    return mn.reduce_plan(b * h * w, c)
 
 
 def _design_bytes(key: str, stats: str, shape, with_mod: bool, lrelu: bool, dtype) -> float:
@@ -1308,13 +1259,11 @@ def _design_bytes(key: str, stats: str, shape, with_mod: bool, lrelu: bool, dtyp
         once = (2 + m) * t                             # x, mod in; out
         if stats == "instance":
             return once + (t if plan.variant == "streaming" else 0)
-        if plan is None:  # the statistics kernels, then the affine kernel
-            return once + t
         p = b * h * w
         kept = sum(min(e - s, plan.resident_pixels) for s, e in mn.instance_chunks(p, plan.runs))
         return once + t * (p - kept) / p
     once = (3 + 2 * m) * t                             # x, gout, mod in; grad_x, grad_mod
-    if stats == "batch" or plan is None or plan.variant == "streaming":
+    if stats == "batch" or plan.variant == "streaming":
         return once + (2 + m) * t                      # x, gout and mod once more
     return once
 
@@ -1594,7 +1543,7 @@ def drive_train(tag: str, batch_n: int, reuse_fake: bool = False, rows=None,
 TRAIN_CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("K1 backward", ("backward_partial", "backward_final", "backward_apply",
                      "instance_backward")),
-    ("K1 forward", ("modnorm", "batch_stats")),  # batch_stats: earlier packages
+    ("K1 forward", ("modnorm",)),
     ("conv backward (cuDNN)", ("dgrad", "wgrad")),
     ("conv forward (cuDNN)", ("fprop", "conv", "implicit")),
     ("optimizer", ("multi_tensor", "foreach", "adam")),
@@ -1812,15 +1761,6 @@ TRAIN_KERNEL_INFO = {
     "modnorm_backward_instance": ("backward_instance", "aten.native_batch_norm_backward on "
                                   "the (1, B*C, H, W) view of F.instance_norm's backward"),
 }
-# The training kernels' ms per faithful b4 step in their earlier design (the
-# batch forward as statistics kernels then the affine kernel; the instance
-# backward as reduction, merge and elementwise kernels), four runs of this
-# script on an NVIDIA H100 80GB HBM3 at 700 W: the kernels line's
-# "earlier_ms".
-TRAIN_EARLIER_MS = {"batch": [4.271, 4.316, 4.272, 4.286],
-                    "instance_train": [0.4588, 0.4630, 0.4604, 0.4640],
-                    "backward_batch": [2.941, 3.020, 3.024, 3.029],
-                    "backward_instance": [0.3422, 0.3484, 0.3416, 0.3497]}
 
 
 def kernels_line(rows, launches, norms, train=None):
@@ -1853,7 +1793,7 @@ def kernels_line(rows, launches, norms, train=None):
             "launches": train_launches_[mode], "max_abs_err": max(errs),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "library_call": library_call, "earlier_ms": TRAIN_EARLIER_MS[mode],
+            "library_call": library_call,
             "per": f"one training step ({PRESET} b{TRAIN_BATCH}, faithful schedule; sum over "
                    "its launches), device time",
         })
@@ -1875,9 +1815,6 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
-    # first: later in the process torch.profiler recorded no kernel of the
-    # cooperative launch in this window (it did in a whole training step)
-    batch_forward_passes(cfg, TRAIN_BATCH)
     rows = kernel_phase(cfg, BATCH)
     t0 = time.perf_counter()
     launches, system = path_phase(BATCH)

@@ -649,10 +649,13 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
 //     are copied there once with cp.async (all in flight at once); the rest
 //     streams through registers, a group of kInFlight 16-byte loads per
 //     thread issued while the previous group is summed;
-//   * a thread sums d = x - K and d * d, with K the run's first pixel (the
-//     shifted-data form: no division in the loop, and no cancellation
-//     beyond the data's own spread); the block turns its sums into the
-//     run's (mean, centred M2) once;
+//   * a thread sums d = x - K and d * d (the shifted-data form: no division
+//     in the loop), with K the mean of kThreads / L pixels spread evenly
+//     over the run; the sum of d * d exceeds the centred M2 by
+//     n ((K - mean) / sigma)^2 sigma^2, so K is a sample mean and not one
+//     pixel, which may lie far from the mean (an image's corner after zero
+//     padding); the block turns its sums into the run's (mean, centred M2)
+//     once;
 //   * the runs' partials go to device memory, the grid synchronizes
 //     (cg::this_grid().sync()), and every block of a channel tile merges its
 //     tile's runs with Chan's formula in run order (never E[x^2] - E[x]^2),
@@ -687,9 +690,6 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
 // where the bound has 7 with mod.
 
 constexpr int kTileChannels = kMaxLanes * kVec;  // channels per block, at most
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // The batch forward.  Grid: runs * (C / tile) blocks, launched cooperatively;
 // block i takes channel tile ct = i % (C / tile) over the pixels
@@ -736,11 +736,27 @@ modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __re
     for (int k = group(g); k < group(g + 1); ++k) cp_async16(&s_x[slot(k)], xt + pix(k) * C);
     cp_async_commit();
   }
-  // sums of d = x - K and d * d, K the run's first pixel
-  float K[V], s1[V], s2[V];
-  unpack16<T>(__ldg(reinterpret_cast<const uint4*>(xt)), K);
+  // the first group of streamed loads, in flight while K is found
+  uint4 cur[kInFlight] = {};
+  if (nks < nk) {
 #pragma unroll
-  for (int j = 0; j < V; ++j) s1[j] = s2[j] = 0.f;
+    for (int u = 0; u < kInFlight; ++u)
+      if (nks + u < nk) cur[u] = __ldg(reinterpret_cast<const uint4*>(xt + pix(nks + u) * C));
+  }
+  // sums of d = x - K and d * d, K the mean of kThreads / L pixels spread
+  // evenly over the run (thread tid loads pixel (tid / L) * npix / (kThreads / L))
+  float K[V], s1[V], s2[V];
+  {
+    const int pilot = kThreads / L;
+    const int64_t q = static_cast<int64_t>(tid >> shift) * npix / pilot;
+    unpack16<T>(__ldg(reinterpret_cast<const uint4*>(xt + q * C)), K);
+    block_sum<V>(K, L, tile, static_cast<float>(pilot), s_red, s_stat);
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    K[j] = s_stat[lane * V + j];
+    s1[j] = s2[j] = 0.f;
+  }
   auto add = [&](const uint4 raw) {
     float v[V];
     unpack16<T>(raw, v);
@@ -753,10 +769,7 @@ modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __re
   };
   // the streamed vectors: the next group's loads in flight while one is summed
   if (nks < nk) {
-    uint4 cur[kInFlight] = {}, nxt[kInFlight] = {};
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u)
-      if (nks + u < nk) cur[u] = __ldg(reinterpret_cast<const uint4*>(xt + pix(nks + u) * C));
+    uint4 nxt[kInFlight] = {};
     for (int k0 = nks; k0 < nk; k0 += kInFlight) {
       const int kn = k0 + kInFlight;
 #pragma unroll
@@ -786,7 +799,7 @@ modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __re
     const int c = ct * tile + tid;
     const float n = static_cast<float>(npix), a = s_sum[0][tid];
     const float da = a / n;
-    part[static_cast<int64_t>(r) * C + c] = to_float(x[start * C + c]) + da;
+    part[static_cast<int64_t>(r) * C + c] = s_stat[tid] + da;
     part[static_cast<int64_t>(runs + r) * C + c] = fmaxf(s_sum[1][tid] - a * da, 0.f);
   }
   cg::this_grid().sync();

@@ -49,7 +49,7 @@ __all__ = ["modnorm", "modnorm_plain", "launches", "reset_launches",
            "InstancePlan", "instance_plan", "instance_chunks", "check_instance_plan",
            "clusters_in_flight", "modnorm_train", "modnorm_train_plain",
            "modnorm_backward", "modnorm_backward_plain", "ReducePlan", "reduce_plan",
-           "BatchPlan", "batch_plan", "check_batch_plan", "batch_blocks_per_sm",
+           "BatchPlan", "batch_plan", "check_batch_plan", "batch_blocks_per_sm", "card_sms",
            "instance_backward_plan", "check_instance_backward_plan", "layout_copies"]
 
 LRELU_SLOPE = 0.2
@@ -74,7 +74,8 @@ def reset_launches() -> None:
     layout_copies["backward"] = 0
 
 
-# The launch plans.  Hopper (H100): 132 SMs with 233,472
+# The launch plans.  Hopper (H100 SXM): 132 SMs (the batch forward, whose
+# grid must be resident at once, is sized by the card's own count) with 233,472
 # bytes of shared memory each, of which a block may use 232,448 and the
 # kernel's static arrays take under STATIC_SMEM (the runtime keeps 1 KB more
 # per block); a cluster holds at most 16 blocks (above 8 as a non-portable
@@ -401,6 +402,7 @@ class BatchPlan:
     resident_pixels: int      # of a run, the first pixels kept in shared memory
     smem_bytes: int           # dynamic shared memory per block: the resident pixels
     blocks_per_sm: int        # blocks an SM holds at once, as the grid was sized
+    sms: int                  # the card's SMs, as the grid was sized
     grid: int                 # runs * C / tile blocks, all resident at once
 
     @property
@@ -417,17 +419,18 @@ def _batch_room(blocks_per_sm: int) -> int:
 
 
 def batch_plan(shape: Tuple[int, int, int, int], dtype: torch.dtype,
-               blocks_per_sm: int = BATCH_BLOCKS_PER_SM) -> BatchPlan:
-    """The batch forward's cooperative launch for x of `shape` (B, C, H, W):
+               blocks_per_sm: int = BATCH_BLOCKS_PER_SM, sms: int = SMS) -> BatchPlan:
+    """The batch forward's cooperative launch for x of `shape` (B, C, H, W)
+    on a card of `sms` SMs (`card_sms`; the H100 SXM's 132 by default):
     the widest channel tile up to a 128-byte line of a pixel; as many runs of
-    the P = N*H*W pixels per tile as fill the `blocks_per_sm` * 132 blocks
+    the P = N*H*W pixels per tile as fill the `blocks_per_sm` * `sms` blocks
     the card holds at once (none shorter than one 16-byte vector per
     thread); and each run's first pixels, as many as a block's share of the
     SM's shared memory holds, kept there across the grid barrier."""
     b, c, h, w = shape
     esize = _check_shape(shape, dtype)
     tile = _widest(c, esize, LINE, 2 * SECTOR, SECTOR, SECTOR // 2)
-    tiles, capacity = c // tile, blocks_per_sm * SMS
+    tiles, capacity = c // tile, blocks_per_sm * sms
     if blocks_per_sm < 1 or tiles > capacity:
         raise ValueError(f"modnorm: the batch forward holds at most {capacity} channel tiles "
                          f"of {tile} at once, got C={c}")
@@ -435,14 +438,15 @@ def batch_plan(shape: Tuple[int, int, int, int], dtype: torch.dtype,
     runs = max(1, min(capacity // tiles, math.ceil(p / (THREADS // (pixel_bytes // 16)))))
     pixels = math.ceil(p / runs)
     resident = min(pixels, _batch_room(blocks_per_sm) // pixel_bytes)
-    return BatchPlan(tile, runs, pixels, resident, resident * pixel_bytes, blocks_per_sm,
+    return BatchPlan(tile, runs, pixels, resident, resident * pixel_bytes, blocks_per_sm, sms,
                      runs * tiles)
 
 
 def check_batch_plan(plan: BatchPlan, shape: Tuple[int, int, int, int],
                      dtype: torch.dtype) -> None:
     """Raise ValueError unless the batch forward can take `plan` for x of
-    `shape`: every run nonempty, the grid within the blocks an SM holds."""
+    `shape`: every run nonempty, the grid within the blocks the card holds
+    at once (`blocks_per_sm` on each of its `sms` SMs)."""
     b, c, h, w = shape
     esize = torch.finfo(dtype).bits // 8
     p = b * h * w
@@ -455,7 +459,7 @@ def check_batch_plan(plan: BatchPlan, shape: Tuple[int, int, int, int],
         problems.append(f"{plan.runs} runs of {p} pixels")
     elif plan.pixels_per_run != math.ceil(p / plan.runs):
         problems.append(f"{plan.pixels_per_run} pixels per run")
-    if not 1 <= plan.blocks_per_sm or plan.grid > plan.blocks_per_sm * SMS:
+    if not 1 <= plan.blocks_per_sm or plan.grid > plan.blocks_per_sm * plan.sms:
         problems.append(f"{plan.grid} blocks at {plan.blocks_per_sm} per SM")
     elif (not 0 <= plan.resident_pixels <= plan.pixels_per_run
           or plan.smem_bytes != plan.resident_pixels * plan.tile * esize
@@ -476,6 +480,13 @@ def batch_blocks_per_sm(dtype: torch.dtype, with_mod: bool, lrelu: bool) -> int:
                                               _batch_room(n)) >= n:
             return n
     raise RuntimeError("modnorm: the card holds no block of the batch forward")
+
+
+@functools.cache
+def card_sms(device: torch.device) -> int:
+    """The SMs of the card `device` (the batch forward's grid must fit them
+    all at once; the PCIe H100 has 114, the SXM 132)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _backward_smem(pixels: int, lanes: int, tensors: int) -> int:
@@ -705,7 +716,8 @@ def _modnorm_train_op(x: torch.Tensor, mod: Optional[torch.Tensor], stats: str,
     with torch.cuda.device(x.device):
         if stats == "batch":
             plan = batch_plan((b, c, h, w), x.dtype,
-                              batch_blocks_per_sm(x.dtype, mod is not None, lrelu))
+                              batch_blocks_per_sm(x.dtype, mod is not None, lrelu),
+                              card_sms(x.device))
             check_batch_plan(plan, (b, c, h, w), x.dtype)
             part = torch.empty(2 * plan.runs * c, **f32)
             err = _lib().modnorm_batch(

@@ -338,9 +338,40 @@ def test_batch_forward_plan_on_card(cuda_device, case, variant):
     """The card holds the planned blocks per SM, and the b4 step's 64^2
     shape keeps x on chip while the 256^2 one reads it again."""
     assert mn.batch_blocks_per_sm(torch.bfloat16, True, True) == mn.BATCH_BLOCKS_PER_SM
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert mn.card_sms(cuda_device) == sms
     plan = mn.batch_plan(TRAIN_SHAPES[case], torch.bfloat16,
-                         mn.batch_blocks_per_sm(torch.bfloat16, True, True))
-    assert plan.variant == variant
+                         mn.batch_blocks_per_sm(torch.bfloat16, True, True), sms)
+    assert plan.variant == variant and plan.grid <= plan.blocks_per_sm * sms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["generator 64^2", "generator 256^2"])
+def test_batch_forward_statistics_hold_far_from_the_mean_on_card(cuda_device, case, dtype):
+    """x = 50 + 1.5 randn with the first pixel of every image and of every
+    run of the plan 20 sigma off: mean and rstd against float64 on the same
+    values (the mean to 1e-6 of |mean|, rstd to 1e-5), and the output against
+    the plain version."""
+    shape = TRAIN_SHAPES[case]
+    b, c, h, w = shape
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = (torch.randn((b, h, w, c), generator=g, device=cuda_device) * 1.5 + 50.0).to(dtype)
+    x[:, 0, 0] = 80.0
+    plan = mn.batch_plan(shape, dtype, mn.batch_blocks_per_sm(dtype, False, False),
+                         mn.card_sms(cuda_device))
+    flat = x.view(-1, c)
+    for start, _ in mn.instance_chunks(b * h * w, plan.runs):
+        flat[start] = 80.0
+    x = x.permute(0, 3, 1, 2)  # (B, C, H, W) in channels_last memory
+    out, mean, rstd = mn.modnorm_train(x, None, stats="batch")
+    torch.cuda.synchronize()
+    xd = flat.double()
+    torch.testing.assert_close(mean.double(), xd.mean(0), rtol=1e-6, atol=0)
+    want_rstd = torch.rsqrt(xd.var(0, unbiased=False) + 1e-5)
+    torch.testing.assert_close(rstd.double(), want_rstd, rtol=1e-5, atol=0)
+    want, _, _ = mn.modnorm_train_plain(x, None, stats="batch")
+    assert _train_within(out, want, dtype)
 
 
 @pytest.mark.cuda

@@ -286,7 +286,7 @@ def test_batch_plan_keeps_x_on_chip_where_it_fits(shape, variant):
 @pytest.mark.parametrize("change", [dict(tile=24), dict(runs=0), dict(runs=4097),
                                     dict(grid=7), dict(pixels_per_run=1),
                                     dict(smem_bytes=SMEM_PER_BLOCK), dict(blocks_per_sm=0),
-                                    dict(resident_pixels=10 ** 6)], ids=str)
+                                    dict(resident_pixels=10 ** 6), dict(sms=1)], ids=str)
 def test_check_batch_plan_refuses_what_the_kernel_cannot_take(change):
     shape = (4, 64, 32, 32)
     plan = dataclasses.replace(mn.batch_plan(shape, torch.bfloat16), **change)
@@ -302,21 +302,51 @@ def test_batch_plan_refuses_what_no_plan_covers():
             mn.batch_plan(shape, dtype)
     with pytest.raises(ValueError):
         mn.batch_plan((1, 64 * 133, 1, 1), torch.bfloat16, blocks_per_sm=1)
+    with pytest.raises(ValueError):
+        mn.batch_plan((1, 64 * 229, 1, 1), torch.bfloat16, sms=114)
 
 
-def _batch_kernel_statistics(x: np.ndarray, runs: int, groups: int, eps: float = 1e-5):
+@pytest.mark.parametrize("shape", BATCH_SHAPES + BATCH_EDGES, ids=str)
+def test_batch_plan_fits_the_sms_of_the_card(shape):
+    """Sized for a card of fewer SMs (the PCIe H100's 114), the grid still
+    fits it at once and fills it; a plan sized for 132 SMs is refused for
+    114 wherever its grid is larger than 114 SMs hold."""
+    dtype = torch.bfloat16
+    plan = mn.batch_plan(shape, dtype, 2, sms=114)
+    mn.check_batch_plan(plan, shape, dtype)
+    assert plan.sms == 114 and plan.grid <= 2 * 114
+    b, c, h, w = shape
+    tiles, lanes = c // plan.tile, plan.tile * 2 // 16
+    if b * h * w >= 2 * 114 // tiles * (256 // lanes):
+        assert plan.grid > 2 * 114 - tiles
+    sxm = mn.batch_plan(shape, dtype, 2)
+    if sxm.grid > 2 * 114:
+        with pytest.raises(ValueError):
+            mn.check_batch_plan(dataclasses.replace(sxm, sms=114), shape, dtype)
+
+
+def _batch_kernel_statistics(x: np.ndarray, runs: int, groups: int, pilot: int,
+                             eps: float = 1e-5):
     """The batch kernel's arithmetic in float32 numpy, x: (P, C).  Each run:
-    sums of d = x - K and d * d with K its first pixel, turned into the run's
-    mean and centred M2; then Chan's merge of the runs, `groups` contiguous
-    groups in order, then the groups in order."""
+    sums of d = x - K and d * d with K the mean of `pilot` pixels spread
+    evenly over the run, each of the `pilot` threads of a channel summing
+    pixels q, q + pilot, ... in turn, then the threads' sums added; turned
+    into the run's mean and centred M2; then Chan's merge of the runs,
+    `groups` contiguous groups in order, then the groups in order."""
     f32 = np.float32
-    p = x.shape[0]
+    p, c = x.shape
     parts = []
     for s, e in mn.instance_chunks(p, runs):
-        d = x[s:e] - x[s]
-        a, q = d.sum(axis=0, dtype=f32), (d * d).sum(axis=0, dtype=f32)
-        n = f32(e - s)
-        parts.append((n, x[s] + a / n, np.maximum(q - a * (a / n), f32(0))))
+        n = e - s
+        k = x[s + np.arange(pilot) * n // pilot].sum(axis=0, dtype=f32) / f32(pilot)
+        d = np.zeros((-(-n // pilot) * pilot, c), f32)
+        d[:n] = x[s:e] - k
+        a, q = np.zeros((pilot, c), f32), np.zeros((pilot, c), f32)
+        for row in d.reshape(-1, pilot, c):
+            a, q = a + row, q + row * row
+        a, q = a.sum(axis=0, dtype=f32), q.sum(axis=0, dtype=f32)
+        n = f32(n)
+        parts.append((n, k + a / n, np.maximum(q - a * (a / n), f32(0))))
 
     def merge(items):
         n, mean, m2 = f32(0), np.zeros(x.shape[1], f32), np.zeros(x.shape[1], f32)
@@ -348,8 +378,14 @@ def test_batch_kernel_statistics_match_jax(shape, dtype):
     plan = mn.batch_plan(shape, dtype)
     rng = np.random.RandomState(4)
     x = (3.0 + 1.5 * rng.randn(b, h, w, c)).astype(np.float32)
+    _check_batch_kernel_statistics(x, plan, dtype)
+
+
+def _check_batch_kernel_statistics(x: np.ndarray, plan, dtype):
+    b, h, w, c = x.shape
+    lanes = plan.tile * (torch.finfo(dtype).bits // 8) // 16
     mean, rstd, y = _batch_kernel_statistics(x.reshape(-1, c), plan.runs,
-                                             mn.THREADS // plan.tile)
+                                             mn.THREADS // plan.tile, mn.THREADS // lanes)
     jx = jnp.asarray(x)
     jmean = jnp.mean(jx, axis=(0, 1, 2))
     jrstd = jax.lax.rsqrt(jnp.var(jx, axis=(0, 1, 2)) + 1e-5)
@@ -357,6 +393,47 @@ def test_batch_kernel_statistics_match_jax(shape, dtype):
     np.testing.assert_allclose(rstd, np.asarray(jrstd), rtol=1e-5, atol=0)
     np.testing.assert_allclose(y.reshape(b, h, w, c), np.asarray((jx - jmean) * jrstd),
                                rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=_dtype_id)
+@pytest.mark.parametrize("shape", [(4, 64, 16, 16), (2, 16, 37, 41), (8, 32, 33, 33),
+                                   (4, 512, 32, 32)], ids=str)
+def test_batch_kernel_statistics_hold_far_from_the_mean(shape, dtype):
+    """As above, with |mean| >> sigma and the first pixel of every run and
+    of every image 20 sigma off the mean (a corner after zero padding): the
+    shift K is a mean of pixels spread over the run, not one pixel, whose
+    distance would cost ((K - mean) / sigma)^2 in precision."""
+    b, c, h, w = shape
+    plan = mn.batch_plan(shape, dtype)
+    rng = np.random.RandomState(5)
+    x = (50.0 + 1.5 * rng.randn(b, h, w, c)).astype(np.float32)
+    x[:, 0, 0] = 80.0
+    flat = x.reshape(-1, c)
+    for s, _ in mn.instance_chunks(b * h * w, plan.runs):
+        flat[s] = 80.0
+    lanes = plan.tile * (torch.finfo(dtype).bits // 8) // 16
+    mean, rstd, _ = _batch_kernel_statistics(flat, plan.runs, mn.THREADS // plan.tile,
+                                             mn.THREADS // lanes)
+    _check_against_float64(flat, mean, rstd)
+
+
+@pytest.mark.parametrize("run", [7944, 31775], ids=["256^2 b4", "256^2 b16"])
+def test_batch_kernel_statistics_hold_far_from_the_mean_over_long_runs(run):
+    """The b4 and b16 steps' 256^2 runs (4 * 256^2 / 33 and 16 * 256^2 / 33
+    pixels of a 64-channel bf16 tile, 32 threads per channel), two of them,
+    each starting 20 sigma off a mean of 50."""
+    rng = np.random.RandomState(6)
+    x = (50.0 + 1.5 * rng.randn(2 * run, 16)).astype(np.float32)
+    x[[0, run]] = 80.0
+    mean, rstd, _ = _batch_kernel_statistics(x, 2, 8, 32)
+    _check_against_float64(x, mean, rstd)
+
+
+def _check_against_float64(x: np.ndarray, mean: np.ndarray, rstd: np.ndarray):
+    """The mean to a few float32 ulps, rstd to 1e-5."""
+    var = x.astype(np.float64).var(axis=0)
+    np.testing.assert_allclose(mean, x.astype(np.float64).mean(axis=0), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(rstd, 1 / np.sqrt(var + 1e-5), rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("with_mod", [False, True], ids=["x,gout", "x,gout,mod"])
