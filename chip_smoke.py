@@ -29,13 +29,24 @@
 5. Times each path (ms per batch, img/s, stages, peak memory) and traces
    one call with torch.profiler (device time by kernel and category, the
    idle share).
-6. Explorative phase: the 12 modes of deepsee_torch/inference/modes.py and
+6. Evaluation phase (`evaluation_phase`, the shape of scripts/bench_eval.py):
+   deepsee_torch.eval's InferenceEvaluator on the main path's bf16 system
+   with FID and LPIPS (seeded random metric networks), batch 16, 128
+   synthetic samples: one warm-up sweep and three timed ones (img/s,
+   eval_seconds), the device-only sweep over resident batches, the FID's
+   host seconds and share, the idle share of a profiled sweep, one profiled
+   batch's device ms by stage with K1's launches checked against the path's
+   norms; the metric networks in TF32 against strict float32 (FID of the
+   128 samples, LPIPS mean, Inception ms); two samples in float32 on the
+   card against the plain CPU path (every metric, LPIPS, both pool3 sets)
+   and the Inception network in float32 against float64 on the card.
+7. Explorative phase: the 12 modes of deepsee_torch/inference/modes.py and
    baseline_upscale on the main path's system (bf16, B=4, n=5): shapes,
    finite values, the K1 launches each mode's own calls imply (one encode
    and one generator call, or fewer), the same torch.Generator seed twice
    gives the same output and another seed another one (inference_noise,
    inference_multi_modal); ms per mode by CUDA events after one warm-up.
-7. Serving phase (as scripts/bench_server.py drives the JAX daemon):
+8. Serving phase (as scripts/bench_server.py drives the JAX daemon):
    exports 8x_independent_256x256 and 8x_guided_256x256 (seeded weights,
    trace batch 8) with torch.export on the card, holds each program
    against the live system (bf16 PSNR; float32 with TF32 off), starts one
@@ -45,7 +56,7 @@
    the batch the daemon formed for it; no request may fail; K1's launches in the window must be
    each program's batches times its launches per batch.  Prints
    requests/s, p50/p99 latency and batch fill per program.
-8. Training phase (`training_phase`): each training kernel (batch
+9. Training phase (`training_phase`): each training kernel (batch
    statistics, instance with statistics out, both backwards) against its
    plain version at every shape of the b4 and b16 steps, bf16 and float32,
    timed at b4 with its launch plan and the GB/s of the bytes its design
@@ -54,7 +65,8 @@
    step gradients against float32; the faithful b4 and b16 and reuse_fake
    b4 steps with K1's launches per step checked against `train_norms`,
    timed and profiled; faithful against reuse_fake at b16 in turns; the
-   Trainer with a save and a resume; the training CLI for 20 steps.
+   Trainer with a save and a resume; the training CLI for 20 steps with
+   one in-training evaluation (fid_iter.txt and metrics_iter.txt).
 
 Prints the card's name and power limit, one {"kernels": [...]} line (the
 inference kernels per main-path call, the training kernels per faithful b4
@@ -67,6 +79,8 @@ False).
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import http.client
 import json
@@ -89,9 +103,14 @@ from deepsee_torch import serve
 from deepsee_torch import server as server_mod
 from deepsee_torch import system as system_mod
 from deepsee_torch.config import ModelConfig, get_preset
+from deepsee_torch.data import Batches, SyntheticDataset
+from deepsee_torch.eval import evaluator as evaluator_mod
+from deepsee_torch.eval import fid as fid_mod
+from deepsee_torch.eval.evaluator import InferenceEvaluator, strict_float32
 from deepsee_torch.inference import modes
 from deepsee_torch.ops import _build
 from deepsee_torch.ops import modnorm as mn
+from deepsee_torch.ops.resize import resize2d
 from deepsee_torch.system import SRSystem
 from deepsee_torch.train import steps as train_steps
 from deepsee_torch.train.loop import Trainer
@@ -1642,7 +1661,7 @@ def trainer_phase(smi: str) -> None:
         del inference
         cli = [sys.executable, "-m", "deepsee_torch.train", "--name", PRESET, "--synthetic",
                "--max_steps", str(TRAIN_CLI_STEPS), "--device", DEVICE, "--checkpoints_dir",
-               os.path.join(root, "cli")]
+               os.path.join(root, "cli"), *TRAIN_CLI_EVAL]
         t_cli = time.perf_counter()
         run = subprocess.run(cli, capture_output=True, text=True, timeout=600)
         cli_s = time.perf_counter() - t_cli
@@ -1650,8 +1669,18 @@ def trainer_phase(smi: str) -> None:
             raise AssertionError(f"the training CLI failed: {run.stdout[-2000:]}"
                                  f"{run.stderr[-2000:]}")
         cli_files = sorted(os.listdir(os.path.join(root, "cli", PRESET)))
+        history = {}
+        for name in ("fid_iter.txt", "metrics_iter.txt"):
+            path = os.path.join(root, "cli", PRESET, name)
+            if not os.path.exists(path):
+                raise AssertionError(f"the training CLI's evaluation wrote no {name}")
+            with open(path) as f:
+                history[name] = f.read().splitlines()
+            if len(history[name]) != 1:
+                raise AssertionError(f"the training CLI evaluated {len(history[name])} times")
         log("trainer " + json.dumps({"files": files, "cli": " ".join(cli[1:]),
-                                     "cli_s": cli_s, "cli_files": cli_files, "card": smi,
+                                     "cli_s": cli_s, "cli_files": cli_files,
+                                     "cli_evaluation": history, "card": smi,
                                      "wall_s": time.perf_counter() - t0}))
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1682,6 +1711,247 @@ def training_phase(smi: str):
     trainer_phase(smi)
     log(f"training phase: {time.perf_counter() - t0:.1f} s")
     return launches, times, rows
+
+
+# -- evaluation ----------------------------------------------------------------
+
+EVAL_BATCH = 16
+EVAL_SAMPLES = 128
+EVAL_SWEEPS = 3
+# the training CLI's evaluation: in its 20 b4 steps (80 samples) the count of
+# samples crosses a multiple of 48 once; 16 samples per evaluation
+TRAIN_CLI_EVAL = ("--evaluation_freq", "48", "--num_evaluation_samples", "16")
+# float32 card (TF32 off) vs the plain CPU path, 2 samples at full width.
+# The generators differ by ~1e-5 (MAX_F32_CPU_DIFF's runs), which can move
+# a pixel across a uint8 level (PSNR, SSIM): limits in dB and SSIM units.
+MAX_EVAL_PSNR_DB_DIFF = 1e-3
+MAX_EVAL_SSIM_DIFF = 1e-4       # SSIM and MS-SSIM
+MAX_EVAL_RMSE_DIFF = 1e-5
+MAX_EVAL_REL_L2 = 1e-4          # LPIPS and the pool3 activations, relative L2
+# the Inception network in float32 (TF32 off) vs float64 on the card
+MAX_INCEPTION_F64_REL_L2 = 1e-4
+EVAL_STAGES = ("preprocess", "encode+generate", "metrics", "lpips", "inception x2")
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+@contextlib.contextmanager
+def _tf32():
+    """cuDNN and cuBLAS float32 in TF32 inside the block."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def eval_stage_profile(ev: InferenceEvaluator, device_batch) -> dict:
+    """One batch through `ev.sweep` under torch.profiler, its stages in
+    record_function ranges: device ms per stage (kernels launched inside)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(name, fn):
+        def call(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return call
+
+    system = ev.system
+    saved = (system.preprocess, system.generate, evaluator_mod.batch_metrics, ev.lpips,
+             evaluator_mod.fid_mod.inception_pool3)
+    system.preprocess = ranged("preprocess", saved[0])
+    system.generate = ranged("encode+generate", saved[1])
+    evaluator_mod.batch_metrics = ranged("metrics", saved[2])
+    ev.lpips = ranged("lpips", saved[3])
+    evaluator_mod.fid_mod.inception_pool3 = ranged("inception x2", saved[4])
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ev.sweep(device_batch)
+            torch.cuda.synchronize()
+    finally:
+        del system.preprocess, system.generate
+        evaluator_mod.batch_metrics, ev.lpips = saved[2], saved[3]
+        evaluator_mod.fid_mod.inception_pool3 = saved[4]
+    return {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+            if e.key in EVAL_STAGES}
+
+
+def eval_stage_event_ms(ev: InferenceEvaluator, device_batch) -> dict:
+    """The same stages of one batch, each timed alone by CUDA events on
+    resident tensors (device ms per call)."""
+    system = ev.system
+    with torch.inference_mode():
+        pre = system.preprocess(device_batch)
+        fake, _ = system.generate(pre, use_full=False, no_noise=True)
+        real = pre["image_hr"]
+        out = {"preprocess": _event_ms(lambda: system.preprocess(device_batch)),
+               "encode+generate": _event_ms(
+                   lambda: system.generate(pre, use_full=False, no_noise=True)),
+               "metrics": _event_ms(lambda: evaluator_mod.batch_metrics(fake, real))}
+        with strict_float32():
+            out["lpips"] = _event_ms(lambda: ev.lpips(fake, real))
+            out["inception x2"] = _event_ms(lambda: (fid_mod.inception_pool3(ev.inception, fake),
+                                                     fid_mod.inception_pool3(ev.inception, real)))
+    return out
+
+
+def profile_eval_sweep(ev: InferenceEvaluator, loader) -> float:
+    """Device ms of every kernel of one end-to-end sweep (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev.run(loader)
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False))
+
+
+def eval_card_vs_cpu(system: SRSystem, batch) -> dict:
+    """Two samples at full width in float32 (TF32 off) through the sweep on
+    the card and through the plain CPU path, the same weights (the metric
+    networks' seeded fallbacks are drawn on the CPU); then the Inception
+    network alone in float32 against float64 on the card."""
+    two = {k: v[:2] for k, v in batch.items()}
+    ev_card = InferenceEvaluator(_like(system, "float32", DEVICE), 2)
+    t0 = time.perf_counter()
+    ev_cpu = InferenceEvaluator(_like(system, "float32", "cpu"), 2)
+    cpu = ev_cpu.sweep(ev_cpu._device_batch(two))
+    cpu_s = time.perf_counter() - t0
+    card = {k: v.cpu() for k, v in ev_card.sweep(ev_card._device_batch(two)).items()}
+    out = {"cpu_s": cpu_s}
+    for key, limit in (("psnr", MAX_EVAL_PSNR_DB_DIFF), ("ssim", MAX_EVAL_SSIM_DIFF),
+                       ("ms_ssim", MAX_EVAL_SSIM_DIFF), ("rmse", MAX_EVAL_RMSE_DIFF)):
+        both_nan = torch.isnan(card[key]) & torch.isnan(cpu[key])
+        diff = torch.where(both_nan, torch.zeros_like(card[key]), (card[key] - cpu[key]).abs())
+        out[f"{key}_max_abs_diff"] = float(diff.max())
+        if not float(diff.max()) <= limit:
+            raise AssertionError(f"eval card vs CPU: {key} differs by {float(diff.max())} "
+                                 f"(card {card[key].tolist()}, CPU {cpu[key].tolist()})")
+    for key in ("lpips", "act_fake", "act_real"):
+        out[f"{key}_rel_l2"] = rel = _rel_l2(card[key], cpu[key])
+        if not rel <= MAX_EVAL_REL_L2:
+            raise AssertionError(f"eval card vs CPU: {key} relative L2 {rel}")
+    real = ev_card._device_batch(two)["image_hr"].permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    x = 2.0 * resize2d((real + 1.0) / 2.0, (299, 299), method="bilinear") - 1.0
+    with torch.inference_mode(), strict_float32():
+        y32 = ev_card.inception(x)
+        y64 = copy.deepcopy(ev_card.inception).double()(x.double())
+    out["inception_f32_vs_f64_rel_l2"] = rel = _rel_l2(y32, y64)
+    if not rel <= MAX_INCEPTION_F64_REL_L2:
+        raise AssertionError(f"Inception float32 vs float64 on the card: relative L2 {rel}")
+    return out
+
+
+def eval_tf32(ev: InferenceEvaluator, pairs) -> dict:
+    """FID of the sweep's samples and the LPIPS mean with the metric networks
+    in strict float32 (the evaluator's default) and in TF32, and the
+    Inception's device ms per batch (both sets) each way."""
+    out = {}
+    acts = {}
+    for mode, ctx in (("strict_float32", strict_float32), ("tf32", _tf32)):
+        with torch.inference_mode(), ctx():
+            af, ar, lp = [], [], []
+            for fake, real in pairs:
+                af.append(fid_mod.inception_pool3(ev.inception, fake))
+                ar.append(fid_mod.inception_pool3(ev.inception, real))
+                lp.append(ev.lpips(fake, real))
+            fake, real = pairs[0]
+            out[f"{mode}_inception_ms_per_batch"] = _event_ms(
+                lambda: (fid_mod.inception_pool3(ev.inception, fake),
+                         fid_mod.inception_pool3(ev.inception, real)), reps=5)
+        acts[mode] = torch.cat(af), torch.cat(ar)
+        out[f"{mode}_fid"] = fid_mod.fid_from_activations(acts[mode][0].cpu().numpy(),
+                                                          acts[mode][1].cpu().numpy())
+        out[f"{mode}_lpips_mean"] = float(torch.cat(lp).mean())
+    out["pool3_tf32_vs_strict_rel_l2"] = _rel_l2(acts["tf32"][0], acts["strict_float32"][0])
+    return out
+
+
+def evaluation_phase(system: SRSystem, smi: str) -> None:
+    """The evaluation sweep in the shape of scripts/bench_eval.py, on the main
+    path's bf16 system: InferenceEvaluator with FID and LPIPS (seeded random
+    metric networks), batch EVAL_BATCH, EVAL_SAMPLES synthetic samples; one
+    warm-up sweep, then EVAL_SWEEPS timed ones; the device-only sweep over
+    resident batches; the FID's host seconds; the idle share of a profiled
+    sweep; one profiled batch's device ms by stage with K1's launches
+    counted; card vs CPU; TF32 against strict float32."""
+    t_phase = time.perf_counter()
+    cfg = system.cfg
+    exp = system.exp.replace(train=dataclasses.replace(system.exp.train, batch_size=EVAL_BATCH))
+    ev = InferenceEvaluator(system, EVAL_SAMPLES)
+    loader = Batches(SyntheticDataset(exp, length=EVAL_SAMPLES), EVAL_BATCH)
+    warm = ev.run(loader)
+    runs = [ev.run(loader) for _ in range(EVAL_SWEEPS)]
+    eval_s = float(np.median([r["eval_seconds"] for r in runs]))
+    for r in [warm] + runs:
+        if r["n_samples"] != EVAL_SAMPLES or not all(
+                np.isfinite(r[k]) for k in ("FID", "psnr/mean", "ssim/mean", "rmse/mean",
+                                            "lpips/mean")):
+            raise AssertionError(f"eval sweep: bad result {r}")
+
+    t0 = time.perf_counter()
+    host_batches = list(loader)
+    loader_s = time.perf_counter() - t0
+    device_batches = [ev._device_batch(b) for b in host_batches]
+
+    def device_sweep():
+        outs = [ev.sweep(b) for b in device_batches]
+        torch.cuda.synchronize()
+        return outs
+
+    device_sweep()
+    device_s = []
+    for _ in range(EVAL_SWEEPS):
+        t0 = time.perf_counter()
+        outs = device_sweep()
+        device_s.append(time.perf_counter() - t0)
+    af = torch.cat([o["act_fake"] for o in outs]).cpu().numpy()
+    ar = torch.cat([o["act_real"] for o in outs]).cpu().numpy()
+    t0 = time.perf_counter()
+    fid = fid_mod.fid_from_activations(af, ar)
+    fid_s = time.perf_counter() - t0
+    kernel_ms = profile_eval_sweep(ev, loader)
+
+    mn.reset_launches()
+    stages = eval_stage_profile(ev, device_batches[0])
+    launches = dict(mn.launches)
+    expected = expected_launches(path_norms(cfg, EVAL_BATCH, full_trunk=False))
+    if launches != expected:
+        raise AssertionError(f"eval sweep: modnorm launches per batch {launches} != {expected}")
+
+    log("eval sweep " + json.dumps({
+        "preset": PRESET, "batch": EVAL_BATCH, "num_samples": EVAL_SAMPLES, "card": smi,
+        "fid_exact": ev.fid_exact, "lpips_exact": ev.lpips_exact,
+        "eval_seconds": [r["eval_seconds"] for r in runs], "warmup_eval_seconds":
+        warm["eval_seconds"], "img_per_s": EVAL_SAMPLES / eval_s,
+        "loader_s (the host's synthetic batches alone)": loader_s, "device_sweep_s": device_s,
+        "device_img_per_s": EVAL_SAMPLES / float(np.median(device_s)),
+        "fid_s": fid_s, "fid_share": fid_s / eval_s, "kernel_ms_per_sweep": kernel_ms,
+        "idle_share": 1.0 - kernel_ms / (eval_s * 1e3), "fid": runs[-1]["FID"],
+        "fid_of_device_sweep": fid, "lpips_mean": runs[-1]["lpips/mean"],
+        "psnr_mean": runs[-1]["psnr/mean"], "ssim_mean": runs[-1]["ssim/mean"],
+        "ms_ssim_mean": runs[-1]["ms_ssim/mean"], "rmse_mean": runs[-1]["rmse/mean"]}))
+    log("eval stages " + json.dumps({
+        "profiled_batch_device_ms": stages,
+        "event_ms_each_stage_alone": eval_stage_event_ms(ev, device_batches[0]),
+        "launches": launches, "expected": expected, "card": smi}))
+    with torch.inference_mode():
+        pairs = [ev.run_batch(b) for b in device_batches]
+    log("eval tf32 " + json.dumps({**eval_tf32(ev, pairs), "card": smi}))
+    del pairs, device_batches, outs
+    torch.cuda.empty_cache()
+    log("eval card vs CPU " + json.dumps({**eval_card_vs_cpu(system, host_batches[0]),
+                                          "card": smi}))
+    log(f"evaluation phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 # -- profile ---------------------------------------------------------------
@@ -1823,6 +2093,7 @@ def main() -> int:
         t0 = time.perf_counter()
         guided_phase(preset, batch_n, rows)
         log(f"{preset} phase: {time.perf_counter() - t0:.1f} s")
+    evaluation_phase(system, smi)
     explorative_phase(system)
     serving_phase(system, smi)
     del system

@@ -5,8 +5,8 @@ read: the norm-string parsers, the model hyper-parameters (the
 discriminator's included), the training hyper-parameters, the experiment
 bundle with its explorative-inference knobs, and the presets.  Field names
 and defaults are those of the JAX package, so one preset name gives the
-same model in both packages.  Fields of slices not yet ported (data, mesh,
-evaluation weights) are absent.
+same model in both packages.  Fields of slices not yet ported (data, mesh)
+are absent.
 """
 
 from __future__ import annotations
@@ -153,6 +153,10 @@ class TrainConfig:
     # updated G (an opt-in deviation from the reference's schedule)
     reuse_fake: bool = False
     vgg_weights: str = ""             # torchvision-format VGG19 .pth or .npz
+    # the in-training evaluation's networks: pt_inception-2015-12-05 (FID)
+    # and torchvision AlexNet (LPIPS) .pth files; random weights without
+    inception_weights: str = ""
+    alexnet_weights: str = ""
 
     display_freq: int = 20000
     print_freq: int = 1000
@@ -160,6 +164,8 @@ class TrainConfig:
     save_epoch_freq: int = 1
     evaluation_freq: int = 100000
     evaluation_start_epoch: int = 0
+    num_evaluation_samples: int = 1000
+    evaluate_val_set: bool = False    # the data-path slice: the port refuses True
 
     seed: int = 0
 
@@ -236,6 +242,6 @@ def tiny_test_experiment(**overrides: Any) -> Experiment:
                           ngf=4, nef=4, ndf=4, regional_style_size=16,
                           max_fm_size=32, add_noise=True,
                           compute_dtype="float32"),
-        train=TrainConfig(batch_size=2),
+        train=TrainConfig(batch_size=2, num_evaluation_samples=4),
     )
     return exp.replace(**overrides) if overrides else exp

@@ -150,7 +150,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--hr_image", action="append", default=[],
                    help="path[:r1,r2,...] -- HR style image with region list")
     p.add_argument("--checkpoint", default="",
-                   help="orbax checkpoint dir: not read by this port yet")
+                   help="orbax checkpoint dir: not read by this port (convert it with "
+                        "scripts/export_torch.py, pass the output as --torch_checkpoint)")
     p.add_argument("--torch_checkpoint", default="",
                    help="directory holding reference-format "
                         "<epoch>_net_{SR,E}.pth released checkpoints")
@@ -163,9 +164,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--out", default="./results")
     args = p.parse_args(argv)
     if args.checkpoint:
-        p.error("--checkpoint (orbax) is not read by deepsee_torch yet: the "
-                "training slice of the port brings the checkpoint module; use "
-                "--torch_checkpoint")
+        p.error("--checkpoint (orbax) is not read by deepsee_torch: convert the JAX "
+                "trainer's checkpoint with scripts/export_torch.py on a machine with flax and "
+                "orbax, and pass its output directory of <epoch>_net_{SR,E}.pth files as "
+                "--torch_checkpoint (the port's own trainer writes those files)")
     if args.int8:
         p.error("--int8 is not in deepsee_torch yet: int8 serving needs the "
                 "Hopper int8/FP8 conv kernel (K4) of a later slice")

@@ -1,0 +1,132 @@
+"""python -m deepsee_torch.evaluate: the evaluation entry point of the port,
+counterpart of the repository's evaluate.py (reference:
+managers/inference_manager.py:61-147).  Runs the metric harness (PSNR,
+SSIM, MS-SSIM, RMSE, LPIPS, FID) over samples with a trained checkpoint and
+prints the result as JSON.
+
+    python -m deepsee_torch.evaluate --name 8x_independent_256x256 --synthetic \\
+        --checkpoints_dir ./checkpoints --num_samples 1000 --out results/eval
+
+Weights: by default the port trainer's `<checkpoints_dir>/<name>/<epoch>_net_
+{SR,E}.pth` files; --torch_checkpoint reads the same files of a reference
+release (or of scripts/export_torch.py) from another directory;
+--no_checkpoint evaluates the seeded init.  Without --inception_weights and
+--alexnet_weights the FID and LPIPS networks are seeded random ones
+(`exact` false): their absolute values are comparable only with each other.
+
+Runs on the card unless --device cpu is given, and raises without one.  The
+flags of slices not ported yet are refused with a message naming the slice:
+real datasets (--image_dir, --label_dir, --identities_file: the data path),
+--multihost (multi-GPU), --int8 (the int8 conv kernel K4).  --save_images
+writes PNGs and needs Pillow.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+from typing import Dict, List, Optional
+
+import torch
+
+from deepsee_torch.config import get_preset
+
+# flag -> the slice it waits for
+_LATER = {
+    "image_dir": "the data-path slice", "label_dir": "the data-path slice",
+    "identities_file": "the data-path slice", "multihost": "the multi-GPU slice",
+    "int8": "the int8 slice (the Hopper int8/FP8 conv kernel K4)",
+}
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--name", default="8x_independent_256x256")
+    p.add_argument("--checkpoints_dir", default="./checkpoints")
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--num_samples", type=int, default=1000)
+    p.add_argument("--synthetic", action="store_true",
+                   help="evaluate on synthetic samples (the only data of this slice)")
+    p.add_argument("--no_fid", action="store_true")
+    p.add_argument("--no_lpips", action="store_true")
+    p.add_argument("--no_checkpoint", action="store_true",
+                   help="evaluate the seeded init (smoke)")
+    p.add_argument("--torch_checkpoint", default="",
+                   help="directory holding reference-format <epoch>_net_{SR,E}.pth files")
+    p.add_argument("--epoch", default="latest")
+    p.add_argument("--inception_weights", default="")
+    p.add_argument("--alexnet_weights", default="")
+    p.add_argument("--out", default="")
+    p.add_argument("--save_images", action="store_true")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    for flag in ("image_dir", "label_dir", "identities_file"):
+        p.add_argument(f"--{flag}", default=None, help=f"not ported: {_LATER[flag]}")
+    for flag in ("multihost", "int8"):
+        p.add_argument(f"--{flag}", action="store_true", default=None,
+                       help=f"not ported: {_LATER[flag]}")
+    args = p.parse_args(argv)
+    for flag, slice_name in _LATER.items():
+        if getattr(args, flag) is not None:
+            p.error(f"--{flag} belongs to {slice_name} of the port, which deepsee_torch "
+                    "does not have yet")
+    if not args.synthetic:
+        p.error("real datasets belong to the data-path slice of the port; pass --synthetic")
+    return args
+
+
+def load_weights(system, args: argparse.Namespace) -> None:
+    """The networks' weights as the flags ask (module docstring)."""
+    from deepsee_torch.weights import load_reference_checkpoint
+
+    system.init(torch.Generator().manual_seed(0))
+    if args.no_checkpoint:
+        return
+    directory = args.torch_checkpoint or os.path.join(args.checkpoints_dir, args.name)
+    if not os.path.exists(os.path.join(directory, f"{args.epoch}_net_SR.pth")):
+        raise FileNotFoundError(
+            f"no {args.epoch}_net_SR.pth in {directory}: deepsee_torch reads the .pth files its "
+            "trainer writes; convert an Orbax checkpoint of the JAX trainer with "
+            "scripts/export_torch.py (on a machine with flax and orbax) and pass its output "
+            "directory as --torch_checkpoint")
+    load_reference_checkpoint(system, directory, epoch=args.epoch)
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
+    args = parse_args(argv)
+    from deepsee_torch.data import Batches, SyntheticDataset
+    from deepsee_torch.eval.evaluator import InferenceEvaluator
+    from deepsee_torch.system import SRSystem
+
+    exp = get_preset(args.name).replace(is_train=False, checkpoints_dir=args.checkpoints_dir)
+    exp = exp.replace(train=dataclasses.replace(exp.train, batch_size=args.batch_size))
+    system = SRSystem(exp, device=args.device)
+    load_weights(system, args)
+    dataset = SyntheticDataset(exp)
+    loader = Batches(dataset, args.batch_size)
+    ev = InferenceEvaluator(
+        system, num_samples=args.num_samples, write_details=bool(args.out),
+        folder_out=args.out or None, compute_fid=not args.no_fid,
+        compute_lpips=not args.no_lpips, inception_weights=args.inception_weights or None,
+        alexnet_weights=args.alexnet_weights or None)
+    result = ev.run(loader)
+    if ev.writer is not None:
+        ev.writer.close()
+    print(json.dumps(result, indent=2, sort_keys=True))
+
+    if args.save_images and args.out:
+        from deepsee_torch.utils.visualizer import save_images_only
+
+        batch = next(iter(loader))
+        fake, real = ev.run_batch(batch)
+        visuals = {"fake_image": fake.cpu().numpy(), "image_hr": real.cpu().numpy(),
+                   "input_label": batch["label"]}
+        paths = [dataset[i]["path"] for i in range(len(batch["label"]))]
+        save_images_only(visuals, paths, os.path.join(args.out, "visuals"), exp.model.label_nc)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -5,8 +5,9 @@ flags of the root train.py that this slice serves).
 
 Runs on the card unless --device cpu is given, and raises without one.  The
 flags of slices not ported yet are refused with a message naming the slice:
-real datasets (--image_dir and the rest: the data path), mesh and
-multi-host flags (multi-GPU), the evaluation flags (evaluation), remat.
+real datasets (--image_dir and the rest, and --evaluate_val_set, which
+evaluates the validation dataset: the data path), mesh and multi-host flags
+(multi-GPU), remat.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ _LATER = {
     "data_axis": "the multi-GPU slice", "model_axis": "the multi-GPU slice",
     "dcn_axis": "the multi-GPU slice", "multihost": "the multi-GPU slice",
     "partition": "the multi-GPU slice",
-    "inception_weights": "the evaluation slice", "alexnet_weights": "the evaluation slice",
-    "evaluate_val_set": "the evaluation slice", "num_evaluation_samples": "the evaluation slice",
+    "evaluate_val_set": "the data-path slice (it evaluates the validation dataset of "
+                        "--image_dir_val / --label_dir_val)",
     "remat": "a later PR (a recompute would advance the batch statistics twice)",
     "remat_policy": "a later PR (a recompute would advance the batch statistics twice)",
 }
@@ -51,16 +52,24 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="torchvision vgg19 state dict (.pth/.npz) for the perceptual loss; "
                         "random features and a warning without it")
     p.add_argument("--evaluation_freq", type=int, default=None,
-                   help="samples between in-training evaluations (not ported: 0 disables "
-                        "them, a trigger raises)")
+                   help="samples between in-training evaluations (FID, LPIPS, PSNR, SSIM, "
+                        "MS-SSIM, RMSE on the training batches); 0 disables them")
+    p.add_argument("--num_evaluation_samples", type=int, default=None,
+                   help="samples per in-training evaluation")
+    p.add_argument("--inception_weights", default="",
+                   help="pt_inception-2015-12-05 state dict (.pth) for the FID; random "
+                        "Inception weights without it (FIDs comparable only with each other)")
+    p.add_argument("--alexnet_weights", default="",
+                   help="torchvision AlexNet state dict (.pth) for LPIPS; random weights "
+                        "without it")
     p.add_argument("--reuse_fake", action="store_true",
                    help="train D on the G step's fake instead of regenerating it with the "
                         "updated G (an opt-in deviation from the reference's schedule)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     for flag in ("image_dir", "label_dir", "image_dir_val", "label_dir_val", "identities_file",
-                 "partition", "inception_weights", "alexnet_weights", "remat_policy"):
+                 "partition", "remat_policy"):
         p.add_argument(f"--{flag}", default=None, help=f"not ported: {_LATER[flag]}")
-    for flag in ("data_axis", "model_axis", "dcn_axis", "num_evaluation_samples"):
+    for flag in ("data_axis", "model_axis", "dcn_axis"):
         p.add_argument(f"--{flag}", type=int, default=None, help=f"not ported: {_LATER[flag]}")
     for flag in ("multihost", "evaluate_val_set", "remat"):
         p.add_argument(f"--{flag}", action="store_true", default=None,
@@ -83,10 +92,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     train = exp.train
     for field, value in (("batch_size", args.batch_size), ("lr", args.lr),
                          ("niter", args.niter), ("niter_decay", args.niter_decay),
-                         ("evaluation_freq", args.evaluation_freq)):
+                         ("evaluation_freq", args.evaluation_freq),
+                         ("num_evaluation_samples", args.num_evaluation_samples)):
         if value is not None:
             train = dataclasses.replace(train, **{field: value})
     train = dataclasses.replace(train, vgg_weights=args.vgg_weights,
+                                inception_weights=args.inception_weights,
+                                alexnet_weights=args.alexnet_weights,
                                 reuse_fake=args.reuse_fake or train.reuse_fake)
     model = exp.model
     if args.compute_dtype:

@@ -4,9 +4,11 @@ Epoch/iteration loop over the GAN step with:
   * a G step every `d_steps_per_g`-th iteration, a D step every iteration
     (train.py:40-44);
   * the per-epoch TTUR lr decay (trainer_manager.py:76-96);
-  * the periodic print / display / save triggers of IterationCounter
-    (train.py:49-105); an evaluation trigger raises, since in-training
-    evaluation (FID, LPIPS) belongs to the evaluation slice;
+  * the periodic print / display / save / evaluate triggers of
+    IterationCounter (train.py:49-105); an evaluation sweeps
+    num_evaluation_samples of the training batches (FID, LPIPS and the
+    metrics, with G and E in eval mode) and appends fid_iter.txt and
+    metrics_iter.txt (train.py:85-105);
   * a crash-safe save of "latest" in a finally block (train.py:119-127).
 
 It runs on one card (or the CPU with device="cpu") on any iterable of NHWC
@@ -23,6 +25,7 @@ import torch
 
 from deepsee_torch.config import Experiment
 from deepsee_torch.data import Batches, SyntheticDataset
+from deepsee_torch.eval.evaluator import InferenceEvaluator, evaluate_set
 from deepsee_torch.system import SRSystem
 from deepsee_torch.train.state import TrainState, create_train_state, set_epoch_lr
 from deepsee_torch.train.steps import make_train_step
@@ -36,6 +39,10 @@ class Trainer:
                  continue_train: bool = False):
         if not exp.is_train:
             raise ValueError("Trainer needs a training experiment (is_train=True)")
+        if exp.train.evaluate_val_set:
+            raise NotImplementedError(
+                "evaluate_val_set needs the validation dataset (image_dir_val, label_dir_val), "
+                "which belongs to the data-path slice of the port")
         self.exp = exp
         self.continue_train = continue_train
         self.system = SRSystem(exp, device=device)
@@ -59,6 +66,7 @@ class Trainer:
         counter = IterationCounter(exp, steps_per_epoch * tc.batch_size,
                                    continue_train=self.continue_train)
         visualizer = Visualizer(exp)
+        evaluator = None  # built at the first evaluation trigger
         logs: Dict[str, torch.Tensor] = {}
         try:
             for epoch in counter.training_epochs():
@@ -82,9 +90,18 @@ class Trainer:
                         self.ckpt.save(self.state, "latest")
                         counter.record_current_iter()
                     if counter.needs_evaluation() and epoch >= tc.evaluation_start_epoch:
-                        raise NotImplementedError(
-                            "in-training evaluation (FID, LPIPS) belongs to the evaluation "
-                            "slice, not ported yet; set evaluation_freq to 0 to train without")
+                        if evaluator is None:
+                            evaluator = InferenceEvaluator(
+                                self.system, tc.num_evaluation_samples,
+                                inception_weights=tc.inception_weights or None,
+                                alexnet_weights=tc.alexnet_weights or None)
+                        # a pass of its own over the training batches, from
+                        # the first (the JAX trainer's shuffled copy of the
+                        # dataset comes with the data-path slice's loader)
+                        result = evaluate_set(evaluator, batches)
+                        counter.record_fid(result.get("FID", 500.0), "train",
+                                           tc.num_evaluation_samples)
+                        counter.record_metrics(result, "train", tc.num_evaluation_samples)
                     if max_steps and self.state.step >= max_steps:
                         return self.state
                 counter.record_epoch_end()

@@ -3,13 +3,15 @@ deepsee_tpu/utils/iter_counter.py (reference: util/iter_counter.py), for one
 process.
 
 Tracks epochs, samples and wall time; persists `iter.txt` (epoch, sample
-within the epoch, samples so far) for continue_train; modular triggers for
+within the epoch, samples so far) for continue_train; appends the
+evaluation histories `fid_iter.txt` and `metrics_iter.txt`; modular triggers for
 the periodic actions (:123-138): a trigger fires when the count of samples
 so far crosses a multiple of its frequency.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import time
 from typing import Iterator
@@ -70,6 +72,33 @@ class IterationCounter:
         np.savetxt(self.iter_record_path,
                    (self.current_epoch, self.epoch_iter, self.total_steps_so_far),
                    delimiter=",", fmt="%d")
+
+    def append_eval_history(self, filename: str, value) -> None:
+        """One "epoch,samples so far,value" line of a history file."""
+        with open(os.path.join(self.checkpoints_dir, filename), "a") as f:
+            f.write(f"{self.current_epoch},{self.total_steps_so_far},{value}\n")
+
+    def _history_line(self, split: str, num_samples: int) -> str:
+        stamp = datetime.datetime.now().strftime("%Y/%m/%d-%H:%M:%S")
+        return (f"time={stamp},split={split},num_samples={num_samples},"
+                f"epoch={self.current_epoch:03d},"
+                f"total_steps_so_far={self.total_steps_so_far:010d},")
+
+    def _append(self, filename: str, msg: str) -> str:
+        with open(os.path.join(self.checkpoints_dir, filename), "a") as f:
+            f.write(msg + os.linesep)
+        print(msg)
+        return msg
+
+    def record_fid(self, fid: float, split: str, num_samples: int) -> str:
+        """Append one fid_iter.txt line (util/iter_counter.py:100-108)."""
+        return self._append("fid_iter.txt", self._history_line(split, num_samples) + f"fid={fid}")
+
+    def record_metrics(self, metrics: dict, split: str, num_samples: int) -> str:
+        """Append one metrics_iter.txt line (util/iter_counter.py:110-121):
+        only the keys that contain psnr, ssim or rmse."""
+        return self._append("metrics_iter.txt", self._history_line(split, num_samples) + ",".join(
+            f"{k}={v}" for k, v in metrics.items() if "psnr" in k or "ssim" in k or "rmse" in k))
 
     def _due(self, freq: int) -> bool:
         return freq > 0 and (self.total_steps_so_far % freq) < self.batch_size

@@ -1,14 +1,15 @@
 """Training observability: an own copy of deepsee_tpu/utils/visualizer.py
 (reference: util/visualizer.py): plain-text loss lines with samples/s in
-`loss_log.txt`, and a self-refreshing HTML page of image rows under
-`<checkpoints>/<name>/web/`.  Only the images need Pillow, imported where
-they are written."""
+`loss_log.txt`, a self-refreshing HTML page of image rows under
+`<checkpoints>/<name>/web/`, and the evaluation's per-key image folders with
+a side-by-side strip (`save_images_only`).  Only the images need Pillow,
+imported where they are written."""
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -69,3 +70,39 @@ class Visualizer:
         print(message)
         with open(self.log_path, "a") as f:
             f.write(message + "\n")
+
+
+def save_images_only(visuals: Dict[str, np.ndarray], paths: Sequence[str],
+                     folder_out: str, label_nc: int = 19) -> None:
+    """Per-key folders and a combined side-by-side strip per sample
+    (util/visualizer.py:181-215): visuals are (B, H, W, C) images in
+    [-1, 1] or (B, H, W) label maps, named by the stems of `paths`."""
+    os.makedirs(folder_out, exist_ok=True)
+    batch = None
+    combined = {}
+    for key, value in visuals.items():
+        value = np.asarray(value)
+        is_label = "label" in key or "semantics" in key
+        if value.ndim < 4 and not is_label:
+            continue
+        arrs = []
+        for b in range(value.shape[0]):
+            arr = label2im(value[b], label_nc) if is_label else tensor2im(value[b])
+            name = os.path.splitext(os.path.basename(paths[b]))[0]
+            save_image(arr, os.path.join(folder_out, key, f"{name}.png"), create_dir=True)
+            arrs.append(arr)
+        combined[key] = arrs
+        batch = len(arrs)
+    for b in range(batch or 0):
+        h = max(a[b].shape[0] for a in combined.values())
+        strips = []
+        for arrs in combined.values():
+            a = arrs[b]
+            if a.shape[0] != h:  # upscale smaller (e.g. LR) inputs
+                from PIL import Image
+                a = np.asarray(Image.fromarray(a).resize((h * a.shape[1] // a.shape[0], h),
+                                                         Image.NEAREST))
+            strips.append(a)
+        name = os.path.splitext(os.path.basename(paths[b]))[0]
+        save_image(np.concatenate(strips, axis=1),
+                   os.path.join(folder_out, "combined", f"{name}.png"), create_dir=True)

@@ -27,7 +27,8 @@ import torch.nn.functional as F
 from deepsee_torch.models.layers import Conv2d
 from deepsee_torch.models.normalization import ConvParams, ParamFreeNorm
 
-__all__ = ["jax_to_state_dict", "vgg_jax_to_state_dict", "randomize_weights",
+__all__ = ["jax_to_state_dict", "vgg_jax_to_state_dict", "lpips_jax_to_state_dict",
+           "inception_jax_to_state_dict", "randomize_weights",
            "load_reference_checkpoint", "reference_state_dict", "complete_for_reference",
            "save_reference_checkpoint"]
 
@@ -122,6 +123,41 @@ def vgg_jax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
             np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
         sd[f"features.{n}.bias"] = torch.from_numpy(
             np.array(params[f"conv{i}_bias"], dtype=np.float32))
+    return sd
+
+
+def _oihw(kernel) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        np.array(kernel, dtype=np.float32).transpose(3, 2, 0, 1)))
+
+
+def _f32(value) -> torch.Tensor:
+    return torch.from_numpy(np.array(value, dtype=np.float32))
+
+
+def lpips_jax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's LPIPS parameters ({"conv<i>_kernel" (HWIO),
+    "conv<i>_bias", "lin<i>" (C,)}) -> the state_dict of the port's
+    `eval.lpips.LPIPS` (`net.features.<N>.weight` OIHW and `.bias` at
+    torchvision's indices, `lin<i>.model.1.weight` (1, C, 1, 1))."""
+    sd = {}
+    for i, n in enumerate((0, 3, 6, 8, 10)):
+        sd[f"net.features.{n}.weight"] = _oihw(params[f"conv{i}_kernel"])
+        sd[f"net.features.{n}.bias"] = _f32(params[f"conv{i}_bias"])
+        sd[f"lin{i}.model.1.weight"] = _f32(params[f"lin{i}"]).reshape(1, -1, 1, 1)
+    return sd
+
+
+def inception_jax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's Inception parameters ({name: {"kernel" (HWIO),
+    "bn_scale", "bn_bias", "bn_mean", "bn_var"}}) -> the state_dict of the
+    port's `eval.fid.FIDInception`, in pt_inception's keys."""
+    sd = {}
+    for name, p in params.items():
+        sd[f"{name}.conv.weight"] = _oihw(p["kernel"])
+        for jax_key, key in (("bn_scale", "weight"), ("bn_bias", "bias"),
+                             ("bn_mean", "running_mean"), ("bn_var", "running_var")):
+            sd[f"{name}.bn.{key}"] = _f32(p[jax_key])
     return sd
 
 

@@ -24,6 +24,7 @@ from deepsee_torch.config import tiny_test_experiment as torch_tiny
 from deepsee_torch.data import Batches, SyntheticDataset
 from deepsee_torch.system import SRSystem
 from deepsee_torch.train import __main__ as cli
+from deepsee_torch.train import loop
 from deepsee_torch.train.loop import Trainer
 from deepsee_torch.utils.iter_counter import IterationCounter
 from deepsee_torch.weights import load_reference_checkpoint, reference_state_dict
@@ -102,19 +103,30 @@ def test_trainer_resume_matches_straight_run(tmp_path):
                 torch.testing.assert_close(b[i][k], v, rtol=0, atol=1e-7)
 
 
-def test_trainer_raises_at_an_evaluation_trigger(tmp_path):
+def test_trainer_raises_at_an_evaluation_trigger(tmp_path, monkeypatch):
+    """An evaluation trigger evaluates (it raised before the evaluation
+    slice existed); an error inside the evaluation propagates, and the
+    crash-safe save runs."""
     exp = _exp(tmp_path, evaluation_freq=2)
     trainer = _trainer(exp)
-    with pytest.raises(NotImplementedError, match="evaluation slice"):
-        trainer.run(_batches(exp.model))
-    # the crash-safe save ran
-    assert os.path.exists(os.path.join(str(tmp_path), exp.name, "latest_train_state.pth"))
+    trainer.run(_batches(exp.model), max_steps=1)
+    run_dir = os.path.join(str(tmp_path), exp.name)
+    assert {"fid_iter.txt", "metrics_iter.txt"} <= set(os.listdir(run_dir))
+    os.remove(os.path.join(run_dir, "latest_train_state.pth"))
+
+    def fail(evaluator, batches):
+        raise RuntimeError("evaluation failed")
+
+    monkeypatch.setattr(loop, "evaluate_set", fail)
+    with pytest.raises(RuntimeError, match="evaluation failed"):
+        trainer.run(_batches(exp.model), max_steps=2)
+    assert os.path.exists(os.path.join(run_dir, "latest_train_state.pth"))
 
 
 @pytest.mark.parametrize("flags,slice_name", [
     (["--image_dir", "imgs"], "data-path"), (["--data_axis", "2"], "multi-GPU"),
     (["--multihost"], "multi-GPU"), (["--remat"], "a later PR"),
-    (["--inception_weights", "w.pth"], "evaluation"), ([], "data-path")])
+    (["--evaluate_val_set"], "data-path"), ([], "data-path")])
 def test_cli_refuses_flags_of_later_slices(capsys, flags, slice_name):
     argv = ["--name", "8x_independent_256x256"] + flags + (["--synthetic"] if flags else [])
     with pytest.raises(SystemExit):
