@@ -103,7 +103,7 @@ from deepsee_torch import serve
 from deepsee_torch import server as server_mod
 from deepsee_torch import system as system_mod
 from deepsee_torch.config import ModelConfig, get_preset
-from deepsee_torch.data import Batches, SyntheticDataset
+from deepsee_torch.data import DataLoader, SyntheticDataset, codec, create_dataset, to_device
 from deepsee_torch.eval import evaluator as evaluator_mod
 from deepsee_torch.eval import fid as fid_mod
 from deepsee_torch.eval.evaluator import InferenceEvaluator, strict_float32
@@ -1553,7 +1553,7 @@ def drive_train(tag: str, batch_n: int, reuse_fake: bool = False, rows=None,
               "layout_copies_per_step": layout}
     log(f"{tag} timing " + json.dumps(timing))
     if profile:
-        profile_train(tag, system, state, step, batch, ms)
+        timing["idle_share"] = profile_train(tag, system, state, step, batch, ms)
     del system, state, step
     torch.cuda.empty_cache()
     return launches, times, timing
@@ -1575,10 +1575,10 @@ TRAIN_CATEGORIES = (  # first match wins, on the lower-cased kernel name
 )
 
 
-def profile_train(tag: str, system: SRSystem, state, step, batch, ms_per_step: float) -> None:
+def profile_train(tag: str, system: SRSystem, state, step, batch, ms_per_step: float) -> float:
     """Device time of one step by category (torch.profiler), the VGG's and
     the optimizers' device time by record_function range, and the idle share
-    = 1 - kernel time / the event-timed ms per step."""
+    = 1 - kernel time / the event-timed ms per step, which it returns."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1624,6 +1624,7 @@ def profile_train(tag: str, system: SRSystem, state, step, batch, ms_per_step: f
         "ranges_ms (device time launched inside)": ranges}))
     for name, t, count in kernels[:12]:
         log(f"{tag} profile kernel {t:9.3f} ms  x{count:<4d} {name[:110]}")
+    return 1.0 - total / ms_per_step
 
 
 def trainer_phase(smi: str) -> None:
@@ -1704,13 +1705,13 @@ def training_phase(smi: str):
     rows += train_kernel_phase(cfg, TRAIN_BATCH_LARGE, timed=False)
     log(f"train kernel phase: {time.perf_counter() - t0:.1f} s")
     train_gradient_checks(TRAIN_BATCH)
-    launches, times, _ = drive_train("train b4", TRAIN_BATCH, rows=rows)
-    drive_train("train b16", TRAIN_BATCH_LARGE)
+    launches, times, b4 = drive_train("train b4", TRAIN_BATCH, rows=rows)
+    b16 = drive_train("train b16", TRAIN_BATCH_LARGE)[2]
     drive_train("train reuse_fake b4", TRAIN_BATCH, reuse_fake=True, profile=False)
     compare_schedules(TRAIN_BATCH_LARGE)
     trainer_phase(smi)
     log(f"training phase: {time.perf_counter() - t0:.1f} s")
-    return launches, times, rows
+    return (launches, times, rows), {TRAIN_BATCH: b4, TRAIN_BATCH_LARGE: b16}
 
 
 # -- evaluation ----------------------------------------------------------------
@@ -1823,9 +1824,9 @@ def eval_card_vs_cpu(system: SRSystem, batch) -> dict:
     ev_card = InferenceEvaluator(_like(system, "float32", DEVICE), 2)
     t0 = time.perf_counter()
     ev_cpu = InferenceEvaluator(_like(system, "float32", "cpu"), 2)
-    cpu = ev_cpu.sweep(ev_cpu._device_batch(two))
+    cpu = ev_cpu.sweep(to_device(two, "cpu"))
     cpu_s = time.perf_counter() - t0
-    card = {k: v.cpu() for k, v in ev_card.sweep(ev_card._device_batch(two)).items()}
+    card = {k: v.cpu() for k, v in ev_card.sweep(to_device(two, DEVICE)).items()}
     out = {"cpu_s": cpu_s}
     for key, limit in (("psnr", MAX_EVAL_PSNR_DB_DIFF), ("ssim", MAX_EVAL_SSIM_DIFF),
                        ("ms_ssim", MAX_EVAL_SSIM_DIFF), ("rmse", MAX_EVAL_RMSE_DIFF)):
@@ -1839,7 +1840,7 @@ def eval_card_vs_cpu(system: SRSystem, batch) -> dict:
         out[f"{key}_rel_l2"] = rel = _rel_l2(card[key], cpu[key])
         if not rel <= MAX_EVAL_REL_L2:
             raise AssertionError(f"eval card vs CPU: {key} relative L2 {rel}")
-    real = ev_card._device_batch(two)["image_hr"].permute(0, 3, 1, 2).contiguous(
+    real = to_device(two, DEVICE)["image_hr"].permute(0, 3, 1, 2).contiguous(
         memory_format=torch.channels_last)
     x = 2.0 * resize2d((real + 1.0) / 2.0, (299, 299), method="bilinear") - 1.0
     with torch.inference_mode(), strict_float32():
@@ -1876,32 +1877,25 @@ def eval_tf32(ev: InferenceEvaluator, pairs) -> dict:
     return out
 
 
-def evaluation_phase(system: SRSystem, smi: str) -> None:
-    """The evaluation sweep in the shape of scripts/bench_eval.py, on the main
-    path's bf16 system: InferenceEvaluator with FID and LPIPS (seeded random
-    metric networks), batch EVAL_BATCH, EVAL_SAMPLES synthetic samples; one
-    warm-up sweep, then EVAL_SWEEPS timed ones; the device-only sweep over
-    resident batches; the FID's host seconds; the idle share of a profiled
-    sweep; one profiled batch's device ms by stage with K1's launches
-    counted; card vs CPU; TF32 against strict float32."""
-    t_phase = time.perf_counter()
-    cfg = system.cfg
-    exp = system.exp.replace(train=dataclasses.replace(system.exp.train, batch_size=EVAL_BATCH))
-    ev = InferenceEvaluator(system, EVAL_SAMPLES)
-    loader = Batches(SyntheticDataset(exp, length=EVAL_SAMPLES), EVAL_BATCH)
+def time_sweep(ev: InferenceEvaluator, loader):
+    """`ev.run(loader)` once to warm up, then EVAL_SWEEPS times (host clock,
+    `eval_seconds`), each checked; the loader's batches alone; the
+    device-only sweep over them made resident first; a profiled sweep's
+    kernel ms and the idle share = 1 - kernel ms / the median end-to-end
+    sweep.  Returns (summary, host batches, device batches, the device
+    sweep's outputs, the timed runs' results)."""
     warm = ev.run(loader)
     runs = [ev.run(loader) for _ in range(EVAL_SWEEPS)]
     eval_s = float(np.median([r["eval_seconds"] for r in runs]))
     for r in [warm] + runs:
-        if r["n_samples"] != EVAL_SAMPLES or not all(
+        if r["n_samples"] != ev.num_samples or not all(
                 np.isfinite(r[k]) for k in ("FID", "psnr/mean", "ssim/mean", "rmse/mean",
                                             "lpips/mean")):
             raise AssertionError(f"eval sweep: bad result {r}")
-
     t0 = time.perf_counter()
     host_batches = list(loader)
     loader_s = time.perf_counter() - t0
-    device_batches = [ev._device_batch(b) for b in host_batches]
+    device_batches = [to_device(b, DEVICE) for b in host_batches]
 
     def device_sweep():
         outs = [ev.sweep(b) for b in device_batches]
@@ -1914,12 +1908,35 @@ def evaluation_phase(system: SRSystem, smi: str) -> None:
         t0 = time.perf_counter()
         outs = device_sweep()
         device_s.append(time.perf_counter() - t0)
+    kernel_ms = profile_eval_sweep(ev, loader)
+    summary = {
+        "eval_seconds": [r["eval_seconds"] for r in runs], "eval_s_median": eval_s,
+        "warmup_eval_seconds": warm["eval_seconds"], "img_per_s": ev.num_samples / eval_s,
+        "loader_s (the host's batches alone)": loader_s, "device_sweep_s": device_s,
+        "device_img_per_s": ev.num_samples / float(np.median(device_s)),
+        "kernel_ms_per_sweep": kernel_ms, "idle_share": 1.0 - kernel_ms / (eval_s * 1e3)}
+    return summary, host_batches, device_batches, outs, runs
+
+
+def evaluation_phase(system: SRSystem, smi: str) -> dict:
+    """The evaluation sweep in the shape of scripts/bench_eval.py, on the main
+    path's bf16 system: InferenceEvaluator with FID and LPIPS (seeded random
+    metric networks), batch EVAL_BATCH, EVAL_SAMPLES synthetic samples
+    through the DataLoader (`time_sweep`: end to end, device-only, idle
+    share); the FID's host seconds; one profiled batch's device ms by stage
+    with K1's launches counted; card vs CPU; TF32 against strict float32.
+    Returns the sweep's summary."""
+    t_phase = time.perf_counter()
+    cfg = system.cfg
+    exp = system.exp.replace(train=dataclasses.replace(system.exp.train, batch_size=EVAL_BATCH))
+    ev = InferenceEvaluator(system, EVAL_SAMPLES)
+    loader = DataLoader(SyntheticDataset(exp, length=EVAL_SAMPLES), EVAL_BATCH, shuffle=False)
+    sweep, host_batches, device_batches, outs, runs = time_sweep(ev, loader)
     af = torch.cat([o["act_fake"] for o in outs]).cpu().numpy()
     ar = torch.cat([o["act_real"] for o in outs]).cpu().numpy()
     t0 = time.perf_counter()
     fid = fid_mod.fid_from_activations(af, ar)
     fid_s = time.perf_counter() - t0
-    kernel_ms = profile_eval_sweep(ev, loader)
 
     mn.reset_launches()
     stages = eval_stage_profile(ev, device_batches[0])
@@ -1930,13 +1947,8 @@ def evaluation_phase(system: SRSystem, smi: str) -> None:
 
     log("eval sweep " + json.dumps({
         "preset": PRESET, "batch": EVAL_BATCH, "num_samples": EVAL_SAMPLES, "card": smi,
-        "fid_exact": ev.fid_exact, "lpips_exact": ev.lpips_exact,
-        "eval_seconds": [r["eval_seconds"] for r in runs], "warmup_eval_seconds":
-        warm["eval_seconds"], "img_per_s": EVAL_SAMPLES / eval_s,
-        "loader_s (the host's synthetic batches alone)": loader_s, "device_sweep_s": device_s,
-        "device_img_per_s": EVAL_SAMPLES / float(np.median(device_s)),
-        "fid_s": fid_s, "fid_share": fid_s / eval_s, "kernel_ms_per_sweep": kernel_ms,
-        "idle_share": 1.0 - kernel_ms / (eval_s * 1e3), "fid": runs[-1]["FID"],
+        "fid_exact": ev.fid_exact, "lpips_exact": ev.lpips_exact, **sweep,
+        "fid_s": fid_s, "fid_share": fid_s / sweep["eval_s_median"], "fid": runs[-1]["FID"],
         "fid_of_device_sweep": fid, "lpips_mean": runs[-1]["lpips/mean"],
         "psnr_mean": runs[-1]["psnr/mean"], "ssim_mean": runs[-1]["ssim/mean"],
         "ms_ssim_mean": runs[-1]["ms_ssim/mean"], "rmse_mean": runs[-1]["rmse/mean"]}))
@@ -1952,6 +1964,393 @@ def evaluation_phase(system: SRSystem, smi: str) -> None:
     log("eval card vs CPU " + json.dumps({**eval_card_vs_cpu(system, host_batches[0]),
                                           "card": smi}))
     log(f"evaluation phase: {time.perf_counter() - t_phase:.1f} s")
+    return sweep
+
+
+# -- the data path -------------------------------------------------------------
+
+CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                      "torch_corpus")
+# dataset of the committed corpus -> (the preset whose transform expected.npz
+# holds, the file stems)
+CORPUS_LAYOUT = {"celebamaskhq": ("8x_independent_256x256", ("0", "1")),
+                 "celeba": ("8x_independent_128x128", ("000001", "000002"))}
+DATA_SAMPLES = 128           # the CelebAMask-HQ tree: copies of the corpus's 2 pairs
+DATA_IDENTITY_GROUP = 4      # samples per identity in its identities CSV
+DATA_LOADER_BATCH = 16
+DATA_GUIDED = "8x_guided_256x256"
+# disk-fed steps of Trainer.run: warm-up, timed by events, profiled
+DATA_WARMUP, DATA_TIMED, DATA_PROFILED = 3, 10, 2
+DATA_GUIDED_STEPS = 6
+# how the b16 disk-fed runs get their batches (`disk_fed_train`)
+DATA_FEEDS = ("loader", "processes", "beforehand", "beforehand, compute stream")
+DATA_CLI_STEPS = 2
+DATA_CLI_EVAL_SAMPLES = 16
+
+
+def decode_routes(smi: str) -> str:
+    """Build the native codec (its seconds printed), then decode the
+    committed corpus through every route this machine has (the codec;
+    Pillow) under each preset's transform, flipped and not, and hold each
+    against expected.npz: float32 pixels and labels equal, the largest
+    uint8 level difference printed.  The codec may be missing only where
+    its headers are (the compiler says so).  Returns the route the datasets
+    take ("codec" or "pillow")."""
+    from deepsee_torch.data import transforms
+    from deepsee_torch.data.datasets import CelebADataset
+
+    t0 = time.perf_counter()
+    built = codec.available()
+    build_s = time.perf_counter() - t0
+    reason = codec.unavailable_reason()
+    try:
+        import PIL
+        pillow = PIL.__version__
+    except ImportError:
+        pillow = None
+    log("data codec " + json.dumps({"built": built, "build_s": build_s, "pillow": pillow,
+                                    "reason": reason and reason[-600:], "card": smi}))
+    if not built and "h: No such file or directory" not in (reason or ""):
+        raise AssertionError(f"the native codec did not build: {reason}")
+    routes = ({"codec": "on"} if built else {}) | ({"pillow": "off"} if pillow else {})
+    if not routes:
+        raise AssertionError("no decode route: the codec did not build and Pillow is missing")
+    with np.load(os.path.join(CORPUS, "expected.npz")) as f:
+        expected = {k: f[k] for k in f.files}
+    for route, mode in routes.items():
+        worst, t0, decoded = {"image_levels": 0, "label_mismatches": 0}, time.perf_counter(), 0
+        for dataset, (preset, stems) in CORPUS_LAYOUT.items():
+            exp = get_preset(preset)
+            data = dataclasses.replace(exp.data, native_codec=mode)
+            label_mode = CelebADataset.label_preprocess_mode if dataset == "celeba" else None
+            for stem, flip in ((s, f) for s in stems for f in (False, True)):
+                params = transforms.TransformParams((0, 0), flip)
+                x = transforms.load_image(os.path.join(CORPUS, dataset, "images", f"{stem}.jpg"),
+                                          data, exp.model, params, True)
+                y = transforms.load_label(os.path.join(CORPUS, dataset, "labels", f"{stem}.png"),
+                                          data, exp.model, params, True, label_mode)
+                u8 = expected[f"{dataset}/{stem}/image"]
+                lab = expected[f"{dataset}/{stem}/label"]
+                if flip:
+                    u8, lab = u8[:, ::-1], lab[:, ::-1]
+                levels = np.abs(np.rint((x.astype(np.float64) + 1.0) * 127.5) - u8).max()
+                worst["image_levels"] = max(worst["image_levels"], int(levels))
+                worst["label_mismatches"] += int((y != lab).sum())
+                if not (np.array_equal(x, u8.astype(np.float32) / 255.0 * 2.0 - 1.0)
+                        and np.array_equal(y, lab)):
+                    raise AssertionError(f"data decode: route {route} differs from "
+                                         f"expected.npz on {dataset}/{stem} flip={flip}: "
+                                         f"{worst}")
+                decoded += 1
+        log("data decode " + json.dumps({"route": route, "pairs": decoded, **worst,
+                                         "s": time.perf_counter() - t0, "card": smi}))
+    return "codec" if built else "pillow"
+
+
+def data_tree(root: str):
+    """A CelebAMask-HQ tree of DATA_SAMPLES samples in `root`: the corpus's 2
+    image / label pairs copied under stems 0..DATA_SAMPLES-1, and an
+    identities CSV in groups of DATA_IDENTITY_GROUP.  Returns (image dir,
+    label dir, identities file)."""
+    images, labels = os.path.join(root, "images"), os.path.join(root, "labels")
+    os.makedirs(images)
+    os.makedirs(labels)
+    src = os.path.join(CORPUS, "celebamaskhq")
+    for i in range(DATA_SAMPLES):
+        shutil.copyfile(os.path.join(src, "images", f"{i % 2}.jpg"),
+                        os.path.join(images, f"{i}.jpg"))
+        shutil.copyfile(os.path.join(src, "labels", f"{i % 2}.png"),
+                        os.path.join(labels, f"{i}.png"))
+    ids = os.path.join(root, "identities.csv")
+    with open(ids, "w") as f:
+        f.write("hq_file_id,identity\n")
+        f.writelines(f"{i},{i // DATA_IDENTITY_GROUP}\n" for i in range(DATA_SAMPLES))
+    return images, labels, ids
+
+
+def tree_experiment(preset: str, tree, batch_n: int, **kw):
+    """The preset reading the tree at batch_n; it saves no per-epoch
+    checkpoint (the steps around an epoch's end are timed)."""
+    exp = get_preset(preset, **kw)
+    return exp.replace(
+        data=dataclasses.replace(exp.data, image_dir=tree[0], label_dir=tree[1],
+                                 identities_file=tree[2]),
+        train=dataclasses.replace(exp.train, batch_size=batch_n, save_epoch_freq=10 ** 9))
+
+
+def loader_timing(tree, route: str, smi: str) -> None:
+    """The loader alone over the tree (the preset's transform, 1024^2 JPEG
+    -> 256^2 and 512^2 PNG -> 256^2), one shuffled epoch at batch
+    DATA_LOADER_BATCH per worker count, after one epoch that warms the
+    page cache: samples/s and wall ms per sample."""
+    dataset = create_dataset(tree_experiment(PRESET, tree, DATA_LOADER_BATCH), phase="train")
+    counts = sorted({1, 2, 4, 8, os.cpu_count() or 1})
+    for _ in DataLoader(dataset, DATA_LOADER_BATCH, num_workers=max(counts)):
+        pass
+    rows = []
+    for n in counts:
+        loader = DataLoader(dataset, DATA_LOADER_BATCH, num_workers=n, seed=SEED)
+        t0 = time.perf_counter()
+        seen = sum(len(b["path"]) for b in loader)
+        dt = time.perf_counter() - t0
+        if seen != DATA_SAMPLES:
+            raise AssertionError(f"data loader: {seen} samples of {DATA_SAMPLES}")
+        rows.append({"workers": n, "samples_per_s": seen / dt, "ms_per_sample": dt * 1e3 / seen})
+    log("data loader " + json.dumps({"preset": PRESET, "batch": DATA_LOADER_BATCH,
+                                     "samples": DATA_SAMPLES, "route": route,
+                                     "cpu_count": os.cpu_count(), "rows": rows, "card": smi}))
+
+
+class ProcessDecoded:
+    """A training loader's batches with each sample decoded in a pool of
+    worker processes, as many as the loader's decode threads: the same
+    cores, but a GIL each.  Samples are asked for in index order, at most
+    (prefetch + 1) batches ahead of the consumer, about as far ahead as the
+    loader's window and prefetch queue decode; they are collated in the
+    consuming thread.  `close()` stops the pool."""
+
+    def __init__(self, loader: DataLoader):
+        import multiprocessing
+
+        self.loader = loader
+        self.pool = multiprocessing.get_context("spawn").Pool(loader.num_workers)
+        self.pool.map(abs, range(4 * loader.num_workers))  # every worker started
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self):
+        from collections import deque
+
+        from deepsee_torch.data.loader import collate
+
+        loader, ahead = self.loader, (self.loader.prefetch + 1) * self.loader.batch_size
+        indices = iter(loader._indices()[:len(self) * loader.batch_size])
+        window, buf = deque(), []
+        while True:
+            for i in indices:
+                window.append(self.pool.apply_async(loader.dataset.__getitem__, (i,)))
+                if len(window) >= ahead:
+                    break
+            if not window:
+                return
+            buf.append(window.popleft().get())
+            if len(buf) == loader.batch_size:
+                yield collate(buf)
+                buf = []
+
+    def close(self) -> None:
+        self.pool.terminate()
+        self.pool.join()
+
+
+class ComputeStreamFeed:
+    """DevicePrefetcher's order without its copy stream: batch k+1's pinned,
+    non-blocking copy is enqueued on the compute stream once step k is."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def __call__(self, batches):
+        return (to_device(b, self.device) for b in batches)
+
+
+def disk_fed_train(tag: str, preset: str, batch_n: int, tree, root: str, steps: int,
+                   resident: Optional[dict] = None, feed: str = "loader") -> dict:
+    """Trainer.run from the tree for `steps` steps: K1's launches of step
+    DATA_WARMUP - 1 (the independent model's against `train_norms`), ms per
+    step by CUDA events over up to DATA_TIMED steps after the warm-up, then
+    kernel ms per step over the steps left (profiled) and the idle share,
+    beside the resident-batch step of the training phase (`resident`).
+    `feed` (DATA_FEEDS): "loader" is `make_dataloader()`'s (shuffled, its
+    decode threads, the prefetch of the next batch to the card on a copy
+    stream); "processes" decodes the same loader's samples in processes
+    (`ProcessDecoded`); "beforehand" decodes the loader's first `steps`
+    batches before the run and feeds them as a list, no decode beside the
+    step; "beforehand, compute stream" copies that list on the compute
+    stream (`ComputeStreamFeed`) in place of the copy stream."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepsee_torch.train import loop
+
+    t_call = time.perf_counter()
+    exp = tree_experiment(preset, tree, batch_n, checkpoints_dir=os.path.join(root, tag))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random-VGG warning
+        trainer = Trainer(exp, device=DEVICE)
+    step = trainer.step_gd
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    seen = {"logs": []}
+    timed_to = min(DATA_WARMUP + DATA_TIMED, steps)
+
+    def measured(state, batch):
+        i = state.step
+        if i == DATA_WARMUP - 1:
+            torch.cuda.synchronize()
+            mn.reset_launches()
+        elif i == DATA_WARMUP:
+            start.record()
+        elif i == timed_to:
+            end.synchronize()
+            prof.start()
+        logs = step(state, batch)
+        if i == DATA_WARMUP - 1:
+            torch.cuda.synchronize()
+            seen["launches"] = {k: mn.launches[k] for k in TRAIN_MODES}
+        if i == timed_to - 1:
+            end.record()
+        if i == steps - 1 and steps > timed_to:
+            torch.cuda.synchronize()
+            prof.stop()
+        seen["logs"].append(logs)
+        return logs
+
+    trainer.step_gd = measured
+    data = None
+    if feed == "processes":
+        data = ProcessDecoded(trainer.make_dataloader())
+    elif feed.startswith("beforehand"):
+        data = [b for b, _ in zip(trainer.make_dataloader(), range(steps))]
+    prefetcher = loop.DevicePrefetcher
+    if feed == "beforehand, compute stream":
+        loop.DevicePrefetcher = ComputeStreamFeed
+    try:
+        t0 = time.perf_counter()
+        state = trainer.run(data, max_steps=steps)
+        wall_s = time.perf_counter() - t0
+    finally:
+        loop.DevicePrefetcher = prefetcher
+        if feed == "processes":
+            data.close()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (timed_to - DATA_WARMUP)
+    losses = {k: float(v) for k, v in seen["logs"][-1].items()}
+    if state.step != steps or not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{tag}: {state.step} steps, losses {losses}")
+    out = {"preset": preset, "batch": batch_n, "feed": feed, "steps": steps, "wall_s": wall_s,
+           "ms_per_step": ms, "img_per_s": batch_n / ms * 1e3,
+           "launches": seen["launches"], "losses": losses}
+    if exp.model.model_variant == "independent":
+        want = train_launches(train_norms(exp.model, batch_n, g_full=True))
+        if seen["launches"] != want:
+            raise AssertionError(f"{tag}: K1 launches per step {seen['launches']} != {want}")
+        out["expected_launches"] = want
+    if steps > timed_to:
+        kernel_ms = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                        and not getattr(e, "is_user_annotation", False)) / (steps - timed_to)
+        out.update({"kernel_ms_per_step": kernel_ms, "idle_share": 1.0 - kernel_ms / ms})
+    if resident is not None:
+        out["resident_batch (training phase)"] = {
+            k: resident.get(k) for k in ("ms_per_step", "img_per_s", "idle_share")}
+    del trainer, state, prof
+    torch.cuda.empty_cache()
+    out["call_s"] = time.perf_counter() - t_call
+    return out
+
+
+def disk_fed_sweep(tree, synthetic: dict, smi: str) -> None:
+    """The evaluation sweep (`time_sweep`) at EVAL_BATCH over the tree's
+    DATA_SAMPLES samples, read as python -m deepsee_torch.evaluate reads a
+    test set (phase "test", file order, the loader's 4 decode workers), on
+    the main path's bf16 system, beside the evaluation phase's synthetic
+    sweep; K1's launches per batch."""
+    system = seeded_system(PRESET)
+    exp = tree_experiment(PRESET, tree, EVAL_BATCH, is_train=False)
+    dataset = create_dataset(exp.replace(data=dataclasses.replace(exp.data, phase="test")),
+                             phase="test")
+    ev = InferenceEvaluator(system, DATA_SAMPLES)
+    loader = DataLoader(dataset, EVAL_BATCH, shuffle=False, drop_last=True, num_workers=4)
+    disk, _, device_batches, _, _ = time_sweep(ev, loader)
+    mn.reset_launches()
+    with torch.inference_mode():
+        ev.sweep(device_batches[0])
+    torch.cuda.synchronize()
+    launches = dict(mn.launches)
+    expected = expected_launches(path_norms(system.cfg, EVAL_BATCH, full_trunk=False))
+    if launches != expected:
+        raise AssertionError(f"data eval sweep: K1 launches per batch {launches} != {expected}")
+    keys = ("img_per_s", "device_img_per_s", "idle_share", "eval_s_median",
+            "loader_s (the host's batches alone)")
+    log("data eval sweep " + json.dumps({
+        "preset": PRESET, "batch": EVAL_BATCH, "samples": DATA_SAMPLES,
+        "disk (4 workers)": disk,
+        "synthetic (evaluation phase)": {k: synthetic[k] for k in keys},
+        "launches_per_batch": launches, "expected": expected, "card": smi}))
+    del system, ev, device_batches
+    torch.cuda.empty_cache()
+
+
+def data_clis(tree, root: str, smi: str) -> None:
+    """python -m deepsee_torch.train from the tree for DATA_CLI_STEPS steps
+    (its checkpoint files), then python -m deepsee_torch.evaluate on the
+    tree with that checkpoint (the CSV's ID column: the file stems in
+    order), each in a process of its own."""
+    ckpt = os.path.join(root, "cli")
+    train = [sys.executable, "-m", "deepsee_torch.train", "--name", PRESET, "--image_dir",
+             tree[0], "--label_dir", tree[1], "--max_steps", str(DATA_CLI_STEPS), "--device",
+             DEVICE, "--checkpoints_dir", ckpt]
+    out = os.path.join(root, "eval_out")
+    evaluate = [sys.executable, "-m", "deepsee_torch.evaluate", "--name", PRESET, "--image_dir",
+                tree[0], "--label_dir", tree[1], "--checkpoints_dir", ckpt, "--batch_size",
+                str(EVAL_BATCH), "--num_samples", str(DATA_CLI_EVAL_SAMPLES), "--out", out,
+                "--device", DEVICE]
+    times = {}
+    for name, cmd in (("train", train), ("evaluate", evaluate)):
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        times[name] = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd[2:4])} failed: {run.stdout[-2000:]}"
+                                 f"{run.stderr[-2000:]}")
+        if name == "train" and f"trained {DATA_CLI_STEPS} steps on {DEVICE}" not in run.stdout:
+            raise AssertionError(f"the training CLI: {run.stdout[-2000:]}")
+    files = sorted(os.listdir(os.path.join(ckpt, PRESET)))
+    want = {"config.json", "iter.txt", "latest_net_SR.pth", "latest_net_E.pth",
+            "latest_net_D.pth", "latest_train_state.pth"}
+    if not want <= set(files):
+        raise AssertionError(f"the training CLI wrote {files}")
+    with open(os.path.join(out, "metrics.csv")) as f:
+        ids = [line.split(",")[0] for line in f.read().splitlines()[1:]]
+    if ids != [str(i) for i in range(DATA_CLI_EVAL_SAMPLES)]:
+        raise AssertionError(f"the evaluation CSV's IDs: {ids}")
+    log("data clis " + json.dumps({"train": " ".join(train[1:]), "files": files,
+                                   "evaluate": " ".join(evaluate[1:]), "csv_ids": len(ids),
+                                   "seconds": times, "card": smi}))
+
+
+def data_phase(smi: str, resident: dict, synthetic_sweep: dict) -> None:
+    """The data path on the card (the `data_*` functions): the codec's build,
+    the corpus through every decode route against expected.npz, the loader
+    alone per worker count, disk-fed training (faithful b4 and b16 of the
+    main preset, beside `resident`, the training phase's resident-batch
+    steps; at b16 also fed as DATA_FEEDS says; a few guided b4 steps), the
+    disk-fed evaluation sweep (beside `synthetic_sweep`), and the two CLIs
+    from the tree."""
+    t0 = time.perf_counter()
+    route = decode_routes(smi)
+    root = tempfile.mkdtemp(prefix="deepsee_data_")
+    try:
+        tree = data_tree(os.path.join(root, "tree"))
+        loader_timing(tree, route, smi)
+        steps = DATA_WARMUP + DATA_TIMED + DATA_PROFILED
+        runs = [(TRAIN_BATCH, "loader")] + [(TRAIN_BATCH_LARGE, f) for f in DATA_FEEDS]
+        for batch_n, feed in runs:
+            tag = f"b{batch_n}" + ("" if feed == "loader" else f" {feed}")
+            log(f"data train {tag} " + json.dumps({
+                **disk_fed_train(f"b{batch_n}_{DATA_FEEDS.index(feed)}", PRESET, batch_n, tree,
+                                 root, steps, resident[batch_n], feed=feed),
+                "route": route, "card": smi}))
+        log(f"data train guided b{TRAIN_BATCH} " + json.dumps({
+            **disk_fed_train("guided", DATA_GUIDED, TRAIN_BATCH, tree, root, DATA_GUIDED_STEPS),
+            "route": route, "card": smi}))
+        disk_fed_sweep(tree, synthetic_sweep, smi)
+        data_clis(tree, root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"data phase: {time.perf_counter() - t0:.1f} s")
 
 
 # -- profile ---------------------------------------------------------------
@@ -2093,12 +2492,13 @@ def main() -> int:
         t0 = time.perf_counter()
         guided_phase(preset, batch_n, rows)
         log(f"{preset} phase: {time.perf_counter() - t0:.1f} s")
-    evaluation_phase(system, smi)
+    synthetic_sweep = evaluation_phase(system, smi)
     explorative_phase(system)
     serving_phase(system, smi)
     del system
     torch.cuda.empty_cache()
-    train = training_phase(smi)
+    train, resident = training_phase(smi)
+    data_phase(smi, resident, synthetic_sweep)
 
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)

@@ -3,7 +3,7 @@
 A second package beside the JAX one, ported slice by slice and held against
 it by tests/test_torch_*.py.  It imports torch and numpy, never JAX or
 deepsee_tpu.  It carries eval-mode inference of every preset, the serving
-entry points and GAN training on one card:
+entry points, GAN training and evaluation on one card, and the data path:
 
   config.py      own copy of the configuration the ported modules read
   ops/           resize, one-hot/HR->LR, plain norms, pooling, and
@@ -19,7 +19,12 @@ entry points and GAN training on one card:
   losses.py      GAN, feature-matching and VGG losses
   train/         train state and TTUR Adam, the step, the trainer,
                  python -m deepsee_torch.train
-  data.py        the synthetic training data
+  data/          the native image codec (csrc/codec.cpp, built with g++ at
+                 first use), transforms, the CelebA / CelebAMask-HQ and
+                 synthetic datasets, the threaded loader, the pinned copy
+                 of the next batch to the card
+  eval/          the metrics, LPIPS, the FID Inception, the evaluator
+                 (python -m deepsee_torch.evaluate, .evaluate_folder)
   weights.py     JAX variable trees and reference .pth files <-> state_dicts
   inference/     the explorative modes
   regions.py, utils/   region table, image and style-CSV IO, the

@@ -5,8 +5,8 @@ read: the norm-string parsers, the model hyper-parameters (the
 discriminator's included), the training hyper-parameters, the experiment
 bundle with its explorative-inference knobs, and the presets.  Field names
 and defaults are those of the JAX package, so one preset name gives the
-same model in both packages.  Fields of slices not yet ported (data, mesh)
-are absent.
+same model in both packages.  Fields of slices not yet ported (mesh) are
+absent.
 """
 
 from __future__ import annotations
@@ -18,8 +18,8 @@ import re
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
-__all__ = ["NormGSpec", "parse_nonspade_norm", "ModelConfig", "TrainConfig", "Experiment",
-           "get_preset", "tiny_test_experiment"]
+__all__ = ["NormGSpec", "parse_nonspade_norm", "ModelConfig", "TrainConfig", "DataConfig",
+           "Experiment", "get_preset", "tiny_test_experiment"]
 
 
 @dataclass(frozen=True)
@@ -72,6 +72,7 @@ class ModelConfig:
     start_size: int = 16
     crop_size: int = 128
     load_size: int = 128
+    aspect_ratio: float = 1.0       # the "fixed" preprocess mode's width / height
 
     label_nc: int = 19
     contain_dontcare_label: bool = False
@@ -165,7 +166,7 @@ class TrainConfig:
     evaluation_freq: int = 100000
     evaluation_start_epoch: int = 0
     num_evaluation_samples: int = 1000
-    evaluate_val_set: bool = False    # the data-path slice: the port refuses True
+    evaluate_val_set: bool = False    # also evaluate the *_val dirs at each evaluation
 
     seed: int = 0
 
@@ -184,10 +185,40 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """Dataset and host-side transform configuration
+    (deepsee_tpu/config.py:262-289)."""
+
+    dataset: str = "celebamaskhq"   # celeba | celebamaskhq | synthetic
+    image_dir: str = ""
+    label_dir: str = ""
+    image_dir_val: str = ""
+    label_dir_val: str = ""
+    identities_file: str = ""       # CelebAMask-HQ CSV or CelebA identity_CelebA.txt
+    preprocess_mode: str = "resize_and_crop"
+    center_crop_size: Optional[int] = None     # 178 for CelebA
+    no_flip: bool = False
+    serial_batches: bool = False
+    max_dataset_size: Optional[int] = None
+    no_pairing_check: bool = False
+    cache_filelist_read: bool = False   # the files.list cache of list_images
+    cache_filelist_write: bool = False
+    phase: str = "train"
+    # the native host codec (data/codec.py): "auto" uses it where it builds
+    # and the preprocess mode is in its bit-exact envelope, Pillow otherwise;
+    # "on" requires it; "off" decodes with Pillow
+    native_codec: str = "auto"
+    # approximate JPEG fast path: DCT-scaled decode near the target size
+    # (not bit-exact with Pillow)
+    native_scaled_decode: bool = False
+
+
+@dataclass(frozen=True)
 class Experiment:
     name: str = "8x_independent_128x128"
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
     checkpoints_dir: str = "./checkpoints"
     is_train: bool = True
 
@@ -217,11 +248,15 @@ def _apply_variant(exp: Experiment, name: str) -> Experiment:
 
 
 def get_preset(name: str, **overrides: Any) -> Experiment:
-    """Named presets of deepsee_tpu/config.py:394-421 (model fields only)."""
-    m = ModelConfig()
+    """Named presets of deepsee_tpu/config.py:394-421."""
+    m, d = ModelConfig(), DataConfig()
     if "128x128" in name and "8x_" in name:
         m = dataclasses.replace(m, start_size=16, crop_size=128, load_size=128,
                                 add_noise=True)
+        # CelebA: a 178-px face crop before the resize (labels use plain
+        # "resize", data/datasets.py)
+        d = dataclasses.replace(d, dataset="celeba", preprocess_mode="center_crop_and_resize",
+                                center_crop_size=178)
     elif "256x256" in name and "8x_" in name:
         m = dataclasses.replace(m, start_size=32, crop_size=256, load_size=256,
                                 add_noise=True, max_fm_size=256)
@@ -230,7 +265,7 @@ def get_preset(name: str, **overrides: Any) -> Experiment:
                                 add_noise=False, max_fm_size=256)
     else:
         raise ValueError(f"Invalid preset name: {name!r}")
-    exp = _apply_variant(Experiment(name=name, model=m), name)
+    exp = _apply_variant(Experiment(name=name, model=m, data=d), name)
     return exp.replace(**overrides) if overrides else exp
 
 

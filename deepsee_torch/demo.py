@@ -17,8 +17,9 @@ Style sources (demo.py:97-118):
   * neither: encode from the LR input (independent model only)
 
 Writes the upscaled PNG and the applied style matrix as CSV
-(demo.py:62-73).  Runs on CUDA unless --device cpu; reading and writing
-PNGs needs Pillow.
+(demo.py:62-73).  Runs on CUDA unless --device cpu; images are read through
+the native codec where it builds (data/codec.py), through Pillow otherwise,
+and writing the PNG needs Pillow.
 """
 
 from __future__ import annotations

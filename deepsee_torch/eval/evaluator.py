@@ -19,13 +19,13 @@ depend on the process's TF32 setting.  The generator runs as the caller set
 it up.
 
 One process: the JAX evaluator's all-gather of every host's rows
-(evaluator.py:37-57, :271-285) belongs to the multi-GPU slice, its
-validation loader (`get_validation_loader`, :60-73) to the data-path slice.
+(evaluator.py:37-57, :271-285) belongs to the multi-GPU slice.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
 from collections import deque
@@ -34,12 +34,15 @@ from typing import Dict, Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from deepsee_torch.config import Experiment
+from deepsee_torch.data import DataLoader, DevicePrefetcher, create_dataset, to_device
 from deepsee_torch.eval import fid as fid_mod
 from deepsee_torch.eval.lpips import load_lpips
 from deepsee_torch.eval.metrics import MetricsAccumulator, batch_metrics
 from deepsee_torch.system import SRSystem
 
-__all__ = ["InferenceEvaluator", "MetricsCSVWriter", "evaluate_set", "strict_float32"]
+__all__ = ["InferenceEvaluator", "MetricsCSVWriter", "evaluate_set", "get_validation_loader",
+           "strict_float32"]
 
 
 @contextlib.contextmanager
@@ -66,6 +69,19 @@ def _eval_mode(nets) -> Iterator[None]:
     finally:
         for net, mode in zip(nets, modes):
             net.train(mode)
+
+
+def get_validation_loader(exp: Experiment, batch_size: Optional[int] = None) -> DataLoader:
+    """The loader over the *_val dirs (deepsee_tpu/eval/evaluator.py:60-73;
+    evaluation.py:202-217): phase "val", in file order, the last batch
+    kept."""
+    if not (exp.data.label_dir_val and exp.data.image_dir_val):
+        raise ValueError("label_dir_val / image_dir_val required for validation evaluation")
+    val_exp = exp.replace(data=dataclasses.replace(
+        exp.data, label_dir=exp.data.label_dir_val, image_dir=exp.data.image_dir_val,
+        phase="val"))
+    return DataLoader(create_dataset(val_exp, phase="val"), batch_size or exp.train.batch_size,
+                      shuffle=False, drop_last=False, shard_index=0, num_shards=1)
 
 
 def evaluate_set(evaluator: "InferenceEvaluator", loader) -> Dict[str, float]:
@@ -133,20 +149,6 @@ class InferenceEvaluator:
 
     # -- one batch ----------------------------------------------------------
 
-    def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
-        """The batch's arrays on the device (lists such as "path" dropped);
-        to a card through pinned memory, without blocking the host."""
-        out = {}
-        for key, value in batch.items():
-            if isinstance(value, list):
-                continue
-            t = torch.from_numpy(value) if isinstance(value, np.ndarray) else value
-            if self.device.type == "cuda" and t.device.type == "cpu":
-                out[key] = t.pin_memory().to(self.device, non_blocking=True)
-            else:
-                out[key] = t.to(self.device)
-        return out
-
     def _infer(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         # sr_model.py:85-91 'inference': no_noise; the independent model
         # takes the mini (LR) style path unless full_style_image, the guided
@@ -176,7 +178,7 @@ class InferenceEvaluator:
     def run_batch(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """(fake, real) (B, H, W, 3) of one host batch."""
         with _eval_mode(self._nets()), torch.inference_mode():
-            return self._infer(self._device_batch(batch))
+            return self._infer(to_device(batch, self.device))
 
     def _to_host(self, m: Dict[str, torch.Tensor]):
         """Start the copy of a batch's results to the host: (buffers, the
@@ -219,12 +221,11 @@ class InferenceEvaluator:
 
         n_seen = 0
         with torch.inference_mode():  # the result copies read inference tensors
-            for batch in dataloader:
+            for batch in DevicePrefetcher(self.device)(dataloader):
                 if n_seen >= self.num_samples:
                     break
-                device_batch = self._device_batch(batch)
-                bsize = int(device_batch["image_hr"].shape[0])
-                host, event = self._to_host(self.sweep(device_batch))
+                bsize = int(batch["image_hr"].shape[0])
+                host, event = self._to_host(self.sweep(batch))
                 pending.append((batch.get("path", [""] * bsize), host, event))
                 n_seen += bsize
                 while len(pending) >= self.pipeline_depth:

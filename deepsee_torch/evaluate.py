@@ -4,8 +4,14 @@ managers/inference_manager.py:61-147).  Runs the metric harness (PSNR,
 SSIM, MS-SSIM, RMSE, LPIPS, FID) over samples with a trained checkpoint and
 prints the result as JSON.
 
-    python -m deepsee_torch.evaluate --name 8x_independent_256x256 --synthetic \\
+    python -m deepsee_torch.evaluate --name 8x_independent_256x256 \\
+        --image_dir .../test_img --label_dir .../test_label \\
         --checkpoints_dir ./checkpoints --num_samples 1000 --out results/eval
+
+The samples are the preset's dataset read from --image_dir / --label_dir in
+file order (phase "test"; samples without a guiding image are skipped, the
+last partial batch dropped), or synthetic ones with --synthetic.  The CSV's
+ID column holds each sample's file name without its extension.
 
 Weights: by default the port trainer's `<checkpoints_dir>/<name>/<epoch>_net_
 {SR,E}.pth` files; --torch_checkpoint reads the same files of a reference
@@ -16,7 +22,6 @@ release (or of scripts/export_torch.py) from another directory;
 
 Runs on the card unless --device cpu is given, and raises without one.  The
 flags of slices not ported yet are refused with a message naming the slice:
-real datasets (--image_dir, --label_dir, --identities_file: the data path),
 --multihost (multi-GPU), --int8 (the int8 conv kernel K4).  --save_images
 writes PNGs and needs Pillow.
 """
@@ -35,8 +40,7 @@ from deepsee_torch.config import get_preset
 
 # flag -> the slice it waits for
 _LATER = {
-    "image_dir": "the data-path slice", "label_dir": "the data-path slice",
-    "identities_file": "the data-path slice", "multihost": "the multi-GPU slice",
+    "multihost": "the multi-GPU slice",
     "int8": "the int8 slice (the Hopper int8/FP8 conv kernel K4)",
 }
 
@@ -45,11 +49,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--name", default="8x_independent_256x256")
+    p.add_argument("--image_dir", default="")
+    p.add_argument("--label_dir", default="")
+    p.add_argument("--identities_file", default="")
     p.add_argument("--checkpoints_dir", default="./checkpoints")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--num_samples", type=int, default=1000)
     p.add_argument("--synthetic", action="store_true",
-                   help="evaluate on synthetic samples (the only data of this slice)")
+                   help="evaluate on synthetic samples instead of the preset's dataset")
     p.add_argument("--no_fid", action="store_true")
     p.add_argument("--no_lpips", action="store_true")
     p.add_argument("--no_checkpoint", action="store_true",
@@ -62,8 +69,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--out", default="")
     p.add_argument("--save_images", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for flag in ("image_dir", "label_dir", "identities_file"):
-        p.add_argument(f"--{flag}", default=None, help=f"not ported: {_LATER[flag]}")
     for flag in ("multihost", "int8"):
         p.add_argument(f"--{flag}", action="store_true", default=None,
                        help=f"not ported: {_LATER[flag]}")
@@ -72,8 +77,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         if getattr(args, flag) is not None:
             p.error(f"--{flag} belongs to {slice_name} of the port, which deepsee_torch "
                     "does not have yet")
-    if not args.synthetic:
-        p.error("real datasets belong to the data-path slice of the port; pass --synthetic")
     return args
 
 
@@ -96,16 +99,21 @@ def load_weights(system, args: argparse.Namespace) -> None:
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     args = parse_args(argv)
-    from deepsee_torch.data import Batches, SyntheticDataset
+    from deepsee_torch.data import DataLoader, create_dataset
     from deepsee_torch.eval.evaluator import InferenceEvaluator
     from deepsee_torch.system import SRSystem
 
     exp = get_preset(args.name).replace(is_train=False, checkpoints_dir=args.checkpoints_dir)
-    exp = exp.replace(train=dataclasses.replace(exp.train, batch_size=args.batch_size))
+    exp = exp.replace(
+        data=dataclasses.replace(
+            exp.data, dataset="synthetic" if args.synthetic else exp.data.dataset,
+            image_dir=args.image_dir, label_dir=args.label_dir,
+            identities_file=args.identities_file, phase="test"),
+        train=dataclasses.replace(exp.train, batch_size=args.batch_size))
     system = SRSystem(exp, device=args.device)
     load_weights(system, args)
-    dataset = SyntheticDataset(exp)
-    loader = Batches(dataset, args.batch_size)
+    loader = DataLoader(create_dataset(exp, phase="test"), args.batch_size, shuffle=False,
+                        drop_last=True, shard_index=0, num_shards=1)
     ev = InferenceEvaluator(
         system, num_samples=args.num_samples, write_details=bool(args.out),
         folder_out=args.out or None, compute_fid=not args.no_fid,
@@ -123,8 +131,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
         fake, real = ev.run_batch(batch)
         visuals = {"fake_image": fake.cpu().numpy(), "image_hr": real.cpu().numpy(),
                    "input_label": batch["label"]}
-        paths = [dataset[i]["path"] for i in range(len(batch["label"]))]
-        save_images_only(visuals, paths, os.path.join(args.out, "visuals"), exp.model.label_nc)
+        save_images_only(visuals, batch["path"], os.path.join(args.out, "visuals"),
+                         exp.model.label_nc)
     return result
 
 

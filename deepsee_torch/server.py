@@ -45,9 +45,9 @@ API (JSON over HTTP, stdlib-only on both ends):
        X-DS-Model / X-DS-Style headers.
 
 Images follow the repo conventions (demo.py:45-61): RGB u8 -> /255*2-1;
-labels NEAREST-resized (png) with 255 -> label_nc.  The PNG wire needs
-Pillow, imported where a PNG is decoded or encoded; the raw and binary
-wires need none.
+labels NEAREST-resized (png) with 255 -> label_nc.  The PNG wire decodes
+and encodes through the native codec (data/codec.py) where it builds, else
+through Pillow; the raw and binary wires need neither.
 
 Batching: requests are queued with a Future; the device thread takes the
 oldest request, waits up to --batch_window_ms for more requests OF THE

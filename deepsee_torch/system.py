@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from deepsee_torch.config import Experiment
+from deepsee_torch.data.device import tensor_to_device
 from deepsee_torch.losses import DiscOut
 from deepsee_torch.models.discriminator import MultiscaleDiscriminator
 from deepsee_torch.models.encoder import build_encoder
@@ -123,10 +124,9 @@ class SRSystem:
     # -- inference --------------------------------------------------------
 
     def to_device(self, value) -> torch.Tensor:
-        """A numpy array or tensor as a tensor on the system's device."""
-        if isinstance(value, np.ndarray):
-            value = torch.from_numpy(value)
-        return value.to(self.device)
+        """A numpy array or tensor as a tensor on the system's device (to a
+        card from pinned memory, without blocking the host)."""
+        return tensor_to_device(value, self.device)
 
     @torch.inference_mode()
     def preprocess(self, batch: Mapping) -> Batch:
@@ -143,7 +143,9 @@ class SRSystem:
 
     def _preprocess(self, batch: Mapping) -> Batch:
         cfg = self.cfg
-        out = {k: self.to_device(v) for k, v in batch.items()}
+        # the arrays; host lists such as the loader's "path" stay behind
+        out = {k: self.to_device(v) for k, v in batch.items()
+               if isinstance(v, (np.ndarray, torch.Tensor))}
         if "label" in out and "input_semantics" not in out:
             out["input_semantics"] = one_hot_label(out["label"], cfg.semantic_nc)
         if "guiding_label" in out and out["guiding_label"].dim() <= 3:

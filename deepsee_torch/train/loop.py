@@ -6,17 +6,22 @@ Epoch/iteration loop over the GAN step with:
   * the per-epoch TTUR lr decay (trainer_manager.py:76-96);
   * the periodic print / display / save / evaluate triggers of
     IterationCounter (train.py:49-105); an evaluation sweeps
-    num_evaluation_samples of the training batches (FID, LPIPS and the
-    metrics, with G and E in eval mode) and appends fid_iter.txt and
+    num_evaluation_samples of a shuffled copy of the training dataset (FID,
+    LPIPS and the metrics, with G and E in eval mode), and of the
+    validation dirs with evaluate_val_set, and appends fid_iter.txt and
     metrics_iter.txt (train.py:85-105);
   * a crash-safe save of "latest" in a finally block (train.py:119-127).
 
-It runs on one card (or the CPU with device="cpu") on any iterable of NHWC
-numpy batch dicts with a length, by default the synthetic dataset.
+It runs on one card (or the CPU with device="cpu") on a DataLoader, by
+default `make_dataloader()`'s over the preset's dataset (the synthetic one
+with dataset="synthetic"), shuffled every epoch from the training seed; any
+iterable of NHWC numpy batch dicts with a length will do.  Each batch is
+copied to the card while the step before it runs (data/device.py).
 """
 
 from __future__ import annotations
 
+import copy
 import traceback
 from typing import Dict, Optional
 
@@ -24,8 +29,8 @@ import numpy as np
 import torch
 
 from deepsee_torch.config import Experiment
-from deepsee_torch.data import Batches, SyntheticDataset
-from deepsee_torch.eval.evaluator import InferenceEvaluator, evaluate_set
+from deepsee_torch.data import DataLoader, DevicePrefetcher, create_dataset
+from deepsee_torch.eval.evaluator import InferenceEvaluator, evaluate_set, get_validation_loader
 from deepsee_torch.system import SRSystem
 from deepsee_torch.train.state import TrainState, create_train_state, set_epoch_lr
 from deepsee_torch.train.steps import make_train_step
@@ -39,10 +44,6 @@ class Trainer:
                  continue_train: bool = False):
         if not exp.is_train:
             raise ValueError("Trainer needs a training experiment (is_train=True)")
-        if exp.train.evaluate_val_set:
-            raise NotImplementedError(
-                "evaluate_val_set needs the validation dataset (image_dir_val, label_dir_val), "
-                "which belongs to the data-path slice of the port")
         self.exp = exp
         self.continue_train = continue_train
         self.system = SRSystem(exp, device=device)
@@ -55,25 +56,51 @@ class Trainer:
         self.step_d = (make_train_step(self.system, do_g=False)
                        if exp.train.d_steps_per_g > 1 else None)
 
-    def run(self, batches=None, max_steps: Optional[int] = None) -> TrainState:
-        """Train over `batches` (an iterable of NHWC numpy batch dicts with a
-        length, iterated once per epoch; by default the synthetic dataset in
-        batches of batch_size) until the last epoch or `max_steps`."""
+    def make_dataloader(self) -> DataLoader:
+        """The training loader (deepsee_tpu/train/loop.py:87-99): the
+        preset's dataset, shuffled every epoch from the training seed; one
+        process reads stripe 0 of 1."""
+        tc = self.exp.train
+        return DataLoader(create_dataset(self.exp, phase="train"), tc.batch_size, shuffle=True,
+                          drop_last=True, seed=tc.seed, shard_index=0, num_shards=1)
+
+    def _eval_loader(self, dataloader):
+        """The periodic training-set evaluation's loader, apart from the live
+        training stream (deepsee_tpu/train/loop.py:172-185): a shallow copy
+        of the dataset (the file lists shared, its own augmentation Random
+        through seed()), shuffled from seed + 7919, no prefetch thread (the
+        evaluator takes num_evaluation_samples and leaves).  Batches given
+        without a dataset are evaluated as they are."""
+        dataset = getattr(dataloader, "dataset", None)
+        if dataset is None:
+            return dataloader
+        tc = self.exp.train
+        return DataLoader(copy.copy(dataset), tc.batch_size, shuffle=True,
+                          drop_last=True, seed=tc.seed + 7919, num_workers=2, prefetch=0,
+                          shard_index=0, num_shards=1)
+
+    def run(self, dataloader=None, max_steps: Optional[int] = None) -> TrainState:
+        """Train over `dataloader` (by default `make_dataloader()`; any
+        iterable of NHWC numpy batch dicts with a length, iterated once per
+        epoch) until the last epoch or `max_steps`."""
         exp, tc = self.exp, self.exp.train
-        if batches is None:
-            batches = Batches(SyntheticDataset(exp), tc.batch_size)
-        steps_per_epoch = len(batches)
+        if dataloader is None:
+            dataloader = self.make_dataloader()
+        steps_per_epoch = len(dataloader)
         counter = IterationCounter(exp, steps_per_epoch * tc.batch_size,
                                    continue_train=self.continue_train)
         visualizer = Visualizer(exp)
         evaluator = None  # built at the first evaluation trigger
+        eval_loader = self._eval_loader(dataloader)
+        val_loader = get_validation_loader(exp) if tc.evaluate_val_set else None
+        feed = DevicePrefetcher(self.system.device)
         logs: Dict[str, torch.Tensor] = {}
         try:
             for epoch in counter.training_epochs():
                 counter.record_epoch_start(epoch)
                 self.state.epoch = epoch
                 set_epoch_lr(self.state, epoch)
-                for i, batch in enumerate(batches):
+                for i, batch in enumerate(feed(dataloader)):
                     if i >= steps_per_epoch:
                         break
                     do_g = i % tc.d_steps_per_g == 0
@@ -95,13 +122,16 @@ class Trainer:
                                 self.system, tc.num_evaluation_samples,
                                 inception_weights=tc.inception_weights or None,
                                 alexnet_weights=tc.alexnet_weights or None)
-                        # a pass of its own over the training batches, from
-                        # the first (the JAX trainer's shuffled copy of the
-                        # dataset comes with the data-path slice's loader)
-                        result = evaluate_set(evaluator, batches)
+                        result = evaluate_set(evaluator, eval_loader)
                         counter.record_fid(result.get("FID", 500.0), "train",
                                            tc.num_evaluation_samples)
                         counter.record_metrics(result, "train", tc.num_evaluation_samples)
+                        if val_loader is not None:
+                            result = evaluate_set(evaluator, val_loader)
+                            counter.record_fid(result.get("FID", 500.0), "validation",
+                                               tc.num_evaluation_samples)
+                            counter.record_metrics(result, "validation",
+                                                   tc.num_evaluation_samples)
                     if max_steps and self.state.step >= max_steps:
                         return self.state
                 counter.record_epoch_end()

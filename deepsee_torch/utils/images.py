@@ -1,11 +1,14 @@
-"""Tensor <-> image conversions and IO: an own copy of the PIL path of
+"""Tensor <-> image conversions and IO: an own copy of
 deepsee_tpu/utils/images.py (reference: util/util.py:72-158).
 
 Arrays are numpy, NHWC, in the JAX package's conventions: images float32 in
 [-1, 1] (u8 / 255 * 2 - 1, BICUBIC resize), label maps int32 with 255
-(unknown) -> label_nc (NEAREST resize).  PIL is imported inside the
-functions that need it, so the raw-pixel helpers (`tensor2im`, the style
-CSV) work where Pillow is not installed.
+(unknown) -> label_nc (NEAREST resize).  Encoded bytes and files decode, and
+PNGs encode, through the native codec (data/codec.py, bit-exact with
+Pillow) where it is available and the input lies in its envelope, through
+Pillow otherwise.  PIL is imported inside the functions that need it, so
+the codec's paths and the raw-pixel helpers (`tensor2im`, the style CSV)
+work where Pillow is not installed.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Optional
 
 import numpy as np
 
+from deepsee_torch.data import codec
 from deepsee_torch.regions import colorize_label
 
 
@@ -53,21 +57,45 @@ def label_to_array(lab, size: int, label_nc: int) -> np.ndarray:
 
 
 def image_bytes_to_array(data: bytes, size: Optional[int] = None) -> np.ndarray:
-    """Encoded JPEG/PNG bytes -> (1, size, size, 3) float32 in [-1, 1]."""
+    """Encoded JPEG/PNG bytes -> (1, size, size, 3) float32 in [-1, 1]:
+    probe, ops, decode through the codec, Pillow where that declines."""
+    if size and codec.available():
+        dims = codec.probe(data)
+        if dims is not None:
+            ops = codec.make_ops(resize=(size, size) if dims != (size, size) else None)
+            arr = codec.decode_image(data, ops, (size, size))
+            if arr is not None:
+                return arr[None]
     from PIL import Image
 
     return image_to_array(Image.open(io.BytesIO(data)), size)
 
 
 def label_bytes_to_array(data: bytes, size: int, label_nc: int) -> np.ndarray:
-    """Encoded PNG/JPEG label-map bytes -> (1, size, size) int32."""
+    """Encoded PNG/JPEG label-map bytes -> (1, size, size) int32; 255
+    (unknown) -> label_nc.  The codec where it takes the input, Pillow
+    otherwise."""
+    if codec.available():
+        dims = codec.probe(data)
+        if dims is not None:
+            ops = codec.make_ops(resize=(size, size) if dims != (size, size) else None,
+                                 resample=codec.NEAREST)
+            arr = codec.decode_label(data, ops, (size, size), label_nc)
+            if arr is not None:
+                return arr[None]
     from PIL import Image
 
     return label_to_array(Image.open(io.BytesIO(data)), size, label_nc)
 
 
 def encode_png_bytes(arr_uint8: np.ndarray, level: int = 6) -> bytes:
-    """uint8 (H, W, 3) -> PNG bytes at zlib `level`."""
+    """uint8 (H, W, 3) -> PNG bytes at zlib `level`: the codec's encoder
+    (levels <= 2 skip row filtering: larger bytes, much less zlib), Pillow
+    where the codec is unavailable."""
+    if codec.available():
+        data = codec.encode_png(arr_uint8, level=level)
+        if data is not None:
+            return data
     from PIL import Image
 
     buf = io.BytesIO()
@@ -76,6 +104,11 @@ def encode_png_bytes(arr_uint8: np.ndarray, level: int = 6) -> bytes:
 
 
 def image_file_to_array(path: str, size: Optional[int] = None) -> np.ndarray:
+    """image_to_array over a file path: the codec where available, Pillow
+    otherwise."""
+    if size and codec.available():
+        with open(path, "rb") as f:
+            return image_bytes_to_array(f.read(), size)
     from PIL import Image
 
     with Image.open(path) as img:
@@ -83,6 +116,11 @@ def image_file_to_array(path: str, size: Optional[int] = None) -> np.ndarray:
 
 
 def label_file_to_array(path: str, size: int, label_nc: int) -> np.ndarray:
+    """label_to_array over a file path: the codec where available, Pillow
+    otherwise."""
+    if codec.available():
+        with open(path, "rb") as f:
+            return label_bytes_to_array(f.read(), size, label_nc)
     from PIL import Image
 
     with Image.open(path) as lab:

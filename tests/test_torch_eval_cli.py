@@ -3,8 +3,9 @@ training CLI's evaluation flags, on the CPU at the tiny test configuration
 (get_preset monkeypatched): synthetic samples with the seeded init, the
 default checkpoint (the port trainer's .pth files) against
 --torch_checkpoint and --no_checkpoint, the refusals with the slice each
-names, the card by default."""
+names, the card by default.  The data flags are in test_torch_data_cli.py."""
 
+import dataclasses
 import json
 import os
 import warnings
@@ -50,6 +51,7 @@ def test_synthetic_run_writes_the_results(tiny, tmp_path, capsys):
 def test_default_checkpoint_is_the_trainers(tiny, tmp_path, capsys):
     ckpt = str(tmp_path / "ckpt")
     exp = tiny_test_experiment(checkpoints_dir=ckpt)
+    exp = exp.replace(data=dataclasses.replace(exp.data, dataset="synthetic"))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         loop.Trainer(exp, device="cpu").run(max_steps=1)
@@ -67,12 +69,8 @@ def test_default_checkpoint_is_the_trainers(tiny, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--image_dir", "imgs", "--synthetic"], "data-path"),
-    (["--label_dir", "labs", "--synthetic"], "data-path"),
-    (["--identities_file", "ids.txt", "--synthetic"], "data-path"),
     (["--multihost", "--synthetic"], "multi-GPU"),
-    (["--int8", "--synthetic"], "K4"),
-    ([], "data-path")])
+    (["--int8", "--synthetic"], "K4")])
 def test_refusals_name_their_slice(capsys, flags, slice_name):
     with pytest.raises(SystemExit):
         cli.parse_args(flags)

@@ -29,6 +29,7 @@ from deepsee_tpu.eval.evaluator import InferenceEvaluator as JaxEvaluator
 from deepsee_tpu.eval.evaluator import MetricsCSVWriter as JaxCSVWriter
 from deepsee_tpu.system import SRSystem as JaxSystem
 from deepsee_torch.config import tiny_test_experiment as torch_tiny
+from deepsee_torch.data import to_device
 from deepsee_torch.eval import evaluator as tev
 from deepsee_torch.eval.metrics import batch_metrics
 from deepsee_torch.system import SRSystem
@@ -136,7 +137,7 @@ def test_run_batch_matches_the_sweep_and_leaves_modes(pair):
     batch = _batches(port.cfg, n=1)[0]
     fake, real = ev.run_batch(batch)
     np.testing.assert_array_equal(real.numpy(), batch["image_hr"])
-    m = ev.sweep(ev._device_batch(batch))
+    m = ev.sweep(to_device(batch, ev.device))
     assert set(m) == {"psnr", "ssim", "ms_ssim", "rmse"}
     for key, value in batch_metrics(fake, real).items():
         torch.testing.assert_close(m[key], value, rtol=0, atol=0, equal_nan=True)

@@ -18,6 +18,7 @@ from deepsee_tpu.config import tiny_test_experiment as jax_tiny
 from deepsee_tpu.utils.iter_counter import IterationCounter as JaxCounter
 from deepsee_torch.config import tiny_test_experiment as torch_tiny
 from deepsee_torch.train import loop
+from torch_data_corpus import write_tree
 
 STAMP = re.compile(r"^time=\d{4}/\d\d/\d\d-\d\d:\d\d:\d\d,")
 
@@ -113,9 +114,18 @@ def test_no_evaluation_before_its_start_epoch(tmp_path):
     assert not os.path.exists(os.path.join(str(tmp_path), "tiny_test", "fid_iter.txt"))
 
 
-def test_validation_set_evaluation_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="data-path"):
-        loop.Trainer(_exp(tmp_path, evaluate_val_set=True), device="cpu")
+def test_validation_set_is_evaluated(tmp_path):
+    """evaluate_val_set: each evaluation also sweeps the *_val dirs and
+    appends a "validation" line to both histories."""
+    images, labels, _ = write_tree(str(tmp_path / "val"), "celebamaskhq", 4)
+    exp = _exp(tmp_path, evaluation_freq=4, evaluate_val_set=True)
+    exp = exp.replace(data=dataclasses.replace(exp.data, image_dir_val=images,
+                                               label_dir_val=labels))
+    _run(exp)
+    for name in ("fid_iter.txt", "metrics_iter.txt"):
+        lines = _lines(os.path.join(str(tmp_path), exp.name, name))
+        assert [",split=train," in lines[0], ",split=validation," in lines[1]] == [True, True]
+        assert len(lines) == 2
 
 
 def test_eval_history_line_matches_jax(tmp_path):

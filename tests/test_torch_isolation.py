@@ -1,6 +1,7 @@
 """deepsee_torch stands alone: it imports neither JAX nor flax nor
-deepsee_tpu, it refuses to fall back to the CPU, and chip_smoke.py fails
-without a card and outside a checkout."""
+deepsee_tpu, it imports and decodes images where Pillow is not installed,
+it refuses to fall back to the CPU, and chip_smoke.py fails without a card
+and outside a checkout."""
 
 import ast
 import dataclasses
@@ -49,6 +50,55 @@ def test_port_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stderr
     assert "imported" in run.stdout
+
+
+def test_port_imports_and_decodes_without_pillow():
+    """Every module of the port, and chip_smoke, import in a process where
+    importing PIL raises; the native codec's paths still decode the committed
+    corpus to its expectations, and a mode that needs Pillow says so."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT_FILES)
+    code = f"""
+import dataclasses, importlib, sys
+import numpy as np
+sys.modules["PIL"] = None
+for m in {modules!r}:
+    importlib.import_module(m)
+from deepsee_torch.config import get_preset
+from deepsee_torch.data import transforms as T
+from deepsee_torch.utils.images import encode_png_bytes, label_file_to_array
+root = "tests/data/torch_corpus"
+expected = np.load(root + "/expected.npz")
+p = T.TransformParams((0, 0), False)
+for ds, preset, lm, stems in (("celebamaskhq", "8x_independent_256x256", None, ("0", "1")),
+                              ("celeba", "8x_independent_128x128", "resize",
+                               ("000001", "000002"))):
+    exp = get_preset(preset)
+    for stem in stems:
+        x = T.load_image(f"{{root}}/{{ds}}/images/{{stem}}.jpg", exp.data, exp.model, p, False)
+        y = T.load_label(f"{{root}}/{{ds}}/labels/{{stem}}.png", exp.data, exp.model, p, False, lm)
+        u8 = expected[f"{{ds}}/{{stem}}/image"]
+        assert np.array_equal(x, u8.astype(np.float32) / 255.0 * 2.0 - 1.0), (ds, stem)
+        assert np.array_equal(y, expected[f"{{ds}}/{{stem}}/label"]), (ds, stem)
+lab = label_file_to_array(root + "/celebamaskhq/labels/0.png", 256, 19)
+assert np.array_equal(lab[0], expected["celebamaskhq/0/label"])
+assert encode_png_bytes(np.zeros((4, 4, 3), np.uint8)).startswith(b"\\x89PNG")
+exp = get_preset("8x_independent_256x256")
+data = dataclasses.replace(exp.data, preprocess_mode="scale_width")
+try:
+    T.load_image(root + "/celeba/images/000001.jpg", data, exp.model, p, False)
+except ImportError as e:
+    assert "scale_width" in str(e), e
+else:
+    raise AssertionError("scale_width decoded without Pillow")
+print("decoded")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert "decoded" in run.stdout
 
 
 def test_system_without_card_raises(monkeypatch):

@@ -452,3 +452,58 @@ def test_avg_pool_gradient_on_card_matches_float64(cuda_device):
     (gx,) = torch.autograd.grad((got * r.float().to(cuda_device)).sum(), [xc])
     for a, b in ((got.detach(), want.detach()), (gx, gwant)):
         assert float((a.double().cpu() - b).norm() / b.norm()) <= 1e-6
+
+
+# -- the copy of host batches to the card (deepsee_torch/data/device.py) ---------
+
+@pytest.mark.cuda
+def test_staging_buffer_is_not_refilled_before_its_copy_lands(cuda_device):
+    """The copy stream is held back by a sleep, so every copy is still
+    pending when the host stages the batches after it (the pinned allocator
+    must not hand a pending copy's block out again), and each host array is
+    overwritten once staged: every batch on the card must still hold its
+    own values."""
+    from deepsee_torch.data import DevicePrefetcher
+
+    feed = DevicePrefetcher(cuda_device)
+    n, shape = 6, (4, 256, 256, 3)
+
+    def host_batches():
+        for i in range(n):
+            arr = np.full(shape, float(i), np.float32)
+            yield {"image_hr": arr, "path": [f"{i}.jpg"]}
+            arr[...] = -1.0  # the loader reuses its memory once the batch is staged
+
+    with torch.cuda.stream(feed.stream):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of the copy stream
+    seen = []
+    for i, batch in enumerate(feed(host_batches())):
+        assert batch["path"] == [f"{i}.jpg"] and batch["image_hr"].is_cuda
+        torch.cuda._sleep(20_000_000)  # the consumer's work on the batch
+        seen.append(bool((batch["image_hr"] == float(i)).all()))
+    torch.cuda.synchronize()
+    assert seen == [True] * n
+
+
+@pytest.mark.cuda
+def test_prefetched_batches_equal_blocking_copies(cuda_device):
+    """A loader's batches through the prefetcher and through the one-batch
+    pinned copy equal a blocking copy of the same arrays, keys, dtypes and
+    host lists included."""
+    from deepsee_torch.data import DataLoader, DevicePrefetcher, SyntheticDataset, to_device
+
+    exp = tiny_test_experiment()
+    exp = exp.replace(model=dataclasses.replace(exp.model, net_e="fullstyle",
+                                                guiding_style_image=True))
+    loader = DataLoader(SyntheticDataset(exp, length=12), 3, shuffle=False)
+    host = list(loader)
+    for got in (list(DevicePrefetcher(cuda_device)(host)),
+                [to_device(b, cuda_device) for b in host]):
+        torch.cuda.synchronize()
+        assert len(got) == len(host) == 4
+        for g, h in zip(got, host):
+            assert set(g) == set(h) and g["path"] == h["path"]
+            for key in ("image_hr", "label", "guiding_image", "guiding_label"):
+                want = torch.from_numpy(h[key]).to(cuda_device)
+                assert g[key].dtype == want.dtype and g[key].is_cuda
+                assert torch.equal(g[key], want), key

@@ -3,7 +3,8 @@ layout checkpoint files (the same keys as deepsee_tpu's
 export_reference_checkpoint; net_SR / net_E load into an inference
 SRSystem), resume (2 steps, save, resume, 1 step = 3 straight steps), the
 evaluation trigger, the CLI's refusals and its device rule, the synthetic
-data and the iteration counter against the JAX package's."""
+data and the iteration counter against the JAX package's.  The disk-fed
+trainer is in test_torch_data_trainer.py."""
 
 import dataclasses
 import json
@@ -21,7 +22,7 @@ from deepsee_tpu.system import SRSystem as JaxSystem
 from deepsee_tpu.utils.iter_counter import IterationCounter as JaxCounter
 from deepsee_tpu.utils.torch_import import export_reference_checkpoint
 from deepsee_torch.config import tiny_test_experiment as torch_tiny
-from deepsee_torch.data import Batches, SyntheticDataset
+from deepsee_torch.data import DataLoader, SyntheticDataset
 from deepsee_torch.system import SRSystem
 from deepsee_torch.train import __main__ as cli
 from deepsee_torch.train import loop
@@ -124,11 +125,10 @@ def test_trainer_raises_at_an_evaluation_trigger(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--image_dir", "imgs"], "data-path"), (["--data_axis", "2"], "multi-GPU"),
-    (["--multihost"], "multi-GPU"), (["--remat"], "a later PR"),
-    (["--evaluate_val_set"], "data-path"), ([], "data-path")])
+    (["--data_axis", "2"], "multi-GPU"), (["--multihost"], "multi-GPU"),
+    (["--remat"], "a later PR")])
 def test_cli_refuses_flags_of_later_slices(capsys, flags, slice_name):
-    argv = ["--name", "8x_independent_256x256"] + flags + (["--synthetic"] if flags else [])
+    argv = ["--name", "8x_independent_256x256"] + flags + ["--synthetic"]
     with pytest.raises(SystemExit):
         cli.parse_args(argv)
     assert slice_name in capsys.readouterr().err
@@ -167,10 +167,11 @@ def test_synthetic_dataset_matches_jax(guided):
             else:
                 assert got[key].dtype == np.float32 and got[key].shape == value.shape
                 np.testing.assert_allclose(got[key], value, rtol=0, atol=1.01 / 127.5)
-    batches = Batches(tds, 2)
+    batches = DataLoader(tds, 2, shuffle=False)
     assert len(batches) == 2
     first = next(iter(batches))
-    assert first["image_hr"].shape == (2, 32, 32, 3) and "path" not in first
+    assert first["image_hr"].shape == (2, 32, 32, 3)
+    assert first["path"] == ["synthetic_0.png", "synthetic_1.png"]
 
 
 def test_iteration_counter_matches_jax(tmp_path):
