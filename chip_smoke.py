@@ -1982,8 +1982,9 @@ DATA_GUIDED = "8x_guided_256x256"
 # disk-fed steps of Trainer.run: warm-up, timed by events, profiled
 DATA_WARMUP, DATA_TIMED, DATA_PROFILED = 3, 10, 2
 DATA_GUIDED_STEPS = 6
-# how the b16 disk-fed runs get their batches (`disk_fed_train`)
-DATA_FEEDS = ("loader", "processes", "beforehand", "beforehand, compute stream")
+# disk-fed runs of the main preset: (batch, how the batches come, `disk_fed_train`)
+DATA_TRAIN_RUNS = ((TRAIN_BATCH, "loader"), (TRAIN_BATCH_LARGE, "loader"),
+                   (TRAIN_BATCH_LARGE, "beforehand"))
 DATA_CLI_STEPS = 2
 DATA_CLI_EVAL_SAMPLES = 16
 
@@ -2101,60 +2102,6 @@ def loader_timing(tree, route: str, smi: str) -> None:
                                      "cpu_count": os.cpu_count(), "rows": rows, "card": smi}))
 
 
-class ProcessDecoded:
-    """A training loader's batches with each sample decoded in a pool of
-    worker processes, as many as the loader's decode threads: the same
-    cores, but a GIL each.  Samples are asked for in index order, at most
-    (prefetch + 1) batches ahead of the consumer, about as far ahead as the
-    loader's window and prefetch queue decode; they are collated in the
-    consuming thread.  `close()` stops the pool."""
-
-    def __init__(self, loader: DataLoader):
-        import multiprocessing
-
-        self.loader = loader
-        self.pool = multiprocessing.get_context("spawn").Pool(loader.num_workers)
-        self.pool.map(abs, range(4 * loader.num_workers))  # every worker started
-
-    def __len__(self) -> int:
-        return len(self.loader)
-
-    def __iter__(self):
-        from collections import deque
-
-        from deepsee_torch.data.loader import collate
-
-        loader, ahead = self.loader, (self.loader.prefetch + 1) * self.loader.batch_size
-        indices = iter(loader._indices()[:len(self) * loader.batch_size])
-        window, buf = deque(), []
-        while True:
-            for i in indices:
-                window.append(self.pool.apply_async(loader.dataset.__getitem__, (i,)))
-                if len(window) >= ahead:
-                    break
-            if not window:
-                return
-            buf.append(window.popleft().get())
-            if len(buf) == loader.batch_size:
-                yield collate(buf)
-                buf = []
-
-    def close(self) -> None:
-        self.pool.terminate()
-        self.pool.join()
-
-
-class ComputeStreamFeed:
-    """DevicePrefetcher's order without its copy stream: batch k+1's pinned,
-    non-blocking copy is enqueued on the compute stream once step k is."""
-
-    def __init__(self, device):
-        self.device = device
-
-    def __call__(self, batches):
-        return (to_device(b, self.device) for b in batches)
-
-
 def disk_fed_train(tag: str, preset: str, batch_n: int, tree, root: str, steps: int,
                    resident: Optional[dict] = None, feed: str = "loader") -> dict:
     """Trainer.run from the tree for `steps` steps: K1's launches of step
@@ -2162,17 +2109,13 @@ def disk_fed_train(tag: str, preset: str, batch_n: int, tree, root: str, steps: 
     step by CUDA events over up to DATA_TIMED steps after the warm-up, then
     kernel ms per step over the steps left (profiled) and the idle share,
     beside the resident-batch step of the training phase (`resident`).
-    `feed` (DATA_FEEDS): "loader" is `make_dataloader()`'s (shuffled, its
+    `feed`: "loader" is `make_dataloader()`'s (shuffled, its
     decode threads, the prefetch of the next batch to the card on a copy
-    stream); "processes" decodes the same loader's samples in processes
-    (`ProcessDecoded`); "beforehand" decodes the loader's first `steps`
-    batches before the run and feeds them as a list, no decode beside the
-    step; "beforehand, compute stream" copies that list on the compute
-    stream (`ComputeStreamFeed`) in place of the copy stream."""
+    stream); "beforehand" decodes the loader's first `steps` batches before
+    the run and feeds them as a list: the same copies, no decode beside the
+    step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from deepsee_torch.train import loop
 
     t_call = time.perf_counter()
     exp = tree_experiment(preset, tree, batch_n, checkpoints_dir=os.path.join(root, tag))
@@ -2209,21 +2152,11 @@ def disk_fed_train(tag: str, preset: str, batch_n: int, tree, root: str, steps: 
 
     trainer.step_gd = measured
     data = None
-    if feed == "processes":
-        data = ProcessDecoded(trainer.make_dataloader())
-    elif feed.startswith("beforehand"):
+    if feed == "beforehand":
         data = [b for b, _ in zip(trainer.make_dataloader(), range(steps))]
-    prefetcher = loop.DevicePrefetcher
-    if feed == "beforehand, compute stream":
-        loop.DevicePrefetcher = ComputeStreamFeed
-    try:
-        t0 = time.perf_counter()
-        state = trainer.run(data, max_steps=steps)
-        wall_s = time.perf_counter() - t0
-    finally:
-        loop.DevicePrefetcher = prefetcher
-        if feed == "processes":
-            data.close()
+    t0 = time.perf_counter()
+    state = trainer.run(data, max_steps=steps)
+    wall_s = time.perf_counter() - t0
     end.synchronize()
     ms = start.elapsed_time(end) / (timed_to - DATA_WARMUP)
     losses = {k: float(v) for k, v in seen["logs"][-1].items()}
@@ -2326,7 +2259,7 @@ def data_phase(smi: str, resident: dict, synthetic_sweep: dict) -> None:
     the corpus through every decode route against expected.npz, the loader
     alone per worker count, disk-fed training (faithful b4 and b16 of the
     main preset, beside `resident`, the training phase's resident-batch
-    steps; at b16 also fed as DATA_FEEDS says; a few guided b4 steps), the
+    steps; b16 also from batches decoded beforehand; a few guided b4 steps), the
     disk-fed evaluation sweep (beside `synthetic_sweep`), and the two CLIs
     from the tree."""
     t0 = time.perf_counter()
@@ -2336,12 +2269,11 @@ def data_phase(smi: str, resident: dict, synthetic_sweep: dict) -> None:
         tree = data_tree(os.path.join(root, "tree"))
         loader_timing(tree, route, smi)
         steps = DATA_WARMUP + DATA_TIMED + DATA_PROFILED
-        runs = [(TRAIN_BATCH, "loader")] + [(TRAIN_BATCH_LARGE, f) for f in DATA_FEEDS]
-        for batch_n, feed in runs:
+        for batch_n, feed in DATA_TRAIN_RUNS:
             tag = f"b{batch_n}" + ("" if feed == "loader" else f" {feed}")
             log(f"data train {tag} " + json.dumps({
-                **disk_fed_train(f"b{batch_n}_{DATA_FEEDS.index(feed)}", PRESET, batch_n, tree,
-                                 root, steps, resident[batch_n], feed=feed),
+                **disk_fed_train(f"b{batch_n}_{feed}", PRESET, batch_n, tree, root, steps,
+                                 resident[batch_n], feed=feed),
                 "route": route, "card": smi}))
         log(f"data train guided b{TRAIN_BATCH} " + json.dumps({
             **disk_fed_train("guided", DATA_GUIDED, TRAIN_BATCH, tree, root, DATA_GUIDED_STEPS),

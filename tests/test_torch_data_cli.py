@@ -24,17 +24,7 @@ from deepsee_torch.config import tiny_test_experiment
 from deepsee_torch.train import __main__ as train_cli
 from deepsee_torch.train import loop
 from test_torch_eval_metrics import PSNR_ATOL_DB, RTOL
-from torch_data_corpus import write_tree
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the tiny model's CPU work is too small to share,
-    and beside other test processes a pool of a thread per core
-    oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_data_corpus import one_torch_thread, write_tree  # noqa: F401 (autouse)
 
 
 def _tiny(name):

@@ -22,7 +22,7 @@ from deepsee_tpu.data import create_dataset as jax_dataset
 from deepsee_torch.config import tiny_test_experiment as torch_tiny
 from deepsee_torch.data import DataLoader
 from deepsee_torch.train import loop
-from torch_data_corpus import write_tree
+from torch_data_corpus import one_torch_thread, write_tree  # noqa: F401 (autouse)
 
 GUIDED = dict(net_e="fullstyle", guiding_style_image=True, noisy_style_scale=0.05)
 # dataset -> (model, data) fields: random 32^2 crops of 40^2 for
@@ -31,16 +31,6 @@ LAYOUTS = {
     "celebamaskhq": (dict(load_size=40), dict(preprocess_mode="resize_and_crop")),
     "celeba": (dict(), dict(preprocess_mode="center_crop_and_resize", center_crop_size=40)),
 }
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread: the tiny model's CPU work is too small to share,
-    and beside other test processes a pool of a thread per core
-    oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class OneWorker(DataLoader):

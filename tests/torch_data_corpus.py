@@ -12,7 +12,8 @@ data phase (tests/data/torch_corpus/), and the helpers that wrote it.
                                     int32 labels "<dataset>/<stem>/label"
 
 `write_corpus(root)` wrote the files once (Pillow); `expected_arrays(root)`
-recomputes expected.npz through deepsee_tpu.data.transforms.
+recomputes expected.npz through deepsee_tpu.data.transforms.  The test files
+that run the tiny model import the fixture `one_torch_thread`.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import pytest
+import torch
 
 CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_corpus")
 # dataset -> (the preset whose transform the expectations use, image size, label size)
@@ -114,3 +117,14 @@ def write_tree(root: str, dataset: str, n: int, image_size=(48, 40), label_size=
         with open(ids, "w") as f:
             f.writelines(f"{stem}.jpg {i // group}\n" for i, stem in enumerate(stems))
     return images, labels, ids
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the tiny model's CPU work is too small to share,
+    and beside other test processes a pool of a thread per core
+    oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
