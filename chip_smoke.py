@@ -67,10 +67,24 @@
    timed and profiled; faithful against reuse_fake at b16 in turns; the
    Trainer with a save and a resume; the training CLI for 20 steps with
    one in-training evaluation (fid_iter.txt and metrics_iter.txt).
+10. Data phase (`data_phase`): the codec or Pillow route against the
+   committed corpus, the loader, disk-fed steps and sweeps, the data CLIs.
+11. Data-parallel phase (`dp_phase`): K1's batch modes split around the
+   cross-rank collective (launch A, launch B; the backward's sums and
+   pass) against their plain versions and the one-launch kernels at every
+   batch shape of the b16 step and of the dp step, bf16 and float32, timed
+   at the dp step's b4 per rank; two ranks on the one card over gloo
+   (spawned processes), global b8, a warm-up and 3 faithful steps: float32
+   (TF32 off) bit for bit alike across ranks and within MAX_DP_UPDATE_REL
+   and MAX_DP_RUNNING_REL of one process at b8, which a planted fault
+   (per-rank statistics) must break;
+   bf16 ms per step, gloo's host ms, K1's launches per step; then the
+   training CLI under torchrun with NCCL at world size 1.
 
 Prints the card's name and power limit, one {"kernels": [...]} line (the
 inference kernels per main-path call, the training kernels per faithful b4
-step), and as the last line {"ok": true, "device": {...}}.  Any
+step, the split kernels per data-parallel step and rank), and as the last
+line {"ok": true, "device": {...}}.  Any
 failure exits non-zero; without a CUDA device it exits non-zero at once and
 prints no result.  float32 comparisons run with TF32 off
 (torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
@@ -83,6 +97,7 @@ import contextlib
 import copy
 import dataclasses
 import http.client
+import itertools
 import json
 import math
 import os
@@ -1387,7 +1402,8 @@ def _nudge(system: SRSystem, ulps: int, generator: torch.Generator) -> None:
     with torch.no_grad():
         for net in (system.generator, system.encoder, system.discriminator):
             for p in net.parameters():
-                p.mul_(1 + ulps * 2.0 ** -23 * torch.randn(p.shape, generator=generator))
+                p.mul_(1 + ulps * 2.0 ** -23 * torch.randn(p.shape, generator=generator)
+                       .to(p.device))
 
 
 def _worst_leaves(got, want, nudged, n: int = 4):
@@ -2329,6 +2345,503 @@ def profile_path(tag: str, system: SRSystem, batch, ms_per_batch: float,
         log(f"{tag} profile kernel {ms:9.3f} ms  x{count:<4d} {name[:110]}")
 
 
+# -- data-parallel phase -------------------------------------------------------
+
+DP_WORLD = 2
+DP_PER_RANK = TRAIN_BATCH      # rows per rank: the global batch is DP_WORLD x 4 = 8
+DP_STEPS = 3
+DP_CLI_STEPS = 3
+# the split kernels against their plain versions at the b16 step's batch
+# shapes and at the dp step's (b8 cut into DP_WORLD shards of b4); timed at
+# the dp step's per-rank shapes (b4)
+DP_SPLIT_BATCH = TRAIN_BATCH_LARGE
+# float32 (TF32 off), two ranks of 4 rows against one process of 8 rows from
+# the same weights, batch and draws, after a warm-up step and DP_STEPS Adam
+# steps.  Read per network on the update those steps made (the change of the
+# weights and spectral u/v: relative L2 of ranks - one process over one
+# process - start), and per leaf on the generator's running statistics
+# (each leaf's relative L2 over its own change; the largest leaf), where a
+# wrong cross-rank merge shows directly.  Each rank's convolutions run at
+# batch 4 where the one process runs batch 8, so cuDNN may pick other
+# algorithms and sum in another order; Adam's first steps move a weight by
+# about lr whatever the size of its gradient, so float32 noise in a small
+# gradient becomes a full step: the one process's own spread under weights
+# nudged by one float32 ulp is printed beside.  A planted fault, run beside
+# (two ranks whose ParamFreeNorm takes each rank's own rows' statistics,
+# i.e. the one-process kernel without the sync path), must break a limit.
+# Each limit near the geometric mean of the sound and the faulty reading of
+# the first H100 run of this check (NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+# update G 0.102 / 0.423, E 0.031 / 0.105, D 0.116 / 0.256 (one-ulp nudge
+# of one process: 0.095, 0.029, 0.111); running statistics, largest leaf,
+# mean 2.4e-3 / 1.3e-2, var 1.4e-3 / 2.8e-2 (nudge 1.6e-3, 1.3e-3).
+MAX_DP_UPDATE_REL = {"g": 0.2, "e": 0.055, "d": 0.17}
+MAX_DP_RUNNING_REL = 6e-3
+RUNNING = ("running_mean", "running_var")
+SPLIT_INFO = {
+    "modnorm_batch_split": ("fwd", ("batch_partials", "batch_apply"),
+                            "torch.batch_norm_stats + torch.batch_norm_elemt (without the "
+                            "fused modulation and leaky ReLU; moves 2 of the 4 tensors)"),
+    "modnorm_backward_batch_split": ("bwd", ("backward_sums", "backward_apply"),
+                                     "torch.batch_norm_backward_reduce + "
+                                     "torch.batch_norm_backward_elemt (without the modulation's "
+                                     "and leaky ReLU's gradient; moves 3 of the 7 tensors)"),
+}
+
+
+def _split_forward(xs, ms, lrelu=True):
+    """Launch A per shard, the shards' rows added (the all-reduce of one
+    process), launch B per shard: (outputs, mean, rstd, partials)."""
+    world = len(xs)
+    partials = sum(mn.modnorm_batch_partials(x, r, world) for r, x in enumerate(xs))
+    outs = [mn.modnorm_batch_apply(x, m, partials, lrelu=lrelu) for x, m in zip(xs, ms)]
+    return [o for o, _, _ in outs], outs[0][1], outs[0][2], partials
+
+
+def split_kernel_checks(cfg: ModelConfig):
+    """The split batch modes at every K1 batch shape of the b16 step and of
+    the dp step (DP_WORLD x DP_PER_RANK rows), bf16 and float32, one batch
+    cut into DP_WORLD shards in one process (so the shards of the dp step's
+    batch take the dp step's own launch plans): launch A per shard against
+    its plain version, launch B per shard against its plain version and
+    against the one-launch kernel over the whole batch, the backward's sums
+    (added over the shards) and pass against theirs and against the
+    one-process backward.  Returns the rows."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    rows = []
+    for dtype, global_batch in itertools.product((torch.bfloat16, torch.float32),
+                                                 (DP_SPLIT_BATCH, DP_WORLD * DP_PER_RANK)):
+        for _, shape, with_mod, lrelu, _ in generator_norms(cfg, global_batch):
+            x, mod, _, _ = _kernel_inputs(shape, with_mod, dtype, gen)
+            gout = _kernel_inputs(shape, False, dtype, gen)[0]
+            xs, ms, gs = x.chunk(DP_WORLD), mod.chunk(DP_WORLD), gout.chunk(DP_WORLD)
+            outs, mean, rstd, partials = _split_forward(xs, ms, lrelu)
+            whole, wmean, wrstd = mn.modnorm_train(x, mod, stats="batch", lrelu=lrelu)
+            torch.cuda.synchronize()
+            want_parts = torch.stack([mn.modnorm_batch_partials_plain(s) for s in xs])
+            part_err = float(((partials - want_parts).abs()
+                              / (want_parts.abs() + 1e-3)).max())
+            fwd_err, max_out, ok = 0.0, 0.0, part_err <= 1e-4
+            for out, s, m in zip(outs, xs, ms):
+                want = mn.modnorm_batch_apply_plain(s, m, partials, lrelu=lrelu)[0]
+                fwd_err = max(fwd_err, float((out.float() - want.float()).abs().max()))
+                max_out = max(max_out, float(want.float().abs().max()))
+                ok = ok and _train_within(out, want, dtype)
+                del want
+            one = torch.cat(outs)
+            one_err = float((one.float() - whole.float()).abs().max())
+            ok = ok and _train_within(one, whole, dtype)
+            stat_err = max(float(((mean - wmean).abs() / (wmean.abs() + 1e-3)).max()),
+                           float(((rstd - wrstd).abs() / wrstd).max()))
+            ok = ok and stat_err <= 1e-4
+            del outs, one, whole
+            sums = sum(mn.modnorm_backward_sums(s, m, g, mean, rstd, lrelu=lrelu)
+                       for s, m, g in zip(xs, ms, gs))
+            torch.cuda.synchronize()
+            want_sums = sum(mn.modnorm_backward_sums_plain(s, m, g, mean, rstd, lrelu=lrelu)
+                            for s, m, g in zip(xs, ms, gs))
+            # the card test's tolerance: 1e-5 relative, and 1e-5 of max|sums|
+            scale = float(want_sums.abs().max())
+            sums_err = float((sums - want_sums).abs().max()) / scale
+            ok = ok and bool(((sums - want_sums).abs()
+                              <= 1e-5 * want_sums.abs() + 1e-5 * scale).all())
+            count = shape[0] * shape[2] * shape[3]
+            bwd_err = 0.0
+            for s, m, g in zip(xs, ms, gs):
+                gx, gmod = mn.modnorm_backward_apply(s, m, g, mean, rstd, sums, count,
+                                                     lrelu=lrelu)
+                wgx, wgmod = mn.modnorm_backward_apply_plain(s, m, g, mean, rstd, sums, count,
+                                                             lrelu=lrelu)
+                bwd_err = max(bwd_err, float((gx.float() - wgx.float()).abs().max()),
+                              float((gmod.float() - wgmod.float()).abs().max()))
+                ok = ok and _train_within(gx, wgx, dtype) and _train_within(gmod, wgmod, dtype)
+                del gx, gmod, wgx, wgmod
+            gx = torch.cat([mn.modnorm_backward_apply(s, m, g, mean, rstd, sums, count,
+                                                      lrelu=lrelu)[0]
+                            for s, m, g in zip(xs, ms, gs)])
+            wgx = mn.modnorm_backward(x, mod, gout, mean, rstd, stats="batch", lrelu=lrelu)[0]
+            ok = ok and _train_within(gx, wgx, dtype)
+            row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+                   "shards": DP_WORLD, "ok": ok, "partials_rel_err": part_err,
+                   "fwd_max_abs_err": fwd_err, "vs_one_launch_max_abs_err": one_err,
+                   "stats_rel_err": stat_err, "bwd_sums_rel_err": sums_err,
+                   "bwd_max_abs_err": bwd_err,
+                   "bwd_vs_one_process_max_abs_err":
+                       float((gx.float() - wgx.float()).abs().max()),
+                   "max_abs_out": max_out}
+            log("dp split kernel " + json.dumps(row))
+            rows.append(row)
+            del x, mod, gout, xs, ms, gs, gx, wgx, partials, sums, want_sums
+            torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"a split kernel disagrees with its plain version: {bad}")
+    return rows
+
+
+def _library_split(backward: bool, x, gout, mean, rstd):
+    """One PyTorch call pair for the same normalization across ranks, without
+    the modulation and leaky ReLU (SyncBatchNorm's kernels)."""
+    if not backward:
+        def fwd():
+            m, inv = torch.batch_norm_stats(x, 1e-5)
+            return torch.batch_norm_elemt(x, None, None, m, inv, 1e-5)
+        return fwd
+    count = torch.full((1,), x.numel() // x.shape[1], dtype=torch.int32, device=x.device)
+
+    def bwd():
+        sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(
+            gout, x, mean, rstd, None, True, False, False)
+        return torch.batch_norm_backward_elemt(gout, x, mean, rstd, None, sum_dy, sum_dy_xmu,
+                                               count)
+    return bwd
+
+
+def split_kernel_times(cfg: ModelConfig):
+    """The split forward (A + B) and backward (sums + pass) at the dp step's
+    per-rank batch shapes, bf16, device ms per call (`_device_ms`, over
+    inputs larger than the L2) beside the one-launch kernels, their plain
+    versions and SyncBatchNorm's library calls, the bound of each, and the
+    host us per call; per dp step, each shape times its launches, summed."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    dtype = torch.bfloat16
+    per_step = {k: {"ms": 0.0, "one_process_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                    "bound_ms": 0.0, "host_us": 0.0} for k in ("fwd", "bwd")}
+    for stats, shape, with_mod, lrelu, fwd_n, bwd_n in train_norms(cfg, DP_PER_RANK, True):
+        if stats != "batch":
+            continue
+        set_bytes = math.prod(shape) * 2 * 5
+        pool = []
+        for _ in range(max(1, math.ceil(120e6 / set_bytes))):
+            x, mod, _, _ = _kernel_inputs(shape, with_mod, dtype, gen)
+            pool.append((x, mod, _kernel_inputs(shape, False, dtype, gen)[0]))
+        _, mean, rstd = mn.modnorm_train_plain(pool[0][0], pool[0][1], stats="batch",
+                                               lrelu=lrelu)
+        count = shape[0] * shape[2] * shape[3]
+        sums = mn.modnorm_backward_sums_plain(pool[0][0], pool[0][1], pool[0][2], mean, rstd,
+                                              lrelu=lrelu)
+
+        def split_fwd(x, m):
+            return mn.modnorm_batch_apply(x, m, mn.modnorm_batch_partials(x), lrelu=lrelu)
+
+        def plain_fwd(x, m):
+            return mn.modnorm_batch_apply_plain(x, m, mn.modnorm_batch_partials_plain(x)[None],
+                                                lrelu=lrelu)
+
+        def split_bwd(x, m, g):
+            s = mn.modnorm_backward_sums(x, m, g, mean, rstd, lrelu=lrelu)
+            return mn.modnorm_backward_apply(x, m, g, mean, rstd, s, count, lrelu=lrelu)
+
+        def plain_bwd(x, m, g):
+            s = mn.modnorm_backward_sums_plain(x, m, g, mean, rstd, lrelu=lrelu)
+            return mn.modnorm_backward_apply_plain(x, m, g, mean, rstd, s, count, lrelu=lrelu)
+
+        row = {"shape": list(shape), "fwd_launches_per_step": fwd_n,
+               "bwd_launches_per_step": bwd_n}
+        row["fwd_ms"] = _device_ms([lambda x=x, m=m: split_fwd(x, m) for x, m, _ in pool])
+        row["fwd_one_process_ms"] = _device_ms([
+            lambda x=x, m=m: mn.modnorm_train(x, m, stats="batch", lrelu=lrelu)
+            for x, m, _ in pool])
+        row["fwd_plain_ms"] = _device_ms([lambda x=x, m=m: plain_fwd(x, m) for x, m, _ in pool])
+        row["fwd_library_ms"] = _device_ms([_library_split(False, x, g, mean, rstd)
+                                            for x, _, g in pool])
+        row["bwd_ms"] = _device_ms([lambda x=x, m=m, g=g: split_bwd(x, m, g)
+                                    for x, m, g in pool])
+        row["bwd_one_process_ms"] = _device_ms([
+            lambda x=x, m=m, g=g: mn.modnorm_backward(x, m, g, mean, rstd, stats="batch",
+                                                      lrelu=lrelu) for x, m, g in pool])
+        row["bwd_plain_ms"] = _device_ms([lambda x=x, m=m, g=g: plain_bwd(x, m, g)
+                                          for x, m, g in pool])
+        row["bwd_library_ms"] = _device_ms([_library_split(True, x, g, mean, rstd)
+                                            for x, _, g in pool])
+        x, m, g = pool[0]
+        row["fwd_host_us"] = _host_us(lambda: split_fwd(x, m))
+        row["bwd_host_us"] = _host_us(lambda: split_bwd(x, m, g))
+        for key, backward, n in (("fwd", False, fwd_n), ("bwd", True, bwd_n)):
+            bound, by = _train_bound_ms(backward, shape, with_mod, lrelu, 2)
+            row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound, by
+            row[f"{key}_bound_share"] = bound / row[f"{key}_ms"]
+            acc = per_step[key]
+            acc["ms"] += row[f"{key}_ms"] * n
+            acc["one_process_ms"] += row[f"{key}_one_process_ms"] * n
+            acc["plain_ms"] += row[f"{key}_plain_ms"] * n
+            acc["library_ms"] += row[f"{key}_library_ms"] * n
+            acc["bound_ms"] += bound * n
+            acc["host_us"] += row[f"{key}_host_us"] * n
+        row["stats_only_blocks_per_sm"] = mn.batch_blocks_per_sm(dtype, False, False, True)
+        log("dp split timing " + json.dumps(row))
+        del pool, sums
+        torch.cuda.empty_cache()
+    for acc in per_step.values():
+        acc["bound_share"] = acc["bound_ms"] / acc["ms"]
+        acc["bound_by"] = "bytes"
+    log("dp split kernels per step (b4 per rank, bf16, device ms) " + json.dumps(per_step))
+    return per_step
+
+
+def _net_state(system):
+    return {name: {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+            for name, net in (("g", system.generator), ("e", system.encoder),
+                              ("d", system.discriminator))}
+
+
+def _dp_steps(compute_dtype: str, rows_of_global: bool, nudge_ulps: int = 0):
+    """A warm-up step and DP_STEPS faithful steps of PRESET at full width
+    from the seeded weights (Adam; nudged by `nudge_ulps` float32 ulps where
+    given), each rank on its rows of the global batch of DP_WORLD x
+    DP_PER_RANK (or, in one process, all of them, with `rows_of_global`
+    False), launch counts set to 0 after the warm-up and read after the
+    steps; ms per step by CUDA events, the host ms spent in all-reduce
+    calls, the networks' state before the warm-up and after the steps."""
+    from deepsee_torch.parallel import distributed
+
+    world, rank = distributed.world_size(), distributed.rank()
+    system = train_system(PRESET, DP_WORLD * DP_PER_RANK,
+                          model=dict(compute_dtype=compute_dtype))
+    if nudge_ulps:
+        _nudge(system, nudge_ulps, torch.Generator().manual_seed(SEED + 7))
+    state = _state_of(system)
+    before = _net_state(system) if compute_dtype == "float32" else None
+    step = train_steps.make_train_step(system)
+    batch = make_batch(system.cfg, DP_WORLD * DP_PER_RANK)
+    if rows_of_global:
+        n = DP_WORLD * DP_PER_RANK // world
+        batch = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+    step(state, batch)  # warm-up: cuDNN plans, the allocator, the gloo buffers
+    spent = [0.0]
+    all_reduce = torch.distributed.all_reduce
+
+    def timed_all_reduce(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return all_reduce(*a, **k)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    torch.distributed.all_reduce = timed_all_reduce
+    try:
+        torch.cuda.synchronize()
+        mn.reset_launches()
+        host0 = time.perf_counter()
+        ms = _step_events_ms(step, state, batch, DP_STEPS)
+        host_ms = (time.perf_counter() - host0) * 1e3 / DP_STEPS
+        launches = dict(mn.launches)
+    finally:
+        torch.distributed.all_reduce = all_reduce
+    return {"rank": rank, "world": world, "ms_per_step": ms, "host_ms_per_step": host_ms,
+            "all_reduce_host_ms_per_step": spent[0] * 1e3 / DP_STEPS,
+            "launches": launches, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "before": before, "state": _net_state(system),
+            "card": torch.cuda.get_device_name(0)}
+
+
+def _per_rank_statistics(x, mod=None, *, eps=1e-5, lrelu=False, group=None):
+    """The planted fault: ParamFreeNorm's statistics from this rank's rows
+    alone (the one-process kernel where the split one belongs)."""
+    return mn.modnorm_train(x, mod, stats="batch", eps=eps, lrelu=lrelu)
+
+
+def dp_rank(rank: int, port: int, compute_dtype: str, out_dir: str, fault: bool) -> None:
+    """One of DP_WORLD ranks on the one card: gloo (NCCL takes one card per
+    rank), cuda:0, the float32 comparisons with TF32 off; with `fault`, the
+    planted per-rank statistics."""
+    from deepsee_torch.models import normalization
+    from deepsee_torch.parallel import distributed
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if fault:
+        normalization.modnorm_train_sync = _per_rank_statistics
+    distributed.init_distributed("gloo", device="cuda")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the random-VGG warning
+            result = _dp_steps(compute_dtype, rows_of_global=True)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _checksum(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for net in sorted(state):
+        for key in sorted(state[net]):
+            h.update(key.encode())
+            h.update(state[net][key].contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _dp_readings(got, want, before):
+    """`got` against one process's `want`, both from `before`: per network
+    the relative L2 of the update (every entry but the running statistics:
+    ||got - want|| / ||want - before||), and per kind of running statistic
+    the largest leaf's ||got - want|| / ||want - before|| with its name."""
+    update, running = {}, {kind: {"rel": 0.0, "leaf": None} for kind in RUNNING}
+    for net in want:
+        keys = sorted(k for k in want[net] if not k.endswith(RUNNING))
+        a = torch.cat([got[net][k].double().reshape(-1) for k in keys])
+        b = torch.cat([want[net][k].double().reshape(-1) for k in keys])
+        b0 = torch.cat([before[net][k].double().reshape(-1) for k in keys])
+        update[net] = float((a - b).norm() / (b - b0).norm())
+        for k in want[net]:
+            if k.endswith(RUNNING):
+                rel = float((got[net][k].double() - want[net][k].double()).norm()
+                            / (want[net][k].double() - before[net][k].double()).norm())
+                kind = running[k.rsplit(".", 1)[1]]
+                if rel > kind["rel"]:
+                    kind["rel"], kind["leaf"] = rel, f"{net}.{k}"
+    return {"update_rel": update, "running_rel": running}
+
+
+def _dp_broken(readings) -> list:
+    """The limits that `readings` break."""
+    broken = [f"{net} update {rel:.3e} > {MAX_DP_UPDATE_REL[net]}"
+              for net, rel in readings["update_rel"].items() if rel > MAX_DP_UPDATE_REL[net]]
+    broken += [f"{kind} {r['rel']:.3e} at {r['leaf']} > {MAX_DP_RUNNING_REL}"
+               for kind, r in readings["running_rel"].items() if r["rel"] > MAX_DP_RUNNING_REL]
+    return broken
+
+
+def two_ranks(compute_dtype: str, root: str, fault: bool = False):
+    """DP_WORLD ranks on the one card (torch.multiprocessing, spawn); their
+    results."""
+    import torch.multiprocessing as tmp
+
+    tag = compute_dtype + ("_fault" if fault else "")
+    out_dir = os.path.join(root, tag)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    tmp.start_processes(dp_rank, args=(_free_port(), compute_dtype, out_dir, fault),
+                        nprocs=DP_WORLD, join=True, start_method="spawn")
+    results = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+               for r in range(DP_WORLD)]
+    log(f"dp {tag}: {DP_WORLD} ranks in {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def dp_expected_launches(cfg: ModelConfig):
+    """K1's launches per dp step: the batch modes split (A and B per forward,
+    sums and pass per backward), none of the one-process batch kernels; the
+    instance modes as in one process."""
+    norms = train_norms(cfg, DP_PER_RANK, True)
+    per = train_launches(norms)
+    return {"batch_partials": per["batch"], "batch_apply": per["batch"],
+            "backward_sums": per["backward_batch"], "backward_apply": per["backward_batch"],
+            "batch": 0, "backward_batch": 0}
+
+
+def dp_cli(smi: str) -> dict:
+    """python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    deepsee_torch.train --multihost --data_axis 1 --synthetic: NCCL at world
+    size 1 on the card."""
+    root = tempfile.mkdtemp(prefix="deepsee_dp_cli_")
+    try:
+        cli = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "deepsee_torch.train", "--multihost",
+               "--data_axis", "1", "--synthetic", "--max_steps", str(DP_CLI_STEPS),
+               "--checkpoints_dir", root]
+        t0 = time.perf_counter()
+        run = subprocess.run(cli, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in run.stdout.splitlines() if "multihost:" in ln or "trained" in ln]
+        record = {"cli": " ".join(cli[1:]), "exit": run.returncode, "wall_s": wall,
+                  "lines": lines, "card": smi}
+        log("dp nccl cli " + json.dumps(record))
+        if (run.returncode != 0 or "backend nccl, device cuda:0" not in run.stdout
+                or f"trained {DP_CLI_STEPS} steps on cuda:0" not in run.stdout):
+            raise AssertionError(f"the NCCL world-1 CLI failed: {run.stdout[-3000:]}"
+                                 f"{run.stderr[-3000:]}")
+        return record
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def dp_phase(smi: str):
+    """(1) The split kernels at the b16 and dp steps' shapes against their
+    plain versions and the one-launch kernels; timed at b4 per rank. (2)
+    DP_WORLD ranks on the one card over gloo, PRESET at full width, global
+    batch DP_WORLD x DP_PER_RANK: float32 (TF32 off) bit for bit alike
+    across ranks and against one process at the global batch, beside a
+    planted fault that must fail that comparison; bf16 timed, with
+    K1's launches per step. (3) The training CLI under torchrun with NCCL
+    at world size 1.  Returns the kernels line's split entries' numbers."""
+    t0 = time.perf_counter()
+    cfg = get_preset(PRESET).model
+    rows = split_kernel_checks(cfg)
+    times = split_kernel_times(cfg)
+    log(f"dp split kernels: {time.perf_counter() - t0:.1f} s")
+    root = tempfile.mkdtemp(prefix="deepsee_dp_")
+    try:
+        ranks = two_ranks("float32", root)
+        sums = [_checksum(r["state"]) for r in ranks]
+        same = all(torch.equal(ranks[0]["state"][n][k], r["state"][n][k])
+                   for r in ranks[1:] for n in ranks[0]["state"] for k in ranks[0]["state"][n])
+        faulty = two_ranks("float32", root, fault=True)[0]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            one = _dp_steps("float32", rows_of_global=False)
+            nudged = _dp_steps("float32", rows_of_global=False, nudge_ulps=1)["state"]
+        sound = _dp_readings(ranks[0]["state"], one["state"], one["before"])
+        fault = _dp_readings(faulty["state"], one["state"], one["before"])
+        record = {"preset": PRESET, "ranks": DP_WORLD, "rows_per_rank": DP_PER_RANK,
+                  "steps": DP_STEPS, "checksums": sums, "bit_identical": same,
+                  "vs_one_process": sound,
+                  "one_process_nudged_1ulp": _dp_readings(nudged, one["state"], one["before"]),
+                  "planted_fault_per_rank_statistics": fault,
+                  "limits": {"update_rel": MAX_DP_UPDATE_REL, "running_rel": MAX_DP_RUNNING_REL},
+                  "one_process_ms_per_step": one["ms_per_step"],
+                  "rank_ms_per_step": [r["ms_per_step"] for r in ranks],
+                  "peak_mem_gib": [r["peak_mem_gib"] for r in ranks] + [one["peak_mem_gib"]]}
+        log("dp float32 " + json.dumps(record))
+        del one, nudged, faulty
+        torch.cuda.empty_cache()
+        if not same or len(set(sums)) != 1:
+            raise AssertionError(f"the ranks' states differ after {DP_STEPS} steps: {sums}")
+        if _dp_broken(sound):
+            raise AssertionError(f"two ranks differ from one process: {_dp_broken(sound)}")
+        if not _dp_broken(fault):
+            raise AssertionError("the planted per-rank statistics pass the limits: the check "
+                                 f"cannot see a wrong merge ({fault})")
+        bf16 = two_ranks("bfloat16", root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = dp_expected_launches(cfg)
+    per_step = {k: bf16[0]["launches"][k] / DP_STEPS for k in want}
+    timing = {"ranks": DP_WORLD, "rows_per_rank": DP_PER_RANK,
+              "ms_per_step": [r["ms_per_step"] for r in bf16],
+              "host_ms_per_step": [r["host_ms_per_step"] for r in bf16],
+              "gloo_all_reduce_host_ms_per_step": [r["all_reduce_host_ms_per_step"]
+                                                   for r in bf16],
+              "k1_launches_per_step": per_step, "expected": want,
+              "peak_mem_gib": [r["peak_mem_gib"] for r in bf16], "card": smi,
+              "note": "gloo copies every collective through host memory: these times are no "
+                      "yardstick for NCCL across cards"}
+    log("dp bf16 " + json.dumps(timing))
+    if per_step != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"dp K1 launches per step {per_step} != {want}")
+    if any(r["launches"] != bf16[0]["launches"] for r in bf16):
+        raise AssertionError("the ranks launched K1 differently")
+    cli = dp_cli(smi)
+    log(f"dp phase: {time.perf_counter() - t0:.1f} s")
+    errs = {"fwd": max(max(r["fwd_max_abs_err"], r["vs_one_launch_max_abs_err"]) for r in rows),
+            "bwd": max(max(r["bwd_max_abs_err"], r["bwd_vs_one_process_max_abs_err"])
+                       for r in rows)}
+    launches = {name: sum(bf16[0]["launches"][k] for k in keys) // DP_STEPS
+                for name, (_, keys, _) in SPLIT_INFO.items()}
+    return {"times": times, "errs": errs, "launches": launches, "cli": cli}
+
+
 # -- main ----------------------------------------------------------------------
 
 def path_kernel_times(rows, norms, mode: str):
@@ -2364,10 +2877,11 @@ TRAIN_KERNEL_INFO = {
 }
 
 
-def kernels_line(rows, launches, norms, train=None):
+def kernels_line(rows, launches, norms, train=None, dp=None):
     """Every kernel: the inference modes per main-path call; the training
     kernels per faithful training step (`train`: its launches, per-step
-    times and the training kernel rows)."""
+    times and the training kernel rows); the batch modes split across ranks
+    per data-parallel step and rank (`dp`: `dp_phase`'s numbers)."""
     out = []
     for name, (mode, library_call) in KERNEL_INFO.items():
         per_call = path_kernel_times(rows, norms, mode)
@@ -2397,6 +2911,18 @@ def kernels_line(rows, launches, norms, train=None):
             "library_call": library_call,
             "per": f"one training step ({PRESET} b{TRAIN_BATCH}, faithful schedule; sum over "
                    "its launches), device time",
+        })
+    for name, (key, _, library_call) in SPLIT_INFO.items():
+        t = dp["times"][key]
+        out.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+            "launches": dp["launches"][name], "max_abs_err": dp["errs"][key],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_call": library_call, "one_process_ms": t["one_process_ms"],
+            "per": f"one data-parallel training step of one rank ({PRESET}, {DP_WORLD} ranks x "
+                   f"b{DP_PER_RANK}, faithful schedule; launches A + B or sums + pass, the "
+                   "collective between them not timed; sum over the launches), device time",
         })
     return {"kernels": out}
 
@@ -2431,11 +2957,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     train, resident = training_phase(smi)
     data_phase(smi, resident, synthetic_sweep)
+    torch.cuda.empty_cache()
+    dp = dp_phase(smi)
 
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
     log(json.dumps(kernels_line(rows, launches, path_norms(cfg, BATCH, full_trunk=False),
-                                train)))
+                                train, dp)))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -3,10 +3,9 @@
 An own copy of the parts of `deepsee_tpu/config.py` that the ported modules
 read: the norm-string parsers, the model hyper-parameters (the
 discriminator's included), the training hyper-parameters, the experiment
-bundle with its explorative-inference knobs, and the presets.  Field names
-and defaults are those of the JAX package, so one preset name gives the
-same model in both packages.  Fields of slices not yet ported (mesh) are
-absent.
+bundle with its explorative-inference knobs, the device-mesh layout, and
+the presets.  Field names and defaults are those of the JAX package, so one
+preset name gives the same model in both packages.
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
 __all__ = ["NormGSpec", "parse_nonspade_norm", "ModelConfig", "TrainConfig", "DataConfig",
-           "Experiment", "get_preset", "tiny_test_experiment"]
+           "MeshConfig", "Experiment", "get_preset", "tiny_test_experiment"]
 
 
 @dataclass(frozen=True)
@@ -213,12 +212,56 @@ class DataConfig:
     native_scaled_decode: bool = False
 
 
+# the layouts the port refuses -> the slice each waits for
+_LATER_LAYOUTS = {
+    "tensor": "the tensor-parallel slice (deepsee_tpu/parallel/mesh.py:143-357)",
+    "spatial": "the spatial-sharding slice (deepsee_tpu/parallel/mesh.py batch_spec)",
+}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The device-mesh layout (deepsee_tpu/config.py:296-328).  The port runs
+    data parallelism over processes (deepsee_torch/parallel/): "data" and
+    "dcn" both count data-parallel ranks, data_axis * dcn_axis of them;
+    "model" (tensor parallelism, or spatial sharding with partition
+    "spatial") is refused until its slice (`check_ported`)."""
+
+    data_axis: int = 1
+    model_axis: int = 1
+    partition: str = "tensor"     # how the model axis is used: "tensor" | "spatial"
+    dcn_axis: int = 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.dcn_axis * self.data_axis * self.model_axis
+
+    @property
+    def spatial(self) -> bool:
+        return self.partition == "spatial"
+
+    def check_ported(self) -> None:
+        """Raise NotImplementedError, naming the slice it waits for, unless
+        the port runs this layout: data parallelism only."""
+        if self.model_axis != 1:
+            raise NotImplementedError(
+                f"model_axis {self.model_axis}: tensor parallelism belongs to "
+                f"{_LATER_LAYOUTS['tensor']} of the port, which deepsee_torch does not have yet")
+        if self.partition == "spatial":
+            raise NotImplementedError(
+                f"partition 'spatial' belongs to {_LATER_LAYOUTS['spatial']} of the port, "
+                "which deepsee_torch does not have yet")
+        if self.partition != "tensor":
+            raise ValueError(f"unknown partition {self.partition!r}")
+
+
 @dataclass(frozen=True)
 class Experiment:
     name: str = "8x_independent_128x128"
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     checkpoints_dir: str = "./checkpoints"
     is_train: bool = True
 

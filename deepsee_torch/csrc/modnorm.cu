@@ -666,6 +666,24 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
 // Where every run fits its block's shared memory (32^2 and 64^2 at batch 4
 // for 512 bf16 channels), x leaves device memory once.
 //
+// Across ranks (data parallelism, deepsee_torch/ops/modnorm.py::
+// SyncModnormTrain) the batch statistics cover the global batch, as the JAX
+// package's batch norm does under jit over a sharded batch.  A kernel cannot
+// wait for another process, so the forward splits at its grid barrier
+// around one collective: launch A (modnorm_batch_kernel with STATS_ONLY) is
+// the statistics half, runs merged inside the launch as above, and writes
+// the rank's (count, mean, M2); the caller all-reduces the [world][3][C]
+// rows (a few KB); launch B (modnorm_batch_apply_kernel) merges the rows in
+// rank order with Chan's formula and applies as the affine kernel does.
+// Launch A reads x once; launch B reads x and mod and writes out, the
+// affine mode's traffic.  The backward splits likewise: the reduction and
+// its chunk-order sums (launch_backward_sums), an all-reduce of the [2][C]
+// sums, and the elementwise pass with the sums divided by the world's pixel
+// count (launch_backward_apply).  Each rank's gout is the gradient of its own
+// mean loss; divided by the global count, each rank's share comes out world
+// times too large, and the caller's average of the ranks' gradients undoes
+// it (everything here is linear in gout).
+//
 // The instance backward (modnorm_instance_backward_kernel) mirrors the
 // instance forward: one cluster launch, each (sample, channel tile) slab
 // split along H*W over the blocks of a cluster (deepsee_torch/ops/
@@ -697,13 +715,16 @@ constexpr int kTileChannels = kMaxLanes * kVec;  // channels per block, at most
 // takes the run's 16-byte vectors v = tid + k * kThreads (pixel v / L at
 // channels lane * V.. of the tile, lane = tid % L); the run's first
 // `resident` vectors live in shared-memory slot v.  `part` receives each
-// run's (mean, M2) per channel: [2][runs][C].
-template <typename T, bool HAS_MOD, bool LRELU>
+// run's (mean, M2) per channel: [2][runs][C].  STATS_ONLY (launch A of the
+// cross-rank forward) stops after the merge of the runs and writes the
+// launch's (count, mean, M2) per channel to stats_out, [3][C]; the other
+// outputs are not touched.
+template <typename T, bool HAS_MOD, bool LRELU, bool STATS_ONLY>
 __global__ void __launch_bounds__(kThreads, 2)
 modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __restrict__ out,
                      float* __restrict__ part, float* __restrict__ mean_out,
-                     float* __restrict__ rstd_out, int64_t P, int C, int tile, int runs,
-                     int resident, float eps, float slope) {
+                     float* __restrict__ rstd_out, float* __restrict__ stats_out, int64_t P,
+                     int C, int tile, int runs, int resident, float eps, float slope) {
   constexpr int V = 16 / sizeof(T);        // channels per 16-byte vector
   constexpr int U = kStep;
   extern __shared__ uint4 s_x[];           // the run's first `resident` vectors
@@ -827,14 +848,24 @@ modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __re
       for (int h = 0; h < G; ++h)
         chan_merge<1>(n, &m, &q, s_grp[0][h * tile + tid], &s_grp[1][h * tile + tid],
                       &s_grp[2][h * tile + tid]);
-      const float rs = __frcp_rn(__fsqrt_rn(__fadd_rn(__fdiv_rn(q, static_cast<float>(P)), eps)));
-      s_stat[tid] = rs;
-      s_stat[kMaxTile + tid] = __fmul_rn(-m, rs);
-      if (r == 0) {
-        mean_out[c] = m;
-        rstd_out[c] = rs;
+      if (STATS_ONLY) {
+        if (r == 0) {
+          stats_out[c] = n;
+          stats_out[C + c] = m;
+          stats_out[2 * C + c] = q;
+        }
+      } else {
+        const float rs =
+            __frcp_rn(__fsqrt_rn(__fadd_rn(__fdiv_rn(q, static_cast<float>(P)), eps)));
+        s_stat[tid] = rs;
+        s_stat[kMaxTile + tid] = __fmul_rn(-m, rs);
+        if (r == 0) {
+          mean_out[c] = m;
+          rstd_out[c] = rs;
+        }
       }
     }
+    if (STATS_ONLY) return;
     __syncthreads();
   }
 
@@ -872,6 +903,64 @@ modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __re
   const int steps = (nk - nks + U - 1) / U;
   for (int i = steps - 1; i >= 0; --i) apply_step(nks + i * U, nk, false);
   for (int k0 = 0; k0 < nks; k0 += U) apply_step(k0, nks, true);
+}
+
+// Launch B of the cross-rank batch forward.  `stats` holds each rank's
+// (count, mean, M2) per channel, [world][3][C], summed over the ranks by an
+// all-reduce (each rank wrote its own row into zeros).  Every block merges
+// the rows of all C channels in rank order with Chan's formula, as the
+// one-launch kernel merges its runs, into shared memory (rstd, -mean * rstd);
+// block 0 writes the merged (mean, rstd) for the backward and the running
+// statistics.  Then one elementwise pass as the affine kernel's, with the
+// merged statistics: out = lrelu?((x * rstd + (-mean * rstd)) * scale +
+// offset).  Every rank merges the same rows in the same order, so all hold
+// the same statistics without a second collective.
+template <typename T, bool HAS_MOD, bool LRELU>
+__global__ void __launch_bounds__(kThreads)
+modnorm_batch_apply_kernel(const T* __restrict__ x, const T* __restrict__ mod,
+                           const float* __restrict__ stats, int world, T* __restrict__ out,
+                           float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                           int64_t P, int C, float eps, float slope) {
+  extern __shared__ float s_ab[];          // rstd[C], then -mean * rstd[C]
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float n = 0.f, m = 0.f, q = 0.f;
+    for (int r = 0; r < world; ++r) {
+      const float* row = stats + static_cast<int64_t>(r) * 3 * C;
+      chan_merge<1>(n, &m, &q, row[c], &row[C + c], &row[2 * C + c]);
+    }
+    const float rs = __frcp_rn(__fsqrt_rn(__fadd_rn(__fdiv_rn(q, n), eps)));
+    s_ab[c] = rs;
+    s_ab[C + c] = __fmul_rn(-m, rs);
+    if (blockIdx.x == 0) {
+      mean_out[c] = m;
+      rstd_out[c] = rs;
+    }
+  }
+  __syncthreads();
+  const int C8 = C / kVec;
+  const int64_t total = P * C8;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  int64_t p = t / C8;
+  int c8 = static_cast<int>(t - p * C8);
+  const int64_t dp = stride / C8;
+  const int dc = static_cast<int>(stride - dp * C8);
+  for (; t < total; t += stride) {
+    const int c = c8 * kVec;
+    float y[kVec];
+    load8(x + p * C + c, y);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) y[k] = __fadd_rn(__fmul_rn(y[k], s_ab[c + k]), s_ab[C + c + k]);
+    epilogue<T, HAS_MOD, LRELU>(y, HAS_MOD ? mod + p * 2 * C + c : nullptr, C, slope);
+    store8(out + p * C + c, y);
+    p += dp;
+    c8 += dc;
+    if (c8 >= C8) {
+      c8 -= C8;
+      ++p;
+    }
+  }
 }
 
 // x_hat, gz and gy of V channels, with the forward's operations: the affine
@@ -1273,17 +1362,20 @@ const void* instance_kernel(int streaming, int regs, bool has_mod, bool lrelu) {
 }
 
 template <typename T>
-const void* batch_kernel(bool has_mod, bool lrelu) {
+const void* batch_kernel(bool has_mod, bool lrelu, bool stats_only) {
+  if (stats_only) return fn(modnorm_batch_kernel<T, false, false, true>);
   if (has_mod)
-    return lrelu ? fn(modnorm_batch_kernel<T, true, true>)
-                 : fn(modnorm_batch_kernel<T, true, false>);
-  return lrelu ? fn(modnorm_batch_kernel<T, false, true>)
-               : fn(modnorm_batch_kernel<T, false, false>);
+    return lrelu ? fn(modnorm_batch_kernel<T, true, true, false>)
+                 : fn(modnorm_batch_kernel<T, true, false, false>);
+  return lrelu ? fn(modnorm_batch_kernel<T, false, true, false>)
+               : fn(modnorm_batch_kernel<T, false, false, false>);
 }
 
-const void* batch_kernel(int dtype, bool has_mod, bool lrelu) {
-  return dtype == 0 ? batch_kernel<float>(has_mod, lrelu)
-                    : batch_kernel<__nv_bfloat16>(has_mod, lrelu);
+// The batch forward for (dtype, flags); `stats_only` is launch A of the
+// cross-rank forward, which takes no mod and applies nothing.
+const void* batch_kernel(int dtype, bool has_mod, bool lrelu, bool stats_only) {
+  return dtype == 0 ? batch_kernel<float>(has_mod, lrelu, stats_only)
+                    : batch_kernel<__nv_bfloat16>(has_mod, lrelu, stats_only);
 }
 
 template <typename T, bool STREAM>
@@ -1391,6 +1483,52 @@ void launch_backward(const void* x, const void* mod, const void* gout, const flo
       xt, mt, gt, mean, rstd, coef, static_cast<T*>(gx), static_cast<T*>(gmod), P, C, slope);
 }
 
+template <typename T, bool HAS_MOD, bool LRELU>
+void launch_batch_apply(const void* x, const void* mod, const float* stats, int world,
+                        void* out, float* mean, float* rstd, int64_t P, int C, float eps,
+                        float slope, cudaStream_t stream) {
+  const int64_t want = (P * (C / kVec) + kThreads - 1) / kThreads;
+  const int64_t cap = static_cast<int64_t>(sm_count()) * (2048 / kThreads);
+  const int blocks = static_cast<int>(want < cap ? want : cap);
+  const size_t smem = 2 * static_cast<size_t>(C) * sizeof(float);  // at most 48 KB
+  modnorm_batch_apply_kernel<T, HAS_MOD, LRELU><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(mod), stats, world, static_cast<T*>(out),
+      mean, rstd, P, C, eps, slope);
+}
+
+// The batch backward's reduction alone: per-channel sums of gy and gy * x_hat
+// over this launch's pixels, in chunk order, into sums [2][C] (the one-process
+// path's coefficients before the division by the count).
+template <typename T, bool HAS_MOD, bool LRELU>
+void launch_backward_sums(const void* x, const void* mod, const void* gout, const float* mean,
+                          const float* rstd, float* part, float* sums, int64_t P, int C, int L,
+                          int chunks, int64_t chunk, float slope, cudaStream_t stream) {
+  backward_partial_kernel<T, HAS_MOD, LRELU>
+      <<<dim3(chunks, C / (kVec * L)), kThreads, 0, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(mod), static_cast<const T*>(gout),
+          mean, rstd, part, P, C, L, chunk, slope);
+  backward_final_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      part, chunks, C, 1.f, sums);
+}
+
+// The batch backward's elementwise pass from sums [2][C] over `count` pixels
+// (the world's): coef = sums / count (backward_final_kernel over one chunk),
+// then grad_x and grad_mod as the one-process path writes them.
+template <typename T, bool HAS_MOD, bool LRELU>
+void launch_backward_apply(const void* x, const void* mod, const void* gout, const float* mean,
+                           const float* rstd, const float* sums, float* coef, void* gx,
+                           void* gmod, int64_t P, int C, float count, float slope,
+                           cudaStream_t stream) {
+  backward_final_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      sums, 1, C, count, coef);
+  const int64_t want = (P * (C / kVec) + kThreads - 1) / kThreads;
+  const int64_t cap = static_cast<int64_t>(sm_count()) * (2048 / kThreads);
+  const int blocks = static_cast<int>(want < cap ? want : cap);
+  backward_apply_kernel<T, HAS_MOD, LRELU><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(mod), static_cast<const T*>(gout), mean,
+      rstd, coef, static_cast<T*>(gx), static_cast<T*>(gmod), P, C, slope);
+}
+
 template <typename T, template <typename, bool, bool> class L, typename... A>
 void dispatch_flags(bool has_mod, bool lrelu, A... args) {
   if (has_mod) {
@@ -1408,6 +1546,21 @@ struct Affine {
 template <typename T, bool M, bool R>
 struct Backward {
   template <typename... A> static void run(A... a) { launch_backward<T, M, R>(a...); }
+};
+
+template <typename T, bool M, bool R>
+struct BatchApply {
+  template <typename... A> static void run(A... a) { launch_batch_apply<T, M, R>(a...); }
+};
+
+template <typename T, bool M, bool R>
+struct BackwardSums {
+  template <typename... A> static void run(A... a) { launch_backward_sums<T, M, R>(a...); }
+};
+
+template <typename T, bool M, bool R>
+struct BackwardApply {
+  template <typename... A> static void run(A... a) { launch_backward_apply<T, M, R>(a...); }
 };
 
 int invalid() {
@@ -1476,8 +1629,10 @@ extern "C" int modnorm_instance_clusters(int N, int64_t HW, int C, int tile, int
 // dynamic shared memory per block (registers and shared memory both
 // counted), or -1: deepsee_torch/ops/modnorm.py::batch_plan sizes the
 // cooperative grid by it.
-extern "C" int modnorm_batch_blocks_per_sm(int dtype, int has_mod, int lrelu, int smem) {
-  const int n = blocks_per_sm(batch_kernel(dtype, has_mod != 0, lrelu != 0), smem);
+extern "C" int modnorm_batch_blocks_per_sm(int dtype, int has_mod, int lrelu, int stats_only,
+                                           int smem) {
+  const int n = blocks_per_sm(batch_kernel(dtype, has_mod != 0, lrelu != 0, stats_only != 0),
+                              smem);
   cudaGetLastError();
   return n;
 }
@@ -1492,14 +1647,18 @@ extern "C" int modnorm_batch_blocks_per_sm(int dtype, int has_mod, int lrelu, in
 // Returns the launch's error, then cudaGetLastError(); cudaErrorInvalidValue
 // for a plan the kernel cannot take, or a grid larger than the blocks the
 // card holds at once.
-extern "C" int modnorm_batch(const void* x, const void* mod, void* out, void* part, void* mean,
-                             void* rstd, int64_t P, int C, int tile, int runs, int smem,
-                             float eps, int dtype, int lrelu, float slope, void* stream) {
+namespace {
+
+// The cooperative launch of the batch forward (or, with `stats` given, of
+// its statistics-only form, launch A); see modnorm_batch.
+int launch_batch(const void* x, const void* mod, void* out, void* part, void* mean, void* rstd,
+                 void* stats, int64_t P, int C, int tile, int runs, int smem, float eps,
+                 int dtype, int lrelu, float slope, void* stream) {
   const int vec = dtype == 0 ? 4 : 8, lanes = tile / vec;
   if (tile % vec || lanes < 1 || lanes > kMaxLanes || (lanes & (lanes - 1)) || C % tile ||
       runs < 1 || runs > P || smem < 0 || smem % 16)
     return invalid();
-  const void* kernel = batch_kernel(dtype, mod != nullptr, lrelu != 0);
+  const void* kernel = batch_kernel(dtype, mod != nullptr, lrelu != 0, stats != nullptr);
   const int64_t grid = static_cast<int64_t>(runs) * (C / tile);
   const int per_sm = blocks_per_sm(kernel, smem);
   if (per_sm < 1 || grid > static_cast<int64_t>(per_sm) * sm_count()) return invalid();
@@ -1514,11 +1673,55 @@ extern "C" int modnorm_batch(const void* x, const void* mod, void* out, void* pa
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   int resident = smem / 16;
-  void* args[] = {&x, &mod, &out, &part, &mean, &rstd, &P, &C, &tile, &runs, &resident,
-                  &eps, &slope};
+  void* args[] = {&x, &mod, &out, &part, &mean, &rstd, &stats, &P, &C, &tile, &runs,
+                  &resident, &eps, &slope};
   const cudaError_t e = cudaLaunchKernelExC(&cfg, kernel, args);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+}  // namespace
+
+extern "C" int modnorm_batch(const void* x, const void* mod, void* out, void* part, void* mean,
+                             void* rstd, int64_t P, int C, int tile, int runs, int smem,
+                             float eps, int dtype, int lrelu, float slope, void* stream) {
+  return launch_batch(x, mod, out, part, mean, rstd, nullptr, P, C, tile, runs, smem, eps,
+                      dtype, lrelu, slope, stream);
+}
+
+// Launch A of the cross-rank batch forward: the batch forward's statistics
+// alone (the same cooperative launch, plan and merge of its runs), this
+// launch's (count, mean, centred M2) per channel into `stats`, [3][C] float32
+// (a rank's row of the [world][3][C] buffer the caller all-reduces).  The
+// plan is batch_plan's for the statistics-only kernel's blocks per SM
+// (modnorm_batch_blocks_per_sm with stats_only 1).
+extern "C" int modnorm_batch_partials(const void* x, void* part, void* stats, int64_t P, int C,
+                                      int tile, int runs, int smem, int dtype, void* stream) {
+  if (stats == nullptr) return invalid();
+  return launch_batch(x, nullptr, nullptr, part, nullptr, nullptr, stats, P, C, tile, runs,
+                      smem, 0.f, dtype, 0, 0.f, stream);
+}
+
+// Launch B of the cross-rank batch forward: the `world` rows of `stats`
+// ([world][3][C] float32, all-reduced) merged in rank order, their mean and
+// rstd into `mean` and `rstd` (C,), and out = lrelu?((x * rstd + (-mean *
+// rstd)) * scale + offset) over the P pixels of x.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for C the kernel does not take.
+extern "C" int modnorm_batch_apply(const void* x, const void* mod, const void* stats, int world,
+                                   void* out, void* mean, void* rstd, int64_t P, int C, float eps,
+                                   int dtype, int lrelu, float slope, void* stream) {
+  if (P < 1 || C < kVec || C % kVec || C > 6144 || world < 1) return invalid();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* st = static_cast<const float*>(stats);
+  float* m = static_cast<float*>(mean);
+  float* r = static_cast<float*>(rstd);
+  if (dtype == 0)
+    dispatch_flags<float, BatchApply>(mod != nullptr, lrelu != 0, x, mod, st, world, out, m, r,
+                                      P, C, eps, slope, s);
+  else
+    dispatch_flags<__nv_bfloat16, BatchApply>(mod != nullptr, lrelu != 0, x, mod, st, world,
+                                              out, m, r, P, C, eps, slope, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Training, the instance backward, one cluster launch: grad_x (x's layout)
@@ -1576,5 +1779,58 @@ extern "C" int modnorm_backward_batch(const void* x, const void* mod, const void
   else
     dispatch_flags<__nv_bfloat16, Backward>(mod != nullptr, lrelu != 0, x, mod, gout, m, r, p,
                                             cf, gx, gmod, P, C, L, chunks, chunk, slope, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cross-rank batch backward, first half: the reduction of
+// modnorm_backward_batch (same plan, same chunk order) stopped before the
+// division, sums = [sum gy | sum gy * x_hat] per channel, [2][C] float32,
+// over this launch's P pixels; `part` is scratch of 2 * chunks * C floats.
+extern "C" int modnorm_backward_batch_sums(const void* x, const void* mod, const void* gout,
+                                           const void* mean, const void* rstd, void* part,
+                                           void* sums, int64_t P, int C, int L, int chunks,
+                                           int64_t chunk, int dtype, int lrelu, float slope,
+                                           void* stream) {
+  if (P < 1 || chunks < 1 || chunk < 1 || chunk * chunks < P || (chunks - 1) * chunk >= P ||
+      (L != 1 && L != 2 && L != 4 && L != 8) || C < kVec * L || C % (kVec * L) ||
+      C / (kVec * L) > 65535)
+    return invalid();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mean);
+  const float* r = static_cast<const float*>(rstd);
+  float* p = static_cast<float*>(part);
+  float* sm = static_cast<float*>(sums);
+  if (dtype == 0)
+    dispatch_flags<float, BackwardSums>(mod != nullptr, lrelu != 0, x, mod, gout, m, r, p, sm, P,
+                                        C, L, chunks, chunk, slope, s);
+  else
+    dispatch_flags<__nv_bfloat16, BackwardSums>(mod != nullptr, lrelu != 0, x, mod, gout, m, r,
+                                                p, sm, P, C, L, chunks, chunk, slope, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cross-rank batch backward, second half: grad_x (x's layout) and, where
+// `mod` is given, grad_mod (its 2C layout) from the all-reduced `sums` [2][C]
+// over `count` pixels (the world's; P is this launch's): the coefficients
+// sums / count into `coef` (2 * C floats of scratch), then the elementwise
+// pass of modnorm_backward_batch.
+extern "C" int modnorm_backward_batch_apply(const void* x, const void* mod, const void* gout,
+                                            const void* mean, const void* rstd, const void* sums,
+                                            void* coef, void* gx, void* gmod, int64_t P, int C,
+                                            float count, int dtype, int lrelu, float slope,
+                                            void* stream) {
+  if (P < 1 || C < kVec || C % kVec || !(count >= 1.f) || (mod != nullptr) != (gmod != nullptr))
+    return invalid();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mean);
+  const float* r = static_cast<const float*>(rstd);
+  const float* sm = static_cast<const float*>(sums);
+  float* cf = static_cast<float*>(coef);
+  if (dtype == 0)
+    dispatch_flags<float, BackwardApply>(mod != nullptr, lrelu != 0, x, mod, gout, m, r, sm, cf,
+                                         gx, gmod, P, C, count, slope, s);
+  else
+    dispatch_flags<__nv_bfloat16, BackwardApply>(mod != nullptr, lrelu != 0, x, mod, gout, m, r,
+                                                 sm, cf, gx, gmod, P, C, count, slope, s);
   return static_cast<int>(cudaGetLastError());
 }

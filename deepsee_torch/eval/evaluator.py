@@ -18,8 +18,13 @@ TF32 is turned off around them (`strict_float32`), so FID and LPIPS do not
 depend on the process's TF32 setting.  The generator runs as the caller set
 it up.
 
-One process: the JAX evaluator's all-gather of every host's rows
-(evaluator.py:37-57, :271-285) belongs to the multi-GPU slice.
+Across ranks (deepsee_tpu/eval/evaluator.py:37-57, :271-285): each rank
+sweeps its loader stripe, at most ceil(num_samples / W) samples, and `run`
+gathers every rank's per-sample metrics, LPIPS rows and pool3 activations
+(`distributed.gather_rows`, in rank order) before the means and the FID, so
+the result covers num_samples on every rank.  Only rank 0 writes the
+per-sample CSV (its own stripe's rows, as the JAX evaluator's main host)
+and the fid_stats files.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from deepsee_torch.data import DataLoader, DevicePrefetcher, create_dataset, to_
 from deepsee_torch.eval import fid as fid_mod
 from deepsee_torch.eval.lpips import load_lpips
 from deepsee_torch.eval.metrics import MetricsAccumulator, batch_metrics
+from deepsee_torch.parallel import distributed
 from deepsee_torch.system import SRSystem
 
 __all__ = ["InferenceEvaluator", "MetricsCSVWriter", "evaluate_set", "get_validation_loader",
@@ -74,14 +80,15 @@ def _eval_mode(nets) -> Iterator[None]:
 def get_validation_loader(exp: Experiment, batch_size: Optional[int] = None) -> DataLoader:
     """The loader over the *_val dirs (deepsee_tpu/eval/evaluator.py:60-73;
     evaluation.py:202-217): phase "val", in file order, the last batch
-    kept."""
+    kept; each rank reads its stripe."""
     if not (exp.data.label_dir_val and exp.data.image_dir_val):
         raise ValueError("label_dir_val / image_dir_val required for validation evaluation")
     val_exp = exp.replace(data=dataclasses.replace(
         exp.data, label_dir=exp.data.label_dir_val, image_dir=exp.data.image_dir_val,
         phase="val"))
     return DataLoader(create_dataset(val_exp, phase="val"), batch_size or exp.train.batch_size,
-                      shuffle=False, drop_last=False, shard_index=0, num_shards=1)
+                      shuffle=False, drop_last=False, shard_index=distributed.rank(),
+                      num_shards=distributed.world_size())
 
 
 def evaluate_set(evaluator: "InferenceEvaluator", loader) -> Dict[str, float]:
@@ -132,9 +139,9 @@ class InferenceEvaluator:
         self.compute_fid = compute_fid
         self.compute_lpips = compute_lpips
         self.writer = None
-        if write_details:
-            if not folder_out:
-                raise ValueError("write_details needs folder_out")
+        if write_details and not folder_out:
+            raise ValueError("write_details needs folder_out")
+        if write_details and distributed.is_main_process():
             self.writer = MetricsCSVWriter(folder_out,
                                            ["ID", "PSNR", "SSIM", "MSSSIM", "RMSE", "LPIPS"])
         if compute_fid:
@@ -220,9 +227,11 @@ class InferenceEvaluator:
                         m["lpips"][i] if self.compute_lpips else ""])
 
         n_seen = 0
+        # each rank sweeps its stripe; together they cover num_samples
+        local_target = -(-self.num_samples // distributed.world_size())
         with torch.inference_mode():  # the result copies read inference tensors
             for batch in DevicePrefetcher(self.device)(dataloader):
-                if n_seen >= self.num_samples:
+                if n_seen >= local_target:
                     break
                 bsize = int(batch["image_hr"].shape[0])
                 host, event = self._to_host(self.sweep(batch))
@@ -233,15 +242,17 @@ class InferenceEvaluator:
             while pending:
                 drain_one()
 
-        # clamp to exactly num_samples: the last batch can overshoot by up
-        # to batch_size - 1 (the reference sweeps num_samples // batch + 1
-        # batches, inference_manager.py:71; these numbers cover num_samples)
-        merged = {name: (np.concatenate(v, 0) if v else np.zeros((0,), np.float32))
-                  for name, v in rows.items()}
+        local = {name: (np.concatenate(v, 0) if v else np.zeros((0,), np.float32))
+                 for name, v in rows.items()}
         if self.compute_fid:
             for name, acts in (("act_fake", act_fake), ("act_real", act_real)):
-                merged[name] = (np.concatenate(acts, 0) if acts
-                                else np.zeros((0, fid_mod.POOL3_DIM), np.float32))
+                local[name] = (np.concatenate(acts, 0) if acts
+                               else np.zeros((0, fid_mod.POOL3_DIM), np.float32))
+        merged = self._merge_ranks(local, local_target)
+        # clamp to exactly num_samples: a rank's last batch can overshoot by
+        # up to batch_size - 1, the ranks' stripes by W - 1 (the reference
+        # sweeps num_samples // batch + 1 batches, inference_manager.py:71;
+        # these numbers cover num_samples, whatever the ranks and batch)
         merged = {k: v[:self.num_samples] for k, v in merged.items()}
 
         acc = MetricsAccumulator()
@@ -252,7 +263,7 @@ class InferenceEvaluator:
         result: Dict[str, float] = {}
         if self.compute_fid and len(merged["act_fake"]):
             af, ar = merged["act_fake"], merged["act_real"]
-            if self.write and self.folder_out:
+            if self.write and self.folder_out and distributed.is_main_process():
                 for arr, tag in ((af, "fake"), (ar, "real")):
                     mu, sigma = fid_mod.calculate_statistics(arr)
                     np.savez_compressed(
@@ -267,3 +278,17 @@ class InferenceEvaluator:
         result.update(acc.result())
         result["eval_seconds"] = time.time() - start
         return result
+
+    def _merge_ranks(self, local: Dict[str, np.ndarray],
+                     local_target: int) -> Dict[str, np.ndarray]:
+        """Every rank's rows, in rank order (the JAX evaluator's
+        _merge_hosts): the host arrays through `distributed.gather_rows` on
+        this evaluator's device (NCCL reduces CUDA tensors), back on the
+        host; the local rows as they are in one process."""
+        if distributed.world_size() == 1:
+            return local
+        n_local = len(next(iter(local.values())))
+        gathered = distributed.gather_rows(
+            {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+             for k, v in local.items()}, n_local, local_target)
+        return {k: v.cpu().numpy() for k, v in gathered.items()}

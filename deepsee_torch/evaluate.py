@@ -20,9 +20,12 @@ release (or of scripts/export_torch.py) from another directory;
 --alexnet_weights the FID and LPIPS networks are seeded random ones
 (`exact` false): their absolute values are comparable only with each other.
 
-Runs on the card unless --device cpu is given, and raises without one.  The
-flags of slices not ported yet are refused with a message naming the slice:
---multihost (multi-GPU), --int8 (the int8 conv kernel K4).  --save_images
+Runs on the card unless --device cpu is given, and raises without one.
+--multihost (under torchrun, one process per card: `torchrun --nproc_per_node
+N -m deepsee_torch.evaluate --multihost ...`) gives each rank a stripe of the
+samples in file order (--batch_size per rank) and gathers every rank's rows
+before the means and the FID; rank 0 prints and writes.  --int8 (the int8
+conv kernel K4) is refused with a message naming its slice.  --save_images
 writes PNGs and needs Pillow.
 """
 
@@ -40,7 +43,6 @@ from deepsee_torch.config import get_preset
 
 # flag -> the slice it waits for
 _LATER = {
-    "multihost": "the multi-GPU slice",
     "int8": "the int8 slice (the Hopper int8/FP8 conv kernel K4)",
 }
 
@@ -68,10 +70,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--alexnet_weights", default="")
     p.add_argument("--out", default="")
     p.add_argument("--save_images", action="store_true")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for flag in ("multihost", "int8"):
-        p.add_argument(f"--{flag}", action="store_true", default=None,
-                       help=f"not ported: {_LATER[flag]}")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; cuda:LOCAL_RANK with --multihost) or cpu")
+    p.add_argument("--multihost", action="store_true",
+                   help="join torchrun's process group (NCCL on the card, gloo on the CPU); "
+                        "each rank evaluates its stripe, the rows are gathered")
+    p.add_argument("--int8", action="store_true", default=None,
+                   help=f"not ported: {_LATER['int8']}")
     args = p.parse_args(argv)
     for flag, slice_name in _LATER.items():
         if getattr(args, flag) is not None:
@@ -99,8 +104,16 @@ def load_weights(system, args: argparse.Namespace) -> None:
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     args = parse_args(argv)
+    from deepsee_torch.parallel import distributed
+
+    with distributed.joined(args.multihost, args.device) as device:
+        return _evaluate(args, device)
+
+
+def _evaluate(args: argparse.Namespace, device) -> Dict[str, float]:
     from deepsee_torch.data import DataLoader, create_dataset
     from deepsee_torch.eval.evaluator import InferenceEvaluator
+    from deepsee_torch.parallel import distributed
     from deepsee_torch.system import SRSystem
 
     exp = get_preset(args.name).replace(is_train=False, checkpoints_dir=args.checkpoints_dir)
@@ -110,10 +123,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
             image_dir=args.image_dir, label_dir=args.label_dir,
             identities_file=args.identities_file, phase="test"),
         train=dataclasses.replace(exp.train, batch_size=args.batch_size))
-    system = SRSystem(exp, device=args.device)
+    system = SRSystem(exp, device=device)
     load_weights(system, args)
+    # each rank a disjoint stripe (evaluate.py:88-94): the evaluator caps a
+    # rank at num_samples / world and gathers
     loader = DataLoader(create_dataset(exp, phase="test"), args.batch_size, shuffle=False,
-                        drop_last=True, shard_index=0, num_shards=1)
+                        drop_last=True, shard_index=distributed.rank(),
+                        num_shards=distributed.world_size())
     ev = InferenceEvaluator(
         system, num_samples=args.num_samples, write_details=bool(args.out),
         folder_out=args.out or None, compute_fid=not args.no_fid,
@@ -122,6 +138,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     result = ev.run(loader)
     if ev.writer is not None:
         ev.writer.close()
+    if not distributed.is_main_process():
+        return result
     print(json.dumps(result, indent=2, sort_keys=True))
 
     if args.save_images and args.out:

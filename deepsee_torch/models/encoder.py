@@ -28,18 +28,25 @@ import torch.nn as nn
 from deepsee_torch.config import ModelConfig
 from deepsee_torch.models.layers import NonSpadeNormConv
 from deepsee_torch.ops.resize import resize2d, upsample_nearest_2x
+from deepsee_torch.parallel import distributed
 
 
 def draw_noise(shape, dist: str, generator: torch.Generator,
                device: torch.device) -> torch.Tensor:
     """The encoders' one random draw: U[0, 1) ("uniform") or N(0, 1)
-    ("normal") float32 of `shape`, from `generator` on `device`."""
+    ("normal") float32 of `shape`, from `generator` on `device`.  Under a
+    process group each rank draws the global batch's numbers and keeps its
+    rows (`distributed.rank_rows`: W times the draw, a few KB for the style
+    noise); a step over W ranks then adds the noise one process adds to the
+    same global batch."""
     if generator is None:
         raise ValueError("a random draw needs an explicit torch.Generator")
     if dist == "uniform":
-        return torch.rand(shape, generator=generator, device=device)
+        return distributed.rank_rows(
+            lambda s: torch.rand(s, generator=generator, device=device), shape)
     if dist == "normal":
-        return torch.randn(shape, generator=generator, device=device)
+        return distributed.rank_rows(
+            lambda s: torch.randn(s, generator=generator, device=device), shape)
     raise ValueError(f"unknown noise distribution {dist!r}")
 
 

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from deepsee_torch.config import parse_nonspade_norm
 from deepsee_torch.ops.modnorm import modnorm, modnorm_train
 from deepsee_torch.ops.norms import leaky_relu
+from deepsee_torch.parallel import distributed
 
 BN_MOMENTUM = 0.1
 
@@ -50,10 +51,17 @@ def update_running_stats(running_mean: torch.Tensor, running_var: torch.Tensor,
 def draw_injection_noise(shape, generator: Optional[torch.Generator],
                          device: torch.device) -> torch.Tensor:
     """The noise injection's one random draw: N(0, 1) float32 of the NHWC
-    `shape` (the JAX package's layout), from `generator` on `device`."""
+    `shape` (the JAX package's layout), from `generator` on `device`.
+
+    Under a process group each rank draws the global batch's noise and keeps
+    its own rows (`distributed.rank_rows`), so a step over W ranks injects
+    the noise one process injects into the same global batch.  It costs each
+    rank W times the draw: W times the random numbers generated, and a
+    transient buffer W times the injection's activation, freed at once."""
     if generator is None:
         raise ValueError("noise injection needs an explicit torch.Generator")
-    return torch.randn(shape, generator=generator, device=device)
+    return distributed.rank_rows(
+        lambda s: torch.randn(s, generator=generator, device=device), shape)
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -168,6 +176,12 @@ class TorchBatchNorm(nn.Module):
         mean, var = self.running_mean, self.running_var
         if self.training:
             check_training_forward(self)
+            if distributed.world_size() > 1:
+                raise NotImplementedError(
+                    "a train-mode encoder or discriminator batch norm (norm_e / norm_d "
+                    "'batch' or 'sync_batch') over several ranks belongs to the cross-rank "
+                    "encoder and discriminator batch-norm slice of the port, which "
+                    "deepsee_torch does not have yet; one process trains it")
             xf = x.float()
             mean = xf.mean((0, 2, 3))
             d = xf - mean[:, None, None]

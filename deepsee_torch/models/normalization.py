@@ -20,8 +20,9 @@ import torch.nn.functional as F
 from deepsee_torch.config import ModelConfig
 from deepsee_torch.models.layers import (Conv2d, check_training_forward, conv2d,
                                          update_running_stats, xavier_normal_)
-from deepsee_torch.ops.modnorm import modnorm, modnorm_train
+from deepsee_torch.ops.modnorm import modnorm, modnorm_train, modnorm_train_sync
 from deepsee_torch.ops.resize import resize2d
+from deepsee_torch.parallel import distributed
 
 _NHIDDEN = 128  # the reference's embedding width (normalization.py:38)
 
@@ -85,7 +86,10 @@ class ParamFreeNorm(nn.Module):
     The batch kinds carry `running_mean`/`running_var`: eval mode normalizes
     with them; train mode with the batch's statistics over (N, H, W), which
     the kernel returns, and then updates them (momentum 0.1, unbiased
-    variance).
+    variance).  Under a process group of more than one rank the batch is
+    the global one (the JAX package's batch norm under jit over a sharded
+    batch): the statistics come from every rank's rows (`modnorm_train_sync`)
+    and the running variance is unbiased over the world's pixels.
     """
 
     EPS = 1e-5
@@ -107,11 +111,16 @@ class ParamFreeNorm(nn.Module):
         if self.training:
             check_training_forward(self)
             stats = "instance" if self.kind == "instance" else "batch"
-            out, mean, rstd = modnorm_train(x, mod, stats=stats, eps=self.EPS, lrelu=lrelu)
+            world = distributed.world_size() if stats == "batch" else 1
+            if world > 1:
+                out, mean, rstd = modnorm_train_sync(x, mod, eps=self.EPS, lrelu=lrelu)
+            else:
+                out, mean, rstd = modnorm_train(x, mod, stats=stats, eps=self.EPS, lrelu=lrelu)
             if stats == "batch":
                 b, _, h, w = x.shape
                 var = rstd.pow(-2) - self.EPS
-                update_running_stats(self.running_mean, self.running_var, mean, var, b * h * w)
+                update_running_stats(self.running_mean, self.running_var, mean, var,
+                                     world * b * h * w)
             return out
         if self.kind == "instance":
             return modnorm(x, mod, stats="instance", lrelu=lrelu)

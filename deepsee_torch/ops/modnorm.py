@@ -30,6 +30,11 @@ thread-block cluster, which either hold their chunks in shared memory
 forward (`batch_plan`): one cooperative grid of at most the blocks the card
 holds at once, each block a channel tile over a run of the N*H*W pixels,
 kept in shared memory across the grid barrier where it fits.
+
+Across ranks (data parallelism) `SyncModnormTrain` splits the batch modes
+around an all-reduce: the forward into its statistics launch and a merge-
+and-apply launch, the backward into its sums and its elementwise pass
+(section "training across ranks" below).
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
+import torch.distributed as dist
+
 from deepsee_torch.ops import _build
 from deepsee_torch.ops.norms import instance_norm_2d
 
@@ -50,7 +57,11 @@ __all__ = ["modnorm", "modnorm_plain", "launches", "reset_launches",
            "clusters_in_flight", "modnorm_train", "modnorm_train_plain",
            "modnorm_backward", "modnorm_backward_plain", "ReducePlan", "reduce_plan",
            "BatchPlan", "batch_plan", "check_batch_plan", "batch_blocks_per_sm", "card_sms",
-           "instance_backward_plan", "check_instance_backward_plan", "layout_copies"]
+           "instance_backward_plan", "check_instance_backward_plan", "layout_copies",
+           "modnorm_batch_partials", "modnorm_batch_partials_plain", "modnorm_batch_apply",
+           "modnorm_batch_apply_plain", "merge_partials", "modnorm_backward_sums",
+           "modnorm_backward_sums_plain", "modnorm_backward_apply",
+           "modnorm_backward_apply_plain", "SyncModnormTrain", "modnorm_train_sync"]
 
 LRELU_SLOPE = 0.2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,9 +72,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # cooperative launch), "instance_train" the instance kernel with its
 # statistics written out, "backward_batch" the batch backward (reduction,
 # then the elementwise pass), "backward_instance" the instance backward (one
-# cluster launch).
+# cluster launch).  Across ranks the batch modes split around a collective
+# (SyncModnormTrain): "batch_partials" the statistics launch (A),
+# "batch_apply" the merge and apply (B), "backward_sums" the batch
+# backward's reduction, "backward_apply" its elementwise pass.
 launches = {"affine": 0, "instance": 0, "batch": 0, "instance_train": 0,
-            "backward_batch": 0, "backward_instance": 0}
+            "backward_batch": 0, "backward_instance": 0, "batch_partials": 0,
+            "batch_apply": 0, "backward_sums": 0, "backward_apply": 0}
 # Incoming gradients the backward had to copy into channels_last first.
 layout_copies = {"backward": 0}
 
@@ -277,7 +292,7 @@ def _lib() -> ctypes.CDLL:
     lib.modnorm_instance_clusters.argtypes = [i32, i64, i32, i32, i32, i32, i32, i32, i32,
                                               i32, i32]
     lib.modnorm_instance_clusters.restype = ctypes.c_int
-    lib.modnorm_batch_blocks_per_sm.argtypes = [i32, i32, i32, i32]
+    lib.modnorm_batch_blocks_per_sm.argtypes = [i32, i32, i32, i32, i32]
     lib.modnorm_batch_blocks_per_sm.restype = ctypes.c_int
     lib.modnorm_batch.argtypes = [p, p, p, p, p, p, i64, i32, i32, i32, i32, f32, i32, i32,
                                   f32, p]
@@ -288,6 +303,16 @@ def _lib() -> ctypes.CDLL:
     lib.modnorm_backward_batch.argtypes = [p, p, p, p, p, p, p, p, p, i64, i32, i32, i32, i64,
                                            i32, i32, f32, p]
     lib.modnorm_backward_batch.restype = ctypes.c_int
+    lib.modnorm_batch_partials.argtypes = [p, p, p, i64, i32, i32, i32, i32, i32, p]
+    lib.modnorm_batch_partials.restype = ctypes.c_int
+    lib.modnorm_batch_apply.argtypes = [p, p, p, i32, p, p, p, i64, i32, f32, i32, i32, f32, p]
+    lib.modnorm_batch_apply.restype = ctypes.c_int
+    lib.modnorm_backward_batch_sums.argtypes = [p, p, p, p, p, p, p, i64, i32, i32, i32, i64,
+                                                i32, i32, f32, p]
+    lib.modnorm_backward_batch_sums.restype = ctypes.c_int
+    lib.modnorm_backward_batch_apply.argtypes = [p, p, p, p, p, p, p, p, p, i64, i32, f32, i32,
+                                                 i32, f32, p]
+    lib.modnorm_backward_batch_apply.restype = ctypes.c_int
     return lib
 
 
@@ -471,13 +496,15 @@ def check_batch_plan(plan: BatchPlan, shape: Tuple[int, int, int, int],
 
 
 @functools.cache
-def batch_blocks_per_sm(dtype: torch.dtype, with_mod: bool, lrelu: bool) -> int:
+def batch_blocks_per_sm(dtype: torch.dtype, with_mod: bool, lrelu: bool,
+                        stats_only: bool = False) -> int:
     """Blocks of the batch forward the current card holds per SM with the
     shared memory its plan gives them (cudaOccupancyMaxActiveBlocksPerMultiprocessor):
-    BATCH_BLOCKS_PER_SM where they fit, else fewer."""
+    BATCH_BLOCKS_PER_SM where they fit, else fewer.  `stats_only` asks for
+    the statistics launch of the cross-rank forward (its own registers)."""
     for n in range(BATCH_BLOCKS_PER_SM, 0, -1):
         if _lib().modnorm_batch_blocks_per_sm(_DTYPE_CODE[dtype], int(with_mod), int(lrelu),
-                                              _batch_room(n)) >= n:
+                                              int(stats_only), _batch_room(n)) >= n:
             return n
     raise RuntimeError("modnorm: the card holds no block of the batch forward")
 
@@ -631,6 +658,15 @@ def modnorm_backward_plain(x: torch.Tensor, mod: Optional[torch.Tensor],
     """Eager-torch version of the backward kernels, float32, one rounding:
     grad_x = rstd * (gy - mean_S(gy) - x_hat * mean_S(gy * x_hat)) and
     grad_mod = [gz * x_hat | gz] (None without mod)."""
+    xh, gz, gy = _backward_terms(x, mod, gout, mean, rstd, stats, lrelu)
+    dims = _set_dims(stats)
+    mgy = gy.mean(dims, keepdim=True)
+    mgyx = (gy * xh).mean(dims, keepdim=True)
+    return _backward_outputs(x, mod, xh, gz, gy, rstd, mgy, mgyx, stats)
+
+
+def _backward_terms(x, mod, gout, mean, rstd, stats: str, lrelu: bool):
+    """x_hat, gz and gy in float32, recomputed with the forward's operations."""
     xf, g = x.float(), gout.float()
     xh = _normalized(xf, mean, rstd, stats)
     z, s = xh, None
@@ -641,9 +677,12 @@ def modnorm_backward_plain(x: torch.Tensor, mod: Optional[torch.Tensor],
         z = xh * s + mf[:, c:]
     gz = torch.where(z >= 0, g, LRELU_SLOPE * g) if lrelu else g
     gy = gz * s if s is not None else gz
-    dims = _set_dims(stats)
-    mgy = gy.mean(dims, keepdim=True)
-    mgyx = (gy * xh).mean(dims, keepdim=True)
+    return xh, gz, gy
+
+
+def _backward_outputs(x, mod, xh, gz, gy, rstd, mgy, mgyx, stats: str):
+    """(grad_x, grad_mod or None) from the terms and the set means of gy and
+    gy * x_hat, rounded once to the tensors' types."""
     gx = _per_set(rstd, stats) * (gy - mgy - xh * mgyx)
     cl = torch.channels_last
     gx = gx.to(x.dtype).contiguous(memory_format=cl)
@@ -823,3 +862,303 @@ def _train_backward(ctx, gout, _grad_mean, _grad_rstd):
 
 torch.library.register_autograd("deepsee::modnorm_train", _train_backward,
                                 setup_context=_train_setup_context)
+
+
+# -- training across ranks: the batch modes split around a collective --------
+#
+# Under data parallelism the batch statistics cover the global batch (the JAX
+# package's batch norm under jit over a sharded batch).  A kernel cannot take
+# a process group, so each batch mode splits into two registered ops with a
+# collective between them, run in Python by SyncModnormTrain: the forward's
+# statistics launch (A), an all-reduce of the ranks' (count, mean, M2) rows,
+# the merge-and-apply launch (B); the backward's reduction, an all-reduce of
+# the [2, C] sums, its elementwise pass.  The collectives run on the current
+# stream's order: NCCL's all_reduce waits for the work queued on the current
+# stream and makes it wait for the result; gloo's, on CUDA tensors, copies
+# through host memory in the same order.  So launch B and the elementwise
+# pass read finished sums.  Every rank must hold the same number of rows (a
+# global batch's per-rank share), which gives the backward's global count.
+
+
+def modnorm_batch_partials_plain(x: torch.Tensor) -> torch.Tensor:
+    """Eager-torch version of launch A: float32 (3, C) rows of (count, mean,
+    centred M2) per channel over x's N*H*W pixels (two passes)."""
+    b, c, h, w = x.shape
+    xf = x.float()
+    mean = xf.mean((0, 2, 3))
+    d = xf - mean[:, None, None]
+    return torch.stack([torch.full_like(mean, float(b * h * w)), mean, (d * d).sum((0, 2, 3))])
+
+
+def merge_partials(partials: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(count, mean, M2) per channel of [world, 3, C] rows merged in rank
+    order with Chan's formula, as launch B merges them: float32, a row with
+    count 0 adds nothing."""
+    n = torch.zeros_like(partials[0, 0])
+    mean, m2 = torch.zeros_like(n), torch.zeros_like(n)
+    for nb, mb, qb in partials.float():
+        nn = n + nb
+        fb = torch.where(nb > 0, nb / torch.clamp(nn, min=1.0), torch.zeros_like(nb))
+        d = mb - mean
+        mean = torch.where(nb > 0, mean + d * fb, mean)
+        m2 = torch.where(nb > 0, m2 + (qb + d * d * (n * fb)), m2)
+        n = nn
+    return n, mean, m2
+
+
+def modnorm_batch_apply_plain(x: torch.Tensor, mod: Optional[torch.Tensor],
+                              partials: torch.Tensor, *, eps: float = 1e-5, lrelu: bool = False
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Eager-torch version of launch B: the rows of `partials` ([world, 3, C])
+    merged (`merge_partials`), then x normalized with the merged statistics,
+    modulated and leaky-ReLU'd as `modnorm_train_plain` does.  Returns (out,
+    mean, rstd)."""
+    n, mean, m2 = merge_partials(partials)
+    rstd = torch.rsqrt(m2 / n + eps)
+    y = _modulate(_normalized(x.float(), mean, rstd, "batch"), mod, lrelu)
+    return y.to(x.dtype).contiguous(memory_format=torch.channels_last), mean, rstd
+
+
+def modnorm_backward_sums_plain(x: torch.Tensor, mod: Optional[torch.Tensor],
+                                gout: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor, *,
+                                lrelu: bool = False) -> torch.Tensor:
+    """Eager-torch version of the backward's reduction across ranks: float32
+    (2, C) sums of gy and gy * x_hat over x's N*H*W pixels."""
+    xh, _, gy = _backward_terms(x, mod, gout, mean, rstd, "batch", lrelu)
+    return torch.stack([gy.sum((0, 2, 3)), (gy * xh).sum((0, 2, 3))])
+
+
+def modnorm_backward_apply_plain(x: torch.Tensor, mod: Optional[torch.Tensor],
+                                 gout: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                                 sums: torch.Tensor, count: float, *, lrelu: bool = False
+                                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Eager-torch version of the backward's elementwise pass across ranks:
+    (grad_x, grad_mod) from the all-reduced (2, C) `sums` over `count`
+    pixels (the world's)."""
+    xh, gz, gy = _backward_terms(x, mod, gout, mean, rstd, "batch", lrelu)
+    mgy, mgyx = (_per_set(v / count, "batch") for v in sums.float())
+    return _backward_outputs(x, mod, xh, gz, gy, rstd, mgy, mgyx, "batch")
+
+
+def modnorm_batch_partials(x: torch.Tensor, rank: int = 0, world: int = 1) -> torch.Tensor:
+    """Launch A: a float32 [world, 3, C] buffer of zeros but for row `rank`,
+    x's (count, mean, M2) per channel; the caller all-reduces it (sum)."""
+    return torch.ops.deepsee.modnorm_batch_partials(x, rank, world)
+
+
+def modnorm_batch_apply(x: torch.Tensor, mod: Optional[torch.Tensor], partials: torch.Tensor, *,
+                        eps: float = 1e-5, lrelu: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch B: (out, mean, rstd) from x, mod and the all-reduced partials."""
+    return torch.ops.deepsee.modnorm_batch_apply(x, mod, partials, eps, lrelu)
+
+
+def modnorm_backward_sums(x: torch.Tensor, mod: Optional[torch.Tensor], gout: torch.Tensor,
+                          mean: torch.Tensor, rstd: torch.Tensor, *,
+                          lrelu: bool = False) -> torch.Tensor:
+    """The backward's reduction: float32 (2, C) sums of gy and gy * x_hat."""
+    return torch.ops.deepsee.modnorm_backward_sums(x, mod, gout, mean, rstd, lrelu)
+
+
+def modnorm_backward_apply(x: torch.Tensor, mod: Optional[torch.Tensor], gout: torch.Tensor,
+                           mean: torch.Tensor, rstd: torch.Tensor, sums: torch.Tensor,
+                           count: float, *, lrelu: bool = False
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The backward's elementwise pass from the all-reduced sums over
+    `count` pixels: (grad_x, grad_mod), grad_mod None without mod."""
+    gx, gmod = torch.ops.deepsee.modnorm_backward_apply(x, mod, gout, mean, rstd, sums,
+                                                        float(count), lrelu)
+    return gx, (gmod if mod is not None else None)
+
+
+def _check_stats(name: str, v: torch.Tensor, x: torch.Tensor, shape: Tuple[int, ...]) -> None:
+    if (v.device != x.device or v.dtype != torch.float32 or tuple(v.shape) != shape
+            or not v.is_contiguous()):
+        raise ValueError(f"modnorm: {name} must be contiguous float32 {shape} on {x.device}")
+
+
+@torch.library.custom_op("deepsee::modnorm_batch_partials", mutates_args=())
+def _batch_partials_op(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
+    """Launch A: the plain version on CPU tensors; on CUDA the checks, the
+    statistics-only cooperative launch and its count, or a raise."""
+    if not 0 <= rank < world:
+        raise ValueError(f"modnorm: rank {rank} of a world of {world}")
+    c = x.shape[1]
+    if x.device.type == "cpu":
+        out = torch.zeros(world, 3, c, dtype=torch.float32)
+        out[rank] = modnorm_batch_partials_plain(x)
+        return out
+    _check_train(x, None)
+    b, _, h, w = x.shape
+    out = torch.zeros(world, 3, c, dtype=torch.float32, device=x.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        plan = batch_plan((b, c, h, w), x.dtype,
+                          batch_blocks_per_sm(x.dtype, False, False, stats_only=True),
+                          card_sms(x.device))
+        check_batch_plan(plan, (b, c, h, w), x.dtype)
+        part = torch.empty(2 * plan.runs * c, dtype=torch.float32, device=x.device)
+        err = _lib().modnorm_batch_partials(
+            x.data_ptr(), part.data_ptr(), out[rank].data_ptr(), b * h * w, c, plan.tile,
+            plan.runs, plan.smem_bytes, _DTYPE_CODE[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"modnorm_batch_partials launch failed with CUDA error {err}")
+    launches["batch_partials"] += 1
+    return out
+
+
+@_batch_partials_op.register_fake
+def _batch_partials_fake(x, rank, world):
+    return torch.empty(world, 3, x.shape[1], dtype=torch.float32, device=x.device)
+
+
+@torch.library.custom_op("deepsee::modnorm_batch_apply", mutates_args=())
+def _batch_apply_op(x: torch.Tensor, mod: Optional[torch.Tensor], partials: torch.Tensor,
+                    eps: float, lrelu: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch B: the plain version on CPU tensors; on CUDA the checks, the
+    launch and its count, or a raise."""
+    if x.device.type == "cpu":
+        return modnorm_batch_apply_plain(x, mod, partials, eps=eps, lrelu=lrelu)
+    _check_train(x, mod)
+    b, c, h, w = x.shape
+    if partials.dim() != 3:
+        raise ValueError(f"modnorm: partials must be (world, 3, {c}), got {tuple(partials.shape)}")
+    _check_stats("partials", partials, x, (partials.shape[0], 3, c))
+    out = torch.empty_like(x, memory_format=torch.channels_last)
+    mean = torch.empty(c, dtype=torch.float32, device=x.device)
+    rstd = torch.empty(c, dtype=torch.float32, device=x.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = _lib().modnorm_batch_apply(
+            x.data_ptr(), None if mod is None else mod.data_ptr(), partials.data_ptr(),
+            partials.shape[0], out.data_ptr(), mean.data_ptr(), rstd.data_ptr(), b * h * w, c,
+            eps, _DTYPE_CODE[x.dtype], int(lrelu), LRELU_SLOPE, stream)
+    if err != 0:
+        raise RuntimeError(f"modnorm_batch_apply launch failed with CUDA error {err}")
+    launches["batch_apply"] += 1
+    return out, mean, rstd
+
+
+@_batch_apply_op.register_fake
+def _batch_apply_fake(x, mod, partials, eps, lrelu):
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty_like(x, memory_format=torch.channels_last),
+            torch.empty(x.shape[1], **f32), torch.empty(x.shape[1], **f32))
+
+
+def _check_backward_inputs(x, mod, gout, mean, rstd) -> None:
+    _check_train(x, mod)
+    _check_nhwc("gout", gout, x.device, x.dtype, tuple(x.shape))
+    for name, v in (("mean", mean), ("rstd", rstd)):
+        _check_stats(name, v, x, (x.shape[1],))
+
+
+@torch.library.custom_op("deepsee::modnorm_backward_sums", mutates_args=())
+def _backward_sums_op(x: torch.Tensor, mod: Optional[torch.Tensor], gout: torch.Tensor,
+                      mean: torch.Tensor, rstd: torch.Tensor, lrelu: bool) -> torch.Tensor:
+    """The backward's reduction: the plain version on CPU tensors; on CUDA
+    the checks, the launches and their count, or a raise."""
+    if x.device.type == "cpu":
+        return modnorm_backward_sums_plain(x, mod, gout, mean, rstd, lrelu=lrelu)
+    _check_backward_inputs(x, mod, gout, mean, rstd)
+    b, c, h, w = x.shape
+    plan = reduce_plan(b * h * w, c)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part = torch.empty(2 * plan.chunks * c, **f32)
+    sums = torch.empty(2, c, **f32)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = _lib().modnorm_backward_batch_sums(
+            x.data_ptr(), None if mod is None else mod.data_ptr(), gout.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), part.data_ptr(), sums.data_ptr(), b * h * w, c,
+            plan.lanes, plan.chunks, plan.chunk, _DTYPE_CODE[x.dtype], int(lrelu), LRELU_SLOPE,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"modnorm_backward_sums launch failed with CUDA error {err}")
+    launches["backward_sums"] += 1
+    return sums
+
+
+@_backward_sums_op.register_fake
+def _backward_sums_fake(x, mod, gout, mean, rstd, lrelu):
+    return torch.empty(2, x.shape[1], dtype=torch.float32, device=x.device)
+
+
+@torch.library.custom_op("deepsee::modnorm_backward_apply", mutates_args=())
+def _backward_apply_op(x: torch.Tensor, mod: Optional[torch.Tensor], gout: torch.Tensor,
+                       mean: torch.Tensor, rstd: torch.Tensor, sums: torch.Tensor, count: float,
+                       lrelu: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward's elementwise pass: the plain version on CPU tensors; on
+    CUDA the checks, the launches and their count, or a raise.  grad_mod is
+    an empty tensor where there is no mod."""
+    if x.device.type == "cpu":
+        gx, gmod = modnorm_backward_apply_plain(x, mod, gout, mean, rstd, sums, count,
+                                                lrelu=lrelu)
+        return gx, (gmod if gmod is not None else x.new_empty(0))
+    _check_backward_inputs(x, mod, gout, mean, rstd)
+    b, c, h, w = x.shape
+    _check_stats("sums", sums, x, (2, c))
+    gx = torch.empty_like(x, memory_format=torch.channels_last)
+    gmod = (torch.empty_like(mod, memory_format=torch.channels_last) if mod is not None
+            else x.new_empty(0))
+    coef = torch.empty(2 * c, dtype=torch.float32, device=x.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = _lib().modnorm_backward_batch_apply(
+            x.data_ptr(), None if mod is None else mod.data_ptr(), gout.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), sums.data_ptr(), coef.data_ptr(), gx.data_ptr(),
+            None if mod is None else gmod.data_ptr(), b * h * w, c, count, _DTYPE_CODE[x.dtype],
+            int(lrelu), LRELU_SLOPE, stream)
+    if err != 0:
+        raise RuntimeError(f"modnorm_backward_apply launch failed with CUDA error {err}")
+    launches["backward_apply"] += 1
+    return gx, gmod
+
+
+@_backward_apply_op.register_fake
+def _backward_apply_fake(x, mod, gout, mean, rstd, sums, count, lrelu):
+    return (torch.empty_like(x, memory_format=torch.channels_last),
+            torch.empty_like(mod, memory_format=torch.channels_last) if mod is not None
+            else x.new_empty(0))
+
+
+class SyncModnormTrain(torch.autograd.Function):
+    """The training forward with batch statistics over every rank's rows:
+    launch A, an all-reduce (sum) of the [world, 3, C] partials, launch B;
+    its backward: the reduction, an all-reduce of the [2, C] sums, the
+    elementwise pass over the world's pixel count.  Returns (out, mean,
+    rstd), the statistics global and equal on every rank.  `group` is the
+    process group (None: the default one); every rank must call it with the
+    same shapes, in the same order."""
+
+    @staticmethod
+    def forward(ctx, x, mod, eps: float, lrelu: bool, group=None):
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        partials = torch.ops.deepsee.modnorm_batch_partials(x, rank, world)
+        dist.all_reduce(partials, group=group)
+        out, mean, rstd = torch.ops.deepsee.modnorm_batch_apply(x, mod, partials, eps, lrelu)
+        ctx.mark_non_differentiable(mean, rstd)
+        ctx.save_for_backward(x, mod, mean, rstd)
+        b, _, h, w = x.shape
+        ctx.count, ctx.lrelu, ctx.group = float(world * b * h * w), lrelu, group
+        return out, mean, rstd
+
+    @staticmethod
+    def backward(ctx, gout, _grad_mean, _grad_rstd):
+        x, mod, mean, rstd = ctx.saved_tensors
+        if not gout.is_contiguous(memory_format=torch.channels_last):
+            gout = gout.contiguous(memory_format=torch.channels_last)
+            layout_copies["backward"] += 1
+        sums = torch.ops.deepsee.modnorm_backward_sums(x, mod, gout, mean, rstd, ctx.lrelu)
+        dist.all_reduce(sums, group=ctx.group)
+        gx, gmod = torch.ops.deepsee.modnorm_backward_apply(x, mod, gout, mean, rstd, sums,
+                                                            ctx.count, ctx.lrelu)
+        return gx, (gmod if mod is not None else None), None, None, None
+
+
+def modnorm_train_sync(x: torch.Tensor, mod: Optional[torch.Tensor] = None, *,
+                       eps: float = 1e-5, lrelu: bool = False, group=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`modnorm_train(x, mod, stats="batch")` with the statistics of every
+    rank's rows (SyncModnormTrain): (out, mean, rstd)."""
+    return SyncModnormTrain.apply(x, mod, eps, lrelu, group)

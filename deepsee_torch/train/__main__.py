@@ -5,9 +5,18 @@ flags of the root train.py that this slice serves).
         --image_dir /data/CelebAMask-HQ/train_img --label_dir /data/CelebAMask-HQ/train_label
     python -m deepsee_torch.train --name 8x_independent_256x256 --synthetic --max_steps 20
 
-Runs on the card unless --device cpu is given, and raises without one.  The
-flags of slices not ported yet are refused with a message naming the slice:
-mesh and multi-host flags (multi-GPU), remat.
+Runs on the card unless --device cpu is given, and raises without one.
+
+Data parallelism over N cards, one process each (--batch_size stays the
+global batch; each rank reads its stripe, batch_size / N samples a step):
+
+    torchrun --nproc_per_node N -m deepsee_torch.train --multihost --data_axis N ...
+
+--multihost joins the process group torchrun's environment describes (NCCL
+on the card, gloo with --device cpu); --data_axis x --dcn_axis must equal
+the world size (both count data-parallel ranks here).  Refused with a
+message naming their slice: --model_axis > 1 (tensor parallelism),
+--partition spatial (spatial sharding), remat.
 """
 
 from __future__ import annotations
@@ -17,13 +26,10 @@ import dataclasses
 import sys
 from typing import List, Optional
 
-from deepsee_torch.config import get_preset
+from deepsee_torch.config import MeshConfig, get_preset
 
 # flag -> the slice it waits for
 _LATER = {
-    "data_axis": "the multi-GPU slice", "model_axis": "the multi-GPU slice",
-    "dcn_axis": "the multi-GPU slice", "multihost": "the multi-GPU slice",
-    "partition": "the multi-GPU slice",
     "remat": "a later PR (a recompute would advance the batch statistics twice)",
     "remat_policy": "a later PR (a recompute would advance the batch statistics twice)",
 }
@@ -69,24 +75,49 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--reuse_fake", action="store_true",
                    help="train D on the G step's fake instead of regenerating it with the "
                         "updated G (an opt-in deviation from the reference's schedule)")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for flag in ("partition", "remat_policy"):
-        p.add_argument(f"--{flag}", default=None, help=f"not ported: {_LATER[flag]}")
-    for flag in ("data_axis", "model_axis", "dcn_axis"):
-        p.add_argument(f"--{flag}", type=int, default=None, help=f"not ported: {_LATER[flag]}")
-    for flag in ("multihost", "remat"):
-        p.add_argument(f"--{flag}", action="store_true", default=None,
-                       help=f"not ported: {_LATER[flag]}")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; cuda:LOCAL_RANK with --multihost) or cpu")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the process group of torchrun's environment (NCCL on the card, "
+                        "gloo on the CPU); one process per card, batch_size stays global")
+    p.add_argument("--data_axis", type=int, default=1,
+                   help="data-parallel ranks (with --dcn_axis: their product is the world)")
+    p.add_argument("--dcn_axis", type=int, default=1,
+                   help="data-parallel ranks across hosts; here the same as --data_axis")
+    p.add_argument("--model_axis", type=int, default=1,
+                   help="only 1: tensor parallelism belongs to a later slice")
+    p.add_argument("--partition", default="tensor", choices=("tensor", "spatial"),
+                   help="only tensor: spatial sharding belongs to a later slice")
+    p.add_argument("--remat_policy", default=None, help=f"not ported: {_LATER['remat_policy']}")
+    p.add_argument("--remat", action="store_true", default=None,
+                   help=f"not ported: {_LATER['remat']}")
     args = p.parse_args(argv)
     for flag, slice_name in _LATER.items():
         if getattr(args, flag) is not None:
             p.error(f"--{flag} belongs to {slice_name} of the port, which this package "
                     "does not have yet")
+    try:
+        mesh_config(args).check_ported()
+    except NotImplementedError as e:
+        p.error(f"--{e}")
     return args
+
+
+def mesh_config(args: argparse.Namespace) -> MeshConfig:
+    return MeshConfig(data_axis=args.data_axis, model_axis=args.model_axis,
+                      partition=args.partition, dcn_axis=args.dcn_axis)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
+    from deepsee_torch.parallel import distributed
+
+    with distributed.joined(args.multihost, args.device) as device:
+        return _train(args, device)
+
+
+def _train(args: argparse.Namespace, device) -> int:
+    from deepsee_torch.parallel import distributed
     from deepsee_torch.train.loop import Trainer
 
     exp = get_preset(args.name)
@@ -109,10 +140,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     model = exp.model
     if args.compute_dtype:
         model = dataclasses.replace(model, compute_dtype=args.compute_dtype)
-    exp = exp.replace(data=data, train=train, model=model, checkpoints_dir=args.checkpoints_dir)
-    trainer = Trainer(exp, device=args.device, continue_train=args.continue_train)
+    exp = exp.replace(data=data, train=train, model=model, mesh=mesh_config(args),
+                      checkpoints_dir=args.checkpoints_dir)
+    trainer = Trainer(exp, device=device, continue_train=args.continue_train)
     state = trainer.run(max_steps=args.max_steps)
-    print(f"trained {state.step} steps on {trainer.system.device}")
+    if distributed.is_main_process():
+        print(f"trained {state.step} steps on {trainer.system.device}")
     return 0
 
 

@@ -17,6 +17,15 @@ default `make_dataloader()`'s over the preset's dataset (the synthetic one
 with dataset="synthetic"), shuffled every epoch from the training seed; any
 iterable of NHWC numpy batch dicts with a length will do.  Each batch is
 copied to the card while the step before it runs (data/device.py).
+
+Data parallelism (deepsee_tpu/train/loop.py:46-63, :87-108): under a process
+group of W ranks (torchrun, one process per card; `python -m
+deepsee_torch.train --multihost`) batch_size is the global batch; each rank
+reads a disjoint stripe of every globally shuffled epoch, batch_size / W
+samples per step, on its own card (cuda:LOCAL_RANK unless a device is
+given).  Only rank 0 prints, displays and writes the run directory, and a
+barrier follows each save; each rank evaluates its stripe of
+num_evaluation_samples / W samples, and the evaluator gathers the rows.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch
 from deepsee_torch.config import Experiment
 from deepsee_torch.data import DataLoader, DevicePrefetcher, create_dataset
 from deepsee_torch.eval.evaluator import InferenceEvaluator, evaluate_set, get_validation_loader
+from deepsee_torch.parallel import distributed
 from deepsee_torch.system import SRSystem
 from deepsee_torch.train.state import TrainState, create_train_state, set_epoch_lr
 from deepsee_torch.train.steps import make_train_step
@@ -44,6 +54,9 @@ class Trainer:
                  continue_train: bool = False):
         if not exp.is_train:
             raise ValueError("Trainer needs a training experiment (is_train=True)")
+        check_data_parallel(exp, distributed.world_size())
+        if device is None and distributed.world_size() > 1:
+            device = distributed.local_device()
         self.exp = exp
         self.continue_train = continue_train
         self.system = SRSystem(exp, device=device)
@@ -51,18 +64,21 @@ class Trainer:
         self.ckpt = CheckpointManager(exp)
         if continue_train and self.ckpt.exists("latest"):
             self.ckpt.restore(self.state, "latest")
-            print(f"Restored checkpoint at step {self.state.step}")
+            if distributed.is_main_process():
+                print(f"Restored checkpoint at step {self.state.step}")
         self.step_gd = make_train_step(self.system, do_g=True)
         self.step_d = (make_train_step(self.system, do_g=False)
                        if exp.train.d_steps_per_g > 1 else None)
 
     def make_dataloader(self) -> DataLoader:
         """The training loader (deepsee_tpu/train/loop.py:87-99): the
-        preset's dataset, shuffled every epoch from the training seed; one
-        process reads stripe 0 of 1."""
+        preset's dataset, shuffled every epoch from the training seed; each
+        rank reads its stripe, its share of the global batch per step."""
         tc = self.exp.train
-        return DataLoader(create_dataset(self.exp, phase="train"), tc.batch_size, shuffle=True,
-                          drop_last=True, seed=tc.seed, shard_index=0, num_shards=1)
+        return DataLoader(create_dataset(self.exp, phase="train"),
+                          distributed.per_rank_batch(tc.batch_size), shuffle=True,
+                          drop_last=True, seed=tc.seed, shard_index=distributed.rank(),
+                          num_shards=distributed.world_size())
 
     def _eval_loader(self, dataloader):
         """The periodic training-set evaluation's loader, apart from the live
@@ -75,15 +91,17 @@ class Trainer:
         if dataset is None:
             return dataloader
         tc = self.exp.train
-        return DataLoader(copy.copy(dataset), tc.batch_size, shuffle=True,
-                          drop_last=True, seed=tc.seed + 7919, num_workers=2, prefetch=0,
-                          shard_index=0, num_shards=1)
+        return DataLoader(copy.copy(dataset), distributed.per_rank_batch(tc.batch_size),
+                          shuffle=True, drop_last=True, seed=tc.seed + 7919, num_workers=2,
+                          prefetch=0, shard_index=distributed.rank(),
+                          num_shards=distributed.world_size())
 
     def run(self, dataloader=None, max_steps: Optional[int] = None) -> TrainState:
         """Train over `dataloader` (by default `make_dataloader()`; any
         iterable of NHWC numpy batch dicts with a length, iterated once per
         epoch) until the last epoch or `max_steps`."""
         exp, tc = self.exp, self.exp.train
+        main = distributed.is_main_process()
         if dataloader is None:
             dataloader = self.make_dataloader()
         steps_per_epoch = len(dataloader)
@@ -107,15 +125,16 @@ class Trainer:
                     step_fn = self.step_gd if do_g or self.step_d is None else self.step_d
                     logs = step_fn(self.state, batch)
                     counter.record_one_iteration()
-                    if counter.needs_printing():
+                    if counter.needs_printing() and main:
                         visualizer.print_current_errors(
                             epoch, counter.epoch_iter, {k: float(v) for k, v in logs.items()},
                             counter.time_per_iter)
-                    if counter.needs_displaying():
+                    if counter.needs_displaying() and main:
                         self._display(visualizer, batch, epoch, counter.total_steps_so_far)
                     if counter.needs_saving():
                         self.ckpt.save(self.state, "latest")
                         counter.record_current_iter()
+                        distributed.barrier()
                     if counter.needs_evaluation() and epoch >= tc.evaluation_start_epoch:
                         if evaluator is None:
                             evaluator = InferenceEvaluator(
@@ -137,8 +156,10 @@ class Trainer:
                 counter.record_epoch_end()
                 if epoch % tc.save_epoch_freq == 0:
                     self.ckpt.save(self.state, str(epoch))
+                    distributed.barrier()
         except KeyboardInterrupt:
-            print("Interrupted: saving 'latest' before exit (train.py:119-127)")
+            if main:
+                print("Interrupted: saving 'latest' before exit (train.py:119-127)")
             raise
         except Exception:
             traceback.print_exc()
@@ -149,7 +170,8 @@ class Trainer:
                 counter.record_current_iter()
             except Exception as e:  # noqa: BLE001 - report, keep the first error
                 print(f"crash-save failed: {e}")
-        print("Training was successfully finished.")
+        if main:
+            print("Training was successfully finished.")
         return self.state
 
     def _display(self, visualizer: Visualizer, batch: Dict, epoch: int, step: int) -> None:
@@ -168,3 +190,18 @@ class Trainer:
                    "synthesized_image": fake, "real_image": pre["image_hr"]}
         visualizer.display_current_results(
             {k: np.asarray(v[0].float().cpu()) for k, v in visuals.items()}, epoch, step)
+
+
+def check_data_parallel(exp: Experiment, world: int) -> None:
+    """Raise unless the port runs `exp` over `world` ranks: a layout it has
+    (`MeshConfig.check_ported`: data parallelism only) whose data-parallel
+    ranks, data_axis x dcn_axis, are the world's processes.  (A train-mode
+    encoder or discriminator batch norm refuses a world > 1 itself:
+    `TorchBatchNorm`.)"""
+    mesh = exp.mesh
+    mesh.check_ported()
+    ranks = mesh.data_axis * mesh.dcn_axis
+    if min(mesh.data_axis, mesh.dcn_axis) < 1 or ranks != world:
+        raise ValueError(f"data_axis {mesh.data_axis} x dcn_axis {mesh.dcn_axis} = {ranks} "
+                         f"data-parallel ranks, but the world has {world} process(es); start "
+                         f"{ranks} with torchrun --nproc_per_node {ranks} ... --multihost")

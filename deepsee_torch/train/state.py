@@ -13,7 +13,10 @@
 The state holds the system (its networks carry the weights, running
 statistics and spectral u/v), both optimizers, the step and epoch counts,
 and the two explicit random generators of the step: a CPU one for the
-host coins and one on the device for the noise.
+host coins and one on the device for the noise.  Under a process group
+every rank seeds both alike and takes G's, E's and D's parameters and
+buffers from rank 0 (`broadcast_networks`) after creation and after a
+restore.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from deepsee_torch.config import TrainConfig
 from deepsee_torch.models.vgg import load_vgg19_state_dict
+from deepsee_torch.parallel import distributed
 from deepsee_torch.system import SRSystem
 
 MINI_LR_SCALE = 0.25
@@ -107,14 +111,23 @@ def load_vgg_weights(system: SRSystem, path: str) -> None:
     system.vgg.load_state_dict(load_vgg19_state_dict(path), strict=True)
 
 
+def broadcast_networks(system: SRSystem) -> None:
+    """G's, E's and D's parameters and buffers (running statistics, spectral
+    u/v) set to rank 0's on every rank; nothing in one process."""
+    for net in (system.generator, system.encoder, system.discriminator):
+        if net is not None:
+            distributed.broadcast_module_state(net)
+
+
 def create_train_state(system: SRSystem, *, init: bool = True) -> TrainState:
     """Seeded weights (unless init=False: the caller loads them), the VGG
     weights, both optimizers and the step's generators, all from
-    exp.train.seed."""
+    exp.train.seed; under a process group, the networks then rank 0's."""
     tc = system.exp.train
     if init:
         system.init(torch.Generator().manual_seed(tc.seed))
     load_vgg_weights(system, tc.vgg_weights)
+    broadcast_networks(system)
     return TrainState(system=system, opt_g=make_g_optimizer(system, tc),
                       opt_d=make_d_optimizer(system, tc),
                       coin_rng=torch.Generator().manual_seed(tc.seed + 1),

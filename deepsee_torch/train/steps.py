@@ -17,6 +17,18 @@ loop order, train.py:40-44):
     device generator.
 
 Preprocessing (one-hot, HR -> LR) runs inside the step, under torch.no_grad.
+
+Data parallelism (under a process group of W ranks, each holding its rows of
+the global batch): the generator's batch norms take their statistics from
+every rank's rows (models/normalization.py), each optimizer's gradients are
+averaged over the ranks between `torch.autograd.grad` and the optimizer
+step (`distributed.all_reduce_grads`), and the logs returned are the ranks'
+means, as the JAX package's are over the global batch.  The step takes its
+gradients with torch.autograd.grad over chosen parameters, and D runs twice
+per G step (in the G step's loss and its own), so DistributedDataParallel's
+hooks on .backward() do not fit it.  The coins come from the state's CPU
+generator, seeded alike on every rank, so every rank draws the same coins
+and runs the same launches, collectives included, in the same order.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from deepsee_torch.losses import feature_matching_loss, gan_loss, vgg_loss
+from deepsee_torch.parallel import distributed
 from deepsee_torch.system import SRSystem, _nchw
 from deepsee_torch.train.state import TrainState, g_params
 
@@ -45,10 +58,12 @@ def draw_coins(system: SRSystem, generator: torch.Generator) -> Tuple[bool, bool
 def _step_optimizer(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor],
                     loss: torch.Tensor) -> None:
     """The gradient of `loss` with respect to `params` alone, zeros where a
-    parameter took no part (as jax.grad gives), then one optimizer step."""
+    parameter took no part (as jax.grad gives), averaged over the ranks,
+    then one optimizer step."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
+    distributed.all_reduce_grads(params)
     opt.step()
     opt.zero_grad(set_to_none=True)
 
@@ -102,6 +117,6 @@ def make_train_step(system: SRSystem, *, do_g: bool = True
                 fake = g_fake
         logs.update(d_update(state, pre, fake))
         state.step += 1
-        return {k: v.detach() for k, v in logs.items()}
+        return distributed.all_reduce_mean({k: v.detach() for k, v in logs.items()})
 
     return step

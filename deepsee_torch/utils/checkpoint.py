@@ -10,6 +10,10 @@ renamed, so a crash never leaves half a file.
 Replaces deepsee_tpu/utils/checkpoint.py's Orbax checkpoints of the whole
 TrainState (the card's machine has no Orbax), with the files of
 torch_import.export_reference_checkpoint.
+
+Under a process group only rank 0 writes (the ranks hold the same state);
+every rank reads the same files, and a restore then takes the networks from
+rank 0.  The caller puts a barrier after a save where other ranks may read.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ import os
 import torch
 
 from deepsee_torch.config import Experiment
-from deepsee_torch.train.state import TrainState
+from deepsee_torch.parallel import distributed
+from deepsee_torch.train.state import TrainState, broadcast_networks
 from deepsee_torch.weights import load_reference_checkpoint, save_reference_checkpoint
 
 
@@ -36,6 +41,8 @@ class CheckpointManager:
         return os.path.exists(self._state_path(tag))
 
     def save(self, state: TrainState, tag: str = "latest") -> None:
+        if not distributed.is_main_process():
+            return
         os.makedirs(self.dir, exist_ok=True)
         if not self._config_written:
             with open(os.path.join(self.dir, "config.json"), "w") as f:
@@ -62,4 +69,5 @@ class CheckpointManager:
         state.opt_d.load_state_dict(saved["opt_d"])
         state.step, state.epoch = int(saved["step"]), int(saved["epoch"])
         state.load_generators_state({k: v.cpu() for k, v in saved["generators"].items()})
+        broadcast_networks(state.system)
         return state

@@ -1,6 +1,6 @@
 """Epoch/iteration bookkeeping with resume support: an own copy of
-deepsee_tpu/utils/iter_counter.py (reference: util/iter_counter.py), for one
-process.
+deepsee_tpu/utils/iter_counter.py (reference: util/iter_counter.py).  Under a
+process group only rank 0 writes its files (every rank keeps the counts).
 
 Tracks epochs, samples and wall time; persists `iter.txt` (epoch, sample
 within the epoch, samples so far) for continue_train; appends the
@@ -19,6 +19,7 @@ from typing import Iterator
 import numpy as np
 
 from deepsee_torch.config import Experiment
+from deepsee_torch.parallel import distributed
 
 
 class IterationCounter:
@@ -29,8 +30,10 @@ class IterationCounter:
         self.batch_size = tc.batch_size
         self.total_epochs = tc.niter + tc.niter_decay
         self.epoch_iter = 0  # samples into the current epoch
+        self.writes = distributed.is_main_process()
         self.checkpoints_dir = os.path.join(exp.checkpoints_dir, exp.name)
-        os.makedirs(self.checkpoints_dir, exist_ok=True)
+        if self.writes:
+            os.makedirs(self.checkpoints_dir, exist_ok=True)
         self.iter_record_path = os.path.join(self.checkpoints_dir, "iter.txt")
         self.first_epoch = 1
         self.total_steps_so_far = 0
@@ -64,17 +67,22 @@ class IterationCounter:
 
     def record_epoch_end(self) -> None:
         elapsed = time.time() - self.epoch_start_time
-        print(f"End of epoch {self.current_epoch} / {self.total_epochs} "
-              f"\t Time Taken: {elapsed:.0f} sec")
+        if self.writes:
+            print(f"End of epoch {self.current_epoch} / {self.total_epochs} "
+                  f"\t Time Taken: {elapsed:.0f} sec")
         self.record_current_iter()
 
     def record_current_iter(self) -> None:
+        if not self.writes:
+            return
         np.savetxt(self.iter_record_path,
                    (self.current_epoch, self.epoch_iter, self.total_steps_so_far),
                    delimiter=",", fmt="%d")
 
     def append_eval_history(self, filename: str, value) -> None:
         """One "epoch,samples so far,value" line of a history file."""
+        if not self.writes:
+            return
         with open(os.path.join(self.checkpoints_dir, filename), "a") as f:
             f.write(f"{self.current_epoch},{self.total_steps_so_far},{value}\n")
 
@@ -85,6 +93,8 @@ class IterationCounter:
                 f"total_steps_so_far={self.total_steps_so_far:010d},")
 
     def _append(self, filename: str, msg: str) -> str:
+        if not self.writes:
+            return msg
         with open(os.path.join(self.checkpoints_dir, filename), "a") as f:
             f.write(msg + os.linesep)
         print(msg)

@@ -3,7 +3,8 @@
 `loss_log.txt`, a self-refreshing HTML page of image rows under
 `<checkpoints>/<name>/web/`, and the evaluation's per-key image folders with
 a side-by-side strip (`save_images_only`).  Only the images need Pillow,
-imported where they are written."""
+imported where they are written.  Under a process group only rank 0 writes
+(and prints) the run directory's files."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 from deepsee_torch.config import Experiment
+from deepsee_torch.parallel import distributed
 from deepsee_torch.utils.images import label2im, save_image, tensor2im
 
 _HTML_HEADER = """<!DOCTYPE html><html><head>
@@ -28,13 +30,16 @@ font-family:monospace}} img{{max-width:256px}}</style></head><body>
 class Visualizer:
     def __init__(self, exp: Experiment):
         self.exp = exp
+        self.active = distributed.is_main_process()
         self.run_dir = os.path.join(exp.checkpoints_dir, exp.name)
         self.web_dir = os.path.join(self.run_dir, "web")
         self.img_dir = os.path.join(self.web_dir, "images")
         self.log_path = os.path.join(self.run_dir, "loss_log.txt")
-        os.makedirs(self.img_dir, exist_ok=True)
-        with open(self.log_path, "a") as f:
-            f.write(f"=============== Training Loss ({time.strftime('%c')}) ===============\n")
+        if self.active:
+            os.makedirs(self.img_dir, exist_ok=True)
+            with open(self.log_path, "a") as f:
+                f.write(f"=============== Training Loss ({time.strftime('%c')}) "
+                        "===============\n")
         self.rows: List[Dict] = []
 
     def _to_uint8(self, key: str, value: np.ndarray) -> np.ndarray:
@@ -46,6 +51,8 @@ class Visualizer:
     def display_current_results(self, visuals: Dict[str, np.ndarray], epoch: int,
                                 step: int) -> None:
         """visuals: (H, W, C) arrays in [-1, 1], or label maps."""
+        if not self.active:
+            return
         files = {}
         for key, value in visuals.items():
             fname = f"epoch{epoch:03d}_step{step}_{key}.png"
@@ -63,6 +70,8 @@ class Visualizer:
 
     def print_current_errors(self, epoch: int, i: int, errors: Dict[str, float],
                              time_per_sample: float) -> None:
+        if not self.active:
+            return
         message = (f"(epoch: {epoch}, iters: {i}, "
                    f"samples/sec: {1.0 / max(time_per_sample, 1e-9):.3f}) ")
         for k, v in errors.items():

@@ -1,0 +1,356 @@
+"""One rank of the port's data-parallel tests (tests/test_torch_dist_*.py).
+
+    python tests/_torch_dist_worker.py OUT_DIR TASK[,TASK...]
+
+with torchrun's variables set by the spawning test (RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR, MASTER_PORT) and CLI_PORTS.  It runs torch on one
+intra-op thread, joins a gloo process group on the CPU for the tasks other
+than "cli", runs them, leaves the group, then runs the "cli" task where
+asked, and saves what the tasks return to OUT_DIR/rank<R>.pt.  The "cli"
+task joins no group itself: the CLIs do, with --multihost, each on its own
+port of CLI_PORTS.
+
+Imports no deepsee_tpu: a worker is a process of the port alone.  The
+functions that make a task's run (`step_run`, `eval_run`, ...) are also
+called by the tests in one process, for the comparison.
+"""
+
+from __future__ import annotations
+
+import builtins
+import dataclasses
+import itertools
+import os
+import sys
+import warnings
+
+import torch
+
+_TESTS = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [_TESTS, os.path.dirname(_TESTS)]  # torch_seeded; the repository's packages
+
+from deepsee_torch.config import MeshConfig, tiny_test_experiment  # noqa: E402
+from deepsee_torch.data import DataLoader, SyntheticDataset  # noqa: E402
+from deepsee_torch.eval.evaluator import InferenceEvaluator  # noqa: E402
+from deepsee_torch.models import encoder as tenc  # noqa: E402
+from deepsee_torch.models import layers as tlayers  # noqa: E402
+from deepsee_torch.parallel import distributed  # noqa: E402
+from deepsee_torch.system import SRSystem  # noqa: E402
+from deepsee_torch.train import state as tstate  # noqa: E402
+from deepsee_torch.train import steps as tsteps  # noqa: E402
+from torch_seeded import COINS, SGD_LR, batch_for, normal_for, uniform_for  # noqa: E402
+
+GLOBAL_BATCH = 4
+STEPS = 2
+EVAL_SAMPLES = 8
+EVAL_BATCH = 2
+TRAIN_SAMPLES = 8          # one epoch of the trainer task: 8 / 4 = 2 steps
+
+
+def rows(batch, rank: int, world: int):
+    """This rank's contiguous rows of a global numpy batch."""
+    n = next(iter(batch.values())).shape[0] // world
+    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+
+
+def snapshot(system: SRSystem):
+    """G's, E's and D's parameters and buffers, cloned."""
+    nets = {"g": system.generator, "e": system.encoder, "d": system.discriminator}
+    return {net: {k: v.detach().clone() for k, v in m.state_dict().items()}
+            for net, m in nets.items()}
+
+
+class _Patches:
+    """Attribute replacements undone on exit."""
+
+    def __init__(self, *triples):
+        self.triples, self.saved = triples, []
+
+    def __enter__(self):
+        for obj, name, value in self.triples:
+            self.saved.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, value)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in reversed(self.saved):
+            setattr(obj, name, value)
+
+
+def _sgd():
+    return ((tstate, "make_g_optimizer",
+             lambda system, tc: torch.optim.SGD(tstate.g_params(system), lr=SGD_LR)),
+            (tstate, "make_d_optimizer",
+             lambda system, tc: torch.optim.SGD(system.discriminator.parameters(), lr=SGD_LR)))
+
+
+def _seeded_draws():
+    """Coins fixed to COINS and noise as numpy functions of the global
+    draw's shape, each rank keeping its rows (tests/torch_step_parity.py
+    feeds the same numbers to both packages)."""
+    pairs = itertools.cycle(COINS)
+
+    def draw(values):
+        return lambda shape, device: distributed.rank_rows(
+            lambda s: torch.from_numpy(values(s)).to(device), shape)
+
+    normal, uniform = draw(normal_for), draw(uniform_for)
+    return ((tsteps, "draw_coins", lambda system, generator: next(pairs)),
+            (tlayers, "draw_injection_noise",
+             lambda shape, generator, device: normal(shape, device)),
+            (tenc, "draw_noise", lambda shape, dist, generator, device:
+             (uniform if dist == "uniform" else normal)(shape, device)))
+
+
+def nudge(system: SRSystem, ulps: int, seed: int) -> None:
+    """Scale every G, E and D parameter by (1 + ulps * 2^-23 * r), r ~ N(0,
+    1) drawn from `seed`: a change at float32's rounding level (as
+    chip_smoke.py's `_nudge`)."""
+    generator = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for net in (system.generator, system.encoder, system.discriminator):
+            for p in net.parameters():
+                p.mul_(1 + ulps * 2.0 ** -23 * torch.randn(p.shape, generator=generator))
+
+
+def load_weights(system: SRSystem, weights) -> None:
+    """`weights` (state dicts of g, e, d, vgg) into the system; noise
+    injection weights they lack (a model saved without it) drawn N(0, 0.1^2)
+    from a fixed seed, so that the injected noise reaches the output."""
+    generator = torch.Generator().manual_seed(11)
+    for net, module in system.networks().items():
+        missing, unexpected = module.load_state_dict(weights[net], strict=False)
+        if unexpected or any(".noise_" not in k for k in missing):
+            raise KeyError(f"{net}: missing {missing}, unexpected {unexpected}")
+        with torch.no_grad():
+            for key in missing:
+                t = module.get_parameter(key)
+                t.copy_(0.1 * torch.randn(t.shape, generator=generator))
+
+
+def step_run(weights=None, model=(), seeded_draws: bool = False, nudge_seed=None):
+    """STEPS faithful steps of the tiny independent model with SGD on this
+    rank's rows of the global batch (GLOBAL_BATCH): from `weights` (state
+    dicts of g, e, d, vgg) or the seeded init, nudged by one ulp from
+    `nudge_seed` where it is given, with
+    COINS and numpy noise (`seeded_draws`) or the state's own generators.
+    Returns per step the logs and the snapshot after it, and the coins
+    drawn."""
+    exp = tiny_test_experiment()
+    exp = exp.replace(model=dataclasses.replace(exp.model, **dict(model)))
+    system = SRSystem(exp, device="cpu")
+    coins = []
+    draw = tsteps.draw_coins
+    patches = _sgd() + (_seeded_draws() if seeded_draws else (
+        (tsteps, "draw_coins", lambda s, g: coins.append(draw(s, g)) or coins[-1]),))
+    with _Patches(*patches), warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random-VGG warning
+        if weights is not None:
+            load_weights(system, weights)
+        state = tstate.create_train_state(system, init=weights is None)
+        if nudge_seed is not None:
+            nudge(system, 1, nudge_seed)
+        step = tsteps.make_train_step(system)
+        batch = rows(batch_for(exp.model, False, batch=GLOBAL_BATCH), distributed.rank(),
+                     distributed.world_size())
+        out = []
+        for _ in range(STEPS):
+            logs = step(state, batch)
+            out.append(({k: float(v) for k, v in logs.items()}, snapshot(system)))
+    return {"steps": out, "coins": coins}
+
+
+def eval_system():
+    exp = tiny_test_experiment().replace(is_train=False)
+    system = SRSystem(exp, device="cpu")
+    system.init(torch.Generator().manual_seed(0))
+    return exp, system
+
+
+def eval_run(order=None):
+    """The evaluator on EVAL_SAMPLES synthetic samples at batch EVAL_BATCH
+    with FID and LPIPS (seeded random networks): this rank's stripe of them
+    in file order, or in one process the samples `order` lists."""
+    exp, system = eval_system()
+    dataset = SyntheticDataset(exp, length=EVAL_SAMPLES)
+    if order is not None:
+        dataset = _Reordered(dataset, order)
+    loader = DataLoader(dataset, EVAL_BATCH, shuffle=False, drop_last=True, num_workers=1,
+                        shard_index=distributed.rank(), num_shards=distributed.world_size())
+    ev = InferenceEvaluator(system, EVAL_SAMPLES)
+    result = ev.run(loader)
+    result.pop("eval_seconds")
+    return result
+
+
+class _Reordered:
+    def __init__(self, dataset, order):
+        self.dataset, self.order = dataset, list(order)
+
+    def __len__(self):
+        return len(self.order)
+
+    def __getitem__(self, i):
+        return self.dataset[self.order[i]]
+
+
+def trainer_exp(root: str):
+    """The trainer task's experiment, laid out over this process's world."""
+    exp = tiny_test_experiment(checkpoints_dir=root)
+    return exp.replace(mesh=MeshConfig(data_axis=distributed.world_size()),
+                       train=dataclasses.replace(
+                           exp.train, batch_size=GLOBAL_BATCH, niter=1, niter_decay=0,
+                           print_freq=GLOBAL_BATCH, save_latest_freq=GLOBAL_BATCH,
+                           display_freq=10 ** 9, evaluation_freq=0))
+
+
+def _trainer_task(out_dir: str):
+    """One epoch of `Trainer.run` over TRAIN_SAMPLES synthetic samples, with
+    the paths of each step's rows and every file this rank opened for
+    writing (or directory it made) under the run's root."""
+    from deepsee_torch.train import loop
+
+    root = os.path.join(out_dir, "ckpt")
+    exp = trainer_exp(root)
+    writes, seen = [], []
+    real_open, real_makedirs = builtins.open, os.makedirs
+
+    def recording_open(file, mode="r", *a, **k):
+        if any(c in mode for c in "wax+") and str(file).startswith(root):
+            writes.append(str(file))
+        return real_open(file, mode, *a, **k)
+
+    def recording_makedirs(name, *a, **k):
+        if str(name).startswith(root):
+            writes.append(str(name))
+        return real_makedirs(name, *a, **k)
+
+    dataset = lambda exp_, phase=None: SyntheticDataset(exp_, length=TRAIN_SAMPLES)  # noqa: E731
+    with _Patches((builtins, "open", recording_open), (os, "makedirs", recording_makedirs),
+                  (loop, "create_dataset", dataset)), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        trainer = loop.Trainer(exp, device="cpu")
+        step = trainer.step_gd
+
+        def recording_step(state, batch):
+            seen.append(list(batch["path"]))
+            return step(state, batch)
+
+        trainer.step_gd = recording_step
+        state = trainer.run()
+    return {"paths": seen, "writes": writes, "step": state.step,
+            "snapshot": snapshot(trainer.system), "opt_g": state.opt_g.state_dict(),
+            "opt_d": state.opt_d.state_dict()}
+
+
+def _cli_task(out_dir: str):
+    """The training and evaluation CLIs with --multihost on the tiny
+    configuration (each joins and leaves its own process group)."""
+    from deepsee_torch import evaluate as eval_cli
+    from deepsee_torch.train import __main__ as train_cli
+
+    tiny = lambda name: tiny_test_experiment().replace(name=name)  # noqa: E731
+    root = os.path.join(out_dir, "cli")
+    train_port, eval_port = os.environ["CLI_PORTS"].split(",")
+    with _Patches((train_cli, "get_preset", tiny), (eval_cli, "get_preset", tiny)), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        os.environ["MASTER_PORT"] = train_port
+        code = train_cli.main(["--name", "tiny", "--multihost", "--data_axis", "2", "--device",
+                               "cpu", "--synthetic", "--batch_size", str(GLOBAL_BATCH),
+                               "--max_steps", "1", "--checkpoints_dir", root])
+        os.environ["MASTER_PORT"] = eval_port
+        result = eval_cli.main(["--name", "tiny", "--multihost", "--device", "cpu",
+                                "--synthetic", "--no_checkpoint", "--no_fid", "--no_lpips",
+                                "--batch_size", "2", "--num_samples", "8"])
+    return {"train_exit": code, "eval": result}
+
+
+def _step_task(out_dir: str):
+    weights = torch.load(os.path.join(out_dir, "weights.pt"), weights_only=True)
+    return {"seeded": step_run(weights, model=dict(add_noise=False), seeded_draws=True),
+            "noise": step_run(weights)}
+
+
+TASKS = {"step": _step_task, "eval": lambda out_dir: eval_run(), "trainer": _trainer_task}
+
+
+def free_ports(n: int):
+    """`n` distinct ports that were free a moment ago."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+class Spawned:
+    """This file started as `world` ranks on localhost (fresh ports), each
+    rank's output in OUT_DIR/rank<R>.log; `results` waits for them."""
+
+    def __init__(self, out_dir: str, tasks, world: int = 2):
+        import subprocess
+
+        port, *cli_ports = free_ports(3)
+        self.out_dir, self.world, self.procs, self.logs = out_dir, world, [], []
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       CLI_PORTS=",".join(map(str, cli_ports)), OMP_NUM_THREADS="1")
+            self.logs.append(os.path.join(out_dir, f"rank{rank}.log"))
+            with open(self.logs[-1], "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), out_dir, ",".join(tasks)],
+                    env=env, stdout=log, stderr=subprocess.STDOUT))
+
+    def results(self, timeout: float = 150.0):
+        """Wait for every rank; the first to fail, or the timeout, ends them
+        all and raises with their output.  Each rank's results and output."""
+        import time
+
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in self.procs):
+                if any(p.returncode for p in self.procs) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)
+        finally:
+            for proc in self.procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+        outputs = []
+        for path in self.logs:
+            with open(path) as f:
+                outputs.append(f.read())
+        if any(p.returncode for p in self.procs):
+            raise RuntimeError("data-parallel workers failed: " + repr(
+                [(r, p.returncode, o[-4000:]) for r, (p, o) in
+                 enumerate(zip(self.procs, outputs))]))
+        return [torch.load(os.path.join(self.out_dir, f"rank{r}.pt"), weights_only=False)
+                for r in range(self.world)], outputs
+
+
+def main() -> None:
+    out_dir, tasks = sys.argv[1], sys.argv[2].split(",")
+    torch.set_num_threads(1)
+    grouped = [task for task in tasks if task != "cli"]
+    results = {}
+    if grouped:
+        distributed.init_distributed("gloo", device="cpu")
+        try:
+            results = {task: TASKS[task](out_dir) for task in grouped}
+        finally:
+            torch.distributed.destroy_process_group()
+    if "cli" in tasks:
+        results["cli"] = _cli_task(out_dir)
+    torch.save(results, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,107 @@
+"""The data-parallel layer's refusals and one-process behaviour, without
+processes (the CLIs over two ranks: tests/test_torch_dist_trainer.py):
+`--data_axis` without a world of its size, tensor parallelism, spatial
+sharding and cross-rank encoder / discriminator batch norms are refused,
+each naming its slice; without a process group every function of
+deepsee_torch.parallel is the one-process identity."""
+
+import dataclasses
+
+import pytest
+import torch
+
+from deepsee_torch.config import MeshConfig, tiny_test_experiment
+from deepsee_torch.models.layers import TorchBatchNorm
+from deepsee_torch.parallel import distributed
+from deepsee_torch.system import SRSystem
+from deepsee_torch.train import __main__ as cli
+from deepsee_torch.train.loop import check_data_parallel
+
+
+def test_data_axis_needs_a_world_of_its_size(monkeypatch):
+    monkeypatch.setattr(cli, "get_preset", lambda name: tiny_test_experiment())
+    for flags, ranks in ((["--data_axis", "2"], 2), (["--data_axis", "2", "--dcn_axis", "2"], 4)):
+        with pytest.raises(ValueError, match=f"= {ranks} data-parallel ranks, but the world "
+                                             "has 1 process"):
+            cli.main(flags + ["--synthetic", "--device", "cpu", "--max_steps", "1"])
+    # the Trainer holds the layout it is given to the same rule
+    check_data_parallel(tiny_test_experiment(), 1)
+    for mesh, world in ((MeshConfig(data_axis=2), 1), (MeshConfig(), 2),
+                        (MeshConfig(data_axis=-1, dcn_axis=-2), 2)):
+        with pytest.raises(ValueError, match="data-parallel ranks, but the world has"):
+            check_data_parallel(tiny_test_experiment().replace(mesh=mesh), world)
+
+
+@pytest.mark.parametrize("flags,slice_name", [
+    (["--model_axis", "2"], "tensor-parallel slice"),
+    (["--partition", "spatial"], "spatial-sharding slice")])
+def test_layouts_of_later_slices_are_refused(capsys, flags, slice_name):
+    with pytest.raises(SystemExit):
+        cli.parse_args(flags + ["--synthetic"])
+    assert slice_name in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("field,norm", [("norm_e", "spectralsync_batch"),
+                                        ("norm_d", "spectralbatch"), ("norm_e", "batch")])
+def test_encoder_and_discriminator_batch_norms_wait_for_their_slice(monkeypatch, field, norm):
+    exp = tiny_test_experiment()
+    exp = exp.replace(model=dataclasses.replace(exp.model, **{field: norm}))
+    net = getattr(SRSystem(exp, device="cpu"), "encoder" if field == "norm_e" else
+                  "discriminator")
+    bns = [m for m in net.modules() if isinstance(m, TorchBatchNorm)]
+    assert bns, f"{field}={norm!r} builds no batch norm"
+    x = torch.randn(2, bns[0].running_mean.numel(), 4, 4)
+    bns[0].train()(x)  # one process trains them
+    monkeypatch.setattr(distributed, "world_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="encoder and discriminator batch-norm slice"):
+        bns[0](x)
+
+
+@pytest.mark.parametrize("mesh,slice_name", [
+    (MeshConfig(model_axis=2), "tensor-parallel slice"),
+    (MeshConfig(partition="spatial"), "spatial-sharding slice")])
+def test_trainer_refuses_the_layouts_of_later_slices(mesh, slice_name):
+    with pytest.raises(NotImplementedError, match=slice_name):
+        check_data_parallel(tiny_test_experiment().replace(mesh=mesh), 1)
+
+
+def test_one_process_is_the_identity():
+    assert (distributed.world_size(), distributed.rank()) == (1, 0)
+    assert distributed.is_main_process()
+    assert distributed.per_rank_batch(6) == 6
+    draws = []
+    out = distributed.rank_rows(lambda s: draws.append(s) or torch.zeros(s), (3, 2))
+    assert draws == [(3, 2)] and out.shape == (3, 2)
+    rows = {"a": torch.arange(6.0).reshape(3, 2)}
+    assert torch.equal(distributed.gather_rows(rows, 2, 4)["a"], rows["a"][:2])
+    grads = [torch.nn.Parameter(torch.ones(2))]
+    grads[0].grad = torch.full((2,), 3.0)
+    distributed.all_reduce_grads(grads)
+    assert torch.equal(grads[0].grad, torch.full((2,), 3.0))
+    logs = {"x": torch.tensor(1.5)}
+    assert distributed.all_reduce_mean(logs) is logs
+
+
+def test_per_rank_batch_needs_a_divisible_global_batch(monkeypatch):
+    monkeypatch.setattr(distributed, "world_size", lambda: 3)
+    assert distributed.per_rank_batch(6) == 2
+    with pytest.raises(ValueError, match="not divisible by 3 processes"):
+        distributed.per_rank_batch(4)
+
+
+def test_rank_rows_keeps_this_ranks_rows_of_the_global_draw(monkeypatch):
+    monkeypatch.setattr(distributed, "world_size", lambda: 2)
+    monkeypatch.setattr(distributed, "rank", lambda: 1)
+    full = torch.arange(24.0).reshape(4, 3, 2)
+    got = distributed.rank_rows(lambda s: full[:s[0]], (2, 3, 2))
+    assert torch.equal(got, full[2:4])
+
+
+def test_init_needs_torchrun_and_a_card(monkeypatch):
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        distributed.init_distributed()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda:0"):
+        distributed.local_device()

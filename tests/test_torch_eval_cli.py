@@ -69,8 +69,7 @@ def test_default_checkpoint_is_the_trainers(tiny, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--multihost", "--synthetic"], "multi-GPU"),
-    (["--int8", "--synthetic"], "K4")])
+    (["--int8", "--synthetic"], "K4"), (["--int8", "--multihost", "--synthetic"], "K4")])
 def test_refusals_name_their_slice(capsys, flags, slice_name):
     with pytest.raises(SystemExit):
         cli.parse_args(flags)

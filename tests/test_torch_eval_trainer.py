@@ -18,7 +18,7 @@ from deepsee_tpu.config import tiny_test_experiment as jax_tiny
 from deepsee_tpu.utils.iter_counter import IterationCounter as JaxCounter
 from deepsee_torch.config import tiny_test_experiment as torch_tiny
 from deepsee_torch.train import loop
-from torch_data_corpus import write_tree
+from torch_data_corpus import one_torch_thread, write_tree  # noqa: F401 (autouse)
 
 STAMP = re.compile(r"^time=\d{4}/\d\d/\d\d-\d\d:\d\d:\d\d,")
 

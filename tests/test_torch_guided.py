@@ -35,6 +35,7 @@ from deepsee_torch.models import generator as tgen
 from deepsee_torch.models.encoder import FullStyleEncoder
 from deepsee_torch.system import SRSystem
 from test_torch_layers import load, nchw, nhwc, realistic_variables
+from torch_data_corpus import one_torch_thread  # noqa: F401 (autouse)
 
 NORMS = ["spectrallateseansyncbatch3x3", "spectrallateseaninstance3x3"]
 GUIDED = dict(net_e="fullstyle", guiding_style_image=True, noisy_style_scale=0.05)

@@ -507,3 +507,132 @@ def test_prefetched_batches_equal_blocking_copies(cuda_device):
                 want = torch.from_numpy(h[key]).to(cuda_device)
                 assert g[key].dtype == want.dtype and g[key].is_cuda
                 assert torch.equal(g[key], want), key
+
+
+# K1's batch modes split around the cross-rank collective: launch A (the
+# statistics), launch B (the merge of the ranks' rows and the apply), the
+# backward's sums and its elementwise pass, at the generator's batch shapes
+# of the b16 step (16 rows of 512 channels at 32^2 .. 256^2) and of the
+# two-rank b8 step, cut into two "ranks" of 8 or 4 rows in one process; the
+# rows' sum stands for the all-reduce.
+SPLIT_SHAPES = {f"b{b} {hw}^2": (b, 512, hw, hw) for b in (16, 8) for hw in (32, 64, 128, 256)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(SPLIT_SHAPES))
+def test_split_kernels_match_plain_on_card(cuda_device, case, dtype):
+    """Each launch against its plain version on the same inputs (the
+    statistics 1e-5 relative, the outputs as `_train_within`), and the
+    merged statistics against the one-launch kernel's over the whole batch."""
+    shape = SPLIT_SHAPES[case]
+    x, mod, _, _ = _inputs(cuda_device, dtype, shape=shape)
+    gout = _inputs(cuda_device, dtype, shape=shape, with_mod=False, seed=1)[0]
+    xs, ms, gs = x.chunk(2), mod.chunk(2), gout.chunk(2)
+    before = dict(mn.launches)
+    partials = sum(mn.modnorm_batch_partials(s, r, 2) for r, s in enumerate(xs))
+    torch.cuda.synchronize()
+    want_partials = torch.stack([mn.modnorm_batch_partials_plain(s) for s in xs])
+    assert torch.equal(partials[:, 0], want_partials[:, 0])  # the counts
+    torch.testing.assert_close(partials[:, 1:], want_partials.to(cuda_device)[:, 1:],
+                               rtol=1e-5, atol=1e-6)
+    whole = mn.modnorm_train(x, mod, stats="batch", lrelu=True)
+    for s, m in zip(xs, ms):
+        out, mean, rstd = mn.modnorm_batch_apply(s, m, partials, lrelu=True)
+        torch.cuda.synchronize()
+        want, wmean, wrstd = mn.modnorm_batch_apply_plain(s, m, partials, lrelu=True)
+        # the same merge in the same order; the card may contract a multiply
+        # and an add into one fma
+        torch.testing.assert_close(mean, wmean, rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(rstd, wrstd, rtol=1e-6, atol=0)
+        torch.testing.assert_close(mean, whole[1], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(rstd, whole[2], rtol=1e-5, atol=0)
+        assert out.is_contiguous(memory_format=torch.channels_last) and out.dtype == dtype
+        assert _train_within(out, want, dtype)
+        del out, want
+    _, mean, rstd = mn.modnorm_batch_apply(xs[0], ms[0], partials, lrelu=True)
+    sums = sum(mn.modnorm_backward_sums(s, m, g, mean, rstd, lrelu=True)
+               for s, m, g in zip(xs, ms, gs))
+    torch.cuda.synchronize()
+    want_sums = sum(mn.modnorm_backward_sums_plain(s, m, g, mean, rstd, lrelu=True)
+                    for s, m, g in zip(xs, ms, gs))
+    torch.testing.assert_close(sums, want_sums, rtol=1e-5,
+                               atol=1e-5 * float(want_sums.abs().max()))
+    count = shape[0] * shape[2] * shape[3]
+    for s, m, g in zip(xs, ms, gs):
+        gx, gmod = mn.modnorm_backward_apply(s, m, g, mean, rstd, sums, count, lrelu=True)
+        torch.cuda.synchronize()
+        wgx, wgmod = mn.modnorm_backward_apply_plain(s, m, g, mean, rstd, sums, count,
+                                                     lrelu=True)
+        assert _train_within(gx, wgx, dtype) and _train_within(gmod, wgmod, dtype)
+        del gx, gmod, wgx, wgmod
+    launched = {k: mn.launches[k] - before[k] for k in mn.launches}
+    assert launched == dict.fromkeys(mn.launches, 0) | {
+        "batch_partials": 2, "batch_apply": 3, "backward_sums": 2, "backward_apply": 2,
+        "batch": 1}
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_statistics_hold_for_shards_far_apart_on_card(cuda_device, dtype):
+    """Two shards whose means lie 50 sigma apart (N(0, 1.5) and N(75, 1.5)):
+    the merged mean and rstd against float64 over the whole batch (the mean
+    to 1e-6 of its size, rstd to 1e-5): Chan's merge of the shards keeps
+    the digits that E[x^2] - E[x]^2 in float32 would lose."""
+    b, c, h, w = SPLIT_SHAPES["b16 64^2"]
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((b, h, w, c), generator=g, device=cuda_device) * 1.5
+    x[b // 2:] += 75.0
+    x = x.to(dtype)
+    flat = x.view(-1, c)
+    x = x.permute(0, 3, 1, 2)  # (B, C, H, W) in channels_last memory
+    xs = x.chunk(2)
+    partials = sum(mn.modnorm_batch_partials(s, r, 2) for r, s in enumerate(xs))
+    out, mean, rstd = mn.modnorm_batch_apply(xs[1], None, partials)
+    torch.cuda.synchronize()
+    xd = flat.double()
+    torch.testing.assert_close(mean.double(), xd.mean(0), rtol=1e-6, atol=0)
+    want_rstd = torch.rsqrt(xd.var(0, unbiased=False) + 1e-5)
+    torch.testing.assert_close(rstd.double(), want_rstd, rtol=1e-5, atol=0)
+    want = mn.modnorm_batch_apply_plain(xs[1], None, partials)[0]
+    assert _train_within(out, want, dtype)
+
+
+@pytest.mark.cuda
+def test_split_kernels_at_one_rank_are_the_one_process_kernels(cuda_device):
+    """World 1: the backward's sums and pass give the one-process backward bit
+    for bit (the same reduction, sums divided by the same count), and A + B
+    the one-launch forward within its statistics' sum order."""
+    x, mod, _, _ = _inputs(cuda_device, torch.bfloat16, shape=(4, 512, 64, 64))
+    gout = _inputs(cuda_device, torch.bfloat16, shape=(4, 512, 64, 64), with_mod=False,
+                   seed=1)[0]
+    out, mean, rstd = mn.modnorm_train(x, mod, stats="batch", lrelu=True)
+    got = mn.modnorm_batch_apply(x, mod, mn.modnorm_batch_partials(x), lrelu=True)
+    torch.testing.assert_close(got[1], mean, rtol=1e-6, atol=1e-6)
+    assert _train_within(got[0], out, torch.bfloat16)
+    sums = mn.modnorm_backward_sums(x, mod, gout, mean, rstd, lrelu=True)
+    split = mn.modnorm_backward_apply(x, mod, gout, mean, rstd, sums, 4 * 64 * 64, lrelu=True)
+    whole = mn.modnorm_backward(x, mod, gout, mean, rstd, stats="batch", lrelu=True)
+    torch.cuda.synchronize()
+    for a, b in zip(split, whole):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_split_kernels_refuse_what_they_do_not_take(cuda_device):
+    x, mod, _, _ = _inputs(cuda_device, torch.bfloat16, shape=(2, 64, 9, 9))
+    partials = mn.modnorm_batch_partials(x, 0, 2)
+    _, mean, rstd = mn.modnorm_batch_apply(x, mod, partials)
+    sums = mn.modnorm_backward_sums(x, mod, x, mean, rstd)
+    bad = [
+        lambda: mn.modnorm_batch_partials(x.contiguous(), 0, 2),           # NCHW memory
+        lambda: mn.modnorm_batch_partials(x, 2, 2),                        # no such rank
+        lambda: mn.modnorm_batch_apply(x, mod, partials[:, :2]),           # not (world, 3, C)
+        lambda: mn.modnorm_batch_apply(x, mod, partials.double()),
+        lambda: mn.modnorm_backward_sums(x, mod, x, mean[:32], rstd[:32]),
+        lambda: mn.modnorm_backward_apply(x, mod, x, mean, rstd, sums[:1], 162.0),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()

@@ -138,15 +138,19 @@ def test_port_init_is_seeded():
                                   "32x_guided_512x512", "8x_guided_256x256", "tiny"])
 def test_config_copy_matches_jax(name):
     """The port's own config copy gives the JAX package's values for every
-    field it keeps (the model's, the training's, the data's and the
-    experiment's explorative knobs), and the same derived properties."""
+    field it keeps (the model's, the training's, the data's, the mesh's and
+    the experiment's explorative knobs), and the same derived properties."""
     if name == "tiny":
         port_exp, ref_exp = torch_tiny(), jax_tiny()
     else:
         port_exp, ref_exp = get_preset(name), jax_get_preset(name)
     for f in dataclasses.fields(port_exp):
-        if f.name not in ("model", "train", "data"):
+        if f.name not in ("model", "train", "data", "mesh"):
             assert getattr(port_exp, f.name) == getattr(ref_exp, f.name), f.name
+    # the mesh layout: every field of the JAX package's, the same values
+    assert dataclasses.asdict(port_exp.mesh) == dataclasses.asdict(ref_exp.mesh)
+    assert (port_exp.mesh.n_devices, port_exp.mesh.spatial) == (ref_exp.mesh.n_devices,
+                                                                ref_exp.mesh.spatial)
     for f in dataclasses.fields(port_exp.train):
         assert getattr(port_exp.train, f.name) == getattr(ref_exp.train, f.name), f.name
     # the data configuration: every field of the JAX package's, the same values

@@ -11,6 +11,7 @@ import functools
 
 import pytest
 
+from torch_data_corpus import one_torch_thread  # noqa: F401 (autouse)
 from torch_step_parity import GUIDED, INDEPENDENT, check_step, run_both
 
 

@@ -8,6 +8,7 @@ import functools
 
 import pytest
 
+from torch_data_corpus import one_torch_thread  # noqa: F401 (autouse)
 from torch_step_parity import GUIDED, check_step, run_both
 
 

@@ -29,6 +29,7 @@ from deepsee_torch.train import loop
 from deepsee_torch.train.loop import Trainer
 from deepsee_torch.utils.iter_counter import IterationCounter
 from deepsee_torch.weights import load_reference_checkpoint, reference_state_dict
+from torch_data_corpus import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _exp(tmp_path, **train):
@@ -125,7 +126,7 @@ def test_trainer_raises_at_an_evaluation_trigger(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--data_axis", "2"], "multi-GPU"), (["--multihost"], "multi-GPU"),
+    (["--model_axis", "2"], "tensor-parallel"), (["--partition", "spatial"], "spatial-sharding"),
     (["--remat"], "a later PR")])
 def test_cli_refuses_flags_of_later_slices(capsys, flags, slice_name):
     argv = ["--name", "8x_independent_256x256"] + flags + ["--synthetic"]

@@ -19,7 +19,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import itertools
-import zlib
 
 import jax
 import jax.numpy as jnp
@@ -41,8 +40,8 @@ from deepsee_torch.train import state as tstate
 from deepsee_torch.train import steps as tsteps
 from deepsee_torch.weights import jax_to_state_dict
 from test_torch_layers import realistic_variables
+from torch_seeded import COINS, SGD_LR, batch_for, normal_for, uniform_for  # noqa: F401
 
-SGD_LR = 0.05
 GUIDED = dict(net_e="fullstyle", guiding_style_image=True, noisy_style_scale=0.0,
               add_noise=False)
 # The independent model without the noise injection: jitted, the JAX step's
@@ -51,8 +50,6 @@ GUIDED = dict(net_e="fullstyle", guiding_style_image=True, noisy_style_scale=0.0
 # with the eager ones.  test_torch_train_layers.py holds the noise injection
 # and a train-mode resblock against eager JAX instead.
 INDEPENDENT = dict(add_noise=False)
-# (use_full, no_noise) of the G step's encode and of the D step's
-COINS = ((True, False), (False, True))
 
 
 def experiments(model=(), train=()):
@@ -62,30 +59,6 @@ def experiments(model=(), train=()):
         out.append(exp.replace(model=dataclasses.replace(exp.model, **dict(model)),
                                train=dataclasses.replace(exp.train, **dict(train))))
     return out
-
-
-def batch_for(cfg, guided: bool, seed: int = 0):
-    rng = np.random.RandomState(seed)
-    size = (2, cfg.crop_size, cfg.crop_size)
-    batch = {"image_hr": np.tanh(1.5 * rng.randn(*size, 3)).astype(np.float32),
-             "label": rng.randint(0, cfg.label_nc, size).astype(np.int32)}
-    if guided:
-        batch["guiding_image"] = np.tanh(1.5 * rng.randn(*size, 3) + 0.3).astype(np.float32)
-        batch["guiding_label"] = rng.randint(0, cfg.label_nc, size).astype(np.int32)
-    return batch
-
-
-def _seeded(shape, salt: int) -> np.random.RandomState:
-    shape = tuple(int(d) for d in shape)
-    return np.random.RandomState((zlib.crc32(repr(shape).encode()) + salt) % 2 ** 31)
-
-
-def normal_for(shape) -> np.ndarray:
-    return _seeded(shape, 1).randn(*tuple(int(d) for d in shape)).astype(np.float32)
-
-
-def uniform_for(shape) -> np.ndarray:
-    return _seeded(shape, 2).rand(*tuple(int(d) for d in shape)).astype(np.float32)
 
 
 @contextlib.contextmanager
@@ -138,15 +111,15 @@ def _snapshot_port(system):
             for net, m in nets.items()}
 
 
-def run_both(model=(), train=(), pattern=(True, True), independent=False):
+def run_both(model=(), train=(), pattern=(True, True), independent=False, batch_size=2):
     """Both packages from the same weights over len(pattern) steps (True: a
-    G and D step, False: a D-only step).  Returns per step (the (jax,
-    port) snapshots it started from, jax logs, port logs, jax snapshot,
-    port snapshot)."""
+    G and D step, False: a D-only step) on one batch of `batch_size`.
+    Returns per step (the (jax, port) snapshots it started from, jax logs,
+    port logs, jax snapshot, port snapshot)."""
     jexp, texp = experiments(model, train)
     variables = initial_variables(jexp)
     guided = dict(model).get("guiding_style_image", False)
-    batch = batch_for(jexp.model, guided)
+    batch = batch_for(jexp.model, guided, batch=batch_size)
     out = []
     with patched(independent):
         jsys = JaxSystem(jexp)
