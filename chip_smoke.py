@@ -56,7 +56,23 @@
    the batch the daemon formed for it; no request may fail; K1's launches in the window must be
    each program's batches times its launches per batch.  Prints
    requests/s, p50/p99 latency and batch fill per program.
-9. Training phase (`training_phase`): each training kernel (batch
+9. int8 phase (`int8_phase`, the W8A8 serving path): kernels (a)-(d) of
+   deepsee_torch/csrc/int8conv.cu against their plain versions at every
+   quantized conv shape of the main path b32, of the 8x guided full trunk
+   b32 (stride 2) and of the trace batch 8, plus a Cin of 72 and a 1x1
+   conv, in bf16 and float32 (the maxima and scales bit for bit, x_q and
+   k_q equal, the output within one ulp), each main-path and trunk shape
+   timed by device time (kernels apart, the op, the bf16 cuDNN conv of the
+   same shape, the plain version) beside its bound; the main path under
+   int8_inference() (int8 launches as the config reckons them, K1's
+   unchanged, ms per batch, PSNR against bf16 and float32, int8_nosmooth,
+   a profile), the float32 int8 path against the CPU's plain one (teacher-
+   forced); the guided 8x path under int8 and its int8 export; the main
+   model exported bf16 and int8 at trace batch 8, the int8 program against
+   the live system, both served by one daemon under the aliases bf16 and
+   int8 (32 mixed requests, every response against its program); the
+   serve, demo and evaluate CLIs with their int8 flags, in processes.
+10. Training phase (`training_phase`): each training kernel (batch
    statistics, instance with statistics out, both backwards) against its
    plain version at every shape of the b4 and b16 steps, bf16 and float32,
    timed at b4 with its launch plan and the GB/s of the bytes its design
@@ -67,9 +83,9 @@
    timed and profiled; faithful against reuse_fake at b16 in turns; the
    Trainer with a save and a resume; the training CLI for 20 steps with
    one in-training evaluation (fid_iter.txt and metrics_iter.txt).
-10. Data phase (`data_phase`): the codec or Pillow route against the
+11. Data phase (`data_phase`): the codec or Pillow route against the
    committed corpus, the loader, disk-fed steps and sweeps, the data CLIs.
-11. Data-parallel phase (`dp_phase`): K1's batch modes split around the
+12. Data-parallel phase (`dp_phase`): K1's batch modes split around the
    cross-rank collective (launch A, launch B; the backward's sums and
    pass) against their plain versions and the one-launch kernels at every
    batch shape of the b16 step and of the dp step, bf16 and float32, timed
@@ -83,8 +99,9 @@
 
 Prints the card's name and power limit, one {"kernels": [...]} line (the
 inference kernels per main-path call, the training kernels per faithful b4
-step, the split kernels per data-parallel step and rank), and as the last
-line {"ok": true, "device": {...}}.  Any
+step, the split kernels per data-parallel step and rank, the int8 kernels
+per int8 main-path call), and as the last line {"ok": true, "device":
+{...}}.  Outside the int8 phase no int8 kernel may launch.  Any
 failure exits non-zero; without a CUDA device it exits non-zero at once and
 prints no result.  float32 comparisons run with TF32 off
 (torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
@@ -123,7 +140,10 @@ from deepsee_torch.eval import evaluator as evaluator_mod
 from deepsee_torch.eval import fid as fid_mod
 from deepsee_torch.eval.evaluator import InferenceEvaluator, strict_float32
 from deepsee_torch.inference import modes
+from deepsee_torch.models import layers as layers_mod
+from deepsee_torch.models.layers import int8_inference
 from deepsee_torch.ops import _build
+from deepsee_torch.ops import int8conv as ic
 from deepsee_torch.ops import modnorm as mn
 from deepsee_torch.ops.resize import resize2d
 from deepsee_torch.system import SRSystem
@@ -2305,6 +2325,8 @@ def data_phase(smi: str, resident: dict, synthetic_sweep: dict) -> None:
 
 KERNEL_CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("modnorm", ("modnorm",)),
+    ("int8 conv (K4)", ("igemm_kernel", "absmax_partials", "absmax_merge", "smooth_scales",
+                        "quantize_weight", "quantize_activation")),
     ("conv (cuDNN)", ("fprop", "conv", "implicit", "dgrad", "wgrad")),
     ("matmul (bmm)", ("gemm", "gemv")),
     ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
@@ -2842,6 +2864,623 @@ def dp_phase(smi: str):
     return {"times": times, "errs": errs, "launches": launches, "cli": cli}
 
 
+# -- int8 phase ------------------------------------------------------------------
+
+INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
+INT8_SOURCE = "deepsee_torch/csrc/int8conv.cu"
+INT8_SITE = "deepsee_tpu/models/layers.py:81"
+INT8_SITE_NOTE = ("_int8_conv, an XLA s8 conv (not Pallas); its callers layers.py:167-172, "
+                  "normalization.py:58-71 and :130-137")
+# name in the kernels line -> (launch counter, the one library call that computes the same
+# function, or None)
+INT8_KERNELS = {
+    "int8_absmax_channels": ("absmax", "torch.linalg.vector_norm(x, inf, dim=(0, 2, 3)) "
+                                       "(without the 1e-8 clamp)"),
+    "int8_quantize_weight": ("quantize_weight", None),
+    "int8_quantize_activation": ("quantize_activation", None),
+    "int8_conv_igemm": ("igemm", None),
+}
+INT8_STAGES = ("absmax", "quantize_weight", "quantize_activation", "igemm")
+# shapes beside the paths': a Cin that 32 does not divide, a 1x1 conv (conv_s)
+INT8_EXTRA_SHAPES = [((3, 72, 19, 23), (40, 72, 3, 3), 1, 1),
+                     ((8, 512, 64, 64), (256, 512, 1, 1), 1, 0)]
+INT8_SERVE_REQUESTS = 32
+# The float32 int8 path on the card against the CPU's plain int8 path, one
+# sample.  Run free, the two differ by about the int8 error itself: their
+# float32 activations differ by summation order (cuDNN for the unquantized
+# convs, K1 against its plain version), a value that sits on a rounding edge
+# lands one int8 level away on one side, and every later layer then differs
+# by about a quantization step (printed, not held).  So the card runs
+# teacher-forced: each of its int8 convs takes the CPU's input and float32
+# weight for the same call (after its own were checked to be within
+# MAX_INT8_FORCED_INPUT_REL of them), its kernels' output on them must
+# equal the CPU's plain output, and the card's final output must then be
+# within MAX_F32_CPU_DIFF of the CPU's, as the float32 paths are.
+MAX_INT8_FORCED_INPUT_REL = 1e-4
+
+
+def int8_conv_shapes(cfg: ModelConfig, batch: int, full_trunk: bool, encode: bool = True,
+                     min_ch: int = 64):
+    """Every conv of one path call that int8_inference(min_ch) quantizes:
+    [((x shape), (weight shape), stride, padding, per call)] in first-call
+    order: per generator block two norms (mlp_shared, the modulation conv)
+    and conv_0 / conv_1; the style encoder's trunk and head (the mini trunk
+    on the LR image or the full trunk on the HR one)."""
+    s, nef, nf16, nh = cfg.start_size, cfg.nef, 16 * cfg.ngf, 128
+    spec, sty, ks = cfg.norm_g_spec, cfg.regional_style_size, cfg.norm_g_spec.kernel_size
+    convs = []
+    blocks = [s, 2 * s, 2 * s] + [s * 2 ** (i + 2) for i in range(cfg.n_blocks - 1)]
+    for i, hw in enumerate(blocks):
+        mod_in = nh + (sty if spec.sean and (i > 0 or not spec.late) else 0)
+        for _ in range(2):
+            convs += [((batch, cfg.semantic_nc, hw, hw), (nh, cfg.semantic_nc, ks, ks), 1, ks // 2),
+                      ((batch, mod_in, hw, hw), (2 * nf16, mod_in, ks, ks), 1, ks // 2),
+                      ((batch, nf16, hw, hw), (nf16, nf16, 3, 3), 1, 1)]
+    c = cfg.crop_size
+    if encode and full_trunk:
+        trunk = [((batch, 3, c, c), nef, 1), ((batch, nef, c, c), 2 * nef, 2),
+                 ((batch, 2 * nef, c // 2, c // 2), 4 * nef, 2),
+                 ((batch, 4 * nef, c // 2, c // 2), 8 * nef, 1),
+                 ((batch, 8 * nef, c // 2, c // 2), sty, 1)]
+    elif encode:
+        trunk = [((batch, 3, s, s), nef, 1), ((batch, nef, s, s), 2 * nef, 1),
+                 ((batch, 2 * nef, s, s), 4 * nef, 1),
+                 ((batch, 4 * nef, 2 * s, 2 * s), 8 * nef, 1),
+                 ((batch, 8 * nef, 2 * s, 2 * s), sty, 1)]
+    else:
+        trunk = []
+    convs = [(x, (cout, x[1], 3, 3), stride, 1) for x, cout, stride in trunk] + convs
+    out = {}
+    for x, w, stride, pad in convs:
+        if w[0] >= min_ch and w[1] >= min_ch:
+            out[(x, w, stride, pad)] = out.get((x, w, stride, pad), 0) + 1
+    return [key + (n,) for key, n in out.items()]
+
+
+def int8_per_call(shapes) -> dict:
+    n = sum(r[-1] for r in shapes)
+    return dict.fromkeys(INT8_STAGES, n)
+
+
+def _int8_inputs(xshape, wshape, dtype, gen):
+    """Activations whose channel ranges spread over two decades (the regime
+    SmoothQuant is for), one channel all zero; weights and bias as
+    init-scale random numbers."""
+    dev = torch.device("cuda")
+    scales = torch.logspace(-1.5, 0.5, xshape[1], device=dev)[:, None, None]
+    x = torch.randn(xshape, generator=gen, device=dev).mul_(scales)
+    x[:, 0] = 0.0
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    w = torch.randn(wshape, generator=gen, device=dev) * 0.05
+    bias = torch.randn(wshape[0], generator=gen, device=dev) * 0.1
+    return x, w, bias
+
+
+def _ulp_excess(got, want, dtype) -> float:
+    """max |got - want| in ulps of want's magnitude in `dtype`."""
+    want = want.float()
+    mag = want.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag))) * torch.finfo(dtype).eps
+    return float(((got.float() - want).abs() / ulp).max())
+
+
+def int8_check(xshape, wshape, stride, pad, dtype, smooth, gen) -> dict:
+    """Kernels (a)-(d) against the plain versions on one shape: the maxima
+    and the scales bit for bit, x_q and k_q equal, the output within one ulp
+    of its type of the plain float64 product's."""
+    x, w, bias = _int8_inputs(xshape, wshape, dtype, gen)
+    cin = xshape[1]
+    want = ic.quantize_plain(x, w, smooth)
+    mx_raw, mx = ic.absmax_channels(x)
+    s_c, s_k, s_x, k_q = ic.quantize_weight(w, mx_raw, mx, smooth)
+    x_q = ic.quantize_activation(x, s_c, s_x)
+    del x
+    y = ic.int8_conv_igemm(x_q, k_q, s_x, s_k, bias, stride, pad, dtype)
+    torch.cuda.synchronize()
+    scales = {"mx_raw": (mx_raw, want.mx_raw), "mx": (mx, want.mx), "s_c": (s_c, want.s_c),
+              "s_k": (s_k, want.s_k), "s_x": (s_x, want.s_x)}
+    row = {"x": list(xshape), "w": list(wshape), "stride": stride, "dtype": str(dtype)[6:],
+           "smooth": smooth,
+           "scales_equal": all(torch.equal(a, b) for a, b in scales.values()),
+           "absmax_max_abs_err": float((mx_raw - want.mx_raw).abs().max()),
+           "scale_max_abs_err": max(float((a - b).abs().max()) for a, b in scales.values()),
+           "k_q_equal": bool(torch.equal(k_q[..., :cin].permute(0, 3, 1, 2), want.k_q)
+                             and not k_q[..., cin:].any()),
+           "x_q_equal": bool(torch.equal(x_q[:, :cin], want.x_q) and not x_q[:, cin:].any())}
+    del x_q, k_q
+    ref = ic.igemm_plain(want.x_q, want.k_q, want.s_x, want.s_k, bias, stride, pad, dtype)
+    del want
+    row["max_abs_err"] = float((y.float() - ref.float()).abs().max())
+    row["max_ulps"] = _ulp_excess(y, ref, dtype)
+    del y, ref
+    ok = row["scales_equal"] and row["k_q_equal"] and row["x_q_equal"] and row["max_ulps"] <= 1
+    log(f"int8 check {json.dumps(row)}")
+    if not ok:
+        raise AssertionError(f"int8 kernels differ from their plain versions: {row}")
+    return row
+
+
+def _int8_bounds(xshape, wshape, stride, pad, esize: int):
+    """The least time of each kernel's function and of the op, (ms, bound_by):
+    every input read once and every output written once over the HBM rate,
+    or the operations over the peak rate of their type (the conv's
+    multiply-adds at the int8 tensor-core rate, the rest in float32)."""
+    b, cin, h, w = xshape
+    cout, _, kh, kw = wshape
+    ho, wo = ic.conv_out_size(h, kh, stride, pad), ic.conv_out_size(w, kw, stride, pad)
+    n, nw, m = b * cin * h * w, cout * cin * kh * kw, b * ho * wo
+    nq = b * ic.padded_channels(cin) * h * w
+    kq = cout * kh * kw * ic.padded_channels(cin)
+    macs = m * cout * cin * kh * kw
+
+    def bound(nbytes, f32_ops=0.0, int8_ops=0.0):
+        t = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": f32_ops / F32_FLOPS_PER_S + int8_ops / INT8_OPS_PER_S}
+        by = max(t, key=t.get)
+        return t[by] * 1e3, by
+
+    return {"absmax": bound(n * esize + 2 * cin * 4, 2 * n),
+            "quantize_weight": bound(nw * 4 + 2 * cin * 4 + kq + (cin + cout + 1) * 4, 6 * nw),
+            "quantize_activation": bound(n * esize + nq + cin * 4 + 4, 5 * n),
+            "igemm": bound(nq + kq + m * cout * esize + 2 * cout * 4, 3 * m * cout, 2 * macs),
+            "op": bound(n * esize + nw * 4 + cout * 4 + m * cout * esize, 0, 2 * macs)}
+
+
+def int8_times(xshape, wshape, stride, pad, gen) -> dict:
+    """Device ms of kernels (a)-(d) apart, of the op, of the bf16 cuDNN conv
+    of the same shape and of one library call for (a), over a pool of inputs
+    larger than the L2; the plain version's ms per stage by events."""
+    dtype = torch.bfloat16
+    x0, w, bias = _int8_inputs(xshape, wshape, dtype, gen)
+    pool = [x0] + [_int8_inputs(xshape, wshape, dtype, gen)[0]
+                   for _ in range(min(3, (120 << 20) // (x0.numel() * 2)))]
+    mx_raw, mx = ic.absmax_channels(x0)
+    s_c, s_k, s_x, k_q = ic.quantize_weight(w, mx_raw, mx, True)
+    qpool = [ic.quantize_activation(x, s_c, s_x) for x in pool]
+    wb, bb = w.to(dtype), bias.to(dtype)
+    t = {"absmax": _device_ms([lambda x=x: ic.absmax_channels(x) for x in pool]),
+         "quantize_weight": _device_ms([lambda: ic.quantize_weight(w, mx_raw, mx, True)]),
+         "quantize_activation": _device_ms([lambda x=x: ic.quantize_activation(x, s_c, s_x)
+                                            for x in pool]),
+         "igemm": _device_ms([lambda xq=xq: ic.int8_conv_igemm(xq, k_q, s_x, s_k, bias, stride,
+                                                               pad, dtype) for xq in qpool]),
+         "op": _device_ms([lambda x=x: ic.int8_conv(x, w, bias, stride, pad) for x in pool]),
+         "bf16_cudnn": _device_ms([lambda x=x: F.conv2d(x, wb, bb, stride=stride, padding=pad)
+                                   for x in pool]),
+         "absmax_library": _device_ms([lambda x=x: torch.linalg.vector_norm(
+             x, float("inf"), dim=(0, 2, 3)) for x in pool])}
+    del qpool
+    q = ic.quantize_plain(x0, w, True)
+    t["plain"] = {
+        "absmax": _event_ms(lambda: ic.absmax_channels_plain(x0), reps=1),
+        "quantize_weight": _event_ms(lambda: ic.quantize_weight_plain(
+            w, ic.smooth_scales_plain(w, mx, True)), reps=1),
+        "quantize_activation": _event_ms(lambda: ic.quantize_activation_plain(x0, q.s_c),
+                                         reps=1),
+        "igemm": _event_ms(lambda: ic.igemm_plain(q.x_q, q.k_q, q.s_x, q.s_k, bias, stride, pad,
+                                                  dtype), reps=1)}
+    t["plain"]["op"] = sum(t["plain"].values())
+    del pool, q
+    torch.cuda.empty_cache()
+    return t
+
+
+def int8_kernel_rows(shapes_by_group, smi: str):
+    """The kernel checks at every shape of the groups (bf16 and float32,
+    smoothing on; the extra shapes with it off too) and the bf16 times at
+    the main path's and the guided trunk's shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    checked, rows = set(), []
+    for group, shapes in shapes_by_group.items():
+        for xshape, wshape, stride, pad, _ in shapes:
+            for dtype in (torch.bfloat16, torch.float32):
+                for smooth in ((True, False) if group == "extra" else (True,)):
+                    key = (xshape, wshape, stride, dtype, smooth)
+                    if key not in checked:
+                        checked.add(key)
+                        rows.append(int8_check(xshape, wshape, stride, pad, dtype, smooth, gen))
+            torch.cuda.empty_cache()
+    times = {}
+    for group in ("main path", "guided trunk"):
+        for xshape, wshape, stride, pad, n in shapes_by_group[group]:
+            key = (xshape, wshape, stride, pad)
+            if key in times:
+                continue
+            t = int8_times(xshape, wshape, stride, pad, gen)
+            bounds = _int8_bounds(xshape, wshape, stride, pad, 2)
+            times[key] = dict(t, bounds=bounds)
+            log("int8 kernel " + json.dumps({
+                "group": group, "x": list(xshape), "w": list(wshape), "stride": stride,
+                "per_call": n, "ms": {k: t[k] for k in INT8_STAGES + ("op",)},
+                "bound_ms": {k: v[0] for k, v in bounds.items()},
+                "bound_by": {k: v[1] for k, v in bounds.items()},
+                "bound_share": {k: bounds[k][0] / t[k] for k in INT8_STAGES + ("op",)},
+                "plain_ms": t["plain"],
+                "bf16_cudnn_ms (library, bf16, not the same function)": t["bf16_cudnn"],
+                "absmax_library_ms": t["absmax_library"], "card": smi}))
+    return rows, times
+
+
+def int8_path_times(times, shapes) -> dict:
+    """Each int8 kernel per call of a path: the device ms, bound, plain and
+    library ms of its shapes times their launches, summed; the same for the
+    op and the bf16 cuDNN convs of the same shapes."""
+    out = {}
+    for stage in INT8_STAGES + ("op",):
+        rec = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0}
+        by = {"bytes": 0.0, "operations": 0.0}
+        for xshape, wshape, stride, pad, n in shapes:
+            t = times[(xshape, wshape, stride, pad)]
+            rec["ms"] += t[stage] * n
+            rec["bound_ms"] += t["bounds"][stage][0] * n
+            rec["plain_ms"] += t["plain"][stage] * n
+            by[t["bounds"][stage][1]] += t["bounds"][stage][0] * n
+        rec["bound_by"] = max(by, key=by.get)  # the kind that bounds most of the time
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        out[stage] = rec
+    out["absmax"]["library_ms"] = sum(times[r[:4]]["absmax_library"] * r[4] for r in shapes)
+    out["bf16_cudnn_ms"] = sum(times[r[:4]]["bf16_cudnn"] * r[4] for r in shapes)
+    return out
+
+
+def drive_int8(tag: str, system: SRSystem, batch, shapes, norms, use_full: bool,
+               smooth: bool = True):
+    """The path once under int8_inference with both launch counts set to 0
+    just before and read just after: the int8 kernels' launches as the
+    config reckons them, K1's as without int8.  Returns (fake, launches)."""
+    ic.reset_launches()
+    mn.reset_launches()
+    with int8_inference(smooth=smooth):
+        fake = run_path(system, batch, use_full)
+    torch.cuda.synchronize()
+    launches, k1 = dict(ic.launches), dict(mn.launches)
+    want = int8_per_call(shapes)
+    log(f"{tag} launches per call: int8 {launches} (expected {want}), K1 {k1} "
+        f"(expected {expected_launches(norms)})")
+    if launches != want or k1 != expected_launches(norms):
+        raise AssertionError(f"{tag}: launches int8 {launches} != {want} or K1 {k1}")
+    if not bool(torch.isfinite(fake).all()) or float(fake.abs().max()) > 1.0:
+        raise AssertionError(f"{tag}: bad output")
+    return fake, launches
+
+
+def int8_card_vs_cpu(tag: str, system32: SRSystem, batch, fake32_card1) -> dict:
+    """The float32 int8 path on the card against the CPU's plain int8 path,
+    one sample: teacher-forced (MAX_INT8_FORCED_INPUT_REL) and free."""
+    one = {k: v[:1] for k, v in batch.items()}
+    cpu = _like(system32, "float32", "cpu")
+    calls, real_plain = [], ic.int8_conv_plain
+
+    def recording(x, weight, bias, stride, padding, smooth, out_dtype=None):
+        y = real_plain(x, weight, bias, stride, padding, smooth, out_dtype)
+        calls.append((x, weight, bias, y))
+        return y
+
+    t0 = time.perf_counter()
+    ic.int8_conv_plain = recording
+    try:
+        with int8_inference():
+            cpu1 = run_path(cpu, one)
+    finally:
+        ic.int8_conv_plain = real_plain
+    cpu_s = time.perf_counter() - t0
+    report, real_conv = [], layers_mod.int8_conv
+
+    def forced(x, weight, bias, stride, padding, smooth):
+        xc, wc, bc, yc = calls[len(report)]
+        xc = xc.to(x.device).contiguous(memory_format=torch.channels_last)
+        wc, bc = wc.to(x.device), None if bc is None else bc.to(x.device)
+        y = real_conv(xc, wc, bc, stride, padding, smooth)
+        report.append({"input_rel": float((x - xc).abs().max())
+                       / max(float(xc.abs().max()), 1e-30),
+                       "weight_abs": float((weight - wc).abs().max()),
+                       "kernels_vs_plain": float((y.cpu() - yc).abs().max())})
+        return y
+
+    layers_mod.int8_conv = forced
+    try:
+        with int8_inference():
+            card1 = run_path(system32, one).cpu()
+    finally:
+        layers_mod.int8_conv = real_conv
+    with int8_inference():
+        free1 = run_path(system32, one).cpu()
+    ref = fake32_card1.cpu()
+    rec = {"forced_max_abs_diff": float((card1 - cpu1).abs().max()),
+           "max_forced_input_rel": max(r["input_rel"] for r in report),
+           "max_weight_abs_diff": max(r["weight_abs"] for r in report),
+           "max_kernels_vs_plain": max(r["kernels_vs_plain"] for r in report),
+           "calls": len(report), "free_card_vs_cpu_psnr_db": psnr_db(free1, cpu1),
+           "free_card_vs_cpu_max_abs_diff": float((free1 - cpu1).abs().max()),
+           "card_int8_vs_float32_psnr_db": psnr_db(free1, ref),
+           "cpu_int8_vs_float32_psnr_db": psnr_db(cpu1, ref), "cpu_s": cpu_s,
+           "limits": {"forced": MAX_F32_CPU_DIFF, "input_rel": MAX_INT8_FORCED_INPUT_REL}}
+    log(f"{tag} float32 int8 card vs CPU plain, one sample " + json.dumps(rec))
+    if not (rec["forced_max_abs_diff"] <= MAX_F32_CPU_DIFF
+            and rec["max_forced_input_rel"] <= MAX_INT8_FORCED_INPUT_REL
+            and rec["max_kernels_vs_plain"] == 0.0 and len(report) == len(calls)):
+        raise AssertionError(f"{tag}: the card's int8 path differs from the CPU's: {rec}")
+    return rec
+
+
+def int8_serving(system: SRSystem, smi: str) -> dict:
+    """Export the main model as a bf16 and an int8 program (trace batch 8),
+    hold the loaded int8 program against the live int8 system, serve both
+    from one daemon under the aliases bf16 and int8 and check every
+    response against its program on its batch."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="deepsee_int8_serving_")
+    cfg = system.cfg
+    try:
+        dirs = {"bf16": os.path.join(root, "bf16"), "int8": os.path.join(root, "int8")}
+        exports = {}
+        for alias, mode in (("bf16", ""), ("int8", "int8")):
+            t0 = time.perf_counter()
+            programs = serve.export_serving(system, SERVE_BATCH, quantize=mode)
+            exports[alias] = {"export_s": time.perf_counter() - t0}
+            serve.save_serving(dirs[alias], system.exp, programs, SERVE_BATCH, system.device,
+                               quantize=mode)
+            nodes = {name: sum(str(n.target) == "deepsee.int8_conv.default"
+                               for n in p.graph.nodes) for name, p in programs.items()}
+            exports[alias]["int8_nodes"] = nodes
+            del programs
+        want_nodes = {"end_to_end": sum(r[-1] for r in int8_conv_shapes(cfg, 1, False)),
+                      "styled": sum(r[-1] for r in int8_conv_shapes(cfg, 1, False, False))}
+        if (exports["int8"]["int8_nodes"] != want_nodes
+                or any(exports["bf16"]["int8_nodes"].values())):
+            raise AssertionError(f"int8 nodes in the programs: {exports}")
+        e2e_args, styled_args = _trace_batch_args(cfg, False)
+        for name, args in (("end_to_end", e2e_args), ("styled", styled_args)):
+            loaded = serve.load_serving(dirs["int8"], name)
+            with int8_inference():
+                want = _live(system, args, name == "styled")
+            check_served_program(f"int8/{name}", loaded, args, want)
+        log("int8 exports " + json.dumps(exports))
+
+        srv = server_mod.ServingServer([f"{a}={d}" for a, d in dirs.items()], port=0,
+                                       host="127.0.0.1", batch_window_ms=5.0, device=DEVICE)
+        srv.start()
+        try:
+            rng = np.random.RandomState(SEED + 5)
+            requests = []
+            for i in range(INT8_SERVE_REQUESTS):
+                alias, styled = ("bf16", "int8")[i % 2], (i // 2) % 2 == 1
+                m = srv.manifests[alias]
+                crop, start, nc = m["crop_size"], m["start_size"], m["label_nc"]
+                lr = rng.randint(0, 256, (start, start, 3), dtype=np.uint8)
+                lab = rng.randint(0, nc, (crop, crop), dtype=np.uint8)
+                parts, headers = [lr.tobytes(), lab.tobytes()], {"X-DS-Model": alias}
+                args = [server_mod.image_from_u8(lr.reshape(-1), start),
+                        server_mod.label_from_u8(lab.reshape(-1), crop, nc)]
+                if styled:
+                    style = (0.5 * np.tanh(rng.randn(nc, m["regional_style_size"]))
+                             ).astype("<f4")
+                    parts.append(style.tobytes())
+                    headers["X-DS-Style"] = "1"
+                    args.append(style[None])
+                program = f"{alias}/{'styled' if styled else 'end_to_end'}"
+                requests.append((program, headers, b"".join(parts), args))
+            warm = {}
+            for i, req in enumerate(requests):
+                warm.setdefault(req[0], (i, req))
+            _client(srv.port, list(warm.values()), {}, threading.Lock())
+            programs = {name: fn for name, (fn, _) in srv.batcher.programs.items()}
+            served = record_batches(srv)
+            srv.batcher.reset_stats()
+            ic.reset_launches()
+            results, lock = {}, threading.Lock()
+            clients = min(SERVE_CLIENTS, INT8_SERVE_REQUESTS)
+            shares = [[(i, requests[i]) for i in range(k, INT8_SERVE_REQUESTS, clients)]
+                      for k in range(clients)]
+            threads = [threading.Thread(target=_client, args=(srv.port, share, results, lock))
+                       for share in shares]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            window_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = dict(ic.launches)
+            prog_stats = srv.health()["programs"]
+            stats = srv.batcher.stats_snapshot()
+            if any(t.is_alive() for t in threads) or len(results) != INT8_SERVE_REQUESTS:
+                raise AssertionError(f"int8 serving: {len(results)} of {INT8_SERVE_REQUESTS} "
+                                     "answered")
+            bad = {i: r[1][:200] for i, r in results.items() if r[0] != 200}
+            if bad or stats["errors"]:
+                raise AssertionError(f"int8 serving: {stats['errors']} errors, failed: {bad}")
+            batches = {p: ps["batches"] for p, ps in prog_stats.items()}
+            n = sum(batches.get(f"int8/{name}", 0) * k for name, k in want_nodes.items())
+            log(f"int8 serving launches in the window: {launches} (expected {n} each from "
+                f"{json.dumps(batches)} batches)")
+            if launches != dict.fromkeys(INT8_STAGES, n):
+                raise AssertionError(f"int8 serving: int8 launches {launches}, expected {n}")
+            u8_diff, style_diff, regrouped, call_s = check_responses(programs, served,
+                                                                     requests, results)
+            lat = {a: np.sort([r[3] for i, r in results.items()
+                               if requests[i][0].startswith(a)]) * 1e3 for a in dirs}
+            record = {
+                "requests": INT8_SERVE_REQUESTS, "clients": clients, "trace_batch": SERVE_BATCH,
+                "window_s": window_s, "requests_per_s": INT8_SERVE_REQUESTS / window_s,
+                "p50_ms": {a: float(np.percentile(v, 50)) for a, v in lat.items()},
+                "p99_ms": {a: float(np.percentile(v, 99)) for a, v in lat.items()},
+                "batches_per_program": batches, "errors": stats["errors"],
+                "max_u8_diff_vs_direct": u8_diff, "max_style_diff_vs_direct": style_diff,
+                "max_u8_diff_in_other_batches": regrouped,
+                "direct_call_ms": {p: float(np.median(v)) * 1e3 for p, v in call_s.items()},
+                "exports": exports, "card": smi, "wall_s": time.perf_counter() - t_phase}
+            log("int8 serving " + json.dumps(record))
+            return record
+        finally:
+            srv.stop()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def int8_clis(smi: str) -> dict:
+    """The int8 flags of the three CLIs, each in a process of its own, all at
+    once: python -m deepsee_torch.serve --quantize int8_nosmooth (trace batch
+    2), python -m deepsee_torch.demo --int8 on a seeded LR image and label
+    map, python -m deepsee_torch.evaluate --int8 on 16 synthetic samples."""
+    from PIL import Image
+
+    cfg = get_preset(PRESET).model
+    root = tempfile.mkdtemp(prefix="deepsee_int8_clis_")
+    try:
+        rng = np.random.RandomState(SEED + 6)
+        lr, sem = os.path.join(root, "lr.png"), os.path.join(root, "sem.png")
+        Image.fromarray(rng.randint(0, 256, (cfg.start_size, cfg.start_size, 3),
+                                    dtype=np.uint8)).save(lr)
+        Image.fromarray(rng.randint(0, cfg.label_nc, (cfg.crop_size, cfg.crop_size),
+                                    dtype=np.uint8)).save(sem)
+        outs = {name: os.path.join(root, name) for name in ("serve", "demo")}
+        cmds = {
+            "serve": ["-m", "deepsee_torch.serve", "--name", PRESET, "--batch_size", "2",
+                      "--quantize", "int8_nosmooth", "--out", outs["serve"]],
+            "demo": ["-m", "deepsee_torch.demo", "--name", PRESET, "--image_lr", lr,
+                     "--semantics", sem, "--int8", "--out", outs["demo"]],
+            "evaluate": ["-m", "deepsee_torch.evaluate", "--name", PRESET, "--synthetic",
+                         "--no_checkpoint", "--num_samples", "16", "--batch_size", "8",
+                         "--no_fid", "--no_lpips", "--int8"]}
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen([sys.executable, *cmd, "--device", DEVICE],
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for name, cmd in cmds.items()}
+        runs = {}
+        try:
+            for name, proc in procs.items():
+                out, err = proc.communicate(timeout=600)
+                runs[name] = (proc.returncode, out, err, time.perf_counter() - t0)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        failed = {n: (r[1][-1500:] + r[2][-1500:]) for n, r in runs.items() if r[0] != 0}
+        if failed:
+            raise AssertionError(f"int8 CLIs failed: {failed}")
+        with open(os.path.join(outs["serve"], "manifest.json")) as f:
+            manifest = json.load(f)
+        metrics = json.loads(runs["evaluate"][1][runs["evaluate"][1].index("{"):])
+        record = {"serve_manifest_quantize": manifest["quantize"],
+                  "serve_files": sorted(os.listdir(outs["serve"])),
+                  "demo_files": sorted(os.listdir(outs["demo"])),
+                  "evaluate": {k: metrics[k] for k in ("psnr/mean", "ssim/mean", "rmse/mean")},
+                  "seconds": {n: r[3] for n, r in runs.items()}, "card": smi}
+        log("int8 clis " + json.dumps(record))
+        if (manifest["quantize"] != "int8_nosmooth" or "demo_lr.png" not in record["demo_files"]
+                or not all(math.isfinite(v) for v in record["evaluate"].values())):
+            raise AssertionError(f"int8 CLIs: {record}")
+        return record
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def int8_phase(system: SRSystem, smi: str) -> dict:
+    """The int8 serving path (module docstring, 8)."""
+    t_phase = time.perf_counter()
+    if any(ic.launches.values()):
+        raise AssertionError(f"int8 kernels launched outside int8_inference: {ic.launches}")
+    cfg = system.cfg
+    gcfg = get_preset(SERVE_PRESETS["guided"]).model
+    main = int8_conv_shapes(cfg, BATCH, full_trunk=False)
+    guided = int8_conv_shapes(gcfg, BATCH, full_trunk=True)
+    trunk = [r for r in guided if r not in main]
+    trace = sorted({r[:4] + (0,) for r in int8_conv_shapes(cfg, SERVE_BATCH, False)
+                    + int8_conv_shapes(gcfg, SERVE_BATCH, True)})
+    shapes = {"main path": main, "guided trunk": trunk, "trace batch": trace,
+              "extra": [r + (0,) for r in INT8_EXTRA_SHAPES]}
+    log("int8 shapes " + json.dumps({g: [[list(r[0]), list(r[1]), r[2], r[4]] for r in rs]
+                                     for g, rs in shapes.items()}))
+    rows, times = int8_kernel_rows(shapes, smi)
+    log(f"int8 kernel checks: {len(rows)} passed in {time.perf_counter() - t_phase:.1f} s")
+
+    # the main path under int8: launches, ms per batch, accuracy, a profile
+    batch = make_batch(cfg, BATCH)
+    norms = path_norms(cfg, BATCH, full_trunk=False)
+    fake_bf16 = run_path(system, batch)
+    fake, launches = drive_int8("int8 path", system, batch, main, norms, use_full=False)
+    with int8_inference():
+        ms = _event_ms(lambda: run_path(system, batch), reps=5)
+    bf16_ms = _event_ms(lambda: run_path(system, batch), reps=5)
+    fake_ns, _ = drive_int8("int8_nosmooth path", system, batch, main, norms, use_full=False,
+                            smooth=False)
+    with int8_inference(smooth=False):
+        ms_ns = _event_ms(lambda: run_path(system, batch), reps=5)
+    with int8_inference():
+        profile_path("int8 path", system, batch, ms, use_full=False)
+    system32 = _like(system, "float32", DEVICE)
+    fake32 = run_path(system32, batch)
+    fake32_int8, _ = drive_int8("int8 path float32", system32, batch, main, norms,
+                                use_full=False)
+    fake32_ns, _ = drive_int8("int8_nosmooth path float32", system32, batch, main, norms,
+                              use_full=False, smooth=False)
+    accuracy = {"int8_vs_bf16_psnr_db": psnr_db(fake, fake_bf16),
+                "int8_vs_float32_psnr_db": psnr_db(fake32_int8, fake32),
+                "int8_bf16_system_vs_float32_psnr_db": psnr_db(fake, fake32),
+                "bf16_vs_float32_psnr_db": psnr_db(fake_bf16, fake32),
+                "int8_nosmooth_vs_bf16_psnr_db": psnr_db(fake_ns, fake_bf16),
+                "int8_nosmooth_vs_float32_psnr_db": psnr_db(fake32_ns, fake32),
+                "max_abs_diff_int8_vs_bf16": float((fake - fake_bf16).abs().max()),
+                "weights": "seeded random (randomize_weights), not trained"}
+    path = {"ms_per_batch": ms, "bf16_ms_per_batch": bf16_ms, "nosmooth_ms_per_batch": ms_ns,
+            "img_per_s": BATCH / ms * 1e3, "int8_launches_per_call": launches,
+            "kernels": int8_path_times(times, main), "card": smi}
+    log("int8 path " + json.dumps(dict(path, accuracy=accuracy)))
+    del fake, fake_ns, fake32_int8, fake32_ns
+    accuracy["card_vs_cpu"] = int8_card_vs_cpu("int8 path", system32, batch, fake32[:1])
+    del system32, fake32, fake_bf16
+    torch.cuda.empty_cache()
+
+    # the guided 8x path under int8
+    gsys = seeded_system(SERVE_PRESETS["guided"])
+    gbatch = make_batch(gcfg, BATCH, guided=True)
+    gref = run_path(gsys, gbatch, use_full=True)
+    gfake, glaunches = drive_int8("int8 guided path", gsys, gbatch, guided,
+                                  path_norms(gcfg, BATCH, full_trunk=True), use_full=True)
+    with int8_inference():
+        gms = _event_ms(lambda: run_path(gsys, gbatch, use_full=True), reps=3)
+    log("int8 guided path " + json.dumps({"ms_per_batch": gms,
+                                          "int8_vs_bf16_psnr_db": psnr_db(gfake, gref),
+                                          "int8_launches_per_call": glaunches}))
+    del gfake, gref
+    torch.cuda.empty_cache()
+    gdir = tempfile.mkdtemp(prefix="deepsee_int8_guided_")
+    try:  # the guided model's int8 export at the trace batch, against the live system
+        t0 = time.perf_counter()
+        programs = serve.export_serving(gsys, SERVE_BATCH, quantize="int8")
+        export_s = time.perf_counter() - t0
+        nodes = {name: sum(str(n.target) == "deepsee.int8_conv.default" for n in p.graph.nodes)
+                 for name, p in programs.items()}
+        serve.save_serving(gdir, gsys.exp, programs, SERVE_BATCH, gsys.device, quantize="int8")
+        del programs
+        want_nodes = {"end_to_end": sum(r[-1] for r in int8_conv_shapes(gcfg, 1, True)),
+                      "styled": sum(r[-1] for r in int8_conv_shapes(gcfg, 1, True, False))}
+        log(f"int8 guided export: {export_s:.1f} s, int8 nodes {nodes} (expected {want_nodes})")
+        if nodes != want_nodes:
+            raise AssertionError(f"int8 guided export: int8 nodes {nodes} != {want_nodes}")
+        e2e_args, _ = _trace_batch_args(gcfg, True)
+        with int8_inference():
+            want = _live(gsys, e2e_args, False)
+        check_served_program("int8 guided/end_to_end", serve.load_serving(gdir), e2e_args, want)
+    finally:
+        shutil.rmtree(gdir, ignore_errors=True)
+    del gsys
+    torch.cuda.empty_cache()
+
+    serving = int8_serving(system, smi)
+    clis = int8_clis(smi)
+    ic.reset_launches()
+    log(f"int8 phase: {time.perf_counter() - t_phase:.1f} s")
+    errs = {"absmax": max(r["absmax_max_abs_err"] for r in rows),
+            "quantize_weight": max(r["scale_max_abs_err"] for r in rows),
+            "quantize_activation": 0.0 if all(r["x_q_equal"] for r in rows) else None,
+            "igemm": max(r["max_abs_err"] for r in rows)}
+    return {"launches": launches, "times": path["kernels"], "errs": errs,
+            "serving": serving, "accuracy": accuracy, "clis": clis}
+
+
 # -- main ----------------------------------------------------------------------
 
 def path_kernel_times(rows, norms, mode: str):
@@ -2877,11 +3516,12 @@ TRAIN_KERNEL_INFO = {
 }
 
 
-def kernels_line(rows, launches, norms, train=None, dp=None):
+def kernels_line(rows, launches, norms, train=None, dp=None, int8=None):
     """Every kernel: the inference modes per main-path call; the training
     kernels per faithful training step (`train`: its launches, per-step
     times and the training kernel rows); the batch modes split across ranks
-    per data-parallel step and rank (`dp`: `dp_phase`'s numbers)."""
+    per data-parallel step and rank (`dp`: `dp_phase`'s numbers); the int8
+    conv's kernels per int8 main-path call (`int8`: `int8_phase`'s)."""
     out = []
     for name, (mode, library_call) in KERNEL_INFO.items():
         per_call = path_kernel_times(rows, norms, mode)
@@ -2924,6 +3564,23 @@ def kernels_line(rows, launches, norms, train=None, dp=None):
                    f"b{DP_PER_RANK}, faithful schedule; launches A + B or sums + pass, the "
                    "collective between them not timed; sum over the launches), device time",
         })
+    for name, (key, library_call) in INT8_KERNELS.items():
+        t = int8["times"][key]
+        entry = {
+            "name": name, "route": "cuda", "source": INT8_SOURCE, "replaces": INT8_SITE,
+            "replaces_note": INT8_SITE_NOTE, "launches": int8["launches"][key],
+            "max_abs_err": int8["errs"][key],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
+            "library_call": library_call,
+            "per": f"one int8 main-path call ({PRESET} b{BATCH} under int8_inference(); sum "
+                   "over its launches), device time",
+        }
+        if key == "igemm":
+            entry["bf16_cudnn_ms"] = int8["times"]["bf16_cudnn_ms"]
+            entry["bf16_cudnn_note"] = ("library (bf16, not the same function): F.conv2d in "
+                                        "bf16 at the same shapes")
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -2953,17 +3610,20 @@ def main() -> int:
     synthetic_sweep = evaluation_phase(system, smi)
     explorative_phase(system)
     serving_phase(system, smi)
+    int8 = int8_phase(system, smi)
     del system
     torch.cuda.empty_cache()
     train, resident = training_phase(smi)
     data_phase(smi, resident, synthetic_sweep)
     torch.cuda.empty_cache()
     dp = dp_phase(smi)
+    if any(ic.launches.values()):
+        raise AssertionError(f"int8 kernels launched outside int8_inference: {ic.launches}")
 
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
     log(json.dumps(kernels_line(rows, launches, path_norms(cfg, BATCH, full_trunk=False),
-                                train, dp)))
+                                train, dp, int8)))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

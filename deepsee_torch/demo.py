@@ -7,7 +7,7 @@ Upscales one LR face given an HR semantic mask and a style source:
       --image_lr face_32.png --semantics mask_256.png \\
       [--style_csv style.csv | --hr_image face.jpg:11,12 ...] \\
       [--torch_checkpoint <dir of <epoch>_net_{SR,E}.pth>] \\
-      [--device cuda] --out results/
+      [--device cuda] [--int8] --out results/
 
 Style sources (demo.py:97-118):
   * --style_csv: a saved (19, S) style matrix
@@ -17,7 +17,8 @@ Style sources (demo.py:97-118):
   * neither: encode from the LR input (independent model only)
 
 Writes the upscaled PNG and the applied style matrix as CSV
-(demo.py:62-73).  Runs on CUDA unless --device cpu; images are read through
+(demo.py:62-73).  --int8 runs the whole demo under `int8_inference()`
+(W8A8 convs, demo.py:191-196).  Runs on CUDA unless --device cpu; images are read through
 the native codec where it builds (data/codec.py), through Pillow otherwise,
 and writing the PNG needs Pillow.
 """
@@ -25,6 +26,7 @@ and writing the PNG needs Pillow.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 from typing import Dict, List, Optional, Sequence
 
@@ -33,6 +35,7 @@ import torch
 
 from deepsee_torch.config import Experiment
 from deepsee_torch.inference.modes import encode_only, generate_with_style
+from deepsee_torch.models.layers import int8_inference
 from deepsee_torch.system import SRSystem
 from deepsee_torch.utils.images import (image_file_to_array, label_file_to_array,
                                         load_style_matrix, save_image,
@@ -159,7 +162,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--epoch", default="latest",
                    help="epoch tag of --torch_checkpoint files")
     p.add_argument("--int8", action="store_true",
-                   help="W8A8 quantized inference: not in this port yet")
+                   help="W8A8 quantized inference (the int8 conv kernels)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu, for the plain CPU versions")
     p.add_argument("--out", default="./results")
@@ -169,9 +172,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 "trainer's checkpoint with scripts/export_torch.py on a machine with flax and "
                 "orbax, and pass its output directory of <epoch>_net_{SR,E}.pth files as "
                 "--torch_checkpoint (the port's own trainer writes those files)")
-    if args.int8:
-        p.error("--int8 is not in deepsee_torch yet: int8 serving needs the "
-                "Hopper int8/FP8 conv kernel (K4) of a later slice")
 
     from deepsee_torch.config import get_preset
     from deepsee_torch.weights import load_reference_checkpoint
@@ -179,8 +179,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     demo = Demo(get_preset(args.name).replace(is_train=False), device=args.device)
     if args.torch_checkpoint:
         load_reference_checkpoint(demo.system, args.torch_checkpoint, epoch=args.epoch)
-    demo.run(args.image_lr, args.semantics, path_encoded_style=args.style_csv,
-             inputs_hr=parse_hr_images(args.hr_image, args.semantics), out_dir=args.out)
+    with int8_inference() if args.int8 else contextlib.nullcontext():
+        demo.run(args.image_lr, args.semantics, path_encoded_style=args.style_csv,
+                 inputs_hr=parse_hr_images(args.hr_image, args.semantics), out_dir=args.out)
 
 
 if __name__ == "__main__":

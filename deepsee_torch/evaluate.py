@@ -24,14 +24,17 @@ Runs on the card unless --device cpu is given, and raises without one.
 --multihost (under torchrun, one process per card: `torchrun --nproc_per_node
 N -m deepsee_torch.evaluate --multihost ...`) gives each rank a stripe of the
 samples in file order (--batch_size per rank) and gathers every rank's rows
-before the means and the FID; rank 0 prints and writes.  --int8 (the int8
-conv kernel K4) is refused with a message naming its slice.  --save_images
-writes PNGs and needs Pillow.
+before the means and the FID; rank 0 prints and writes.  --int8 runs the
+evaluation under `int8_inference()`: the generator and encoder take the W8A8
+convs, the metric networks stay in float32 (evaluate.py:102-108); under
+--multihost each rank's activation scales are its own batch's.
+--save_images writes PNGs and needs Pillow.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -40,11 +43,6 @@ from typing import Dict, List, Optional
 import torch
 
 from deepsee_torch.config import get_preset
-
-# flag -> the slice it waits for
-_LATER = {
-    "int8": "the int8 slice (the Hopper int8/FP8 conv kernel K4)",
-}
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -75,14 +73,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--multihost", action="store_true",
                    help="join torchrun's process group (NCCL on the card, gloo on the CPU); "
                         "each rank evaluates its stripe, the rows are gathered")
-    p.add_argument("--int8", action="store_true", default=None,
-                   help=f"not ported: {_LATER['int8']}")
-    args = p.parse_args(argv)
-    for flag, slice_name in _LATER.items():
-        if getattr(args, flag) is not None:
-            p.error(f"--{flag} belongs to {slice_name} of the port, which deepsee_torch "
-                    "does not have yet")
-    return args
+    p.add_argument("--int8", action="store_true",
+                   help="W8A8 quantized generator and encoder (the int8 conv kernels)")
+    return p.parse_args(argv)
 
 
 def load_weights(system, args: argparse.Namespace) -> None:
@@ -113,6 +106,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
 def _evaluate(args: argparse.Namespace, device) -> Dict[str, float]:
     from deepsee_torch.data import DataLoader, create_dataset
     from deepsee_torch.eval.evaluator import InferenceEvaluator
+    from deepsee_torch.models.layers import int8_inference
     from deepsee_torch.parallel import distributed
     from deepsee_torch.system import SRSystem
 
@@ -135,7 +129,8 @@ def _evaluate(args: argparse.Namespace, device) -> Dict[str, float]:
         folder_out=args.out or None, compute_fid=not args.no_fid,
         compute_lpips=not args.no_lpips, inception_weights=args.inception_weights or None,
         alexnet_weights=args.alexnet_weights or None)
-    result = ev.run(loader)
+    with int8_inference() if args.int8 else contextlib.nullcontext():
+        result = ev.run(loader)
     if ev.writer is not None:
         ev.writer.close()
     if not distributed.is_main_process():

@@ -16,6 +16,7 @@ torch.inference_mode, whose tensors autograd cannot save.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -24,11 +25,50 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deepsee_torch.config import parse_nonspade_norm
+from deepsee_torch.ops.int8conv import int8_conv
 from deepsee_torch.ops.modnorm import modnorm, modnorm_train
 from deepsee_torch.ops.norms import leaky_relu
 from deepsee_torch.parallel import distributed
 
 BN_MOMENTUM = 0.1
+
+# -- int8 quantized inference (serving only) -----------------------------------
+# The switch that `conv2d` reads at every forward (layers.py:36-78 of the JAX
+# package): eval-mode convs with cin and cout both >= min_ch run the W8A8 op
+# `int8_conv` (per-output-channel weight scales, a dynamic per-tensor
+# activation scale, SmoothQuant unless smooth=False).  Training forwards never
+# quantize, inside the context too.
+_INT8_MODE = {"on": False, "min_ch": 64, "smooth": True}
+
+
+@contextlib.contextmanager
+def int8_inference(min_ch: int = 64, smooth: bool = True):
+    """Run eval-mode convs with cin, cout >= min_ch as W8A8 int8 convs while
+    the context is open.  smooth=False drops the SmoothQuant equalization.
+
+    One-shot and process-global, as in the JAX package: the flag is read at
+    forward time by every thread of the process (the evaluator's in-flight
+    batches see it), so open it around a whole run, not around calls that
+    other threads make at the same time.  PyTorch runs eagerly, so there is
+    no traced function to clear on entry or exit; a program exported with
+    `torch.export` inside the context keeps its int8 convs after it."""
+    prev = dict(_INT8_MODE)
+    _INT8_MODE.update(on=True, min_ch=min_ch, smooth=smooth)
+    try:
+        yield
+    finally:
+        _INT8_MODE.clear()
+        _INT8_MODE.update(prev)
+
+
+def int8_mode_active() -> bool:
+    return _INT8_MODE["on"]
+
+
+def quantizes(training: bool, cin: int, cout: int) -> bool:
+    """Whether a conv of cin -> cout channels runs int8 (layers.py:167-169)."""
+    return (_INT8_MODE["on"] and not training and cin >= _INT8_MODE["min_ch"]
+            and cout >= _INT8_MODE["min_ch"])
 
 
 def check_training_forward(module: nn.Module) -> None:
@@ -65,8 +105,13 @@ def draw_injection_noise(shape, generator: Optional[torch.Generator],
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-           stride: int = 1, padding: int = 1) -> torch.Tensor:
-    """F.conv2d in x's dtype, with a channels_last result."""
+           stride: int = 1, padding: int = 1, *, training: bool = True) -> torch.Tensor:
+    """F.conv2d in x's dtype, with a channels_last result.  An eval-mode conv
+    (training=False) that `quantizes` under `int8_inference` runs `int8_conv`
+    instead: the float32 weight quantized, the result cast to x's dtype and
+    then the bias added in that dtype, in the JAX package's order."""
+    if quantizes(training, weight.shape[1], weight.shape[0]):
+        return int8_conv(x, weight, bias, stride, padding, _INT8_MODE["smooth"])
     y = F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
                  stride=stride, padding=padding)
     return y.contiguous(memory_format=torch.channels_last)
@@ -140,7 +185,8 @@ class Conv2d(nn.Module):
         return w / sigma
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.effective_weight(), self.bias, self.stride, self.padding)
+        return conv2d(x, self.effective_weight(), self.bias, self.stride, self.padding,
+                      training=self.training)
 
 
 class TorchBatchNorm(nn.Module):

@@ -18,7 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deepsee_torch.config import ModelConfig
-from deepsee_torch.models.layers import (Conv2d, check_training_forward, conv2d,
+from deepsee_torch.models.layers import (Conv2d, check_training_forward, conv2d, quantizes,
                                          update_running_stats, xavier_normal_)
 from deepsee_torch.ops.modnorm import modnorm, modnorm_train, modnorm_train_sync
 from deepsee_torch.ops.resize import resize2d
@@ -154,7 +154,7 @@ class SPADE(nn.Module):
         actv = self.mlp_shared(seg.to(x.dtype))
         weight = torch.cat([self.mlp_gamma.weight, self.mlp_beta.weight])
         bias = torch.cat([self.mlp_gamma.bias + 1.0, self.mlp_beta.bias])
-        mod = conv2d(actv, weight, bias, padding=self.ks // 2)
+        mod = conv2d(actv, weight, bias, padding=self.ks // 2, training=self.training)
         return self.param_free_norm(x, mod, lrelu=lrelu)
 
 
@@ -196,8 +196,12 @@ class _SEANCore(nn.Module):
     def _mod_conv(self, inp: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   up2: bool) -> torch.Tensor:
         if up2:
-            return conv_on_nearest_up2(inp, weight, bias)
-        return conv2d(inp, weight, bias, padding=self.ks // 2)
+            if not quantizes(self.training, weight.shape[1], weight.shape[0]):
+                return conv_on_nearest_up2(inp, weight, bias)
+            # the int8 conv has no fold: the literal upsample, then the conv
+            # (normalization.py:130-137)
+            inp = resize2d(inp, (2 * inp.shape[2], 2 * inp.shape[3]), method="nearest")
+        return conv2d(inp, weight, bias, padding=self.ks // 2, training=self.training)
 
 
 class SEANBlock(_SEANCore):

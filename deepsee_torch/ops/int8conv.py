@@ -1,0 +1,386 @@
+"""`int8_conv`: the W8A8 quantized convolution of the int8 serving path.
+
+The port of the JAX package's `_int8_conv` (deepsee_tpu/models/layers.py:81-113,
+K4 in ROADMAP.md), plus the bias add that its callers apply after it.  A
+float32 sequence, reproduced operation for operation:
+
+    mx_c = max(max|x_c|, 1e-8)      over N, H, W          (smooth only)
+    mk_c = max(max|k_c|, 1e-8)      over cout, kh, kw     (smooth only)
+    s_c  = sqrt(mx_c) / sqrt(mk_c);  x' = x / s_c;  k' = k * s_c
+    s_k  = max(max|k'_o|, 1e-8) / 127;  k_q = clip(round(k' / s_k), +-127)
+    s_x  = max(max|x'|, 1e-8) / 127;    x_q = clip(round(x' / s_x), +-127)
+    y    = float32(conv_s32(x_q, k_q)) * (s_x * s_k), cast to x's type,
+           then + bias in that type
+
+(SmoothQuant with alpha 0.5; without `smooth` s_c is 1, which leaves x and k
+as they are, bit for bit.)  The activation scale is one per tensor, so a
+sample's result depends on its batch-mates: the JAX package's semantics.
+
+`int8_conv` is the registered custom op `torch.ops.deepsee.int8_conv`, so
+`torch.export` keeps it as one node.  On CUDA tensors it launches the four
+hand-written kernels of deepsee_torch/csrc/int8conv.cu -- (a)
+`absmax_channels`, (b) `quantize_weight`, (c) `quantize_activation`, (d)
+`int8_conv_igemm` -- or raises; on CPU tensors it computes
+`int8_conv_plain`, whose integer product is a float64 convolution (exact:
+|acc| <= 127 * 127 * K stays far below 2^53).  There is no fallback from one
+to the other.  Importing this module registers the op.
+
+Activations are NCHW tensors in channels_last memory (bf16 or float32), the
+weight OIHW float32.  The kernels' intermediates keep the GEMM's layouts:
+x_q (N, Cp, H, W) channels_last and k_q (Cout, kh, kw, Cp), int8, where Cp
+is Cin rounded up to 16 and the padding channels are zero.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from deepsee_torch.ops import _build
+
+__all__ = ["int8_conv", "int8_conv_plain", "quantize_plain", "igemm_plain", "Quantized",
+           "absmax_channels_plain", "smooth_scales_plain", "quantize_weight_plain",
+           "quantize_activation_plain",
+           "absmax_channels", "quantize_weight", "quantize_activation", "int8_conv_igemm",
+           "padded_channels", "conv_out_size", "launches", "plain_calls", "reset_launches"]
+
+FLOOR = 1e-8
+LEVELS = 127.0
+CHANNEL_ALIGN = 16          # Cp: the GEMM loads 16-byte chunks of x_q and k_q
+SMS = 132                   # H100 SXM
+ABSMAX_BLOCKS = 4 * SMS     # the partials pass: four blocks per SM
+ELEMENTWISE_BLOCKS = 16 * SMS
+THREADS = 256
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# float64 rows of the plain product at once: bounds its memory on the card
+PLAIN_ELEMENTS = 1 << 28
+
+# Kernel launches, one per wrapper call that launches its kernel: (a) and (b)
+# are two launches each in the source (partials and merge; s_c, then s_k and
+# k_q), counted as one.  `plain_calls` counts the op's plain version on CPU
+# tensors, so CPU runs can count quantized convs too.
+launches = {"absmax": 0, "quantize_weight": 0, "quantize_activation": 0, "igemm": 0}
+plain_calls = {"int8_conv": 0}
+
+
+def reset_launches() -> None:
+    for key in launches:
+        launches[key] = 0
+    plain_calls["int8_conv"] = 0
+
+
+def padded_channels(cin: int) -> int:
+    return -(-cin // CHANNEL_ALIGN) * CHANNEL_ALIGN
+
+
+def conv_out_size(size: int, k: int, stride: int, padding: int) -> int:
+    return (size + 2 * padding - k) // stride + 1
+
+
+# -- the plain version ---------------------------------------------------------
+
+class Quantized(NamedTuple):
+    """The quantization of one conv's inputs: per input channel mx_raw
+    (max|x_c|), mx (clamped at 1e-8) and s_c (ones without smoothing); per
+    output channel s_k; the scalar s_x; k_q (OIHW) and x_q (NCHW,
+    channels_last), int8."""
+    mx_raw: torch.Tensor
+    mx: torch.Tensor
+    s_c: torch.Tensor
+    s_k: torch.Tensor
+    s_x: torch.Tensor
+    k_q: torch.Tensor
+    x_q: torch.Tensor
+
+
+def _sqrt_rn(t: torch.Tensor) -> torch.Tensor:
+    """float32 sqrt rounded to nearest, as the kernels' __fsqrt_rn and an eager
+    jnp.sqrt give it (PyTorch's vectorized CPU sqrt is not always the nearest
+    float32): the float64 root of a float32 rounds to the nearest float32."""
+    return torch.sqrt(t.double()).float()
+
+
+def _div_rn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 a / b rounded to nearest, as the kernels' __fdiv_rn and XLA's
+    divide give it: through float64, whose quotient rounds to the same
+    float32.  (PyTorch divides by a scalar as a multiply by its reciprocal
+    on CUDA, which is not always the nearest float32.)"""
+    return (a.double() / b.to(a.device).double()).float()
+
+
+def absmax_channels_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(max|x_c|, max(max|x_c|, 1e-8)) over N, H, W, float32: kernel (a)'s
+    function and step 1."""
+    mx_raw = x.float().abs().amax(dim=(0, 2, 3))
+    return mx_raw, mx_raw.clamp_min(FLOOR)
+
+
+def smooth_scales_plain(weight: torch.Tensor, mx: torch.Tensor, smooth: bool) -> torch.Tensor:
+    """Steps 2-3: s_c = sqrt(mx) / sqrt(max(max|k_c|, 1e-8)); ones without
+    smoothing."""
+    if not smooth:
+        return torch.ones_like(mx)
+    mk = weight.float().abs().amax(dim=(0, 2, 3)).clamp_min(FLOOR)
+    return _div_rn(_sqrt_rn(mx), _sqrt_rn(mk))
+
+
+def quantize_weight_plain(weight: torch.Tensor, s_c: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Steps 4-5 for the weight: k' = k * s_c, s_k = max(max|k'_o|, 1e-8) /
+    127, k_q = clip(round(k' / s_k), +-127) as OIHW int8."""
+    w = weight.float() * s_c[:, None, None]
+    s_k = _div_rn(w.abs().amax(dim=(1, 2, 3)).clamp_min(FLOOR), torch.tensor(LEVELS))
+    k_q = torch.clamp(torch.round(_div_rn(w, s_k[:, None, None, None])), -LEVELS, LEVELS)
+    return s_k, k_q.to(torch.int8)
+
+
+def quantize_activation_plain(x: torch.Tensor, s_c: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Steps 4 and 6 for the activation: x' = x / s_c, s_x = max(max|x'|,
+    1e-8) / 127, x_q = clip(round(x' / s_x), +-127) as NCHW channels_last
+    int8."""
+    xs = _div_rn(x.float(), s_c[:, None, None])
+    s_x = _div_rn(xs.abs().amax().clamp_min(FLOOR), torch.tensor(LEVELS))
+    x_q = torch.clamp(torch.round(_div_rn(xs, s_x)), -LEVELS, LEVELS)
+    return s_x, x_q.to(torch.int8).contiguous(memory_format=torch.channels_last)
+
+
+def quantize_plain(x: torch.Tensor, weight: torch.Tensor, smooth: bool) -> Quantized:
+    """Steps 1-6 of `_int8_conv` in float32, in its order."""
+    mx_raw, mx = absmax_channels_plain(x)
+    s_c = smooth_scales_plain(weight, mx, smooth)
+    s_k, k_q = quantize_weight_plain(weight, s_c)
+    s_x, x_q = quantize_activation_plain(x, s_c)
+    return Quantized(mx_raw, mx, s_c, s_k, s_x, k_q, x_q)
+
+
+def igemm_plain(x_q: torch.Tensor, k_q: torch.Tensor, s_x: torch.Tensor, s_k: torch.Tensor,
+                bias: Optional[torch.Tensor], stride: int, padding: int,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """Step 7 and the bias: the s8 x s8 -> s32 product as an exact float64
+    conv (in batch slices of at most PLAIN_ELEMENTS outputs), rounded to
+    float32, times (s_x * s_k); cast to out_dtype; + bias in out_dtype."""
+    n, _, h, w = x_q.shape
+    cout, _, kh, kw = k_q.shape
+    ho, wo = conv_out_size(h, kh, stride, padding), conv_out_size(w, kw, stride, padding)
+    k64 = k_q.double()
+    scale = (s_x * s_k)[:, None, None]
+    rows = max(1, PLAIN_ELEMENTS // max(1, cout * ho * wo))
+    out = []
+    for xs in x_q.split(rows):
+        acc = F.conv2d(xs.double(), k64, stride=stride, padding=padding)
+        y = (acc.float() * scale).to(out_dtype)
+        if bias is not None:
+            y = y + bias.to(out_dtype)[:, None, None]
+        out.append(y)
+    return torch.cat(out).contiguous(memory_format=torch.channels_last)
+
+
+def int8_conv_plain(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                    stride: int = 1, padding: int = 1, smooth: bool = True,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """`_int8_conv` and the bias add after it, in plain PyTorch; the result
+    in out_dtype (x's type by default), channels_last."""
+    q = quantize_plain(x, weight, smooth)
+    return igemm_plain(q.x_q, q.k_q, q.s_x, q.s_k, bias, stride, padding,
+                       out_dtype or x.dtype)
+
+
+# -- the kernels -----------------------------------------------------------------
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("int8conv")
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.int8_absmax_channels.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, p]
+    lib.int8_quantize_weight.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32, i32, p]
+    lib.int8_quantize_activation.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, p]
+    lib.int8_conv_igemm.argtypes = [p, p, p, p, p, p] + [i32] * 12 + [p]
+    for fn in (lib.int8_absmax_channels, lib.int8_quantize_weight,
+               lib.int8_quantize_activation, lib.int8_conv_igemm):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"int8conv: {name} launch failed with CUDA error {err}")
+
+
+def _check_cuda(name: str, t: torch.Tensor, dtypes, dim: int) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"int8conv: {name} must be on a CUDA device, got {t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"int8conv: {name} must be one of {dtypes}, got {t.dtype}")
+    if t.dim() != dim or t.numel() == 0:
+        raise ValueError(f"int8conv: {name} must be a non-empty {dim}-d tensor, "
+                         f"got {tuple(t.shape)}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"int8conv: {name} must be 16-byte aligned")
+
+
+def _check_activation(name: str, x: torch.Tensor, dtypes) -> None:
+    _check_cuda(name, x, dtypes, 4)
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"int8conv: {name} must be channels_last contiguous")
+
+
+def _check_vector(name: str, t: torch.Tensor, n: int, device: torch.device) -> None:
+    if t.device != device or t.dtype != torch.float32 or t.shape != (n,) \
+            or not t.is_contiguous():
+        raise ValueError(f"int8conv: {name} must be float32 ({n},) on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def absmax_channels(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel (a): (max|x_c|, max(max|x_c|, 1e-8)) over N, H, W, float32 (C,)."""
+    _check_activation("x", x, tuple(_DTYPE_CODE))
+    b, c, h, w = x.shape
+    pixels = b * h * w
+    per_load = 16 // x.element_size()
+    vector = c % per_load == 0
+    col_blocks = -(-(c // per_load if vector else c) // 32)
+    rows = max(1, min(-(-pixels // 8), -(-ABSMAX_BLOCKS // col_blocks)))
+    part = torch.empty((rows, c), dtype=torch.float32, device=x.device)
+    mx_raw = torch.empty(c, dtype=torch.float32, device=x.device)
+    mx = torch.empty_like(mx_raw)
+    with torch.cuda.device(x.device):
+        err = _lib().int8_absmax_channels(x.data_ptr(), part.data_ptr(), mx_raw.data_ptr(),
+                                          mx.data_ptr(), pixels, c, rows, int(vector),
+                                          _DTYPE_CODE[x.dtype], _stream(x))
+    _check(err, "absmax_channels")
+    launches["absmax"] += 1
+    return mx_raw, mx
+
+
+def quantize_weight(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tensor,
+                    smooth: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """Kernel (b): (s_c (Cin,), s_k (Cout,), s_x (), k_q (Cout, kh, kw, Cp)
+    int8) from the OIHW float32 weight and kernel (a)'s maxima."""
+    _check_cuda("weight", weight, (torch.float32,), 4)
+    if not weight.is_contiguous():
+        raise ValueError("int8conv: weight must be contiguous OIHW")
+    cout, cin, kh, kw = weight.shape
+    _check_vector("mx_raw", mx_raw, cin, weight.device)
+    _check_vector("mx", mx, cin, weight.device)
+    cp = padded_channels(cin)
+    dev = weight.device
+    s_c = torch.empty(cin, dtype=torch.float32, device=dev)
+    s_k = torch.empty(cout, dtype=torch.float32, device=dev)
+    s_x = torch.empty((), dtype=torch.float32, device=dev)
+    k_q = torch.empty((cout, kh, kw, cp), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().int8_quantize_weight(weight.data_ptr(), mx.data_ptr(), mx_raw.data_ptr(),
+                                          s_c.data_ptr(), s_k.data_ptr(), s_x.data_ptr(),
+                                          k_q.data_ptr(), cout, cin, cp, kh * kw, int(smooth),
+                                          _stream(weight))
+    _check(err, "quantize_weight")
+    launches["quantize_weight"] += 1
+    return s_c, s_k, s_x, k_q
+
+
+def quantize_activation(x: torch.Tensor, s_c: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    """Kernel (c): x_q = clip(rint((x / s_c) / s_x), +-127), int8 (N, Cp, H, W)
+    channels_last with zero padding channels."""
+    _check_activation("x", x, tuple(_DTYPE_CODE))
+    b, c, h, w = x.shape
+    _check_vector("s_c", s_c, c, x.device)
+    if s_x.device != x.device or s_x.dtype != torch.float32 or s_x.numel() != 1:
+        raise ValueError("int8conv: s_x must be one float32 on x's device")
+    cp = padded_channels(c)
+    x_q = torch.empty((b, cp, h, w), dtype=torch.int8, device=x.device,
+                      memory_format=torch.channels_last)
+    pixels = b * h * w
+    blocks = max(1, min(-(-pixels * (cp // 16) // THREADS), ELEMENTWISE_BLOCKS))
+    with torch.cuda.device(x.device):
+        err = _lib().int8_quantize_activation(x.data_ptr(), s_c.data_ptr(), s_x.data_ptr(),
+                                              x_q.data_ptr(), pixels, c, cp, blocks,
+                                              _DTYPE_CODE[x.dtype], _stream(x))
+    _check(err, "quantize_activation")
+    launches["quantize_activation"] += 1
+    return x_q
+
+
+def int8_conv_igemm(x_q: torch.Tensor, k_q: torch.Tensor, s_x: torch.Tensor,
+                    s_k: torch.Tensor, bias: Optional[torch.Tensor], stride: int,
+                    padding: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """Kernel (d): the implicit-GEMM conv of x_q (N, Cp, H, W) channels_last
+    with k_q (Cout, kh, kw, Cp), dequantized, cast to out_dtype, + bias in
+    out_dtype; (N, Cout, Ho, Wo) channels_last."""
+    _check_activation("x_q", x_q, (torch.int8,))
+    _check_cuda("k_q", k_q, (torch.int8,), 4)
+    n, cp, h, w = x_q.shape
+    cout, kh, kw, kcp = k_q.shape
+    if cp % CHANNEL_ALIGN or kcp != cp or not k_q.is_contiguous():
+        raise ValueError(f"int8conv: x_q {tuple(x_q.shape)} and k_q {tuple(k_q.shape)} must "
+                         f"share a channel count that {CHANNEL_ALIGN} divides")
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"int8conv: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if stride < 1 or padding < 0:
+        raise ValueError(f"int8conv: stride {stride} and padding {padding}")
+    _check_vector("s_k", s_k, cout, x_q.device)
+    if s_x.device != x_q.device or s_x.dtype != torch.float32 or s_x.numel() != 1:
+        raise ValueError("int8conv: s_x must be one float32 on x_q's device")
+    if bias is not None:
+        _check_vector("bias", bias, cout, x_q.device)
+    ho, wo = conv_out_size(h, kh, stride, padding), conv_out_size(w, kw, stride, padding)
+    if ho < 1 or wo < 1:
+        raise ValueError(f"int8conv: no output for {h}x{w} with a {kh}x{kw} kernel")
+    y = torch.empty((n, cout, ho, wo), dtype=out_dtype, device=x_q.device,
+                    memory_format=torch.channels_last)
+    with torch.cuda.device(x_q.device):
+        err = _lib().int8_conv_igemm(x_q.data_ptr(), k_q.data_ptr(), s_x.data_ptr(),
+                                     s_k.data_ptr(), None if bias is None else bias.data_ptr(),
+                                     y.data_ptr(), n, h, w, cp, cout, kh, kw, stride, padding,
+                                     ho, wo, _DTYPE_CODE[out_dtype], _stream(x_q))
+    _check(err, "int8_conv_igemm")
+    launches["igemm"] += 1
+    return y
+
+
+# -- the op --------------------------------------------------------------------
+
+def int8_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+              stride: int = 1, padding: int = 1, smooth: bool = True) -> torch.Tensor:
+    """The W8A8 conv of x (NCHW channels_last, bf16 or float32) with the OIHW
+    float32 weight, + bias (float32, cast to x's type), in x's type,
+    channels_last.  Calls the registered op `torch.ops.deepsee.int8_conv`."""
+    return torch.ops.deepsee.int8_conv(x, weight, bias, stride, padding, smooth)
+
+
+@torch.library.custom_op("deepsee::int8_conv", mutates_args=())
+def _int8_conv_op(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                  stride: int, padding: int, smooth: bool) -> torch.Tensor:
+    """The op's implementation: the plain version on CPU tensors; on CUDA
+    tensors kernels (a)-(d), or a raise."""
+    if x.device.type == "cpu":
+        plain_calls["int8_conv"] += 1
+        return int8_conv_plain(x, weight, bias, stride, padding, smooth, x.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8conv: unsupported device {x.device}")
+    if weight.dim() != 4 or weight.shape[1] != x.shape[1]:
+        raise ValueError(f"int8conv: weight {tuple(weight.shape)} does not fit x "
+                         f"{tuple(x.shape)}")
+    mx_raw, mx = absmax_channels(x)
+    s_c, s_k, s_x, k_q = quantize_weight(weight, mx_raw, mx, smooth)
+    x_q = quantize_activation(x, s_c, s_x)
+    return int8_conv_igemm(x_q, k_q, s_x, s_k, bias, stride, padding, x.dtype)
+
+
+@_int8_conv_op.register_fake
+def _int8_conv_fake(x, weight, bias, stride, padding, smooth):
+    """Shape, type and layout of the output, for tracing (torch.export)."""
+    n, _, h, w = x.shape
+    cout, _, kh, kw = weight.shape
+    return torch.empty((n, cout, conv_out_size(h, kh, stride, padding),
+                        conv_out_size(w, kw, stride, padding)), dtype=x.dtype,
+                       device=x.device, memory_format=torch.channels_last)

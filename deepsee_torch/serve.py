@@ -4,8 +4,9 @@ The whole inference computation -- preprocessing (label one-hot), style
 encode, generator -- is exported once with `torch.export.export` as a
 self-contained program with the weights stored in the artifact.  A serving
 process loads it with `load_serving` and calls it without SRSystem or the
-configuration; it needs torch and this package's `modnorm` op, which
-`load_serving` registers by importing deepsee_torch.ops.modnorm.
+configuration; it needs torch and this package's `modnorm` and `int8_conv`
+ops, which `load_serving` registers by importing deepsee_torch.ops.modnorm
+and deepsee_torch.ops.int8conv.
 
 Two programs per model, as in the JAX package:
   * end_to_end: (image_lr, label[, guiding_image, guiding_label]) ->
@@ -20,14 +21,20 @@ results are NHWC: image_lr (B, s, s, 3) float32 in [-1, 1], label
 and runs there: one exported on CUDA is a CUDA program (its kernels are
 the port's, built at first use); the manifest records which.
 
+quantize="int8" exports under `int8_inference()`: every eval-mode conv with
+cin and cout >= 64 is one `deepsee::int8_conv` node (W8A8, SmoothQuant);
+"int8_nosmooth" drops the equalization.  The manifest records the mode.
+A daemon serves such an artifact next to a bf16 one under two aliases.
+
   python -m deepsee_torch.serve --name 8x_independent_256x256 \\
       --batch_size 8 --out serving/run1/ [--torch_checkpoint ckpts/ \\
-      --epoch latest] [--device cuda]
+      --epoch latest] [--device cuda] [--quantize int8]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 from typing import Dict, Optional, Sequence, Tuple
@@ -36,9 +43,11 @@ import torch
 import torch.nn as nn
 
 from deepsee_torch.config import Experiment
+from deepsee_torch.models.layers import int8_inference
 from deepsee_torch.system import SRSystem
 
 PROGRAMS = ("end_to_end", "styled")
+QUANTIZE = ("", "int8", "int8_nosmooth")
 
 
 class EndToEnd(nn.Module):
@@ -112,14 +121,15 @@ def serving_arg_specs(exp: Experiment, batch_size: int = 1,
 def export_serving(system: SRSystem, batch_size: int = 1,
                    quantize: str = "") -> Dict[str, torch.export.ExportedProgram]:
     """Export both serving programs on the system's device:
-    {"end_to_end": program, "styled": program}."""
-    if quantize:
-        raise NotImplementedError(
-            f"quantize={quantize!r}: int8 serving needs a Hopper int8/FP8 conv "
-            "kernel (K4), which a later slice of the port adds")
+    {"end_to_end": program, "styled": program}.  quantize: "" (the
+    system's own dtype), "int8" or "int8_nosmooth" (module docstring)."""
+    if quantize not in QUANTIZE:
+        raise ValueError(f"unknown quantize mode {quantize!r}; one of {QUANTIZE}")
     e2e_args, styled_args = serving_arg_specs(system.exp, batch_size, system.device)
     end_to_end, styled = make_serving_fns(system)
-    with torch.no_grad():
+    ctx = (int8_inference(smooth=quantize == "int8") if quantize
+           else contextlib.nullcontext())
+    with torch.no_grad(), ctx:
         return {"end_to_end": torch.export.export(end_to_end, e2e_args),
                 "styled": torch.export.export(styled, styled_args)}
 
@@ -155,6 +165,7 @@ def save_serving(out_dir: str, exp: Experiment,
 def load_serving(path_or_dir: str, name: str = "end_to_end") -> nn.Module:
     """Load an exported program; returns a module to call with tensors on
     the device it was exported for."""
+    import deepsee_torch.ops.int8conv  # noqa: F401  (registers deepsee::int8_conv)
     import deepsee_torch.ops.modnorm  # noqa: F401  (registers deepsee::modnorm)
 
     path = path_or_dir
@@ -174,6 +185,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--batch_size", type=int, default=1, help="the trace batch")
     p.add_argument("--device", default="cuda",
                    help="device the programs are exported for and run on")
+    p.add_argument("--quantize", default="", choices=QUANTIZE,
+                   help="int8: W8A8 quantized convs (SmoothQuant); int8_nosmooth drops the "
+                        "equalization")
     p.add_argument("--out", required=True)
     args = p.parse_args(argv)
 
@@ -187,8 +201,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         load_reference_checkpoint(system, args.torch_checkpoint, epoch=args.epoch)
     else:
         print("WARNING: exporting seeded random-init weights (no --torch_checkpoint)")
-    programs = export_serving(system, args.batch_size)
-    save_serving(args.out, exp, programs, args.batch_size, system.device)
+    programs = export_serving(system, args.batch_size, quantize=args.quantize)
+    save_serving(args.out, exp, programs, args.batch_size, system.device,
+                 quantize=args.quantize)
     for name in programs:
         path = os.path.join(args.out, f"{name}.pt2")
         print(f"wrote {path} ({os.path.getsize(path) / 2 ** 20:.1f} MiB)")

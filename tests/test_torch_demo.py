@@ -206,12 +206,40 @@ def test_demo_cli_with_reference_checkpoint(files, ckpt_root, tmp_path, monkeypa
                                np.asarray(want["encoded_style"][0]), rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint", "ckpts"], ["--int8"]])
+@pytest.mark.parametrize("flag", [["--checkpoint", "ckpts"]])
 def test_demo_cli_refuses_what_is_not_ported(flag, files, capsys):
     with pytest.raises(SystemExit):
         tdemo.main(["--image_lr", files["lr"], "--semantics", files["sem"],
                     "--device", "cpu"] + flag)
     assert "deepsee_torch" in capsys.readouterr().err
+
+
+def test_demo_cli_int8_runs_under_int8_inference(files, ckpt_root, tmp_path, monkeypatch):
+    """--int8 runs the demo inside int8_inference(): the generator's convs
+    quantized (those reckoned at min_ch 64), the written image the port
+    demo's under the context."""
+    import deepsee_torch.config as tconfig
+    from deepsee_torch.models.layers import int8_inference
+    from deepsee_torch.ops import int8conv
+    from test_torch_int8 import reckoned_int8_convs
+
+    monkeypatch.setattr(tconfig, "get_preset", lambda name: torch_tiny())
+    d = _reference_dir(False, ckpt_root)
+    int8conv.reset_launches()
+    tdemo.main(["--name", "tiny", "--image_lr", files["lr"], "--semantics", files["sem"],
+                "--torch_checkpoint", d, "--device", "cpu", "--out", str(tmp_path / "cli"),
+                "--int8"])
+    assert int8conv.plain_calls["int8_conv"] == reckoned_int8_convs(torch_tiny().model, 64)
+    demo = tdemo.Demo(_exp(torch_tiny), device="cpu")
+    load_reference_checkpoint(demo.system, d)
+    with int8_inference():
+        want = demo.run(files["lr"], files["sem"], out_dir=str(tmp_path / "direct"))
+    plain = demo.run(files["lr"], files["sem"], out_dir=str(tmp_path / "float"))
+    png = {k: np.asarray(Image.open(os.path.join(str(tmp_path), k, "demo_lr.png")))
+           for k in ("cli", "direct", "float")}
+    np.testing.assert_array_equal(png["cli"], png["direct"])
+    assert not np.array_equal(png["cli"], png["float"])
+    assert os.path.basename(want["save_path"]) == os.path.basename(plain["save_path"])
 
 
 def test_demo_cli_defaults_to_cuda(files, monkeypatch):

@@ -2,8 +2,8 @@
 training CLI's evaluation flags, on the CPU at the tiny test configuration
 (get_preset monkeypatched): synthetic samples with the seeded init, the
 default checkpoint (the port trainer's .pth files) against
---torch_checkpoint and --no_checkpoint, the refusals with the slice each
-names, the card by default.  The data flags are in test_torch_data_cli.py."""
+--torch_checkpoint and --no_checkpoint, the card by default.  The data
+flags are in test_torch_data_cli.py, --int8 in test_torch_int8.py."""
 
 import dataclasses
 import json
@@ -66,14 +66,6 @@ def test_default_checkpoint_is_the_trainers(tiny, tmp_path, capsys):
     assert default["rmse/mean"] != seeded["rmse/mean"]
     with pytest.raises(FileNotFoundError, match="export_torch.py"):
         cli.main(_argv("--checkpoints_dir", str(tmp_path / "empty"), *quick))
-
-
-@pytest.mark.parametrize("flags,slice_name", [
-    (["--int8", "--synthetic"], "K4"), (["--int8", "--multihost", "--synthetic"], "K4")])
-def test_refusals_name_their_slice(capsys, flags, slice_name):
-    with pytest.raises(SystemExit):
-        cli.parse_args(flags)
-    assert slice_name in capsys.readouterr().err
 
 
 def test_runs_on_the_card_by_default(tiny, monkeypatch):

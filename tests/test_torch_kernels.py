@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from deepsee_torch.config import tiny_test_experiment
+from deepsee_torch.ops import int8conv as ic
 from deepsee_torch.ops import modnorm as mn
 from deepsee_torch.system import SRSystem
 from deepsee_torch.weights import randomize_weights
@@ -632,6 +633,116 @@ def test_split_kernels_refuse_what_they_do_not_take(cuda_device):
         lambda: mn.modnorm_batch_apply(x, mod, partials.double()),
         lambda: mn.modnorm_backward_sums(x, mod, x, mean[:32], rstd[:32]),
         lambda: mn.modnorm_backward_apply(x, mod, x, mean, rstd, sums[:1], 162.0),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+
+
+# -- the int8 conv (K4) --------------------------------------------------------
+
+# name: (x (B, Cin, H, W), weight (Cout, Cin, k, k), stride, padding)
+INT8_SHAPES = {
+    "conv 512 64^2": ((4, 512, 64, 64), (512, 512, 3, 3), 1, 1),
+    "mod conv 256->1024": ((2, 256, 64, 64), (1024, 256, 3, 3), 1, 1),
+    "down1 stride 2": ((4, 64, 128, 128), (128, 64, 3, 3), 2, 1),
+    "cin 72": ((3, 72, 19, 23), (40, 72, 3, 3), 1, 1),
+    "1x1": ((4, 512, 32, 32), (256, 512, 1, 1), 1, 0),
+}
+
+
+def _int8_inputs(device, dtype, case, seed=0):
+    """Channel ranges over three decades, one channel all zero (its max is 0:
+    s_c takes the clamped 1e-8, s_x the unclamped 0), a bias."""
+    (b, c, h, w), wshape, stride, pad = INT8_SHAPES[case]
+    g = torch.Generator(device=device).manual_seed(seed)
+    scales = torch.logspace(-2, 1, c, device=device)[:, None, None]
+    x = torch.randn((b, c, h, w), generator=g, device=device) * scales
+    x[:, 0] = 0.0
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    weight = torch.randn(wshape, generator=g, device=device) * 0.05
+    bias = torch.randn(wshape[0], generator=g, device=device) * 0.1
+    return x, weight, bias, stride, pad
+
+
+def _within_one_ulp(got, want, dtype):
+    want = want.float()
+    mag = want.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag))) * torch.finfo(dtype).eps
+    return bool(((got.float() - want).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("smooth", [True, False])
+@pytest.mark.parametrize("case", list(INT8_SHAPES))
+def test_int8_kernels_match_plain_on_card(cuda_device, case, smooth, dtype):
+    """(a) the channel maxima, (b) s_c, s_k, s_x bit for bit and k_q equal,
+    (c) x_q equal (padding channels zero), (d) the output within one ulp of
+    the plain float64 product's; the op is (a)-(d)."""
+    x, weight, bias, stride, pad = _int8_inputs(cuda_device, dtype, case)
+    cin = x.shape[1]
+    want = ic.quantize_plain(x, weight, smooth)
+    before = dict(ic.launches)
+    mx_raw, mx = ic.absmax_channels(x)
+    s_c, s_k, s_x, k_q = ic.quantize_weight(weight, mx_raw, mx, smooth)
+    x_q = ic.quantize_activation(x, s_c, s_x)
+    y = ic.int8_conv_igemm(x_q, k_q, s_x, s_k, bias, stride, pad, dtype)
+    torch.cuda.synchronize()
+    assert {k: ic.launches[k] - before[k] for k in before} == dict.fromkeys(before, 1)
+    for got, ref in ((mx_raw, want.mx_raw), (mx, want.mx), (s_c, want.s_c), (s_k, want.s_k),
+                     (s_x, want.s_x)):
+        assert torch.equal(got, ref)
+    assert torch.equal(k_q[..., :cin].permute(0, 3, 1, 2), want.k_q)
+    assert not bool(k_q[..., cin:].any())
+    assert torch.equal(x_q[:, :cin], want.x_q) and not bool(x_q[:, cin:].any())
+    ref = ic.igemm_plain(want.x_q, want.k_q, want.s_x, want.s_k, bias, stride, pad, dtype)
+    assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+    assert y.shape == ref.shape and _within_one_ulp(y, ref, dtype)
+    whole = ic.int8_conv(x, weight, bias, stride, pad, smooth)
+    torch.cuda.synchronize()
+    assert torch.equal(whole, y)
+
+
+@pytest.mark.cuda
+def test_int8_conv_in_a_cuda_graph(cuda_device):
+    """The op's four kernels and its allocations captured in a CUDA graph:
+    a replay on new inputs equals an eager call on them."""
+    x, weight, bias, stride, pad = _int8_inputs(cuda_device, torch.bfloat16, "conv 512 64^2")
+    static_x = x.clone(memory_format=torch.channels_last)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ic.int8_conv(static_x, weight, bias, stride, pad)  # warm-up: build and load
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ic.int8_conv(static_x, weight, bias, stride, pad)
+    fresh = _int8_inputs(cuda_device, torch.bfloat16, "conv 512 64^2", seed=1)[0]
+    static_x.copy_(fresh)
+    before = dict(ic.launches)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert ic.launches == before  # a replay launches nothing through the wrappers
+    assert torch.equal(out, ic.int8_conv(fresh, weight, bias, stride, pad))
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    x, weight, bias, stride, pad = _int8_inputs(cuda_device, torch.bfloat16, "cin 72")
+    mx_raw, mx = ic.absmax_channels(x)
+    s_c, s_k, s_x, k_q = ic.quantize_weight(weight, mx_raw, mx, True)
+    x_q = ic.quantize_activation(x, s_c, s_x)
+    bad = [
+        lambda: ic.absmax_channels(x.contiguous()),                        # NCHW memory
+        lambda: ic.absmax_channels(x.half()),                              # float16
+        lambda: ic.quantize_weight(weight.bfloat16(), mx_raw, mx, True),   # not float32
+        lambda: ic.quantize_weight(weight, mx_raw[:8], mx[:8], True),      # not (Cin,)
+        lambda: ic.quantize_activation(x, s_c[:8], s_x),
+        lambda: ic.int8_conv_igemm(x_q, k_q[..., :72].contiguous(), s_x, s_k, bias, 1, 1,
+                                   torch.bfloat16),                        # Cp differs
+        lambda: ic.int8_conv_igemm(x_q, k_q, s_x, s_k, bias, 1, 1, torch.float16),
+        lambda: ic.int8_conv(x, weight.cpu(), bias, 1, 1),                 # weight on the CPU
     ]
     for call in bad:
         with pytest.raises(ValueError):

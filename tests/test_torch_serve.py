@@ -153,9 +153,11 @@ def test_program_hands_modnorm_channels_last(family, monkeypatch):
 
 
 def test_quantize_int8_raises(family):
+    """The quantize modes are "", "int8" and "int8_nosmooth" (the int8 export
+    is held in test_torch_int8.py); any other raises before tracing."""
     _, _, _, port, _ = family
-    for mode in ("int8", "int8_nosmooth"):
-        with pytest.raises(NotImplementedError, match="K4"):
+    for mode in ("fp4", "int4", "INT8"):
+        with pytest.raises(ValueError, match="quantize mode"):
             serve.export_serving(port, batch_size=1, quantize=mode)
 
 
