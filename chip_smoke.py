@@ -59,11 +59,13 @@
 9. int8 phase (`int8_phase`, the W8A8 serving path): kernels (a)-(d) of
    deepsee_torch/csrc/int8conv.cu against their plain versions at every
    quantized conv shape of the main path b32, of the 8x guided full trunk
-   b32 (stride 2) and of the trace batch 8, plus a Cin of 72 and a 1x1
-   conv, in bf16 and float32 (the maxima and scales bit for bit, x_q and
-   k_q equal, the output within one ulp), each main-path and trunk shape
-   timed by device time (kernels apart, the op, the bf16 cuDNN conv of the
-   same shape, the plain version) beside its bound; the main path under
+   b32 (stride 2) and of the trace batch 8, plus a Cin of 72, a 1x1 conv
+   and two ragged tilings (a 7x5 image, a stride-2 19x23 one), in bf16 and
+   float32 (the maxima and scales bit for bit, x_q and k_q equal, the
+   output within one ulp), each main-path and trunk shape timed by device
+   time (kernels apart, the op, the bf16 cuDNN conv of the same shape,
+   torch._int_mm at the GEMM's M x N x K, the plain version) beside its
+   bound, with (d)'s tile plan and its host us per call; the main path under
    int8_inference() (int8 launches as the config reckons them, K1's
    unchanged, ms per batch, PSNR against bf16 and float32, int8_nosmooth,
    a profile), the float32 int8 path against the CPU's plain one (teacher-
@@ -113,6 +115,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import http.client
 import itertools
 import json
@@ -2881,9 +2884,17 @@ INT8_KERNELS = {
     "int8_conv_igemm": ("igemm", None),
 }
 INT8_STAGES = ("absmax", "quantize_weight", "quantize_activation", "igemm")
-# shapes beside the paths': a Cin that 32 does not divide, a 1x1 conv (conv_s)
+# shapes beside the paths': a Cin that 32 does not divide, a 1x1 conv (conv_s);
+# ragged tiles: a 7x5 image in one 16x8 rectangle with Cout 20, a stride-2 conv
+# of a 19x23 image
 INT8_EXTRA_SHAPES = [((3, 72, 19, 23), (40, 72, 3, 3), 1, 1),
-                     ((8, 512, 64, 64), (256, 512, 1, 1), 1, 0)]
+                     ((8, 512, 64, 64), (256, 512, 1, 1), 1, 0),
+                     ((2, 64, 7, 5), (20, 64, 3, 3), 1, 1),
+                     ((3, 128, 19, 23), (256, 128, 3, 3), 2, 1)]
+INT8_LIBRARY_GEMM = ("torch._int_mm (cuBLASLt s8 x s8 -> s32) at the conv's M x N x K on random s8 "
+                     "operands, batch-sliced and scaled by the slices: library GEMM, same M x N x "
+                     "K, not the same function: no im2col, no dequantization")
+INT_MM_SLICE_BYTES = 1 << 30   # each operand and the s32 product of one slice
 INT8_SERVE_REQUESTS = 32
 # The float32 int8 path on the card against the CPU's plain int8 path, one
 # sample.  Run free, the two differ by about the int8 error itself: their
@@ -3026,10 +3037,38 @@ def _int8_bounds(xshape, wshape, stride, pad, esize: int):
             "op": bound(n * esize + nw * 4 + cout * 4 + m * cout * esize, 0, 2 * macs)}
 
 
+def igemm_plan_text(xshape, wshape, stride, pad) -> str:
+    """Kernel (d)'s tile plan for one conv, as the wrapper launches it."""
+    cp = ic.padded_channels(xshape[1])
+    p = ic.igemm_plan((xshape[0], cp) + tuple(xshape[2:]), (wshape[0],) + tuple(wshape[2:]) + (cp,),
+                      stride, pad, mn.card_sms(torch.device("cuda")))
+    return (f"{ic.IGEMM_BM}x{p.bn}x{p.bk} B, {p.stages} stages of "
+            f"{(ic.IGEMM_BM + p.bn) * p.bk // 1024} KB, rectangle {p.hbox}x{p.wbox}, "
+            f"{p.chunks} chunk(s) x {p.taps} taps, {p.tiles} tiles N fastest on {p.grid} "
+            f"persistent blocks")
+
+
+def int_mm_ms(m: int, n: int, k: int, gen) -> float:
+    """torch._int_mm at M x N x K: A (M, K) row-major, B (K, N) column-major,
+    random s8; M in slices that keep each operand and the s32 product under
+    INT_MM_SLICE_BYTES, the slice's device ms scaled by M / slice rows."""
+    dev = torch.device("cuda")
+    slices = max(1, -(-m * k // INT_MM_SLICE_BYTES), -(-m * n * 4 // INT_MM_SLICE_BYTES))
+    rows = -(-m // slices)
+    b = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8).t()
+    pool = [torch.randint(-127, 128, (rows, k), generator=gen, device=dev, dtype=torch.int8)
+            for _ in range(1 + min(3, (120 << 20) // (rows * k)))]
+    ms = _device_ms([lambda a=a: torch._int_mm(a, b) for a in pool]) * m / rows
+    del pool, b
+    torch.cuda.empty_cache()
+    return ms
+
+
 def int8_times(xshape, wshape, stride, pad, gen) -> dict:
     """Device ms of kernels (a)-(d) apart, of the op, of the bf16 cuDNN conv
-    of the same shape and of one library call for (a), over a pool of inputs
-    larger than the L2; the plain version's ms per stage by events."""
+    of the same shape, of one library call for (a) and of the library s8
+    GEMM of (d)'s M x N x K, over a pool of inputs larger than the L2; the
+    plain version's ms per stage by events; the host us of a (d) call."""
     dtype = torch.bfloat16
     x0, w, bias = _int8_inputs(xshape, wshape, dtype, gen)
     pool = [x0] + [_int8_inputs(xshape, wshape, dtype, gen)[0]
@@ -3049,6 +3088,10 @@ def int8_times(xshape, wshape, stride, pad, gen) -> dict:
                                    for x in pool]),
          "absmax_library": _device_ms([lambda x=x: torch.linalg.vector_norm(
              x, float("inf"), dim=(0, 2, 3)) for x in pool])}
+    igemm = functools.partial(ic.int8_conv_igemm, qpool[0], k_q, s_x, s_k, bias, stride, pad,
+                              dtype)
+    igemm()  # the output's first allocation outside the timed calls
+    t["igemm_host_us"] = _host_us(igemm)
     del qpool
     q = ic.quantize_plain(x0, w, True)
     t["plain"] = {
@@ -3062,6 +3105,10 @@ def int8_times(xshape, wshape, stride, pad, gen) -> dict:
     t["plain"]["op"] = sum(t["plain"].values())
     del pool, q
     torch.cuda.empty_cache()
+    ho, wo = ic.conv_out_size(xshape[2], wshape[2], stride, pad), ic.conv_out_size(
+        xshape[3], wshape[3], stride, pad)
+    t["igemm_library_gemm"] = int_mm_ms(xshape[0] * ho * wo, wshape[0],
+                                        wshape[1] * wshape[2] * wshape[3], gen)
     return t
 
 
@@ -3097,6 +3144,10 @@ def int8_kernel_rows(shapes_by_group, smi: str):
                 "bound_share": {k: bounds[k][0] / t[k] for k in INT8_STAGES + ("op",)},
                 "plain_ms": t["plain"],
                 "bf16_cudnn_ms (library, bf16, not the same function)": t["bf16_cudnn"],
+                "igemm_library_gemm_ms (torch._int_mm, same M x N x K, not the same function)":
+                    t["igemm_library_gemm"],
+                "igemm_plan": igemm_plan_text(xshape, wshape, stride, pad),
+                "igemm_host_us": t["igemm_host_us"],
                 "absmax_library_ms": t["absmax_library"], "card": smi}))
     return rows, times
 
@@ -3120,6 +3171,9 @@ def int8_path_times(times, shapes) -> dict:
         out[stage] = rec
     out["absmax"]["library_ms"] = sum(times[r[:4]]["absmax_library"] * r[4] for r in shapes)
     out["bf16_cudnn_ms"] = sum(times[r[:4]]["bf16_cudnn"] * r[4] for r in shapes)
+    out["library_gemm_ms"] = sum(times[r[:4]]["igemm_library_gemm"] * r[4] for r in shapes)
+    out["igemm_host_us"] = sum(times[r[:4]]["igemm_host_us"] * r[4] for r in shapes) / sum(
+        r[4] for r in shapes)
     return out
 
 
@@ -3580,6 +3634,9 @@ def kernels_line(rows, launches, norms, train=None, dp=None, int8=None):
             entry["bf16_cudnn_ms"] = int8["times"]["bf16_cudnn_ms"]
             entry["bf16_cudnn_note"] = ("library (bf16, not the same function): F.conv2d in "
                                         "bf16 at the same shapes")
+            entry["library_gemm_ms"] = int8["times"]["library_gemm_ms"]
+            entry["library_gemm_note"] = INT8_LIBRARY_GEMM
+            entry["host_us_per_launch"] = int8["times"]["igemm_host_us"]
         out.append(entry)
     return {"kernels": out}
 

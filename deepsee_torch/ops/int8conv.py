@@ -25,6 +25,14 @@ hand-written kernels of deepsee_torch/csrc/int8conv.cu -- (a)
 |acc| <= 127 * 127 * K stays far below 2^53).  There is no fallback from one
 to the other.  Importing this module registers the op.
 
+The launch plans are pure Python, so the CPU tests reach them:
+`quantize_plan` sizes (c)'s grid; `igemm_plan` chooses (d)'s tile (the
+output-pixel rectangle, BN, BK, the ring's stages, the persistent grid)
+and the boxes of its two TMA tensor maps, and `igemm_tile` /
+`igemm_loads` give the tile order and the coordinates that the kernel's
+producer hands TMA, from which tests/test_torch_int8_plan.py rebuilds the
+product on the CPU.
+
 Activations are NCHW tensors in channels_last memory (bf16 or float32), the
 weight OIHW float32.  The kernels' intermediates keep the GEMM's layouts:
 x_q (N, Cp, H, W) channels_last and k_q (Cout, kh, kw, Cp), int8, where Cp
@@ -41,20 +49,32 @@ import torch
 import torch.nn.functional as F
 
 from deepsee_torch.ops import _build
+from deepsee_torch.ops.modnorm import card_sms
 
 __all__ = ["int8_conv", "int8_conv_plain", "quantize_plain", "igemm_plain", "Quantized",
            "absmax_channels_plain", "smooth_scales_plain", "quantize_weight_plain",
            "quantize_activation_plain",
            "absmax_channels", "quantize_weight", "quantize_activation", "int8_conv_igemm",
+           "divide_check", "QuantizePlan", "quantize_plan", "IgemmPlan", "igemm_plan",
+           "igemm_tile", "igemm_loads",
            "padded_channels", "conv_out_size", "launches", "plain_calls", "reset_launches"]
 
 FLOOR = 1e-8
 LEVELS = 127.0
-CHANNEL_ALIGN = 16          # Cp: the GEMM loads 16-byte chunks of x_q and k_q
+CHANNEL_ALIGN = 16          # Cp: TMA wants every row of x_q and k_q on 16 bytes
 SMS = 132                   # H100 SXM
 ABSMAX_BLOCKS = 4 * SMS     # the partials pass: four blocks per SM
-ELEMENTWISE_BLOCKS = 16 * SMS
 THREADS = 256
+# (c): a block strides over the pixels; at most this many blocks per SM
+QUANTIZE_BLOCKS_PER_SM = 4
+QUANTIZE_MAX_PIXELS = 1 << 30   # the kernel indexes pixels in 32 bits
+# (d): a tile is 128 output pixels (two consumer warpgroups of 64 rows) by
+# BN output channels; the shared-memory ring holds up to 192 KB of stages
+IGEMM_BM = 128
+IGEMM_RING_BYTES = 192 * 1024
+IGEMM_MAX_STAGES = 8
+TMA_BOX_MAX = 256           # elements of a box along one dimension
+TMA_MAX_ELEMENT_STRIDE = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # float64 rows of the plain product at once: bounds its memory on the card
 PLAIN_ELEMENTS = 1 << 28
@@ -190,6 +210,122 @@ def int8_conv_plain(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.
                        out_dtype or x.dtype)
 
 
+# -- the launch plans ------------------------------------------------------------
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _pow2_at_most(n: int) -> int:
+    return 1 << (n.bit_length() - 1)
+
+
+class QuantizePlan(NamedTuple):
+    """Kernel (c)'s grid: a block takes `lanes` 16-channel groups (a power of
+    2, at most 32) of `rows` = 256 / lanes pixels a step, `unroll` steps at
+    once; blocks_y channel ranges times blocks_x blocks striding over the
+    pixels."""
+    lanes: int
+    rows: int
+    unroll: int
+    blocks_x: int
+    blocks_y: int
+
+
+def quantize_plan(pixels: int, cp: int, dtype: torch.dtype, sms: int = SMS) -> QuantizePlan:
+    groups = cp // 16
+    lanes = min(32, _pow2_at_least(groups))
+    rows = THREADS // lanes
+    unroll = 4 if dtype == torch.bfloat16 else 2   # 128 bytes of loads in flight a thread
+    blocks_y = -(-groups // lanes)
+    blocks_x = max(1, min(-(-pixels // (rows * unroll)),
+                          QUANTIZE_BLOCKS_PER_SM * sms // blocks_y))
+    return QuantizePlan(lanes, rows, unroll, blocks_x, blocks_y)
+
+
+class IgemmPlan(NamedTuple):
+    """Kernel (d)'s tile and grid for one conv.
+
+    An M tile is an hbox x wbox rectangle (hbox * wbox = 128) of one image's
+    output pixels, an N tile bn output channels; tiles_h x tiles_w
+    rectangles per image, tiles_n N tiles, `tiles` in all, walked N fastest
+    (`igemm_tile`) by `grid` persistent blocks.  K runs over the taps and, in
+    each, over `chunks` chunks of bk channels (zero-filled past Cp).  The
+    TMA boxes: x_box over x_q [N][H][W][Cp] (innermost first: channels, W,
+    H, N) with x_element_strides, k_box over k_q [Cout][tap][Cp]."""
+    bn: int
+    bk: int
+    stages: int
+    smem: int
+    hbox: int
+    wbox: int
+    tiles_h: int
+    tiles_w: int
+    tiles_n: int
+    tiles: int
+    taps: int
+    chunks: int
+    grid: int
+    x_box: Tuple[int, int, int, int]
+    x_element_strides: Tuple[int, int, int, int]
+    k_box: Tuple[int, int, int]
+
+
+def igemm_plan(x_shape: Tuple[int, int, int, int], k_shape: Tuple[int, int, int, int],
+               stride: int, padding: int, sms: int = SMS) -> IgemmPlan:
+    """The plan for x_q of shape (N, Cp, H, W) and k_q (Cout, kh, kw, Cp).
+
+    bk: 64 bytes (64-byte swizzle) for Cp <= 64, else 128 (128-byte swizzle);
+    bn: 256, or 128 for Cout <= 128; as many ring stages as 192 KB hold (at
+    most 8).  The rectangle's width is the smallest power of 2 that covers
+    Wo (at most 128), kept where TMA's boxes (wbox * stride and hbox *
+    stride elements, at most 256) allow."""
+    n, cp, h, w = x_shape
+    cout, kh, kw, _ = k_shape
+    if not 1 <= stride <= TMA_MAX_ELEMENT_STRIDE:
+        raise ValueError(f"int8conv: stride {stride}: TMA's element strides run from 1 to "
+                         f"{TMA_MAX_ELEMENT_STRIDE}")
+    ho, wo = conv_out_size(h, kh, stride, padding), conv_out_size(w, kw, stride, padding)
+    bk = 64 if cp <= 64 else 128
+    bn = 128 if cout <= 128 else 256
+    stage = (IGEMM_BM + bn) * bk
+    stages = min(IGEMM_MAX_STAGES, IGEMM_RING_BYTES // stage)
+    widest = min(IGEMM_BM, _pow2_at_most(TMA_BOX_MAX // stride))
+    narrowest = _pow2_at_least(-(-IGEMM_BM * stride // TMA_BOX_MAX))
+    wbox = max(narrowest, min(widest, _pow2_at_least(wo)))
+    hbox = IGEMM_BM // wbox
+    tiles_h, tiles_w, tiles_n = -(-ho // hbox), -(-wo // wbox), -(-cout // bn)
+    tiles = n * tiles_h * tiles_w * tiles_n
+    return IgemmPlan(bn=bn, bk=bk, stages=stages, smem=1024 + stages * stage + 16 * stages,
+                     hbox=hbox, wbox=wbox, tiles_h=tiles_h, tiles_w=tiles_w, tiles_n=tiles_n,
+                     tiles=tiles, taps=kh * kw, chunks=-(-cp // bk), grid=min(tiles, sms),
+                     x_box=(bk, wbox * stride, hbox * stride, 1),
+                     x_element_strides=(1, stride, stride, 1), k_box=(bk, 1, bn))
+
+
+def igemm_tile(plan: IgemmPlan, t: int) -> Tuple[int, int, int, int]:
+    """Tile t's (image, ho0, wo0, n0): N fastest, then the rectangles of
+    each image in raster order (the kernel's `tile_at`)."""
+    mt, nt = divmod(t, plan.tiles_n)
+    rest, tw = divmod(mt, plan.tiles_w)
+    img, th = divmod(rest, plan.tiles_h)
+    return img, th * plan.hbox, tw * plan.wbox, nt * plan.bn
+
+
+def igemm_loads(plan: IgemmPlan, tile: Tuple[int, int, int, int], kw: int, stride: int,
+                padding: int):
+    """The producer's TMA coordinates for one tile, in K order: for each tap
+    (r, q) and channel chunk, ((c, w, h, image) of the x_q box, (c, tap, n0)
+    of the k_q box)."""
+    img, ho0, wo0, n0 = tile
+    h0, w0 = ho0 * stride - padding, wo0 * stride - padding
+    for tap in range(plan.taps):
+        r, q = divmod(tap, kw)
+        for c in range(plan.chunks):
+            yield (c * plan.bk, w0 + q, h0 + r, img), (c * plan.bk, tap, n0)
+
+
+
 # -- the kernels -----------------------------------------------------------------
 
 @functools.cache
@@ -198,10 +334,11 @@ def _lib() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.int8_absmax_channels.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, p]
     lib.int8_quantize_weight.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32, i32, p]
-    lib.int8_quantize_activation.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, p]
-    lib.int8_conv_igemm.argtypes = [p, p, p, p, p, p] + [i32] * 12 + [p]
+    lib.int8_quantize_activation.argtypes = [p, p, p, p] + [i32] * 6 + [p]
+    lib.int8_conv_igemm.argtypes = [p, p, p, p, p, p] + [i32] * 17 + [p]
+    lib.int8_divide_check.argtypes = [p, p, i32, p, p, p, p]
     for fn in (lib.int8_absmax_channels, lib.int8_quantize_weight,
-               lib.int8_quantize_activation, lib.int8_conv_igemm):
+               lib.int8_quantize_activation, lib.int8_conv_igemm, lib.int8_divide_check):
         fn.restype = ctypes.c_int
     return lib
 
@@ -210,9 +347,20 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+# int8_conv_igemm's own error codes beside CUDA's (int8conv.cu)
+_IGEMM_ERRORS = {9001: "the tile plan is out of the kernel's range",
+                 9002: "cuTensorMapEncodeTiled was not found in the driver"}
+
+
 def _check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"int8conv: {name} launch failed with CUDA error {err}")
+    if err == 0:
+        return
+    if err in _IGEMM_ERRORS:
+        raise RuntimeError(f"int8conv: {name}: {_IGEMM_ERRORS[err]}")
+    if err >= 9100:
+        raise RuntimeError(f"int8conv: {name}: the driver refused a tensor map "
+                           f"(CUresult {err - 9100})")
+    raise RuntimeError(f"int8conv: {name} launch failed with CUDA error {err}")
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtypes, dim: int) -> None:
@@ -297,14 +445,17 @@ def quantize_activation(x: torch.Tensor, s_c: torch.Tensor, s_x: torch.Tensor) -
     if s_x.device != x.device or s_x.dtype != torch.float32 or s_x.numel() != 1:
         raise ValueError("int8conv: s_x must be one float32 on x's device")
     cp = padded_channels(c)
+    pixels = b * h * w
+    if pixels >= QUANTIZE_MAX_PIXELS:
+        raise ValueError(f"int8conv: {pixels} pixels: quantize_activation takes fewer than "
+                         f"{QUANTIZE_MAX_PIXELS}")
     x_q = torch.empty((b, cp, h, w), dtype=torch.int8, device=x.device,
                       memory_format=torch.channels_last)
-    pixels = b * h * w
-    blocks = max(1, min(-(-pixels * (cp // 16) // THREADS), ELEMENTWISE_BLOCKS))
+    plan = quantize_plan(pixels, cp, x.dtype, card_sms(x.device))
     with torch.cuda.device(x.device):
         err = _lib().int8_quantize_activation(x.data_ptr(), s_c.data_ptr(), s_x.data_ptr(),
-                                              x_q.data_ptr(), pixels, c, cp, blocks,
-                                              _DTYPE_CODE[x.dtype], _stream(x))
+                                              x_q.data_ptr(), pixels, c, cp, plan.lanes,
+                                              plan.blocks_x, _DTYPE_CODE[x.dtype], _stream(x))
     _check(err, "quantize_activation")
     launches["quantize_activation"] += 1
     return x_q
@@ -315,7 +466,8 @@ def int8_conv_igemm(x_q: torch.Tensor, k_q: torch.Tensor, s_x: torch.Tensor,
                     padding: int, out_dtype: torch.dtype) -> torch.Tensor:
     """Kernel (d): the implicit-GEMM conv of x_q (N, Cp, H, W) channels_last
     with k_q (Cout, kh, kw, Cp), dequantized, cast to out_dtype, + bias in
-    out_dtype; (N, Cout, Ho, Wo) channels_last."""
+    out_dtype; (N, Cout, Ho, Wo) channels_last.  The tile is
+    `igemm_plan`'s; the stride runs from 1 to 8 (TMA's element strides)."""
     _check_activation("x_q", x_q, (torch.int8,))
     _check_cuda("k_q", k_q, (torch.int8,), 4)
     n, cp, h, w = x_q.shape
@@ -325,8 +477,9 @@ def int8_conv_igemm(x_q: torch.Tensor, k_q: torch.Tensor, s_x: torch.Tensor,
                          f"share a channel count that {CHANNEL_ALIGN} divides")
     if out_dtype not in _DTYPE_CODE:
         raise ValueError(f"int8conv: out_dtype must be float32 or bfloat16, got {out_dtype}")
-    if stride < 1 or padding < 0:
-        raise ValueError(f"int8conv: stride {stride} and padding {padding}")
+    if not 1 <= stride <= TMA_MAX_ELEMENT_STRIDE or padding < 0:
+        raise ValueError(f"int8conv: stride {stride} (1 to {TMA_MAX_ELEMENT_STRIDE}) and "
+                         f"padding {padding}")
     _check_vector("s_k", s_k, cout, x_q.device)
     if s_x.device != x_q.device or s_x.dtype != torch.float32 or s_x.numel() != 1:
         raise ValueError("int8conv: s_x must be one float32 on x_q's device")
@@ -335,16 +488,39 @@ def int8_conv_igemm(x_q: torch.Tensor, k_q: torch.Tensor, s_x: torch.Tensor,
     ho, wo = conv_out_size(h, kh, stride, padding), conv_out_size(w, kw, stride, padding)
     if ho < 1 or wo < 1:
         raise ValueError(f"int8conv: no output for {h}x{w} with a {kh}x{kw} kernel")
+    plan = igemm_plan(tuple(x_q.shape), tuple(k_q.shape), stride, padding,
+                      card_sms(x_q.device))
     y = torch.empty((n, cout, ho, wo), dtype=out_dtype, device=x_q.device,
                     memory_format=torch.channels_last)
     with torch.cuda.device(x_q.device):
         err = _lib().int8_conv_igemm(x_q.data_ptr(), k_q.data_ptr(), s_x.data_ptr(),
                                      s_k.data_ptr(), None if bias is None else bias.data_ptr(),
                                      y.data_ptr(), n, h, w, cp, cout, kh, kw, stride, padding,
-                                     ho, wo, _DTYPE_CODE[out_dtype], _stream(x_q))
+                                     ho, wo, plan.hbox, plan.wbox, plan.bk, plan.bn, plan.grid,
+                                     _DTYPE_CODE[out_dtype], _stream(x_q))
     _check(err, "int8_conv_igemm")
     launches["igemm"] += 1
     return y
+
+
+def divide_check(a: torch.Tensor, b: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel (c)'s division by a per-channel constant on the card, for the
+    card tests: elementwise over float32 a and b (b > 0), the reciprocal
+    route's quotient, __fdiv_rn's, and whether (c) takes the reciprocal
+    route there (bool)."""
+    for name, t in (("a", a), ("b", b)):
+        _check_cuda(name, t, (torch.float32,), 1)
+    if b.shape != a.shape or not a.is_contiguous() or not b.is_contiguous():
+        raise ValueError("int8conv: divide_check takes two contiguous float32 vectors "
+                         "of one length")
+    fast, ieee = torch.empty_like(a), torch.empty_like(a)
+    used = torch.empty(a.shape, dtype=torch.uint8, device=a.device)
+    with torch.cuda.device(a.device):
+        err = _lib().int8_divide_check(a.data_ptr(), b.data_ptr(), a.numel(), fast.data_ptr(),
+                                       ieee.data_ptr(), used.data_ptr(), _stream(a))
+    _check(err, "divide_check")
+    return fast, ieee, used.bool()
 
 
 # -- the op --------------------------------------------------------------------

@@ -32,6 +32,7 @@ from deepsee_torch.config import tiny_test_experiment as torch_tiny
 from deepsee_torch.system import SRSystem
 from deepsee_torch.weights import load_reference_checkpoint, reference_state_dict
 from test_torch_layers import realistic_variables
+from torch_data_corpus import one_torch_thread  # noqa: F401 (autouse)
 
 GUIDED = dict(net_e="fullstyle", guiding_style_image=True, noisy_style_scale=0.05)
 

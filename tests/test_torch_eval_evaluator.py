@@ -36,6 +36,7 @@ from deepsee_torch.system import SRSystem
 from deepsee_torch.weights import inception_jax_to_state_dict, lpips_jax_to_state_dict
 from test_torch_eval_fid import _jax_params
 from test_torch_layers import realistic_variables
+from torch_data_corpus import one_torch_thread  # noqa: F401 (autouse)
 
 PSNR_ATOL_DB = 2e-3
 SSIM_ATOL = 1e-4

@@ -648,6 +648,8 @@ INT8_SHAPES = {
     "down1 stride 2": ((4, 64, 128, 128), (128, 64, 3, 3), 2, 1),
     "cin 72": ((3, 72, 19, 23), (40, 72, 3, 3), 1, 1),
     "1x1": ((4, 512, 32, 32), (256, 512, 1, 1), 1, 0),
+    "7x5 cp 64 cout 20": ((2, 64, 7, 5), (20, 64, 3, 3), 1, 1),
+    "stride 2 19x23": ((2, 128, 19, 23), (256, 128, 3, 3), 2, 1),
 }
 
 
@@ -742,8 +744,143 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         lambda: ic.int8_conv_igemm(x_q, k_q[..., :72].contiguous(), s_x, s_k, bias, 1, 1,
                                    torch.bfloat16),                        # Cp differs
         lambda: ic.int8_conv_igemm(x_q, k_q, s_x, s_k, bias, 1, 1, torch.float16),
+        lambda: ic.int8_conv_igemm(x_q, k_q, s_x, s_k, bias, 9, 1,
+                                   torch.bfloat16),                        # TMA: stride <= 8
         lambda: ic.int8_conv(x, weight.cpu(), bias, 1, 1),                 # weight on the CPU
     ]
     for call in bad:
         with pytest.raises(ValueError):
             call()
+
+
+# (d) alone at ragged shapes: x (B, Cin, H, W), weight (Cout, Cin, kh, kw),
+# stride, padding; the tile's rectangle and N tile stick out of each
+IGEMM_SHAPES = {
+    "19x23 cin 72 (Cp 80) cout 40": ((3, 72, 19, 23), (40, 72, 3, 3), 1, 1),
+    "7x5 Cp 64 cout 20": ((3, 64, 7, 5), (20, 64, 3, 3), 1, 1),
+    "stride 2 19x23": ((2, 128, 19, 23), (256, 128, 3, 3), 2, 1),
+    "stride 2 Cp 64 cout 40": ((2, 64, 33, 17), (40, 64, 3, 3), 2, 1),
+    "1x1 cout 300": ((2, 512, 9, 13), (300, 512, 1, 1), 1, 0),
+    "M not a multiple of 128, two N tiles": ((3, 256, 13, 11), (264, 256, 3, 3), 1, 1),
+    "Cp 16 cout 36": ((2, 8, 21, 10), (36, 8, 3, 3), 1, 1),
+    "a row wider than 128": ((1, 128, 4, 150), (128, 128, 3, 3), 1, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(IGEMM_SHAPES))
+def test_int8_igemm_equals_plain_at_ragged_shapes(cuda_device, case, dtype, with_bias):
+    """(d) on the plain version's x_q and k_q: the same exact s32 sums and the
+    same float epilogue, so the output equals `igemm_plain`'s bit for bit
+    (a row of a rectangle outside the image, written, would land on another
+    pixel's row)."""
+    xshape, wshape, stride, pad = IGEMM_SHAPES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = (torch.randn(xshape, generator=g, device=cuda_device)
+         * torch.logspace(-1, 1, xshape[1], device=cuda_device)[:, None, None])
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    weight = torch.randn(wshape, generator=g, device=cuda_device) * 0.05
+    bias = torch.randn(wshape[0], generator=g, device=cuda_device) * 0.1 if with_bias else None
+    q = ic.quantize_plain(x, weight, True)
+    cin, cp = xshape[1], ic.padded_channels(xshape[1])
+    x_q = torch.zeros((xshape[0], cp) + xshape[2:], dtype=torch.int8, device=cuda_device)
+    x_q[:, :cin] = q.x_q
+    x_q = x_q.contiguous(memory_format=torch.channels_last)
+    k_q = torch.zeros(wshape[:1] + wshape[2:] + (cp,), dtype=torch.int8, device=cuda_device)
+    k_q[..., :cin] = q.k_q.permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    before = ic.launches["igemm"]
+    y = ic.int8_conv_igemm(x_q, k_q, q.s_x, q.s_k, bias, stride, pad, dtype)
+    torch.cuda.synchronize()
+    assert ic.launches["igemm"] == before + 1
+    ref = ic.igemm_plain(q.x_q, q.k_q, q.s_x, q.s_k, bias, stride, pad, dtype)
+    assert y.shape == ref.shape and y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, ref)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
+@pytest.mark.cuda
+def test_int8_division_by_reciprocal_equals_fdiv_rn(cuda_device):
+    """(c) divides by its per-channel constants through RN(1/b) and two FMA
+    corrections where `divisor_ok` and `numerator_ok` hold, and with
+    __fdiv_rn elsewhere: over 2^24 random float32 bit patterns (every
+    exponent: zeros, subnormals, infinities, NaNs) and 2^20 values at the
+    edges of the route's range, against divisors spread over the range s_c
+    and s_x take and its ends, the route's quotient equals __fdiv_rn's bit
+    for bit wherever (c) takes it, and __fdiv_rn equals the plain version's
+    float64 division."""
+    rng = np.random.default_rng(11)
+    n = 1 << 24
+    a = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    edge_exps = np.array([-64.0, -63.0, -62.0, -60.0, -1.0, 0.0, 1.0, 62.0, 63.0, 64.0])
+    edges = (np.ldexp(rng.uniform(1.0, 2.0, 1 << 20), rng.choice(edge_exps, 1 << 20).astype(int))
+             * rng.choice([-1.0, 1.0], 1 << 20)).astype(np.float32)
+    specials = np.array([0.0, -0.0, np.float32(2.0 ** -64), -np.float32(2.0 ** 64),
+                         np.nextafter(np.float32(2.0 ** -64), np.float32(0)),
+                         np.nextafter(np.float32(2.0 ** 64), np.float32(np.inf)),
+                         np.finfo(np.float32).tiny, np.finfo(np.float32).max, 1e-45,
+                         np.inf, -np.inf], np.float32)
+    a = np.concatenate([a, edges, specials])
+    b = np.exp(rng.uniform(np.log(1e-6), np.log(1e6), a.size)).astype(np.float32)
+    b_edges = np.array([2.0 ** -60, 2.0 ** 60, np.nextafter(np.float32(2.0), np.float32(0)), 1.0,
+                        np.nextafter(np.float32(2.0 ** -60), np.float32(0)),
+                        np.nextafter(np.float32(2.0 ** 60), np.float32(np.inf)),
+                        7.874016e-11, 3.0], np.float32)
+    pick = rng.random(a.size) < 0.05
+    b[pick] = rng.choice(b_edges, int(pick.sum()))
+    at = torch.from_numpy(a).to(cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    fast, ieee, used = ic.divide_check(at, bt)
+    torch.cuda.synchronize()
+    assert float(used.float().mean()) > 0.5            # the route is what is tested
+    assert torch.equal(_bits(fast[used]), _bits(ieee[used]))
+    plain = ic._div_rn(torch.from_numpy(a), torch.from_numpy(b))
+    finite = torch.from_numpy(~np.isnan(a))
+    assert torch.equal(_bits(ieee.cpu()[finite]), _bits(plain[finite]))
+
+
+QUANT_CINS = [3, 20, 64, 72, 512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin", QUANT_CINS)
+def test_int8_quantize_activation_equals_plain(cuda_device, cin, dtype):
+    """(c) against `quantize_activation_plain` bit for bit (x_q, padding
+    channels zero) on SmoothQuant scales, whatever Cin is; then on chosen
+    s_c and s_x against the plain float64 divisions, with zeros of both
+    signs, subnormals, huge values and infinities among the inputs."""
+    g = torch.Generator(device=cuda_device).manual_seed(cin)
+    shape = (3, cin, 17, 29)
+    x = (torch.randn(shape, generator=g, device=cuda_device)
+         * torch.logspace(-2, 1, cin, device=cuda_device)[:, None, None])
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    weight = torch.randn((16, cin, 3, 3), generator=g, device=cuda_device) * 0.05
+    mx_raw, mx = ic.absmax_channels_plain(x)
+    s_c = ic.smooth_scales_plain(weight, mx, True)
+    s_x, want = ic.quantize_activation_plain(x, s_c)
+    got = ic.quantize_activation(x, s_c, s_x)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :cin], want) and not bool(got[:, cin:].any())
+
+    special = torch.tensor([0.0, -0.0, 1e-40, -1e-40, 1e-30, 3e38, -3e38, float("inf"),
+                            float("-inf"), 2.0 ** -64, 2.0 ** 64, 1e-5, 0.5, 127.5],
+                           device=cuda_device)
+    x2 = x.float().clone()
+    flat = x2.permute(0, 2, 3, 1).reshape(-1)       # a view: NHWC order
+    idx = torch.randint(0, flat.numel(), (4096,), generator=g, device=cuda_device)
+    flat[idx] = special[torch.arange(4096, device=cuda_device) % special.numel()]
+    x2 = x2.to(dtype).contiguous(memory_format=torch.channels_last)
+    s_c2 = torch.exp(torch.empty(cin, device=cuda_device).uniform_(-6, 6, generator=g))
+    s_c2[0] = 1.0
+    s_x2 = torch.tensor(0.0123, device=cuda_device)
+    got2 = ic.quantize_activation(x2, s_c2, s_x2)
+    xs = ic._div_rn(x2.float(), s_c2[:, None, None])
+    want2 = torch.clamp(torch.round(ic._div_rn(xs, s_x2)), -127, 127).to(torch.int8)
+    torch.cuda.synchronize()
+    assert torch.equal(got2[:, :cin], want2) and not bool(got2[:, cin:].any())

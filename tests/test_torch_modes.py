@@ -35,6 +35,7 @@ from deepsee_torch.models import encoder as tenc
 from deepsee_torch.regions import CONSISTENT_REGIONS
 from deepsee_torch.system import SRSystem
 from test_torch_layers import realistic_variables
+from torch_data_corpus import one_torch_thread  # noqa: F401 (autouse)
 
 IMAGE_ATOL = 1e-4
 STYLE_ATOL = 1e-6

@@ -31,6 +31,7 @@ from deepsee_torch.config import tiny_test_experiment as torch_tiny
 from deepsee_torch.ops import modnorm as mn
 from deepsee_torch.system import SRSystem
 from test_torch_layers import realistic_variables
+from torch_data_corpus import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 2

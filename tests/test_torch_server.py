@@ -39,6 +39,7 @@ from deepsee_torch.server import (BadRequest, MicroBatcher, ServingServer,
                                   encode_image_b64)
 from deepsee_torch.system import SRSystem
 from deepsee_torch.utils.images import tensor2im
+from torch_data_corpus import one_torch_thread  # noqa: F401 (autouse)
 
 GUIDED = dict(net_e="fullstyle", guiding_style_image=True, noisy_style_scale=0.05)
 
