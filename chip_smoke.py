@@ -1296,7 +1296,7 @@ def _train_plan(key: str, stats: str, shape, with_mod: bool, lrelu: bool, dtype)
         return mn.batch_plan(shape, dtype, mn.batch_blocks_per_sm(dtype, with_mod, lrelu),
                              mn.card_sms(torch.device(DEVICE)))
     if key == "fwd":
-        return mn.instance_plan(shape, dtype)
+        return mn.instance_plan(shape, dtype, mn.card_sms(torch.device(DEVICE)))
     if stats == "instance":
         return mn.instance_backward_plan(shape, dtype, with_mod)
     b, c, h, w = shape
@@ -1314,6 +1314,10 @@ def _design_bytes(key: str, stats: str, shape, with_mod: bool, lrelu: bool, dtyp
     plan = _train_plan(key, stats, shape, with_mod, lrelu, dtype)
     if key == "fwd":
         once = (2 + m) * t                             # x, mod in; out
+        if stats == "instance" and plan.variant == "grid":  # each run's tail read again
+            hw, resident = h * w, plan.smem_bytes // (plan.tile * torch.finfo(dtype).bits // 8)
+            kept = sum(min(e - s, resident) for s, e in mn.instance_chunks(hw, plan.cluster))
+            return once + t * (hw - kept) / hw
         if stats == "instance":
             return once + (t if plan.variant == "streaming" else 0)
         p = b * h * w
@@ -2328,8 +2332,8 @@ def data_phase(smi: str, resident: dict, synthetic_sweep: dict) -> None:
 
 KERNEL_CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("modnorm", ("modnorm",)),
-    ("int8 conv (K4)", ("igemm_kernel", "absmax_partials", "absmax_merge", "smooth_scales",
-                        "quantize_weight", "quantize_activation")),
+    ("int8 conv (K4)", ("igemm_kernel", "absmax_partials", "absmax_merge", "quantize_weight",
+                        "quantize_activation")),
     ("conv (cuDNN)", ("fprop", "conv", "implicit", "dgrad", "wgrad")),
     ("matmul (bmm)", ("gemm", "gemv")),
     ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
@@ -2366,8 +2370,11 @@ def profile_path(tag: str, system: SRSystem, batch, ms_per_batch: float,
     log(f"{tag} profile " + json.dumps({
         "kernel_ms": total, "idle_share": 1.0 - total / ms_per_batch,
         "categories_ms": dict(sorted(categories.items(), key=lambda kv: -kv[1]))}))
-    for name, ms, count in kernels[:15]:
-        log(f"{tag} profile kernel {ms:9.3f} ms  x{count:<4d} {name[:110]}")
+    # the 15 longest kernels, and K4's beyond them (their launches per call)
+    k4 = dict(KERNEL_CATEGORIES)["int8 conv (K4)"]
+    for i, (name, ms, count) in enumerate(kernels):
+        if i < 15 or any(k in name.lower() for k in k4):
+            log(f"{tag} profile kernel {ms:9.3f} ms  x{count:<4d} {name[:110]}")
 
 
 # -- data-parallel phase -------------------------------------------------------
@@ -3147,6 +3154,9 @@ def int8_kernel_rows(shapes_by_group, smi: str):
                 "igemm_library_gemm_ms (torch._int_mm, same M x N x K, not the same function)":
                     t["igemm_library_gemm"],
                 "igemm_plan": igemm_plan_text(xshape, wshape, stride, pad),
+                "quantize_weight_plan": ic.weight_plan(
+                    wshape[0], wshape[1], wshape[2] * wshape[3],
+                    sms=mn.card_sms(torch.device("cuda")))._asdict(),
                 "igemm_host_us": t["igemm_host_us"],
                 "absmax_library_ms": t["absmax_library"], "card": smi}))
     return rows, times

@@ -8,7 +8,8 @@
 //                            unclamped and clamped at 1e-8 (partials, merge)
 //   (b) quantize_weight      SmoothQuant s_c = sqrt(mx) / sqrt(mk) (1 when
 //                            not smoothing), the per-output-channel s_k, the
-//                            per-tensor s_x and k_q as [Cout][kh][kw][Cp] int8
+//                            per-tensor s_x and k_q as [Cout][kh][kw][Cp] int8,
+//                            in one launch that reads the weight once
 //   (c) quantize_activation  x_q = clip(rint((x / s_c) / s_x), +-127) as
 //                            [N*H*W][Cp] int8
 //   (d) int8_conv_igemm      the implicit-GEMM conv (M = N*Ho*Wo, N = Cout,
@@ -42,6 +43,15 @@
 // range where that holds); it rounds by adding 1.5 * 2^23 rather than
 // through rintf and a float-to-int conversion, which run at 1/8 of the FMA
 // rate on this card.
+// (b) was two dependent launches, one block per input channel for s_c
+// (36-byte runs of the weight at a stride of Cin * 36 bytes) and one per
+// output channel for s_k and k_q (the weight read again, one byte stored
+// per thread after an IEEE division), at 15-16 % of its bound on the H100.
+// Now one launch, at most one block per SM, each thread holding one unit of
+// its block's output channels (two input channels over the taps) in
+// registers from its loads to its k_q store; the column maxima merge
+// across blocks by atomicMax on their bit patterns around a grid barrier
+// (see "(b)" below).
 // (d) was held by mma.sync (Hopper reaches its int8 rate only through
 // wgmma), a two-stage cp.async ring with per-thread im2col addresses and
 // two block barriers per k-tile.  Now: one persistent block per SM, three
@@ -73,10 +83,15 @@
 // as __grid_constant__ parameters: a CUDA graph captures them with its
 // static pointers.
 
+#include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and the driver's enums; the function comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "phase_marks.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -91,22 +106,6 @@ __device__ __forceinline__ float to_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float block_max(float v, float* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();  // scratch may still be read by a previous call
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float r = 0.0f;
-  for (int w = 0; w < (int)(blockDim.x / 32); ++w) r = fmaxf(r, scratch[w]);
-  return r;
-}
-
-__device__ __forceinline__ float quantize(float v, float scale) {
-  const float q = rintf(__fdiv_rn(v, scale));  // round half to even, as jnp.round
-  return fminf(fmaxf(q, -kLevels), kLevels);
 }
 
 // -- (a) per-channel max |x| ---------------------------------------------------
@@ -158,67 +157,6 @@ __global__ void absmax_merge_kernel(const float* __restrict__ part, int rows, in
   for (int i = 0; i < rows; ++i) r = fmaxf(r, part[(int64_t)i * C + c]);
   mx_raw[c] = r;
   mx[c] = fmaxf(r, kFloor);
-}
-
-// -- (b) the weight: s_c, s_k, s_x and k_q --------------------------------------
-// w is OIHW float32.  First one block per input channel: mk = max over
-// (o, kh, kw) of |w|, s_c = sqrt(mx) / sqrt(mk); then one block per output
-// channel: k' = w * s_c, s_k = max(max|k'|, 1e-8) / 127, k_q in
-// [Cout][kh][kw][Cp] with zero padding channels; block 0 also writes s_x.
-
-__global__ void __launch_bounds__(kThreads)
-smooth_scales_kernel(const float* __restrict__ w, const float* __restrict__ mx, int Cout,
-                     int Cin, int taps, int smooth, float* __restrict__ s_c) {
-  __shared__ float scratch[32];
-  const int c = blockIdx.x;
-  if (!smooth) {
-    if (threadIdx.x == 0) s_c[c] = 1.0f;
-    return;
-  }
-  float m = 0.0f;
-  const int n = Cout * taps;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const int o = j / taps, tap = j - o * taps;
-    m = fmaxf(m, fabsf(w[((int64_t)o * Cin + c) * taps + tap]));
-  }
-  m = block_max(m, scratch);
-  if (threadIdx.x == 0) {
-    const float mk = fmaxf(m, kFloor);
-    s_c[c] = __fdiv_rn(__fsqrt_rn(mx[c]), __fsqrt_rn(mk));
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-quantize_weight_kernel(const float* __restrict__ w, const float* __restrict__ s_c,
-                       const float* __restrict__ mx_raw, int Cin, int Cp, int taps,
-                       float* __restrict__ s_k, int8_t* __restrict__ k_q,
-                       float* __restrict__ s_x) {
-  __shared__ float scratch[32];
-  const int o = blockIdx.x;
-  const int K = Cin * taps;
-  const float* wo = w + (int64_t)o * K;
-  float m = 0.0f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    m = fmaxf(m, fabsf(__fmul_rn(wo[k], s_c[k / taps])));
-  m = block_max(m, scratch);
-  const float sk = __fdiv_rn(fmaxf(m, kFloor), kLevels);
-  if (threadIdx.x == 0) s_k[o] = sk;
-  // k_q in [tap][Cp] order, written contiguously; the reads hit this row of
-  // the weight, which the pass above brought into L1
-  int8_t* out = k_q + (int64_t)o * taps * Cp;
-  for (int k = threadIdx.x; k < taps * Cp; k += blockDim.x) {
-    const int tap = k / Cp, c = k - tap * Cp;
-    float q = 0.0f;
-    if (c < Cin) q = quantize(__fmul_rn(wo[c * taps + tap], s_c[c]), sk);
-    out[k] = (int8_t)(int)q;
-  }
-  if (o == 0) {
-    float mm = 0.0f;
-    for (int c = threadIdx.x; c < Cin; c += blockDim.x)
-      mm = fmaxf(mm, __fdiv_rn(mx_raw[c], s_c[c]));
-    mm = block_max(mm, scratch);
-    if (threadIdx.x == 0) s_x[0] = __fdiv_rn(fmaxf(mm, kFloor), kLevels);
-  }
 }
 
 // -- (c) the activation --------------------------------------------------------
@@ -795,6 +733,274 @@ igemm_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ 
   }
 }
 
+// -- (b) the weight: s_c, s_k, s_x and k_q in one launch -----------------------
+// Grid: at most one block per SM (G blocks), block b owning the output
+// channels [b*Cout/G, (b+1)*Cout/G).  A unit is one output channel's two
+// input channels 2q, 2q+1 over every tap: 2 * taps floats, contiguous in
+// OIHW, and the two k_q bytes of each tap, one 16-bit word of a [tap][Cp]
+// row.  A block's units are its rows times Cp/2 pairs (the padding pairs
+// only write zeros); thread t takes units t, t + 1024, ...  With taps 1 or 9
+// a thread's first unit stays in its registers from the one load to the
+// store, so where a block has at most 1024 units (every main-path weight)
+// the weight is read once, by 8-byte loads that a warp makes contiguous; any
+// other unit is read again from L2 in each pass.
+// SMOOTH is one cooperative launch with one grid barrier:
+//   1. each unit's four column maxima of |w|, merged in shared memory and
+//      then across blocks into the launch's own (Cin,) buffer `mk`, zeroed
+//      on its stream just before the launch, by atomicMax on their bit
+//      patterns (non-negative floats order as unsigned integers, so the
+//      merge is exact in any order); grid barrier;
+//   2. every block forms s_c for all Cin from the merged maxima (IEEE
+//      intrinsics) in shared memory and writes its own columns of s_c;
+//      block 0 also takes s_x = max(max_c RN(mx_raw / s_c), 1e-8) / 127;
+//   3. v = RN(w * s_c) in place, each row's max |v| merged in shared memory,
+//      s_k = max(that, 1e-8) / 127, then k_q: clip(rint(RN(v / s_k))) from
+//      q0 = RN(v * RN(1 / s_k)), which lies within 2^-16 of RN(v / s_k) below
+//      the clip (s_k >= 1e-8 / 127, |v| <= 127 s_k), rounded by adding
+//      1.5 * 2^23; a q0 within 2^-14 of a half (about one value in 8,000)
+//      takes the exact division instead (`div_rn_by`, __fdiv_rn outside its
+//      range); two bytes packed into one word per tap and stored (a warp
+//      writes 64 contiguous bytes).
+// Without smoothing s_c is 1: no column pass, no grid barrier, a plain
+// launch.  fmaxf drops NaN as the earlier design did (a NaN weight's level
+// is -127 either way); an all-zero column keeps mk at 1e-8.
+constexpr int kWeightThreads = 1024;
+constexpr int kUnitCols = 2;         // input channels of a unit
+constexpr int kWeightMaxRows = 32;   // output channels per block, at most
+constexpr int kWeightMaxCin = 8192;  // input channels (two words each of shared memory), at most
+constexpr float kNearHalf = 0.5f - 0x1p-14f;
+
+struct WeightArgs {
+  const float* w;
+  const float* mx;
+  const float* mx_raw;
+  float* s_c;
+  float* s_k;
+  float* s_x;
+  int8_t* k_q;
+  unsigned* mk;  // SMOOTH: the column maxima across blocks (bit patterns), zero at launch
+  int Cout, Cin, Cp, taps;
+};
+
+// k_q's level of v: clip(rint(RN(v / sk)), +-127) as the low byte
+__device__ __forceinline__ uint32_t weight_level(float v, float sk, float rk, bool fast) {
+  const float q = fast && numerator_ok(v) ? div_rn_by(v, sk, rk) : __fdiv_rn(v, sk);
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(q, -kLevels), kLevels), kRoundMagic)) & 0xffu;
+}
+
+// weight_level out of line: the rare values near a half take it, and one
+// copy of its code serves them all
+__device__ __noinline__ uint32_t weight_level_exact(float v, float sk, float rk, bool fast) {
+  return weight_level(v, sk, rk, fast);
+}
+
+// The same level from q0 = RN(v * rk), or, where q0, clipped, lies within
+// 2^-14 of a half (RN(v / sk) may round to the other integer there), from
+// the exact division.  A NaN v gives -127 either way.
+__device__ __forceinline__ uint32_t weight_level_by_product(float v, float sk, float rk,
+                                                            bool fast) {
+  const float c = fminf(fmaxf(__fmul_rn(v, rk), -kLevels), kLevels);
+  const float r = __fadd_rn(c, kRoundMagic);
+  if (fabsf(__fsub_rn(c, __fsub_rn(r, kRoundMagic))) > kNearHalf)
+    return weight_level_exact(v, sk, rk, fast);
+  return __float_as_uint(r) & 0xffu;
+}
+
+// The 2 * TAPS floats of unit (row o, pair q): 8-byte loads where Cin is
+// even (the unit then lies on 8 bytes), else one float at a time, zero past
+// Cin.
+template <int TAPS>
+__device__ __forceinline__ void load_unit(const WeightArgs& a, int o, int q, float* v) {
+  const float* src = a.w + (static_cast<int64_t>(o) * a.Cin + kUnitCols * q) * TAPS;
+  if (a.Cin % kUnitCols == 0) {
+#pragma unroll
+    for (int i = 0; i < TAPS; ++i) {
+      const float2 f = __ldg(reinterpret_cast<const float2*>(src) + i);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kUnitCols * TAPS; ++i)
+      v[i] = kUnitCols * q + i / TAPS < a.Cin ? __ldg(src + i) : 0.0f;
+  }
+}
+
+// value k (column 2q + k / taps, tap k % taps) of unit (o, q) from L2
+__device__ __forceinline__ float unit_value(const WeightArgs& a, int o, int q, int k) {
+  const int c = kUnitCols * q + k / a.taps;
+  return c < a.Cin
+             ? __ldg(a.w + (static_cast<int64_t>(o) * a.Cin + kUnitCols * q) * a.taps + k)
+             : 0.0f;
+}
+
+// row_max[r] = max(row_max[r], m) by its bit pattern (m >= 0): one shared
+// atomic per warp where the warp's 32 lanes share their row (Cp >= 64),
+// else one per lane.  Every lane of the warp calls it.
+__device__ __forceinline__ void row_merge(unsigned* row_max, int r, float m) {
+  const unsigned bits = __float_as_uint(m);
+  const int r0 = __shfl_sync(0xffffffffu, r, 0);
+  if (__all_sync(0xffffffffu, r == r0)) {
+    const unsigned top = __reduce_max_sync(0xffffffffu, bits);
+    if ((threadIdx.x & 31) == 0 && top != 0u) atomicMax(row_max + r0, top);
+  } else if (bits != 0u) {
+    atomicMax(row_max + r, bits);
+  }
+}
+
+template <int TAPS, bool SMOOTH>
+__global__ void __launch_bounds__(kWeightThreads, 1)
+quantize_weight_kernel(const WeightArgs a) {
+  PHASE_MARK(0);
+  constexpr int NV = TAPS > 0 ? kUnitCols * TAPS : 1;  // a cached unit's values
+  extern __shared__ float wsm[];                  // s_c [Cin], then (SMOOTH) mk bits [Cin]
+  __shared__ unsigned row_max[kWeightMaxRows];
+  __shared__ float row_sk[kWeightMaxRows], row_rk[kWeightMaxRows];
+  __shared__ float red[kWeightThreads / 32];
+  float* sc_s = wsm;
+  unsigned* mk_s = reinterpret_cast<unsigned*>(wsm + a.Cin);
+  const int tid = threadIdx.x, G = gridDim.x, b = blockIdx.x;
+  const int o_begin = static_cast<int>(static_cast<int64_t>(b) * a.Cout / G);
+  const int o_end = static_cast<int>(static_cast<int64_t>(b + 1) * a.Cout / G);
+  const int c_begin = static_cast<int>(static_cast<int64_t>(b) * a.Cin / G);
+  const int c_end = static_cast<int>(static_cast<int64_t>(b + 1) * a.Cin / G);
+  const int taps = TAPS > 0 ? TAPS : a.taps, nv = kUnitCols * taps;
+  // pairs per row; those holding weights
+  const int Q = a.Cp / kUnitCols, pairs = (a.Cin + kUnitCols - 1) / kUnitCols;
+  const int units = (o_end - o_begin) * Q;
+  const bool cached = TAPS > 0 && tid < units;    // unit tid in registers
+  const int my_q = tid % Q;
+  float v[NV];
+  if (cached && my_q < pairs) load_unit<(TAPS > 0 ? TAPS : 1)>(a, o_begin + tid / Q, my_q, v);
+  // this thread's first column's mx and mx_raw, loaded while the weight loads
+  const float mx0 = tid < a.Cin ? __ldg(a.mx + tid) : 0.0f;
+  const float raw0 = b == 0 && tid < a.Cin ? __ldg(a.mx_raw + tid) : 0.0f;
+  if (tid < kWeightMaxRows) row_max[tid] = 0u;
+  // value k of a unit u that is not in registers, from L2
+  auto value = [&](int u, int k) { return unit_value(a, o_begin + u / Q, u % Q, k); };
+
+  if constexpr (SMOOTH) {
+    for (int c = tid; c < a.Cin; c += kWeightThreads) mk_s[c] = 0u;
+    __syncthreads();
+    for (int u = tid; u < units; u += kWeightThreads) {
+      const int q = u % Q;
+      if (q >= pairs) continue;
+#pragma unroll
+      for (int j = 0; j < kUnitCols; ++j) {
+        if (kUnitCols * q + j >= a.Cin) break;
+        float m = 0.0f;
+        if (cached && u == tid) {
+#pragma unroll
+          for (int t = 0; t < (TAPS > 0 ? TAPS : 1); ++t) m = fmaxf(m, fabsf(v[j * taps + t]));
+        } else {
+          for (int t = 0; t < taps; ++t) m = fmaxf(m, fabsf(value(u, j * taps + t)));
+        }
+        if (m > 0.0f) atomicMax(mk_s + kUnitCols * q + j, __float_as_uint(m));
+      }
+    }
+    __syncthreads();
+    for (int c = tid; c < a.Cin; c += kWeightThreads)
+      if (mk_s[c] != 0u) atomicMax(a.mk + c, mk_s[c]);
+    PHASE_MARK(1);
+    cg::this_grid().sync();
+    PHASE_MARK(2);
+    for (int c = tid; c < a.Cin; c += kWeightThreads) {
+      const float mk = fmaxf(__uint_as_float(__ldcg(a.mk + c)), kFloor);
+      sc_s[c] = __fdiv_rn(__fsqrt_rn(c == tid ? mx0 : __ldg(a.mx + c)), __fsqrt_rn(mk));
+    }
+    __syncthreads();
+  } else {
+    for (int c = tid; c < a.Cin; c += kWeightThreads) sc_s[c] = 1.0f;
+    __syncthreads();
+  }
+  for (int c = c_begin + tid; c < c_end; c += kWeightThreads) a.s_c[c] = sc_s[c];
+  PHASE_MARK(3);
+  if (b == 0) {  // s_x (without smoothing RN(mx_raw / 1) is mx_raw)
+    float m = 0.0f;
+    for (int c = tid; c < a.Cin; c += kWeightThreads) {
+      const float raw = c == tid ? raw0 : __ldg(a.mx_raw + c);
+      m = fmaxf(m, SMOOTH ? __fdiv_rn(raw, sc_s[c]) : raw);
+    }
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (tid % 32 == 0) red[tid / 32] = m;
+    __syncthreads();
+    if (tid == 0) {
+      float r = 0.0f;
+      for (int w = 0; w < kWeightThreads / 32; ++w) r = fmaxf(r, red[w]);
+      a.s_x[0] = __fdiv_rn(fmaxf(r, kFloor), kLevels);
+    }
+    PHASE_MARK(4);
+  }
+
+  // v = RN(w * s_c) (in place for the cached unit), each row's max |v|
+  if (TAPS > 0) {  // every thread of the block: row_merge is warp-wide
+    float m = 0.0f;
+    if (cached && my_q < pairs) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int c = kUnitCols * my_q + k / taps;
+        v[k] = __fmul_rn(v[k], sc_s[c < a.Cin ? c : 0]);
+        m = fmaxf(m, fabsf(v[k]));
+      }
+    }
+    row_merge(row_max, tid / Q, m);
+  }
+  PHASE_MARK(5);
+  for (int u = tid + (TAPS > 0 ? kWeightThreads : 0); u < units; u += kWeightThreads) {
+    const int q = u % Q;
+    if (q >= pairs) continue;
+    float m = 0.0f;
+    for (int k = 0; k < nv; ++k) {
+      const int c = kUnitCols * q + k / taps;
+      if (c < a.Cin) m = fmaxf(m, fabsf(__fmul_rn(value(u, k), sc_s[c])));
+    }
+    if (m > 0.0f) atomicMax(row_max + u / Q, __float_as_uint(m));
+  }
+  __syncthreads();
+  if (tid < o_end - o_begin) {
+    const float sk = __fdiv_rn(fmaxf(__uint_as_float(row_max[tid]), kFloor), kLevels);
+    row_sk[tid] = sk;
+    row_rk[tid] = __frcp_rn(sk);
+    a.s_k[o_begin + tid] = sk;
+  }
+  __syncthreads();
+
+  // k_q: two levels a word, one word per tap
+  for (int u = tid; u < units; u += kWeightThreads) {
+    const int r = u / Q, q = u % Q, o = o_begin + r;
+    const float sk = row_sk[r], rk = row_rk[r];
+    const bool fast = divisor_ok(sk);
+    uint16_t* dst =
+        reinterpret_cast<uint16_t*>(a.k_q + static_cast<int64_t>(o) * taps * a.Cp) + q;
+    if (q >= pairs) {
+      for (int t = 0; t < taps; ++t) dst[t * Q] = 0u;
+    } else if (cached && u == tid) {
+      constexpr int T = TAPS > 0 ? TAPS : 1;
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        uint32_t word = 0u;
+#pragma unroll
+        for (int j = 0; j < kUnitCols; ++j)
+          if (kUnitCols * q + j < a.Cin)
+            word |= weight_level_by_product(v[j * T + t], sk, rk, fast) << (8 * j);
+        dst[t * Q] = static_cast<uint16_t>(word);
+      }
+    } else {
+      for (int t = 0; t < taps; ++t) {
+        uint32_t word = 0u;
+        for (int j = 0; j < kUnitCols; ++j) {
+          const int c = kUnitCols * q + j;
+          if (c < a.Cin)
+            word |= weight_level(__fmul_rn(value(u, j * taps + t), sc_s[c]), sk, rk, fast)
+                    << (8 * j);
+        }
+        dst[t * Q] = static_cast<uint16_t>(word);
+      }
+    }
+  }
+  PHASE_MARK(6);
+}
+
 int status() { return static_cast<int>(cudaGetLastError()); }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -868,17 +1074,64 @@ extern "C" int int8_absmax_channels(const void* x, void* part, void* mx_raw, voi
   return status();
 }
 
+// (b) with the plan of ops/int8conv.py::weight_plan: `grid` blocks (at most
+// Cout and kWeightMaxRows output channels each, and with smoothing at most
+// what the card holds at once).  With smoothing `mk` is the caller's
+// (Cin,) 32-bit scratch on `stream`, zeroed here before the launch, so
+// launches on different streams never share it.  cudaErrorInvalidValue for
+// a plan the kernel does not take; the cooperative launch itself returns
+// cudaErrorCooperativeLaunchTooLarge for a grid the card cannot hold at once.
 extern "C" int int8_quantize_weight(const void* w, const void* mx, const void* mx_raw,
-                                    void* s_c, void* s_k, void* s_x, void* k_q, int Cout,
-                                    int Cin, int Cp, int taps, int smooth, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* wf = static_cast<const float*>(w);
-  smooth_scales_kernel<<<Cin, kThreads, 0, st>>>(wf, static_cast<const float*>(mx), Cout, Cin,
-                                                 taps, smooth, static_cast<float*>(s_c));
-  quantize_weight_kernel<<<Cout, kThreads, 0, st>>>(
-      wf, static_cast<const float*>(s_c), static_cast<const float*>(mx_raw), Cin, Cp, taps,
-      static_cast<float*>(s_k), static_cast<int8_t*>(k_q), static_cast<float*>(s_x));
-  return status();
+                                    void* s_c, void* s_k, void* s_x, void* k_q, void* mk,
+                                    int Cout, int Cin, int Cp, int taps, int smooth, int grid,
+                                    void* stream) {
+  if (Cout < 1 || Cin < 1 || Cin > kWeightMaxCin || taps < 1 || Cp % 16 || Cp < Cin ||
+      grid < 1 || grid > Cout || (Cout + grid - 1) / grid > kWeightMaxRows ||
+      (smooth && mk == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel;
+  if (taps == 9)
+    kernel = smooth ? reinterpret_cast<const void*>(quantize_weight_kernel<9, true>)
+                    : reinterpret_cast<const void*>(quantize_weight_kernel<9, false>);
+  else if (taps == 1)
+    kernel = smooth ? reinterpret_cast<const void*>(quantize_weight_kernel<1, true>)
+                    : reinterpret_cast<const void*>(quantize_weight_kernel<1, false>);
+  else
+    kernel = smooth ? reinterpret_cast<const void*>(quantize_weight_kernel<0, true>)
+                    : reinterpret_cast<const void*>(quantize_weight_kernel<0, false>);
+  const int smem = Cin * 4 * (smooth ? 2 : 1);
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024 &&  // beyond the default: Cin above 6144 with smoothing
+      (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+          cudaSuccess)
+    return static_cast<int>(e);
+  WeightArgs args;
+  args.w = static_cast<const float*>(w);
+  args.mx = static_cast<const float*>(mx);
+  args.mx_raw = static_cast<const float*>(mx_raw);
+  args.s_c = static_cast<float*>(s_c);
+  args.s_k = static_cast<float*>(s_k);
+  args.s_x = static_cast<float*>(s_x);
+  args.k_q = static_cast<int8_t*>(k_q);
+  args.mk = static_cast<unsigned*>(mk);
+  args.Cout = Cout; args.Cin = Cin; args.Cp = Cp; args.taps = taps;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = smooth ? 1 : 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kWeightThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (smooth &&
+      (e = cudaMemsetAsync(mk, 0, sizeof(unsigned) * Cin, cfg.stream)) != cudaSuccess)
+    return static_cast<int>(e);
+  void* argv[] = {&args};
+  e = cudaLaunchKernelExC(&cfg, kernel, argv);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 extern "C" int int8_quantize_activation(const void* x, const void* s_c, const void* s_x,

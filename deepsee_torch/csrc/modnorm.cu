@@ -48,9 +48,9 @@
 // sector of a pixel (16 bf16 or 8 float32 channels; 16 bytes where C forces
 // it), two sectors for slabs up to 256 KB where the card stays full, which
 // measured faster.  The host (deepsee_torch/ops/modnorm.py::instance_plan)
-// picks, by shape before the launch, the tile, the cluster size (one wave
-// of 132 blocks where the shape allows it, chunks near 64 KB) and one of
-// two variants:
+// picks, by shape before the launch, the tile, the cluster size (chunks
+// near 64 KB, clusters of 2 to 4 where the slabs are few and small, as the
+// H100 measured fastest) and one of three variants:
 //   * on-chip, where a cluster's shared memory (16 x 227 KB) holds the
 //     slab: each block copies its chunk of x once, with 16-byte cp.async
 //     copies in four commit groups; sums it as the groups land (pass 1, the
@@ -68,6 +68,13 @@
 //     and merged into the thread's partial; the apply pass re-reads the
 //     chunk in reverse order, so that the most recently loaded pixels still
 //     come from L2.  At most two reads of x: 1.5x the bound's traffic.
+//   * grid (the training batch's 128^2 and 256^2 trunk slabs, whose few
+//     slabs leave most of a one-wave grid of clusters idle): the batch
+//     forward's kernel over the N samples' statistics sets (see "INSTANCE"
+//     there), runs of ~64 KB merged across one grid barrier.
+// Where the previous kernel on the stream allows it, the launch is a
+// programmatic dependent one: its blocks start during that kernel's tail and
+// wait (griddepcontrol.wait) before touching device memory.
 // Within a block, partials combine by warp shuffles and one step through
 // shared memory; across the cluster, each block reads every rank's
 // (count, mean, centred M2) from the others' shared memory at once
@@ -94,6 +101,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "phase_marks.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -197,6 +206,8 @@ constexpr int kGroups = 4;    // cp.async commit groups of the on-chip copy
 constexpr int kInFlight = 8;  // 16-byte loads in flight per thread when streaming
 constexpr int kStep = 4;      // vectors per apply step: the mod loads in flight
 constexpr int kRegVectors = 8;  // on-chip vectors per thread held in registers, for large chunks
+constexpr int kMergeLoads = 8;  // runs' partials a thread loads at once before merging them
+constexpr int kMaxRunsPerSet = 46340;  // (runs per set)^2 < 2^31: the merge's run sizes
 
 // 16 bytes global -> shared, asynchronously; the L2::128B hint lets a
 // sector's miss bring its whole line, which the neighbouring channel tiles
@@ -225,6 +236,14 @@ __device__ __forceinline__ void cluster_arrive() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Under a programmatic dependent launch (the instance forward's, where the
+// wrapper asks for it) the block may start while the previous kernel on the
+// stream finishes: wait for that grid's completion and memory before the
+// first access to device memory.  Without the launch attribute a no-op.
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // 16 bytes of T <-> floats: 8 bf16 or 4 float32 channels.
@@ -369,6 +388,8 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
   auto pix = [&](int k) { return static_cast<int64_t>((tid + k * kThreads) >> shift); };
   uint4 reg[REG > 0 ? REG : 1];
   const int ns = nk > REG ? nk - REG : 0;  // vectors in shared memory
+  wait_prior_grid();
+  PHASE_MARK(0);
   auto slot = [&](int k) { return tid + (k - REG) * kThreads; };
   auto group = [&](int g) { return REG + ns * g / kGroups; };  // first vector of group g
 
@@ -413,6 +434,7 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
       }
     }
     block_sum<V>(acc, L, tile, static_cast<float>(npix), s_red, s_part + 1);
+    PHASE_MARK(1);
     // pass 2: squared deviations from the chunk mean
     float m[V];
 #pragma unroll
@@ -443,6 +465,7 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
       }
     }
     block_sum<V>(acc, L, tile, 1.f, s_red, s_part + 1 + tile);
+    PHASE_MARK(2);
   } else {
     // one streaming pass: groups of kInFlight vectors, each reduced exactly
     // in registers, merged into the thread's (n, mean, m2)
@@ -519,6 +542,7 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
   // gathered by shuffles.  Every block of the cluster merges the same
   // numbers in the same order.
   cluster.sync();
+  PHASE_MARK(3);
   {
     const int r = tid % kMaxCluster;
     const int rounds = (tile + kThreads / kMaxCluster - 1) / (kThreads / kMaxCluster);
@@ -535,6 +559,7 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
       }
     }
     cluster_arrive();
+    PHASE_MARK(4);
 #pragma unroll
     for (int i = 0; i < kRounds; ++i) {
       if (i >= rounds) break;
@@ -584,6 +609,7 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
              apply16<T, false, HAS_MOD, LRELU>(reg[k], mean, inv, sc, of, slope));
     }
   }
+  PHASE_MARK(5);
   const int steps = (ns + U - 1) / U;
   for (int i = 0; i < steps; ++i) {
     const int k0 = REG + (STREAM ? steps - 1 - i : i) * U;
@@ -607,6 +633,7 @@ modnorm_instance_kernel(const T* __restrict__ x, const T* __restrict__ mod,
                apply16<T, false, HAS_MOD, LRELU>(xr[u], mean, inv, sc[u], of[u], slope));
     }
   }
+  PHASE_MARK(6);
   cluster_wait();
 }
 
@@ -719,12 +746,21 @@ constexpr int kTileChannels = kMaxLanes * kVec;  // channels per block, at most
 // cross-rank forward) stops after the merge of the runs and writes the
 // launch's (count, mean, M2) per channel to stats_out, [3][C]; the other
 // outputs are not touched.
-template <typename T, bool HAS_MOD, bool LRELU, bool STATS_ONLY>
+//
+// INSTANCE is the instance forward's "grid" variant (ops/modnorm.py::
+// instance_plan): the same kernel over `sets` = N statistics sets of H*W
+// pixels each (the batch forward has one set of all P), each set cut into
+// runs / sets runs; a block merges the runs of its own set, writes the
+// set's (mean, rstd) to mean_out / rstd_out [N][C] (where given) and
+// normalizes as the instance kernel does, (x - mean) * rstd.  With one run
+// per set there is nothing to merge: no partials, no grid barrier, and the
+// launch need not be cooperative.
+template <typename T, bool HAS_MOD, bool LRELU, bool STATS_ONLY, bool INSTANCE = false>
 __global__ void __launch_bounds__(kThreads, 2)
 modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __restrict__ out,
                      float* __restrict__ part, float* __restrict__ mean_out,
                      float* __restrict__ rstd_out, float* __restrict__ stats_out, int64_t P,
-                     int C, int tile, int runs, int resident, float eps, float slope) {
+                     int C, int tile, int runs, int sets, int resident, float eps, float slope) {
   constexpr int V = 16 / sizeof(T);        // channels per 16-byte vector
   constexpr int U = kStep;
   extern __shared__ uint4 s_x[];           // the run's first `resident` vectors
@@ -739,8 +775,12 @@ modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __re
   const int L = tile / V;                  // vectors per pixel: 1, 2, 4 or 8
   const int shift = __ffs(L) - 1;
   const int lane = tid & (L - 1);
-  const int64_t start = r * P / runs;
-  const int npix = static_cast<int>((r + 1) * P / runs - start);
+  // run r is run rr of its set; a set is SP consecutive pixels cut into R runs
+  const int R = runs / sets, set = r / R, rr = r - set * R;
+  const int64_t SP = P / sets;
+  const int64_t start = set * SP + rr * SP / R;
+  const int npix = static_cast<int>((rr + 1) * SP / R - rr * SP / R);
+  const bool merged = !(INSTANCE && R == 1);  // partials merged across a grid barrier
   const int nvec = npix * L;
   const int nk = tid < nvec ? (nvec - 1 - tid) / kThreads + 1 : 0;
   const int rv = min(nvec, resident);
@@ -750,7 +790,16 @@ modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __re
   auto pix = [&](int k) { return static_cast<int64_t>((tid + k * kThreads) >> shift); };
   auto slot = [&](int k) { return tid + k * kThreads; };
   auto group = [&](int g) { return nks * g / kGroups; };  // first vector of commit group g
+  if (INSTANCE) wait_prior_grid();
+  PHASE_MARK(7);
 
+  // sums of d = x - K and d * d, K the mean of kThreads / L pixels spread
+  // evenly over the run (thread tid loads pixel (tid / L) * npix / (kThreads
+  // / L)).  The pilot pixels load first, so that K is known when the first
+  // group of the run lands rather than after the last.
+  const int pilot = kThreads / L;
+  const uint4 pilot_raw = __ldg(reinterpret_cast<const uint4*>(
+      xt + static_cast<int64_t>(tid >> shift) * npix / pilot * C));
   // the resident vectors: every copy in flight at once, in kGroups groups
 #pragma unroll
   for (int g = 0; g < kGroups; ++g) {
@@ -764,15 +813,10 @@ modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __re
     for (int u = 0; u < kInFlight; ++u)
       if (nks + u < nk) cur[u] = __ldg(reinterpret_cast<const uint4*>(xt + pix(nks + u) * C));
   }
-  // sums of d = x - K and d * d, K the mean of kThreads / L pixels spread
-  // evenly over the run (thread tid loads pixel (tid / L) * npix / (kThreads / L))
   float K[V], s1[V], s2[V];
-  {
-    const int pilot = kThreads / L;
-    const int64_t q = static_cast<int64_t>(tid >> shift) * npix / pilot;
-    unpack16<T>(__ldg(reinterpret_cast<const uint4*>(xt + q * C)), K);
-    block_sum<V>(K, L, tile, static_cast<float>(pilot), s_red, s_stat);
-  }
+  unpack16<T>(pilot_raw, K);
+  block_sum<V>(K, L, tile, static_cast<float>(pilot), s_red, s_stat);
+  PHASE_MARK(8);
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     K[j] = s_stat[lane * V + j];
@@ -803,6 +847,7 @@ modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __re
       for (int u = 0; u < kInFlight; ++u) cur[u] = nxt[u];
     }
   }
+  PHASE_MARK(9);
   // the resident vectors, each group as it lands (a thread reads only the
   // vectors it copied itself, so its own wait suffices)
 #pragma unroll
@@ -816,28 +861,61 @@ modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __re
   }
   block_sum<V>(s1, L, tile, 1.f, s_red, s_sum[0]);
   block_sum<V>(s2, L, tile, 1.f, s_red, s_sum[1]);
+  PHASE_MARK(10);
+  float own_m = 0.f, own_q = 0.f;
   if (tid < tile) {  // the run's mean and centred M2 of channel tid
     const int c = ct * tile + tid;
     const float n = static_cast<float>(npix), a = s_sum[0][tid];
     const float da = a / n;
-    part[static_cast<int64_t>(r) * C + c] = s_stat[tid] + da;
-    part[static_cast<int64_t>(runs + r) * C + c] = fmaxf(s_sum[1][tid] - a * da, 0.f);
+    own_m = s_stat[tid] + da;
+    own_q = fmaxf(s_sum[1][tid] - a * da, 0.f);
+    if (merged) {
+      part[static_cast<int64_t>(r) * C + c] = own_m;
+      part[static_cast<int64_t>(runs + r) * C + c] = own_q;
+    }
   }
-  cg::this_grid().sync();
+  if (merged) cg::this_grid().sync();
+  PHASE_MARK(11);
 
-  // the tile's runs merged in run order: thread (g, j) merges runs
-  // [g * runs / G, (g + 1) * runs / G) of channel j, then thread j the G
-  // groups.  Every block of the tile does the same, so all hold the same
-  // statistics.
+  // the set's runs of the tile merged in run order: thread (g, j) merges
+  // runs [g * R / G, (g + 1) * R / G) of channel j, then thread j the G
+  // groups.  Every block of the set and tile does the same, so all hold the
+  // same statistics.
   {
     const int G = kThreads / tile, j = tid % tile, g = tid / tile;
     const int c = ct * tile + j;
     float n = 0.f, m = 0.f, q = 0.f;
-    for (int i = g * runs / G; i < (g + 1) * runs / G; ++i) {
-      const float ni = static_cast<float>((i + 1) * P / runs - i * P / runs);
-      const float mi = __ldcg(part + static_cast<int64_t>(i) * C + c);
-      const float qi = __ldcg(part + static_cast<int64_t>(runs + i) * C + c);
-      chan_merge<1>(n, &m, &q, ni, &mi, &qi);
+    if (!merged) {  // one run: its own statistics (thread j < tile holds channel j's)
+      if (g == 0) {
+        n = static_cast<float>(npix);
+        m = own_m;
+        q = own_q;
+      }
+    } else {  // kMergeLoads runs' partials in flight at once, then merged in order
+      // run i's pixels, (i + 1) * SP / R - i * SP / R, in 32-bit arithmetic:
+      // with SP = q * R + rem, i * SP / R = i * q + i * rem / R
+      const int64_t q_run = SP / R;
+      const int rem = static_cast<int>(SP - q_run * R);
+      const int hi = (g + 1) * R / G;
+      for (int i0 = g * R / G; i0 < hi; i0 += kMergeLoads) {
+        float mi[kMergeLoads], qi[kMergeLoads];
+#pragma unroll
+        for (int u = 0; u < kMergeLoads; ++u) {
+          if (i0 + u < hi) {
+            const int64_t run = static_cast<int64_t>(set) * R + i0 + u;
+            mi[u] = __ldcg(part + run * C + c);
+            qi[u] = __ldcg(part + (runs + run) * C + c);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kMergeLoads; ++u) {
+          if (i0 + u < hi) {
+            const int i = i0 + u;
+            const float ni = static_cast<float>(q_run + (i + 1) * rem / R - i * rem / R);
+            chan_merge<1>(n, &m, &q, ni, &mi[u], &qi[u]);
+          }
+        }
+      }
     }
     s_grp[0][tid] = n;
     s_grp[1][tid] = m;
@@ -856,17 +934,23 @@ modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __re
         }
       } else {
         const float rs =
-            __frcp_rn(__fsqrt_rn(__fadd_rn(__fdiv_rn(q, static_cast<float>(P)), eps)));
-        s_stat[tid] = rs;
-        s_stat[kMaxTile + tid] = __fmul_rn(-m, rs);
-        if (r == 0) {
-          mean_out[c] = m;
-          rstd_out[c] = rs;
+            __frcp_rn(__fsqrt_rn(__fadd_rn(__fdiv_rn(q, static_cast<float>(SP)), eps)));
+        if (INSTANCE) {  // (x - mean) * rstd
+          s_stat[tid] = m;
+          s_stat[kMaxTile + tid] = rs;
+        } else {  // x * rstd + (-mean * rstd)
+          s_stat[tid] = rs;
+          s_stat[kMaxTile + tid] = __fmul_rn(-m, rs);
+        }
+        if (rr == 0 && mean_out != nullptr) {
+          mean_out[static_cast<int64_t>(set) * C + c] = m;
+          rstd_out[static_cast<int64_t>(set) * C + c] = rs;
         }
       }
     }
     if (STATS_ONLY) return;
     __syncthreads();
+    PHASE_MARK(12);
   }
 
   // apply: the streamed vectors again, newest first (they come from L2),
@@ -897,12 +981,14 @@ modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __re
     for (int u = 0; u < U; ++u) {
       if (k0 + u < end)
         __stcs(reinterpret_cast<uint4*>(ot + pix(k0 + u) * C),
-               apply16<T, true, HAS_MOD, LRELU>(xr[u], a, b, sc[u], of[u], slope));
+               apply16<T, !INSTANCE, HAS_MOD, LRELU>(xr[u], a, b, sc[u], of[u], slope));
     }
   };
   const int steps = (nk - nks + U - 1) / U;
   for (int i = steps - 1; i >= 0; --i) apply_step(nks + i * U, nk, false);
+  PHASE_MARK(13);
   for (int k0 = 0; k0 < nks; k0 += U) apply_step(k0, nks, true);
+  PHASE_MARK(14);
 }
 
 // Launch B of the cross-rank batch forward.  `stats` holds each rank's
@@ -1378,6 +1464,21 @@ const void* batch_kernel(int dtype, bool has_mod, bool lrelu, bool stats_only) {
                     : batch_kernel<__nv_bfloat16>(has_mod, lrelu, stats_only);
 }
 
+template <typename T>
+const void* instance_grid_kernel(bool has_mod, bool lrelu) {
+  if (has_mod)
+    return lrelu ? fn(modnorm_batch_kernel<T, true, true, false, true>)
+                 : fn(modnorm_batch_kernel<T, true, false, false, true>);
+  return lrelu ? fn(modnorm_batch_kernel<T, false, true, false, true>)
+               : fn(modnorm_batch_kernel<T, false, false, false, true>);
+}
+
+// The instance forward's "grid" variant for (dtype, flags).
+const void* instance_grid_kernel(int dtype, bool has_mod, bool lrelu) {
+  return dtype == 0 ? instance_grid_kernel<float>(has_mod, lrelu)
+                    : instance_grid_kernel<__nv_bfloat16>(has_mod, lrelu);
+}
+
 template <typename T, bool STREAM>
 const void* instance_backward_kernel(bool has_mod, bool lrelu) {
   if (has_mod)
@@ -1592,17 +1693,21 @@ extern "C" int modnorm_affine(const void* x, const void* mod, const void* inv,
 // per block (the on-chip variant's chunk beyond `regs` 16-byte vectors per
 // thread held in registers: 0 or kRegVectors), `streaming` 0 or 1.  Returns the
 // launch's error, then cudaGetLastError(); cudaErrorInvalidValue for a plan
-// the kernel cannot take.
+// the kernel cannot take.  A programmatic dependent launch: its blocks may
+// start while the stream's previous kernel finishes (see wait_prior_grid).
 extern "C" int modnorm_instance(const void* x, const void* mod, void* out, void* mean,
                                 void* rstd, int N, int64_t HW, int C, int tile, int cluster,
                                 int smem, int streaming, int regs, float eps, int dtype,
                                 int lrelu, float slope, void* stream) {
   cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
+  cudaLaunchAttribute attr[2];
   const void* kernel = instance_launch(N, HW, C, tile, cluster, smem, streaming, regs, dtype,
                                        mod != nullptr, lrelu != 0,
-                                       static_cast<cudaStream_t>(stream), &cfg, &attr);
+                                       static_cast<cudaStream_t>(stream), &cfg, attr);
   if (kernel == nullptr) return invalid();
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.numAttrs = 2;
   void* args[] = {&x, &mod, &out, &mean, &rstd, &HW, &C, &tile, &eps, &slope};
   const cudaError_t e = cudaLaunchKernelExC(&cfg, kernel, args);
   const cudaError_t last = cudaGetLastError();
@@ -1650,31 +1755,42 @@ extern "C" int modnorm_batch_blocks_per_sm(int dtype, int has_mod, int lrelu, in
 namespace {
 
 // The cooperative launch of the batch forward (or, with `stats` given, of
-// its statistics-only form, launch A); see modnorm_batch.
+// its statistics-only form, launch A); see modnorm_batch.  `instance`: the
+// instance forward's grid variant over `sets` samples (modnorm_instance_grid),
+// cooperative only where a set has more than one run, and else a
+// programmatic dependent launch.
 int launch_batch(const void* x, const void* mod, void* out, void* part, void* mean, void* rstd,
-                 void* stats, int64_t P, int C, int tile, int runs, int smem, float eps,
-                 int dtype, int lrelu, float slope, void* stream) {
+                 void* stats, int64_t P, int C, int tile, int runs, int sets, bool instance,
+                 int smem, float eps, int dtype, int lrelu, float slope, void* stream) {
   const int vec = dtype == 0 ? 4 : 8, lanes = tile / vec;
   if (tile % vec || lanes < 1 || lanes > kMaxLanes || (lanes & (lanes - 1)) || C % tile ||
-      runs < 1 || runs > P || smem < 0 || smem % 16)
+      sets < 1 || P % sets || runs < 1 || runs % sets || runs / sets > P / sets ||
+      runs / sets > kMaxRunsPerSet || smem < 0 || smem % 16)
     return invalid();
-  const void* kernel = batch_kernel(dtype, mod != nullptr, lrelu != 0, stats != nullptr);
+  const void* kernel = instance ? instance_grid_kernel(dtype, mod != nullptr, lrelu != 0)
+                                : batch_kernel(dtype, mod != nullptr, lrelu != 0,
+                                               stats != nullptr);
   const int64_t grid = static_cast<int64_t>(runs) * (C / tile);
+  const bool cooperative = !instance || runs > sets;
   const int per_sm = blocks_per_sm(kernel, smem);
-  if (per_sm < 1 || grid > static_cast<int64_t>(per_sm) * sm_count()) return invalid();
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeCooperative;
-  attr.val.cooperative = 1;
+  if (per_sm < 1 || grid > 0x7fffffff ||
+      (cooperative && grid > static_cast<int64_t>(per_sm) * sm_count()))
+    return invalid();
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = cooperative ? 1 : 0;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;  // instance only
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(grid));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = instance && !cooperative ? 2 : 1;
   int resident = smem / 16;
   void* args[] = {&x, &mod, &out, &part, &mean, &rstd, &stats, &P, &C, &tile, &runs,
-                  &resident, &eps, &slope};
+                  &sets, &resident, &eps, &slope};
   const cudaError_t e = cudaLaunchKernelExC(&cfg, kernel, args);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
@@ -1685,8 +1801,29 @@ int launch_batch(const void* x, const void* mod, void* out, void* part, void* me
 extern "C" int modnorm_batch(const void* x, const void* mod, void* out, void* part, void* mean,
                              void* rstd, int64_t P, int C, int tile, int runs, int smem,
                              float eps, int dtype, int lrelu, float slope, void* stream) {
-  return launch_batch(x, mod, out, part, mean, rstd, nullptr, P, C, tile, runs, smem, eps,
-                      dtype, lrelu, slope, stream);
+  return launch_batch(x, mod, out, part, mean, rstd, nullptr, P, C, tile, runs, 1, false, smem,
+                      eps, dtype, lrelu, slope, stream);
+}
+
+// The instance forward's grid variant (deepsee_torch/ops/modnorm.py::
+// instance_plan, variant "grid"): the batch forward's kernel over N sets of
+// H*W pixels, `runs` blocks along each (sample, channel tile) slab, `smem`
+// bytes of dynamic shared memory per block (the run's first smem / 16
+// vectors stay there); cooperative where runs > 1, with `part` scratch of
+// 2 * N * runs * C floats.  `mean` and `rstd`, float32 (N, C), receive the
+// statistics in training and are null at inference.  A programmatic
+// dependent launch where runs == 1 (a cooperative one is not).  Returns the
+// launch's error, then cudaGetLastError(); cudaErrorInvalidValue for a plan
+// the kernel cannot take.
+extern "C" int modnorm_instance_grid(const void* x, const void* mod, void* out, void* part,
+                                     void* mean, void* rstd, int N, int64_t HW, int C, int tile,
+                                     int runs, int smem, float eps, int dtype, int lrelu,
+                                     float slope, void* stream) {
+  if (N < 1 || HW < 1 || runs < 1 || (runs > 1 && part == nullptr) ||
+      static_cast<int64_t>(N) * runs > 0x7fffffff)
+    return invalid();
+  return launch_batch(x, mod, out, part, mean, rstd, nullptr, N * HW, C, tile, N * runs, N, true,
+                      smem, eps, dtype, lrelu, slope, stream);
 }
 
 // Launch A of the cross-rank batch forward: the batch forward's statistics
@@ -1698,8 +1835,8 @@ extern "C" int modnorm_batch(const void* x, const void* mod, void* out, void* pa
 extern "C" int modnorm_batch_partials(const void* x, void* part, void* stats, int64_t P, int C,
                                       int tile, int runs, int smem, int dtype, void* stream) {
   if (stats == nullptr) return invalid();
-  return launch_batch(x, nullptr, nullptr, part, nullptr, nullptr, stats, P, C, tile, runs,
-                      smem, 0.f, dtype, 0, 0.f, stream);
+  return launch_batch(x, nullptr, nullptr, part, nullptr, nullptr, stats, P, C, tile, runs, 1,
+                      false, smem, 0.f, dtype, 0, 0.f, stream);
 }
 
 // Launch B of the cross-rank batch forward: the `world` rows of `stats`

@@ -26,9 +26,10 @@ hand-written kernels of deepsee_torch/csrc/int8conv.cu -- (a)
 to the other.  Importing this module registers the op.
 
 The launch plans are pure Python, so the CPU tests reach them:
-`quantize_plan` sizes (c)'s grid; `igemm_plan` chooses (d)'s tile (the
-output-pixel rectangle, BN, BK, the ring's stages, the persistent grid)
-and the boxes of its two TMA tensor maps, and `igemm_tile` /
+`weight_plan` gives (b)'s blocks their runs of output channels and their
+threads their units; `quantize_plan` sizes (c)'s grid; `igemm_plan`
+chooses (d)'s tile (the output-pixel rectangle, BN, BK, the ring's stages,
+the persistent grid) and the boxes of its two TMA tensor maps, and `igemm_tile` /
 `igemm_loads` give the tile order and the coordinates that the kernel's
 producer hands TMA, from which tests/test_torch_int8_plan.py rebuilds the
 product on the CPU.
@@ -55,7 +56,8 @@ __all__ = ["int8_conv", "int8_conv_plain", "quantize_plain", "igemm_plain", "Qua
            "absmax_channels_plain", "smooth_scales_plain", "quantize_weight_plain",
            "quantize_activation_plain",
            "absmax_channels", "quantize_weight", "quantize_activation", "int8_conv_igemm",
-           "divide_check", "QuantizePlan", "quantize_plan", "IgemmPlan", "igemm_plan",
+           "divide_check", "QuantizePlan", "quantize_plan", "WeightPlan", "weight_plan",
+           "weight_rows", "IgemmPlan", "igemm_plan",
            "igemm_tile", "igemm_loads",
            "padded_channels", "conv_out_size", "launches", "plain_calls", "reset_launches"]
 
@@ -79,10 +81,17 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # float64 rows of the plain product at once: bounds its memory on the card
 PLAIN_ELEMENTS = 1 << 28
 
-# Kernel launches, one per wrapper call that launches its kernel: (a) and (b)
-# are two launches each in the source (partials and merge; s_c, then s_k and
-# k_q), counted as one.  `plain_calls` counts the op's plain version on CPU
-# tensors, so CPU runs can count quantized convs too.
+# (b): a block of WEIGHT_THREADS per SM at most, owning at most
+# WEIGHT_MAX_ROWS output channels; at most WEIGHT_MAX_CIN input channels
+WEIGHT_THREADS = 1024
+WEIGHT_MAX_ROWS = 32
+WEIGHT_MAX_CIN = 8192
+WEIGHT_UNIT_COLUMNS = 2   # input channels of a unit: a 16-bit word of k_q per tap
+
+# Kernel launches, one per wrapper call that launches its kernel: (a) is two
+# launches in the source (partials and merge), counted as one.  `plain_calls`
+# counts the op's plain version on CPU tensors, so CPU runs can count
+# quantized convs too.
 launches = {"absmax": 0, "quantize_weight": 0, "quantize_activation": 0, "igemm": 0}
 plain_calls = {"int8_conv": 0}
 
@@ -243,6 +252,49 @@ def quantize_plan(pixels: int, cp: int, dtype: torch.dtype, sms: int = SMS) -> Q
     return QuantizePlan(lanes, rows, unroll, blocks_x, blocks_y)
 
 
+class WeightPlan(NamedTuple):
+    """Kernel (b)'s launch for one weight: `grid` blocks (at most one per SM),
+    block b owning the output channels `weight_rows(plan, cout, b)`, at most
+    `rows` of them; a unit is one output channel's two input channels over
+    the taps (a 16-bit word of k_q per tap), `units` of them in the largest block,
+    thread t taking units t, t + WEIGHT_THREADS, ...; `cached`: taps 1 or 9,
+    a thread's first unit held in registers (the weight read once where
+    units <= WEIGHT_THREADS); `vector`: Cin even, units loaded 8 bytes at a
+    time; `smem`: dynamic shared memory (s_c, and the column maxima where
+    smoothing)."""
+    grid: int
+    rows: int
+    units: int
+    cached: bool
+    vector: bool
+    smem: int
+
+
+def weight_plan(cout: int, cin: int, taps: int, smooth: bool = True,
+                sms: int = SMS) -> WeightPlan:
+    """One block per SM, or per output channel where there are fewer, each a
+    run of Cout / grid output channels."""
+    if min(cout, cin, taps) < 1:
+        raise ValueError(f"int8conv: no weight of ({cout}, {cin}, {taps} taps)")
+    if cin > WEIGHT_MAX_CIN:
+        raise ValueError(f"int8conv: quantize_weight takes at most {WEIGHT_MAX_CIN} input "
+                         f"channels, got {cin}")
+    grid = min(cout, sms)
+    rows = -(-cout // grid)
+    if rows > WEIGHT_MAX_ROWS:
+        raise ValueError(f"int8conv: quantize_weight gives a block at most {WEIGHT_MAX_ROWS} "
+                         f"output channels; {cout} on {grid} blocks need {rows}")
+    return WeightPlan(grid, rows, rows * padded_channels(cin) // WEIGHT_UNIT_COLUMNS,
+                      taps in (1, 9), cin % WEIGHT_UNIT_COLUMNS == 0,
+                      cin * 4 * (2 if smooth else 1))
+
+
+def weight_rows(plan: WeightPlan, n: int, block: int) -> Tuple[int, int]:
+    """The [begin, end) output channels of `block` (n = Cout: the kernel's
+    o_begin, o_end); with n = Cin, the input channels whose s_c it writes."""
+    return block * n // plan.grid, (block + 1) * n // plan.grid
+
+
 class IgemmPlan(NamedTuple):
     """Kernel (d)'s tile and grid for one conv.
 
@@ -333,7 +385,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("int8conv")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.int8_absmax_channels.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, p]
-    lib.int8_quantize_weight.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32, i32, p]
+    lib.int8_quantize_weight.argtypes = [p] * 8 + [i32] * 6 + [p]
     lib.int8_quantize_activation.argtypes = [p, p, p, p] + [i32] * 6 + [p]
     lib.int8_conv_igemm.argtypes = [p, p, p, p, p, p] + [i32] * 17 + [p]
     lib.int8_divide_check.argtypes = [p, p, i32, p, p, p, p]
@@ -413,7 +465,11 @@ def quantize_weight(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tensor
                     smooth: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
     """Kernel (b): (s_c (Cin,), s_k (Cout,), s_x (), k_q (Cout, kh, kw, Cp)
-    int8) from the OIHW float32 weight and kernel (a)'s maxima."""
+    int8) from the OIHW float32 weight and kernel (a)'s maxima, in one launch
+    of `weight_plan`'s grid (cooperative where it smooths: its blocks merge
+    the column maxima in a (Cin,) scratch of this call, taken from the
+    caching allocator on the current stream and zeroed there, so calls on
+    other streams never share it)."""
     _check_cuda("weight", weight, (torch.float32,), 4)
     if not weight.is_contiguous():
         raise ValueError("int8conv: weight must be contiguous OIHW")
@@ -422,15 +478,17 @@ def quantize_weight(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tensor
     _check_vector("mx", mx, cin, weight.device)
     cp = padded_channels(cin)
     dev = weight.device
+    plan = weight_plan(cout, cin, kh * kw, smooth, card_sms(dev))
     s_c = torch.empty(cin, dtype=torch.float32, device=dev)
     s_k = torch.empty(cout, dtype=torch.float32, device=dev)
     s_x = torch.empty((), dtype=torch.float32, device=dev)
     k_q = torch.empty((cout, kh, kw, cp), dtype=torch.int8, device=dev)
+    mk = torch.empty(cin, dtype=torch.int32, device=dev) if smooth else None
     with torch.cuda.device(dev):
-        err = _lib().int8_quantize_weight(weight.data_ptr(), mx.data_ptr(), mx_raw.data_ptr(),
-                                          s_c.data_ptr(), s_k.data_ptr(), s_x.data_ptr(),
-                                          k_q.data_ptr(), cout, cin, cp, kh * kw, int(smooth),
-                                          _stream(weight))
+        err = _lib().int8_quantize_weight(
+            weight.data_ptr(), mx.data_ptr(), mx_raw.data_ptr(), s_c.data_ptr(),
+            s_k.data_ptr(), s_x.data_ptr(), k_q.data_ptr(), None if mk is None else mk.data_ptr(),
+            cout, cin, cp, kh * kw, int(smooth), plan.grid, _stream(weight))
     _check(err, "quantize_weight")
     launches["quantize_weight"] += 1
     return s_c, s_k, s_x, k_q

@@ -53,7 +53,8 @@ from deepsee_torch.ops import _build
 from deepsee_torch.ops.norms import instance_norm_2d
 
 __all__ = ["modnorm", "modnorm_plain", "launches", "reset_launches",
-           "InstancePlan", "instance_plan", "instance_chunks", "check_instance_plan",
+           "InstancePlan", "INSTANCE_VARIANTS", "instance_plan",
+           "instance_chunks", "check_instance_plan",
            "clusters_in_flight", "modnorm_train", "modnorm_train_plain",
            "modnorm_backward", "modnorm_backward_plain", "ReducePlan", "reduce_plan",
            "BatchPlan", "batch_plan", "check_batch_plan", "batch_blocks_per_sm", "card_sms",
@@ -106,12 +107,36 @@ MAX_CLUSTER = 16
 SECTOR = 32                   # bytes: the channel tile, one sector of a pixel
 LINE = 128                    # bytes: the widest (streaming) tile, one cache line
 WIDE_SLAB = 256 * 1024        # bytes: slabs up to this take a two-sector tile
+WIDE_SLABS = 64               # ... where there are at least this many slabs of it
 CHUNK_TARGET = 64 * 1024      # bytes per block, so that 3 blocks share an SM
+# The least blocks per slab of the on-chip variant (more where the slabs are
+# few: at least SLAB_BLOCKS blocks in all, at most FEW_SLABS_CLUSTER per slab)
+MIN_CLUSTER = 2
+SLAB_BLOCKS = 64
+FEW_SLABS_CLUSTER = 4
+# The grid variant, for slabs larger than GRID_SLAB at a two-sector tile
+# (H*W > 8192: the training trunks' 128^2 and 256^2 shapes; at 65^2 the
+# cluster variant measured faster)
+GRID_SLAB = 2 * WIDE_SLAB
+# A grid run sums at most this many 16-byte vectors (256 per
+# thread); at 1,024 per thread a 256^2 slab's mean measured 1.3e-5 off
+GRID_RUN_VECTORS = 256 * THREADS
+# ... and keeps at least this share of x in shared memory
+GRID_RESIDENT_SHARE = 0.75
+
+
+INSTANCE_VARIANTS = ("on-chip", "streaming", "grid")
 
 
 @dataclasses.dataclass(frozen=True)
 class InstancePlan:
-    variant: str              # "on-chip" or "streaming"
+    """The instance forward's launch.  "on-chip" and "streaming" split each
+    slab over a thread-block cluster; "grid" is the batch forward's kernel
+    over the N samples' sets: `cluster` blocks (runs) along each slab, their
+    partials merged across one grid barrier of a cooperative launch (none
+    where a slab is one run), each run's first smem_bytes / (tile * esize)
+    pixels kept in shared memory and the rest streamed and read again."""
+    variant: str              # "on-chip", "streaming" or "grid"
     tile: int                 # channels per slab: 16 to 128 bytes of a pixel
     cluster: int              # blocks per slab, split along H*W
     pixels_per_cta: int       # the largest chunk of a slab one block takes
@@ -131,26 +156,86 @@ def _layout(shape: Tuple[int, int, int, int], esize: int, tile: int,
             variant: str) -> InstancePlan:
     """The cluster split of `variant` with `tile` channels per slab: the
     least split of H*W that (a) fits a chunk in a block's shared memory
-    (on-chip), (b) gives the card one wave of 132 blocks, and (c) keeps
-    on-chip chunks near 64 KB, so that several blocks per SM overlap their
-    loads, arithmetic and stores; at most 16 blocks and H*W.  An on-chip
+    (on-chip), (b) keeps on-chip chunks near 64 KB, so that several blocks
+    per SM overlap their loads, arithmetic and stores, and (c) has at least
+    MIN_CLUSTER blocks a slab, up to FEW_SLABS_CLUSTER where fewer than
+    SLAB_BLOCKS blocks would run (the H100's training shapes: the
+    discriminator's and the mini trunk's small slabs ran fastest in
+    clusters of 2, the fewest slabs in clusters of 4, and lost to a wave of
+    132 blocks' larger clusters); at most 16 blocks and H*W.  An on-chip
     chunk too large for two blocks per SM keeps REG_VECTORS vectors per
     thread (32 KB per block) in registers and the rest in shared memory."""
     b, c, h, w = shape
     hw, pixel_bytes = h * w, tile * esize
-    fill = math.ceil(SMS / (b * c // tile))
     if variant == "on-chip":
         fit = math.ceil(hw / ((SMEM_PER_BLOCK - STATIC_SMEM) // pixel_bytes))
         near = math.ceil(hw * pixel_bytes / CHUNK_TARGET)
-        cluster = min(MAX_CLUSTER, hw, max(fit, fill, near))
+        least = min(FEW_SLABS_CLUSTER,
+                    max(MIN_CLUSTER, math.ceil(SLAB_BLOCKS / (b * c // tile))))
+        cluster = min(MAX_CLUSTER, hw, max(fit, near, least))
     else:
         cluster = min(MAX_CLUSTER, hw)
-    pixels = math.ceil(hw / cluster)
+    return _split(shape, esize, tile, variant, cluster)
+
+
+def _split(shape: Tuple[int, int, int, int], esize: int, tile: int, variant: str,
+           cluster: int) -> InstancePlan:
+    """The plan of `variant` with `tile` channels per slab split over
+    `cluster` blocks: an on-chip chunk too large for two blocks per SM
+    keeps REG_VECTORS vectors per thread in registers."""
+    b, c, h, w = shape
+    pixels, pixel_bytes = math.ceil(h * w / cluster), tile * esize
     smem, regs = (pixels * pixel_bytes if variant == "on-chip" else 0), 0
     if smem > TWO_BLOCKS_SMEM:
         regs = REG_VECTORS
         smem = _smem_beyond_registers(pixels, pixel_bytes, regs)
     return InstancePlan(variant, tile, cluster, pixels, smem, regs, (cluster * c // tile, b))
+
+
+def _grid_plan(shape: Tuple[int, int, int, int], esize: int, tile: int,
+               sms: int) -> Optional[InstancePlan]:
+    """The grid variant at `tile`, or None where the cluster variants serve:
+    slabs of GRID_SLAB or less; or where the runs that fill the card's blocks
+    (BATCH_BLOCKS_PER_SM on each SM, no run longer than GRID_RUN_VECTORS)
+    would keep less than GRID_RESIDENT_SHARE of x on chip (the inference
+    batch's trunks at 128^2 and above).  Runs of about CHUNK_TARGET bytes,
+    as many as the card holds at once."""
+    b, c, h, w = shape
+    hw, pixel_bytes = h * w, tile * esize
+    if hw * pixel_bytes <= GRID_SLAB:
+        return None
+    fill = BATCH_BLOCKS_PER_SM * sms // (b * c // tile)
+    runs = min(fill, math.ceil(hw * pixel_bytes / CHUNK_TARGET), hw)
+    if runs < math.ceil(hw * pixel_bytes // 16 / GRID_RUN_VECTORS):
+        return None
+    plan = _grid_split(shape, esize, tile, runs)
+    resident = plan.smem_bytes // pixel_bytes
+    kept = sum(min(e - s, resident) for s, e in instance_chunks(hw, runs))
+    return plan if kept >= GRID_RESIDENT_SHARE * hw else None
+
+
+def _grid_split(shape: Tuple[int, int, int, int], esize: int, tile: int,
+                runs: int) -> InstancePlan:
+    """The grid variant with `tile` channels per slab cut into `runs` runs:
+    each run's first pixels, as many as a block's share of the SM's shared
+    memory holds at two blocks per SM, stay on chip."""
+    b, c, h, w = shape
+    pixels, pixel_bytes = math.ceil(h * w / runs), tile * esize
+    resident = min(pixels, _batch_room(BATCH_BLOCKS_PER_SM) // pixel_bytes)
+    return InstancePlan("grid", tile, runs, pixels, resident * pixel_bytes, 0,
+                        (runs * c // tile, b))
+
+
+def _instance_candidates(shape: Tuple[int, int, int, int], dtype: torch.dtype, variant: str,
+                         tile: int, clusters) -> List[InstancePlan]:
+    """The plans of `variant` at `tile` for each cluster size (runs per slab
+    for "grid") in `clusters` that H*W allows (unchecked:
+    `check_instance_plan` says which the kernel takes).  For the tests and
+    scripts/instance_plans.py, which times them; `instance_plan` chooses."""
+    esize = torch.finfo(dtype).bits // 8
+    split = (lambda k: _grid_split(shape, esize, tile, k)) if variant == "grid" else (
+        lambda k: _split(shape, esize, tile, variant, k))
+    return [split(k) for k in clusters if k <= shape[2] * shape[3]]
 
 
 def _smem_beyond_registers(pixels: int, pixel_bytes: int, regs: int) -> int:
@@ -168,26 +253,35 @@ def _fits_on_chip(shape: Tuple[int, int, int, int], esize: int, tile: int) -> bo
     return shape[2] * shape[3] <= MAX_CLUSTER * most_pixels
 
 
-def instance_plan(shape: Tuple[int, int, int, int], dtype: torch.dtype) -> InstancePlan:
-    """The instance mode's launch for x of `shape` (B, C, H, W) and `dtype`.
+def instance_plan(shape: Tuple[int, int, int, int], dtype: torch.dtype,
+                  sms: int = SMS) -> InstancePlan:
+    """The instance mode's launch for x of `shape` (B, C, H, W) and `dtype`
+    on a card of `sms` SMs.
 
-    A slab is one sample's `tile` channels over H*W; its pixels split over
-    the blocks of one cluster (`_layout`).  The tile is one 32-byte sector
-    of a pixel (16 bf16 or 8 float32 channels; 16 bytes where C forces it),
-    or two sectors where the slab stays within WIDE_SLAB (H*W <= 4096) and
-    the slabs still fill the card, which it then runs faster.  On-chip where
-    a cluster's shared memory holds the slab; otherwise streaming, at the
-    widest tile up to a 128-byte line."""
+    A slab is one sample's `tile` channels over H*W.  Where the slab at a
+    two-sector tile (64 bytes of a pixel) exceeds GRID_SLAB (H*W > 8192)
+    and the batch's slabs are few enough that the card's blocks keep
+    GRID_RESIDENT_SHARE of x in shared memory, the grid variant
+    (`_grid_plan`: the training batch's 128^2 and 256^2 trunk shapes).
+    Otherwise the slab's pixels split over the blocks of one cluster
+    (`_layout`), at one 32-byte sector of a pixel (16 bf16 or 8 float32
+    channels; 16 bytes where C forces it), or two sectors where the slab
+    stays within WIDE_SLAB and there are WIDE_SLABS slabs of it or more;
+    on-chip where a cluster's shared memory holds the slab, otherwise
+    streaming, at the widest tile up to a 128-byte line."""
     b, c, h, w = shape
     esize = _check_shape(shape, dtype)
     if b > 65535:
         raise ValueError("modnorm: instance mode takes at most 65535 samples")
+    wide = _widest(c, esize, 2 * SECTOR, SECTOR, SECTOR // 2)
+    grid = _grid_plan(shape, esize, wide, sms)
+    if grid is not None:
+        return grid
     sector = _widest(c, esize, SECTOR, SECTOR // 2)
     if _fits_on_chip(shape, esize, sector):
-        tile = _widest(c, esize, 2 * SECTOR, SECTOR, SECTOR // 2)
-        if (h * w * tile * esize > WIDE_SLAB
-                or b * c // tile * min(MAX_CLUSTER, h * w) < SMS):
-            tile = sector
+        tile = sector
+        if h * w * wide * esize <= WIDE_SLAB and b * c // wide >= WIDE_SLABS:
+            tile = wide
         return _layout(shape, esize, tile, "on-chip")
     return _layout(shape, esize, _widest(c, esize, LINE, 2 * SECTOR, SECTOR, SECTOR // 2),
                    "streaming")
@@ -211,9 +305,13 @@ def _widest(c: int, esize: int, *sizes: int) -> int:
 
 
 def check_instance_plan(plan: InstancePlan, shape: Tuple[int, int, int, int],
-                        dtype: torch.dtype) -> None:
-    """Raise ValueError unless the kernel can take `plan` for x of `shape`."""
+                        dtype: torch.dtype, sms: int = SMS) -> None:
+    """Raise ValueError unless the kernel can take `plan` for x of `shape`
+    on a card of `sms` SMs."""
     esize = torch.finfo(dtype).bits // 8
+    if plan.variant == "grid":
+        _check_grid_plan(plan, shape, dtype, sms)
+        return
     on_chip = plan.variant == "on-chip"
     problems = []
     if plan.register_vectors not in ((0, REG_VECTORS) if on_chip else (0,)):
@@ -224,6 +322,44 @@ def check_instance_plan(plan: InstancePlan, shape: Tuple[int, int, int, int],
         if plan.smem_bytes != need:
             problems.append(f"{plan.smem_bytes} bytes of shared memory")
     _check_cluster_plan("instance", plan, shape, dtype, problems)
+
+
+def _check_grid_plan(plan: InstancePlan, shape: Tuple[int, int, int, int],
+                     dtype: torch.dtype, sms: int) -> None:
+    """The grid variant's checks: a tile the batch kernel takes, 1 to H*W
+    runs per slab of ceil(H*W / runs) pixels at most, whole resident pixels
+    within two blocks' share of an SM, and, where runs are merged across the
+    grid barrier, every block resident at once."""
+    b, c, h, w = shape
+    esize = torch.finfo(dtype).bits // 8
+    problems = []
+    pixel_bytes = plan.tile * esize
+    if plan.tile < 1 or c % plan.tile or pixel_bytes not in (16, SECTOR, 2 * SECTOR, LINE):
+        problems.append(f"tile {plan.tile} for C={c} {dtype}")
+    elif tuple(plan.grid) != (plan.cluster * c // plan.tile, b):
+        problems.append(f"grid {plan.grid}")
+    elif (plan.smem_bytes % pixel_bytes
+          or not 0 <= plan.smem_bytes // pixel_bytes <= plan.pixels_per_cta
+          or plan.smem_bytes > _batch_room(BATCH_BLOCKS_PER_SM)):
+        problems.append(f"{plan.smem_bytes} bytes of shared memory")
+    if not 1 <= plan.cluster <= h * w:
+        problems.append(f"{plan.cluster} runs per slab")
+    elif plan.pixels_per_cta != math.ceil(h * w / plan.cluster):
+        problems.append(f"{plan.pixels_per_cta} pixels per block")
+    elif plan.tile >= 1 and plan.cluster > 1 and (
+            plan.cluster * c // plan.tile * b > BATCH_BLOCKS_PER_SM * sms):
+        problems.append(f"{plan.cluster * c // plan.tile * b} blocks across the grid barrier "
+                        f"at {BATCH_BLOCKS_PER_SM} per SM on {sms} SMs")
+    elif plan.pixels_per_cta * pixel_bytes // 16 > GRID_RUN_VECTORS:
+        problems.append(f"runs of {plan.pixels_per_cta} pixels: more than {GRID_RUN_VECTORS} "
+                        f"16-byte vectors")
+    if plan.register_vectors:
+        problems.append(f"{plan.register_vectors} vectors per thread in registers")
+    if b > 65535:
+        problems.append("more than 65535 samples")
+    if problems:
+        raise ValueError(f"modnorm: the instance grid kernel cannot take {plan} for "
+                         f"{dtype} {tuple(shape)}: {'; '.join(problems)}")
 
 
 def _check_cluster_plan(kernel: str, plan: InstancePlan, shape: Tuple[int, int, int, int],
@@ -289,6 +425,9 @@ def _lib() -> ctypes.CDLL:
     lib.modnorm_instance.argtypes = [p, p, p, p, p, i32, i64, i32, i32, i32, i32, i32, i32,
                                      f32, i32, i32, f32, p]
     lib.modnorm_instance.restype = ctypes.c_int
+    lib.modnorm_instance_grid.argtypes = [p, p, p, p, p, p, i32, i64, i32, i32, i32, i32, f32,
+                                          i32, i32, f32, p]
+    lib.modnorm_instance_grid.restype = ctypes.c_int
     lib.modnorm_instance_clusters.argtypes = [i32, i64, i32, i32, i32, i32, i32, i32, i32,
                                               i32, i32]
     lib.modnorm_instance_clusters.restype = ctypes.c_int
@@ -320,9 +459,12 @@ def clusters_in_flight(shape: Tuple[int, int, int, int], dtype: torch.dtype,
                        with_mod: bool, lrelu: bool) -> int:
     """How many clusters of the instance mode's launch for this shape the
     current card holds at once (cudaOccupancyMaxActiveClusters); -1 where the
-    query fails.  A measurement aid: the plan does not read it."""
+    query fails or the plan launches no clusters (the grid variant).  A
+    measurement aid: the plan does not read it."""
     b, c, h, w = shape
     plan = instance_plan(shape, dtype)
+    if plan.variant == "grid":
+        return -1
     return _lib().modnorm_instance_clusters(
         b, h * w, c, plan.tile, plan.cluster, plan.smem_bytes,
         int(plan.variant == "streaming"), plan.register_vectors, _DTYPE_CODE[dtype],
@@ -392,16 +534,37 @@ def _modnorm_op(x: torch.Tensor, mod: Optional[torch.Tensor],
                                         shift.data_ptr(), out.data_ptr(), b * h * w,
                                         c, code, int(lrelu), LRELU_SLOPE, stream)
         else:
-            plan = instance_plan((b, c, h, w), x.dtype)
-            check_instance_plan(plan, (b, c, h, w), x.dtype)
-            err = _lib().modnorm_instance(
-                x.data_ptr(), mod_ptr, out.data_ptr(), None, None, b, h * w, c, plan.tile,
-                plan.cluster, plan.smem_bytes, int(plan.variant == "streaming"),
-                plan.register_vectors, eps, code, int(lrelu), LRELU_SLOPE, stream)
+            err = _launch_instance(x, mod, out, None, None, eps, lrelu, stream)
     if err != 0:
         raise RuntimeError(f"modnorm ({stats}) launch failed with CUDA error {err}")
     launches[stats] += 1
     return out
+
+
+def _launch_instance(x: torch.Tensor, mod: Optional[torch.Tensor], out: torch.Tensor,
+                     mean: Optional[torch.Tensor], rstd: Optional[torch.Tensor], eps: float,
+                     lrelu: bool, stream: ctypes.c_void_p) -> int:
+    """The instance forward of checked x (and mod) into out, under the plan
+    `instance_plan` gives and `check_instance_plan` accepts for the card;
+    (mean, rstd) (N, C) receive the statistics where given.  Returns the C
+    entry's error code."""
+    b, c, h, w = x.shape
+    sms = card_sms(x.device)
+    plan = instance_plan((b, c, h, w), x.dtype, sms)
+    check_instance_plan(plan, (b, c, h, w), x.dtype, sms)
+    ptrs = (x.data_ptr(), None if mod is None else mod.data_ptr(), out.data_ptr())
+    stats = (None if mean is None else mean.data_ptr(), None if rstd is None else rstd.data_ptr())
+    code = _DTYPE_CODE[x.dtype]
+    if plan.variant == "grid":
+        part = (torch.empty(2 * b * plan.cluster * c, dtype=torch.float32, device=x.device)
+                if plan.cluster > 1 else None)
+        return _lib().modnorm_instance_grid(
+            *ptrs, None if part is None else part.data_ptr(), *stats, b, h * w, c, plan.tile,
+            plan.cluster, plan.smem_bytes, eps, code, int(lrelu), LRELU_SLOPE, stream)
+    return _lib().modnorm_instance(
+        *ptrs, *stats, b, h * w, c, plan.tile, plan.cluster, plan.smem_bytes,
+        int(plan.variant == "streaming"), plan.register_vectors, eps, code, int(lrelu),
+        LRELU_SLOPE, stream)
 
 
 @_modnorm_op.register_fake
@@ -764,13 +927,7 @@ def _modnorm_train_op(x: torch.Tensor, mod: Optional[torch.Tensor], stats: str,
                 rstd.data_ptr(), b * h * w, c, plan.tile, plan.runs, plan.smem_bytes, eps,
                 code, int(lrelu), LRELU_SLOPE, stream)
         else:
-            plan = instance_plan((b, c, h, w), x.dtype)
-            check_instance_plan(plan, (b, c, h, w), x.dtype)
-            err = _lib().modnorm_instance(
-                x.data_ptr(), mod_ptr, out.data_ptr(), mean.data_ptr(), rstd.data_ptr(), b,
-                h * w, c, plan.tile, plan.cluster, plan.smem_bytes,
-                int(plan.variant == "streaming"), plan.register_vectors, eps, code,
-                int(lrelu), LRELU_SLOPE, stream)
+            err = _launch_instance(x, mod, out, mean, rstd, eps, lrelu, stream)
     if err != 0:
         raise RuntimeError(f"modnorm_train ({stats}) launch failed with CUDA error {err}")
     launches["batch" if stats == "batch" else "instance_train"] += 1

@@ -165,3 +165,257 @@ def test_quantize_plan_covers_every_channel_group(cp, dtype):
     assert plan.blocks_y * plan.lanes >= groups > (plan.blocks_y - 1) * plan.lanes
     assert 1 <= plan.blocks_x * plan.blocks_y <= ic.QUANTIZE_BLOCKS_PER_SM * 132
     assert plan.unroll * plan.rows * plan.blocks_x <= 32 * 64 * 64 + plan.unroll * plan.rows
+
+
+# -- kernel (b): one launch per weight ------------------------------------------
+
+# (Cout, Cin, kh, kw): every quantized weight of the int8 main and 8x guided
+# paths, the ragged shapes of chip_smoke.py (Cin 72, Cout 20, a 1x1), a
+# weight whose threads take several units each, a 5x5 (taps at run time) and
+# an odd Cin
+WEIGHT_SHAPES = {"512x512": (512, 512, 3, 3), "mod 256->1024": (1024, 256, 3, 3),
+                 "mod 128->1024": (1024, 128, 3, 3), "64->128": (128, 64, 3, 3),
+                 "128->256": (256, 128, 3, 3), "256->128": (128, 256, 3, 3),
+                 "cin 72": (40, 72, 3, 3), "cout 20": (20, 64, 3, 3), "1x1": (256, 512, 1, 1),
+                 "1024x1024": (1024, 1024, 3, 3), "5x5": (48, 40, 5, 5),
+                 "cin 31": (64, 31, 3, 3)}
+# the kernel's static shared memory (row_max, row_sk, row_rk, red) and the
+# runtime's reserve
+WEIGHT_STATIC_SMEM = (3 * ic.WEIGHT_MAX_ROWS + ic.WEIGHT_THREADS // 32) * 4 + 1024
+
+
+def _units(plan, cout, cin, block):
+    """[(output channel, pair)] of `block`'s units in the order its threads
+    take them: unit u = thread + k * WEIGHT_THREADS."""
+    lo, hi = ic.weight_rows(plan, cout, block)
+    pairs = ic.padded_channels(cin) // ic.WEIGHT_UNIT_COLUMNS
+    return [(lo + u // pairs, u % pairs) for u in range((hi - lo) * pairs)]
+
+
+@pytest.mark.parametrize("smooth", [True, False])
+@pytest.mark.parametrize("case", list(WEIGHT_SHAPES))
+def test_weight_plan_covers_every_output_channel_once(case, smooth):
+    """Block b owns output channels [b*Cout/G, (b+1)*Cout/G): together every
+    channel once, none empty, at most `rows` each; their units write every
+    word of k_q once (a row's Cp / 2 pairs per tap); the input channels
+    whose s_c a block writes split the same way; the grid is at most one
+    block per SM and the shared memory fits one block on an SM; where a
+    block has WEIGHT_THREADS units or fewer (every main-path weight), each
+    thread's one unit stays in its registers."""
+    cout, cin, kh, kw = WEIGHT_SHAPES[case]
+    plan = ic.weight_plan(cout, cin, kh * kw, smooth)
+    assert 1 <= plan.grid <= min(cout, ic.SMS)
+    seen = np.zeros(cout, int)
+    cols = np.zeros(cin, int)
+    words = np.zeros((cout, ic.padded_channels(cin) // ic.WEIGHT_UNIT_COLUMNS), int)
+    for b in range(plan.grid):
+        lo, hi = ic.weight_rows(plan, cout, b)
+        assert 1 <= hi - lo <= plan.rows <= ic.WEIGHT_MAX_ROWS
+        seen[lo:hi] += 1
+        clo, chi = ic.weight_rows(plan, cin, b)
+        cols[clo:chi] += 1
+        units = _units(plan, cout, cin, b)
+        assert len(units) <= plan.units
+        for o, q in units:
+            words[o, q] += 1
+    assert (seen == 1).all() and (cols == 1).all() and (words == 1).all()
+    assert plan.units == plan.rows * ic.padded_channels(cin) // ic.WEIGHT_UNIT_COLUMNS
+    assert plan.cached == (kh * kw in (1, 9)) and plan.vector == (cin % 2 == 0)
+    assert plan.smem == cin * 4 * (2 if smooth else 1)
+    assert plan.smem + WEIGHT_STATIC_SMEM <= 232448       # one block on an SM
+    if case in ("512x512", "mod 256->1024", "mod 128->1024", "64->128", "128->256",
+                "256->128"):
+        assert plan.cached and plan.vector and plan.units <= ic.WEIGHT_THREADS
+
+
+def test_weight_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):
+        ic.weight_plan(64, ic.WEIGHT_MAX_CIN + 1, 9)
+    with pytest.raises(ValueError):           # more than WEIGHT_MAX_ROWS rows a block
+        ic.weight_plan(ic.WEIGHT_MAX_ROWS * 132 + 1, 64, 9, sms=132)
+    with pytest.raises(ValueError):
+        ic.weight_plan(0, 64, 9)
+
+
+def _fma32(a, b, c):
+    """float32 fma(a, b, c) with one rounding: a * b is exact in float64; the
+    float64 sum's own error (TwoSum) breaks the ties its rounding may have
+    made at a float32 midpoint."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c64 = c.astype(np.float64)
+    s = p + c64
+    bb = s - p
+    t = (p - (s - bb)) + (c64 - bb)
+    r = s.astype(np.float32)
+    d = s - r.astype(np.float64)
+    toward = np.nextafter(r, np.where(d > 0, np.float32(np.inf), np.float32(-np.inf)))
+    mid = (r.astype(np.float64) + toward.astype(np.float64)) / 2
+    move = (d != 0) & (s == mid) & (np.sign(t) == np.sign(d))
+    return np.where(move, toward, r)
+
+
+def _div32(a, b):
+    """RN(a / b) in float32 (float64's quotient rounds to the same float32)."""
+    return (a.astype(np.float64) / b.astype(np.float64)).astype(np.float32)
+
+
+def _div_rn_by(a, b, r):
+    """int8conv.cu's div_rn_by: q0 = RN(a * r), two FMA corrections; a zero
+    numerator is its own quotient."""
+    q0 = (a.astype(np.float64) * r.astype(np.float64)).astype(np.float32)
+    q1 = _fma32(r, _fma32(-b, q0, a), q0)
+    q2 = _fma32(r, _fma32(-b, q1, a), q1)
+    return np.where(a == 0, a, q2)
+
+
+def _exact_levels(v, sk, rk):
+    """clip(rint(RN(v / sk)), +-127) as int8: int8conv.cu's weight_level
+    (the reciprocal route where it is exact, else the IEEE division)."""
+    fast = (sk >= 2.0 ** -60) & (sk <= 2.0 ** 60) & (
+        ((np.abs(v) >= 2.0 ** -64) & (np.abs(v) <= 2.0 ** 64)) | (v == 0))
+    q = np.where(fast, _div_rn_by(v, sk, rk), _div32(v, sk))
+    level = np.clip(q, -ic.LEVELS, ic.LEVELS).astype(np.float32) + np.float32(12582912.0)
+    return (level.astype(np.float64) - 12582912.0).astype(np.int8)
+
+
+def _product_levels(v, rk):
+    """int8conv.cu's weight_level_by_product before its exact branch: the
+    level from q0 = RN(v * rk), and whether q0, clipped, lies within 2^-14
+    of a half."""
+    c = np.clip((v.astype(np.float64) * rk).astype(np.float32), -ic.LEVELS, ic.LEVELS)
+    r = (c.astype(np.float64) + 12582912.0).astype(np.float32)
+    near = np.abs(c - (r.astype(np.float64) - 12582912.0)) > 0.5 - 2.0 ** -14
+    return (r.astype(np.float64) - 12582912.0).astype(np.int8), near
+
+
+def _emulate_quantize_weight(w, mx, mx_raw, smooth, plan, order):
+    """Kernel (b) from its plan, in float32 as the kernel computes: each
+    block's column maxima over its units merged by the max of their bit
+    patterns in `order`; s_c for every column; s_x from every column (block
+    0's); per row s_k, then k_q through the reciprocal route where the kernel
+    takes it, clipped, rounded by adding 1.5 * 2^23 and written unit by unit.
+    Returns (s_c, s_k, s_x, k_q [Cout][tap][Cp])."""
+    cout, cin, kh, kw = w.shape
+    taps, cp = kh * kw, ic.padded_channels(cin)
+    rows = w.reshape(cout, cin, taps)
+    if smooth:
+        mk_bits = np.zeros(cin, np.uint32)
+        for b in order:
+            for o, q in _units(plan, cout, cin, b):
+                n = ic.WEIGHT_UNIT_COLUMNS
+                part = np.abs(rows[o, n * q:n * q + n]).max(axis=1, initial=np.float32(0))
+                cols = slice(n * q, n * q + part.size)
+                mk_bits[cols] = np.maximum(mk_bits[cols], part.view(np.uint32))
+        mk = np.maximum(mk_bits.view(np.float32), np.float32(ic.FLOOR))
+        s_c = _div32(np.sqrt(mx.astype(np.float64)).astype(np.float32),
+                     np.sqrt(mk.astype(np.float64)).astype(np.float32))
+        top = _div32(mx_raw, s_c).max(initial=np.float32(0))
+    else:
+        s_c = np.ones(cin, np.float32)
+        top = mx_raw.max(initial=np.float32(0))
+    s_x = _div32(np.maximum(np.array([top], np.float32), np.float32(ic.FLOOR)),
+                 np.float32(ic.LEVELS))[0]
+    v = (rows.astype(np.float64) * s_c[None, :, None]).astype(np.float32)   # RN(w * s_c)
+    s_k = _div32(np.maximum(np.abs(v).max(axis=(1, 2)), np.float32(ic.FLOOR)),
+                 np.full(cout, ic.LEVELS, np.float32))
+    r_k = _div32(np.ones(cout, np.float32), s_k)
+    k_q = np.full((cout, taps, cp), 99, np.int8)        # every byte written below
+    for b in order:
+        for o, q in _units(plan, cout, cin, b):
+            n = ic.WEIGHT_UNIT_COLUMNS
+            k_q[o, :, n * q:n * q + n] = 0
+            vq = v[o, n * q:n * q + n]                   # (<= 2 columns, taps)
+            if not vq.size:
+                continue
+            sk = np.full(vq.shape, s_k[o], np.float32)
+            rk = np.full(vq.shape, r_k[o], np.float32)
+            level, near = _product_levels(vq, rk)
+            exact = _exact_levels(vq, sk, rk)
+            # values near a half, and every value of an uncached unit, by the division
+            level = np.where(near | (not plan.cached), exact, level)
+            k_q[o, :, n * q:n * q + vq.shape[0]] = level.T
+    return s_c, s_k, s_x, k_q
+
+
+@pytest.mark.parametrize("smooth", [True, False])
+@pytest.mark.parametrize("case,sms", [("512x512", ic.SMS), ("mod 256->1024", ic.SMS),
+                                      ("64->128", ic.SMS), ("cin 72", ic.SMS),
+                                      ("cout 20", ic.SMS), ("1x1", ic.SMS), ("5x5", ic.SMS),
+                                      ("cin 31", ic.SMS), ("256->128", 8)])
+def test_weight_emulation_equals_plain_bit_for_bit(case, sms, smooth):
+    """(b)'s arithmetic from its plan (`_emulate_quantize_weight`), with the
+    blocks merging in a shuffled order and, at 8 SMs, several units per
+    thread, gives `quantize_weight_plain`'s s_k and k_q, `smooth_scales_plain`'s
+    s_c and `quantize_activation_plain`'s s_x bit for bit, with an all-zero
+    input channel of the weight (its mk the 1e-8 floor) and of x."""
+    cout, cin, kh, kw = WEIGHT_SHAPES[case]
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((2, cin, 3, 4)) * np.logspace(-2, 1, cin)[None, :, None, None])
+    x[:, 0] = 0.0
+    x = torch.from_numpy(x.astype(np.float32))
+    w = (rng.standard_normal((cout, cin, kh, kw)) * 0.05).astype(np.float32)
+    w[:, 1] = 0.0
+    mx_raw, mx = ic.absmax_channels_plain(x)
+    s_c = ic.smooth_scales_plain(torch.from_numpy(w), mx, smooth)
+    s_k, k_q = ic.quantize_weight_plain(torch.from_numpy(w), s_c)
+    s_x, _ = ic.quantize_activation_plain(x, s_c)
+    plan = ic.weight_plan(cout, cin, kh * kw, smooth, sms)
+    if sms == 8:
+        assert plan.units > ic.WEIGHT_THREADS
+    order = rng.permutation(plan.grid)
+    got = _emulate_quantize_weight(w, mx.numpy(), mx_raw.numpy(), smooth, plan, order)
+    assert np.array_equal(got[0].view(np.uint32), s_c.numpy().view(np.uint32))
+    assert np.array_equal(got[1].view(np.uint32), s_k.numpy().view(np.uint32))
+    assert np.float32(got[2]).view(np.uint32) == s_x.numpy().view(np.uint32)
+    assert np.array_equal(got[3][:, :, :cin].transpose(0, 2, 1).reshape(cout, cin, kh, kw),
+                          k_q.numpy())
+    assert not got[3][:, :, cin:].any()
+
+
+def test_levels_from_the_product_equal_the_exact_division_away_from_halves():
+    """Where q0 = RN(v * RN(1 / s_k)) does not lie within 2^-14 of a half
+    (below the clip), its level is clip(rint(RN(v / s_k))): on random rows
+    at scales from 1e-12 to 1e30, and on values placed a few ulps around
+    every k + 0.5 (which the kernel takes again by the exact division)."""
+    rng = np.random.default_rng(11)
+    for scale in (1e-12, 1e-6, 0.05, 1.0, 3e4, 1e30):
+        v = (rng.standard_normal(200_000) * scale).astype(np.float32)
+        sk = np.float32(max(np.abs(v).max(), 1e-8) / np.float32(127))
+        sk = np.full(v.shape, sk, np.float32)
+        rk = _div32(np.ones_like(sk), sk)
+        got, near = _product_levels(v, rk)
+        want = _exact_levels(v, sk, rk)
+        assert near.mean() < 1e-3
+        assert np.array_equal(got[~near], want[~near])
+    # around the halves: q = k + 0.5 + d ulps, v = q * sk
+    sk = np.float32(0.0123)
+    half = np.arange(-127, 127, dtype=np.float32) + np.float32(0.5)
+    ulps = np.arange(-64, 65, dtype=np.float32)
+    q = (half[:, None] + ulps[None, :] * np.spacing(np.abs(half))[:, None]).astype(np.float32)
+    v = (q.astype(np.float64) * sk).astype(np.float32).ravel()
+    skv = np.full(v.shape, sk, np.float32)
+    rk = _div32(np.ones_like(skv), skv)
+    got, near = _product_levels(v, rk)
+    want = _exact_levels(v, skv, rk)
+    assert near.any() and np.array_equal(got[~near], want[~near])
+
+
+def test_fma_emulation_rounds_once():
+    """`_fma32` against exact rationals on values whose float64 sum lands on
+    a float32 midpoint."""
+    from fractions import Fraction
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal(2000).astype(np.float32)
+    b = rng.standard_normal(2000).astype(np.float32)
+    # c puts a*b + c near a float32 midpoint, off by a tiny amount
+    prod32 = (a.astype(np.float64) * b).astype(np.float32)
+    half_ulp = np.spacing(np.abs(prod32)).astype(np.float64) / 2
+    c = (-(a.astype(np.float64) * b - prod32) + half_ulp).astype(np.float32)
+    got = _fma32(a, b, c)
+    for ai, bi, ci, gi in zip(a, b, c, got):
+        exact = Fraction(float(ai)) * Fraction(float(bi)) + Fraction(float(ci))
+        lo = np.float32(float(exact))
+        cands = [lo, np.nextafter(lo, np.float32(np.inf)), np.nextafter(lo, np.float32(-np.inf))]
+        best = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                         int(np.float32(v).view(np.uint32)) & 1))
+        assert gi == best

@@ -185,10 +185,11 @@ def test_generator_on_card_matches_cpu(cuda_device, case):
     assert float((got.cpu() - want).abs().max()) <= 1e-4
 
 
-# one shape per variant (and the on-chip one with registers), batch 1, a
-# prime H*W, and C=24 (an 8-channel tile)
-INSTANCE_SHAPES = {"on-chip": (2, 64, 64, 64), "registers": (1, 32, 256, 256),
-                   "streaming": (1, 16, 512, 512), "batch 1": (1, 32, 32, 32),
+# one shape per variant (and the on-chip one with registers), batch 1 (at
+# 256^2 and 512^2 the grid variant), a prime H*W, and C=24 (an 8-channel tile)
+INSTANCE_SHAPES = {"on-chip": (2, 64, 64, 64), "registers": (16, 32, 256, 256),
+                   "streaming": (8, 32, 512, 512), "batch 1": (1, 32, 32, 32),
+                   "batch 1 256^2": (1, 32, 256, 256), "batch 1 512^2": (1, 16, 512, 512),
                    "prime H*W": (2, 64, 37, 41), "C=24": (2, 24, 20, 20)}
 
 
@@ -204,6 +205,8 @@ def test_instance_kernel_matches_plain_on_card(cuda_device, case, dtype, with_mo
         assert plan.variant == case
     if case == "registers":
         assert plan.variant == "on-chip" and plan.register_vectors > 0
+    if case.startswith("batch 1 "):
+        assert plan.variant == "grid"
     x, mod, _, _ = _inputs(cuda_device, dtype, shape=shape, with_mod=with_mod)
     before = mn.launches["instance"]
     got = mn.modnorm(x, mod, stats="instance", lrelu=lrelu)
@@ -226,7 +229,7 @@ def test_instance_kernel_refuses_a_plan_it_cannot_take(cuda_device, monkeypatch)
     for change in (dict(cluster=32), dict(smem_bytes=300_000), dict(tile=24),
                    dict(variant="split")):
         bad = dataclasses.replace(good, **change)
-        monkeypatch.setattr(mn, "instance_plan", lambda shape, dtype, plan=bad: plan)
+        monkeypatch.setattr(mn, "instance_plan", lambda shape, dtype, *_, plan=bad: plan)
         before = mn.launches["instance"]
         with pytest.raises(ValueError):
             mn.modnorm(x, stats="instance")
@@ -398,6 +401,87 @@ def test_train_kernels_are_deterministic_on_card(cuda_device, case, dtype):
         assert (a is None) == (b is None)
         if a is not None:
             assert torch.equal(a, b)
+
+
+# (B, C, H, W, lrelu) of the instance forward with statistics out in a
+# faithful b4 step of 8x_independent_256x256 (the full and mini trunks, the
+# discriminator on 2B = 8), and H*W of 1 and 17^2
+STATS_OUT_SHAPES = {
+    "full 256^2": (4, 32, 256, 256, True), "full down0": (4, 64, 128, 128, True),
+    "full down1": (4, 128, 64, 64, True), "full up": (4, 256, 128, 128, True),
+    "full head": (4, 128, 128, 128, False), "mini 32 32": (4, 32, 32, 32, True),
+    "mini 64 32": (4, 64, 32, 32, True), "mini 128 32": (4, 128, 32, 32, True),
+    "mini 256 64": (4, 256, 64, 64, True), "mini head": (4, 128, 64, 64, False),
+    "D 65": (8, 64, 65, 65, True), "D 33": (8, 128, 33, 33, True), "D 34": (8, 256, 34, 34, True),
+    "D2 33": (8, 64, 33, 33, True), "D2 17": (8, 128, 17, 17, True),
+    "D2 18": (8, 256, 18, 18, True), "H*W 1": (4, 64, 1, 1, True), "17^2": (4, 64, 17, 17, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(STATS_OUT_SHAPES))
+def test_instance_stats_out_matches_plain_at_training_shapes(cuda_device, case, dtype):
+    """The instance forward with statistics out under the plan `instance_plan`
+    chooses: out, mean and rstd within `_train_within` of the plain
+    version's, one launch, and a second call bit for bit the first."""
+    *shape, lrelu = STATS_OUT_SHAPES[case]
+    x, _, _, _ = _inputs(cuda_device, dtype, shape=tuple(shape), with_mod=False)
+    before = mn.launches["instance_train"]
+    first = mn.modnorm_train(x, stats="instance", lrelu=lrelu)
+    second = mn.modnorm_train(x, stats="instance", lrelu=lrelu)
+    torch.cuda.synchronize()
+    assert mn.launches["instance_train"] == before + 2
+    want, wmean, wrstd = mn.modnorm_train_plain(x, stats="instance", lrelu=lrelu)
+    out, mean, rstd = first
+    assert _train_within(out, want, dtype)
+    torch.testing.assert_close(mean, wmean, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, wrstd, rtol=1e-5, atol=0)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runs", ["one", "two", "fill"])
+@pytest.mark.parametrize("case", ["full 256^2", "mini 256 64", "D 65", "D2 17", "17^2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_mod", [False, True])
+def test_instance_grid_variant_matches_plain_on_card(cuda_device, monkeypatch, runs, case,
+                                                     dtype, with_mod):
+    """The grid variant at one run per slab (no grid barrier; as few as
+    GRID_RUN_VECTORS allows on a 256^2 slab), two, and as many as fill the
+    card (runs merged across the barrier, the rest of a
+    long run streamed), whatever `instance_plan` would choose: the training
+    forward within `_train_within` of its plain version and the inference
+    op within the instance tolerance, each one launch."""
+    *shape, lrelu = STATS_OUT_SHAPES[case]
+    shape = tuple(shape)
+    b, c, h, w = shape
+    tile = mn._widest(c, 4 if dtype == torch.float32 else 2, mn.LINE, 2 * mn.SECTOR, mn.SECTOR,
+                      16)
+    sms = mn.card_sms(cuda_device)
+    k = {"one": 1, "two": 2, "fill": max(1, mn.BATCH_BLOCKS_PER_SM * sms // (b * c // tile))}
+    # no run longer than GRID_RUN_VECTORS: a 256^2 slab takes several
+    least = -(-h * w * tile * (4 if dtype == torch.float32 else 2) // 16 // mn.GRID_RUN_VECTORS)
+    plan = mn._instance_candidates(shape, dtype, "grid", tile,
+                                   [min(max(k[runs], least), h * w)])[0]
+    mn.check_instance_plan(plan, shape, dtype, sms)
+    monkeypatch.setattr(mn, "instance_plan", lambda *a, **kw: plan)
+    x, mod, _, _ = _inputs(cuda_device, dtype, shape=shape, with_mod=with_mod)
+    before = dict(mn.launches)
+    out, mean, rstd = mn.modnorm_train(x, mod, stats="instance", lrelu=lrelu)
+    got = mn.modnorm(x, mod, stats="instance", lrelu=lrelu)
+    torch.cuda.synchronize()
+    assert mn.launches["instance_train"] == before["instance_train"] + 1
+    assert mn.launches["instance"] == before["instance"] + 1
+    want, wmean, wrstd = mn.modnorm_train_plain(x, mod, stats="instance", lrelu=lrelu)
+    assert _train_within(out, want, dtype)
+    torch.testing.assert_close(mean, wmean, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, wrstd, rtol=1e-5, atol=0)
+    want = mn.modnorm_plain(x, mod, stats="instance", lrelu=lrelu)
+    slack = 2e-6 * float(want.float().abs().max())
+    if dtype == torch.bfloat16:
+        slack = slack + torch.finfo(torch.bfloat16).eps * want.float().abs()
+    assert bool(((got.float() - want.float()).abs() <= slack).all())
 
 
 @pytest.mark.cuda
@@ -704,6 +788,81 @@ def test_int8_kernels_match_plain_on_card(cuda_device, case, smooth, dtype):
     whole = ic.int8_conv(x, weight, bias, stride, pad, smooth)
     torch.cuda.synchronize()
     assert torch.equal(whole, y)
+
+
+# (b) alone: (Cout, Cin, kh, kw) of every quantized conv of the int8 main and
+# 8x guided paths, chip_smoke.py's ragged weights, one whose threads take
+# several units each, a 5x5 (taps at run time) and an odd Cin
+INT8_WEIGHTS = {"512x512": (512, 512, 3, 3), "mod 256->1024": (1024, 256, 3, 3),
+                "mod 128->1024": (1024, 128, 3, 3), "64->128": (128, 64, 3, 3),
+                "128->256": (256, 128, 3, 3), "256->128": (128, 256, 3, 3),
+                "cin 72": (40, 72, 3, 3), "cout 20": (20, 64, 3, 3), "1x1": (256, 512, 1, 1),
+                "1024x1024": (1024, 1024, 3, 3), "5x5": (48, 40, 5, 5),
+                "cin 31": (64, 31, 3, 3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smooth", [True, False])
+@pytest.mark.parametrize("case", list(INT8_WEIGHTS))
+def test_int8_quantize_weight_matches_plain_on_card(cuda_device, case, smooth):
+    """(b) in one launch: s_c, s_k, s_x bit for bit and k_q equal to the plain
+    version's, with an all-zero input channel of the weight (mk at the 1e-8
+    floor) and of x; a second call gives the same bits."""
+    cout, cin, kh, kw = INT8_WEIGHTS[case]
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = (torch.randn((2, cin, 5, 6), generator=g, device=cuda_device)
+         * torch.logspace(-2, 1, cin, device=cuda_device)[:, None, None])
+    x[:, 0] = 0.0
+    weight = torch.randn((cout, cin, kh, kw), generator=g, device=cuda_device) * 0.05
+    weight[:, 1] = 0.0
+    mx_raw, mx = ic.absmax_channels_plain(x)
+    want_sc = ic.smooth_scales_plain(weight, mx, smooth)
+    want_sk, want_kq = ic.quantize_weight_plain(weight, want_sc)
+    want_sx, _ = ic.quantize_activation_plain(x, want_sc)
+    before = ic.launches["quantize_weight"]
+    first = ic.quantize_weight(weight, mx_raw, mx, smooth)
+    second = ic.quantize_weight(weight, mx_raw, mx, smooth)
+    torch.cuda.synchronize()
+    assert ic.launches["quantize_weight"] == before + 2
+    s_c, s_k, s_x, k_q = first
+    for got, ref in ((s_c, want_sc), (s_k, want_sk), (s_x, want_sx)):
+        assert torch.equal(got, ref)
+    assert torch.equal(k_q[..., :cin].permute(0, 3, 1, 2), want_kq)
+    assert not bool(k_q[..., cin:].any())
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_int8_quantize_weight_on_two_streams_at_once(cuda_device):
+    """(b) with smoothing on two streams with no order between them, twenty
+    launches each: every call's s_c, s_k, s_x and k_q equal the plain
+    version's (each launch merges its column maxima in its own scratch, so
+    overlapping launches do not mix them)."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    cases = []
+    for cout, cin in ((512, 512), (1024, 256)):
+        x = torch.randn((2, cin, 5, 6), generator=g, device=cuda_device)
+        weight = torch.randn((cout, cin, 3, 3), generator=g, device=cuda_device) * 0.05
+        mx_raw, mx = ic.absmax_channels_plain(x)
+        s_c = ic.smooth_scales_plain(weight, mx, True)
+        s_k, k_q = ic.quantize_weight_plain(weight, s_c)
+        s_x, _ = ic.quantize_activation_plain(x, s_c)
+        cases.append(((weight, mx_raw, mx), (s_c, s_k, s_x, k_q)))
+    streams = [torch.cuda.Stream(cuda_device) for _ in cases]
+    results = [[] for _ in cases]
+    torch.cuda.synchronize()
+    for _ in range(20):
+        for (args, _), stream, got in zip(cases, streams, results):
+            with torch.cuda.stream(stream):
+                got.append(ic.quantize_weight(*args, True))
+    torch.cuda.synchronize()
+    for (args, (want_sc, want_sk, want_sx, want_kq)), got in zip(cases, results):
+        cin = args[0].shape[1]
+        for s_c, s_k, s_x, k_q in got:
+            assert torch.equal(s_c, want_sc) and torch.equal(s_k, want_sk)
+            assert torch.equal(s_x, want_sx)
+            assert torch.equal(k_q[..., :cin].permute(0, 3, 1, 2), want_kq)
 
 
 @pytest.mark.cuda

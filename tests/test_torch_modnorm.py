@@ -115,9 +115,15 @@ def test_instance_plan_covers_each_slab_once_and_fits(shape, dtype):
     hw, esize = h * w, torch.finfo(dtype).bits // 8
     plan = mn.instance_plan(shape, dtype)
     mn.check_instance_plan(plan, shape, dtype)
+    _check_covers_each_slab_once(plan, shape)
+    tile_bytes = plan.tile * esize
+    if plan.variant == "grid":
+        _check_grid_plan_fits(plan, shape, dtype)
+        wide = mn._widest(c, esize, 2 * mn.SECTOR, mn.SECTOR, mn.SECTOR // 2)
+        assert plan.tile == wide and hw * tile_bytes > mn.GRID_SLAB
+        return
     # on-chip: one 32-byte sector of channels (16 bytes only where C forces
     # it), or two for slabs within WIDE_SLAB; streaming: up to a 128-byte line
-    tile_bytes = plan.tile * esize
     if plan.variant == "on-chip":
         assert tile_bytes in (32, 64) or (tile_bytes == 16 and c % (32 // esize))
         assert tile_bytes != 64 or hw * tile_bytes <= mn.WIDE_SLAB
@@ -133,29 +139,60 @@ def test_instance_plan_covers_each_slab_once_and_fits(shape, dtype):
         assert plan.register_vectors == 0 or plan.smem_bytes <= mn.TWO_BLOCKS_SMEM
     else:
         assert plan.smem_bytes == plan.register_vectors == 0
-    # the kernel's blocks: x = rank + cluster * tile index, y = sample
+    # on-chip: MIN_CLUSTER blocks a slab or more, up to FEW_SLABS_CLUSTER
+    # where the slabs are fewer than SLAB_BLOCKS / MIN_CLUSTER (H*W allowing)
+    slabs = b * c // plan.tile
+    if plan.variant == "on-chip":
+        least = min(mn.FEW_SLABS_CLUSTER, max(mn.MIN_CLUSTER, -(-mn.SLAB_BLOCKS // slabs)))
+        assert plan.cluster >= min(least, hw)
+
+
+def _check_covers_each_slab_once(plan, shape):
+    """The kernel's blocks cover every (sample, channel tile) slab's H*W
+    pixels once, in chunks of at most pixels_per_cta: the cluster kernels'
+    block x = rank + cluster * tile index, y = sample; the grid kernel's one
+    dimension, block i = (sample * runs + run) * tiles + tile index."""
+    b, c, h, w = shape
+    hw, tiles = h * w, c // plan.tile
     chunks = mn.instance_chunks(hw, plan.cluster)
     covered = {}
-    for bx in range(plan.grid[0]):
-        tile_index, rank = divmod(bx, plan.cluster)
-        assert tile_index < c // plan.tile
-        for by in range(plan.grid[1]):
-            covered.setdefault((by, tile_index), []).append(chunks[rank])
-    assert len(covered) == b * c // plan.tile
+    if plan.variant == "grid":
+        for i in range(plan.grid[0] * plan.grid[1]):
+            r, tile_index = divmod(i, tiles)
+            sample, run = divmod(r, plan.cluster)
+            covered.setdefault((sample, tile_index), []).append(chunks[run])
+    else:
+        for bx in range(plan.grid[0]):
+            tile_index, rank = divmod(bx, plan.cluster)
+            assert tile_index < tiles
+            for by in range(plan.grid[1]):
+                covered.setdefault((by, tile_index), []).append(chunks[rank])
+    assert len(covered) == b * tiles
     for ranges in covered.values():
         ranges.sort()
         assert ranges[0][0] == 0 and ranges[-1][1] == hw
         assert all(r0[1] == r1[0] for r0, r1 in zip(ranges, ranges[1:]))
         assert all(0 < e - s <= plan.pixels_per_cta for s, e in ranges)
-    # one wave of 132 blocks wherever B * (C / tile) * H * W allows it
-    slabs = b * c // plan.tile
-    if slabs * min(16, hw) >= 132:
-        assert plan.grid[0] * plan.grid[1] >= 132
+
+
+def _check_grid_plan_fits(plan, shape, dtype, sms=mn.SMS):
+    """The grid variant: its resident pixels within two blocks' share of an
+    SM, every block resident at once where runs merge across the barrier,
+    no run longer than GRID_RUN_VECTORS vectors."""
+    b, c, h, w = shape
+    pixel_bytes = plan.tile * torch.finfo(dtype).bits // 8
+    assert plan.register_vectors == 0
+    assert plan.smem_bytes % pixel_bytes == 0
+    assert 0 < plan.smem_bytes // pixel_bytes <= plan.pixels_per_cta
+    assert plan.smem_bytes + mn.STATIC_SMEM + 1024 <= SMEM_PER_SM // 2
+    assert plan.cluster == 1 or plan.grid[0] * plan.grid[1] <= 2 * sms
+    assert plan.pixels_per_cta * pixel_bytes // 16 <= mn.GRID_RUN_VECTORS
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=_dtype_id)
 @pytest.mark.parametrize("shape,variant", [(s, "on-chip") for s in MAIN_PATH + FULL_256]
-                         + [((8, 32, 512, 512), "streaming")], ids=str)
+                         + [((8, 32, 512, 512), "streaming"), ((8, 64, 65, 65), "on-chip")],
+                         ids=str)
 def test_instance_plan_variant(shape, variant, dtype):
     assert mn.instance_plan(shape, dtype).variant == variant
 
@@ -169,6 +206,86 @@ def test_check_instance_plan_refuses_what_the_kernel_cannot_take(change):
     plan = dataclasses.replace(mn.instance_plan(shape, torch.bfloat16), **change)
     with pytest.raises(ValueError):
         mn.check_instance_plan(plan, shape, torch.bfloat16)
+
+
+def _step_instance_shapes(b):
+    """The step's instance norms at batch b: both trunks, and D on 2b."""
+    return [(b, 32, 256, 256), (b, 64, 128, 128), (b, 128, 64, 64), (b, 256, 128, 128),
+            (b, 128, 128, 128), (b, 32, 32, 32), (b, 64, 32, 32), (b, 128, 32, 32),
+            (b, 256, 64, 64), (b, 128, 64, 64), (2 * b, 64, 65, 65), (2 * b, 128, 33, 33),
+            (2 * b, 256, 34, 34), (2 * b, 64, 33, 33), (2 * b, 128, 17, 17),
+            (2 * b, 256, 18, 18)]
+
+
+# the instance forward with statistics out at the faithful b4 step's shapes
+# (both trunks, D on 2B) and the main path's five inference shapes at b32
+STEP_B4 = sorted(set(_step_instance_shapes(4)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=_dtype_id)
+@pytest.mark.parametrize("shape", STEP_B4 + MAIN_PATH, ids=str)
+def test_instance_plan_at_step_and_encoder_shapes(shape, dtype):
+    """The plan `instance_plan` chooses, and the grid variant at one run per
+    slab, two, and as many as fill the card (each where the check takes it),
+    cover every slab and pixel once and fit the kernel."""
+    b, c, h, w = shape
+    esize = torch.finfo(dtype).bits // 8
+    plan = mn.instance_plan(shape, dtype)
+    mn.check_instance_plan(plan, shape, dtype)
+    _check_covers_each_slab_once(plan, shape)
+    wide = mn._widest(c, esize, 2 * mn.SECTOR, mn.SECTOR, mn.SECTOR // 2)
+    fill = mn.BATCH_BLOCKS_PER_SM * mn.SMS // (b * c // wide)
+    taken = 0
+    for grid in mn._instance_candidates(shape, dtype, "grid", wide, sorted({1, 2, max(1, fill)})):
+        try:
+            mn.check_instance_plan(grid, shape, dtype)
+        except ValueError:
+            assert (grid.pixels_per_cta * wide * esize // 16 > mn.GRID_RUN_VECTORS
+                    or grid.grid[0] * grid.grid[1] > 2 * mn.SMS)
+            continue
+        taken += 1
+        _check_covers_each_slab_once(grid, shape)
+        _check_grid_plan_fits(grid, shape, dtype)
+    assert taken
+
+
+def test_instance_plan_at_the_step_shapes_chooses_as_measured():
+    """bf16, the choices the H100 measured fastest among the kernel's
+    variants (scripts/instance_plans.py): the grid variant for the trunks'
+    128^2 and 256^2 slabs at b4, runs filling the card; clusters of 2 for
+    the discriminator's and the mini trunk's slabs, 4 for the fewest."""
+    bf16 = torch.bfloat16
+    for shape in [(4, 32, 256, 256), (4, 64, 128, 128), (4, 256, 128, 128),
+                  (4, 128, 128, 128)]:
+        assert mn.instance_plan(shape, bf16).variant == "grid"
+    for shape, cluster in [((4, 32, 32, 32), 4), ((4, 64, 32, 32), 4), ((4, 128, 32, 32), 2),
+                           ((8, 128, 17, 17), 2), ((8, 256, 18, 18), 2), ((8, 64, 33, 33), 2)]:
+        plan = mn.instance_plan(shape, bf16)
+        assert (plan.variant, plan.cluster) == ("on-chip", cluster)
+
+
+@pytest.mark.parametrize("change", [dict(cluster=1), dict(smem_bytes=200_000),
+                                    dict(pixels_per_cta=4), dict(grid=(32, 4)), dict(tile=24),
+                                    dict(register_vectors=8)], ids=str)
+def test_check_instance_plan_refuses_a_grid_plan_the_kernel_cannot_take(change):
+    """A run longer than GRID_RUN_VECTORS (one run per 256^2 slab), shared
+    memory beyond two blocks' share, a wrong run length, grid or tile,
+    registers."""
+    shape = (4, 32, 256, 256)
+    plan = mn.instance_plan(shape, torch.bfloat16)
+    assert plan.variant == "grid"
+    if "cluster" in change:
+        change = dict(change, pixels_per_cta=256 * 256, grid=(1, 4))
+    with pytest.raises(ValueError):
+        mn.check_instance_plan(dataclasses.replace(plan, **change), shape, torch.bfloat16)
+
+
+def test_check_instance_plan_refuses_more_runs_than_the_card_holds():
+    shape = (4, 64, 128, 128)
+    plan = mn._instance_candidates(shape, torch.bfloat16, "grid", 32, [32])[0]
+    mn.check_instance_plan(plan, shape, torch.bfloat16, sms=132)
+    with pytest.raises(ValueError):
+        mn.check_instance_plan(plan, shape, torch.bfloat16, sms=63)
 
 
 def test_instance_plan_refuses_what_no_plan_covers():
@@ -223,15 +340,6 @@ SMEM_PER_SM = 233472  # bytes of shared memory on a Hopper SM
 # edges: an 8-channel tile, odd H*W, one pixel, a C that needs 16-byte tiles
 BATCH_SHAPES = [(b, 512, s, s) for b in (4, 16) for s in (32, 64, 128, 256)]
 BATCH_EDGES = [(1, 8, 1, 1), (3, 24, 7, 9), (2, 64, 37, 41), (1, 8, 512, 512), (4, 40, 5, 5)]
-
-
-def _step_instance_shapes(b):
-    """The step's instance norms at batch b: both trunks, and D on 2b."""
-    return [(b, 32, 256, 256), (b, 64, 128, 128), (b, 128, 64, 64), (b, 256, 128, 128),
-            (b, 128, 128, 128), (b, 32, 32, 32), (b, 64, 32, 32), (b, 128, 32, 32),
-            (b, 256, 64, 64), (b, 128, 64, 64), (2 * b, 64, 65, 65), (2 * b, 128, 33, 33),
-            (2 * b, 256, 34, 34), (2 * b, 64, 33, 33), (2 * b, 128, 17, 17),
-            (2 * b, 256, 18, 18)]
 
 
 INSTANCE_BWD_SHAPES = sorted(set(_step_instance_shapes(4) + _step_instance_shapes(16)))
@@ -415,6 +523,36 @@ def test_batch_kernel_statistics_hold_far_from_the_mean(shape, dtype):
     mean, rstd, _ = _batch_kernel_statistics(flat, plan.runs, mn.THREADS // plan.tile,
                                              mn.THREADS // lanes)
     _check_against_float64(flat, mean, rstd)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=_dtype_id)
+@pytest.mark.parametrize("shape", [(2, 32, 128, 128), (1, 64, 96, 96), (2, 16, 37, 41)],
+                         ids=str)
+def test_grid_instance_statistics_match_jax(shape, dtype):
+    """The grid variant's arithmetic (the batch kernel's shifted sums and
+    merge, over each sample's runs) at the plan's runs, against the JAX
+    package's instance norm: the mean and rstd per (sample, channel) and
+    (x - mean) * rstd, float32, 1e-5."""
+    b, c, h, w = shape
+    esize = torch.finfo(dtype).bits // 8
+    tile = mn._widest(c, esize, 2 * mn.SECTOR, mn.SECTOR, mn.SECTOR // 2)
+    runs = 8 if h * w > 2000 else 1
+    plan = mn._instance_candidates(shape, dtype, "grid", tile, [runs])[0]
+    mn.check_instance_plan(plan, shape, dtype)
+    lanes = plan.tile * esize // 16
+    rng = np.random.RandomState(8)
+    x = (0.7 + 1.5 * rng.randn(b, h, w, c)).astype(np.float32)
+    got = np.stack([_batch_kernel_statistics(x[i].reshape(-1, c), plan.cluster,
+                                             mn.THREADS // plan.tile, mn.THREADS // lanes)[:2]
+                    for i in range(b)], axis=1)          # (2, B, C): mean, rstd
+    mean, rstd = got[0], got[1]
+    y = (x - mean[:, None, None]) * rstd[:, None, None]
+    jx = jnp.asarray(x)
+    jmean = jnp.mean(jx, axis=(1, 2))
+    jrstd = jax.lax.rsqrt(jnp.var(jx, axis=(1, 2)) + 1e-5)
+    np.testing.assert_allclose(mean, np.asarray(jmean), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(rstd, np.asarray(jrstd), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(y, np.asarray(jax_instance_norm_2d(jx)), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("run", [7944, 31775], ids=["256^2 b4", "256^2 b16"])
