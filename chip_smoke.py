@@ -85,9 +85,23 @@
    timed and profiled; faithful against reuse_fake at b16 in turns; the
    Trainer with a save and a resume; the training CLI for 20 steps with
    one in-training evaluation (fid_iter.txt and metrics_iter.txt).
-11. Data phase (`data_phase`): the codec or Pillow route against the
+11. The 32x 512^2 train step and remat (`train512_phase`; it runs first,
+   right after the build, while the card holds nothing else, so that its
+   memory limits are its own):
+   32x_guided_512x512 at full width, bf16, faithful schedule, without remat
+   and with each policy ("full", "convs"): ms per step (CUDA events over 3
+   steps after a warm-up; at the profiled b8 points also one step alone
+   through `profiling.timed`) and peak GiB (`profiling.device_memory_stats`)
+   at b2, b4, b8 and the probes b16, b20, b24 (out of memory at a probe is
+   the policy's limit), K1's launches per step against `train_norms` (with
+   remat, one more forward launch per generator norm); the main preset at
+   b16 per policy; a float32 32x b1 step with each policy against one
+   without (cuDNN deterministic: buffers and generator states bit for bit,
+   gradients within MAX_REMAT_GRAD_REL), which the recompute without its
+   replay (a planted fault) must break.
+12. Data phase (`data_phase`): the codec or Pillow route against the
    committed corpus, the loader, disk-fed steps and sweeps, the data CLIs.
-12. Data-parallel phase (`dp_phase`): K1's batch modes split around the
+13. Data-parallel phase (`dp_phase`): K1's batch modes split around the
    cross-rank collective (launch A, launch B; the backward's sums and
    pass) against their plain versions and the one-launch kernels at every
    batch shape of the b16 step and of the dp step, bf16 and float32, timed
@@ -116,6 +130,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import http.client
 import itertools
 import json
@@ -144,6 +159,7 @@ from deepsee_torch.eval import fid as fid_mod
 from deepsee_torch.eval.evaluator import InferenceEvaluator, strict_float32
 from deepsee_torch.inference import modes
 from deepsee_torch.models import layers as layers_mod
+from deepsee_torch.models import remat as remat_mod
 from deepsee_torch.models.layers import int8_inference
 from deepsee_torch.ops import _build
 from deepsee_torch.ops import int8conv as ic
@@ -153,6 +169,7 @@ from deepsee_torch.system import SRSystem
 from deepsee_torch.train import steps as train_steps
 from deepsee_torch.train.loop import Trainer
 from deepsee_torch.train.state import create_train_state, g_params
+from deepsee_torch.utils import profiling
 from deepsee_torch.utils.images import tensor2im
 from deepsee_torch.weights import load_reference_checkpoint, randomize_weights
 
@@ -1134,18 +1151,26 @@ def disc_norms(cfg: ModelConfig, batch2: int):
     return out
 
 
-def train_norms(cfg: ModelConfig, batch: int, g_full: bool, regen: bool = True):
-    """Every K1 launch of one training step of the independent model:
+def train_norms(cfg: ModelConfig, batch: int, g_full: bool, regen: bool = True,
+                remat: bool = False):
+    """Every K1 launch of one training step:
     [(stats, (B, C, H, W), with_mod, lrelu, forwards, backwards)].  The G
-    step runs G, both trunks and D (on 2B) forward, and backward through
-    G, the trunk its coin picked (`g_full`) and D; the D step regenerates
-    the fake (G and both trunks, forward only; not with reuse_fake) and runs
-    D forward and backward."""
+    step runs G, the encoder's trunks and D (on 2B) forward, and backward
+    through G, the trunk its coin picked (`g_full`; the guided model's
+    encoder has the full trunk alone) and D; the D step regenerates the
+    fake (G and the trunks, forward only; not with reuse_fake) and runs D
+    forward and backward.  With `remat` the G step's backward runs every
+    generator block's forward again: one more forward launch per generator
+    norm (the D step's regeneration runs under torch.no_grad, without
+    remat)."""
     fwd = 2 if regen else 1
-    rows = [("batch", shape, True, True, fwd * n, n)
+    rows = [("batch", shape, True, True, (fwd + int(remat)) * n, n)
             for _, shape, _, _, n in generator_norms(cfg, batch)]
+    guided = cfg.net_e == "fullstyle"
     for full, trunk in ((True, full_trunk_norms), (False, mini_trunk_norms)):
-        rows += [("instance", shape, False, lrelu, fwd, int(full == g_full))
+        if guided and not full:
+            continue
+        rows += [("instance", shape, False, lrelu, fwd, int(guided or full == g_full))
                  for shape, lrelu in trunk(cfg, batch)]
     rows += [("instance", shape, False, True, 2, 2) for shape in disc_norms(cfg, 2 * batch)]
     return rows
@@ -1392,10 +1417,10 @@ def _state_of(system: SRSystem, lr: Optional[float] = None):
     return state
 
 
-def _one_step_grads(system: SRSystem, batch, coins):
-    """Logs and the G, E and D gradients of one step of `system` with
-    fixed coins and SGD at lr 0 (the D step's regeneration sees the same
-    G)."""
+def _one_step(system: SRSystem, batch, coins):
+    """Logs, the G, E and D gradients and the train state of one step of
+    `system` with fixed coins and SGD at lr 0 (the D step's regeneration
+    sees the same G)."""
     state = _state_of(system, 0.0)
     draw = train_steps.draw_coins
     train_steps.draw_coins = lambda system_, generator: coins
@@ -1407,7 +1432,12 @@ def _one_step_grads(system: SRSystem, batch, coins):
              for net, module, opt in (("g", system.generator, state.opt_g),
                                       ("e", system.encoder, state.opt_g),
                                       ("d", system.discriminator, state.opt_d))}
-    return {k: float(v) for k, v in logs.items()}, grads
+    return {k: float(v) for k, v in logs.items()}, grads, state
+
+
+def _one_step_grads(system: SRSystem, batch, coins):
+    """Logs and the G, E and D gradients of `_one_step`."""
+    return _one_step(system, batch, coins)[:2]
 
 
 def _grads_rel(got, want):
@@ -1546,6 +1576,36 @@ def compare_schedules(batch_n: int) -> None:
     torch.cuda.empty_cache()
 
 
+def _counted_step(system: SRSystem, state, step, batch):
+    """One step with K1's launch counts set to 0 just before and read just
+    after, held against `train_norms` for the coins the step drew, the
+    schedule and the generator's remat; its losses must be finite.
+    Returns the launches, the norms, the coins and the losses."""
+    drawn = []
+    draw = train_steps.draw_coins
+    train_steps.draw_coins = (lambda system_, generator:
+                              drawn.append(draw(system_, generator)) or drawn[-1])
+    torch.cuda.synchronize()
+    mn.reset_launches()
+    try:
+        logs = step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        train_steps.draw_coins = draw
+    launches = {k: mn.launches[k] for k in TRAIN_MODES}
+    others = {k: n for k, n in mn.launches.items() if k not in TRAIN_MODES and n}
+    norms = train_norms(system.cfg, len(batch["label"]), g_full=drawn[0][0],
+                        regen=not system.exp.train.reuse_fake, remat=system.generator.remat)
+    expected = train_launches(norms)
+    if launches != expected or others:
+        raise AssertionError(f"K1 launches {launches} {others} != {expected} "
+                             f"(remat {system.generator.remat})")
+    logs = {k: float(v) for k, v in logs.items()}
+    if not all(math.isfinite(v) for v in logs.values()):
+        raise AssertionError(f"a loss is not finite: {logs}")
+    return launches, norms, drawn, logs
+
+
 def drive_train(tag: str, batch_n: int, reuse_fake: bool = False, rows=None,
                 profile: bool = True):
     """One schedule at full width, bf16 (seeded weights and batch): one step
@@ -1559,30 +1619,12 @@ def drive_train(tag: str, batch_n: int, reuse_fake: bool = False, rows=None,
     step = train_steps.make_train_step(system)
     batch = make_batch(system.cfg, batch_n)
     step(state, batch)  # warm-up: cuDNN plans, the allocator
-    drawn = []
-    draw = train_steps.draw_coins
-    train_steps.draw_coins = (lambda system_, generator:
-                              drawn.append(draw(system_, generator)) or drawn[-1])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mn.reset_launches()
-    try:
-        logs = step(state, batch)
-        torch.cuda.synchronize()
-    finally:
-        train_steps.draw_coins = draw
-    launches = {k: mn.launches[k] for k in TRAIN_MODES}
+    launches, norms, drawn, logs = _counted_step(system, state, step, batch)
     layout = mn.layout_copies["backward"]
-    others = {k: n for k, n in mn.launches.items() if k not in TRAIN_MODES and n}
-    logs = {k: float(v) for k, v in logs.items()}
-    norms = train_norms(system.cfg, batch_n, g_full=drawn[0][0], regen=not reuse_fake)
-    expected = train_launches(norms)
-    log(f"{tag} launches per step: {launches} (expected {expected}), other K1 launches "
-        f"{others}, layout copies {layout}, coins {drawn}, losses {logs}")
-    if launches != expected or others:
-        raise AssertionError(f"{tag}: K1 launches {launches} {others} != {expected}")
-    if not all(math.isfinite(v) for v in logs.values()):
-        raise AssertionError(f"{tag}: a loss is not finite: {logs}")
+    log(f"{tag} launches per step: {launches} (as train_norms reckons them), layout copies "
+        f"{layout}, coins {drawn}, losses {logs}")
     times = None
     if rows is not None:
         times = train_kernel_times(rows, norms)
@@ -1755,6 +1797,185 @@ def training_phase(smi: str):
     trainer_phase(smi)
     log(f"training phase: {time.perf_counter() - t0:.1f} s")
     return (launches, times, rows), {TRAIN_BATCH: b4, TRAIN_BATCH_LARGE: b16}
+
+
+# -- the 32x 512^2 train step and remat --------------------------------------
+
+REMAT_POLICIES = (None, "full", "convs")   # None: no remat
+REMAT_GRID = (2, 4, 8)                     # timed, every policy
+REMAT_PROBES = (16, 20, 24)                # timed where they fit; out of memory is that
+                                           # policy's limit
+REMAT_STEP_REPS = 3
+REMAT_PROFILED = 8                         # one step traced at this batch ...
+REMAT_PROFILED_POLICIES = (None, "full")   # ... under these policies
+# remat against no remat, float32 at the 32x preset's full width, batch 1,
+# cuDNN deterministic: buffers and generator states bit for bit, each
+# network's gradients (concatenated) within this relative L2
+MAX_REMAT_GRAD_REL = 1e-6
+REPLAYED = remat_mod.REPLAYED_BUFFERS
+
+
+def _set_remat(system: SRSystem, policy: Optional[str]) -> None:
+    system.generator.remat = policy is not None
+    system.generator.remat_policy = policy or "full"
+
+
+def _remat_timing(system: SRSystem, state, step, batch, reps: int,
+                  profile_tag: Optional[str] = None) -> dict:
+    """A warm-up step, one step with its K1 launches checked, then `reps`
+    steps timed by CUDA events with the peak memory read around them
+    (`profiling.device_memory_stats`); with `profile_tag`, one more step
+    timed alone after a synchronize (`profiling.timed`) and one step
+    profiled (`profile_train`)."""
+    step(state, batch)
+    launches = _counted_step(system, state, step, batch)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _step_events_ms(step, state, batch, reps)
+    peak = profiling.device_memory_stats()[f"cuda:{torch.cuda.current_device()}"]
+    out = {"ms_per_step": ms, "img_per_s": len(batch["label"]) / ms * 1e3,
+           "peak_gib": peak["peak_bytes_in_use_gb"], "steps_timed": reps,
+           "k1_launches": launches}
+    if profile_tag is not None:
+        # one step alone, the card idle before it (its start waits on the host)
+        out["ms_one_step_synced"] = profiling.timed(step, state, batch, iters=1,
+                                                    warmup=0)["median_s"] * 1e3
+        out["idle_share"] = profile_train(profile_tag, system, state, step, batch, ms)
+    return out
+
+
+def remat_grid(preset: str, batches, probes, smi: str) -> dict:
+    """Each policy at each of `batches` and `probes` (REMAT_STEP_REPS timed
+    steps; torch.OutOfMemoryError at a probe, and only there, ends the
+    policy's probes and is logged as its limit), from one seeded bf16
+    training system whose generator's remat is switched between policies.
+    Returns {(policy, batch): timing or None}."""
+    system = train_system(preset, batches[0])
+    state = _state_of(system)
+    step = train_steps.make_train_step(system)
+    guided = system.cfg.net_e == "fullstyle"
+    out = {}
+    for policy in REMAT_POLICIES:
+        _set_remat(system, policy)
+        name = policy or "off"
+        for batch_n in batches + probes:
+            batch = make_batch(system.cfg, batch_n, guided=guided)
+            try:
+                profiled = batch_n == REMAT_PROFILED and policy in REMAT_PROFILED_POLICIES
+                out[name, batch_n] = _remat_timing(
+                    system, state, step, batch, REMAT_STEP_REPS,
+                    f"train {preset} remat {name} b{batch_n}" if profiled else None)
+            except torch.OutOfMemoryError:
+                if batch_n not in probes:
+                    raise
+                out[name, batch_n] = None
+            finally:
+                del batch
+                gc.collect()
+                torch.cuda.empty_cache()
+            timing = out[name, batch_n]
+            log(f"train {preset} remat {name} b{batch_n} " + (
+                json.dumps(timing) if timing is not None else "out of memory (the policy's "
+                "limit)") + f" [{smi}]")
+            if timing is None:
+                break
+    del system, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _remat_readings(got, want) -> dict:
+    """A float32 step with remat (`got`: logs, gradients, state, buffers)
+    against one without (`want`)."""
+    (logs, grads, state, buffers), (wlogs, wgrads, wstate, wbuffers) = got, want
+    rel = {}
+    for net in wgrads:
+        a = torch.cat([grads[net][k].double().reshape(-1) for k in wgrads[net]])
+        b = torch.cat([wgrads[net][k].double().reshape(-1) for k in wgrads[net]])
+        rel[net] = float((a - b).norm() / b.norm())
+    differing = [k for k in wbuffers if not torch.equal(buffers[k], wbuffers[k])]
+    rng = all(torch.equal(a.get_state(), b.get_state()) for a, b in
+              ((state.coin_rng, wstate.coin_rng), (state.noise_rng, wstate.noise_rng)))
+    return {"grad_rel_l2": rel, "buffers_differing": len(differing),
+            "buffers_checked": len(wbuffers), "first_differing": differing[:3],
+            "generator_states_equal": rng,
+            "max_log_diff": max(abs(logs[k] - wlogs[k]) for k in wlogs),
+            "ok": (not differing and rng and max(rel.values()) <= MAX_REMAT_GRAD_REL)}
+
+
+def remat_f32_check(smi: str) -> dict:
+    """One float32 step of the 32x preset at full width, batch 1, TF32 off
+    and cuDNN deterministic, without remat, with each policy, and with
+    "full" and the replay taken out of the recompute (the planted fault):
+    each policy must match the step without remat (buffers and the coin and
+    noise generators' states bit for bit, gradients within
+    MAX_REMAT_GRAD_REL), and the planted fault must not."""
+    system = train_system(PRESET_512, 1, model=dict(compute_dtype="float32"))
+    batch = make_batch(system.cfg, 1, guided=True)
+    start = {name: {k: v.clone() for k, v in net.state_dict().items()}
+             for name, net in system.networks().items()}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def run(policy, fault=False):
+        for name, net in system.networks().items():
+            net.load_state_dict(start[name])
+        _set_remat(system, policy)
+        recompute = remat_mod._Replay.recompute
+        if fault:
+            remat_mod._Replay.recompute = lambda self: contextlib.nullcontext()
+        try:
+            logs, grads, state = _one_step(system, batch, (True, False))
+            torch.cuda.synchronize()
+        finally:
+            remat_mod._Replay.recompute = recompute
+        buffers = {f"{name}.{k}": v.clone() for name, net in system.networks().items()
+                   for k, v in net.state_dict().items() if k.endswith(REPLAYED)}
+        return logs, grads, state, buffers
+
+    try:
+        t0 = time.perf_counter()
+        want = run(None)
+        out = {policy: _remat_readings(run(policy), want) for policy in ("full", "convs")}
+        out["full, planted fault"] = _remat_readings(run("full", fault=True), want)
+        out["wall_s"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        del system
+        torch.cuda.empty_cache()
+    log(f"train remat float32 {PRESET_512} b1 " + json.dumps(out) + f" [{smi}]")
+    if not (out["full"]["ok"] and out["convs"]["ok"]):
+        raise AssertionError(f"a float32 step with remat differs from the step without: {out}")
+    if out["full, planted fault"]["ok"]:
+        raise AssertionError("the recompute without its replay passed the remat check")
+    return out
+
+
+def train512_phase(smi: str) -> dict:
+    """The 32x 512^2 guided training step (PRESET_512 at full width, bf16,
+    faithful schedule, seeded weights and guided batch) without remat and
+    with each policy: ms per step and peak memory at REMAT_GRID, the probes
+    at REMAT_PROBES, K1's launches per step against `train_norms` with
+    remat; the main preset at TRAIN_BATCH_LARGE under each policy; the
+    float32 remat check and its planted fault."""
+    t0 = time.perf_counter()
+    log("train 512 phase: card memory at its start " + json.dumps(profiling.device_memory_stats()))
+    grid = remat_grid(PRESET_512, REMAT_GRID, REMAT_PROBES, smi)
+    largest = {p or "off": max(b for (name, b), t in grid.items() if name == (p or "off")
+                               and t is not None) for p in REMAT_POLICIES}
+    at = largest["off"]
+    cost = {name: grid[name, at]["ms_per_step"] / grid["off", at]["ms_per_step"]
+            for name in ("full", "convs") if grid.get((name, at))}
+    saved = {name: 1 - grid[name, at]["peak_gib"] / grid["off", at]["peak_gib"]
+             for name in ("full", "convs") if grid.get((name, at))}
+    summary = {"largest_batch": largest, "at_largest_off_batch": at,
+               "ms_ratio_to_off": cost, "peak_saved_share": saved}
+    log(f"train {PRESET_512} remat summary " + json.dumps(summary) + f" [{smi}]")
+    main = remat_grid(PRESET, (TRAIN_BATCH_LARGE,), (), smi)
+    check = remat_f32_check(smi)
+    log(f"train 512 phase: {time.perf_counter() - t0:.1f} s")
+    return {"grid": grid, "summary": summary, "main": main, "f32": check}
 
 
 # -- evaluation ----------------------------------------------------------------
@@ -3666,6 +3887,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    # first, while the card holds nothing else: its memory limits are the phase's readings
+    train512_phase(smi)
     rows = kernel_phase(cfg, BATCH)
     t0 = time.perf_counter()
     launches, system = path_phase(BATCH)

@@ -148,7 +148,11 @@ class TrainConfig:
     no_vgg_loss: bool = False
     gan_mode: str = "hinge"
     gradient_clip: float = -1.0       # clip-by-value before Adam; -1 = off
-    remat: bool = False               # not ported: the port raises on True
+    remat: bool = False               # per-block rematerialization of G (models/remat.py)
+    # "full" recomputes each block whole in its backward; "convs" saves the
+    # Conv2d outputs and recomputes the rest (norms, K1, activations, noise,
+    # the folded modulation convs)
+    remat_policy: str = "full"
     # train D on the G step's fake instead of regenerating it with the
     # updated G (an opt-in deviation from the reference's schedule)
     reuse_fake: bool = False

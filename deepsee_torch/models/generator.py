@@ -8,6 +8,12 @@ outputs, the up blocks from index 3 on are PureSEAN (sr.py:42-52).
 `variant` selects the paper's ablation generators (ablation.py:32,125,219):
 "deepsee" (the model), "nostyle" (plain SPADE blocks), "nospade"
 (pix2pixHD blocks) or "puresean" (PureSEAN blocks throughout).
+
+With `remat`, every block (head_0, G_middle_0/1, each up_i) of a training
+forward that records a graph is rematerialized by `remat_policy`, "full" or
+"convs" (models/remat.py); `initial`, the upsamples and `conv_img` are not.
+An eval-mode forward, or one under torch.no_grad (the D step's regenerated
+fake), runs the blocks plainly.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deepsee_torch.config import ModelConfig
+from deepsee_torch.models import remat as remat_mod
 from deepsee_torch.models.blocks import SPADEResnetBlock
 from deepsee_torch.models.layers import Conv2d, NonSpadeNormConv
 from deepsee_torch.ops.norms import leaky_relu
@@ -60,10 +67,15 @@ def _block(cfg: ModelConfig, variant: str, styled: bool, puresean: bool) -> nn.M
 
 
 class DeepSEEGenerator(nn.Module):
-    def __init__(self, cfg: ModelConfig, variant: str = "deepsee"):
+    def __init__(self, cfg: ModelConfig, variant: str = "deepsee", remat: bool = False,
+                 remat_policy: str = "full"):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+        if remat_policy not in remat_mod.POLICIES:
+            raise ValueError(f"remat_policy must be one of {remat_mod.POLICIES}, "
+                             f"got {remat_policy!r}")
+        self.remat, self.remat_policy = remat, remat_policy
         self.dtype = getattr(torch, cfg.compute_dtype)
         nf16 = 16 * cfg.ngf
         self.initial = Conv2d(3, nf16, 3, padding=1)
@@ -83,12 +95,21 @@ class DeepSEEGenerator(nn.Module):
         one-hot; style (B, label_nc, style_size).  NCHW in channels_last
         memory.  Returns (B, 3, H, W) float32.  `generator` feeds the noise
         injection of a train-mode forward with add_noise."""
-        kw = dict(generator=generator)
         x = self.initial(lr_image.to(self.dtype))
-        x = self.head_0(x, seg, style, **kw)
+        x = self._apply_block(self.head_0, x, seg, style, generator)
         x = upsample_nearest_2x(x)
-        x = self.G_middle_0(x, seg, style, **kw)
-        x = self.G_middle_1(x, seg, style, **kw)
+        x = self._apply_block(self.G_middle_0, x, seg, style, generator)
+        x = self._apply_block(self.G_middle_1, x, seg, style, generator)
         for block in self.up_list:
-            x = block(upsample_nearest_2x(x), seg, style, **kw)
+            x = self._apply_block(block, upsample_nearest_2x(x), seg, style, generator)
         return torch.tanh(self.conv_img(leaky_relu(x)).float())
+
+    def _apply_block(self, block: nn.Module, x: torch.Tensor, seg: torch.Tensor,
+                     style: Optional[torch.Tensor],
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        """One block, rematerialized where remat is on and the forward is a
+        training one that records a graph."""
+        if self.remat and self.training and torch.is_grad_enabled():
+            return remat_mod.checkpoint_block(block, self.remat_policy, x, seg, style,
+                                              generator)
+        return block(x, seg, style, generator=generator)

@@ -21,12 +21,15 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from deepsee_torch.config import parse_nonspade_norm
+from deepsee_torch.models.remat import saving_conv_output
 from deepsee_torch.ops.int8conv import int8_conv
-from deepsee_torch.ops.modnorm import modnorm, modnorm_train
+from deepsee_torch.ops.modnorm import (merge_partials, modnorm, modnorm_batch_partials_plain,
+                                       modnorm_train)
 from deepsee_torch.ops.norms import leaky_relu
 from deepsee_torch.parallel import distributed
 
@@ -185,8 +188,46 @@ class Conv2d(nn.Module):
         return w / sigma
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.effective_weight(), self.bias, self.stride, self.padding,
-                      training=self.training)
+        weight = self.effective_weight()
+        # the conv's output is what remat's "convs" policy saves (the JAX
+        # package's checkpoint_name(y, "conv_out")); the power iteration is not
+        with saving_conv_output():
+            return conv2d(x, weight, self.bias, self.stride, self.padding,
+                          training=self.training)
+
+
+class GlobalMoments(torch.autograd.Function):
+    """Per-channel mean and biased variance (float32) of x (B, C, H, W) over
+    every rank's rows of the default process group, equal on every rank.
+
+    Forward: each rank's (count, mean, centred M2) row in its slot of a
+    zeroed [world, 3, C] tensor, an all-reduce (sum), and the rows merged in
+    rank order by Chan's formula (`merge_partials`, as K1's split batch
+    forward merges them).  Backward: the gradients of the mean and variance,
+    which are per-channel sums over this rank's pixels of g and g * x_hat
+    terms, all-reduced (sum) so that each holds every rank's loss; then
+    d x = (g_mean + 2 g_var (x - mean)) / (world B H W).  Every rank must
+    call it with the same shape, in the same order."""
+
+    @staticmethod
+    def forward(ctx, x):
+        world, rank = dist.get_world_size(), dist.get_rank()
+        partials = x.new_zeros((world, 3, x.shape[1]), dtype=torch.float32)
+        partials[rank] = modnorm_batch_partials_plain(x)
+        dist.all_reduce(partials)
+        n, mean, m2 = merge_partials(partials)
+        ctx.save_for_backward(x, mean)
+        ctx.count = world * x.shape[0] * x.shape[2] * x.shape[3]
+        return mean, m2 / n
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        x, mean = ctx.saved_tensors
+        sums = torch.stack([torch.zeros_like(mean) if g is None else g
+                            for g in (g_mean, g_var)])
+        dist.all_reduce(sums)
+        g_mean, g_var = sums[:, :, None, None]
+        return ((g_mean + 2 * g_var * (x.float() - mean[:, None, None])) / ctx.count).to(x.dtype)
 
 
 class TorchBatchNorm(nn.Module):
@@ -194,7 +235,10 @@ class TorchBatchNorm(nn.Module):
     eval normalizes with the running statistics; train with the batch's
     (biased variance, float32) and updates the running ones.  Plain PyTorch:
     only the encoder and discriminator norm strings "batch"/"sync_batch",
-    which no preset uses, reach it.
+    which no preset uses, reach it.  Under a process group of more than one
+    rank both take the statistics of the global batch (`GlobalMoments`), as
+    the JAX package's do under jit over a sharded batch, and the running
+    variance is unbiased over the world's pixels.
 
     With `affine`, `weight` holds the JAX package's `scale` parameter: the
     multiplier applied is weight + 1 (its init N(0, 0.02) mirrors torch's
@@ -222,18 +266,16 @@ class TorchBatchNorm(nn.Module):
         mean, var = self.running_mean, self.running_var
         if self.training:
             check_training_forward(self)
-            if distributed.world_size() > 1:
-                raise NotImplementedError(
-                    "a train-mode encoder or discriminator batch norm (norm_e / norm_d "
-                    "'batch' or 'sync_batch') over several ranks belongs to the cross-rank "
-                    "encoder and discriminator batch-norm slice of the port, which "
-                    "deepsee_torch does not have yet; one process trains it")
-            xf = x.float()
-            mean = xf.mean((0, 2, 3))
-            d = xf - mean[:, None, None]
-            var = (d * d).mean((0, 2, 3))
+            world = distributed.world_size()
+            if world > 1:
+                mean, var = GlobalMoments.apply(x)
+            else:
+                xf = x.float()
+                mean = xf.mean((0, 2, 3))
+                d = xf - mean[:, None, None]
+                var = (d * d).mean((0, 2, 3))
             update_running_stats(self.running_mean, self.running_var, mean, var,
-                                 x.shape[0] * x.shape[2] * x.shape[3])
+                                 world * x.shape[0] * x.shape[2] * x.shape[3])
         inv = torch.rsqrt(var + self.eps)
         scale, offset = inv, -mean * inv
         if self.affine:

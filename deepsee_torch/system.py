@@ -17,7 +17,9 @@ device="cpu" it raises rather than fall back.
 
 With exp.is_train the system also builds the multiscale discriminator and
 (unless no_vgg_loss) the VGG19 features, and puts the generator, encoder
-and discriminator in train mode (VGG stays in eval mode, frozen).  The
+and discriminator in train mode (VGG stays in eval mode, frozen).  With
+exp.train.remat the generator rematerializes its blocks in training
+(exp.train.remat_policy; models/remat.py).  The
 inference entry points (`preprocess`, `encode_style`, `generate`) run under
 torch.inference_mode, whose tensors autograd cannot save; the training step
 calls `train_preprocess`, `train_generate`, `discriminate` and
@@ -62,10 +64,6 @@ def _nchw(t: torch.Tensor) -> torch.Tensor:
 
 class SRSystem:
     def __init__(self, exp: Experiment, device: Optional[str | torch.device] = None):
-        if exp.is_train and exp.train.remat:
-            raise NotImplementedError(
-                "remat is not ported: a recomputed train-mode forward would advance the "
-                "running statistics and spectral u/v twice")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SRSystem runs on CUDA and no CUDA device is "
@@ -74,7 +72,9 @@ class SRSystem:
         self.exp = exp
         self.cfg = cfg = exp.model
         train = exp.is_train
-        self.generator = DeepSEEGenerator(cfg).to(self.device).train(train)
+        self.generator = DeepSEEGenerator(cfg, remat=exp.train.remat,
+                                          remat_policy=exp.train.remat_policy
+                                          ).to(self.device).train(train)
         self.encoder = (build_encoder(cfg).to(self.device).train(train)
                         if cfg.use_encoder else None)
         self.discriminator = (MultiscaleDiscriminator(cfg).to(self.device).train()

@@ -16,7 +16,13 @@ global batch; each rank reads its stripe, batch_size / N samples a step):
 on the card, gloo with --device cpu); --data_axis x --dcn_axis must equal
 the world size (both count data-parallel ranks here).  Refused with a
 message naming their slice: --model_axis > 1 (tensor parallelism),
---partition spatial (spatial sharding), remat.
+--partition spatial (spatial sharding).
+
+--remat rematerializes the generator's blocks in the backward
+(--remat_policy full: each block recomputed whole; convs: the conv outputs
+kept, the rest recomputed), as the 32x 512^2 preset trains:
+
+    python -m deepsee_torch.train --name 32x_guided_512x512 --synthetic --batch_size 8 --remat
 """
 
 from __future__ import annotations
@@ -27,13 +33,6 @@ import sys
 from typing import List, Optional
 
 from deepsee_torch.config import MeshConfig, get_preset
-
-# flag -> the slice it waits for
-_LATER = {
-    "remat": "a later PR (a recompute would advance the batch statistics twice)",
-    "remat_policy": "a later PR (a recompute would advance the batch statistics twice)",
-}
-
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__,
@@ -88,14 +87,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="only 1: tensor parallelism belongs to a later slice")
     p.add_argument("--partition", default="tensor", choices=("tensor", "spatial"),
                    help="only tensor: spatial sharding belongs to a later slice")
-    p.add_argument("--remat_policy", default=None, help=f"not ported: {_LATER['remat_policy']}")
-    p.add_argument("--remat", action="store_true", default=None,
-                   help=f"not ported: {_LATER['remat']}")
+    p.add_argument("--remat", action="store_true",
+                   help="gradient checkpointing of the generator's blocks (the reference's "
+                        "--efficient)")
+    p.add_argument("--remat_policy", default="full", choices=("full", "convs"),
+                   help="full: recompute whole blocks (least memory); convs: keep the conv "
+                        "outputs, recompute the norms, activations and modulation convs")
     args = p.parse_args(argv)
-    for flag, slice_name in _LATER.items():
-        if getattr(args, flag) is not None:
-            p.error(f"--{flag} belongs to {slice_name} of the port, which this package "
-                    "does not have yet")
     try:
         mesh_config(args).check_ported()
     except NotImplementedError as e:
@@ -136,7 +134,9 @@ def _train(args: argparse.Namespace, device) -> int:
                                 inception_weights=args.inception_weights,
                                 alexnet_weights=args.alexnet_weights,
                                 evaluate_val_set=args.evaluate_val_set or train.evaluate_val_set,
-                                reuse_fake=args.reuse_fake or train.reuse_fake)
+                                reuse_fake=args.reuse_fake or train.reuse_fake,
+                                remat=args.remat or train.remat,
+                                remat_policy=args.remat_policy)
     model = exp.model
     if args.compute_dtype:
         model = dataclasses.replace(model, compute_dtype=args.compute_dtype)

@@ -23,14 +23,16 @@ group of W ranks (torchrun, one process per card; `python -m
 deepsee_torch.train --multihost`) batch_size is the global batch; each rank
 reads a disjoint stripe of every globally shuffled epoch, batch_size / W
 samples per step, on its own card (cuda:LOCAL_RANK unless a device is
-given).  Only rank 0 prints, displays and writes the run directory, and a
-barrier follows each save; each rank evaluates its stripe of
+given).  Only rank 0 prints, displays and writes the run directory (a zip
+of the sources first, utils/files.py::copy_src), and a barrier follows each
+save; each rank evaluates its stripe of
 num_evaluation_samples / W samples, and the evaluator gathers the rows.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 import traceback
 from typing import Dict, Optional
 
@@ -45,6 +47,7 @@ from deepsee_torch.system import SRSystem
 from deepsee_torch.train.state import TrainState, create_train_state, set_epoch_lr
 from deepsee_torch.train.steps import make_train_step
 from deepsee_torch.utils.checkpoint import CheckpointManager
+from deepsee_torch.utils.files import copy_src
 from deepsee_torch.utils.iter_counter import IterationCounter
 from deepsee_torch.utils.visualizer import Visualizer
 
@@ -62,6 +65,11 @@ class Trainer:
         self.system = SRSystem(exp, device=device)
         self.state: TrainState = create_train_state(self.system)
         self.ckpt = CheckpointManager(exp)
+        if distributed.is_main_process():  # a source snapshot per run
+            try:
+                copy_src(os.path.join(exp.checkpoints_dir, exp.name))
+            except OSError as e:
+                print(f"copy_src failed: {e}")
         if continue_train and self.ckpt.exists("latest"):
             self.ckpt.restore(self.state, "latest")
             if distributed.is_main_process():

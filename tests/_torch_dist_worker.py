@@ -41,6 +41,12 @@ from deepsee_torch.train import steps as tsteps  # noqa: E402
 from torch_seeded import COINS, SGD_LR, batch_for, normal_for, uniform_for  # noqa: E402
 
 GLOBAL_BATCH = 4
+# the encoder and discriminator batch norms taken across ranks
+# (deepsee_torch/models/layers.py::GlobalMoments), on the independent model
+# without noise injection
+NORM_CONFIGS = {"batch": dict(add_noise=False, norm_e="batch", norm_d="spectralbatch"),
+                "sync_batch": dict(add_noise=False, norm_e="spectralsync_batch",
+                                   norm_d="spectralbatch")}
 STEPS = 2
 EVAL_SAMPLES = 8
 EVAL_BATCH = 2
@@ -128,16 +134,18 @@ def load_weights(system: SRSystem, weights) -> None:
                 t.copy_(0.1 * torch.randn(t.shape, generator=generator))
 
 
-def step_run(weights=None, model=(), seeded_draws: bool = False, nudge_seed=None):
+def step_run(weights=None, model=(), seeded_draws: bool = False, nudge_seed=None, train=()):
     """STEPS faithful steps of the tiny independent model with SGD on this
     rank's rows of the global batch (GLOBAL_BATCH): from `weights` (state
     dicts of g, e, d, vgg) or the seeded init, nudged by one ulp from
     `nudge_seed` where it is given, with
-    COINS and numpy noise (`seeded_draws`) or the state's own generators.
+    COINS and numpy noise (`seeded_draws`) or the state's own generators;
+    `model` and `train` override configuration fields.
     Returns per step the logs and the snapshot after it, and the coins
     drawn."""
     exp = tiny_test_experiment()
-    exp = exp.replace(model=dataclasses.replace(exp.model, **dict(model)))
+    exp = exp.replace(model=dataclasses.replace(exp.model, **dict(model)),
+                      train=dataclasses.replace(exp.train, **dict(train)))
     system = SRSystem(exp, device="cpu")
     coins = []
     draw = tsteps.draw_coins
@@ -269,10 +277,23 @@ def _cli_task(out_dir: str):
 def _step_task(out_dir: str):
     weights = torch.load(os.path.join(out_dir, "weights.pt"), weights_only=True)
     return {"seeded": step_run(weights, model=dict(add_noise=False), seeded_draws=True),
-            "noise": step_run(weights)}
+            "noise": step_run(weights),
+            "noise_remat": step_run(weights, train=dict(remat=True)),
+            "noise_remat_convs": step_run(weights, train=dict(remat=True,
+                                                              remat_policy="convs"))}
 
 
-TASKS = {"step": _step_task, "eval": lambda out_dir: eval_run(), "trainer": _trainer_task}
+def _norms_task(out_dir: str):
+    """The seeded steps of each of NORM_CONFIGS, from its weights file."""
+    out = {}
+    for name, model in NORM_CONFIGS.items():
+        weights = torch.load(os.path.join(out_dir, f"weights_{name}.pt"), weights_only=True)
+        out[name] = step_run(weights, model=model, seeded_draws=True)
+    return out
+
+
+TASKS = {"step": _step_task, "norms": _norms_task, "eval": lambda out_dir: eval_run(),
+         "trainer": _trainer_task}
 
 
 def free_ports(n: int):

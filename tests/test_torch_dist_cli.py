@@ -1,8 +1,9 @@
 """The data-parallel layer's refusals and one-process behaviour, without
 processes (the CLIs over two ranks: tests/test_torch_dist_trainer.py):
-`--data_axis` without a world of its size, tensor parallelism, spatial
-sharding and cross-rank encoder / discriminator batch norms are refused,
-each naming its slice; without a process group every function of
+`--data_axis` without a world of its size, tensor parallelism and spatial
+sharding are refused, each naming its slice; the encoder's and the
+discriminator's batch norms take the global batch's statistics over a
+simulated second rank; without a process group every function of
 deepsee_torch.parallel is the one-process identity."""
 
 import dataclasses
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from deepsee_torch.config import MeshConfig, tiny_test_experiment
+from deepsee_torch.models import layers
 from deepsee_torch.models.layers import TorchBatchNorm
 from deepsee_torch.parallel import distributed
 from deepsee_torch.system import SRSystem
@@ -43,18 +45,55 @@ def test_layouts_of_later_slices_are_refused(capsys, flags, slice_name):
 
 @pytest.mark.parametrize("field,norm", [("norm_e", "spectralsync_batch"),
                                         ("norm_d", "spectralbatch"), ("norm_e", "batch")])
-def test_encoder_and_discriminator_batch_norms_wait_for_their_slice(monkeypatch, field, norm):
+def test_encoder_and_discriminator_batch_norms_take_the_global_batch(monkeypatch, field, norm):
+    """A train-mode batch norm of the encoder or discriminator over two
+    ranks whose rows are alike, the second rank simulated in the collective
+    (its partials row a copy of this rank's, its gradient sums equal to
+    this rank's): the output, the running statistics and the gradient of
+    this rank's rows are one process's on the global batch (both ranks'
+    rows), whose loss is the sum of both ranks' losses.  The cross-rank
+    run itself is in test_torch_dist_norms.py."""
     exp = tiny_test_experiment()
     exp = exp.replace(model=dataclasses.replace(exp.model, **{field: norm}))
     net = getattr(SRSystem(exp, device="cpu"), "encoder" if field == "norm_e" else
                   "discriminator")
     bns = [m for m in net.modules() if isinstance(m, TorchBatchNorm)]
     assert bns, f"{field}={norm!r} builds no batch norm"
-    x = torch.randn(2, bns[0].running_mean.numel(), 4, 4)
-    bns[0].train()(x)  # one process trains them
+    gen = torch.Generator().manual_seed(0)
+    c = bns[0].running_mean.numel()
+    x = (torch.randn(2, c, 4, 4, generator=gen) * 2 + 1).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn(2, c, 4, 4, generator=gen)
+    with torch.no_grad():
+        bns[0].weight.normal_(0, 0.3, generator=gen)
+        bns[0].bias.normal_(0, 0.3, generator=gen)
+    stats = (bns[0].running_mean.clone(), bns[0].running_var.clone())
+
+    one_x = torch.cat([x, x]).requires_grad_(True)
+    one_out = bns[0].train()(one_x)
+    (one_out * torch.cat([w, w])).sum().backward()
+    one_stats = (bns[0].running_mean.clone(), bns[0].running_var.clone())
+
+    def all_reduce(t, *a, **k):
+        if t.dim() == 3:   # the forward's [world, 3, C] partials
+            t[1] = t[0]
+        else:              # the backward's gradient sums
+            t.mul_(2)
+
+    with torch.no_grad():
+        bns[0].running_mean.copy_(stats[0])
+        bns[0].running_var.copy_(stats[1])
     monkeypatch.setattr(distributed, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="encoder and discriminator batch-norm slice"):
-        bns[0](x)
+    monkeypatch.setattr(layers.dist, "get_world_size", lambda *a: 2)
+    monkeypatch.setattr(layers.dist, "get_rank", lambda *a: 0)
+    monkeypatch.setattr(layers.dist, "all_reduce", all_reduce)
+    x = x.clone().requires_grad_(True)
+    out = bns[0](x)
+    (out * w).sum().backward()
+    torch.testing.assert_close(out, one_out[:2], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(x.grad, one_x.grad[:2], rtol=1e-5, atol=1e-6)
+    for got, want in zip((bns[0].running_mean, bns[0].running_var), one_stats):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("mesh,slice_name", [

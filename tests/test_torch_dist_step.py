@@ -15,7 +15,13 @@ faithful steps:
     (torch_step_parity.run_both);
   * "noise": the same weights (noise-injection weights drawn from a seed)
     with noise injection and style noise on, the coins and noise from the
-    train state's own generators.
+    train state's own generators; and "noise_remat" / "noise_remat_convs",
+    the same with the generator's blocks rematerialized ("full" / "convs"),
+    which must leave what "noise" leaves: buffers and logs bit for bit,
+    parameters within 1e-6 relative L2 (the recompute issues K1's
+    all-reduces again on both ranks; under "convs" they run inside the
+    selective-checkpoint contexts, which do not save them: they run in the
+    forward and again in the recompute).
 
 Tolerances.  The two ranks: bit for bit (every parameter and buffer, the
 logs, the coins).  One process, per network (its parameters and buffers
@@ -45,6 +51,7 @@ from deepsee_torch.system import SRSystem
 from torch_data_corpus import one_torch_thread  # noqa: F401 (autouse)
 
 REL_L2 = 1e-5
+REMAT_REL_L2 = 1e-6
 NUDGES = (0, 1)   # seeds of the one-ulp nudges
 BUFFERS = ("weight_u", "weight_v", "running_mean", "running_var")
 
@@ -84,12 +91,32 @@ def _same(a, b) -> bool:
     return all(torch.equal(a[net][k], b[net][k]) for net in a for k in a[net])
 
 
-@pytest.mark.parametrize("mode", ["seeded", "noise"])
-def test_ranks_are_bit_identical(runs, mode):
-    _, ranks, _ = runs
-    for (logs0, snap0), (logs1, snap1) in zip(ranks[0][mode]["steps"], ranks[1][mode]["steps"]):
+def ranks_are_bit_identical(rank_runs):
+    for (logs0, snap0), (logs1, snap1) in zip(rank_runs[0]["steps"], rank_runs[1]["steps"]):
         assert logs0 == logs1
         assert _same(snap0, snap1)
+
+
+@pytest.mark.parametrize("mode", ["seeded", "noise", "noise_remat", "noise_remat_convs"])
+def test_ranks_are_bit_identical(runs, mode):
+    _, ranks, _ = runs
+    ranks_are_bit_identical([r[mode] for r in ranks])
+
+
+@pytest.mark.parametrize("step", [0, 1])
+@pytest.mark.parametrize("mode", ["noise_remat", "noise_remat_convs"])
+def test_remat_ranks_match_the_ranks_without_remat(runs, mode, step):
+    _, ranks, _ = runs
+    logs, snap = ranks[0][mode]["steps"][step]
+    want_logs, want = ranks[0]["noise"]["steps"][step]
+    assert logs == want_logs
+    for net in want:
+        for key, value in want[net].items():
+            if key.endswith(BUFFERS):
+                assert torch.equal(snap[net][key], value), f"{net} {key}"
+            else:
+                err = float((snap[net][key] - value).norm() / value.norm().clamp_min(1e-30))
+                assert err <= REMAT_REL_L2, f"{net} {key}: {err:.2e}"
 
 
 def test_coins_are_equal_on_both_ranks(runs):
@@ -101,8 +128,15 @@ def test_coins_are_equal_on_both_ranks(runs):
 @pytest.mark.parametrize("mode,step", [("seeded", 0), ("seeded", 1), ("noise", 0), ("noise", 1)])
 def test_steps_match_one_process(runs, mode, step):
     _, ranks, one = runs
-    logs, snap = ranks[0][mode]["steps"][step]
-    (want_logs, want), *nudged = (run["steps"][step] for run in one[mode])
+    step_matches_one_process(ranks[0][mode]["steps"][step], [run["steps"][step]
+                                                            for run in one[mode]])
+
+
+def step_matches_one_process(rank_step, one_steps):
+    """A rank's (logs, snapshot) after a step against the one-process run's
+    and its nudged twins' (the first of `one_steps` is the run itself)."""
+    logs, snap = rank_step
+    (want_logs, want), *nudged = one_steps
     for net in want:
         ref = _flat(want, net)
         err = float((_flat(snap, net) - ref).norm() / ref.norm())
@@ -116,8 +150,14 @@ def test_steps_match_one_process(runs, mode, step):
 
 def test_first_seeded_step_matches_jax(runs):
     parity, ranks, _ = runs
-    before, jlogs, one_logs, jsnap, one_snap = parity[0]
-    logs, snap = ranks[0]["seeded"]["steps"][0]
+    first_step_matches_jax(parity[0], ranks[0]["seeded"]["steps"][0])
+
+
+def first_step_matches_jax(parity_step, rank_step):
+    """A rank's first step against the JAX package's single-device step at
+    the global batch (one step of torch_step_parity.run_both)."""
+    before, jlogs, one_logs, jsnap, one_snap = parity_step
+    logs, snap = rank_step
     for name in jlogs:
         np.testing.assert_allclose(logs[name], jlogs[name], rtol=tsp.LOSS_RTOL, atol=1e-6,
                                    err_msg=name)

@@ -109,13 +109,27 @@ def test_system_without_card_raises(monkeypatch):
     SRSystem(exp, device="cpu")  # the explicit CPU request is honoured
 
 
-def test_system_refuses_training_config():
+def test_system_refuses_training_config(monkeypatch):
     """The training system is built (D and VGG beside G and E, in train
-    mode); what it refuses is remat, which is not ported."""
+    mode), with remat too (either policy, on the CPU when asked); what it
+    and the Trainer refuse is to run without a card unless the caller asks
+    for the CPU."""
+    from deepsee_torch.train.loop import Trainer
+
     exp = tiny_test_experiment()
-    with pytest.raises(NotImplementedError, match="remat"):
-        SRSystem(exp.replace(train=dataclasses.replace(exp.train, remat=True)), device="cpu")
+    for policy in ("full", "convs"):
+        remat = exp.replace(train=dataclasses.replace(exp.train, remat=True,
+                                                      remat_policy=policy))
+        gen = SRSystem(remat, device="cpu").generator
+        assert gen.remat and gen.remat_policy == policy and gen.training
+        with monkeypatch.context() as mp:
+            mp.setattr(torch.cuda, "is_available", lambda: False)
+            with pytest.raises(RuntimeError, match="CUDA"):
+                SRSystem(remat)
+            with pytest.raises(RuntimeError, match="CUDA"):
+                Trainer(remat)
     system = SRSystem(exp, device="cpu")
+    assert not system.generator.remat
     assert system.discriminator.training and system.generator.training
     assert not system.vgg.training
     assert not any(p.requires_grad for p in system.vgg.parameters())

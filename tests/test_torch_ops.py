@@ -5,10 +5,12 @@ resizes and one-hot are gathers (exact); the matrix resizes and the float32
 norms sum in another order than XLA (1e-6 absolute on values of order 1).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from deepsee_tpu.ops import norms as jnorms
 from deepsee_tpu.ops import preprocess as jpre
@@ -64,6 +66,43 @@ def test_upsample_nearest_2x_is_exact():
     assert got.is_contiguous(memory_format=torch.channels_last)
     np.testing.assert_array_equal(_nhwc(got),
                                   np.asarray(jresize.upsample_nearest_2x(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample_nearest_2x_broadcast_matches_interpolate(dtype):
+    """The broadcast copy against F.interpolate's nearest upsample: the same
+    values, channels_last, and the same gradient (each a sum of 4 values,
+    in another order: assert_close's tolerance for the dtype)."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 5, 3, 4, generator=g).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    gy = torch.randn(2, 5, 6, 8, generator=g).to(dtype)
+    out = []
+    for fn in (tresize.upsample_nearest_2x,
+               lambda t: F.interpolate(t, scale_factor=2, mode="nearest")):
+        xi = x.clone().requires_grad_(True)
+        y = fn(xi)
+        (y.float() * gy.float()).sum().backward()
+        out.append((y.detach(), xi.grad))
+    (y0, g0), (y1, g1) = out
+    assert y0.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y0, y1)
+    torch.testing.assert_close(g0, g1)
+
+
+def test_upsample_nearest_2x_gradient_matches_jax():
+    """The gradient of the port's upsample (a sum over each pixel's four
+    copies) against the JAX package's vjp, from NCHW (not channels_last)
+    input."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 5, 3, 4).astype(np.float32)
+    gy = rng.randn(2, 5, 6, 8).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (tresize.upsample_nearest_2x(xt) * torch.from_numpy(gy)).sum().backward()
+    _, vjp = jax.vjp(jresize.upsample_nearest_2x, jnp.asarray(x.transpose(0, 2, 3, 1)))
+    (want,) = vjp(jnp.asarray(gy.transpose(0, 2, 3, 1)))
+    np.testing.assert_allclose(xt.grad.numpy().transpose(0, 2, 3, 1), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 16), (2, 16, 16, 1)])

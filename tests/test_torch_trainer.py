@@ -2,7 +2,8 @@
 layout checkpoint files (the same keys as deepsee_tpu's
 export_reference_checkpoint; net_SR / net_E load into an inference
 SRSystem), resume (2 steps, save, resume, 1 step = 3 straight steps), the
-evaluation trigger, the CLI's refusals and its device rule, the synthetic
+evaluation trigger, the CLI's refusals, its remat flags and its device
+rule, the synthetic
 data and the iteration counter against the JAX package's.  The disk-fed
 trainer is in test_torch_data_trainer.py."""
 
@@ -126,13 +127,44 @@ def test_trainer_raises_at_an_evaluation_trigger(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--model_axis", "2"], "tensor-parallel"), (["--partition", "spatial"], "spatial-sharding"),
-    (["--remat"], "a later PR")])
+    (["--model_axis", "2"], "tensor-parallel"), (["--partition", "spatial"], "spatial-sharding")])
 def test_cli_refuses_flags_of_later_slices(capsys, flags, slice_name):
     argv = ["--name", "8x_independent_256x256"] + flags + ["--synthetic"]
     with pytest.raises(SystemExit):
         cli.parse_args(argv)
     assert slice_name in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,remat,policy", [
+    ([], False, "full"), (["--remat"], True, "full"),
+    (["--remat", "--remat_policy", "convs"], True, "convs")])
+def test_cli_takes_the_remat_flags(flags, remat, policy):
+    """--remat and --remat_policy with the root train.py's defaults; an
+    unknown policy is refused."""
+    args = cli.parse_args(["--name", "32x_guided_512x512", "--synthetic"] + flags)
+    assert (args.remat, args.remat_policy) == (remat, policy)
+    with pytest.raises(SystemExit):
+        cli.parse_args(["--remat", "--remat_policy", "dots"])
+
+
+@pytest.mark.parametrize("policy", ["full", "convs"])
+def test_cli_trains_with_remat(monkeypatch, capsys, tmp_path, policy):
+    """The CLI's remat flags reach the Trainer's system, which trains 2
+    steps on the CPU and writes its checkpoint."""
+    built = []
+    real = loop.SRSystem
+    monkeypatch.setattr(loop, "SRSystem", lambda *a, **k: built.append(real(*a, **k)) or built[-1])
+    monkeypatch.setattr(cli, "get_preset", lambda name: torch_tiny().replace(name=name))
+    argv = ["--name", "tiny", "--synthetic", "--max_steps", "2", "--device", "cpu",
+            "--batch_size", "2", "--checkpoints_dir", str(tmp_path), "--remat",
+            "--remat_policy", policy]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert cli.main(argv) == 0
+    gen = built[0].generator
+    assert (gen.remat, gen.remat_policy) == (True, policy)
+    assert "trained 2 steps on cpu" in capsys.readouterr().out
+    assert os.path.exists(os.path.join(str(tmp_path), "tiny", "latest_net_SR.pth"))
 
 
 def test_cli_needs_a_card_unless_cpu(monkeypatch, tmp_path):
