@@ -112,12 +112,22 @@
    (per-rank statistics) must break;
    bf16 ms per step, gloo's host ms, K1's launches per step; then the
    training CLI under torchrun with NCCL at world size 1.
+14. Tensor-parallel phase (`tp_phase`): two model ranks spawned on the one
+   card over gloo, PRESET at full width (every trunk conv column- or
+   row-sharded, min_shard_ch 128), b2 on both: float32 (TF32 off) 2 Adam
+   steps, the gathered states bit for bit alike and within
+   MAX_TP_UPDATE_REL / MAX_TP_RUNNING_REL of one process, which a planted
+   fault (each sharded conv's sigma from its own block) must break; bf16
+   ms per step and rank, gloo's host ms, the collectives per step and
+   their MiB, K1's launches and channel widths per step against one
+   process's, layout copies, peak memory and the state's MiB per rank.
 
 Prints the card's name and power limit, one {"kernels": [...]} line (the
 inference kernels per main-path call, the training kernels per faithful b4
-step, the split kernels per data-parallel step and rank, the int8 kernels
-per int8 main-path call), and as the last line {"ok": true, "device":
-{...}}.  Outside the int8 phase no int8 kernel may launch.  Any
+step and their launches per tensor-parallel step and rank, the split kernels
+per data-parallel step and rank, the int8 kernels per int8 main-path
+call), and as the last line {"ok": true, "device": {...}}.  Outside the
+int8 phase no int8 kernel may launch.  Any
 failure exits non-zero; without a CUDA device it exits non-zero at once and
 prints no result.  float32 comparisons run with TF32 off
 (torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
@@ -152,7 +162,7 @@ import torch.nn.functional as F
 from deepsee_torch import serve
 from deepsee_torch import server as server_mod
 from deepsee_torch import system as system_mod
-from deepsee_torch.config import ModelConfig, get_preset
+from deepsee_torch.config import MeshConfig, ModelConfig, get_preset
 from deepsee_torch.data import DataLoader, SyntheticDataset, codec, create_dataset, to_device
 from deepsee_torch.eval import evaluator as evaluator_mod
 from deepsee_torch.eval import fid as fid_mod
@@ -1377,13 +1387,15 @@ def train_kernel_times(rows, norms):
     return out
 
 
-def train_system(preset: str, batch: int, model=(), **train) -> SRSystem:
+def train_system(preset: str, batch: int, model=(), mesh: Optional[MeshConfig] = None,
+                 **train) -> SRSystem:
     """The preset's training system on the card with seeded random weights
     (as `seeded_system`) and seeded VGG features; `model` and `train`
-    override configuration fields."""
+    override configuration fields, `mesh` the layout."""
     exp = get_preset(preset)
     exp = exp.replace(model=dataclasses.replace(exp.model, **dict(model)),
-                      train=dataclasses.replace(exp.train, batch_size=batch, **train))
+                      train=dataclasses.replace(exp.train, batch_size=batch, **train),
+                      mesh=mesh or exp.mesh)
     system = SRSystem(exp, device=DEVICE)
     system.init(torch.Generator().manual_seed(SEED))
     randomize_weights(system.networks().values(), torch.Generator().manual_seed(SEED + 1))
@@ -2893,10 +2905,11 @@ def _per_rank_statistics(x, mod=None, *, eps=1e-5, lrelu=False, group=None):
     return mn.modnorm_train(x, mod, stats="batch", eps=eps, lrelu=lrelu)
 
 
-def dp_rank(rank: int, port: int, compute_dtype: str, out_dir: str, fault: bool) -> None:
+def dp_rank(rank: int, port: int, out_dir: str) -> None:
     """One of DP_WORLD ranks on the one card: gloo (NCCL takes one card per
-    rank), cuda:0, the float32 comparisons with TF32 off; with `fault`, the
-    planted per-rank statistics."""
+    rank), cuda:0, the float32 comparisons with TF32 off: the float32 steps,
+    the planted per-rank statistics' (`_per_rank_statistics`), then the bf16
+    steps, into out_dir/rank<R>.pt."""
     from deepsee_torch.models import normalization
     from deepsee_torch.parallel import distributed
 
@@ -2904,13 +2917,19 @@ def dp_rank(rank: int, port: int, compute_dtype: str, out_dir: str, fault: bool)
                       MASTER_PORT=str(port))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if fault:
-        normalization.modnorm_train_sync = _per_rank_statistics
     distributed.init_distributed("gloo", device="cuda")
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # the random-VGG warning
-            result = _dp_steps(compute_dtype, rows_of_global=True)
+            result = {"float32": _dp_steps("float32", rows_of_global=True)}
+            sync = normalization.modnorm_train_sync
+            normalization.modnorm_train_sync = _per_rank_statistics
+            try:
+                result["float32_fault"] = _dp_steps("float32", rows_of_global=True)
+            finally:
+                normalization.modnorm_train_sync = sync
+            torch.cuda.empty_cache()
+            result["bfloat16"] = _dp_steps("bfloat16", rows_of_global=True)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
@@ -2957,30 +2976,34 @@ def _dp_readings(got, want, before):
     return {"update_rel": update, "running_rel": running}
 
 
-def _dp_broken(readings) -> list:
-    """The limits that `readings` break."""
-    broken = [f"{net} update {rel:.3e} > {MAX_DP_UPDATE_REL[net]}"
-              for net, rel in readings["update_rel"].items() if rel > MAX_DP_UPDATE_REL[net]]
-    broken += [f"{kind} {r['rel']:.3e} at {r['leaf']} > {MAX_DP_RUNNING_REL}"
-               for kind, r in readings["running_rel"].items() if r["rel"] > MAX_DP_RUNNING_REL]
+def _dp_broken(readings, update_rel=None, running_rel=MAX_DP_RUNNING_REL) -> list:
+    """The limits (by default the dp phase's) that `readings` break."""
+    update_rel = update_rel or MAX_DP_UPDATE_REL
+    broken = [f"{net} update {rel:.3e} > {update_rel[net]}"
+              for net, rel in readings["update_rel"].items() if rel > update_rel[net]]
+    broken += [f"{kind} {r['rel']:.3e} at {r['leaf']} > {running_rel}"
+               for kind, r in readings["running_rel"].items() if r["rel"] > running_rel]
     return broken
 
 
-def two_ranks(compute_dtype: str, root: str, fault: bool = False):
-    """DP_WORLD ranks on the one card (torch.multiprocessing, spawn); their
-    results."""
+def spawned_ranks(rank_fn, world: int, root: str, in_between=lambda: None):
+    """`world` ranks of rank_fn(rank, port, root) on the one card
+    (torch.multiprocessing, spawn) while this process calls `in_between()`
+    (this process's cached blocks freed first); (the ranks' results from
+    root/rank<R>.pt, in_between's result)."""
     import torch.multiprocessing as tmp
 
-    tag = compute_dtype + ("_fault" if fault else "")
-    out_dir = os.path.join(root, tag)
-    os.makedirs(out_dir)
     t0 = time.perf_counter()
-    tmp.start_processes(dp_rank, args=(_free_port(), compute_dtype, out_dir, fault),
-                        nprocs=DP_WORLD, join=True, start_method="spawn")
-    results = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
-               for r in range(DP_WORLD)]
-    log(f"dp {tag}: {DP_WORLD} ranks in {time.perf_counter() - t0:.1f} s")
-    return results
+    torch.cuda.empty_cache()
+    ranks = tmp.start_processes(rank_fn, args=(_free_port(), root), nprocs=world, join=False,
+                                start_method="spawn")
+    mine = in_between()
+    while not ranks.join():
+        pass
+    results = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+               for r in range(world)]
+    log(f"{rank_fn.__name__}: {world} ranks in {time.perf_counter() - t0:.1f} s")
+    return results, mine
 
 
 def dp_expected_launches(cfg: ModelConfig):
@@ -3036,15 +3059,18 @@ def dp_phase(smi: str):
     log(f"dp split kernels: {time.perf_counter() - t0:.1f} s")
     root = tempfile.mkdtemp(prefix="deepsee_dp_")
     try:
-        ranks = two_ranks("float32", root)
-        sums = [_checksum(r["state"]) for r in ranks]
-        same = all(torch.equal(ranks[0]["state"][n][k], r["state"][n][k])
-                   for r in ranks[1:] for n in ranks[0]["state"] for k in ranks[0]["state"][n])
-        faulty = two_ranks("float32", root, fault=True)[0]
+        # one process's b8 steps after the ranks: beside two b4 ranks and this
+        # process's earlier phases they overflow the card's memory
+        results, _ = spawned_ranks(dp_rank, DP_WORLD, root)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             one = _dp_steps("float32", rows_of_global=False)
             nudged = _dp_steps("float32", rows_of_global=False, nudge_ulps=1)["state"]
+        ranks = [r["float32"] for r in results]
+        sums = [_checksum(r["state"]) for r in ranks]
+        same = all(torch.equal(ranks[0]["state"][n][k], r["state"][n][k])
+                   for r in ranks[1:] for n in ranks[0]["state"] for k in ranks[0]["state"][n])
+        faulty = results[0]["float32_fault"]
         sound = _dp_readings(ranks[0]["state"], one["state"], one["before"])
         fault = _dp_readings(faulty["state"], one["state"], one["before"])
         record = {"preset": PRESET, "ranks": DP_WORLD, "rows_per_rank": DP_PER_RANK,
@@ -3066,7 +3092,7 @@ def dp_phase(smi: str):
         if not _dp_broken(fault):
             raise AssertionError("the planted per-rank statistics pass the limits: the check "
                                  f"cannot see a wrong merge ({fault})")
-        bf16 = two_ranks("bfloat16", root)
+        bf16 = [r["bfloat16"] for r in results]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     want = dp_expected_launches(cfg)
@@ -3093,6 +3119,263 @@ def dp_phase(smi: str):
     launches = {name: sum(bf16[0]["launches"][k] for k in keys) // DP_STEPS
                 for name, (_, keys, _) in SPLIT_INFO.items()}
     return {"times": times, "errs": errs, "launches": launches, "cli": cli}
+
+
+# -- tensor-parallel phase --------------------------------------------------------
+
+TP_WORLD = 2                   # model_axis 2, data_axis 1: both ranks hold the global batch
+TP_BATCH = 2
+TP_F32_STEPS = 2
+TP_BF16_STEPS = 3
+# float32 (TF32 off): the two ranks' gathered state after TP_F32_STEPS faithful
+# Adam steps from the seeded weights, against one process at b2 from the same
+# weights, batch and draws, read as the dp phase reads its ranks
+# (`_dp_readings`: per network the relative L2 of the update, per kind of
+# running statistic the largest leaf).  A rank sums each conv's partial
+# outputs in another order than one process's cuDNN conv, so Adam turns float32
+# noise in small gradients into whole steps as in the dp phase; the one
+# process's own spread under a one-ulp nudge is printed beside.  The planted
+# fault (`_local_sigma`: each sharded conv's sigma from its own block of W
+# alone) must break a limit.  Each limit near the geometric mean of the sound
+# and the faulty reading of the first H100 run of this check (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md): update G 0.071 / 1.336, E 0.046 / 0.440, D 0.134 /
+# 0.932 (one-ulp nudge of one process: 0.068, 0.046, 0.143); running
+# statistics, largest leaf, 2.7e-4 / 0.82 (mean), 6.19 (var).
+MAX_TP_UPDATE_REL = {"g": 0.3, "e": 0.14, "d": 0.35}
+MAX_TP_RUNNING_REL = 0.015
+# the tp line's K1 rows: the training modes, per step and rank
+TP_K1_MODES = ("batch", "instance_train", "backward_batch", "backward_instance")
+
+
+def _local_sigma(w_mat, u, v, mode):
+    """The planted fault: sigma from this rank's block of W alone, without
+    the sum over the model group."""
+    from deepsee_torch.parallel import tensor as tp
+
+    if mode == tp.COLUMN:
+        return torch.dot(tp.local_slice(u, 0), w_mat @ v)
+    if mode == tp.ROW:
+        return torch.dot(u, w_mat @ tp.local_slice(v, 0))
+    return torch.dot(u, w_mat @ v)
+
+
+def _gathered_state(system):
+    from deepsee_torch.parallel import shard
+
+    return {name: {k: v.detach().cpu().clone() for k, v in shard.gather_state_dict(net).items()}
+            for name, net in (("g", system.generator), ("e", system.encoder),
+                              ("d", system.discriminator))}
+
+
+def _state_bytes(state) -> dict:
+    """This rank's bytes of G, E and D parameters and of both Adams' moments."""
+    params = [p for net in (state.system.generator, state.system.encoder,
+                            state.system.discriminator) for p in net.parameters()]
+    moments = [v for opt in (state.opt_g, state.opt_d) for entry in opt.state.values()
+               for k, v in entry.items() if k in ("exp_avg", "exp_avg_sq")]
+    return {"params_mib": sum(p.numel() * p.element_size() for p in params) / 2 ** 20,
+            "adam_moments_mib": sum(m.numel() * m.element_size() for m in moments) / 2 ** 20}
+
+
+@contextlib.contextmanager
+def _k1_widths(widths: dict):
+    """Count K1's training forward calls by (mode, channels) into `widths`."""
+    from deepsee_torch.models import normalization
+
+    patched = [(normalization, "modnorm_train"), (layers_mod, "modnorm_train"),
+               (normalization, "modnorm_train_sync")]
+    saved = [getattr(mod, name) for mod, name in patched]
+
+    def counting(fn, split):
+        def call(x, mod=None, **kw):
+            key = f"{'split' if split else kw.get('stats')}@{x.shape[1]}"
+            widths[key] = widths.get(key, 0) + 1
+            return fn(x, mod, **kw)
+        return call
+
+    for (mod, name), fn in zip(patched, saved):
+        setattr(mod, name, counting(fn, name.endswith("sync")))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(patched, saved):
+            setattr(mod, name, fn)
+
+
+def _tp_steps(compute_dtype: str, steps: int, *, timed: bool = False, fault: bool = False,
+              nudge_ulps: int = 0) -> dict:
+    """PRESET at full width, b2, laid out over this process's world
+    (model_axis = world) or in one process: `steps` faithful steps from the
+    seeded weights (with `timed`, after a warm-up step, timed).
+    The gathered state before and after (float32), and for `timed` runs ms
+    per step by CUDA events, gloo's host ms, the collectives, K1's launches
+    and widths, layout copies, peak memory and the state's bytes."""
+    from deepsee_torch.parallel import distributed
+    from deepsee_torch.parallel import tensor as tp
+
+    world = distributed.world_size()
+    mesh = MeshConfig(model_axis=world)
+    system = train_system(PRESET, TP_BATCH, model=dict(compute_dtype=compute_dtype), mesh=mesh)
+    if nudge_ulps:
+        _nudge(system, nudge_ulps, torch.Generator().manual_seed(SEED + 7))
+    state = _state_of(system)
+    before = _gathered_state(system) if compute_dtype == "float32" else None
+    step = train_steps.make_train_step(system)
+    batch = make_batch(system.cfg, TP_BATCH)
+    sigma = layers_mod._sigma
+    if fault:
+        layers_mod._sigma = _local_sigma
+    out = {"rank": distributed.rank(), "world": world, "card": torch.cuda.get_device_name(0)}
+    try:
+        if not timed:
+            for _ in range(steps):
+                step(state, batch)
+            out["state"] = _gathered_state(system)
+            out["before"] = before
+            return out
+        step(state, batch)  # warm-up: cuDNN plans, the allocator, the gloo buffers
+        spent = [0.0]
+        collectives = {name: getattr(torch.distributed, name)
+                       for name in ("all_reduce", "all_gather")}
+
+        def timing(fn):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    spent[0] += time.perf_counter() - t0
+            return call
+
+        for name, fn in collectives.items():
+            setattr(torch.distributed, name, timing(fn))
+        widths: dict = {}
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mn.reset_launches()
+            mn.layout_copies["backward"] = 0
+            tp.reset_counts()
+            with _k1_widths(widths):
+                ms = _step_events_ms(step, state, batch, steps)
+        finally:
+            for name, fn in collectives.items():
+                setattr(torch.distributed, name, fn)
+        out.update({
+            "ms_per_step": ms, "gloo_host_ms_per_step": spent[0] * 1e3 / steps,
+            "collectives_per_step": {k: {"calls": v["calls"] / steps,
+                                         "mib": v["bytes"] / steps / 2 ** 20}
+                                     for k, v in tp.counts.items()},
+            "k1_launches_per_step": {k: mn.launches[k] / steps for k in TP_K1_MODES},
+            "k1_forward_widths_per_step": {k: v / steps for k, v in sorted(widths.items())},
+            "layout_copies_per_step": {"channel_slices": tp.layout_copies["slice"] / steps,
+                                       "k1_backward": mn.layout_copies["backward"] / steps},
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "state": _state_bytes(state)})
+        return out
+    finally:
+        layers_mod._sigma = sigma
+
+
+def tp_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of TP_WORLD model ranks on the one card over gloo (NCCL takes one
+    card per rank), TF32 off: the float32 steps, the planted fault's, then
+    the bf16 timed steps, into out_dir/rank<R>.pt."""
+    from deepsee_torch.parallel import distributed
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(TP_WORLD), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.init_distributed("gloo", device="cuda")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the random-VGG warning
+            result = {"float32": _tp_steps("float32", TP_F32_STEPS)}
+            result["float32_fault"] = _tp_steps("float32", TP_F32_STEPS, fault=True)
+            torch.cuda.empty_cache()
+            result["bfloat16"] = _tp_steps("bfloat16", TP_BF16_STEPS, timed=True)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        distributed.reset_layout()
+        torch.distributed.destroy_process_group()
+
+
+def tp_phase(smi: str) -> dict:
+    """Tensor parallelism on the one card: TP_WORLD spawned model ranks over
+    gloo, PRESET at full width (the 512-wide trunk, min_shard_ch 128, every
+    trunk conv sharded), global b2 on both ranks.  Float32 (TF32 off): the
+    ranks' gathered states bit for bit alike and within MAX_TP_UPDATE_REL /
+    MAX_TP_RUNNING_REL of one process, which the planted fault must break
+    (the one process runs here while the ranks run).  bf16: the "tp" line.
+    Returns the K1 launches per step and rank for the kernels line."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="deepsee_tp_")
+
+    def one_process():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return (_tp_steps("float32", TP_F32_STEPS),
+                    _tp_steps("float32", TP_F32_STEPS, nudge_ulps=1)["state"])
+
+    try:
+        ranks, (one, nudged) = spawned_ranks(tp_rank, TP_WORLD, root, one_process)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    sums = [_checksum(r["float32"]["state"]) for r in ranks]
+    sound = _dp_readings(ranks[0]["float32"]["state"], one["state"], one["before"])
+    fault = _dp_readings(ranks[0]["float32_fault"]["state"], one["state"], one["before"])
+    limits = {"update_rel": MAX_TP_UPDATE_REL, "running_rel": MAX_TP_RUNNING_REL}
+    record = {"preset": PRESET, "model_ranks": TP_WORLD, "batch": TP_BATCH,
+              "steps": TP_F32_STEPS, "checksums": sums, "vs_one_process": sound,
+              "one_process_nudged_1ulp": _dp_readings(nudged, one["state"], one["before"]),
+              "planted_fault_local_sigma": fault, "limits": limits, "card": smi}
+    log("tp float32 " + json.dumps(record))
+    if len(set(sums)) != 1:
+        raise AssertionError(f"the ranks' gathered states differ after {TP_F32_STEPS} steps: "
+                             f"{sums}")
+    broken = _dp_broken(sound, **limits)
+    if broken:
+        raise AssertionError(f"two model ranks differ from one process: {broken}")
+    if not _dp_broken(fault, **limits):
+        raise AssertionError(f"the planted local sigma passes the limits: the check cannot see "
+                             f"it ({fault})")
+    del one, nudged
+    torch.cuda.empty_cache()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        one16 = _tp_steps("bfloat16", TP_BF16_STEPS, timed=True)
+    bf16 = [r["bfloat16"] for r in ranks]
+    want = one16["k1_launches_per_step"]  # the same seed, so the same coins
+    timing = {"preset": PRESET, "model_ranks": TP_WORLD, "batch": TP_BATCH,
+              "ms_per_step": [r["ms_per_step"] for r in bf16],
+              "one_process_ms_per_step": one16["ms_per_step"],
+              "gloo_host_ms_per_step": [r["gloo_host_ms_per_step"] for r in bf16],
+              "collectives_per_step": bf16[0]["collectives_per_step"],
+              "k1_launches_per_step": bf16[0]["k1_launches_per_step"],
+              "one_process_k1_launches_per_step": want,
+              "k1_forward_widths_per_step": bf16[0]["k1_forward_widths_per_step"],
+              "one_process_k1_forward_widths_per_step": one16["k1_forward_widths_per_step"],
+              "layout_copies_per_step": bf16[0]["layout_copies_per_step"],
+              "peak_mem_gib": [r["peak_mem_gib"] for r in bf16],
+              "one_process_peak_mem_gib": one16["peak_mem_gib"],
+              "state_per_rank": bf16[0]["state"], "one_process_state": one16["state"],
+              "card": smi,
+              "note": "two ranks share the one H100 and gloo copies every collective through "
+                      "host memory: no yardstick for NCCL across cards"}
+    log("tp " + json.dumps(timing))
+    if any(r["k1_launches_per_step"] != bf16[0]["k1_launches_per_step"] for r in bf16):
+        raise AssertionError("the model ranks launched K1 differently")
+    if bf16[0]["k1_launches_per_step"] != want or not all(want.values()):
+        raise AssertionError(f"tp K1 launches per step {bf16[0]['k1_launches_per_step']} != "
+                             f"one process's {want}")
+    if any(int(key.split("@")[1]) * TP_WORLD not in
+           {int(k.split("@")[1]) for k in one16["k1_forward_widths_per_step"]}
+           for key in bf16[0]["k1_forward_widths_per_step"] if key.startswith("batch")):
+        raise AssertionError("a batch-statistics K1 call of the ranks is not on a channel "
+                             "block of the one process's")
+    log(f"tp phase: {time.perf_counter() - t0:.1f} s")
+    return {k: int(v) for k, v in bf16[0]["k1_launches_per_step"].items()}
 
 
 # -- int8 phase ------------------------------------------------------------------
@@ -3801,12 +4084,14 @@ TRAIN_KERNEL_INFO = {
 }
 
 
-def kernels_line(rows, launches, norms, train=None, dp=None, int8=None):
+def kernels_line(rows, launches, norms, train=None, dp=None, int8=None, tp=None):
     """Every kernel: the inference modes per main-path call; the training
     kernels per faithful training step (`train`: its launches, per-step
-    times and the training kernel rows); the batch modes split across ranks
-    per data-parallel step and rank (`dp`: `dp_phase`'s numbers); the int8
-    conv's kernels per int8 main-path call (`int8`: `int8_phase`'s)."""
+    times and the training kernel rows), with their launches per
+    tensor-parallel step and rank beside (`tp`: `tp_phase`'s); the batch
+    modes split across ranks per data-parallel step and rank (`dp`:
+    `dp_phase`'s numbers); the int8 conv's kernels per int8 main-path call
+    (`int8`: `int8_phase`'s)."""
     out = []
     for name, (mode, library_call) in KERNEL_INFO.items():
         per_call = path_kernel_times(rows, norms, mode)
@@ -3836,6 +4121,9 @@ def kernels_line(rows, launches, norms, train=None, dp=None, int8=None):
             "library_call": library_call,
             "per": f"one training step ({PRESET} b{TRAIN_BATCH}, faithful schedule; sum over "
                    "its launches), device time",
+            "tp_launches_per_step_and_rank": tp[mode],
+            "tp_per": f"one tensor-parallel step of one of {TP_WORLD} model ranks ({PRESET} "
+                      f"b{TP_BATCH}, on each rank's channel block)",
         })
     for name, (key, _, library_call) in SPLIT_INFO.items():
         t = dp["times"][key]
@@ -3907,13 +4195,14 @@ def main() -> int:
     data_phase(smi, resident, synthetic_sweep)
     torch.cuda.empty_cache()
     dp = dp_phase(smi)
+    tp = tp_phase(smi)
     if any(ic.launches.values()):
         raise AssertionError(f"int8 kernels launched outside int8_inference: {ic.launches}")
 
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
     log(json.dumps(kernels_line(rows, launches, path_norms(cfg, BATCH, full_trunk=False),
-                                train, dp, int8)))
+                                train, dp, int8, tp)))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

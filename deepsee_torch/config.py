@@ -218,17 +218,17 @@ class DataConfig:
 
 # the layouts the port refuses -> the slice each waits for
 _LATER_LAYOUTS = {
-    "tensor": "the tensor-parallel slice (deepsee_tpu/parallel/mesh.py:143-357)",
     "spatial": "the spatial-sharding slice (deepsee_tpu/parallel/mesh.py batch_spec)",
 }
 
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The device-mesh layout (deepsee_tpu/config.py:296-328).  The port runs
-    data parallelism over processes (deepsee_torch/parallel/): "data" and
-    "dcn" both count data-parallel ranks, data_axis * dcn_axis of them;
-    "model" (tensor parallelism, or spatial sharding with partition
+    """The device-mesh layout (deepsee_tpu/config.py:296-328) over
+    processes (deepsee_torch/parallel/): "data" and "dcn" both count
+    data-parallel ranks, data_axis * dcn_axis of them; "model" counts the
+    tensor-parallel ranks of each data index, which hold column/row shards
+    of the wide convs (parallel/shard.py).  Spatial sharding (partition
     "spatial") is refused until its slice (`check_ported`)."""
 
     data_axis: int = 1
@@ -246,11 +246,7 @@ class MeshConfig:
 
     def check_ported(self) -> None:
         """Raise NotImplementedError, naming the slice it waits for, unless
-        the port runs this layout: data parallelism only."""
-        if self.model_axis != 1:
-            raise NotImplementedError(
-                f"model_axis {self.model_axis}: tensor parallelism belongs to "
-                f"{_LATER_LAYOUTS['tensor']} of the port, which deepsee_torch does not have yet")
+        the port runs this layout: data and tensor parallelism."""
         if self.partition == "spatial":
             raise NotImplementedError(
                 f"partition 'spatial' belongs to {_LATER_LAYOUTS['spatial']} of the port, "

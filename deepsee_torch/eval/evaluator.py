@@ -18,11 +18,13 @@ TF32 is turned off around them (`strict_float32`), so FID and LPIPS do not
 depend on the process's TF32 setting.  The generator runs as the caller set
 it up.
 
-Across ranks (deepsee_tpu/eval/evaluator.py:37-57, :271-285): each rank
-sweeps its loader stripe, at most ceil(num_samples / W) samples, and `run`
-gathers every rank's per-sample metrics, LPIPS rows and pool3 activations
-(`distributed.gather_rows`, in rank order) before the means and the FID, so
-the result covers num_samples on every rank.  Only rank 0 writes the
+Across ranks (deepsee_tpu/eval/evaluator.py:37-57, :271-285): each data
+rank sweeps its loader stripe, at most ceil(num_samples / W) samples for W
+data ranks, and `run` gathers every data rank's per-sample metrics, LPIPS
+rows and pool3 activations (`distributed.gather_rows` over the data group,
+in data-rank order) before the means and the FID, so the result covers
+num_samples on every rank.  (The model ranks of one data index sweep the
+same stripe.)  Only rank 0 writes the
 per-sample CSV (its own stripe's rows, as the JAX evaluator's main host)
 and the fid_stats files.
 """
@@ -87,8 +89,8 @@ def get_validation_loader(exp: Experiment, batch_size: Optional[int] = None) -> 
         exp.data, label_dir=exp.data.label_dir_val, image_dir=exp.data.image_dir_val,
         phase="val"))
     return DataLoader(create_dataset(val_exp, phase="val"), batch_size or exp.train.batch_size,
-                      shuffle=False, drop_last=False, shard_index=distributed.rank(),
-                      num_shards=distributed.world_size())
+                      shuffle=False, drop_last=False, shard_index=distributed.data_rank(),
+                      num_shards=distributed.data_world())
 
 
 def evaluate_set(evaluator: "InferenceEvaluator", loader) -> Dict[str, float]:
@@ -228,7 +230,7 @@ class InferenceEvaluator:
 
         n_seen = 0
         # each rank sweeps its stripe; together they cover num_samples
-        local_target = -(-self.num_samples // distributed.world_size())
+        local_target = -(-self.num_samples // distributed.data_world())
         with torch.inference_mode():  # the result copies read inference tensors
             for batch in DevicePrefetcher(self.device)(dataloader):
                 if n_seen >= local_target:
@@ -285,7 +287,7 @@ class InferenceEvaluator:
         _merge_hosts): the host arrays through `distributed.gather_rows` on
         this evaluator's device (NCCL reduces CUDA tensors), back on the
         host; the local rows as they are in one process."""
-        if distributed.world_size() == 1:
+        if distributed.data_world() == 1:
             return local
         n_local = len(next(iter(local.values())))
         gathered = distributed.gather_rows(

@@ -122,8 +122,8 @@ def _evaluate(args: argparse.Namespace, device) -> Dict[str, float]:
     # each rank a disjoint stripe (evaluate.py:88-94): the evaluator caps a
     # rank at num_samples / world and gathers
     loader = DataLoader(create_dataset(exp, phase="test"), args.batch_size, shuffle=False,
-                        drop_last=True, shard_index=distributed.rank(),
-                        num_shards=distributed.world_size())
+                        drop_last=True, shard_index=distributed.data_rank(),
+                        num_shards=distributed.data_world())
     ev = InferenceEvaluator(
         system, num_samples=args.num_samples, write_details=bool(args.out),
         folder_out=args.out or None, compute_fid=not args.no_fid,

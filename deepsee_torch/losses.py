@@ -8,9 +8,12 @@ the real side of the feature-matching and VGG losses is detached.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
+
+from deepsee_torch.parallel import distributed
+from deepsee_torch.parallel import tensor as tp
 
 DiscOut = List[List[torch.Tensor]]
 
@@ -44,14 +47,22 @@ def gan_loss(pred: DiscOut, target_is_real: bool, *, mode: str = "hinge",
 
 
 def feature_matching_loss(pred_fake: DiscOut, pred_real: DiscOut,
-                          lambda_feat: float = 10.0) -> torch.Tensor:
+                          lambda_feat: float = 10.0,
+                          sharded: Optional[List[List[bool]]] = None) -> torch.Tensor:
     """L1 between fake and detached real D features, every layer but the
-    logit, each * lambda / num_D (sr_model.py:529-539)."""
+    logit, each * lambda / num_D (sr_model.py:529-539).  `sharded` (the
+    discriminator's `sharded_outputs`) marks the features that hold this
+    rank's channel block under tensor parallelism: their mean is this
+    rank's sum, summed over the model group, over every channel's count."""
     num_d = len(pred_fake)
     total = torch.zeros((), device=pred_fake[0][0].device)
-    for fake_scale, real_scale in zip(pred_fake, pred_real):
-        for f, r in zip(fake_scale[:-1], real_scale[:-1]):
-            l1 = (f.float() - r.detach().float()).abs().mean()
+    for s, (fake_scale, real_scale) in enumerate(zip(pred_fake, pred_real)):
+        for i, (f, r) in enumerate(zip(fake_scale[:-1], real_scale[:-1])):
+            diff = (f.float() - r.detach().float()).abs()
+            if sharded is not None and sharded[s][i]:
+                l1 = tp.reduce(diff.sum()) / (diff.numel() * distributed.model_world())
+            else:
+                l1 = diff.mean()
             total = total + l1 * (lambda_feat / num_d)
     return total
 

@@ -13,6 +13,12 @@ whose layer is the first or last raw conv (`model<n>.0.weight`) or a normed
 conv Sequential(conv, norm) (`model<n>.0.0.weight_orig`, `model<n>.0.1.*`).
 The normed layers' instance norm and leaky ReLU run as one `modnorm` launch
 (`modnorm_train` in training).
+
+Tensor parallelism (deepsee_tpu/parallel/mesh.py:160-161): odd model<N>
+are column-sharded and even ones row-sharded where wide enough.  Each
+layer's output comes as its conv leaves it, so the activations after a
+column layer are this rank's channel block (`sharded_outputs` says which):
+the feature-matching loss sums them per rank and over the model group.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from deepsee_torch.config import ModelConfig
 from deepsee_torch.models.layers import Conv2d, NonSpadeNormConv
 from deepsee_torch.ops.norms import leaky_relu
 from deepsee_torch.ops.pooling import avg_pool_3x3_s2
+from deepsee_torch.parallel import tensor as tp
 
 
 class _Layer(nn.Module):
@@ -37,11 +44,15 @@ class _Layer(nn.Module):
         self.add_module("0", layer)
         self.lrelu = lrelu
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def out_sharded(self) -> bool:
+        return self._modules["0"].out_sharded
+
+    def forward(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
         layer = self._modules["0"]
         if isinstance(layer, NonSpadeNormConv):
-            return layer(x, lrelu=self.lrelu)
-        y = layer(x)
+            return layer(x, lrelu=self.lrelu, sharded=sharded)
+        y = layer(x, sharded=sharded)
         return leaky_relu(y) if self.lrelu else y
 
 
@@ -65,11 +76,19 @@ class NLayerDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         results = []
-        y = x.to(self.dtype)
+        y, sharded = x.to(self.dtype), False
         for layer in self.children():
-            y = layer(y)
+            y, sharded = layer(y, sharded=sharded), layer.out_sharded
             results.append(y)
+        if sharded:  # the logit, every channel of it
+            results[-1] = tp.gather(y)
         return results
+
+    def sharded_outputs(self) -> List[bool]:
+        """Per returned activation, whether it holds this rank's channel
+        block (the logit never does)."""
+        layers = list(self.children())
+        return [layer.out_sharded for layer in layers[:-1]] + [False]
 
 
 class MultiscaleDiscriminator(nn.Module):
@@ -89,3 +108,6 @@ class MultiscaleDiscriminator(nn.Module):
                 x = avg_pool_3x3_s2(x)
             out.append(d(x))
         return out
+
+    def sharded_outputs(self) -> List[List[bool]]:
+        return [d.sharded_outputs() for d in self.children()]

@@ -16,6 +16,11 @@ match `export_torch_state`: a trunk layer is
 Sequential([Upsample,] Sequential(conv, norm), LeakyReLU), whose conv sits
 at "<layer>.0.0" (or ".1.0" after an upsample), and the shared head is
 Sequential(Sequential(conv, norm), Tanh) at "final.0.0".
+
+Tensor parallelism (deepsee_tpu/parallel/mesh.py:158-169): down1 / conv1
+are column-sharded and up_conv / conv2 row-sharded where they are wide
+enough; the norm and leaky ReLU between them and the upsample run on this
+rank's channel block, and a trunk returns every channel.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from deepsee_torch.config import ModelConfig
 from deepsee_torch.models.layers import NonSpadeNormConv
 from deepsee_torch.ops.resize import resize2d, upsample_nearest_2x
 from deepsee_torch.parallel import distributed
+from deepsee_torch.parallel import tensor as tp
 
 
 def draw_noise(shape, dist: str, generator: torch.Generator,
@@ -83,10 +89,23 @@ class _TrunkLayer(nn.Module):
         self.slot = "1" if upsample else "0"
         self.add_module(self.slot, NonSpadeNormConv(fin, fout, 3, stride, 1, cfg.norm_e))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def out_sharded(self) -> bool:
+        return self._modules[self.slot].out_sharded
+
+    def forward(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
         if self.upsample:
             x = upsample_nearest_2x(x)
-        return self._modules[self.slot](x, lrelu=True)
+        return self._modules[self.slot](x, lrelu=True, sharded=sharded)
+
+
+def _run_trunk(layers, x: torch.Tensor) -> torch.Tensor:
+    """The layers in order, each on its predecessor's output as it comes
+    (a channel block after a column conv); every channel of the last's."""
+    sharded = False
+    for layer in layers:
+        x, sharded = layer(x, sharded=sharded), layer.out_sharded
+    return tp.full(x, sharded)
 
 
 class FullTrunk(nn.Module):
@@ -101,7 +120,7 @@ class FullTrunk(nn.Module):
         self.up_conv = _TrunkLayer(cfg, nf * 4, nf * 8, upsample=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.up_conv(self.down1(self.down0(self.initial(x))))
+        return _run_trunk((self.initial, self.down0, self.down1, self.up_conv), x)
 
 
 class MiniTrunk(nn.Module):
@@ -116,7 +135,7 @@ class MiniTrunk(nn.Module):
         self.conv2 = _TrunkLayer(cfg, nf * 4, nf * 8, upsample=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(self.conv1(self.conv0(self.initial(x))))
+        return _run_trunk((self.initial, self.conv0, self.conv1, self.conv2), x)
 
 
 class _FinalHead(nn.Module):
@@ -128,7 +147,8 @@ class _FinalHead(nn.Module):
                                               3, 1, 1, cfg.norm_e))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.tanh(self._modules["0"](x).float())
+        head = self._modules["0"]
+        return torch.tanh(tp.full(head(x), head.out_sharded).float())
 
 
 class CombinedStyleEncoder(nn.Module):

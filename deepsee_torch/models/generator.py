@@ -14,6 +14,10 @@ forward that records a graph is rematerialized by `remat_policy`, "full" or
 "convs" (models/remat.py); `initial`, the upsamples and `conv_img` are not.
 An eval-mode forward, or one under torch.no_grad (the D step's regenerated
 fake), runs the blocks plainly.
+
+Tensor parallelism: `initial` is column-sharded where the plan shards the
+trunk (its output gathered before head_0), the blocks take and return
+replicated activations (models/blocks.py), and `conv_img` is replicated.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from deepsee_torch.models.blocks import SPADEResnetBlock
 from deepsee_torch.models.layers import Conv2d, NonSpadeNormConv
 from deepsee_torch.ops.norms import leaky_relu
 from deepsee_torch.ops.resize import upsample_nearest_2x
+from deepsee_torch.parallel import tensor as tp
 
 VARIANTS = ("deepsee", "nostyle", "nospade", "puresean")
 
@@ -95,7 +100,7 @@ class DeepSEEGenerator(nn.Module):
         one-hot; style (B, label_nc, style_size).  NCHW in channels_last
         memory.  Returns (B, 3, H, W) float32.  `generator` feeds the noise
         injection of a train-mode forward with add_noise."""
-        x = self.initial(lr_image.to(self.dtype))
+        x = tp.full(self.initial(lr_image.to(self.dtype)), self.initial.out_sharded)
         x = self._apply_block(self.head_0, x, seg, style, generator)
         x = upsample_nearest_2x(x)
         x = self._apply_block(self.G_middle_0, x, seg, style, generator)

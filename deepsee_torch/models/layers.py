@@ -12,6 +12,14 @@ spectral convs run one power iteration per forward and batch norms use and
 update batch statistics, as torch and the JAX package do on any train-mode
 forward, under torch.no_grad too; a training forward refuses to run under
 torch.inference_mode, whose tensors autograd cannot save.
+
+Tensor parallelism (deepsee_torch/parallel/): a conv's `shard` is "column"
+(this rank holds a block of its output channels and of its bias), "row" (a
+block of its input channels; the bias whole, added once after the partial
+outputs are summed) or None (replicated), as parallel/shard.py's plan sets
+it.  Layers take `sharded=True` where their input holds this rank's channel
+block and say through `out_sharded` whether their output does; the
+collectives in between are parallel/tensor.py's.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from deepsee_torch.ops.modnorm import (merge_partials, modnorm, modnorm_batch_pa
                                        modnorm_train)
 from deepsee_torch.ops.norms import leaky_relu
 from deepsee_torch.parallel import distributed
+from deepsee_torch.parallel import tensor as tp
 
 BN_MOMENTUM = 0.1
 
@@ -133,6 +142,34 @@ def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return v / (v.norm() + eps)
 
 
+def _power_iteration(w_mat: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                     mode) -> tuple:
+    """One power iteration (v = W^T u / |.|, u = W v / |.|) of the full
+    matrix W, of which this rank holds the rows (column shard) or the
+    columns (row shard) `w_mat`; u and v full, equal on every rank."""
+    if mode == tp.COLUMN:
+        v = _l2_normalize(tp.all_reduce_values(w_mat.t() @ tp.local_slice(u, 0)))
+        return _l2_normalize(tp.all_gather_values(w_mat @ v)), v
+    if mode == tp.ROW:
+        v = _l2_normalize(tp.all_gather_values(w_mat.t() @ u))
+        return _l2_normalize(tp.all_reduce_values(w_mat @ tp.local_slice(v, 0))), v
+    v = _l2_normalize(w_mat.t() @ u)
+    return _l2_normalize(w_mat @ v), v
+
+
+def _sigma(w_mat: torch.Tensor, u: torch.Tensor, v: torch.Tensor, mode) -> torch.Tensor:
+    """u . W v of the full matrix from this rank's block of it: each rank's
+    partial dot product summed (`reduce`), and the sum's gradient, which
+    each rank takes through its own block of W only, summed back (`copy`)."""
+    if mode is None:
+        return torch.dot(u, w_mat @ v)
+    if mode == tp.COLUMN:
+        part = torch.dot(tp.local_slice(u, 0), w_mat @ v)
+    else:
+        part = torch.dot(u, w_mat @ tp.local_slice(v, 0))
+    return tp.copy(tp.reduce(part))
+
+
 def _unit_normal(n: int, generator: torch.Generator) -> torch.Tensor:
     return _l2_normalize(torch.randn(n, generator=generator))
 
@@ -147,7 +184,15 @@ class Conv2d(nn.Module):
     first updates u and v in place; sigma then uses clones of them, as
     torch.nn.utils.spectral_norm does, so the next forward's update does
     not touch tensors autograd saved, and the gradient flows through W only.
+
+    Under tensor parallelism sigma is the full matrix's: the power
+    iteration and u . W v sum their partial products over the model group
+    (`_power_iteration`, `_sigma`); weight_u and weight_v stay full and
+    equal on every rank (v in torch's (in, kh, kw) flatten order, so a row
+    shard's block of v is contiguous).
     """
+
+    shard = None   # "column" | "row" | None, set by parallel/shard.py
 
     def __init__(self, fin: int, fout: int, kernel_size: int = 3, stride: int = 1,
                  padding: int = 1, bias: bool = True, spectral: bool = False):
@@ -179,26 +224,37 @@ class Conv2d(nn.Module):
         if self.training:
             check_training_forward(self)
             with torch.no_grad():
-                v = _l2_normalize(w_mat.t() @ u)
-                u = _l2_normalize(w_mat @ v)
+                u, v = _power_iteration(w_mat, u, v, self.shard)
                 self.weight_u.copy_(u)
                 self.weight_v.copy_(v)
             u, v = self.weight_u.clone(), self.weight_v.clone()
-        sigma = torch.dot(u, w_mat @ v)
-        return w / sigma
+        return w / _sigma(w_mat, u, v, self.shard)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def out_sharded(self) -> bool:
+        return self.shard == tp.COLUMN
+
+    def forward(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+        """x, channel-sharded where `sharded`; the output channel-sharded
+        where `out_sharded`."""
+        x = tp.conv_input(x, sharded, self.shard)
         weight = self.effective_weight()
+        row = self.shard == tp.ROW
         # the conv's output is what remat's "convs" policy saves (the JAX
         # package's checkpoint_name(y, "conv_out")); the power iteration is not
         with saving_conv_output():
-            return conv2d(x, weight, self.bias, self.stride, self.padding,
-                          training=self.training)
+            y = conv2d(x, weight, None if row else self.bias, self.stride, self.padding,
+                       training=self.training)
+        if row:
+            y = tp.reduce(y)
+            if self.bias is not None:
+                y = y + self.bias.to(y.dtype)[:, None, None]
+        return y
 
 
 class GlobalMoments(torch.autograd.Function):
     """Per-channel mean and biased variance (float32) of x (B, C, H, W) over
-    every rank's rows of the default process group, equal on every rank.
+    every rank's rows of the data group, equal on every rank.
 
     Forward: each rank's (count, mean, centred M2) row in its slot of a
     zeroed [world, 3, C] tensor, an all-reduce (sum), and the rows merged in
@@ -211,10 +267,11 @@ class GlobalMoments(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        world, rank = dist.get_world_size(), dist.get_rank()
+        group = distributed.data_group()
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
         partials = x.new_zeros((world, 3, x.shape[1]), dtype=torch.float32)
         partials[rank] = modnorm_batch_partials_plain(x)
-        dist.all_reduce(partials)
+        dist.all_reduce(partials, group=group)
         n, mean, m2 = merge_partials(partials)
         ctx.save_for_backward(x, mean)
         ctx.count = world * x.shape[0] * x.shape[2] * x.shape[3]
@@ -225,7 +282,7 @@ class GlobalMoments(torch.autograd.Function):
         x, mean = ctx.saved_tensors
         sums = torch.stack([torch.zeros_like(mean) if g is None else g
                             for g in (g_mean, g_var)])
-        dist.all_reduce(sums)
+        dist.all_reduce(sums, group=distributed.data_group())
         g_mean, g_var = sums[:, :, None, None]
         return ((g_mean + 2 * g_var * (x.float() - mean[:, None, None])) / ctx.count).to(x.dtype)
 
@@ -236,9 +293,13 @@ class TorchBatchNorm(nn.Module):
     (biased variance, float32) and updates the running ones.  Plain PyTorch:
     only the encoder and discriminator norm strings "batch"/"sync_batch",
     which no preset uses, reach it.  Under a process group of more than one
-    rank both take the statistics of the global batch (`GlobalMoments`), as
-    the JAX package's do under jit over a sharded batch, and the running
-    variance is unbiased over the world's pixels.
+    data rank both take the statistics of the global batch
+    (`GlobalMoments`, over the data group), as the JAX package's do under
+    jit over a sharded batch, and the running variance is unbiased over the
+    data world's pixels.  On a channel block (after a column conv) it uses
+    its block of the running statistics and of the affine parameters
+    (their gradients summed over the model group) and gathers the block's
+    statistics into the full running ones.
 
     With `affine`, `weight` holds the JAX package's `scale` parameter: the
     multiplier applied is weight + 1 (its init N(0, 0.02) mirrors torch's
@@ -262,11 +323,12 @@ class TorchBatchNorm(nn.Module):
                 self.weight.copy_(torch.randn(self.weight.shape, generator=generator) * 0.02)
                 self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean, var = self.running_mean, self.running_var
+    def forward(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+        block = (lambda t: tp.local_slice(t, 0)) if sharded else (lambda t: t)
+        mean, var = block(self.running_mean), block(self.running_var)
         if self.training:
             check_training_forward(self)
-            world = distributed.world_size()
+            world = distributed.data_world()
             if world > 1:
                 mean, var = GlobalMoments.apply(x)
             else:
@@ -274,13 +336,16 @@ class TorchBatchNorm(nn.Module):
                 mean = xf.mean((0, 2, 3))
                 d = xf - mean[:, None, None]
                 var = (d * d).mean((0, 2, 3))
-            update_running_stats(self.running_mean, self.running_var, mean, var,
+            full = tp.all_gather_values(torch.stack([mean, var]), 1) if sharded else (mean, var)
+            update_running_stats(self.running_mean, self.running_var, full[0], full[1],
                                  world * x.shape[0] * x.shape[2] * x.shape[3])
         inv = torch.rsqrt(var + self.eps)
         scale, offset = inv, -mean * inv
         if self.affine:
-            w = self.weight + 1.0
-            scale, offset = scale * w, offset * w + self.bias
+            weight, bias = ((tp.local_param(self.weight), tp.local_param(self.bias)) if sharded
+                            else (self.weight, self.bias))
+            w = weight + 1.0
+            scale, offset = scale * w, offset * w + bias
         return (x * scale.to(x.dtype)[:, None, None]
                 + offset.to(x.dtype)[:, None, None])
 
@@ -300,10 +365,18 @@ class NoiseInjection(nn.Module):
     def init_params(self, generator: torch.Generator) -> None:
         nn.init.zeros_(self.weight)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator],
+                sharded: bool = False) -> torch.Tensor:
+        """On a channel block (`sharded`) the noise is drawn for every
+        channel, as one process draws it, and this rank keeps its block; its
+        block of the weight takes the gradient summed over the model group."""
         b, c, h, w = x.shape
-        noise = draw_injection_noise((b, h, w, c), generator, x.device).permute(0, 3, 1, 2)
-        y = x + self.weight.to(x.dtype)[:, None, None] * noise.to(x.dtype)
+        full_c = c * distributed.model_world() if sharded else c
+        noise = draw_injection_noise((b, h, w, full_c), generator, x.device).permute(0, 3, 1, 2)
+        weight = self.weight
+        if sharded:
+            noise, weight = noise.narrow(1, distributed.model_rank() * c, c), tp.local_param(weight)
+        y = x + weight.to(x.dtype)[:, None, None] * noise.to(x.dtype)
         return y.contiguous(memory_format=torch.channels_last)
 
 
@@ -325,12 +398,20 @@ class NonSpadeNormConv(nn.Module):
         if self.sub in ("batch", "sync_batch"):
             self.add_module("1", TorchBatchNorm(fout, affine=True))
 
-    def forward(self, x: torch.Tensor, *, lrelu: bool = False) -> torch.Tensor:
-        y = self._modules["0"](x)
+    @property
+    def out_sharded(self) -> bool:
+        return self._modules["0"].out_sharded
+
+    def forward(self, x: torch.Tensor, *, lrelu: bool = False,
+                sharded: bool = False) -> torch.Tensor:
+        """x channel-sharded where `sharded`; the norm and the leaky ReLU are
+        per channel, so they run on the conv's output as it comes (this
+        rank's channel block after a column conv)."""
+        y = self._modules["0"](x, sharded=sharded)
         if self.sub == "instance":
             if self.training:
                 return modnorm_train(y, stats="instance", lrelu=lrelu)[0]
             return modnorm(y, stats="instance", lrelu=lrelu)
         if self.sub != "none":
-            y = self._modules["1"](y)
+            y = self._modules["1"](y, sharded=self.out_sharded)
         return leaky_relu(y) if lrelu else y

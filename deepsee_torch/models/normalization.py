@@ -7,6 +7,18 @@ bias; PureSEAN has none), and the whole epilogue -- normalize, modulate and
 the leaky ReLU that SPADEResnetBlock applies next -- is one `modnorm` kernel
 launch that reads the conv output as it is (`modnorm_train` in training,
 with batch statistics and a backward kernel).
+
+Tensor parallelism: the modulation convs (mlp_gamma, mlp_beta and their
+style twins) are column-sharded wherever the plan shards them (the JAX
+package's _COLUMN, deepsee_tpu/parallel/mesh.py:154-155), so each rank
+folds its own channel blocks into a local [gamma_l | beta_l] of 2C/n
+channels, and K1 runs on the same block of x: a block input (the block's
+x, replicated) is scattered to it, and the output stays on the block
+(`out_sharded`).  The modulation conv's input, replicated, goes through
+`copy`; so do SEAN's alphas, which scale the rank's blocks alone.
+`mlp_shared` is replicated, except under norm_1, where the JAX plan makes
+every wide-enough kernel column-sharded: there its output is gathered
+before the modulation conv.
 """
 
 from __future__ import annotations
@@ -23,6 +35,7 @@ from deepsee_torch.models.layers import (Conv2d, check_training_forward, conv2d,
 from deepsee_torch.ops.modnorm import modnorm, modnorm_train, modnorm_train_sync
 from deepsee_torch.ops.resize import resize2d
 from deepsee_torch.parallel import distributed
+from deepsee_torch.parallel import tensor as tp
 
 _NHIDDEN = 128  # the reference's embedding width (normalization.py:38)
 
@@ -54,6 +67,8 @@ def conv_on_nearest_up2(a: torch.Tensor, weight: torch.Tensor,
 class ConvParams(nn.Module):
     """Weight and bias of a conv that is folded into another one at forward;
     shaped like the reference's conv so checkpoints map one to one."""
+
+    shard = None   # "column" | None, set by parallel/shard.py
 
     def __init__(self, cin: int, cout: int, ks: int = 3):
         super().__init__()
@@ -88,8 +103,13 @@ class ParamFreeNorm(nn.Module):
     the kernel returns, and then updates them (momentum 0.1, unbiased
     variance).  Under a process group of more than one rank the batch is
     the global one (the JAX package's batch norm under jit over a sharded
-    batch): the statistics come from every rank's rows (`modnorm_train_sync`)
-    and the running variance is unbiased over the world's pixels.
+    batch): the statistics come from every data rank's rows
+    (`modnorm_train_sync` over the data group) and the running variance is
+    unbiased over the data world's pixels.  With `sharded`, x and mod hold
+    this rank's channel block: K1 runs on the block (its statistics are per
+    channel), the eval mode takes the block of the running statistics, and
+    training gathers the block's statistics over the model group into the
+    full running ones, equal on every rank.
     """
 
     EPS = 1e-5
@@ -107,25 +127,29 @@ class ParamFreeNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, mod: Optional[torch.Tensor] = None, *,
-                lrelu: bool = False) -> torch.Tensor:
+                lrelu: bool = False, sharded: bool = False) -> torch.Tensor:
         if self.training:
             check_training_forward(self)
             stats = "instance" if self.kind == "instance" else "batch"
-            world = distributed.world_size() if stats == "batch" else 1
+            world = distributed.data_world() if stats == "batch" else 1
             if world > 1:
-                out, mean, rstd = modnorm_train_sync(x, mod, eps=self.EPS, lrelu=lrelu)
+                out, mean, rstd = modnorm_train_sync(x, mod, eps=self.EPS, lrelu=lrelu,
+                                                     group=distributed.data_group())
             else:
                 out, mean, rstd = modnorm_train(x, mod, stats=stats, eps=self.EPS, lrelu=lrelu)
             if stats == "batch":
                 b, _, h, w = x.shape
                 var = rstd.pow(-2) - self.EPS
+                if sharded:
+                    mean, var = tp.all_gather_values(torch.stack([mean, var]), 1)
                 update_running_stats(self.running_mean, self.running_var, mean, var,
                                      world * b * h * w)
             return out
         if self.kind == "instance":
             return modnorm(x, mod, stats="instance", lrelu=lrelu)
-        return modnorm(x, mod, stats="affine", mean=self.running_mean,
-                       var=self.running_var, eps=self.EPS, lrelu=lrelu)
+        block = (lambda t: tp.local_slice(t, 0)) if sharded else (lambda t: t)
+        return modnorm(x, mod, stats="affine", mean=block(self.running_mean),
+                       var=block(self.running_var), eps=self.EPS, lrelu=lrelu)
 
 
 def _mlp_shared(cfg: ModelConfig) -> nn.Sequential:
@@ -134,7 +158,41 @@ def _mlp_shared(cfg: ModelConfig) -> nn.Sequential:
                          nn.ReLU())
 
 
-class SPADE(nn.Module):
+class _Modulated(nn.Module):
+    """What the three blocks share under tensor parallelism: the shard of
+    their modulation convs (`mod_shard`, from the gamma conv; its twins
+    have the same output width, so the plan gives them the same spec) and
+    the norm applied on the modulation's channels."""
+
+    def _mod_params(self) -> "ConvParams":
+        return self.mlp_gamma if hasattr(self, "mlp_gamma") else self.mlp_style_gamma
+
+    @property
+    def mod_shard(self):
+        return self._mod_params().shard
+
+    @property
+    def out_sharded(self) -> bool:
+        return self.mod_shard == tp.COLUMN
+
+    def _shared_actv(self, seg: torch.Tensor) -> torch.Tensor:
+        """mlp_shared's output, every channel of it."""
+        conv = self.mlp_shared[0]
+        return tp.full(self.mlp_shared(seg), conv.out_sharded)
+
+    def _normalize(self, x: torch.Tensor, sharded: bool, mod: torch.Tensor,
+                   lrelu: bool) -> torch.Tensor:
+        """The param-free norm of x (channel-sharded where `sharded`) with
+        `mod`, on the modulation's channels."""
+        on_block = self.out_sharded
+        if on_block and not sharded:
+            x = tp.scatter(x)
+        elif sharded and not on_block:
+            x = tp.gather(x)
+        return self.param_free_norm(x, mod, lrelu=lrelu, sharded=on_block)
+
+
+class SPADE(_Modulated):
     """Classic SPADE (normalization.py:179-212): gamma/beta convolved from the
     nearest-resized one-hot segmap."""
 
@@ -149,16 +207,17 @@ class SPADE(nn.Module):
 
     def forward(self, x: torch.Tensor, segmap: torch.Tensor,
                 style: Optional[torch.Tensor] = None, *,
-                lrelu: bool = False) -> torch.Tensor:
+                lrelu: bool = False, sharded: bool = False) -> torch.Tensor:
         seg = resize2d(segmap, x.shape[-2:], method="nearest")
-        actv = self.mlp_shared(seg.to(x.dtype))
+        actv = self._shared_actv(seg.to(x.dtype))
         weight = torch.cat([self.mlp_gamma.weight, self.mlp_beta.weight])
         bias = torch.cat([self.mlp_gamma.bias + 1.0, self.mlp_beta.bias])
-        mod = conv2d(actv, weight, bias, padding=self.ks // 2, training=self.training)
-        return self.param_free_norm(x, mod, lrelu=lrelu)
+        mod = conv2d(tp.conv_input(actv, False, self.mod_shard), weight, bias,
+                     padding=self.ks // 2, training=self.training)
+        return self._normalize(x, sharded, mod, lrelu)
 
 
-class _SEANCore(nn.Module):
+class _SEANCore(_Modulated):
     """What SEAN and PureSEAN blocks share (normalization.py:215-255):
     segmap features and the per-pixel style map at a resolution capped by
     max_fm_size, and the modulation conv on them."""
@@ -177,7 +236,7 @@ class _SEANCore(nn.Module):
         x_hw = tuple(x_hw)
         fm_hw = (min(x_hw[0], cfg.max_fm_size), min(x_hw[1], cfg.max_fm_size))
         seg = resize2d(segmap, fm_hw, method="nearest")
-        actv = self.mlp_shared(seg.to(dtype))
+        actv = self._shared_actv(seg.to(dtype))
         style_map = style_to_pixels(seg, style).to(dtype)
         if fm_hw == x_hw:
             return actv, style_map, False
@@ -229,10 +288,12 @@ class SEANBlock(_SEANCore):
             self.alpha_beta.copy_(torch.rand(1, generator=generator))
 
     def forward(self, x: torch.Tensor, segmap: torch.Tensor, style: torch.Tensor,
-                *, lrelu: bool = False) -> torch.Tensor:
+                *, lrelu: bool = False, sharded: bool = False) -> torch.Tensor:
         actv, style_map, up2 = self._maps(x.shape[-2:], segmap, style, x.dtype)
-        wg = torch.sigmoid(self.alpha_gamma)[0]
-        wb = torch.sigmoid(self.alpha_beta)[0]
+        alphas = torch.cat([self.alpha_gamma, self.alpha_beta])
+        if self.out_sharded:  # each rank's gradient reaches them through its blocks alone
+            alphas = tp.copy(alphas)
+        wg, wb = torch.sigmoid(alphas).unbind()
         g, b = self.mlp_gamma, self.mlp_beta
         gs, bs = self.mlp_style_gamma, self.mlp_style_beta
         weight = torch.cat([
@@ -242,8 +303,8 @@ class SEANBlock(_SEANCore):
                           (1.0 - wb) * b.bias + wb * bs.bias])
         inp = torch.cat([actv, style_map], dim=1).contiguous(
             memory_format=torch.channels_last)
-        mod = self._mod_conv(inp, weight, bias, up2)
-        return self.param_free_norm(x, mod, lrelu=lrelu)
+        mod = self._mod_conv(tp.conv_input(inp, False, self.mod_shard), weight, bias, up2)
+        return self._normalize(x, sharded, mod, lrelu)
 
 
 class PureSEANBlock(_SEANCore):
@@ -259,9 +320,10 @@ class PureSEANBlock(_SEANCore):
         self.mlp_style_beta = ConvParams(cfg.regional_style_size, norm_nc, self.ks)
 
     def forward(self, x: torch.Tensor, segmap: torch.Tensor, style: torch.Tensor,
-                *, lrelu: bool = False) -> torch.Tensor:
+                *, lrelu: bool = False, sharded: bool = False) -> torch.Tensor:
         _, style_map, up2 = self._maps(x.shape[-2:], segmap, style, x.dtype)
         gs, bs = self.mlp_style_gamma, self.mlp_style_beta
-        mod = self._mod_conv(style_map, torch.cat([gs.weight, bs.weight]),
+        mod = self._mod_conv(tp.conv_input(style_map, False, self.mod_shard),
+                             torch.cat([gs.weight, bs.weight]),
                              torch.cat([gs.bias, bs.bias]), up2)
-        return self.param_free_norm(x, mod, lrelu=lrelu)
+        return self._normalize(x, sharded, mod, lrelu)

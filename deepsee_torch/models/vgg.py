@@ -8,6 +8,12 @@ to relu5_1, so its state_dict keys are torchvision's (`features.<N>.weight`)
 and a torchvision-format file loads as it is (`load_vgg19_state_dict`).
 Without a file the weights are random (he-normal, as flax's init), which the
 trainer announces: a valid but weaker perceptual loss.
+
+Tensor parallelism (deepsee_tpu/parallel/mesh.py:163-165, `_vgg_spec`):
+`shards[i]` is conv i's "column", "row" or None, as parallel/shard.py sets
+it; the weights are frozen, but the fake's gradient flows through, so a
+column conv's replicated input goes through `copy`.  Every tap lands after
+a row or replicated conv, so the features come out with every channel.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from deepsee_torch.parallel import tensor as tp
 
 # channels per conv, "M" a 2x2 stride-2 max pool (VGG19 "E"), through relu5_1
 _LAYOUT = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -40,6 +48,7 @@ class VGG19Features(nn.Module):
                 layers += [nn.Conv2d(cin, spec, 3, padding=1), nn.ReLU()]
                 cin = spec
         self.features = nn.Sequential(*layers)
+        self.shards = [None] * sum(isinstance(m, nn.Conv2d) for m in layers)
 
     def init_params(self, generator: torch.Generator) -> None:
         """flax's he_normal: truncated normal (+-2 std) with variance
@@ -54,17 +63,23 @@ class VGG19Features(nn.Module):
                     nn.init.zeros_(m.bias)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        taps, convs = [], 0
+        taps, convs, sharded = [], 0, False
         y = x.to(self.dtype)
         for m in self.features:
             if isinstance(m, nn.Conv2d):
-                y = F.conv2d(y, m.weight.to(y.dtype), m.bias.to(y.dtype), padding=1)
+                shard = self.shards[convs]
+                y = tp.conv_input(y, sharded, shard)
+                bias = m.bias.to(y.dtype)
+                y = F.conv2d(y, m.weight.to(y.dtype), None if shard == tp.ROW else bias,
+                             padding=1)
+                if shard == tp.ROW:
+                    y = tp.reduce(y) + bias[:, None, None]
                 y = y.contiguous(memory_format=torch.channels_last)
-                convs += 1
+                convs, sharded = convs + 1, shard == tp.COLUMN
             elif isinstance(m, nn.ReLU):
                 y = torch.relu(y)
                 if convs in _TAP_AFTER_CONV:
-                    taps.append(y)
+                    taps.append(tp.full(y, sharded))
             else:
                 y = m(y).contiguous(memory_format=torch.channels_last)
         return taps

@@ -1,5 +1,7 @@
-"""Data parallelism over processes (`distributed`), port of the data-parallel
-half of deepsee_tpu/parallel/."""
+"""Parallelism over processes, port of deepsee_tpu/parallel/: the processes,
+their (data, model) layout and the data-parallel collectives (`distributed`),
+tensor parallelism's plan and shards (`shard`) and its collectives
+(`tensor`)."""
 
 from deepsee_torch.parallel.distributed import (all_reduce_grads, all_reduce_mean, barrier,
                                                 broadcast_module_state, gather_rows,

@@ -1,7 +1,8 @@
-"""Data parallelism over processes, port of the data-parallel half of
-deepsee_tpu/parallel/mesh.py (the batch over the "dcn" x "data" axes, the
-gradient all-reduce and the global batch statistics that XLA inserts under
-jit) and of deepsee_tpu/utils/files.py::is_main_process.
+"""Processes and their layout, port of the process half of
+deepsee_tpu/parallel/mesh.py (`make_mesh`, `batch_spec` / `shard_batch`:
+the batch over the "dcn" x "data" axes, the gradient all-reduce and the
+global batch statistics that XLA inserts under jit) and of
+deepsee_tpu/utils/files.py::is_main_process.
 
 One process per card, started by torchrun (`python -m torch.distributed.run
 --nproc_per_node N ...`), joined by `init_distributed`: NCCL between cards,
@@ -20,10 +21,21 @@ implicitly is explicit here:
     generators seeded alike, and each rank keeps its rows (`rank_rows`);
   * the evaluator's per-sample rows are gathered (`gather_rows`).
 
+The layout (`set_model_axis`, make_mesh's devices.reshape(dcn, data,
+model)): global rank r has model index r % model_axis and data index
+r // model_axis.  Its *model group* is the model_axis consecutive ranks of
+its data index, in which every tensor-parallel collective runs
+(parallel/tensor.py); its *data group* is the ranks that share its model
+index, in which the gradient all-reduce, the logs' mean, the weights'
+broadcast and every batch statistic run.  The rows of the global batch are
+split by data rank: the model ranks of one data index hold the same rows.
+With model_axis 1 (data parallelism alone) the data group is the default
+group.
+
 Without a process group every function here is the one-process identity:
-world_size() is 1, rank() 0.  Nothing here switches backends or devices
-behind the caller's back: NCCL's own error for two ranks on one card is
-raised as it is.
+world_size() is 1, rank() 0, and the data and model worlds are 1.
+Nothing here switches backends or devices behind the caller's back:
+NCCL's own error for two ranks on one card is raised as it is.
 """
 
 from __future__ import annotations
@@ -39,6 +51,69 @@ import torch.distributed as dist
 def world_size() -> int:
     """Ranks in the default process group; 1 without one."""
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+# the layout of the default group's ranks: set_model_axis
+_LAYOUT: Dict = {"model_axis": 1, "model": None, "data": None}
+
+
+def reset_layout() -> None:
+    """Back to model_axis 1 (data parallelism alone), the groups dropped."""
+    _LAYOUT.update(model_axis=1, model=None, data=None)
+
+
+def set_model_axis(model_axis: int) -> None:
+    """Lay the default group's ranks out as (data, model) with `model_axis`
+    model ranks per data index, and make the two groups of this rank.  Every
+    rank calls it, with the same value: each group is made by all ranks
+    (torch.distributed.new_group), even those outside it."""
+    world = world_size()
+    if model_axis < 1 or world % model_axis:
+        raise ValueError(f"model_axis {model_axis} does not divide the world of {world} "
+                         "process(es)")
+    if model_axis == _LAYOUT["model_axis"]:
+        return
+    reset_layout()
+    if model_axis == 1:
+        return
+    model_groups = [dist.new_group(list(range(d * model_axis, (d + 1) * model_axis)))
+                    for d in range(world // model_axis)]
+    data_groups = [dist.new_group(list(range(m, world, model_axis)))
+                   for m in range(model_axis)]
+    r = rank()
+    _LAYOUT.update(model_axis=model_axis, model=model_groups[r // model_axis],
+                   data=data_groups[r % model_axis])
+
+
+def model_world() -> int:
+    """Ranks in this rank's model group (model_axis); 1 without a group."""
+    return _LAYOUT["model_axis"] if world_size() > 1 else 1
+
+
+def model_rank() -> int:
+    """This rank's model index: its place in its model group."""
+    return rank() % model_world()
+
+
+def data_world() -> int:
+    """Ranks in this rank's data group (dcn_axis x data_axis)."""
+    return world_size() // model_world()
+
+
+def data_rank() -> int:
+    """This rank's data index: the stripe of the global batch it holds."""
+    return rank() // model_world()
+
+
+def model_group():
+    """The process group of this rank's model group (None: there is none)."""
+    return _LAYOUT["model"]
+
+
+def data_group():
+    """The process group of this rank's data group (None: the default group,
+    where the model axis is 1)."""
+    return _LAYOUT["data"]
 
 
 def rank() -> int:
@@ -79,6 +154,7 @@ def init_distributed(backend: Optional[str] = None, device: str | torch.device =
                            "(start the program with python -m torch.distributed.run)")
     cuda = torch.device(device).type == "cuda"
     backend = backend or ("nccl" if cuda else "gloo")
+    reset_layout()
     if backend == "nccl":
         if not cuda:
             raise ValueError("the NCCL backend needs a CUDA device")
@@ -104,15 +180,17 @@ def joined(multihost: bool, device: str | torch.device) -> Iterator[str | torch.
     try:
         yield device
     finally:
+        reset_layout()
         dist.destroy_process_group()
 
 
 def per_rank_batch(global_batch: int) -> int:
-    """This rank's rows of a global batch (deepsee_tpu/train/loop.py:99-108);
-    raises unless the ranks divide it."""
-    world = world_size()
+    """This rank's rows of a global batch (deepsee_tpu/train/loop.py:99-108):
+    its share of the data ranks'; raises unless they divide it."""
+    world = data_world()
     if global_batch % world:
-        raise ValueError(f"global batch_size {global_batch} not divisible by {world} processes")
+        raise ValueError(f"global batch_size {global_batch} not divisible by {world} processes "
+                         "(the data-parallel ranks)")
     return global_batch // world
 
 
@@ -131,20 +209,23 @@ def _flat_groups(tensors: Iterable[torch.Tensor]):
 
 def broadcast_module_state(module: torch.nn.Module, src: int = 0) -> None:
     """Every parameter and buffer of `module` (running statistics, spectral
-    u/v) set to rank `src`'s, one flat broadcast per device and type."""
-    if world_size() == 1:
+    u/v) set to those of data rank `src` of this rank's data group, one
+    flat broadcast per device and type.  Under tensor parallelism each model
+    index broadcasts its own shards."""
+    if data_world() == 1:
         return
+    src_rank = src * model_world() + model_rank()
     with torch.no_grad():
         for group in _flat_groups(module.state_dict(keep_vars=True).values()):
             flat = torch.cat([t.detach().reshape(-1) for t in group])
-            dist.broadcast(flat, src)
+            dist.broadcast(flat, src_rank, group=data_group())
             for t, v in zip(group, flat.split([t.numel() for t in group])):
                 t.detach().copy_(v.view_as(t))
 
 
 def all_reduce_grads(params: Sequence[torch.Tensor]) -> None:
-    """Each parameter's .grad replaced by the mean over the ranks: one flat
-    float32 buffer, all-reduced (sum) and divided by the world size.
+    """Each parameter's .grad replaced by the mean over the data group: one
+    flat float32 buffer, all-reduced (sum) and divided by the data world.
 
     Each rank's gradient is that of the mean loss over its own rows, so the
     mean of the ranks' gradients is the gradient of the mean loss over the
@@ -152,68 +233,70 @@ def all_reduce_grads(params: Sequence[torch.Tensor]) -> None:
     holds too: their backward divides the all-reduced sums by the global
     count, which scales each rank's share by the world size, and the
     division here undoes it."""
-    world = world_size()
+    world = data_world()
     if world == 1:
         return
     dtypes = {p.grad.dtype for p in params}
     if dtypes != {torch.float32}:
         raise ValueError(f"all_reduce_grads takes float32 gradients, got {dtypes}")
     flat = torch.cat([p.grad.reshape(-1) for p in params])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=data_group())
     flat.div_(world)
     for p, g in zip(params, flat.split([p.numel() for p in params])):
         p.grad = g.view_as(p)
 
 
 def all_reduce_mean(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """0-dim float tensors (a step's losses) -> their means over the ranks,
-    as the JAX package's logs are over the global batch."""
-    world = world_size()
+    """0-dim float tensors (a step's losses) -> their means over the data
+    group, as the JAX package's logs are over the global batch (the model
+    ranks of a data index hold the same logs)."""
+    world = data_world()
     if world == 1 or not values:
         return values
     flat = torch.stack([v.detach().float() for v in values.values()])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=data_group())
     flat.div_(world)
     return dict(zip(values, flat.unbind()))
 
 
 def rank_rows(draw: Callable[[tuple], torch.Tensor], shape: Sequence[int]) -> torch.Tensor:
-    """draw(shape) in one process.  Under a process group of W ranks whose
-    draws come from generators seeded alike, draw((W * B,) + shape[1:]) --
-    the global batch's numbers -- and keep this rank's rows [rank * B,
-    (rank + 1) * B): rank r's rows are then the ones a single process draws
-    for rows rB.. of the same global batch.  Each rank draws W times the
-    numbers it keeps."""
+    """draw(shape) in one process.  Under a process group of W data ranks
+    whose draws come from generators seeded alike, draw((W * B,) +
+    shape[1:]) -- the global batch's numbers -- and keep this data rank's
+    rows [r * B, (r + 1) * B): data rank r's rows are then the ones a single
+    process draws for rows rB.. of the same global batch.  Each rank draws W
+    times the numbers it keeps."""
     shape = tuple(int(d) for d in shape)
-    world = world_size()
+    world = data_world()
     if world == 1:
         return draw(shape)
-    b, r = shape[0], rank()
+    b, r = shape[0], data_rank()
     return draw((world * b,) + shape[1:])[r * b:(r + 1) * b]
 
 
 def gather_rows(tensors: Dict[str, torch.Tensor], n_valid: int,
                 target: int) -> Dict[str, torch.Tensor]:
-    """Every rank's rows of each tensor, in rank order (the JAX evaluator's
-    _merge_hosts, deepsee_tpu/eval/evaluator.py:271-285).  Ranks may hold
+    """Every data rank's rows of each tensor, in data-rank order, gathered
+    over the data group (the JAX evaluator's _merge_hosts,
+    deepsee_tpu/eval/evaluator.py:271-285).  Ranks may hold
     different counts: each pads (or cuts) its first `n_valid` rows to
     `target`, writes them into block `rank` of a zero buffer of world *
     target rows with a validity mask beside them, and one all-reduce sum
     per tensor acts as the all-gather; it is exact, as every other rank
     adds zeros.  Rows beyond each rank's count are dropped after it."""
-    world = world_size()
+    world = data_world()
     if world == 1:
         return {k: v[:n_valid] for k, v in tensors.items()}
-    r, n = rank(), min(n_valid, target)
+    r, n = data_rank(), min(n_valid, target)
     device = next(iter(tensors.values())).device
     valid = torch.zeros(world * target, device=device)
     valid[r * target:r * target + n] = 1.0
-    dist.all_reduce(valid)
+    dist.all_reduce(valid, group=data_group())
     keep = valid > 0.5
     out = {}
     for key, v in tensors.items():
         buf = torch.zeros((world * target,) + tuple(v.shape[1:]), dtype=v.dtype, device=device)
         buf[r * target:r * target + n] = v[:n]
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=data_group())
         out[key] = buf[keep]
     return out

@@ -13,10 +13,15 @@ global batch; each rank reads its stripe, batch_size / N samples a step):
     torchrun --nproc_per_node N -m deepsee_torch.train --multihost --data_axis N ...
 
 --multihost joins the process group torchrun's environment describes (NCCL
-on the card, gloo with --device cpu); --data_axis x --dcn_axis must equal
-the world size (both count data-parallel ranks here).  Refused with a
-message naming their slice: --model_axis > 1 (tensor parallelism),
---partition spatial (spatial sharding).
+on the card, gloo with --device cpu); --data_axis x --dcn_axis x
+--model_axis must equal the world size (the first two count data-parallel
+ranks here).  Tensor parallelism over M ranks per data index, each holding
+column/row shards of the wide convs (the JAX package's --model_axis):
+
+    torchrun --nproc_per_node D*M -m deepsee_torch.train --multihost --data_axis D --model_axis M ...
+
+Refused with a message naming its slice: --partition spatial (spatial
+sharding).
 
 --remat rematerializes the generator's blocks in the backward
 (--remat_policy full: each block recomputed whole; convs: the conv outputs
@@ -84,7 +89,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--dcn_axis", type=int, default=1,
                    help="data-parallel ranks across hosts; here the same as --data_axis")
     p.add_argument("--model_axis", type=int, default=1,
-                   help="only 1: tensor parallelism belongs to a later slice")
+                   help="tensor-parallel ranks per data index (column/row shards of the convs)")
     p.add_argument("--partition", default="tensor", choices=("tensor", "spatial"),
                    help="only tensor: spatial sharding belongs to a later slice")
     p.add_argument("--remat", action="store_true",

@@ -27,6 +27,14 @@ given).  Only rank 0 prints, displays and writes the run directory (a zip
 of the sources first, utils/files.py::copy_src), and a barrier follows each
 save; each rank evaluates its stripe of
 num_evaluation_samples / W samples, and the evaluator gathers the rows.
+
+Tensor parallelism (model_axis > 1): the world is dcn x data x model
+ranks; the batch and the loaders' stripes go by data rank (the model ranks
+of one data index read the same rows) and the networks' convs are sharded
+over the model group (parallel/shard.py).  The evaluation and the display
+run replicated networks with the gathered weights (`_inference_system`,
+the JAX trainer's eval_variables / host_local_variables): every rank joins
+the gather, rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -39,10 +47,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from deepsee_torch.config import Experiment
+from deepsee_torch.config import Experiment, MeshConfig
 from deepsee_torch.data import DataLoader, DevicePrefetcher, create_dataset
 from deepsee_torch.eval.evaluator import InferenceEvaluator, evaluate_set, get_validation_loader
-from deepsee_torch.parallel import distributed
+from deepsee_torch.parallel import distributed, shard
 from deepsee_torch.system import SRSystem
 from deepsee_torch.train.state import TrainState, create_train_state, set_epoch_lr
 from deepsee_torch.train.steps import make_train_step
@@ -77,6 +85,22 @@ class Trainer:
         self.step_gd = make_train_step(self.system, do_g=True)
         self.step_d = (make_train_step(self.system, do_g=False)
                        if exp.train.d_steps_per_g > 1 else None)
+        self._gathered: Optional[SRSystem] = None
+
+    def _inference_system(self) -> SRSystem:
+        """The system the evaluation and the display run: the training one;
+        under tensor parallelism a replicated copy of G and E that takes the
+        gathered weights now (every rank calls it)."""
+        if distributed.model_world() == 1:
+            return self.system
+        if self._gathered is None:
+            self._gathered = SRSystem(self.exp.replace(is_train=False, mesh=MeshConfig()),
+                                      device=self.system.device)
+        for name in ("generator", "encoder"):
+            net = getattr(self.system, name)
+            if net is not None:
+                getattr(self._gathered, name).load_state_dict(shard.gather_state_dict(net))
+        return self._gathered
 
     def make_dataloader(self) -> DataLoader:
         """The training loader (deepsee_tpu/train/loop.py:87-99): the
@@ -85,8 +109,8 @@ class Trainer:
         tc = self.exp.train
         return DataLoader(create_dataset(self.exp, phase="train"),
                           distributed.per_rank_batch(tc.batch_size), shuffle=True,
-                          drop_last=True, seed=tc.seed, shard_index=distributed.rank(),
-                          num_shards=distributed.world_size())
+                          drop_last=True, seed=tc.seed, shard_index=distributed.data_rank(),
+                          num_shards=distributed.data_world())
 
     def _eval_loader(self, dataloader):
         """The periodic training-set evaluation's loader, apart from the live
@@ -101,8 +125,8 @@ class Trainer:
         tc = self.exp.train
         return DataLoader(copy.copy(dataset), distributed.per_rank_batch(tc.batch_size),
                           shuffle=True, drop_last=True, seed=tc.seed + 7919, num_workers=2,
-                          prefetch=0, shard_index=distributed.rank(),
-                          num_shards=distributed.world_size())
+                          prefetch=0, shard_index=distributed.data_rank(),
+                          num_shards=distributed.data_world())
 
     def run(self, dataloader=None, max_steps: Optional[int] = None) -> TrainState:
         """Train over `dataloader` (by default `make_dataloader()`; any
@@ -137,16 +161,20 @@ class Trainer:
                         visualizer.print_current_errors(
                             epoch, counter.epoch_iter, {k: float(v) for k, v in logs.items()},
                             counter.time_per_iter)
-                    if counter.needs_displaying() and main:
-                        self._display(visualizer, batch, epoch, counter.total_steps_so_far)
+                    if counter.needs_displaying():
+                        system = self._inference_system()
+                        if main:
+                            self._display(system, visualizer, batch, epoch,
+                                          counter.total_steps_so_far)
                     if counter.needs_saving():
                         self.ckpt.save(self.state, "latest")
                         counter.record_current_iter()
                         distributed.barrier()
                     if counter.needs_evaluation() and epoch >= tc.evaluation_start_epoch:
+                        system = self._inference_system()
                         if evaluator is None:
                             evaluator = InferenceEvaluator(
-                                self.system, tc.num_evaluation_samples,
+                                system, tc.num_evaluation_samples,
                                 inception_weights=tc.inception_weights or None,
                                 alexnet_weights=tc.alexnet_weights or None)
                         result = evaluate_set(evaluator, eval_loader)
@@ -182,9 +210,9 @@ class Trainer:
             print("Training was successfully finished.")
         return self.state
 
-    def _display(self, visualizer: Visualizer, batch: Dict, epoch: int, step: int) -> None:
+    def _display(self, system: SRSystem, visualizer: Visualizer, batch: Dict, epoch: int,
+                 step: int) -> None:
         """The first sample's label, LR input, eval-mode output and HR image."""
-        system = self.system
         nets = [n for n in (system.generator, system.encoder) if n is not None]
         for n in nets:
             n.eval()
@@ -202,14 +230,15 @@ class Trainer:
 
 def check_data_parallel(exp: Experiment, world: int) -> None:
     """Raise unless the port runs `exp` over `world` ranks: a layout it has
-    (`MeshConfig.check_ported`: data parallelism only) whose data-parallel
-    ranks, data_axis x dcn_axis, are the world's processes.  (A train-mode
-    encoder or discriminator batch norm refuses a world > 1 itself:
-    `TorchBatchNorm`.)"""
+    (`MeshConfig.check_ported`: data and tensor parallelism) whose ranks,
+    dcn_axis x data_axis x model_axis, are the world's processes."""
     mesh = exp.mesh
     mesh.check_ported()
-    ranks = mesh.data_axis * mesh.dcn_axis
-    if min(mesh.data_axis, mesh.dcn_axis) < 1 or ranks != world:
-        raise ValueError(f"data_axis {mesh.data_axis} x dcn_axis {mesh.dcn_axis} = {ranks} "
-                         f"data-parallel ranks, but the world has {world} process(es); start "
-                         f"{ranks} with torchrun --nproc_per_node {ranks} ... --multihost")
+    ranks = mesh.n_devices
+    if min(mesh.data_axis, mesh.dcn_axis, mesh.model_axis) < 1 or ranks != world:
+        layout = (f"data_axis {mesh.data_axis} x dcn_axis {mesh.dcn_axis} = {ranks} "
+                  "data-parallel ranks" if mesh.model_axis == 1 else
+                  f"data_axis {mesh.data_axis} x dcn_axis {mesh.dcn_axis} x model_axis "
+                  f"{mesh.model_axis} = {ranks} ranks")
+        raise ValueError(f"{layout}, but the world has {world} process(es); start {ranks} with "
+                         f"torchrun --nproc_per_node {ranks} ... --multihost")

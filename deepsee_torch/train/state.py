@@ -15,8 +15,11 @@ statistics and spectral u/v), both optimizers, the step and epoch counts,
 and the two explicit random generators of the step: a CPU one for the
 host coins and one on the device for the noise.  Under a process group
 every rank seeds both alike and takes G's, E's and D's parameters and
-buffers from rank 0 (`broadcast_networks`) after creation and after a
-restore.
+buffers from data rank 0 of its data group (`broadcast_networks`) after
+creation and after a restore.  Under tensor parallelism (exp.mesh's
+model_axis > 1) every rank makes the full weights alike, keeps its shards
+(parallel/shard.py) and builds both optimizers over them, so the Adam
+moments shard as their parameters do.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 
 from deepsee_torch.config import TrainConfig
 from deepsee_torch.models.vgg import load_vgg19_state_dict
-from deepsee_torch.parallel import distributed
+from deepsee_torch.parallel import distributed, shard
 from deepsee_torch.system import SRSystem
 
 MINI_LR_SCALE = 0.25
@@ -113,7 +116,8 @@ def load_vgg_weights(system: SRSystem, path: str) -> None:
 
 def broadcast_networks(system: SRSystem) -> None:
     """G's, E's and D's parameters and buffers (running statistics, spectral
-    u/v) set to rank 0's on every rank; nothing in one process."""
+    u/v) set to data rank 0's on every rank of each data group (its own
+    shards under tensor parallelism); nothing in one process."""
     for net in (system.generator, system.encoder, system.discriminator):
         if net is not None:
             distributed.broadcast_module_state(net)
@@ -121,12 +125,17 @@ def broadcast_networks(system: SRSystem) -> None:
 
 def create_train_state(system: SRSystem, *, init: bool = True) -> TrainState:
     """Seeded weights (unless init=False: the caller loads them), the VGG
-    weights, both optimizers and the step's generators, all from
-    exp.train.seed; under a process group, the networks then rank 0's."""
+    weights, the layout of exp.mesh (its model groups made and the networks
+    sharded over them where model_axis > 1), both optimizers and the step's
+    generators, all from exp.train.seed; under a process group, the
+    networks then data rank 0's."""
     tc = system.exp.train
     if init:
         system.init(torch.Generator().manual_seed(tc.seed))
     load_vgg_weights(system, tc.vgg_weights)
+    distributed.set_model_axis(system.exp.mesh.model_axis)
+    if distributed.model_world() > 1:
+        shard.shard_system(system, system.exp.mesh)
     broadcast_networks(system)
     return TrainState(system=system, opt_g=make_g_optimizer(system, tc),
                       opt_d=make_d_optimizer(system, tc),

@@ -29,6 +29,15 @@ per G step (in the G step's loss and its own), so DistributedDataParallel's
 hooks on .backward() do not fit it.  The coins come from the state's CPU
 generator, seeded alike on every rank, so every rank draws the same coins
 and runs the same launches, collectives included, in the same order.
+
+Tensor parallelism (exp.mesh.model_axis > 1): the networks' wide convs are
+sharded over each data index's model group (parallel/shard.py) and their
+collectives run inside the forward and backward (parallel/tensor.py); the
+data group is the data-parallel world above.  The feature-matching loss
+sums D's channel-sharded features over the model group, and before the data
+group's all-reduce the replicated parameters' gradients are averaged over
+the model group (`tensor.mean_replicated_grads`), which keeps them bit for
+bit equal on every model rank.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import torch
 
 from deepsee_torch.losses import feature_matching_loss, gan_loss, vgg_loss
 from deepsee_torch.parallel import distributed
+from deepsee_torch.parallel import tensor as tp
 from deepsee_torch.system import SRSystem, _nchw
 from deepsee_torch.train.state import TrainState, g_params
 
@@ -58,11 +68,13 @@ def draw_coins(system: SRSystem, generator: torch.Generator) -> Tuple[bool, bool
 def _step_optimizer(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor],
                     loss: torch.Tensor) -> None:
     """The gradient of `loss` with respect to `params` alone, zeros where a
-    parameter took no part (as jax.grad gives), averaged over the ranks,
-    then one optimizer step."""
+    parameter took no part (as jax.grad gives), the replicated ones'
+    averaged over the model group (tensor parallelism), all averaged over
+    the data group, then one optimizer step."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
+    tp.mean_replicated_grads(params)
     distributed.all_reduce_grads(params)
     opt.step()
     opt.zero_grad(set_to_none=True)
@@ -84,7 +96,8 @@ def make_train_step(system: SRSystem, *, do_g: bool = True
                                                    pre["image_hr"])
         losses = {"GAN": gan_loss(pred_fake, True, mode=tc.gan_mode, for_discriminator=False)}
         if not tc.no_ganfeat_loss:
-            losses["GAN_Feat"] = feature_matching_loss(pred_fake, pred_real, tc.lambda_feat)
+            losses["GAN_Feat"] = feature_matching_loss(
+                pred_fake, pred_real, tc.lambda_feat, system.discriminator.sharded_outputs())
         if system.vgg is not None:
             with torch.no_grad():
                 real_feats = system.vgg_features(_nchw(pre["image_hr"]))

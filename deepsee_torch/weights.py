@@ -250,16 +250,17 @@ def complete_for_reference(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Te
     return out
 
 
-def save_reference_checkpoint(nets: Mapping[str, torch.nn.Module], checkpoint_dir: str,
+def save_reference_checkpoint(nets: Mapping[str, Any], checkpoint_dir: str,
                               epoch: str = "latest") -> Dict[str, str]:
-    """Write `<epoch>_net_<tag>.pth` for each {tag: network} in the
-    reference's save_network format ({"model": state_dict}, util/util.py:
-    217-224); returns {tag: path}."""
+    """Write `<epoch>_net_<tag>.pth` for each {tag: network or its
+    state_dict} in the reference's save_network format ({"model":
+    state_dict}, util/util.py:217-224); returns {tag: path}."""
     os.makedirs(checkpoint_dir, exist_ok=True)
     written = {}
     for tag, net in nets.items():
         path = os.path.join(checkpoint_dir, f"{epoch}_net_{tag}.pth")
-        torch.save({"model": complete_for_reference(net.state_dict())}, path + ".tmp")
+        sd = net.state_dict() if isinstance(net, torch.nn.Module) else net
+        torch.save({"model": complete_for_reference(sd)}, path + ".tmp")
         os.replace(path + ".tmp", path)  # a crash never leaves half a file
         written[tag] = path
     return written

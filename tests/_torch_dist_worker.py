@@ -1,4 +1,5 @@
-"""One rank of the port's data-parallel tests (tests/test_torch_dist_*.py).
+"""One rank of the port's data- and tensor-parallel tests
+(tests/test_torch_dist_*.py, tests/test_torch_tp_*.py).
 
     python tests/_torch_dist_worker.py OUT_DIR TASK[,TASK...]
 
@@ -10,7 +11,9 @@ asked, and saves what the tasks return to OUT_DIR/rank<R>.pt.  The "cli"
 task joins no group itself: the CLIs do, with --multihost, each on its own
 port of CLI_PORTS.
 
-Imports no deepsee_tpu: a worker is a process of the port alone.  The
+A worker shards kernels of TP_MIN_SHARD_CH channels or more
+(`shard.MIN_SHARD_CH`), so that the tiny networks shard.  Imports no
+deepsee_tpu: a worker is a process of the port alone.  The
 functions that make a task's run (`step_run`, `eval_run`, ...) are also
 called by the tests in one process, for the comparison.
 """
@@ -34,7 +37,8 @@ from deepsee_torch.data import DataLoader, SyntheticDataset  # noqa: E402
 from deepsee_torch.eval.evaluator import InferenceEvaluator  # noqa: E402
 from deepsee_torch.models import encoder as tenc  # noqa: E402
 from deepsee_torch.models import layers as tlayers  # noqa: E402
-from deepsee_torch.parallel import distributed  # noqa: E402
+from deepsee_torch.models import normalization as tnorm  # noqa: E402
+from deepsee_torch.parallel import distributed, shard  # noqa: E402
 from deepsee_torch.system import SRSystem  # noqa: E402
 from deepsee_torch.train import state as tstate  # noqa: E402
 from deepsee_torch.train import steps as tsteps  # noqa: E402
@@ -51,6 +55,11 @@ STEPS = 2
 EVAL_SAMPLES = 8
 EVAL_BATCH = 2
 TRAIN_SAMPLES = 8          # one epoch of the trainer task: 8 / 4 = 2 steps
+# tensor parallelism: model_axis 2 with the JAX package's multichip test's
+# min_shard_ch (tests/test_train_step.py:55-67), which shards every network
+# of the tiny configuration (its 64-wide trunk, the encoder trunks, D, VGG)
+TP_MIN_SHARD_CH = 8
+TP_MODEL_AXIS = 2
 
 
 def rows(batch, rank: int, world: int):
@@ -60,10 +69,35 @@ def rows(batch, rank: int, world: int):
 
 
 def snapshot(system: SRSystem):
-    """G's, E's and D's parameters and buffers, cloned."""
+    """G's, E's and D's parameters and buffers, cloned; under tensor
+    parallelism with every shard gathered (all model ranks call it)."""
     nets = {"g": system.generator, "e": system.encoder, "d": system.discriminator}
-    return {net: {k: v.detach().clone() for k, v in m.state_dict().items()}
+    return {net: {k: v.detach().clone() for k, v in shard.gather_state_dict(m).items()}
             for net, m in nets.items()}
+
+
+def tp_mesh() -> MeshConfig:
+    """This world laid out as (world / TP_MODEL_AXIS) x TP_MODEL_AXIS."""
+    return MeshConfig(data_axis=distributed.world_size() // TP_MODEL_AXIS,
+                      model_axis=TP_MODEL_AXIS)
+
+
+def _norm_calls(calls):
+    """The generator's batch-statistics K1 calls recorded into `calls`:
+    ("one", channels) for the one-launch modnorm_train, ("split", channels,
+    ranks of its group) for modnorm_train_sync."""
+    one, split = tnorm.modnorm_train, tnorm.modnorm_train_sync
+
+    def one_launch(x, mod=None, *, stats, **k):
+        if stats == "batch":
+            calls.append(("one", x.shape[1]))
+        return one(x, mod, stats=stats, **k)
+
+    def split_launch(x, mod=None, *, group=None, **k):
+        calls.append(("split", x.shape[1], torch.distributed.get_world_size(group)))
+        return split(x, mod, group=group, **k)
+
+    return ((tnorm, "modnorm_train", one_launch), (tnorm, "modnorm_train_sync", split_launch))
 
 
 class _Patches:
@@ -134,22 +168,24 @@ def load_weights(system: SRSystem, weights) -> None:
                 t.copy_(0.1 * torch.randn(t.shape, generator=generator))
 
 
-def step_run(weights=None, model=(), seeded_draws: bool = False, nudge_seed=None, train=()):
+def step_run(weights=None, model=(), seeded_draws: bool = False, nudge_seed=None, train=(),
+             mesh=None):
     """STEPS faithful steps of the tiny independent model with SGD on this
     rank's rows of the global batch (GLOBAL_BATCH): from `weights` (state
     dicts of g, e, d, vgg) or the seeded init, nudged by one ulp from
     `nudge_seed` where it is given, with
     COINS and numpy noise (`seeded_draws`) or the state's own generators;
-    `model` and `train` override configuration fields.
-    Returns per step the logs and the snapshot after it, and the coins
-    drawn."""
+    `model` and `train` override configuration fields, `mesh` the layout.
+    Returns per step the logs and the snapshot after it, the coins drawn
+    and the generator's batch-statistics K1 calls (`_norm_calls`)."""
     exp = tiny_test_experiment()
     exp = exp.replace(model=dataclasses.replace(exp.model, **dict(model)),
-                      train=dataclasses.replace(exp.train, **dict(train)))
+                      train=dataclasses.replace(exp.train, **dict(train)),
+                      mesh=mesh or MeshConfig())
     system = SRSystem(exp, device="cpu")
-    coins = []
+    coins, calls = [], []
     draw = tsteps.draw_coins
-    patches = _sgd() + (_seeded_draws() if seeded_draws else (
+    patches = _sgd() + _norm_calls(calls) + (_seeded_draws() if seeded_draws else (
         (tsteps, "draw_coins", lambda s, g: coins.append(draw(s, g)) or coins[-1]),))
     with _Patches(*patches), warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the random-VGG warning
@@ -159,13 +195,13 @@ def step_run(weights=None, model=(), seeded_draws: bool = False, nudge_seed=None
         if nudge_seed is not None:
             nudge(system, 1, nudge_seed)
         step = tsteps.make_train_step(system)
-        batch = rows(batch_for(exp.model, False, batch=GLOBAL_BATCH), distributed.rank(),
-                     distributed.world_size())
+        batch = rows(batch_for(exp.model, False, batch=GLOBAL_BATCH), distributed.data_rank(),
+                     distributed.data_world())
         out = []
         for _ in range(STEPS):
             logs = step(state, batch)
             out.append(({k: float(v) for k, v in logs.items()}, snapshot(system)))
-    return {"steps": out, "coins": coins}
+    return {"steps": out, "coins": coins, "norm_calls": calls}
 
 
 def eval_system():
@@ -292,8 +328,210 @@ def _norms_task(out_dir: str):
     return out
 
 
+# -- tensor parallelism (tests/test_torch_tp_*.py) ------------------------------
+
+
+def _tp_step_task(out_dir: str):
+    """The noise steps of the tiny model laid out as `tp_mesh`, and at one
+    data rank also the seeded and the remat "full" ones, with the
+    collectives' counts."""
+    from deepsee_torch.parallel import tensor as tp
+
+    weights = torch.load(os.path.join(out_dir, "weights.pt"), weights_only=True)
+    mesh = tp_mesh()
+    tp.reset_counts()
+    out = {"noise": step_run(weights, mesh=mesh)}
+    if mesh.data_axis == 1:
+        out["seeded"] = step_run(weights, model=dict(add_noise=False), seeded_draws=True,
+                                 mesh=mesh)
+        out["noise_remat"] = step_run(weights, train=dict(remat=True), mesh=mesh)
+    out["counts"] = {k: dict(v) for k, v in tp.counts.items()}
+    return out
+
+
+def _gathered_grads(module):
+    """Every parameter's gradient, the sharded ones gathered."""
+    from deepsee_torch.parallel import tensor as tp
+
+    axis = {"column": 0, "row": 1}
+    return {name: (tp.all_gather_values(p.grad, axis[p.tp_shard])
+                   if getattr(p, "tp_shard", None) else p.grad.clone())
+            for name, p in module.named_parameters()}
+
+
+def conv_pair_run():
+    """A spectral conv pair (16 -> 32 -> 16 channels) in train mode, the
+    first column- and the second row-sharded where there are model ranks:
+    the output, every gradient (gathered) and u / v after the forward."""
+    from deepsee_torch.parallel import tensor as tp
+
+    g = torch.Generator().manual_seed(5)
+    convs = [tlayers.Conv2d(16, 32, 3, spectral=True), tlayers.Conv2d(32, 16, 3, spectral=True)]
+    for conv in convs:
+        conv.init_params(g)
+        with torch.no_grad():
+            conv.weight_orig.mul_(30.0)  # sigma well away from 1
+            conv.bias.copy_(0.1 * torch.randn(conv.bias.shape, generator=g))
+    fresh_uv = [(c.weight_u.clone(), c.weight_v.clone()) for c in convs]
+    x = torch.randn(2, 16, 8, 8, generator=g).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    w = torch.randn(2, 16, 8, 8, generator=g)
+    if distributed.model_world() > 1:
+        shard.shard_module(convs[0], {"weight_orig": tp.COLUMN, "bias": tp.COLUMN})
+        shard.shard_module(convs[1], {"weight_orig": tp.ROW, "bias": None})
+    h = convs[0](x)
+    y = convs[1](tlayers.leaky_relu(h), sharded=convs[0].out_sharded)
+    (y * w).sum().backward()
+    return {"y": y.detach(), "x_grad": x.grad,
+            "grads": [_gathered_grads(c) for c in convs],
+            "uv": [(c.weight_u.clone(), c.weight_v.clone()) for c in convs],
+            "uv_moved": torch.tensor([float((c.weight_u - u).norm() + (c.weight_v - v).norm())
+                                      for c, (u, v) in zip(convs, fresh_uv)])}
+
+
+def sean_run(norm_1: bool):
+    """A train-mode SEANBlock of 16 channels (batch statistics), its four
+    modulation convs column-sharded where there are model ranks, and with
+    `norm_1` its mlp_shared too (the JAX plan under norm_1) and its input
+    given as this rank's channel block: the output (gathered), the
+    gradients of x, the style and every parameter (gathered), the running
+    statistics."""
+    from deepsee_torch.parallel import tensor as tp
+
+    exp = tiny_test_experiment()
+    block = tnorm.SEANBlock(exp.model, 16).train()
+    g = torch.Generator().manual_seed(6)
+    for m in block.modules():
+        if hasattr(m, "init_params"):
+            m.init_params(g)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    x = (torch.randn(2, 16, 8, 8, generator=g) * 2 + 0.5).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    seg = torch.nn.functional.one_hot(torch.randint(0, exp.model.semantic_nc, (2, 8, 8),
+                                                    generator=g), exp.model.semantic_nc)
+    seg = seg.permute(0, 3, 1, 2).float().contiguous(memory_format=torch.channels_last)
+    style = torch.randn(2, exp.model.label_nc, exp.model.regional_style_size,
+                        generator=g).requires_grad_(True)
+    w = torch.randn(2, 16, 8, 8, generator=g)
+    sharded = norm_1 and distributed.model_world() > 1
+    if distributed.model_world() > 1:
+        shard.shard_module(block, {
+            name: (tp.COLUMN if name.startswith("mlp_") and (norm_1 or "shared" not in name)
+                   else None) for name, _ in block.named_parameters()})
+    inp = tp.scatter(x) if sharded else x
+    out = block(inp, seg, style, lrelu=True, sharded=sharded)
+    out = tp.full(out, block.out_sharded)
+    (out * w).sum().backward()
+    norm = block.param_free_norm
+    return {"out": out.detach(), "x_grad": x.grad, "style_grad": style.grad,
+            "grads": _gathered_grads(block),
+            "running": (norm.running_mean.clone(), norm.running_var.clone())}
+
+
+def eval_generator_run():
+    """The tiny model in eval mode (K1's affine mode), seeded trained-like
+    weights, laid out as `tp_mesh` where there are ranks: the fake and the
+    style of a batch."""
+    from deepsee_torch.weights import randomize_weights
+
+    exp = tiny_test_experiment().replace(is_train=False)
+    system = SRSystem(exp, device="cpu")
+    system.init(torch.Generator().manual_seed(2))
+    randomize_weights(system.networks().values(), torch.Generator().manual_seed(3))
+    if distributed.world_size() > 1:
+        mesh = tp_mesh()
+        distributed.set_model_axis(mesh.model_axis)
+        shard.shard_system(system, mesh)
+    batch = batch_for(exp.model, False, batch=2)
+    fake, style = system.generate(system.preprocess(batch), use_full=False)
+    return {"fake": fake.clone(), "style": style.clone()}
+
+
+def _tp_ops_task(out_dir: str):
+    distributed.set_model_axis(TP_MODEL_AXIS)
+    return {"conv_pair": conv_pair_run(), "sean_norm_0": sean_run(False),
+            "sean_norm_1": sean_run(True), "eval_generator": eval_generator_run()}
+
+
+def tp_trainer_exp(root: str, **train):
+    """The tensor-parallel trainer tasks' experiment: the tiny model at
+    batch 2 (one data rank), an evaluation of 4 samples after 2 steps,
+    laid out as `tp_mesh` where there are ranks."""
+    exp = tiny_test_experiment(checkpoints_dir=root)
+    mesh = tp_mesh() if distributed.world_size() > 1 else MeshConfig()
+    return exp.replace(mesh=mesh, train=dataclasses.replace(
+        exp.train, evaluation_freq=4, num_evaluation_samples=4, **train))
+
+
+def trainer_batches():
+    """Two NHWC batches of 2 (tests/test_torch_trainer.py's)."""
+    import numpy as np
+
+    cfg = tiny_test_experiment().model
+    rng = np.random.RandomState(0)
+    return [{"image_hr": np.tanh(rng.randn(2, 32, 32, 3)).astype(np.float32),
+             "label": rng.randint(0, cfg.label_nc, (2, 32, 32)).astype(np.int32)}
+            for _ in range(2)]
+
+
+def trainer_state(trainer):
+    """The trainer's networks and both optimizers' states, gathered."""
+    import copy
+
+    return {"snapshot": snapshot(trainer.system), "step": trainer.state.step,
+            "opt": {k: copy.deepcopy(shard.gather_optimizer_state(getattr(trainer.state, k)))
+                    for k in ("opt_g", "opt_d")}}
+
+
+def _tp_trainer_task(out_dir: str):
+    """(1) Two fresh steps with an in-training evaluation, the latest
+    checkpoint written, the state, and the evaluator on the gathered
+    networks; (2) the one-process checkpoint in OUT_DIR/one restored (the
+    state right after) and one more step."""
+    from deepsee_torch.eval.evaluator import evaluate_set
+    from deepsee_torch.train import loop
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fresh = loop.Trainer(tp_trainer_exp(os.path.join(out_dir, "tp")), device="cpu")
+        fresh.run(trainer_batches(), max_steps=2)
+        result = evaluate_set(InferenceEvaluator(fresh._inference_system(), 4),
+                              trainer_batches())
+        result.pop("eval_seconds")
+        out = {"fresh": trainer_state(fresh), "eval": result}
+        resumed = loop.Trainer(tp_trainer_exp(os.path.join(out_dir, "one")), device="cpu",
+                               continue_train=True)
+        out["restored"] = trainer_state(resumed)
+        resumed.run(trainer_batches(), max_steps=3)
+        out["resumed"] = trainer_state(resumed)
+    return out
+
+
+def _tp_cli_task(out_dir: str):
+    """python -m deepsee_torch.train --multihost --model_axis 2 on the
+    tiny model (its own process group)."""
+    from deepsee_torch.train import __main__ as train_cli
+
+    def preset(name):
+        return tiny_test_experiment().replace(name=name)
+
+    os.environ["MASTER_PORT"] = os.environ["CLI_PORTS"].split(",")[0]
+    with _Patches((train_cli, "get_preset", preset)), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        code = train_cli.main(["--name", "tiny", "--multihost", "--model_axis", "2", "--device",
+                               "cpu", "--synthetic", "--batch_size", "2", "--max_steps", "2",
+                               "--checkpoints_dir", os.path.join(out_dir, "tp_cli")])
+    return {"train_exit": code}
+
+
 TASKS = {"step": _step_task, "norms": _norms_task, "eval": lambda out_dir: eval_run(),
-         "trainer": _trainer_task}
+         "trainer": _trainer_task, "tp_step": _tp_step_task, "tp_ops": _tp_ops_task,
+         "tp_trainer": _tp_trainer_task}
+# tasks that join no group themselves (the CLIs do, with --multihost)
+UNGROUPED = {"cli": _cli_task, "tp_cli": _tp_cli_task}
 
 
 def free_ports(n: int):
@@ -360,16 +598,19 @@ class Spawned:
 def main() -> None:
     out_dir, tasks = sys.argv[1], sys.argv[2].split(",")
     torch.set_num_threads(1)
-    grouped = [task for task in tasks if task != "cli"]
+    shard.MIN_SHARD_CH = TP_MIN_SHARD_CH
+    grouped = [task for task in tasks if task not in UNGROUPED]
     results = {}
     if grouped:
         distributed.init_distributed("gloo", device="cpu")
         try:
             results = {task: TASKS[task](out_dir) for task in grouped}
         finally:
+            distributed.reset_layout()
             torch.distributed.destroy_process_group()
-    if "cli" in tasks:
-        results["cli"] = _cli_task(out_dir)
+    for task in tasks:
+        if task in UNGROUPED:
+            results[task] = UNGROUPED[task](out_dir)
     torch.save(results, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))
 
 

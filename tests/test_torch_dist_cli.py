@@ -1,7 +1,7 @@
 """The data-parallel layer's refusals and one-process behaviour, without
 processes (the CLIs over two ranks: tests/test_torch_dist_trainer.py):
-`--data_axis` without a world of its size, tensor parallelism and spatial
-sharding are refused, each naming its slice; the encoder's and the
+`--data_axis` or `--model_axis` without a world of its size is refused, and
+spatial sharding is refused naming its slice; the encoder's and the
 discriminator's batch norms take the global batch's statistics over a
 simulated second rank; without a process group every function of
 deepsee_torch.parallel is the one-process identity."""
@@ -34,8 +34,16 @@ def test_data_axis_needs_a_world_of_its_size(monkeypatch):
             check_data_parallel(tiny_test_experiment().replace(mesh=mesh), world)
 
 
+def test_model_axis_needs_a_world_of_its_size(monkeypatch):
+    monkeypatch.setattr(cli, "get_preset", lambda name: tiny_test_experiment())
+    with pytest.raises(ValueError, match="x model_axis 2 = 2 ranks, but the world has 1 process"):
+        cli.main(["--model_axis", "2", "--synthetic", "--device", "cpu", "--max_steps", "1"])
+    with pytest.raises(ValueError, match="x model_axis 2 = 4 ranks, but the world has 2"):
+        check_data_parallel(tiny_test_experiment().replace(
+            mesh=MeshConfig(data_axis=2, model_axis=2)), 2)
+
+
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--model_axis", "2"], "tensor-parallel slice"),
     (["--partition", "spatial"], "spatial-sharding slice")])
 def test_layouts_of_later_slices_are_refused(capsys, flags, slice_name):
     with pytest.raises(SystemExit):
@@ -97,7 +105,6 @@ def test_encoder_and_discriminator_batch_norms_take_the_global_batch(monkeypatch
 
 
 @pytest.mark.parametrize("mesh,slice_name", [
-    (MeshConfig(model_axis=2), "tensor-parallel slice"),
     (MeshConfig(partition="spatial"), "spatial-sharding slice")])
 def test_trainer_refuses_the_layouts_of_later_slices(mesh, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):

@@ -164,3 +164,26 @@ def test_chip_smoke_fails_outside_checkout(tmp_path):
     run = _chip_smoke(tmp_path, env)
     assert run.returncode != 0
     assert '"ok"' not in run.stdout
+
+
+def test_tensor_parallel_modules_are_checked():
+    """The tensor-parallel layer (its collectives and its plan) is among the
+    files the import checks above cover."""
+    for name in ("tensor.py", "shard.py", "distributed.py"):
+        assert REPO / "deepsee_torch" / "parallel" / name in PORT_FILES
+
+
+def test_a_layout_without_its_ranks_raises():
+    """A model axis that the processes do not make up raises: nothing
+    carries on in one process, and the collectives refuse to run without
+    their group."""
+    from deepsee_torch.config import MeshConfig
+    from deepsee_torch.parallel import shard
+    from deepsee_torch.train.state import create_train_state
+
+    exp = tiny_test_experiment().replace(mesh=MeshConfig(model_axis=2))
+    system = SRSystem(exp, device="cpu")
+    with pytest.raises(ValueError, match="does not divide the world of 1"):
+        create_train_state(system)
+    with pytest.raises(ValueError, match="the model group has 1 rank"):
+        shard.shard_system(system, exp.mesh)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 
 import jax
@@ -92,8 +93,10 @@ def patched(independent: bool):
         yield
 
 
+@functools.cache
 def initial_variables(jexp):
-    """The JAX init made nontrivial.  Drawn without remat, whatever jexp
+    """The JAX init made nontrivial, once per configuration (the trees are
+    read, never written, by their users).  Drawn without remat, whatever jexp
     says: flax's nn.remat draws other initial values for the same tree, so
     a step with remat starts from the weights of the step without.  At the
     remat draw the steps without remat part by 2.1e-5 in a running variance
