@@ -316,7 +316,7 @@ def kernel_shapes(cfg: ModelConfig, batch: int):
 
 def _kernel_inputs(shape, with_mod, dtype, gen):
     b, c, h, w = shape
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.5).to(dtype)
     x = x.contiguous(memory_format=torch.channels_last)
     mod = None
@@ -1245,17 +1245,23 @@ def _library_train(stats, backward, x, gout, mean, rstd):
         g1, x1, None, None, None, m1, r1, True, 1e-5, mask)
 
 
-def train_kernel_phase(cfg: ModelConfig, batch: int, timed: bool = True):
-    """Each training kernel against its plain version at every shape of the
-    training step at `batch` (either coin), bf16 and float32: the forward
-    (out, mean, rstd) and the backward (grad_x, grad_mod) on the plain
-    version's statistics.  Where `timed`, bf16: device ms, plain ms, library
-    ms and bound of each, forward and backward."""
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+def train_shapes(cfg: ModelConfig, batch: int):
+    """Every K1 training launch's (stats, shape, with_mod, lrelu) of the
+    training step at `batch` (either coin), once each."""
     shapes = {}
     for g_full in (True, False):
         for stats, shape, m, lrelu, _, _ in train_norms(cfg, batch, g_full):
             shapes[(stats, shape, m, lrelu)] = None
+    return list(shapes)
+
+
+def train_kernel_phase(shapes, timed: bool = True):
+    """Each training kernel against its plain version at every
+    (stats, shape, with_mod, lrelu) of `shapes`, bf16 and float32: the
+    forward (out, mean, rstd) and the backward (grad_x, grad_mod) on the
+    plain version's statistics.  Where `timed`, bf16: device ms, plain ms,
+    library ms and bound of each, forward and backward."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     rows = []
     for stats, shape, with_mod, lrelu in shapes:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1798,8 +1804,8 @@ def training_phase(smi: str):
             got = train_launches(train_norms(cfg, TRAIN_BATCH, g_full, regen))
             if got != want:
                 raise AssertionError(f"the training step's norms give {got}, not {want}")
-    rows = train_kernel_phase(cfg, TRAIN_BATCH)
-    rows += train_kernel_phase(cfg, TRAIN_BATCH_LARGE, timed=False)
+    rows = train_kernel_phase(train_shapes(cfg, TRAIN_BATCH))
+    rows += train_kernel_phase(train_shapes(cfg, TRAIN_BATCH_LARGE), timed=False)
     log(f"train kernel phase: {time.perf_counter() - t0:.1f} s")
     train_gradient_checks(TRAIN_BATCH)
     launches, times, b4 = drive_train("train b4", TRAIN_BATCH, rows=rows)
@@ -3143,8 +3149,60 @@ TP_BF16_STEPS = 3
 # statistics, largest leaf, 2.7e-4 / 0.82 (mean), 6.19 (var).
 MAX_TP_UPDATE_REL = {"g": 0.3, "e": 0.14, "d": 0.35}
 MAX_TP_RUNNING_REL = 0.015
+# float32 (TF32 off), before any optimizer: the G, E and D gradients of one
+# step of the two ranks (`_tp_grads`: SGD at lr 0, so the D step's
+# regeneration sees the same G; the coins TP_COINS), gathered, against one
+# process's, leaf by leaf (`_grad_readings`: per network the largest
+# relative L2 of a leaf).  Here only summation order parts them, where the
+# Adam update above turns it into whole steps; the one process's own spread
+# under a one-ulp nudge is printed beside.  The second planted fault
+# (`_alphas_unsummed`: SEAN's alphas without the copy that sums their
+# gradient over the model group, so after the ranks' mean of the replicated
+# gradients it is half of one process's) must break it; Adam's first step,
+# which moves each parameter by about lr times the sign of its gradient,
+# cannot see it.  First H100 run of this check (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md), sound / one-ulp nudge of one process / planted fault: G 0.0287
+# (an alpha) / 0.0256 (an alpha) / 0.506 (an alpha), E 4.5e-3 / 5.2e-3 / -,
+# D 6.2e-4 / 2.2e-3 / -: the ranks part from one process about as far as a
+# one-ulp nudge moves it, most on SEAN's alphas, whose gradients are sums
+# that mostly cancel.  G's limit near the
+# geometric mean of its sound and faulty reading; E's and D's about four
+# times the larger of their sound and nudged readings (the fault is in G).
+MAX_TP_GRAD_REL = {"g": 0.12, "e": 0.02, "d": 0.01}
+TP_COINS = (True, False)       # the full trunk, the style noise on
 # the tp line's K1 rows: the training modes, per step and rank
 TP_K1_MODES = ("batch", "instance_train", "backward_batch", "backward_instance")
+
+
+def _alphas_unsummed():
+    """The second planted fault: models/normalization.py's view of
+    parallel/tensor.py with `copy` the identity.  Its one call of copy there
+    is on SEAN's alphas, which each model rank uses on its channel blocks
+    alone: their gradient is then this rank's part, not the group's sum."""
+    import types
+
+    from deepsee_torch.parallel import tensor as tp
+
+    return types.SimpleNamespace(**dict(vars(tp), copy=lambda x: x))
+
+
+@contextlib.contextmanager
+def _planted(fault: Optional[str]):
+    """The planted fault `fault` ("sigma": `_local_sigma`; "alpha":
+    `_alphas_unsummed`; None: none) in place while the block runs."""
+    from deepsee_torch.models import normalization
+
+    saved = layers_mod._sigma, normalization.tp
+    if fault == "sigma":
+        layers_mod._sigma = _local_sigma
+    elif fault == "alpha":
+        normalization.tp = _alphas_unsummed()
+    elif fault is not None:
+        raise ValueError(f"no planted fault {fault!r}")
+    try:
+        yield
+    finally:
+        layers_mod._sigma, normalization.tp = saved
 
 
 def _local_sigma(w_mat, u, v, mode):
@@ -3178,8 +3236,10 @@ def _state_bytes(state) -> dict:
 
 
 @contextlib.contextmanager
-def _k1_widths(widths: dict):
-    """Count K1's training forward calls by (mode, channels) into `widths`."""
+def _k1_widths(widths: dict, shapes: Optional[set] = None):
+    """Count K1's training forward calls by (mode, channels) into `widths`;
+    with `shapes`, add each one-launch call's (stats, shape, with_mod,
+    lrelu) to it (its backward runs at the same)."""
     from deepsee_torch.models import normalization
 
     patched = [(normalization, "modnorm_train"), (layers_mod, "modnorm_train"),
@@ -3190,6 +3250,9 @@ def _k1_widths(widths: dict):
         def call(x, mod=None, **kw):
             key = f"{'split' if split else kw.get('stats')}@{x.shape[1]}"
             widths[key] = widths.get(key, 0) + 1
+            if shapes is not None and not split:
+                shapes.add((kw["stats"], tuple(x.shape), mod is not None,
+                            bool(kw.get("lrelu", False))))
             return fn(x, mod, **kw)
         return call
 
@@ -3202,14 +3265,15 @@ def _k1_widths(widths: dict):
             setattr(mod, name, fn)
 
 
-def _tp_steps(compute_dtype: str, steps: int, *, timed: bool = False, fault: bool = False,
-              nudge_ulps: int = 0) -> dict:
+def _tp_steps(compute_dtype: str, steps: int, *, timed: bool = False,
+              fault: Optional[str] = None, nudge_ulps: int = 0) -> dict:
     """PRESET at full width, b2, laid out over this process's world
     (model_axis = world) or in one process: `steps` faithful steps from the
     seeded weights (with `timed`, after a warm-up step, timed).
     The gathered state before and after (float32), and for `timed` runs ms
     per step by CUDA events, gloo's host ms, the collectives, K1's launches
-    and widths, layout copies, peak memory and the state's bytes."""
+    and widths, layout copies, peak memory and the state's bytes.  `fault`:
+    the planted fault of that name (`_planted`)."""
     from deepsee_torch.parallel import distributed
     from deepsee_torch.parallel import tensor as tp
 
@@ -3222,11 +3286,8 @@ def _tp_steps(compute_dtype: str, steps: int, *, timed: bool = False, fault: boo
     before = _gathered_state(system) if compute_dtype == "float32" else None
     step = train_steps.make_train_step(system)
     batch = make_batch(system.cfg, TP_BATCH)
-    sigma = layers_mod._sigma
-    if fault:
-        layers_mod._sigma = _local_sigma
     out = {"rank": distributed.rank(), "world": world, "card": torch.cuda.get_device_name(0)}
-    try:
+    with _planted(fault):
         if not timed:
             for _ in range(steps):
                 step(state, batch)
@@ -3273,14 +3334,50 @@ def _tp_steps(compute_dtype: str, steps: int, *, timed: bool = False, fault: boo
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "state": _state_bytes(state)})
         return out
-    finally:
-        layers_mod._sigma = sigma
+
+
+def _tp_grads(fault: Optional[str] = None, nudge_ulps: int = 0) -> dict:
+    """The G, E and D gradients (on the CPU) of one float32 step of PRESET
+    at b2 from the seeded weights, laid out over this process's world
+    (model_axis = world) or in one process: `_one_step` (SGD at lr 0,
+    TP_COINS), the sharded ones gathered; with `fault` planted, or the
+    weights nudged by `nudge_ulps`."""
+    from deepsee_torch.parallel import distributed, shard
+
+    mesh = MeshConfig(model_axis=distributed.world_size())
+    system = train_system(PRESET, TP_BATCH, model=dict(compute_dtype="float32"), mesh=mesh)
+    if nudge_ulps:
+        _nudge(system, nudge_ulps, torch.Generator().manual_seed(SEED + 7))
+    with _planted(fault):
+        _, _, state = _one_step(system, make_batch(system.cfg, TP_BATCH), TP_COINS)
+    return {net: {n: shard.gathered(p, opt.grads[p]).cpu() for n, p in module.named_parameters()}
+            for net, module, opt in (("g", system.generator, state.opt_g),
+                                     ("e", system.encoder, state.opt_g),
+                                     ("d", system.discriminator, state.opt_d))}
+
+
+def _grad_readings(got, want, part: str = "") -> dict:
+    """Per network the leaf (of those whose name holds `part`) whose
+    gradient in `got` lies farthest from `want`'s (relative L2, the
+    resblocks' conv_0 biases left out: a batch norm follows them, so their
+    true gradient is 0) and that reading."""
+    out = {}
+    for net in want:
+        rel = {k: float((got[net][k].double() - want[net][k].double()).norm()
+                        / want[net][k].double().norm().clamp_min(1e-30))
+               for k in want[net] if part in k and not k.endswith("conv_0.bias")}
+        if rel:
+            leaf = max(rel, key=rel.get)
+            out[net] = {"rel": rel[leaf], "leaf": leaf}
+    return out
 
 
 def tp_rank(rank: int, port: int, out_dir: str) -> None:
     """One of TP_WORLD model ranks on the one card over gloo (NCCL takes one
-    card per rank), TF32 off: the float32 steps, the planted fault's, then
-    the bf16 timed steps, into out_dir/rank<R>.pt."""
+    card per rank), TF32 off: the float32 gradients, sound and with the
+    planted alpha fault, the float32 steps, the planted sigma fault's, then
+    the bf16 timed steps, into out_dir/rank<R>.pt, with the
+    (stats, shape, with_mod, lrelu) of every K1 training call they made."""
     from deepsee_torch.parallel import distributed
 
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(TP_WORLD), MASTER_ADDR="127.0.0.1",
@@ -3289,12 +3386,15 @@ def tp_rank(rank: int, port: int, out_dir: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     distributed.init_distributed("gloo", device="cuda")
     try:
-        with warnings.catch_warnings():
+        shapes: set = set()
+        with warnings.catch_warnings(), _k1_widths({}, shapes):
             warnings.simplefilter("ignore")  # the random-VGG warning
-            result = {"float32": _tp_steps("float32", TP_F32_STEPS)}
-            result["float32_fault"] = _tp_steps("float32", TP_F32_STEPS, fault=True)
+            result = {"grads": _tp_grads(), "grads_fault": _tp_grads(fault="alpha")}
+            result["float32"] = _tp_steps("float32", TP_F32_STEPS)
+            result["float32_fault"] = _tp_steps("float32", TP_F32_STEPS, fault="sigma")
             torch.cuda.empty_cache()
             result["bfloat16"] = _tp_steps("bfloat16", TP_BF16_STEPS, timed=True)
+        result["k1_shapes"] = sorted(shapes)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         distributed.reset_layout()
@@ -3306,22 +3406,50 @@ def tp_phase(smi: str) -> dict:
     gloo, PRESET at full width (the 512-wide trunk, min_shard_ch 128, every
     trunk conv sharded), global b2 on both ranks.  Float32 (TF32 off): the
     ranks' gathered states bit for bit alike and within MAX_TP_UPDATE_REL /
-    MAX_TP_RUNNING_REL of one process, which the planted fault must break
-    (the one process runs here while the ranks run).  bf16: the "tp" line.
-    Returns the K1 launches per step and rank for the kernels line."""
+    MAX_TP_RUNNING_REL of one process, which the planted sigma fault must
+    break; before that, the first step's gradients bit for bit alike and
+    within MAX_TP_GRAD_REL of one process's, leaf by leaf, which the planted
+    alpha fault must break (the one process runs here while the ranks run).
+    Then every K1 training call the ranks made, (stats, shape, with_mod,
+    lrelu), held against its plain version (`train_kernel_phase`).  bf16:
+    the "tp" line.  Returns the K1 launches per step and rank for the
+    kernels line."""
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="deepsee_tp_")
 
     def one_process():
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            return (_tp_steps("float32", TP_F32_STEPS),
+            return ({"sound": _tp_grads(), "nudged": _tp_grads(nudge_ulps=1)},
+                    _tp_steps("float32", TP_F32_STEPS),
                     _tp_steps("float32", TP_F32_STEPS, nudge_ulps=1)["state"])
 
     try:
-        ranks, (one, nudged) = spawned_ranks(tp_rank, TP_WORLD, root, one_process)
+        ranks, (one_grads, one, nudged) = spawned_ranks(tp_rank, TP_WORLD, root, one_process)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    grad_sums = [_checksum(r["grads"]) for r in ranks]
+    want = one_grads["sound"]
+    grads = {"preset": PRESET, "model_ranks": TP_WORLD, "batch": TP_BATCH, "coins": TP_COINS,
+             "checksums": grad_sums, "vs_one_process": _grad_readings(ranks[0]["grads"], want),
+             "alphas_vs_one_process": _grad_readings(ranks[0]["grads"], want, "alpha_"),
+             "one_process_nudged_1ulp": _grad_readings(one_grads["nudged"], want),
+             "alphas_one_process_nudged_1ulp": _grad_readings(one_grads["nudged"], want,
+                                                              "alpha_"),
+             "planted_fault_alphas_unsummed": _grad_readings(ranks[0]["grads_fault"], want),
+             "limits": MAX_TP_GRAD_REL, "card": smi}
+    log("tp float32 gradients " + json.dumps(grads))
+    if len(set(grad_sums)) != 1:
+        raise AssertionError(f"the ranks' gathered gradients differ: {grad_sums}")
+    broken = [f"{net} {r['leaf']} {r['rel']:.3e} > {MAX_TP_GRAD_REL[net]}"
+              for net, r in grads["vs_one_process"].items() if r["rel"] > MAX_TP_GRAD_REL[net]]
+    if broken:
+        raise AssertionError(f"two model ranks' gradients differ from one process's: {broken}")
+    if all(r["rel"] <= MAX_TP_GRAD_REL[net]
+           for net, r in grads["planted_fault_alphas_unsummed"].items()):
+        raise AssertionError("the planted unsummed alphas pass the gradient limits: the check "
+                             f"cannot see them ({grads['planted_fault_alphas_unsummed']})")
+    del one_grads, want
     sums = [_checksum(r["float32"]["state"]) for r in ranks]
     sound = _dp_readings(ranks[0]["float32"]["state"], one["state"], one["before"])
     fault = _dp_readings(ranks[0]["float32_fault"]["state"], one["state"], one["before"])
@@ -3342,6 +3470,14 @@ def tp_phase(smi: str) -> dict:
                              f"it ({fault})")
     del one, nudged
     torch.cuda.empty_cache()
+    shapes = [tuple(s) for s in ranks[0]["k1_shapes"]]
+    if not shapes or any(r["k1_shapes"] != ranks[0]["k1_shapes"] for r in ranks):
+        raise AssertionError("the model ranks made no K1 training call, or other ones")
+    checked = train_kernel_phase(shapes, timed=False)
+    log("tp K1 shapes checked " + json.dumps(
+        {"shapes": [list(s) for s in shapes], "rows": len(checked),
+         "max_abs_err": max(r["max_abs_err"] for r in checked),
+         "bwd_max_abs_err": max(r["bwd_max_abs_err"] for r in checked)}))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         one16 = _tp_steps("bfloat16", TP_BF16_STEPS, timed=True)

@@ -16,8 +16,8 @@ torch.inference_mode, whose tensors autograd cannot save.
 Tensor parallelism (deepsee_torch/parallel/): a conv's `shard` is "column"
 (this rank holds a block of its output channels and of its bias), "row" (a
 block of its input channels; the bias whole, added once after the partial
-outputs are summed) or None (replicated), as parallel/shard.py's plan sets
-it.  Layers take `sharded=True` where their input holds this rank's channel
+outputs are summed) or None (replicated): the `tp_shard` that
+parallel/shard.py's plan puts on its weight.  Layers take `sharded=True` where their input holds this rank's channel
 block and say through `out_sharded` whether their output does; the
 collectives in between are parallel/tensor.py's.
 """
@@ -192,7 +192,6 @@ class Conv2d(nn.Module):
     shard's block of v is contiguous).
     """
 
-    shard = None   # "column" | "row" | None, set by parallel/shard.py
 
     def __init__(self, fin: int, fout: int, kernel_size: int = 3, stride: int = 1,
                  padding: int = 1, bias: bool = True, spectral: bool = False):
@@ -229,6 +228,11 @@ class Conv2d(nn.Module):
                 self.weight_v.copy_(v)
             u, v = self.weight_u.clone(), self.weight_v.clone()
         return w / _sigma(w_mat, u, v, self.shard)
+
+    @property
+    def shard(self):
+        """"column", "row" or None: the role parallel/shard.py gave the weight."""
+        return getattr(self.weight_orig if self.spectral else self.weight, "tp_shard", None)
 
     @property
     def out_sharded(self) -> bool:

@@ -68,8 +68,6 @@ class ConvParams(nn.Module):
     """Weight and bias of a conv that is folded into another one at forward;
     shaped like the reference's conv so checkpoints map one to one."""
 
-    shard = None   # "column" | None, set by parallel/shard.py
-
     def __init__(self, cin: int, cout: int, ks: int = 3):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin, ks, ks))
@@ -78,6 +76,11 @@ class ConvParams(nn.Module):
     def init_params(self, generator: torch.Generator) -> None:
         xavier_normal_(self.weight, generator)
         nn.init.zeros_(self.bias)
+
+    @property
+    def shard(self):
+        """"column" or None: the role parallel/shard.py gave the weight."""
+        return getattr(self.weight, "tp_shard", None)
 
 
 def style_to_pixels(segmap: torch.Tensor, style: torch.Tensor) -> torch.Tensor:

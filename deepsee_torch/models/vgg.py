@@ -10,8 +10,8 @@ Without a file the weights are random (he-normal, as flax's init), which the
 trainer announces: a valid but weaker perceptual loss.
 
 Tensor parallelism (deepsee_tpu/parallel/mesh.py:163-165, `_vgg_spec`):
-`shards[i]` is conv i's "column", "row" or None, as parallel/shard.py sets
-it; the weights are frozen, but the fake's gradient flows through, so a
+conv i's "column", "row" or None is the `tp_shard` that parallel/shard.py
+puts on its weight; the weights are frozen, but the fake's gradient flows through, so a
 column conv's replicated input goes through `copy`.  Every tap lands after
 a row or replicated conv, so the features come out with every channel.
 """
@@ -48,7 +48,6 @@ class VGG19Features(nn.Module):
                 layers += [nn.Conv2d(cin, spec, 3, padding=1), nn.ReLU()]
                 cin = spec
         self.features = nn.Sequential(*layers)
-        self.shards = [None] * sum(isinstance(m, nn.Conv2d) for m in layers)
 
     def init_params(self, generator: torch.Generator) -> None:
         """flax's he_normal: truncated normal (+-2 std) with variance
@@ -67,7 +66,7 @@ class VGG19Features(nn.Module):
         y = x.to(self.dtype)
         for m in self.features:
             if isinstance(m, nn.Conv2d):
-                shard = self.shards[convs]
+                shard = getattr(m.weight, "tp_shard", None)
                 y = tp.conv_input(y, sharded, shard)
                 bias = m.bias.to(y.dtype)
                 y = F.conv2d(y, m.weight.to(y.dtype), None if shard == tp.ROW else bias,

@@ -18,8 +18,8 @@ stay replicated, full and equal on every rank (mesh.py:225-227).
 `shard_system` keeps, on each rank, its block of every sharded parameter
 (in place, before the optimizers are made: their Adam moments then shard
 exactly as their parameters, which is what train_state_shardings's
-_map_like does) and tells the layers their role (`Conv2d.shard`,
-`ConvParams.shard`, `VGG19Features.shards`).  `gather_state_dict` and
+_map_like does), each parameter's spec in its `tp_shard`, which is
+where the layers read their role (`Conv2d.shard`, `ConvParams.shard`).  `gather_state_dict` and
 `gather_optimizer_state` put the blocks of every model rank back together
 (for the checkpoint, the in-training evaluation and the display, as
 host_local_variables does); `local_state_dict` and `local_optimizer_state`
@@ -136,22 +136,15 @@ def _block(t: torch.Tensor, spec: str) -> torch.Tensor:
 
 
 def shard_module(net: nn.Module, plan: Mapping[str, Optional[str]]) -> None:
-    """This rank's block of every parameter the plan shards, in place, each
-    parameter's spec in its `tp_shard`, and each layer told its role."""
+    """This rank's block of every parameter the plan shards, in place, and
+    each parameter's spec in its `tp_shard` (the layers read their role
+    there)."""
     params = dict(net.named_parameters())
     with torch.no_grad():
         for name, spec in plan.items():
             params[name].tp_shard = spec
             if spec is not None:
                 params[name].data = _block(params[name].data, spec)
-    if isinstance(net, VGG19Features):
-        convs = [q for q, m in net.named_modules() if isinstance(m, nn.Conv2d)]
-        net.shards = [plan[_key(q, "weight")] for q in convs]
-    else:
-        for q, m in net.named_modules():
-            if isinstance(m, (Conv2d, ConvParams)):
-                weight = "weight_orig" if getattr(m, "spectral", False) else "weight"
-                m.shard = plan.get(_key(q, weight))
 
 
 def _spec(p: torch.Tensor) -> Optional[str]:
@@ -172,13 +165,19 @@ def shard_system(system, mesh: MeshConfig) -> None:
         shard_module(net, shard_plan(net, n, MIN_SHARD_CH))
 
 
+def gathered(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """t, shaped as this rank's block of parameter p (its value, its
+    gradient), whole: the blocks of the model ranks concatenated where p is
+    sharded, t itself where not.  Every rank of the model group calls it."""
+    return tp.all_gather_values(t, _AXIS[_spec(p)]) if _spec(p) else t
+
+
 def gather_state_dict(net: nn.Module) -> Dict[str, torch.Tensor]:
     """`net`'s state_dict with every sharded parameter whole (the blocks of
     the model ranks concatenated).  Every rank of the model group calls it."""
     sd = net.state_dict()
     for name, p in net.named_parameters():
-        if _spec(p):
-            sd[name] = tp.all_gather_values(sd[name], _AXIS[_spec(p)])
+        sd[name] = gathered(p, sd[name])
     return sd
 
 

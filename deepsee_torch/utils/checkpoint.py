@@ -29,7 +29,7 @@ import torch
 from deepsee_torch.config import Experiment
 from deepsee_torch.parallel import distributed, shard
 from deepsee_torch.train.state import TrainState, broadcast_networks
-from deepsee_torch.weights import reference_state_dict, save_reference_checkpoint
+from deepsee_torch.weights import load_reference_checkpoint, save_reference_checkpoint
 
 
 class CheckpointManager:
@@ -73,10 +73,7 @@ class CheckpointManager:
         optimizers, the counts and the generators, in place."""
         if not self.exists(tag):
             raise FileNotFoundError(f"no checkpoint '{tag}' in {self.dir}")
-        nets = self._nets(state)
-        for t, net in nets.items():
-            sd = reference_state_dict(os.path.join(self.dir, f"{tag}_net_{t}.pth"))
-            net.load_state_dict(shard.local_state_dict(net, sd), strict=True)
+        load_reference_checkpoint(state.system, self.dir, tag, include_d=True)
         saved = torch.load(self._state_path(tag), map_location=state.system.device,
                            weights_only=True)
         state.opt_g.load_state_dict(shard.local_optimizer_state(state.opt_g, saved["opt_g"]))

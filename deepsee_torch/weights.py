@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from deepsee_torch.models.layers import Conv2d
 from deepsee_torch.models.normalization import ConvParams, ParamFreeNorm
+from deepsee_torch.parallel.shard import local_state_dict
 
 __all__ = ["jax_to_state_dict", "vgg_jax_to_state_dict", "lpips_jax_to_state_dict",
            "inception_jax_to_state_dict", "randomize_weights",
@@ -214,7 +215,9 @@ def load_reference_checkpoint(system, checkpoint_dir: str, epoch: str = "latest"
                               include_d: bool = False) -> None:
     """Load `<epoch>_net_SR.pth` (and `<epoch>_net_E.pth` where the system
     has an encoder, `<epoch>_net_D.pth` with include_d) from
-    `checkpoint_dir` into `system`'s networks with strict key checking."""
+    `checkpoint_dir` into `system`'s networks with strict key checking,
+    each file cut to this rank's blocks of the networks' sharded parameters
+    (tensor parallelism; as it is where nothing is sharded)."""
     nets = {"SR": system.generator, "E": system.encoder}
     if include_d:
         nets["D"] = system.discriminator
@@ -222,7 +225,7 @@ def load_reference_checkpoint(system, checkpoint_dir: str, epoch: str = "latest"
         if net is None:
             continue
         path = os.path.join(checkpoint_dir, f"{epoch}_net_{tag}.pth")
-        net.load_state_dict(reference_state_dict(path), strict=True)
+        net.load_state_dict(local_state_dict(net, reference_state_dict(path)), strict=True)
 
 
 def complete_for_reference(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

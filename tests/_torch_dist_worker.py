@@ -60,6 +60,10 @@ TRAIN_SAMPLES = 8          # one epoch of the trainer task: 8 / 4 = 2 steps
 # of the tiny configuration (its 64-wide trunk, the encoder trunks, D, VGG)
 TP_MIN_SHARD_CH = 8
 TP_MODEL_AXIS = 2
+# the JAX package's multichip test itself: its trunk width and its (data,
+# model) layout (tests/test_train_step.py:55-60); `_tp_wide_task` reads the
+# layout it runs from OUT_DIR/wide.json
+TP_WIDE = dict(ngf=8)
 
 
 def rows(batch, rank: int, world: int):
@@ -169,8 +173,8 @@ def load_weights(system: SRSystem, weights) -> None:
 
 
 def step_run(weights=None, model=(), seeded_draws: bool = False, nudge_seed=None, train=(),
-             mesh=None):
-    """STEPS faithful steps of the tiny independent model with SGD on this
+             mesh=None, steps: int = STEPS):
+    """`steps` (STEPS) faithful steps of the tiny independent model with SGD on this
     rank's rows of the global batch (GLOBAL_BATCH): from `weights` (state
     dicts of g, e, d, vgg) or the seeded init, nudged by one ulp from
     `nudge_seed` where it is given, with
@@ -198,7 +202,7 @@ def step_run(weights=None, model=(), seeded_draws: bool = False, nudge_seed=None
         batch = rows(batch_for(exp.model, False, batch=GLOBAL_BATCH), distributed.data_rank(),
                      distributed.data_world())
         out = []
-        for _ in range(STEPS):
+        for _ in range(steps):
             logs = step(state, batch)
             out.append(({k: float(v) for k, v in logs.items()}, snapshot(system)))
     return {"steps": out, "coins": coins, "norm_calls": calls}
@@ -349,14 +353,22 @@ def _tp_step_task(out_dir: str):
     return out
 
 
+def _tp_wide_task(out_dir: str):
+    """The "noise" steps of `_tp_step_task` at TP_WIDE, laid out as
+    OUT_DIR/wide.json's model_axis says (the data axis the rest of the
+    world), from OUT_DIR/weights.pt."""
+    import json
+
+    with open(os.path.join(out_dir, "wide.json")) as f:
+        model_axis = json.load(f)["model_axis"]
+    weights = torch.load(os.path.join(out_dir, "weights.pt"), weights_only=True)
+    mesh = MeshConfig(data_axis=distributed.world_size() // model_axis, model_axis=model_axis)
+    return step_run(weights, model=TP_WIDE, mesh=mesh)
+
+
 def _gathered_grads(module):
     """Every parameter's gradient, the sharded ones gathered."""
-    from deepsee_torch.parallel import tensor as tp
-
-    axis = {"column": 0, "row": 1}
-    return {name: (tp.all_gather_values(p.grad, axis[p.tp_shard])
-                   if getattr(p, "tp_shard", None) else p.grad.clone())
-            for name, p in module.named_parameters()}
+    return {name: shard.gathered(p, p.grad).clone() for name, p in module.named_parameters()}
 
 
 def conv_pair_run():
@@ -528,8 +540,8 @@ def _tp_cli_task(out_dir: str):
 
 
 TASKS = {"step": _step_task, "norms": _norms_task, "eval": lambda out_dir: eval_run(),
-         "trainer": _trainer_task, "tp_step": _tp_step_task, "tp_ops": _tp_ops_task,
-         "tp_trainer": _tp_trainer_task}
+         "trainer": _trainer_task, "tp_step": _tp_step_task, "tp_wide": _tp_wide_task,
+         "tp_ops": _tp_ops_task, "tp_trainer": _tp_trainer_task}
 # tasks that join no group themselves (the CLIs do, with --multihost)
 UNGROUPED = {"cli": _cli_task, "tp_cli": _tp_cli_task}
 

@@ -4,13 +4,13 @@ each), against one process at the same global batch of 4, float32 on the
 CPU: the tiny configuration with the JAX package's multichip min_shard_ch
 of 8 (tests/test_train_step.py:51-99), so that the generator trunk (64
 wide), the encoder trunks, D and the VGG19 all shard.  That test widens
-the trunk to ngf=8; there the port's own one-process step misses the JAX
-step by up to 29 % on a SEAN alpha (torch_step_parity's STEP_RTOL is 1 %)
-and the second "noise" step takes discrete turns (one-ulp nudges of the
-weights from ten seeds land D 9e-7 to 1.3e-4, 2.1e-4 or 7.3e-4 to 8.3e-4
-from the run itself), so
-the steps run at the tiny default width; test_torch_tp_plan.py holds the
-plan at ngf=8 and at full width.
+the trunk to ngf=8, where the port's own one-process step parts from the
+JAX step by more than torch_step_parity's STEP_RTOL on a SEAN blend weight
+whose gradient is a sum that mostly cancels (scripts/wide_step_parity.py,
+ROADMAP.md §3), so the JAX leg runs here at the tiny default width;
+test_torch_tp_wide.py holds the ranks against one process at ngf=8 in the
+JAX test's own 2 x 4 layout, and test_torch_tp_plan.py the plan at ngf=8
+and at full width.
 
 Two layouts: 1 x 2 (data x model, two processes: both ranks hold the 4
 rows, each half of every sharded conv) and 2 x 2 (four processes: the data
