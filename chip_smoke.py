@@ -121,12 +121,33 @@
    ms per step and rank, gloo's host ms, the collectives per step and
    their MiB, K1's launches and channel widths per step against one
    process's, layout copies, peak memory and the state's MiB per rank.
+15. Spatial phase (`sp_phase`): two model ranks spawned on the one card
+   over gloo, 32x_guided_512x512 at full width with every map cut into two
+   horizontal stripes (halo exchanges, K1's statistics across the stripes,
+   the networks whole on both ranks): float32 (TF32 off) one Adam step at
+   b1, the states bit for bit alike and within MAX_SP_UPDATE_REL /
+   MAX_SP_RUNNING_REL of one process, which each planted fault (zero halos;
+   per-stripe statistics) must break; inference on stripes (the main path
+   b8, the 32x guided path b2) against one process, float32 relative L2
+   and bf16 PSNR; bf16 b2 ms per step and rank, gloo's host ms, the halo
+   and statistics collectives per step and their MiB, K1's split launches
+   per step against one process's one-launch ones, peak GiB per rank
+   against one process's; then every K1 call across the stripes (the
+   instance split's four launches, the batch split's) against its plain
+   version in bf16 and float32 at the ranks' stripe shapes, timed in bf16.
+   Shortened for it (PR 14's counts in the comments beside them): the remat
+   probe at b20, the b16 disk-fed steps from batches decoded beforehand,
+   the loader at 1 and 4 workers, the 1-ulp nudge of the card-vs-CPU step,
+   and fewer timed repeats (TRAIN_STEP_REPS, TRAIN_CLI_STEPS,
+   REMAT_STEP_REPS, EVAL_SWEEPS, DATA_TIMED, DP_CLI_STEPS, TP_BF16_STEPS).
 
-Prints the card's name and power limit, one {"kernels": [...]} line (the
-inference kernels per main-path call, the training kernels per faithful b4
-step and their launches per tensor-parallel step and rank, the split kernels
-per data-parallel step and rank, the int8 kernels per int8 main-path
-call), and as the last line {"ok": true, "device": {...}}.  Outside the
+Prints each phase's seconds on one line, the card's name and power limit,
+one {"kernels": [...]} line (the inference kernels per main-path call, the
+training kernels per faithful b4 step and their launches per
+tensor-parallel and per spatial step and rank, the split kernels per
+data-parallel step and rank, the instance mode's split across stripes per
+spatial step and rank, the int8 kernels per int8 main-path call), and as
+the last line {"ok": true, "device": {...}}.  Outside the
 int8 phase no int8 kernel may launch.  Any
 failure exits non-zero; without a CUDA device it exits non-zero at once and
 prints no result.  float32 comparisons run with TF32 off
@@ -1136,13 +1157,13 @@ TRAIN_MODES = ("batch", "instance_train", "backward_batch", "backward_instance")
 MAX_F32_TRAIN_GRAD_REL = 0.01
 # the CPU's own spread beside it: every G, E and D parameter scaled by
 # (1 + n * 2^-23 * r), r ~ N(0, 1), for n float32 ulps
-NUDGE_ULPS = (1, 8)
+NUDGE_ULPS = (8,)   # (1, 8) until PR 14; the 1-ulp step dropped for the smoke's time
 # bf16 step gradients against float32 ones at the same weights and inputs,
 # relative L2 per network: set from the first H100 run, which measured G
 # 0.023, E 0.152, D 0.118 (bf16 keeps ~3 digits), with ~2x room.
 MAX_BF16_TRAIN_GRAD_REL = 0.3
-TRAIN_STEP_REPS = 5
-TRAIN_CLI_STEPS = 20
+TRAIN_STEP_REPS = 3                # 5 until PR 14
+TRAIN_CLI_STEPS = 12                # 20 until PR 14; the evaluation still at sample 48
 
 
 def disc_norms(cfg: ModelConfig, batch2: int):
@@ -1821,9 +1842,9 @@ def training_phase(smi: str):
 
 REMAT_POLICIES = (None, "full", "convs")   # None: no remat
 REMAT_GRID = (2, 4, 8)                     # timed, every policy
-REMAT_PROBES = (16, 20, 24)                # timed where they fit; out of memory is that
-                                           # policy's limit
-REMAT_STEP_REPS = 3
+REMAT_PROBES = (16, 24)                    # timed where they fit; out of memory is that
+                                           # policy's limit (b20 dropped: PR 13 measured it)
+REMAT_STEP_REPS = 2                        # 3 until PR 14
 REMAT_PROFILED = 8                         # one step traced at this batch ...
 REMAT_PROFILED_POLICIES = (None, "full")   # ... under these policies
 # remat against no remat, float32 at the 32x preset's full width, batch 1,
@@ -2000,7 +2021,7 @@ def train512_phase(smi: str) -> dict:
 
 EVAL_BATCH = 16
 EVAL_SAMPLES = 128
-EVAL_SWEEPS = 3
+EVAL_SWEEPS = 2        # 3 until PR 14
 # the training CLI's evaluation: in its 20 b4 steps (80 samples) the count of
 # samples crosses a multiple of 48 once; 16 samples per evaluation
 TRAIN_CLI_EVAL = ("--evaluation_freq", "48", "--num_evaluation_samples", "16")
@@ -2262,11 +2283,12 @@ DATA_IDENTITY_GROUP = 4      # samples per identity in its identities CSV
 DATA_LOADER_BATCH = 16
 DATA_GUIDED = "8x_guided_256x256"
 # disk-fed steps of Trainer.run: warm-up, timed by events, profiled
-DATA_WARMUP, DATA_TIMED, DATA_PROFILED = 3, 10, 2
+DATA_WARMUP, DATA_TIMED, DATA_PROFILED = 3, 5, 2   # 10 timed until PR 14
 DATA_GUIDED_STEPS = 6
 # disk-fed runs of the main preset: (batch, how the batches come, `disk_fed_train`)
-DATA_TRAIN_RUNS = ((TRAIN_BATCH, "loader"), (TRAIN_BATCH_LARGE, "loader"),
-                   (TRAIN_BATCH_LARGE, "beforehand"))
+# (PR 8's b16 from batches decoded beforehand is no longer run: the smoke's
+# time goes to the spatial phase)
+DATA_TRAIN_BATCHES = (TRAIN_BATCH, TRAIN_BATCH_LARGE)
 DATA_CLI_STEPS = 2
 DATA_CLI_EVAL_SAMPLES = 16
 
@@ -2367,7 +2389,7 @@ def loader_timing(tree, route: str, smi: str) -> None:
     DATA_LOADER_BATCH per worker count, after one epoch that warms the
     page cache: samples/s and wall ms per sample."""
     dataset = create_dataset(tree_experiment(PRESET, tree, DATA_LOADER_BATCH), phase="train")
-    counts = sorted({1, 2, 4, 8, os.cpu_count() or 1})
+    counts = sorted({2, 8, os.cpu_count() or 1})   # 1 and 4 workers: PR 8's runs
     for _ in DataLoader(dataset, DATA_LOADER_BATCH, num_workers=max(counts)):
         pass
     rows = []
@@ -2385,17 +2407,14 @@ def loader_timing(tree, route: str, smi: str) -> None:
 
 
 def disk_fed_train(tag: str, preset: str, batch_n: int, tree, root: str, steps: int,
-                   resident: Optional[dict] = None, feed: str = "loader") -> dict:
+                   resident: Optional[dict] = None) -> dict:
     """Trainer.run from the tree for `steps` steps: K1's launches of step
     DATA_WARMUP - 1 (the independent model's against `train_norms`), ms per
     step by CUDA events over up to DATA_TIMED steps after the warm-up, then
     kernel ms per step over the steps left (profiled) and the idle share,
-    beside the resident-batch step of the training phase (`resident`).
-    `feed`: "loader" is `make_dataloader()`'s (shuffled, its
-    decode threads, the prefetch of the next batch to the card on a copy
-    stream); "beforehand" decodes the loader's first `steps` batches before
-    the run and feeds them as a list: the same copies, no decode beside the
-    step."""
+    beside the resident-batch step of the training phase (`resident`).  The
+    batches come from `make_dataloader()` (shuffled, its decode threads, the
+    prefetch of the next batch to the card on a copy stream)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2433,18 +2452,15 @@ def disk_fed_train(tag: str, preset: str, batch_n: int, tree, root: str, steps: 
         return logs
 
     trainer.step_gd = measured
-    data = None
-    if feed == "beforehand":
-        data = [b for b, _ in zip(trainer.make_dataloader(), range(steps))]
     t0 = time.perf_counter()
-    state = trainer.run(data, max_steps=steps)
+    state = trainer.run(max_steps=steps)
     wall_s = time.perf_counter() - t0
     end.synchronize()
     ms = start.elapsed_time(end) / (timed_to - DATA_WARMUP)
     losses = {k: float(v) for k, v in seen["logs"][-1].items()}
     if state.step != steps or not all(math.isfinite(v) for v in losses.values()):
         raise AssertionError(f"{tag}: {state.step} steps, losses {losses}")
-    out = {"preset": preset, "batch": batch_n, "feed": feed, "steps": steps, "wall_s": wall_s,
+    out = {"preset": preset, "batch": batch_n, "feed": "loader", "steps": steps, "wall_s": wall_s,
            "ms_per_step": ms, "img_per_s": batch_n / ms * 1e3,
            "launches": seen["launches"], "losses": losses}
     if exp.model.model_variant == "independent":
@@ -2541,7 +2557,7 @@ def data_phase(smi: str, resident: dict, synthetic_sweep: dict) -> None:
     the corpus through every decode route against expected.npz, the loader
     alone per worker count, disk-fed training (faithful b4 and b16 of the
     main preset, beside `resident`, the training phase's resident-batch
-    steps; b16 also from batches decoded beforehand; a few guided b4 steps), the
+    steps; a few guided b4 steps), the
     disk-fed evaluation sweep (beside `synthetic_sweep`), and the two CLIs
     from the tree."""
     t0 = time.perf_counter()
@@ -2551,11 +2567,10 @@ def data_phase(smi: str, resident: dict, synthetic_sweep: dict) -> None:
         tree = data_tree(os.path.join(root, "tree"))
         loader_timing(tree, route, smi)
         steps = DATA_WARMUP + DATA_TIMED + DATA_PROFILED
-        for batch_n, feed in DATA_TRAIN_RUNS:
-            tag = f"b{batch_n}" + ("" if feed == "loader" else f" {feed}")
-            log(f"data train {tag} " + json.dumps({
-                **disk_fed_train(f"b{batch_n}_{feed}", PRESET, batch_n, tree, root, steps,
-                                 resident[batch_n], feed=feed),
+        for batch_n in DATA_TRAIN_BATCHES:
+            log(f"data train b{batch_n} " + json.dumps({
+                **disk_fed_train(f"b{batch_n}_loader", PRESET, batch_n, tree, root, steps,
+                                 resident[batch_n]),
                 "route": route, "card": smi}))
         log(f"data train guided b{TRAIN_BATCH} " + json.dumps({
             **disk_fed_train("guided", DATA_GUIDED, TRAIN_BATCH, tree, root, DATA_GUIDED_STEPS),
@@ -2621,7 +2636,7 @@ def profile_path(tag: str, system: SRSystem, batch, ms_per_batch: float,
 DP_WORLD = 2
 DP_PER_RANK = TRAIN_BATCH      # rows per rank: the global batch is DP_WORLD x 4 = 8
 DP_STEPS = 3
-DP_CLI_STEPS = 3
+DP_CLI_STEPS = 2               # 3 until PR 14
 # the split kernels against their plain versions at the b16 step's batch
 # shapes and at the dp step's (b8 cut into DP_WORLD shards of b4); timed at
 # the dp step's per-rank shapes (b4)
@@ -3132,7 +3147,7 @@ def dp_phase(smi: str):
 TP_WORLD = 2                   # model_axis 2, data_axis 1: both ranks hold the global batch
 TP_BATCH = 2
 TP_F32_STEPS = 2
-TP_BF16_STEPS = 3
+TP_BF16_STEPS = 2              # 3 until PR 14
 # float32 (TF32 off): the two ranks' gathered state after TP_F32_STEPS faithful
 # Adam steps from the seeded weights, against one process at b2 from the same
 # weights, batch and draws, read as the dp phase reads its ranks
@@ -3512,6 +3527,538 @@ def tp_phase(smi: str) -> dict:
                              "block of the one process's")
     log(f"tp phase: {time.perf_counter() - t0:.1f} s")
     return {k: int(v) for k, v in bf16[0]["k1_launches_per_step"].items()}
+
+
+# -- spatial-sharding phase ---------------------------------------------------------
+
+SP_WORLD = 2                   # model_axis 2, spatial: each rank a horizontal stripe of every map
+SP_PRESET = PRESET_512         # where feature maps, not weights, fill the card
+SP_F32_BATCH = 1
+SP_BF16_BATCH = 2
+SP_BF16_STEPS = 2
+SP_INFER = {PRESET: 8, PRESET_512: 2}    # inference paths at these batches
+SP_FAULTS = ("zero_halo", "stripe_stats")
+SP_TIMING_MS = 10.0            # each timed CUDA graph of `sp_stage_times` lasts about this
+# float32 (TF32 off): the two ranks' states after one faithful Adam step of
+# SP_PRESET at b1 from the seeded weights, against one process from the same
+# weights, batch and draws (`_dp_readings`: per network the relative L2 of the
+# update, per kind of running statistic the largest leaf).  Each rank's convs
+# read halo rows and sum in their own order, K1's statistics merge two
+# stripes' partials, and Adam's first step moves a weight by about lr whatever
+# the size of its gradient: the one process's own spread under a one-ulp
+# nudge is printed beside.  The planted faults (`_sp_planted`: each rank
+# padding its own stripe's edges with zeros; K1's statistics per stripe) must
+# break a limit.  G's and E's limits, and the running statistics', near the
+# geometric mean of the sound and the faultier reading of the first H100 run of
+# this check (NVIDIA H100 80GB HBM3, 700 W; PERF.md): update G 0.046 / 0.835
+# (zero halos) / 0.947 (per-stripe statistics), E 0.025 / 0.832 / 1.296, D
+# 0.179 / 0.912 / 1.194 (one-ulp nudge of one process: 0.044, 0.025, 0.251);
+# running statistics, largest leaf, 1.5e-4 / 0.034 / 0.120 (nudge 1.3e-4).
+# D's sound reading lies within its nudge spread, which reaches 0.25: its limit
+# twice that.
+MAX_SP_UPDATE_REL = {"g": 0.2, "e": 0.15, "d": 0.5}
+MAX_SP_RUNNING_REL = 2e-3
+# inference, stripes against one process: float32 (TF32 off) relative L2 of
+# the image, bf16 PSNR against one process's bf16 image
+MAX_SP_INFER_F32_REL = 1e-4
+MIN_SP_INFER_PSNR_DB = MIN_BF16_PSNR_DB
+# the K1 kernels of the spatial step and their launch counters; the one
+# library call computing the same function, where there is one
+SP_STAGES = {
+    "instance": (("partials", "instance_partials"), ("apply", "instance_apply"),
+                 ("sums", "instance_backward_sums"), ("pass", "instance_backward_apply")),
+    "batch": (("partials", "batch_partials"), ("apply", "batch_apply"),
+              ("sums", "backward_sums"), ("pass", "backward_apply")),
+}
+SP_KERNELS = {
+    "modnorm_instance_partials": ("instance", "partials",
+                                  "torch.var_mean(x, dim=(2, 3), correction=0) (mean and "
+                                  "variance, not the centred M2 rows)"),
+    "modnorm_instance_apply": ("instance", "apply", None),
+    "modnorm_instance_backward_sums": ("instance", "sums", None),
+    "modnorm_instance_backward_apply": ("instance", "pass", None),
+}
+# the one-process launch counter each split counter stands for
+SP_ONE_PROCESS = {"instance_partials": "instance_train", "instance_apply": "instance_train",
+                  "instance_backward_sums": "backward_instance",
+                  "instance_backward_apply": "backward_instance",
+                  "batch_partials": "batch", "batch_apply": "batch",
+                  "backward_sums": "backward_batch", "backward_apply": "backward_batch"}
+
+
+@contextlib.contextmanager
+def _sp_planted(fault: Optional[str]):
+    """The planted fault `fault` ("zero_halo": the halo exchange returns
+    zeros, so each rank pads its own stripe's edges; "stripe_stats": K1's
+    all-reduces do nothing, so each stripe normalizes by its own statistics;
+    None: none) in place while the block runs."""
+    from deepsee_torch.parallel import distributed, spatial
+
+    saved = spatial._all_gather, spatial._stats_reduce
+    gather = spatial._all_gather
+    if fault == "zero_halo":
+        spatial._all_gather = lambda kind, t: (
+            [torch.zeros_like(t)] * distributed.model_world() if kind.startswith("halo")
+            else gather(kind, t))
+    elif fault == "stripe_stats":
+        spatial._stats_reduce = lambda kind, group: (lambda t: None)
+    elif fault is not None:
+        raise ValueError(f"no planted fault {fault!r}")
+    try:
+        yield
+    finally:
+        spatial._all_gather, spatial._stats_reduce = saved
+
+
+@contextlib.contextmanager
+def _sp_k1_calls(calls: list):
+    """Record each of K1's calls across the stripes into `calls`: (kind,
+    shape, with_mod, lrelu, count, backward), backward where the call
+    records a graph."""
+    from deepsee_torch.parallel import spatial
+
+    inst, batch = spatial.instance_modnorm, spatial.batch_modnorm
+
+    def record(kind, x, mod, lrelu, count):
+        calls.append((kind, tuple(x.shape), mod is not None, bool(lrelu), count,
+                      torch.is_grad_enabled() and x.requires_grad))
+
+    def instance(x, mod=None, *, eps=1e-5, lrelu=False, rows=None):
+        height = rows.height if rows is not None else spatial.global_height(x.shape[2])
+        record("instance", x, mod, lrelu, height * x.shape[3])
+        return inst(x, mod, eps=eps, lrelu=lrelu, rows=rows)
+
+    def batch_norm(x, mod=None, *, eps=1e-5, lrelu=False):
+        record("batch", x, mod, lrelu, SP_WORLD * x.shape[0] * x.shape[2] * x.shape[3])
+        return batch(x, mod, eps=eps, lrelu=lrelu)
+
+    spatial.instance_modnorm, spatial.batch_modnorm = instance, batch_norm
+    try:
+        yield
+    finally:
+        spatial.instance_modnorm, spatial.batch_modnorm = inst, batch
+
+
+def _sp_steps(compute_dtype: str, batch_n: int, steps: int, *, timed: bool = False,
+              fault: Optional[str] = None, nudge_ulps: int = 0) -> dict:
+    """SP_PRESET at full width, laid out over this process's world
+    (model_axis = world, spatial) or in one process: `steps` faithful Adam
+    steps from the seeded weights on `batch_n` rows (with `timed`, after a
+    warm-up step, timed, with K1's calls recorded).  The networks' state
+    before and after (float32), and for `timed` runs ms per step by CUDA
+    events, gloo's host ms, the collectives, K1's launches and calls, and
+    peak memory.  `fault`: the planted fault of that name (`_sp_planted`)."""
+    from deepsee_torch.parallel import distributed, spatial
+
+    world = distributed.world_size()
+    mesh = MeshConfig(model_axis=world, partition="spatial")
+    system = train_system(SP_PRESET, batch_n, model=dict(compute_dtype=compute_dtype), mesh=mesh)
+    if nudge_ulps:
+        _nudge(system, nudge_ulps, torch.Generator().manual_seed(SEED + 7))
+    state = _state_of(system)
+    before = _net_state(system) if compute_dtype == "float32" else None
+    step = train_steps.make_train_step(system)
+    batch = make_batch(system.cfg, batch_n, guided=True)
+    out = {"rank": distributed.rank(), "world": world, "card": torch.cuda.get_device_name(0)}
+    with _sp_planted(fault):
+        if not timed:
+            for _ in range(steps):
+                step(state, batch)
+            out.update(state=_net_state(system), before=before)
+            return out
+        step(state, batch)  # warm-up: cuDNN plans, the allocator, the gloo buffers
+        spent = [0.0]
+        collectives = {name: getattr(torch.distributed, name)
+                       for name in ("all_reduce", "all_gather")}
+
+        def timing(fn):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    spent[0] += time.perf_counter() - t0
+            return call
+
+        for name, fn in collectives.items():
+            setattr(torch.distributed, name, timing(fn))
+        calls: list = []
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mn.reset_launches()
+            spatial.reset_counts()
+            with _sp_k1_calls(calls):
+                ms = _step_events_ms(step, state, batch, steps)
+            launches = dict(mn.launches)
+        finally:
+            for name, fn in collectives.items():
+                setattr(torch.distributed, name, fn)
+        out.update({
+            "ms_per_step": ms, "gloo_host_ms_per_step": spent[0] * 1e3 / steps,
+            "collectives_per_step": {k: {"calls": v["calls"] / steps,
+                                         "mib": v["bytes"] / steps / 2 ** 20}
+                                     for k, v in spatial.counts.items()},
+            "k1_launches_per_step": {k: v / steps for k, v in launches.items() if v},
+            "k1_calls": calls[:len(calls) // steps],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        return out
+
+
+def _sp_infer() -> dict:
+    """Each SP_INFER preset's inference path (preprocess -> mini or full
+    trunk encode -> generate, no noise) on its seeded rows, in float32 and
+    bf16, on this rank's stripes where the world is laid out spatially:
+    (preset, dtype) -> the whole fake, on the CPU."""
+    from deepsee_torch.parallel import distributed, spatial
+
+    spatial.use_mesh(MeshConfig(model_axis=distributed.world_size(), partition="spatial"))
+    out = {}
+    for preset, batch_n in SP_INFER.items():
+        seeded = seeded_system(preset)
+        for dtype in ("float32", "bfloat16"):
+            system = _like(seeded, dtype, DEVICE)
+            guided = system.cfg.guiding_style_image
+            batch = spatial.shard_rows(make_batch(system.cfg, batch_n, guided=guided))
+            fake = run_path(system, batch, use_full=guided)
+            out[(preset, dtype)] = spatial.gather_rows(fake, dim=1).float().cpu()
+            del system
+        del seeded
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of SP_WORLD model ranks on the one card over gloo, TF32 off: the
+    float32 step, each planted fault's, the inference paths in float32 and
+    bf16, then (once the parent's runs are done: out_dir/go) the bf16 timed
+    steps, into out_dir/rank<R>.pt."""
+    from deepsee_torch.parallel import distributed
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SP_WORLD), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.init_distributed("gloo", device="cuda")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the random-VGG warning
+            result = {"float32": _sp_steps("float32", SP_F32_BATCH, 1)}
+            for fault in SP_FAULTS:
+                result[fault] = _sp_steps("float32", SP_F32_BATCH, 1, fault=fault)
+            result["infer"] = _sp_infer()
+            torch.cuda.empty_cache()
+            while not os.path.exists(os.path.join(out_dir, "go")):
+                time.sleep(0.2)
+            result["bfloat16"] = _sp_steps("bfloat16", SP_BF16_BATCH, SP_BF16_STEPS,
+                                           timed=True)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        distributed.reset_layout()
+        torch.distributed.destroy_process_group()
+
+
+def _sp_inputs(shape, with_mod: bool, dtype, gen):
+    x, mod, _, _ = _kernel_inputs(shape, with_mod, dtype, gen)
+    return x, mod, _kernel_inputs(shape, False, dtype, gen)[0]
+
+
+def _sp_plain(kind: str):
+    """The split's plain functions of `kind` ("instance" or "batch")."""
+    if kind == "instance":
+        return (mn.modnorm_instance_partials_plain, mn.modnorm_instance_apply_plain,
+                mn.modnorm_instance_backward_sums_plain, mn.modnorm_instance_backward_apply_plain)
+    return (mn.modnorm_batch_partials_plain, mn.modnorm_batch_apply_plain,
+            mn.modnorm_backward_sums_plain, mn.modnorm_backward_apply_plain)
+
+
+def _sp_kernels(kind: str):
+    if kind == "instance":
+        return (mn.modnorm_instance_partials, mn.modnorm_instance_apply,
+                mn.modnorm_instance_backward_sums, mn.modnorm_instance_backward_apply)
+    return (mn.modnorm_batch_partials, mn.modnorm_batch_apply, mn.modnorm_backward_sums,
+            mn.modnorm_backward_apply)
+
+
+def sp_kernel_check(kind: str, shapes, with_mod: bool, lrelu: bool, count: int, dtype,
+                    gen) -> dict:
+    """One call of K1's split `kind` at the ranks' stripe `shapes` (one per
+    rank), in one process: each launch against its plain version on the
+    same inputs, the rows' sum standing for the all-reduce."""
+    part_k, apply_k, sums_k, pass_k = _sp_kernels(kind)
+    part_p, apply_p, sums_p, pass_p = _sp_plain(kind)
+    ins = [_sp_inputs(s, with_mod, dtype, gen) for s in shapes]
+    world = len(shapes)
+    partials = sum(part_k(x, r, world) for r, (x, _, _) in enumerate(ins))
+    torch.cuda.synchronize()
+    want_parts = torch.stack([part_p(x) for x, _, _ in ins])
+    part_err = float(((partials - want_parts).abs() / (want_parts.abs() + 1e-3)).max())
+    ok = part_err <= 1e-4
+    fwd_err = bwd_err = 0.0
+    mean = rstd = None
+    for x, m, _ in ins:
+        out, mean, rstd = apply_k(x, m, partials, lrelu=lrelu)
+        want = apply_p(x, m, partials, lrelu=lrelu)[0]
+        fwd_err = max(fwd_err, float((out.float() - want.float()).abs().max()))
+        ok = ok and _train_within(out, want, dtype)
+    sums = sum(sums_k(x, m, g, mean, rstd, lrelu=lrelu) for x, m, g in ins)
+    torch.cuda.synchronize()
+    want_sums = sum(sums_p(x, m, g, mean, rstd, lrelu=lrelu) for x, m, g in ins)
+    scale = float(want_sums.abs().max())
+    ok = ok and bool(((sums - want_sums).abs() <= 1e-5 * want_sums.abs() + 1e-5 * scale).all())
+    for x, m, g in ins:
+        gx, gmod = pass_k(x, m, g, mean, rstd, sums, count, lrelu=lrelu)
+        wgx, wgmod = pass_p(x, m, g, mean, rstd, sums, count, lrelu=lrelu)
+        bwd_err = max(bwd_err, float((gx.float() - wgx.float()).abs().max()))
+        ok = ok and _train_within(gx, wgx, dtype)
+        if with_mod:
+            bwd_err = max(bwd_err, float((gmod.float() - wgmod.float()).abs().max()))
+            ok = ok and _train_within(gmod, wgmod, dtype)
+    return {"kind": kind, "shapes": [list(s) for s in shapes], "mod": with_mod, "lrelu": lrelu,
+            "dtype": str(dtype).replace("torch.", ""), "ok": ok, "partials_rel_err": part_err,
+            "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
+            "sums_rel_err": float((sums - want_sums).abs().max()) / max(scale, 1e-30)}
+
+
+def _sp_stage_bound_ms(kind: str, stage: str, shape, with_mod: bool, lrelu: bool,
+                       elt_bytes: int):
+    """Least time of one stage: each input read once, each output written
+    once (x, mod, gout, grad_x, grad_mod; the statistics' rows, a few KB, and
+    the float32 operations per element over the CUDA-core rate; the larger."""
+    b, c, h, w = shape
+    n = b * c * h * w
+    mod = 2 if with_mod else 0
+    tensors, per_elt = {"partials": (1, 3), "apply": (2 + mod, 4 + mod + lrelu),
+                        "sums": (2 + mod, 7 + mod + lrelu),
+                        "pass": (3 + 2 * mod, 8 + mod + lrelu)}[stage]
+    sets = b * c if kind == "instance" else c
+    t_bytes = (n * tensors * elt_bytes + 4 * 4 * sets) / HBM_BYTES_PER_S
+    t_ops = n * per_elt / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _sp_library(kind: str, stage: str, x, g, mean, rstd):
+    """One PyTorch call computing the stage's function, or None: the
+    instance partials' per-(sample, channel) moments (torch.var_mean), the
+    batch split's SyncBatchNorm kernels."""
+    if kind == "instance":
+        return (lambda: torch.var_mean(x, dim=(2, 3), correction=0)) if stage == "partials" \
+            else None
+    if stage == "partials":
+        return lambda: torch.batch_norm_stats(x, 1e-5)
+    if stage == "apply":
+        m, inv = torch.batch_norm_stats(x, 1e-5)
+        return lambda: torch.batch_norm_elemt(x, None, None, m, inv, 1e-5)
+    if stage == "sums":
+        return lambda: torch.batch_norm_backward_reduce(g, x, mean, rstd, None, True, False,
+                                                        False)
+    sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(g, x, mean, rstd, None, True,
+                                                                False, False)
+    count = torch.full((1,), x.numel() // x.shape[1], dtype=torch.int32, device=x.device)
+    return lambda: torch.batch_norm_backward_elemt(g, x, mean, rstd, None, sum_dy, sum_dy_xmu,
+                                                   count)
+
+
+def sp_stage_times(kind: str, shape, with_mod: bool, lrelu: bool, count: int, gen) -> dict:
+    """bf16 device ms per call of each stage at one rank's `shape` (over a
+    pool of inputs larger than the L2), beside its plain version, its bound
+    and the library call where there is one."""
+    dtype = torch.bfloat16
+    part_k, apply_k, sums_k, pass_k = _sp_kernels(kind)
+    part_p, apply_p, sums_p, pass_p = _sp_plain(kind)
+    set_bytes = math.prod(shape) * 2 * (5 if with_mod else 3)
+    pool = [_sp_inputs(shape, with_mod, dtype, gen)
+            for _ in range(max(1, math.ceil(120e6 / set_bytes)))]
+    x0, m0, g0 = pool[0]
+    part = part_k(x0, 0, 1)
+    _, mean, rstd = apply_k(x0, m0, part, lrelu=lrelu)
+    sums = sums_k(x0, m0, g0, mean, rstd, lrelu=lrelu)
+    fns = {
+        "partials": (lambda x, m, g: part_k(x, 0, 1), lambda x, m, g: part_p(x)),
+        "apply": (lambda x, m, g: apply_k(x, m, part, lrelu=lrelu),
+                  lambda x, m, g: apply_p(x, m, part, lrelu=lrelu)),
+        "sums": (lambda x, m, g: sums_k(x, m, g, mean, rstd, lrelu=lrelu),
+                 lambda x, m, g: sums_p(x, m, g, mean, rstd, lrelu=lrelu)),
+        "pass": (lambda x, m, g: pass_k(x, m, g, mean, rstd, sums, count, lrelu=lrelu),
+                 lambda x, m, g: pass_p(x, m, g, mean, rstd, sums, count, lrelu=lrelu)),
+    }
+    out = {}
+    for stage, (kernel, plain) in fns.items():
+        bound, by = _sp_stage_bound_ms(kind, stage, shape, with_mod, lrelu, 2)
+        lib = [_sp_library(kind, stage, x, g, mean, rstd) for x, _, g in pool]
+        out[stage] = {
+            "ms": _device_ms([functools.partial(kernel, x, m, g) for x, m, g in pool],
+                             target_ms=SP_TIMING_MS),
+            "plain_ms": _device_ms([functools.partial(plain, x, m, g) for x, m, g in pool],
+                                   target_ms=SP_TIMING_MS),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": (_device_ms(lib, target_ms=SP_TIMING_MS) if lib[0] is not None
+                           else None)}
+    del pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_kernel_phase(ranks) -> dict:
+    """Every K1 call across the stripes that the ranks' timed bf16 steps
+    made, (kind, the two ranks' stripe shapes, mod, lrelu, count), held
+    against the plain versions in bf16 and float32, and timed in bf16 at
+    rank 0's shape; per spatial step of rank 0, each stage's device ms,
+    plain ms, bound and library ms summed over its launches.  Returns the
+    per-kind, per-stage totals and the largest error."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+    calls = list(zip(*[r["bfloat16"]["k1_calls"] for r in ranks]))
+    if not calls or any(len({(c[0], c[2], c[3], c[4], c[5]) for c in call}) != 1
+                        for call in calls):
+        raise AssertionError("the ranks made no K1 call across their stripes, or other ones")
+    distinct = {}
+    for call in calls:
+        kind, _, with_mod, lrelu, count, backward = call[0]
+        key = (kind, tuple(c[1] for c in call), with_mod, lrelu, count)
+        fwd_n, bwd_n = distinct.get(key, (0, 0))
+        distinct[key] = (fwd_n + 1, bwd_n + int(backward))
+    totals = {kind: {stage: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                             "launches": 0, "library": True, "bound_by": set()}
+                     for stage, _ in SP_STAGES[kind]} for kind in SP_STAGES}
+    errs = {kind: 0.0 for kind in SP_STAGES}
+    rows = []
+    for (kind, shapes, with_mod, lrelu, count), (fwd_n, bwd_n) in distinct.items():
+        checks = [sp_kernel_check(kind, shapes, with_mod, lrelu, count, dtype, gen)
+                  for dtype in (torch.bfloat16, torch.float32)]
+        bad = [c for c in checks if not c["ok"]]
+        if bad:
+            raise AssertionError(f"a K1 split kernel disagrees with its plain version: {bad}")
+        errs[kind] = max([errs[kind]] + [max(c["fwd_max_abs_err"], c["bwd_max_abs_err"])
+                                         for c in checks])
+        times = sp_stage_times(kind, shapes[0], with_mod, lrelu, count, gen)
+        row = {"kind": kind, "shapes": [list(s) for s in shapes], "mod": with_mod,
+               "lrelu": lrelu, "fwd_per_step": fwd_n, "bwd_per_step": bwd_n,
+               "checks": checks, "times": times}
+        log("sp K1 kernel " + json.dumps(row))
+        rows.append(row)
+        for stage, _ in SP_STAGES[kind]:
+            n = fwd_n if stage in ("partials", "apply") else bwd_n
+            acc, t = totals[kind][stage], times[stage]
+            acc["launches"] += n
+            for key in ("ms", "plain_ms", "bound_ms"):
+                acc[key] += t[key] * n
+            if t["library_ms"] is None:
+                acc["library"] = False
+            else:
+                acc["library_ms"] += t["library_ms"] * n
+            acc["bound_by"].add(t["bound_by"])
+    for kind in totals:
+        for acc in totals[kind].values():
+            acc["bound_by"] = "bytes" if acc["bound_by"] != {"operations"} else "operations"
+            if not acc.pop("library"):
+                acc["library_ms"] = None
+    log("sp K1 kernels per spatial step of one rank (bf16, device ms) " + json.dumps(totals))
+    return {"totals": totals, "errs": errs, "rows": len(rows)}
+
+
+def sp_phase(smi: str) -> dict:
+    """Spatial sharding on the one card: SP_WORLD spawned model ranks over
+    gloo, SP_PRESET at full width with every map cut into two horizontal
+    stripes and the networks whole on both ranks.  Float32 (TF32 off), one
+    Adam step at b1: the ranks' states bit for bit alike and within
+    MAX_SP_UPDATE_REL / MAX_SP_RUNNING_REL of one process, which each planted
+    fault must break.  Inference on stripes (PRESET b8, SP_PRESET b2) against
+    one process: float32 relative L2, bf16 PSNR.  bf16 b2: the "sp" line (ms
+    per step and rank, gloo's host ms, the collectives per step and their
+    MiB, K1's launches per step against one process's, peak GiB per rank
+    against one process's).  Then every K1 call across the stripes held
+    against its plain version and timed (`sp_kernel_phase`).  Returns the
+    kernels line's numbers."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="deepsee_sp_")
+
+    def one_process():
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                one = _sp_steps("float32", SP_F32_BATCH, 1)
+                nudged = _sp_steps("float32", SP_F32_BATCH, 1, nudge_ulps=1)["state"]
+                infer = _sp_infer()
+            torch.cuda.empty_cache()
+            return one, nudged, infer
+        finally:
+            with open(os.path.join(root, "go"), "w"):
+                pass
+
+    try:
+        ranks, (one, nudged, infer) = spawned_ranks(sp_rank, SP_WORLD, root, one_process)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    limits = {"update_rel": MAX_SP_UPDATE_REL, "running_rel": MAX_SP_RUNNING_REL}
+    sums = [_checksum(r["float32"]["state"]) for r in ranks]
+    sound = _dp_readings(ranks[0]["float32"]["state"], one["state"], one["before"])
+    faults = {f: _dp_readings(ranks[0][f]["state"], one["state"], one["before"])
+              for f in SP_FAULTS}
+    record = {"preset": SP_PRESET, "model_ranks": SP_WORLD, "batch": SP_F32_BATCH, "steps": 1,
+              "checksums": sums, "vs_one_process": sound,
+              "one_process_nudged_1ulp": _dp_readings(nudged, one["state"], one["before"]),
+              "planted_faults": faults, "limits": limits, "card": smi}
+    log("sp float32 " + json.dumps(record))
+    if len(set(sums)) != 1:
+        raise AssertionError(f"the spatial ranks' states differ after one step: {sums}")
+    broken = _dp_broken(sound, **limits)
+    if broken:
+        raise AssertionError(f"two spatial ranks differ from one process: {broken}")
+    for fault, readings in faults.items():
+        if not _dp_broken(readings, **limits):
+            raise AssertionError(f"the planted fault {fault} passes the limits: the check "
+                                 f"cannot see it ({readings})")
+    del one, nudged
+    inference = {}
+    for (preset, dtype), want in infer.items():
+        got = [r["infer"][(preset, dtype)] for r in ranks]
+        if any(not torch.equal(g, got[0]) for g in got):
+            raise AssertionError(f"the spatial ranks' {preset} {dtype} images differ")
+        if not bool(torch.isfinite(got[0]).all()) or got[0].shape != want.shape:
+            raise AssertionError(f"spatial {preset} {dtype}: shape {tuple(got[0].shape)} or "
+                                 "values not finite")
+        inference[f"{preset} b{SP_INFER[preset]} {dtype}"] = (
+            {"rel_l2": _rel_l2(got[0], want)} if dtype == "float32"
+            else {"psnr_db_vs_one_process": psnr_db(got[0], want)})
+    log("sp inference " + json.dumps(dict(inference, limits={
+        "float32_rel_l2": MAX_SP_INFER_F32_REL, "bf16_psnr_db": MIN_SP_INFER_PSNR_DB},
+        card=smi)))
+    for tag, r in inference.items():
+        if r.get("rel_l2", 0.0) > MAX_SP_INFER_F32_REL or \
+                r.get("psnr_db_vs_one_process", math.inf) < MIN_SP_INFER_PSNR_DB:
+            raise AssertionError(f"spatial inference {tag} parts from one process: {r}")
+    del infer
+    torch.cuda.empty_cache()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        one16 = _sp_steps("bfloat16", SP_BF16_BATCH, SP_BF16_STEPS, timed=True)
+    bf16 = [r["bfloat16"] for r in ranks]
+    got_launches = bf16[0]["k1_launches_per_step"]
+    want = one16["k1_launches_per_step"]
+    expected = {k: want.get(v, 0) for k, v in SP_ONE_PROCESS.items()}
+    timing = {"preset": SP_PRESET, "model_ranks": SP_WORLD, "batch": SP_BF16_BATCH,
+              "ms_per_step": [r["ms_per_step"] for r in bf16],
+              "one_process_ms_per_step": one16["ms_per_step"],
+              "gloo_host_ms_per_step": [r["gloo_host_ms_per_step"] for r in bf16],
+              "collectives_per_step": bf16[0]["collectives_per_step"],
+              "k1_launches_per_step": got_launches,
+              "one_process_k1_launches_per_step": want,
+              "peak_mem_gib": [r["peak_mem_gib"] for r in bf16],
+              "one_process_peak_mem_gib": one16["peak_mem_gib"], "card": smi,
+              "note": "two ranks share the one H100 and gloo copies every collective through "
+                      "host memory: no yardstick for NCCL across cards"}
+    log("sp " + json.dumps(timing))
+    if any(r["k1_launches_per_step"] != got_launches for r in bf16):
+        raise AssertionError("the spatial ranks launched K1 differently")
+    if {k: got_launches.get(k, 0) for k in SP_ONE_PROCESS} != expected or \
+            not all(expected.values()):
+        raise AssertionError(f"spatial K1 launches per step {got_launches} do not stand for one "
+                             f"process's {want}")
+    if any(got_launches.get(k) for k in SP_ONE_PROCESS.values()):
+        raise AssertionError(f"a one-process K1 mode ran on the stripes: {got_launches}")
+    kernels = sp_kernel_phase(ranks)
+    log(f"sp phase: {time.perf_counter() - t0:.1f} s")
+    return dict(kernels, launches=got_launches)
 
 
 # -- int8 phase ------------------------------------------------------------------
@@ -4220,14 +4767,16 @@ TRAIN_KERNEL_INFO = {
 }
 
 
-def kernels_line(rows, launches, norms, train=None, dp=None, int8=None, tp=None):
+def kernels_line(rows, launches, norms, train=None, dp=None, int8=None, tp=None, sp=None):
     """Every kernel: the inference modes per main-path call; the training
     kernels per faithful training step (`train`: its launches, per-step
     times and the training kernel rows), with their launches per
     tensor-parallel step and rank beside (`tp`: `tp_phase`'s); the batch
     modes split across ranks per data-parallel step and rank (`dp`:
-    `dp_phase`'s numbers); the int8 conv's kernels per int8 main-path call
-    (`int8`: `int8_phase`'s)."""
+    `dp_phase`'s numbers), with their launches per spatial step and rank
+    beside (`sp`: `sp_phase`'s); the instance mode split across stripes per
+    spatial step and rank (`sp`); the int8 conv's kernels per int8
+    main-path call (`int8`: `int8_phase`'s)."""
     out = []
     for name, (mode, library_call) in KERNEL_INFO.items():
         per_call = path_kernel_times(rows, norms, mode)
@@ -4260,6 +4809,9 @@ def kernels_line(rows, launches, norms, train=None, dp=None, int8=None, tp=None)
             "tp_launches_per_step_and_rank": tp[mode],
             "tp_per": f"one tensor-parallel step of one of {TP_WORLD} model ranks ({PRESET} "
                       f"b{TP_BATCH}, on each rank's channel block)",
+            "sp_launches_per_step_and_rank": int(sp["launches"].get(mode, 0)),
+            "sp_per": f"one spatial step of one of {SP_WORLD} model ranks ({SP_PRESET} "
+                      f"b{SP_BF16_BATCH}; the split modes run there instead)",
         })
     for name, (key, _, library_call) in SPLIT_INFO.items():
         t = dp["times"][key]
@@ -4272,6 +4824,26 @@ def kernels_line(rows, launches, norms, train=None, dp=None, int8=None, tp=None)
             "per": f"one data-parallel training step of one rank ({PRESET}, {DP_WORLD} ranks x "
                    f"b{DP_PER_RANK}, faithful schedule; launches A + B or sums + pass, the "
                    "collective between them not timed; sum over the launches), device time",
+            "sp_launches_per_step_and_rank": {
+                c: int(sp["launches"].get(c, 0)) for c in SPLIT_INFO[name][1]},
+            "sp_ms": sum(sp["totals"]["batch"][stage]["ms"] for stage in
+                         (("partials", "apply") if key == "fwd" else ("sums", "pass"))),
+            "sp_per": f"one spatial step of one of {SP_WORLD} model ranks ({SP_PRESET} "
+                      f"b{SP_BF16_BATCH}, the generator's batch norms over the world), device "
+                      "time at the ranks' stripe shapes",
+        })
+    for name, (kind, stage, library_call) in SP_KERNELS.items():
+        t = sp["totals"][kind][stage]
+        out.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+            "launches": int(sp["launches"].get(dict(SP_STAGES[kind])[stage], 0)),
+            "max_abs_err": sp["errs"][kind],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_call": library_call,
+            "per": f"one spatial training step of one of {SP_WORLD} model ranks ({SP_PRESET} "
+                   f"b{SP_BF16_BATCH}, each rank a stripe of every map; the all-reduce between "
+                   "the launches not timed; sum over the launches), device time",
         })
     for name, (key, library_call) in INT8_KERNELS.items():
         t = int8["times"][key]
@@ -4311,34 +4883,41 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    seconds = {"build": time.perf_counter() - t0}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t
+
     # first, while the card holds nothing else: its memory limits are the phase's readings
-    train512_phase(smi)
-    rows = kernel_phase(cfg, BATCH)
-    t0 = time.perf_counter()
-    launches, system = path_phase(BATCH)
-    log(f"main path phase: {time.perf_counter() - t0:.1f} s")
+    phase("train512", train512_phase, smi)
+    rows = phase("kernel", kernel_phase, cfg, BATCH)
+    launches, system = phase("main_path", path_phase, BATCH)
     for preset, batch_n in GUIDED_PATHS.items():
-        t0 = time.perf_counter()
-        guided_phase(preset, batch_n, rows)
-        log(f"{preset} phase: {time.perf_counter() - t0:.1f} s")
-    synthetic_sweep = evaluation_phase(system, smi)
-    explorative_phase(system)
-    serving_phase(system, smi)
-    int8 = int8_phase(system, smi)
+        phase(preset, guided_phase, preset, batch_n, rows)
+    synthetic_sweep = phase("evaluation", evaluation_phase, system, smi)
+    phase("explorative", explorative_phase, system)
+    phase("serving", serving_phase, system, smi)
+    int8 = phase("int8", int8_phase, system, smi)
     del system
     torch.cuda.empty_cache()
-    train, resident = training_phase(smi)
-    data_phase(smi, resident, synthetic_sweep)
+    train, resident = phase("training", training_phase, smi)
+    phase("data", data_phase, smi, resident, synthetic_sweep)
     torch.cuda.empty_cache()
-    dp = dp_phase(smi)
-    tp = tp_phase(smi)
+    dp = phase("dp", dp_phase, smi)
+    tp = phase("tp", tp_phase, smi)
+    sp = phase("sp", sp_phase, smi)
     if any(ic.launches.values()):
         raise AssertionError(f"int8 kernels launched outside int8_inference: {ic.launches}")
 
+    log("phase seconds " + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
     log(json.dumps(kernels_line(rows, launches, path_norms(cfg, BATCH, full_trunk=False),
-                                train, dp, int8, tp)))
+                                train, dp, int8, tp, sp)))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -216,20 +216,14 @@ class DataConfig:
     native_scaled_decode: bool = False
 
 
-# the layouts the port refuses -> the slice each waits for
-_LATER_LAYOUTS = {
-    "spatial": "the spatial-sharding slice (deepsee_tpu/parallel/mesh.py batch_spec)",
-}
-
-
 @dataclass(frozen=True)
 class MeshConfig:
     """The device-mesh layout (deepsee_tpu/config.py:296-328) over
     processes (deepsee_torch/parallel/): "data" and "dcn" both count
     data-parallel ranks, data_axis * dcn_axis of them; "model" counts the
     tensor-parallel ranks of each data index, which hold column/row shards
-    of the wide convs (parallel/shard.py).  Spatial sharding (partition
-    "spatial") is refused until its slice (`check_ported`)."""
+    of the wide convs (parallel/shard.py), or with partition "spatial"
+    horizontal stripes of every map (parallel/spatial.py)."""
 
     data_axis: int = 1
     model_axis: int = 1
@@ -244,15 +238,17 @@ class MeshConfig:
     def spatial(self) -> bool:
         return self.partition == "spatial"
 
-    def check_ported(self) -> None:
-        """Raise NotImplementedError, naming the slice it waits for, unless
-        the port runs this layout: data and tensor parallelism."""
-        if self.partition == "spatial":
-            raise NotImplementedError(
-                f"partition 'spatial' belongs to {_LATER_LAYOUTS['spatial']} of the port, "
-                "which deepsee_torch does not have yet")
-        if self.partition != "tensor":
+    def check_ported(self, model: Optional["ModelConfig"] = None) -> None:
+        """Raise ValueError, naming the constraint, unless the port runs this
+        layout: data and tensor parallelism, and spatial sharding whose model
+        axis stripes every map of `model` evenly (parallel/spatial.py::
+        check_layout; unchecked without a model)."""
+        if self.partition not in ("tensor", "spatial"):
             raise ValueError(f"unknown partition {self.partition!r}")
+        if self.spatial and model is not None:
+            from deepsee_torch.parallel.spatial import check_layout
+
+            check_layout(model, self)
 
 
 @dataclass(frozen=True)

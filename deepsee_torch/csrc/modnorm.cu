@@ -744,8 +744,9 @@ constexpr int kTileChannels = kMaxLanes * kVec;  // channels per block, at most
 // `resident` vectors live in shared-memory slot v.  `part` receives each
 // run's (mean, M2) per channel: [2][runs][C].  STATS_ONLY (launch A of the
 // cross-rank forward) stops after the merge of the runs and writes the
-// launch's (count, mean, M2) per channel to stats_out, [3][C]; the other
-// outputs are not touched.
+// launch's (count, mean, M2) per set and channel to stats_out, [3][sets][C]
+// (one set for the batch statistics; N with INSTANCE, the instance split's
+// partials launch); the other outputs are not touched.
 //
 // INSTANCE is the instance forward's "grid" variant (ops/modnorm.py::
 // instance_plan): the same kernel over `sets` = N statistics sets of H*W
@@ -926,11 +927,13 @@ modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __re
       for (int h = 0; h < G; ++h)
         chan_merge<1>(n, &m, &q, s_grp[0][h * tile + tid], &s_grp[1][h * tile + tid],
                       &s_grp[2][h * tile + tid]);
-      if (STATS_ONLY) {
-        if (r == 0) {
-          stats_out[c] = n;
-          stats_out[C + c] = m;
-          stats_out[2 * C + c] = q;
+      if (STATS_ONLY) {  // [3][sets][C]: one set for the batch, N for the instance split
+        if (rr == 0) {
+          const int64_t o = static_cast<int64_t>(set) * C + c;
+          const int64_t NC = static_cast<int64_t>(sets) * C;
+          stats_out[o] = n;
+          stats_out[NC + o] = m;
+          stats_out[2 * NC + o] = q;
         }
       } else {
         const float rs =
@@ -1405,6 +1408,221 @@ backward_apply_kernel(const T* __restrict__ x, const T* __restrict__ mod,
   }
 }
 
+
+// ---- the instance split across ranks ------------------------------------------
+//
+// Under spatial sharding (deepsee_torch/parallel/spatial.py) each rank holds a
+// stripe of every sample's H*W pixels, so an instance norm's statistics are
+// partials too.  The instance mode splits as the batch mode does across ranks
+// (SplitInstanceModnorm in deepsee_torch/ops/modnorm.py), with N statistics
+// sets where the batch split has one:
+//   * the partials launch: modnorm_batch_kernel with STATS_ONLY and INSTANCE,
+//     the grid variant's statistics alone (runs of each (sample, channel
+//     tile) slab merged across a grid barrier where a slab has more than one),
+//     this rank's (count, mean, M2) per sample and channel into [3][N][C];
+//   * the caller all-reduces the [world][3][N][C] rows over the model group;
+//   * the apply launch (modnorm_instance_apply_kernel): the rows of each
+//     sample merged in rank order with Chan's formula, then (x - mean) * rstd,
+//     the modulation and the leaky ReLU, as the instance kernel applies them;
+//   * the backward's sums launch (instance_backward_sums_kernel): per sample
+//     and channel the sums of gy and gy * x_hat over this rank's pixels, the
+//     blocks of a (sample, channel tile) adding theirs in chunk order in the
+//     last block to finish (a counter per slab, no float atomics);
+//   * the caller all-reduces the [2][N][C] sums;
+//   * the backward's apply launch (instance_backward_apply_kernel): grad_x
+//     and grad_mod from the sums over the global count of a sample's pixels
+//     (the stripes may be uneven: the count is the caller's, not P).
+// Simple kernels: each reads x (and mod, gout) once per launch, so the split
+// moves about twice the bytes of the one-launch modes.
+
+// The apply launch.  Grid (blocks, N): block (i, n) merges sample n's rows of
+// `stats` for all C channels into shared memory (mean, rstd), block (0, n)
+// writes them to mean_out / rstd_out [N][C], and the blocks of sample n stride
+// over its HW * C / 8 vectors.
+template <typename T, bool HAS_MOD, bool LRELU>
+__global__ void __launch_bounds__(kThreads)
+modnorm_instance_apply_kernel(const T* __restrict__ x, const T* __restrict__ mod,
+                              const float* __restrict__ stats, int world, T* __restrict__ out,
+                              float* __restrict__ mean_out, float* __restrict__ rstd_out, int N,
+                              int64_t HW, int C, float eps, float slope) {
+  extern __shared__ float s_mr[];          // mean[C], then rstd[C]
+  const int n = blockIdx.y;
+  const int64_t NC = static_cast<int64_t>(N) * C;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float cnt = 0.f, m = 0.f, q = 0.f;
+    for (int r = 0; r < world; ++r) {
+      const float* row = stats + static_cast<int64_t>(r) * 3 * NC + static_cast<int64_t>(n) * C;
+      chan_merge<1>(cnt, &m, &q, row[c], &row[NC + c], &row[2 * NC + c]);
+    }
+    const float rs = __frcp_rn(__fsqrt_rn(__fadd_rn(__fdiv_rn(q, cnt), eps)));
+    s_mr[c] = m;
+    s_mr[C + c] = rs;
+    if (blockIdx.x == 0) {
+      mean_out[static_cast<int64_t>(n) * C + c] = m;
+      rstd_out[static_cast<int64_t>(n) * C + c] = rs;
+    }
+  }
+  __syncthreads();
+  const int C8 = C / kVec;
+  const int64_t total = HW * C8;
+  const T* xs = x + static_cast<int64_t>(n) * HW * C;
+  const T* ms = HAS_MOD ? mod + static_cast<int64_t>(n) * HW * 2 * C : nullptr;
+  T* os = out + static_cast<int64_t>(n) * HW * C;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; t < total;
+       t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t p = t / C8;
+    const int c = static_cast<int>(t - p * C8) * kVec;
+    float y[kVec];
+    load8(xs + p * C + c, y);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+      y[k] = __fmul_rn(__fsub_rn(y[k], s_mr[c + k]), s_mr[C + c + k]);
+    epilogue<T, HAS_MOD, LRELU>(y, HAS_MOD ? ms + p * 2 * C + c : nullptr, C, slope);
+    store8(os + p * C + c, y);
+  }
+}
+
+// The backward's sums launch.  Grid (chunks, C / (8 L), N): block (k, g, n)
+// sums gy and gy * x_hat over chunk k of sample n's pixels for the L 8-channel
+// vectors of group g (threads as backward_partial_kernel's), writes them to
+// part [2][N][chunks][C], and the last block of (n, g) to finish adds the
+// chunks in order into sums [2][N][C].
+template <typename T, bool HAS_MOD, bool LRELU>
+__global__ void __launch_bounds__(kThreads)
+instance_backward_sums_kernel(const T* __restrict__ x, const T* __restrict__ mod,
+                              const T* __restrict__ gout, const float* __restrict__ mean,
+                              const float* __restrict__ rstd, float* __restrict__ part,
+                              unsigned* __restrict__ done, float* __restrict__ sums, int N,
+                              int64_t HW, int C, int L, int64_t chunk, float slope) {
+  __shared__ float s_a[kWarps][kTileChannels];
+  __shared__ float s_b[kWarps][kTileChannels];
+  __shared__ bool s_last;
+  const int tid = threadIdx.x, lane = tid % L, R = kThreads / L;
+  const int n = blockIdx.z, chunks = gridDim.x;
+  const int c0 = blockIdx.y * L * kVec, c = c0 + lane * kVec;
+  const int64_t base = static_cast<int64_t>(n) * HW;
+  const int64_t start = blockIdx.x * chunk;
+  const int64_t end = start + chunk < HW ? start + chunk : HW;
+  float m[kVec], r[kVec];
+  load8(mean + static_cast<int64_t>(n) * C + c, m);
+  load8(rstd + static_cast<int64_t>(n) * C + c, r);
+  float a[kVec], b[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) a[j] = b[j] = 0.f;
+#pragma unroll 2
+  for (int64_t q = start + tid / L; q < end; q += R) {
+    const int64_t px = base + q;
+    float xv[kVec], gv[kVec], sv[kVec], bv[kVec], xh[kVec], gz[kVec], gy[kVec];
+    load8(x + px * C + c, xv);
+    load8(gout + px * C + c, gv);
+    if (HAS_MOD) {
+      load8(mod + px * 2 * C + c, sv);
+      load8(mod + px * 2 * C + C + c, bv);
+    }
+    backward_terms<kVec, HAS_MOD, LRELU, true>(xv, gv, sv, bv, m, r, slope, xh, gz, gy);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      a[j] += gy[j];
+      b[j] += __fmul_rn(gy[j], xh[j]);
+    }
+  }
+  for (int off = 16; off >= L; off >>= 1) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      a[j] += __shfl_xor_sync(0xffffffffu, a[j], off);
+      b[j] += __shfl_xor_sync(0xffffffffu, b[j], off);
+    }
+  }
+  const int wl = tid & 31;
+  if (wl < L) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      s_a[tid >> 5][wl * kVec + j] = a[j];
+      s_b[tid >> 5][wl * kVec + j] = b[j];
+    }
+  }
+  __syncthreads();
+  const int64_t total = static_cast<int64_t>(N) * chunks * C;
+  const int64_t row = (static_cast<int64_t>(n) * chunks + blockIdx.x) * C + c0 + tid;
+  if (tid < L * kVec) {
+    float sa = 0.f, sb = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      sa += s_a[w][tid];
+      sb += s_b[w][tid];
+    }
+    part[row] = sa;
+    part[total + row] = sb;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    s_last = atomicAdd(&done[static_cast<int64_t>(n) * gridDim.y + blockIdx.y], 1u) ==
+             static_cast<unsigned>(chunks - 1);
+  __syncthreads();
+  if (s_last && tid < L * kVec) {
+    float sa = 0.f, sb = 0.f;
+    for (int k = 0; k < chunks; ++k) {
+      const int64_t i = (static_cast<int64_t>(n) * chunks + k) * C + c0 + tid;
+      sa += __ldcg(part + i);
+      sb += __ldcg(part + total + i);
+    }
+    const int64_t o = static_cast<int64_t>(n) * C + c0 + tid;
+    sums[o] = sa;
+    sums[static_cast<int64_t>(N) * C + o] = sb;
+  }
+}
+
+// The backward's apply launch.  Grid (blocks, N): block (i, n) turns sample
+// n's sums [2][N][C] over `count` pixels into the coefficients in shared
+// memory, then writes grad_x and grad_mod as backward_apply_kernel does, with
+// the instance normalization (x - mean) * rstd.
+template <typename T, bool HAS_MOD, bool LRELU>
+__global__ void __launch_bounds__(kThreads)
+instance_backward_apply_kernel(const T* __restrict__ x, const T* __restrict__ mod,
+                               const T* __restrict__ gout, const float* __restrict__ mean,
+                               const float* __restrict__ rstd, const float* __restrict__ sums,
+                               T* __restrict__ gx, T* __restrict__ gmod, int N, int64_t HW, int C,
+                               float count, float slope) {
+  extern __shared__ float s_cf[];          // mean(gy)[C], then mean(gy * x_hat)[C]
+  const int n = blockIdx.y;
+  const int64_t nc = static_cast<int64_t>(n) * C, NC = static_cast<int64_t>(N) * C;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    s_cf[c] = __fdiv_rn(sums[nc + c], count);
+    s_cf[C + c] = __fdiv_rn(sums[NC + nc + c], count);
+  }
+  __syncthreads();
+  const int C8 = C / kVec;
+  const int64_t total = HW * C8, base = static_cast<int64_t>(n) * HW;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; t < total;
+       t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t q = base + t / C8;
+    const int c = static_cast<int>(t % C8) * kVec;
+    float xv[kVec], gv[kVec], sv[kVec], bv[kVec], m[kVec], r[kVec];
+    float xh[kVec], gz[kVec], gy[kVec];
+    load8(x + q * C + c, xv);
+    load8(gout + q * C + c, gv);
+    if (HAS_MOD) {
+      load8(mod + q * 2 * C + c, sv);
+      load8(mod + q * 2 * C + C + c, bv);
+    }
+    load8(mean + nc + c, m);
+    load8(rstd + nc + c, r);
+    backward_terms<kVec, HAS_MOD, LRELU, true>(xv, gv, sv, bv, m, r, slope, xh, gz, gy);
+    float o[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+      o[k] = __fmul_rn(r[k], __fsub_rn(__fsub_rn(gy[k], s_cf[c + k]),
+                                       __fmul_rn(xh[k], s_cf[C + c + k])));
+    store8(gx + q * C + c, o);
+    if (HAS_MOD) {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) o[k] = __fmul_rn(gz[k], xh[k]);
+      store8(gmod + q * 2 * C + c, o);
+      store8(gmod + q * 2 * C + C + c, gz);
+    }
+  }
+}
+
 int sm_count() {
   int dev = 0, n = 0;
   cudaGetDevice(&dev);
@@ -1477,6 +1695,12 @@ const void* instance_grid_kernel(bool has_mod, bool lrelu) {
 const void* instance_grid_kernel(int dtype, bool has_mod, bool lrelu) {
   return dtype == 0 ? instance_grid_kernel<float>(has_mod, lrelu)
                     : instance_grid_kernel<__nv_bfloat16>(has_mod, lrelu);
+}
+
+// The instance split's partials launch: the grid variant's statistics alone.
+const void* instance_partials_kernel(int dtype) {
+  return dtype == 0 ? fn(modnorm_batch_kernel<float, false, false, true, true>)
+                    : fn(modnorm_batch_kernel<__nv_bfloat16, false, false, true, true>);
 }
 
 template <typename T, bool STREAM>
@@ -1664,6 +1888,69 @@ struct BackwardApply {
   template <typename... A> static void run(A... a) { launch_backward_apply<T, M, R>(a...); }
 };
 
+
+// Blocks per sample of the instance split's elementwise launches: enough for
+// eight blocks per SM over the batch, no more than the sample's vectors need.
+int per_sample_blocks(int N, int64_t HW, int C) {
+  const int64_t want = (HW * (C / kVec) + kThreads - 1) / kThreads;
+  int64_t cap = static_cast<int64_t>(sm_count()) * (2048 / kThreads) / N;
+  if (cap < 1) cap = 1;
+  return static_cast<int>(want < cap ? want : cap);
+}
+
+template <typename T, bool HAS_MOD, bool LRELU>
+void launch_instance_apply(const void* x, const void* mod, const float* stats, int world,
+                           void* out, float* mean, float* rstd, int N, int64_t HW, int C,
+                           float eps, float slope, cudaStream_t stream) {
+  const size_t smem = 2 * static_cast<size_t>(C) * sizeof(float);  // at most 48 KB
+  modnorm_instance_apply_kernel<T, HAS_MOD, LRELU>
+      <<<dim3(per_sample_blocks(N, HW, C), N), kThreads, smem, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(mod), stats, world,
+          static_cast<T*>(out), mean, rstd, N, HW, C, eps, slope);
+}
+
+template <typename T, bool HAS_MOD, bool LRELU>
+void launch_instance_backward_sums(const void* x, const void* mod, const void* gout,
+                                   const float* mean, const float* rstd, float* part,
+                                   unsigned* done, float* sums, int N, int64_t HW, int C, int L,
+                                   int chunks, int64_t chunk, float slope, cudaStream_t stream) {
+  instance_backward_sums_kernel<T, HAS_MOD, LRELU>
+      <<<dim3(chunks, C / (kVec * L), N), kThreads, 0, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(mod), static_cast<const T*>(gout),
+          mean, rstd, part, done, sums, N, HW, C, L, chunk, slope);
+}
+
+template <typename T, bool HAS_MOD, bool LRELU>
+void launch_instance_backward_apply(const void* x, const void* mod, const void* gout,
+                                    const float* mean, const float* rstd, const float* sums,
+                                    void* gx, void* gmod, int N, int64_t HW, int C, float count,
+                                    float slope, cudaStream_t stream) {
+  const size_t smem = 2 * static_cast<size_t>(C) * sizeof(float);
+  instance_backward_apply_kernel<T, HAS_MOD, LRELU>
+      <<<dim3(per_sample_blocks(N, HW, C), N), kThreads, smem, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(mod), static_cast<const T*>(gout),
+          mean, rstd, sums, static_cast<T*>(gx), static_cast<T*>(gmod), N, HW, C, count, slope);
+}
+
+template <typename T, bool M, bool R>
+struct InstanceApply {
+  template <typename... A> static void run(A... a) { launch_instance_apply<T, M, R>(a...); }
+};
+
+template <typename T, bool M, bool R>
+struct InstanceBackwardSums {
+  template <typename... A> static void run(A... a) {
+    launch_instance_backward_sums<T, M, R>(a...);
+  }
+};
+
+template <typename T, bool M, bool R>
+struct InstanceBackwardApply {
+  template <typename... A> static void run(A... a) {
+    launch_instance_backward_apply<T, M, R>(a...);
+  }
+};
+
 int invalid() {
   cudaGetLastError();
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1767,9 +2054,10 @@ int launch_batch(const void* x, const void* mod, void* out, void* part, void* me
       sets < 1 || P % sets || runs < 1 || runs % sets || runs / sets > P / sets ||
       runs / sets > kMaxRunsPerSet || smem < 0 || smem % 16)
     return invalid();
-  const void* kernel = instance ? instance_grid_kernel(dtype, mod != nullptr, lrelu != 0)
-                                : batch_kernel(dtype, mod != nullptr, lrelu != 0,
-                                               stats != nullptr);
+  const void* kernel = !instance ? batch_kernel(dtype, mod != nullptr, lrelu != 0,
+                                                stats != nullptr)
+                      : stats != nullptr ? instance_partials_kernel(dtype)
+                                         : instance_grid_kernel(dtype, mod != nullptr, lrelu != 0);
   const int64_t grid = static_cast<int64_t>(runs) * (C / tile);
   const bool cooperative = !instance || runs > sets;
   const int per_sm = blocks_per_sm(kernel, smem);
@@ -1969,5 +2257,108 @@ extern "C" int modnorm_backward_batch_apply(const void* x, const void* mod, cons
   else
     dispatch_flags<__nv_bfloat16, BackwardApply>(mod != nullptr, lrelu != 0, x, mod, gout, m, r,
                                                  sm, cf, gx, gmod, P, C, count, slope, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the instance split across ranks (see the kernels above) ----------------
+
+// Blocks of the instance split's partials kernel an SM holds with `smem`
+// bytes of dynamic shared memory; -1 where the card cannot say.
+extern "C" int modnorm_instance_partials_blocks_per_sm(int dtype, int smem) {
+  const int n = blocks_per_sm(instance_partials_kernel(dtype), smem);
+  cudaGetLastError();
+  return n;
+}
+
+// The partials launch: this rank's (count, mean, centred M2) per sample and
+// channel over its H*W pixels into `stats`, [3][N][C] float32 (its row of the
+// [world][3][N][C] buffer the caller all-reduces).  The plan is
+// deepsee_torch/ops/modnorm.py::instance_partials_plan's: `runs` = N times the
+// runs per slab, cooperative where a slab has more than one (`part` scratch
+// of 2 * runs * C floats).
+extern "C" int modnorm_instance_partials(const void* x, void* part, void* stats, int N,
+                                         int64_t HW, int C, int tile, int runs, int smem,
+                                         int dtype, void* stream) {
+  if (stats == nullptr || N < 1 || HW < 1 || runs < N || runs % N ||
+      (runs > N && part == nullptr))
+    return invalid();
+  return launch_batch(x, nullptr, nullptr, part, nullptr, nullptr, stats, N * HW, C, tile, runs,
+                      N, true, smem, 0.f, dtype, 0, 0.f, stream);
+}
+
+// The apply launch: the `world` rows of `stats` ([world][3][N][C] float32,
+// all-reduced) merged per sample in rank order, their mean and rstd into
+// `mean` and `rstd` (N, C), and out = lrelu?((x - mean) * rstd * scale +
+// offset) over each sample's HW pixels.
+extern "C" int modnorm_instance_apply(const void* x, const void* mod, const void* stats,
+                                      int world, void* out, void* mean, void* rstd, int N,
+                                      int64_t HW, int C, float eps, int dtype, int lrelu,
+                                      float slope, void* stream) {
+  if (N < 1 || N > 65535 || HW < 1 || C < kVec || C % kVec || C > 6144 || world < 1)
+    return invalid();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* st = static_cast<const float*>(stats);
+  float* m = static_cast<float*>(mean);
+  float* r = static_cast<float*>(rstd);
+  if (dtype == 0)
+    dispatch_flags<float, InstanceApply>(mod != nullptr, lrelu != 0, x, mod, st, world, out, m,
+                                         r, N, HW, C, eps, slope, s);
+  else
+    dispatch_flags<__nv_bfloat16, InstanceApply>(mod != nullptr, lrelu != 0, x, mod, st, world,
+                                                 out, m, r, N, HW, C, eps, slope, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's sums launch: sums = [sum gy | sum gy * x_hat] per sample and
+// channel over this rank's pixels, [2][N][C] float32.  The plan (L, chunks,
+// chunk) is deepsee_torch/ops/modnorm.py::instance_reduce_plan's; `part` is
+// scratch of 2 * N * chunks * C floats, `done` N * C / (8 L) zeroed counters.
+extern "C" int modnorm_instance_backward_sums(const void* x, const void* mod, const void* gout,
+                                              const void* mean, const void* rstd, void* part,
+                                              void* done, void* sums, int N, int64_t HW, int C,
+                                              int L, int chunks, int64_t chunk, int dtype,
+                                              int lrelu, float slope, void* stream) {
+  if (N < 1 || N > 65535 || HW < 1 || chunks < 1 || chunk < 1 || chunk * chunks < HW ||
+      (chunks - 1) * chunk >= HW || (L != 1 && L != 2 && L != 4 && L != 8) || C < kVec * L ||
+      C % (kVec * L) || C / (kVec * L) > 65535)
+    return invalid();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mean);
+  const float* r = static_cast<const float*>(rstd);
+  float* p = static_cast<float*>(part);
+  unsigned* d = static_cast<unsigned*>(done);
+  float* sm = static_cast<float*>(sums);
+  if (dtype == 0)
+    dispatch_flags<float, InstanceBackwardSums>(mod != nullptr, lrelu != 0, x, mod, gout, m, r,
+                                                p, d, sm, N, HW, C, L, chunks, chunk, slope, s);
+  else
+    dispatch_flags<__nv_bfloat16, InstanceBackwardSums>(mod != nullptr, lrelu != 0, x, mod,
+                                                        gout, m, r, p, d, sm, N, HW, C, L,
+                                                        chunks, chunk, slope, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's apply launch: grad_x (x's layout) and, where `mod` is given,
+// grad_mod (its 2C layout) from the all-reduced `sums` [2][N][C] over `count`
+// pixels per sample (the whole map's, every stripe's).
+extern "C" int modnorm_instance_backward_apply(const void* x, const void* mod, const void* gout,
+                                               const void* mean, const void* rstd,
+                                               const void* sums, void* gx, void* gmod, int N,
+                                               int64_t HW, int C, float count, int dtype,
+                                               int lrelu, float slope, void* stream) {
+  if (N < 1 || N > 65535 || HW < 1 || C < kVec || C % kVec || C > 6144 || !(count >= 1.f) ||
+      (mod != nullptr) != (gmod != nullptr))
+    return invalid();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mean);
+  const float* r = static_cast<const float*>(rstd);
+  const float* sm = static_cast<const float*>(sums);
+  if (dtype == 0)
+    dispatch_flags<float, InstanceBackwardApply>(mod != nullptr, lrelu != 0, x, mod, gout, m, r,
+                                                 sm, gx, gmod, N, HW, C, count, slope, s);
+  else
+    dispatch_flags<__nv_bfloat16, InstanceBackwardApply>(mod != nullptr, lrelu != 0, x, mod,
+                                                         gout, m, r, sm, gx, gmod, N, HW, C,
+                                                         count, slope, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,11 +19,20 @@ are column-sharded and even ones row-sharded where wide enough.  Each
 layer's output comes as its conv leaves it, so the activations after a
 column layer are this rank's channel block (`sharded_outputs` says which):
 the feature-matching loss sums them per rank and over the model group.
+
+Spatial sharding: each scale starts on this rank's even stripe of its input
+and carries the stripes' layout (`spatial.Rows`) from layer to layer: a 4x4
+window at padding 2 keeps the owner rule and makes the stripes uneven (256
+-> 129 -> 65 -> 66 -> 67 rows at two ranks, the last rank holding the extra
+ones), every conv takes as many halo rows as its window reads, the instance
+norms take each sample's statistics over every stripe, and the pool between
+scales divides by the valid taps at the global edges only.  `output_rows`
+gives each output's layout for the losses' global means.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
@@ -32,6 +41,7 @@ from deepsee_torch.config import ModelConfig
 from deepsee_torch.models.layers import Conv2d, NonSpadeNormConv
 from deepsee_torch.ops.norms import leaky_relu
 from deepsee_torch.ops.pooling import avg_pool_3x3_s2
+from deepsee_torch.parallel import spatial
 from deepsee_torch.parallel import tensor as tp
 
 
@@ -48,11 +58,17 @@ class _Layer(nn.Module):
     def out_sharded(self) -> bool:
         return self._modules["0"].out_sharded
 
-    def forward(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+    @property
+    def conv(self) -> Conv2d:
+        layer = self._modules["0"]
+        return layer._modules["0"] if isinstance(layer, NonSpadeNormConv) else layer
+
+    def forward(self, x: torch.Tensor, sharded: bool = False,
+                rows: Optional[spatial.Rows] = None) -> torch.Tensor:
         layer = self._modules["0"]
         if isinstance(layer, NonSpadeNormConv):
-            return layer(x, lrelu=self.lrelu, sharded=sharded)
-        y = layer(x, sharded=sharded)
+            return layer(x, lrelu=self.lrelu, sharded=sharded, rows=rows)
+        y = layer(x, sharded=sharded, rows=rows)
         return leaky_relu(y) if self.lrelu else y
 
 
@@ -74,11 +90,19 @@ class NLayerDiscriminator(nn.Module):
                 NonSpadeNormConv(nf_prev, nf, 4, stride, 2, cfg.norm_d), lrelu=True))
         self.add_module(f"model{cfg.n_layers_d}", _Layer(Conv2d(nf, 1, 4, 1, 2), lrelu=False))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, rows: Optional[spatial.Rows] = None
+                ) -> List[torch.Tensor]:
+        """x, and where maps are striped this rank's stripe of layout `rows`
+        (even where None)."""
         results = []
         y, sharded = x.to(self.dtype), False
+        if spatial.active() and rows is None:
+            rows = spatial.rows_of(x)
         for layer in self.children():
-            y, sharded = layer(y, sharded=sharded), layer.out_sharded
+            y, sharded = layer(y, sharded=sharded, rows=rows), layer.out_sharded
+            if rows is not None:
+                conv = layer.conv
+                rows = rows.window(conv.kernel_size, conv.stride, conv.padding)
             results.append(y)
         if sharded:  # the logit, every channel of it
             results[-1] = tp.gather(y)
@@ -103,11 +127,29 @@ class MultiscaleDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
         out = []
+        rows = spatial.rows_of(x) if spatial.active() else None
         for i, d in enumerate(self.children()):
             if i:
-                x = avg_pool_3x3_s2(x)
-            out.append(d(x))
+                x = avg_pool_3x3_s2(x, rows)
+                rows = None if rows is None else rows.window(3, 2, 1)
+            out.append(d(x, rows))
         return out
+
+    def output_rows(self, height: int) -> List[List[spatial.Rows]]:
+        """The stripes' layout of each output (per scale, per layer) for an
+        input of `height` rows in even stripes (maps striped only)."""
+        layouts = []
+        rows = spatial.Rows.even(height)
+        for i, d in enumerate(self.children()):
+            if i:
+                rows = rows.window(3, 2, 1)
+            scale, r = [], rows
+            for layer in d.children():
+                conv = layer.conv
+                r = r.window(conv.kernel_size, conv.stride, conv.padding)
+                scale.append(r)
+            layouts.append(scale)
+        return layouts
 
     def sharded_outputs(self) -> List[List[bool]]:
         return [d.sharded_outputs() for d in self.children()]

@@ -21,6 +21,13 @@ Tensor parallelism (deepsee_tpu/parallel/mesh.py:158-169): down1 / conv1
 are column-sharded and up_conv / conv2 row-sharded where they are wide
 enough; the norm and leaky ReLU between them and the upsample run on this
 rank's channel block, and a trunk returns every channel.
+
+Spatial sharding: the trunks run on this rank's stripes (their stride-2
+convs keep the owner rule and, on even stripes, even stripes), the instance
+norms take each sample's statistics over every stripe, the style matrix sums
+each stripe's pixels and then the model group's (`spatial.sum_shared`) over
+the whole map's H * W, and random_style_matrix draws the whole map's noise
+and keeps the stripe.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ import torch.nn as nn
 from deepsee_torch.config import ModelConfig
 from deepsee_torch.models.layers import NonSpadeNormConv
 from deepsee_torch.ops.resize import resize2d, upsample_nearest_2x
-from deepsee_torch.parallel import distributed
+from deepsee_torch.parallel import distributed, spatial
 from deepsee_torch.parallel import tensor as tp
 
 
@@ -70,13 +77,17 @@ def style_noise(style: torch.Tensor, noise_weights: torch.Tensor, cfg: ModelConf
 
 def extract_style_matrix(x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) features x (B, N, Hs, Ws) one-hot -> (B, N, C) float32:
-    the masked mean over ALL H*W pixels (not the region's), encoder.py:37-47."""
+    the masked mean over ALL H*W pixels (not the region's), encoder.py:37-47.
+    Where maps are striped, x and seg are this rank's stripes: the masked
+    sum over its pixels, summed over the model group, over the whole map's
+    H*W."""
     b, c, h, w = x.shape
     if tuple(seg.shape[-2:]) != (h, w):
         seg = resize2d(seg, (h, w), method="nearest")
     xf = x.float().permute(0, 2, 3, 1).reshape(b, h * w, c)
     sf = seg.float().permute(0, 2, 3, 1).reshape(b, h * w, -1)
-    return torch.bmm(sf.transpose(1, 2), xf) / (h * w)
+    sums = spatial.sum_shared(torch.bmm(sf.transpose(1, 2), xf))
+    return sums / (spatial.global_height(h) * w)
 
 
 class _TrunkLayer(nn.Module):
@@ -208,8 +219,11 @@ class FullStyleEncoder(FullTrunk):
         if cfg.random_style_matrix:
             b, n = seg_full.shape[:2]
             size = (cfg.crop_size, cfg.crop_size)
-            draw = draw_noise((b,) + size + (n,), "normal", generator, seg_full.device)
-            x_full = draw.permute(0, 3, 1, 2) * resize2d(seg_full, size, method="nearest")
+            draw = spatial.full_rows_draw(
+                lambda shape: draw_noise(shape, "normal", generator, seg_full.device),
+                (b, spatial.local_height(size[0]), size[1], n))
+            x_full = draw.permute(0, 3, 1, 2) * resize2d(
+                seg_full, (spatial.local_height(size[0]), size[1]), method="nearest")
             x_full = x_full.contiguous(memory_format=torch.channels_last)
         y = super().forward(x_full.to(self.dtype))
         style = extract_style_matrix(self.final(y), seg_full)

@@ -18,6 +18,11 @@ fake), runs the blocks plainly.
 Tensor parallelism: `initial` is column-sharded where the plan shards the
 trunk (its output gathered before head_0), the blocks take and return
 replicated activations (models/blocks.py), and `conv_img` is replicated.
+
+Spatial sharding: every map is this rank's stripe; `initial`, the blocks'
+3x3 convs and `conv_img` take their halos (models/layers.py::conv2d), the
+1x1 conv_s and the nearest upsamples are local.  The "nospade" variant's
+reflection pad is refused there (ROADMAP.md queues it).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from deepsee_torch.models.blocks import SPADEResnetBlock
 from deepsee_torch.models.layers import Conv2d, NonSpadeNormConv
 from deepsee_torch.ops.norms import leaky_relu
 from deepsee_torch.ops.resize import upsample_nearest_2x
+from deepsee_torch.parallel import spatial
 from deepsee_torch.parallel import tensor as tp
 
 VARIANTS = ("deepsee", "nostyle", "nospade", "puresean")
@@ -55,6 +61,9 @@ class Pix2PixResnetBlock(nn.Module):
     def forward(self, x: torch.Tensor, seg: Optional[torch.Tensor] = None,
                 style: Optional[torch.Tensor] = None, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if spatial.active():
+            raise NotImplementedError("the 'nospade' generator's reflection pad under the spatial "
+                                      "layout is not ported (ROADMAP.md)")
         conv0, conv1 = self.conv_block._modules["1"], self.conv_block._modules["4"]
         y = torch.relu(conv0(F.pad(x, (1, 1, 1, 1), mode="reflect")))
         return x + conv1(F.pad(y, (1, 1, 1, 1), mode="reflect"))

@@ -20,6 +20,15 @@ outputs are summed) or None (replicated): the `tp_shard` that
 parallel/shard.py's plan puts on its weight.  Layers take `sharded=True` where their input holds this rank's channel
 block and say through `out_sharded` whether their output does; the
 collectives in between are parallel/tensor.py's.
+
+Spatial sharding (parallel/spatial.py): where maps are striped over the
+model group, every conv takes its halo first (`spatial.window`: the
+neighbours' rows, zeros at the global top and bottom only) and convolves
+with padding 0 along H; a layer that may see uneven stripes (the
+discriminator's) takes their layout as `rows`.  The batch norms' statistics
+cover every rank, data x model, the instance norms' every stripe of a
+sample, and the injected noise is drawn for the whole map and cut to the
+stripe, as one process draws it.
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ from deepsee_torch.ops.int8conv import int8_conv
 from deepsee_torch.ops.modnorm import (merge_partials, modnorm, modnorm_batch_partials_plain,
                                        modnorm_train)
 from deepsee_torch.ops.norms import leaky_relu
-from deepsee_torch.parallel import distributed
+from deepsee_torch.parallel import distributed, spatial
 from deepsee_torch.parallel import tensor as tp
 
 BN_MOMENTUM = 0.1
@@ -117,15 +126,25 @@ def draw_injection_noise(shape, generator: Optional[torch.Generator],
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-           stride: int = 1, padding: int = 1, *, training: bool = True) -> torch.Tensor:
+           stride: int = 1, padding: int = 1, *, training: bool = True,
+           rows: Optional[spatial.Rows] = None) -> torch.Tensor:
     """F.conv2d in x's dtype, with a channels_last result.  An eval-mode conv
     (training=False) that `quantizes` under `int8_inference` runs `int8_conv`
     instead: the float32 weight quantized, the result cast to x's dtype and
-    then the bias added in that dtype, in the JAX package's order."""
-    if quantizes(training, weight.shape[1], weight.shape[0]):
+    then the bias added in that dtype, in the JAX package's order.  Where
+    maps are striped, x is this rank's stripe (of layout `rows`, even where
+    None) and the result its output stripe under the owner rule."""
+    pad = padding
+    if spatial.active():
+        if quantizes(training, weight.shape[1], weight.shape[0]):
+            raise NotImplementedError("int8 inference under the spatial layout is not ported "
+                                      "yet (ROADMAP.md: K4 under the mesh layouts)")
+        x = spatial.window(x, weight.shape[2], stride, padding, rows)
+        pad = (0, padding)
+    elif quantizes(training, weight.shape[1], weight.shape[0]):
         return int8_conv(x, weight, bias, stride, padding, _INT8_MODE["smooth"])
     y = F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
-                 stride=stride, padding=padding)
+                 stride=stride, padding=pad)
     return y.contiguous(memory_format=torch.channels_last)
 
 
@@ -197,6 +216,7 @@ class Conv2d(nn.Module):
                  padding: int = 1, bias: bool = True, spectral: bool = False):
         super().__init__()
         self.stride, self.padding, self.spectral = stride, padding, spectral
+        self.kernel_size = kernel_size
         w = nn.Parameter(torch.zeros(fout, fin, kernel_size, kernel_size))
         if spectral:
             self.weight_orig = w
@@ -238,9 +258,11 @@ class Conv2d(nn.Module):
     def out_sharded(self) -> bool:
         return self.shard == tp.COLUMN
 
-    def forward(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sharded: bool = False,
+                rows: Optional[spatial.Rows] = None) -> torch.Tensor:
         """x, channel-sharded where `sharded`; the output channel-sharded
-        where `out_sharded`."""
+        where `out_sharded`.  Where maps are striped, x is this rank's stripe
+        of layout `rows` (even where None)."""
         x = tp.conv_input(x, sharded, self.shard)
         weight = self.effective_weight()
         row = self.shard == tp.ROW
@@ -248,7 +270,7 @@ class Conv2d(nn.Module):
         # package's checkpoint_name(y, "conv_out")); the power iteration is not
         with saving_conv_output():
             y = conv2d(x, weight, None if row else self.bias, self.stride, self.padding,
-                       training=self.training)
+                       training=self.training, rows=rows)
         if row:
             y = tp.reduce(y)
             if self.bias is not None:
@@ -258,7 +280,8 @@ class Conv2d(nn.Module):
 
 class GlobalMoments(torch.autograd.Function):
     """Per-channel mean and biased variance (float32) of x (B, C, H, W) over
-    every rank's rows of the data group, equal on every rank.
+    every rank's rows of `group` (the data group; the world where maps are
+    striped), equal on every rank, and their count.
 
     Forward: each rank's (count, mean, centred M2) row in its slot of a
     zeroed [world, 3, C] tensor, an all-reduce (sum), and the rows merged in
@@ -266,29 +289,31 @@ class GlobalMoments(torch.autograd.Function):
     forward merges them).  Backward: the gradients of the mean and variance,
     which are per-channel sums over this rank's pixels of g and g * x_hat
     terms, all-reduced (sum) so that each holds every rank's loss; then
-    d x = (g_mean + 2 g_var (x - mean)) / (world B H W).  Every rank must
-    call it with the same shape, in the same order."""
+    d x = (g_mean + 2 g_var (x - mean)) / n, n the merged count (every
+    rank's pixels; stripes may hold different counts).  Every rank must call
+    it with the same shape, in the same order."""
 
     @staticmethod
-    def forward(ctx, x):
-        group = distributed.data_group()
+    def forward(ctx, x, group=None):
         world, rank = dist.get_world_size(group), dist.get_rank(group)
         partials = x.new_zeros((world, 3, x.shape[1]), dtype=torch.float32)
         partials[rank] = modnorm_batch_partials_plain(x)
         dist.all_reduce(partials, group=group)
         n, mean, m2 = merge_partials(partials)
-        ctx.save_for_backward(x, mean)
-        ctx.count = world * x.shape[0] * x.shape[2] * x.shape[3]
-        return mean, m2 / n
+        ctx.save_for_backward(x, mean, n)
+        ctx.group = group
+        ctx.mark_non_differentiable(n)
+        return mean, m2 / n, n
 
     @staticmethod
-    def backward(ctx, g_mean, g_var):
-        x, mean = ctx.saved_tensors
+    def backward(ctx, g_mean, g_var, _g_n):
+        x, mean, n = ctx.saved_tensors
         sums = torch.stack([torch.zeros_like(mean) if g is None else g
                             for g in (g_mean, g_var)])
-        dist.all_reduce(sums, group=distributed.data_group())
+        dist.all_reduce(sums, group=ctx.group)
         g_mean, g_var = sums[:, :, None, None]
-        return ((g_mean + 2 * g_var * (x.float() - mean[:, None, None])) / ctx.count).to(x.dtype)
+        dx = (g_mean + 2 * g_var * (x.float() - mean[:, None, None])) / n[:, None, None]
+        return dx.to(x.dtype), None
 
 
 class TorchBatchNorm(nn.Module):
@@ -298,12 +323,13 @@ class TorchBatchNorm(nn.Module):
     only the encoder and discriminator norm strings "batch"/"sync_batch",
     which no preset uses, reach it.  Under a process group of more than one
     data rank both take the statistics of the global batch
-    (`GlobalMoments`, over the data group), as the JAX package's do under
-    jit over a sharded batch, and the running variance is unbiased over the
-    data world's pixels.  On a channel block (after a column conv) it uses
-    its block of the running statistics and of the affine parameters
-    (their gradients summed over the model group) and gathers the block's
-    statistics into the full running ones.
+    (`GlobalMoments`, over the data group, or the world where maps are
+    striped), as the JAX package's do under jit over a sharded batch, and
+    the running variance is unbiased over those ranks' pixels.  On a
+    channel block (after a column conv) it uses its block of the running
+    statistics and of the affine parameters (their gradients summed over
+    the model group) and gathers the block's statistics into the full
+    running ones.
 
     With `affine`, `weight` holds the JAX package's `scale` parameter: the
     multiplier applied is weight + 1 (its init N(0, 0.02) mirrors torch's
@@ -332,17 +358,19 @@ class TorchBatchNorm(nn.Module):
         mean, var = block(self.running_mean), block(self.running_var)
         if self.training:
             check_training_forward(self)
-            world = distributed.data_world()
+            group, world = spatial.batch_group()
+            count = world * x.shape[0] * x.shape[2] * x.shape[3]
             if world > 1:
-                mean, var = GlobalMoments.apply(x)
+                mean, var, n = GlobalMoments.apply(x, group)
+                if spatial.active():  # the stripes' counts may differ
+                    count = int(n[0])
             else:
                 xf = x.float()
                 mean = xf.mean((0, 2, 3))
                 d = xf - mean[:, None, None]
                 var = (d * d).mean((0, 2, 3))
             full = tp.all_gather_values(torch.stack([mean, var]), 1) if sharded else (mean, var)
-            update_running_stats(self.running_mean, self.running_var, full[0], full[1],
-                                 world * x.shape[0] * x.shape[2] * x.shape[3])
+            update_running_stats(self.running_mean, self.running_var, full[0], full[1], count)
         inv = torch.rsqrt(var + self.eps)
         scale, offset = inv, -mean * inv
         if self.affine:
@@ -373,10 +401,13 @@ class NoiseInjection(nn.Module):
                 sharded: bool = False) -> torch.Tensor:
         """On a channel block (`sharded`) the noise is drawn for every
         channel, as one process draws it, and this rank keeps its block; its
-        block of the weight takes the gradient summed over the model group."""
+        block of the weight takes the gradient summed over the model group.
+        On a stripe of the map (spatial sharding) the noise is drawn for the
+        whole map and this rank keeps its stripe of H."""
         b, c, h, w = x.shape
         full_c = c * distributed.model_world() if sharded else c
-        noise = draw_injection_noise((b, h, w, full_c), generator, x.device).permute(0, 3, 1, 2)
+        noise = spatial.full_rows_draw(lambda s: draw_injection_noise(s, generator, x.device),
+                                       (b, h, w, full_c)).permute(0, 3, 1, 2)
         weight = self.weight
         if sharded:
             noise, weight = noise.narrow(1, distributed.model_rank() * c, c), tp.local_param(weight)
@@ -406,13 +437,20 @@ class NonSpadeNormConv(nn.Module):
     def out_sharded(self) -> bool:
         return self._modules["0"].out_sharded
 
-    def forward(self, x: torch.Tensor, *, lrelu: bool = False,
-                sharded: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, lrelu: bool = False, sharded: bool = False,
+                rows: Optional[spatial.Rows] = None) -> torch.Tensor:
         """x channel-sharded where `sharded`; the norm and the leaky ReLU are
         per channel, so they run on the conv's output as it comes (this
-        rank's channel block after a column conv)."""
-        y = self._modules["0"](x, sharded=sharded)
+        rank's channel block after a column conv).  Where maps are striped,
+        x is this rank's stripe of layout `rows` (even where None) and the
+        instance norm takes each sample's statistics over every stripe."""
+        conv = self._modules["0"]
+        y = conv(x, sharded=sharded, rows=rows)
         if self.sub == "instance":
+            if spatial.active():
+                rows = spatial.rows_of(x) if rows is None else rows
+                out_rows = rows.window(conv.kernel_size, conv.stride, conv.padding)
+                return spatial.instance_modnorm(y, lrelu=lrelu, rows=out_rows)[0]
             if self.training:
                 return modnorm_train(y, stats="instance", lrelu=lrelu)[0]
             return modnorm(y, stats="instance", lrelu=lrelu)

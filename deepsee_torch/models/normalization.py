@@ -19,6 +19,14 @@ x, replicated) is scattered to it, and the output stays on the block
 `mlp_shared` is replicated, except under norm_1, where the JAX plan makes
 every wide-enough kernel column-sharded: there its output is gathered
 before the modulation conv.
+
+Spatial sharding (parallel/spatial.py): x, the segmap and the modulation are
+this rank's stripes.  The modulation convs and mlp_shared take their halos
+(models/layers.py::conv2d), `conv_on_nearest_up2` takes its halo at the
+source resolution, the nearest resizes stay local to the stripes (the fm-cap
+quirk's too), and K1's statistics span the stripes: the instance mode's each
+sample's (spatial.instance_modnorm), the batch mode's the whole world's
+(spatial.batch_modnorm).
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from deepsee_torch.models.layers import (Conv2d, check_training_forward, conv2d,
                                          update_running_stats, xavier_normal_)
 from deepsee_torch.ops.modnorm import modnorm, modnorm_train, modnorm_train_sync
 from deepsee_torch.ops.resize import resize2d
-from deepsee_torch.parallel import distributed
+from deepsee_torch.parallel import distributed, spatial
 from deepsee_torch.parallel import tensor as tp
 
 _NHIDDEN = 128  # the reference's embedding width (normalization.py:38)
@@ -57,10 +65,16 @@ def conv_on_nearest_up2(a: torch.Tensor, weight: torch.Tensor,
     4x4 kernel, so each output pixel reads the 2x2 source pixels its 3x3
     window touched -- 4/9 of the MACs, and the duplicated map is never
     made.  The taps are summed in float32 before the cast to a's dtype.
-    weight (Cout, Cin, 3, 3) -> (Cin, Cout, 4, 4) for conv_transpose2d."""
+    weight (Cout, Cin, 3, 3) -> (Cin, Cout, 4, 4) for conv_transpose2d.
+    Where maps are striped, `a` takes one halo row above and below (zeros at
+    the global edges) and a padding of 3 along H crops the transposed conv's
+    output to this rank's rows 2 lo .. 2 hi."""
     fold = _UP2_FOLD_FLIPPED.to(weight.device)
     w4 = torch.einsum("su,rv,oiuv->iosr", fold, fold, weight.float())
-    y = F.conv_transpose2d(a, w4.to(a.dtype), bias.to(a.dtype), stride=2, padding=1)
+    padding = 1
+    if spatial.active():
+        a, padding = spatial.window(a, 3, 1, 1), (3, 1)
+    y = F.conv_transpose2d(a, w4.to(a.dtype), bias.to(a.dtype), stride=2, padding=padding)
     return y.contiguous(memory_format=torch.channels_last)
 
 
@@ -108,11 +122,13 @@ class ParamFreeNorm(nn.Module):
     the global one (the JAX package's batch norm under jit over a sharded
     batch): the statistics come from every data rank's rows
     (`modnorm_train_sync` over the data group) and the running variance is
-    unbiased over the data world's pixels.  With `sharded`, x and mod hold
-    this rank's channel block: K1 runs on the block (its statistics are per
-    channel), the eval mode takes the block of the running statistics, and
-    training gathers the block's statistics over the model group into the
-    full running ones, equal on every rank.
+    unbiased over the data world's pixels; where maps are striped, the
+    statistics and the count are the whole world's, data x model, and an
+    instance norm's statistics span a sample's stripes.  With `sharded`, x
+    and mod hold this rank's channel block: K1 runs on the block (its
+    statistics are per channel), the eval mode takes the block of the
+    running statistics, and training gathers the block's statistics over
+    the model group into the full running ones, equal on every rank.
     """
 
     EPS = 1e-5
@@ -131,11 +147,19 @@ class ParamFreeNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mod: Optional[torch.Tensor] = None, *,
                 lrelu: bool = False, sharded: bool = False) -> torch.Tensor:
+        striped = spatial.active()
+        if self.kind == "instance" and striped:
+            if self.training:
+                check_training_forward(self)
+            return spatial.instance_modnorm(x, mod, eps=self.EPS, lrelu=lrelu)[0]
         if self.training:
             check_training_forward(self)
             stats = "instance" if self.kind == "instance" else "batch"
             world = distributed.data_world() if stats == "batch" else 1
-            if world > 1:
+            if striped:
+                world = distributed.world_size()
+                out, mean, rstd = spatial.batch_modnorm(x, mod, eps=self.EPS, lrelu=lrelu)
+            elif world > 1:
                 out, mean, rstd = modnorm_train_sync(x, mod, eps=self.EPS, lrelu=lrelu,
                                                      group=distributed.data_group())
             else:
@@ -236,23 +260,25 @@ class _SEANCore(_Modulated):
         """(actv, style_map, up2).  With up2 the maps are at half of x_hw and
         `_mod_conv` computes the conv of their nearest 2x upsample."""
         cfg = self.cfg
-        x_hw = tuple(x_hw)
+        # the caps compare the whole map's size (every stripe's rows)
+        x_hw = (spatial.global_height(x_hw[0]), x_hw[1])
         fm_hw = (min(x_hw[0], cfg.max_fm_size), min(x_hw[1], cfg.max_fm_size))
-        seg = resize2d(segmap, fm_hw, method="nearest")
+        seg = resize2d(segmap, (spatial.local_height(fm_hw[0]), fm_hw[1]), method="nearest")
         actv = self._shared_actv(seg.to(dtype))
         style_map = style_to_pixels(seg, style).to(dtype)
         if fm_hw == x_hw:
             return actv, style_map, False
         up2 = (cfg.fold_upsampled_mod_conv and self.ks == 3
                and x_hw == (2 * fm_hw[0], 2 * fm_hw[1]))
+        local_hw = (spatial.local_height(x_hw[0]), x_hw[1])
         if not up2:
-            actv = resize2d(actv, x_hw, method="nearest")
+            actv = resize2d(actv, local_hw, method="nearest")
         if cfg.replicate_fm_resize_quirk:
             # the reference assigns interpolate(actv) to the style map too
             # (normalization.py:188-190); released checkpoints rely on it
             style_map = actv
         elif not up2:
-            style_map = resize2d(style_map, x_hw, method="nearest")
+            style_map = resize2d(style_map, local_hw, method="nearest")
         return actv, style_map, up2
 
     def _mod_conv(self, inp: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -35,7 +35,9 @@ policy does not save it (it runs outside a conv), so it runs in the forward
 and again in the recompute, as under "full".  Every rank recomputes the
 same blocks in the same order in its backward, so the collectives still
 pair up across ranks (tests/test_torch_dist_step.py runs both policies over
-two ranks).
+two ranks).  Under spatial sharding the recompute issues the block's halo
+exchanges and K1's statistics collectives again, in the same order on every
+rank, and parallel/spatial.py counts them in `replayed` besides.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from deepsee_torch.parallel import spatial
 
 POLICIES = ("full", "convs")
 # the buffers a block's training forward writes
@@ -107,7 +111,8 @@ class _Replay:
         now = self._state()
         self._load(self.before)
         try:
-            yield
+            with spatial.replaying():
+                yield
         finally:
             self._load(now)
 

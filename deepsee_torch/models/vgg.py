@@ -14,6 +14,10 @@ conv i's "column", "row" or None is the `tp_shard` that parallel/shard.py
 puts on its weight; the weights are frozen, but the fake's gradient flows through, so a
 column conv's replicated input goes through `copy`.  Every tap lands after
 a row or replicated conv, so the features come out with every channel.
+
+Spatial sharding: each conv takes its 3x3 halo (`spatial.window`); the 2x2
+max pools stay local on the even stripes (parallel/spatial.py's check_layout
+refuses a model axis that does not divide relu5_1's map).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from deepsee_torch.parallel import spatial
 from deepsee_torch.parallel import tensor as tp
 
 # channels per conv, "M" a 2x2 stride-2 max pool (VGG19 "E"), through relu5_1
@@ -69,8 +74,11 @@ class VGG19Features(nn.Module):
                 shard = getattr(m.weight, "tp_shard", None)
                 y = tp.conv_input(y, sharded, shard)
                 bias = m.bias.to(y.dtype)
+                padding = 1
+                if spatial.active():
+                    y, padding = spatial.window(y, 3, 1, 1), (0, 1)
                 y = F.conv2d(y, m.weight.to(y.dtype), None if shard == tp.ROW else bias,
-                             padding=1)
+                             padding=padding)
                 if shard == tp.ROW:
                     y = tp.reduce(y) + bias[:, None, None]
                 y = y.contiguous(memory_format=torch.channels_last)

@@ -34,7 +34,9 @@ kept in shared memory across the grid barrier where it fits.
 Across ranks (data parallelism) `SyncModnormTrain` splits the batch modes
 around an all-reduce: the forward into its statistics launch and a merge-
 and-apply launch, the backward into its sums and its elementwise pass
-(section "training across ranks" below).
+(section "training across ranks" below).  Under spatial sharding, where each
+rank holds a stripe of every sample, `SplitInstanceModnorm` splits the
+instance mode the same way, with one statistics set per sample.
 """
 
 from __future__ import annotations
@@ -62,7 +64,12 @@ __all__ = ["modnorm", "modnorm_plain", "launches", "reset_launches",
            "modnorm_batch_partials", "modnorm_batch_partials_plain", "modnorm_batch_apply",
            "modnorm_batch_apply_plain", "merge_partials", "modnorm_backward_sums",
            "modnorm_backward_sums_plain", "modnorm_backward_apply",
-           "modnorm_backward_apply_plain", "SyncModnormTrain", "modnorm_train_sync"]
+           "modnorm_backward_apply_plain", "SyncModnormTrain", "modnorm_train_sync",
+           "instance_partials_plan", "instance_reduce_plan", "modnorm_instance_partials",
+           "modnorm_instance_partials_plain", "modnorm_instance_apply",
+           "modnorm_instance_apply_plain", "modnorm_instance_backward_sums",
+           "modnorm_instance_backward_sums_plain", "modnorm_instance_backward_apply",
+           "modnorm_instance_backward_apply_plain", "SplitInstanceModnorm"]
 
 LRELU_SLOPE = 0.2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -76,10 +83,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # cluster launch).  Across ranks the batch modes split around a collective
 # (SyncModnormTrain): "batch_partials" the statistics launch (A),
 # "batch_apply" the merge and apply (B), "backward_sums" the batch
-# backward's reduction, "backward_apply" its elementwise pass.
+# backward's reduction, "backward_apply" its elementwise pass; the instance
+# mode across stripes (SplitInstanceModnorm) likewise: "instance_partials",
+# "instance_apply", "instance_backward_sums", "instance_backward_apply".
 launches = {"affine": 0, "instance": 0, "batch": 0, "instance_train": 0,
             "backward_batch": 0, "backward_instance": 0, "batch_partials": 0,
-            "batch_apply": 0, "backward_sums": 0, "backward_apply": 0}
+            "batch_apply": 0, "backward_sums": 0, "backward_apply": 0,
+            "instance_partials": 0, "instance_apply": 0, "instance_backward_sums": 0,
+            "instance_backward_apply": 0}
 # Incoming gradients the backward had to copy into channels_last first.
 layout_copies = {"backward": 0}
 
@@ -452,6 +463,19 @@ def _lib() -> ctypes.CDLL:
     lib.modnorm_backward_batch_apply.argtypes = [p, p, p, p, p, p, p, p, p, i64, i32, f32, i32,
                                                  i32, f32, p]
     lib.modnorm_backward_batch_apply.restype = ctypes.c_int
+    lib.modnorm_instance_partials_blocks_per_sm.argtypes = [i32, i32]
+    lib.modnorm_instance_partials_blocks_per_sm.restype = ctypes.c_int
+    lib.modnorm_instance_partials.argtypes = [p, p, p, i32, i64, i32, i32, i32, i32, i32, p]
+    lib.modnorm_instance_partials.restype = ctypes.c_int
+    lib.modnorm_instance_apply.argtypes = [p, p, p, i32, p, p, p, i32, i64, i32, f32, i32, i32,
+                                           f32, p]
+    lib.modnorm_instance_apply.restype = ctypes.c_int
+    lib.modnorm_instance_backward_sums.argtypes = [p, p, p, p, p, p, p, p, i32, i64, i32, i32,
+                                                   i32, i64, i32, i32, f32, p]
+    lib.modnorm_instance_backward_sums.restype = ctypes.c_int
+    lib.modnorm_instance_backward_apply.argtypes = [p, p, p, p, p, p, p, p, i32, i64, i32, f32,
+                                                    i32, i32, f32, p]
+    lib.modnorm_instance_backward_apply.restype = ctypes.c_int
     return lib
 
 
@@ -1286,18 +1310,22 @@ class SyncModnormTrain(torch.autograd.Function):
     elementwise pass over the world's pixel count.  Returns (out, mean,
     rstd), the statistics global and equal on every rank.  `group` is the
     process group (None: the default one); every rank must call it with the
-    same shapes, in the same order."""
+    same shapes, in the same order.  `all_reduce` and `grad_all_reduce`, where
+    given, replace the forward's and the backward's in-place all-reduce
+    over the group (a caller that counts its collectives)."""
 
     @staticmethod
-    def forward(ctx, x, mod, eps: float, lrelu: bool, group=None):
+    def forward(ctx, x, mod, eps: float, lrelu: bool, group=None, all_reduce=None,
+                grad_all_reduce=None):
         world, rank = dist.get_world_size(group), dist.get_rank(group)
         partials = torch.ops.deepsee.modnorm_batch_partials(x, rank, world)
-        dist.all_reduce(partials, group=group)
+        (all_reduce or functools.partial(dist.all_reduce, group=group))(partials)
         out, mean, rstd = torch.ops.deepsee.modnorm_batch_apply(x, mod, partials, eps, lrelu)
         ctx.mark_non_differentiable(mean, rstd)
         ctx.save_for_backward(x, mod, mean, rstd)
         b, _, h, w = x.shape
-        ctx.count, ctx.lrelu, ctx.group = float(world * b * h * w), lrelu, group
+        ctx.count, ctx.lrelu = float(world * b * h * w), lrelu
+        ctx.grad_all_reduce = grad_all_reduce or functools.partial(dist.all_reduce, group=group)
         return out, mean, rstd
 
     @staticmethod
@@ -1307,15 +1335,343 @@ class SyncModnormTrain(torch.autograd.Function):
             gout = gout.contiguous(memory_format=torch.channels_last)
             layout_copies["backward"] += 1
         sums = torch.ops.deepsee.modnorm_backward_sums(x, mod, gout, mean, rstd, ctx.lrelu)
-        dist.all_reduce(sums, group=ctx.group)
+        ctx.grad_all_reduce(sums)
         gx, gmod = torch.ops.deepsee.modnorm_backward_apply(x, mod, gout, mean, rstd, sums,
                                                             ctx.count, ctx.lrelu)
-        return gx, (gmod if mod is not None else None), None, None, None
+        return gx, (gmod if mod is not None else None), None, None, None, None, None
 
 
 def modnorm_train_sync(x: torch.Tensor, mod: Optional[torch.Tensor] = None, *,
-                       eps: float = 1e-5, lrelu: bool = False, group=None
+                       eps: float = 1e-5, lrelu: bool = False, group=None, all_reduce=None,
+                       grad_all_reduce=None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`modnorm_train(x, mod, stats="batch")` with the statistics of every
     rank's rows (SyncModnormTrain): (out, mean, rstd)."""
-    return SyncModnormTrain.apply(x, mod, eps, lrelu, group)
+    return SyncModnormTrain.apply(x, mod, eps, lrelu, group, all_reduce, grad_all_reduce)
+
+
+# -- the instance mode across the stripes of a map ---------------------------
+#
+# Under spatial sharding (parallel/spatial.py) each rank holds a horizontal
+# stripe of every sample, so an instance norm's (sample, channel) statistics
+# are partials.  SplitInstanceModnorm splits the instance mode as
+# SyncModnormTrain splits the batch mode, with one statistics set per sample:
+# the partials launch (the grid variant's statistics alone, [3, B, C] rows of
+# (count, mean, M2)), an all-reduce of the [world, 3, B, C] rows, the merge-
+# and-apply launch; in the backward, the sums launch ([2, B, C] sums of gy and
+# gy * x_hat), an all-reduce, and the apply launch over the global count of a
+# sample's pixels, which the caller passes: the stripes may be uneven.
+
+
+MAX_RUNS_PER_SET = 46340      # the kernel's kMaxRunsPerSet
+
+
+def instance_partials_plan(shape: Tuple[int, int, int, int], dtype: torch.dtype,
+                           blocks_per_sm: int = BATCH_BLOCKS_PER_SM, sms: int = SMS
+                           ) -> BatchPlan:
+    """The partials launch for x of `shape` (B, C, H, W): the batch
+    forward's kernel over B statistics sets, the widest channel tile up to a
+    128-byte line, as many runs of each (sample, tile) slab as fill the
+    `blocks_per_sm` * `sms` blocks the card holds at once (at least one; a
+    slab of one run needs no grid barrier and so no co-residency), each
+    run's first pixels kept in shared memory.  `runs` counts the runs of
+    every slab of a tile (B times the runs per slab), `pixels_per_run` is a
+    slab's longest run."""
+    b, c, h, w = shape
+    esize = _check_shape(shape, dtype)
+    tile = _widest(c, esize, LINE, 2 * SECTOR, SECTOR, SECTOR // 2)
+    tiles, capacity, hw, pixel_bytes = c // tile, blocks_per_sm * sms, h * w, tile * esize
+    per_slab = max(1, min(capacity // (tiles * b), math.ceil(hw / (THREADS // (pixel_bytes // 16))),
+                          MAX_RUNS_PER_SET))
+    pixels = math.ceil(hw / per_slab)
+    resident = min(pixels, _batch_room(blocks_per_sm) // pixel_bytes)
+    return BatchPlan(tile, per_slab * b, pixels, resident, resident * pixel_bytes, blocks_per_sm,
+                     sms, per_slab * b * tiles)
+
+
+@functools.cache
+def instance_partials_blocks_per_sm(dtype: torch.dtype) -> int:
+    """Blocks of the partials launch the current card holds per SM with the
+    shared memory its plan gives them: BATCH_BLOCKS_PER_SM where they fit."""
+    for n in range(BATCH_BLOCKS_PER_SM, 0, -1):
+        if _lib().modnorm_instance_partials_blocks_per_sm(_DTYPE_CODE[dtype],
+                                                          _batch_room(n)) >= n:
+            return n
+    raise RuntimeError("modnorm: the card holds no block of the instance partials launch")
+
+
+def instance_reduce_plan(b: int, hw: int, c: int) -> ReducePlan:
+    """The backward sums launch over `b` samples of `hw` pixels: as
+    `reduce_plan`, the chunks of each sample's pixels filling one wave of
+    blocks over the batch."""
+    if c % 8 or c < 8 or hw < 1 or b < 1:
+        raise ValueError(f"modnorm: training needs C % 8 == 0 and a nonempty x, got "
+                         f"{b} x {hw} pixels x {c} channels")
+    lanes = next(n for n in (8, 4, 2, 1) if (c // 8) % n == 0)
+    rows, groups = THREADS // lanes, c // (8 * lanes)
+    chunks = max(1, min(math.ceil(REDUCE_BLOCKS / (groups * b)), math.ceil(hw / (8 * rows))))
+    chunk = math.ceil(hw / chunks)
+    chunks = math.ceil(hw / chunk)
+    return ReducePlan(lanes, chunks, chunk, (chunks, groups))
+
+
+def modnorm_instance_partials_plain(x: torch.Tensor) -> torch.Tensor:
+    """Eager-torch version of the partials launch: float32 (3, B, C) rows of
+    (count, mean, centred M2) per sample and channel over x's H*W pixels."""
+    b, c, h, w = x.shape
+    xf = x.float()
+    mean = xf.mean((2, 3))
+    d = xf - mean[:, :, None, None]
+    return torch.stack([torch.full_like(mean, float(h * w)), mean, (d * d).sum((2, 3))])
+
+
+def modnorm_instance_apply_plain(x: torch.Tensor, mod: Optional[torch.Tensor],
+                                 partials: torch.Tensor, *, eps: float = 1e-5,
+                                 lrelu: bool = False
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Eager-torch version of the apply launch: the [world, 3, B, C] rows
+    merged per sample in rank order (`merge_partials`), then x normalized as
+    the instance mode does, modulated and leaky-ReLU'd.  Returns (out, mean,
+    rstd), the statistics (B, C)."""
+    n, mean, m2 = merge_partials(partials)
+    rstd = torch.rsqrt(m2 / n + eps)
+    y = _modulate(_normalized(x.float(), mean, rstd, "instance"), mod, lrelu)
+    return y.to(x.dtype).contiguous(memory_format=torch.channels_last), mean, rstd
+
+
+def modnorm_instance_backward_sums_plain(x: torch.Tensor, mod: Optional[torch.Tensor],
+                                         gout: torch.Tensor, mean: torch.Tensor,
+                                         rstd: torch.Tensor, *, lrelu: bool = False
+                                         ) -> torch.Tensor:
+    """Eager-torch version of the backward sums launch: float32 (2, B, C)
+    sums of gy and gy * x_hat over x's H*W pixels."""
+    xh, _, gy = _backward_terms(x, mod, gout, mean, rstd, "instance", lrelu)
+    return torch.stack([gy.sum((2, 3)), (gy * xh).sum((2, 3))])
+
+
+def modnorm_instance_backward_apply_plain(x: torch.Tensor, mod: Optional[torch.Tensor],
+                                          gout: torch.Tensor, mean: torch.Tensor,
+                                          rstd: torch.Tensor, sums: torch.Tensor, count: float,
+                                          *, lrelu: bool = False
+                                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Eager-torch version of the backward apply launch: (grad_x, grad_mod)
+    from the all-reduced (2, B, C) `sums` over `count` pixels per sample."""
+    xh, gz, gy = _backward_terms(x, mod, gout, mean, rstd, "instance", lrelu)
+    mgy, mgyx = (v[:, :, None, None] / count for v in sums.float())
+    return _backward_outputs(x, mod, xh, gz, gy, rstd, mgy, mgyx, "instance")
+
+
+def modnorm_instance_partials(x: torch.Tensor, rank: int = 0, world: int = 1) -> torch.Tensor:
+    """The partials launch: a float32 [world, 3, B, C] buffer of zeros but
+    for row `rank`, x's (count, mean, M2) per sample and channel; the caller
+    all-reduces it (sum)."""
+    return torch.ops.deepsee.modnorm_instance_partials(x, rank, world)
+
+
+def modnorm_instance_apply(x: torch.Tensor, mod: Optional[torch.Tensor], partials: torch.Tensor,
+                           *, eps: float = 1e-5, lrelu: bool = False
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The apply launch: (out, mean, rstd) from x, mod and the all-reduced
+    partials."""
+    return torch.ops.deepsee.modnorm_instance_apply(x, mod, partials, eps, lrelu)
+
+
+def modnorm_instance_backward_sums(x: torch.Tensor, mod: Optional[torch.Tensor],
+                                   gout: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                                   *, lrelu: bool = False) -> torch.Tensor:
+    """The backward sums launch: float32 (2, B, C) sums of gy and gy * x_hat."""
+    return torch.ops.deepsee.modnorm_instance_backward_sums(x, mod, gout, mean, rstd, lrelu)
+
+
+def modnorm_instance_backward_apply(x: torch.Tensor, mod: Optional[torch.Tensor],
+                                    gout: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                                    sums: torch.Tensor, count: float, *, lrelu: bool = False
+                                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The backward apply launch from the all-reduced sums over `count`
+    pixels per sample: (grad_x, grad_mod), grad_mod None without mod."""
+    gx, gmod = torch.ops.deepsee.modnorm_instance_backward_apply(x, mod, gout, mean, rstd, sums,
+                                                                 float(count), lrelu)
+    return gx, (gmod if mod is not None else None)
+
+
+def _check_instance_stats(x, mod, gout, mean, rstd) -> None:
+    _check_train(x, mod)
+    _check_nhwc("gout", gout, x.device, x.dtype, tuple(x.shape))
+    for name, v in (("mean", mean), ("rstd", rstd)):
+        _check_stats(name, v, x, (x.shape[0], x.shape[1]))
+
+
+@torch.library.custom_op("deepsee::modnorm_instance_partials", mutates_args=())
+def _instance_partials_op(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
+    """The partials launch: the plain version on CPU tensors; on CUDA the
+    checks, the launch and its count, or a raise."""
+    if not 0 <= rank < world:
+        raise ValueError(f"modnorm: rank {rank} of a world of {world}")
+    b, c = x.shape[:2]
+    if x.device.type == "cpu":
+        out = torch.zeros(world, 3, b, c, dtype=torch.float32)
+        out[rank] = modnorm_instance_partials_plain(x)
+        return out
+    _check_train(x, None)
+    _, _, h, w = x.shape
+    out = torch.zeros(world, 3, b, c, dtype=torch.float32, device=x.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        plan = instance_partials_plan((b, c, h, w), x.dtype,
+                                      instance_partials_blocks_per_sm(x.dtype),
+                                      card_sms(x.device))
+        part = (torch.empty(2 * plan.runs * c, dtype=torch.float32, device=x.device)
+                if plan.runs > b else None)
+        err = _lib().modnorm_instance_partials(
+            x.data_ptr(), None if part is None else part.data_ptr(), out[rank].data_ptr(), b,
+            h * w, c, plan.tile, plan.runs, plan.smem_bytes, _DTYPE_CODE[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"modnorm_instance_partials launch failed with CUDA error {err}")
+    launches["instance_partials"] += 1
+    return out
+
+
+@_instance_partials_op.register_fake
+def _instance_partials_fake(x, rank, world):
+    return torch.empty(world, 3, x.shape[0], x.shape[1], dtype=torch.float32, device=x.device)
+
+
+@torch.library.custom_op("deepsee::modnorm_instance_apply", mutates_args=())
+def _instance_apply_op(x: torch.Tensor, mod: Optional[torch.Tensor], partials: torch.Tensor,
+                       eps: float, lrelu: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The apply launch: the plain version on CPU tensors; on CUDA the
+    checks, the launch and its count, or a raise."""
+    if x.device.type == "cpu":
+        return modnorm_instance_apply_plain(x, mod, partials, eps=eps, lrelu=lrelu)
+    _check_train(x, mod)
+    b, c, h, w = x.shape
+    if partials.dim() != 4:
+        raise ValueError(f"modnorm: partials must be (world, 3, {b}, {c}), got "
+                         f"{tuple(partials.shape)}")
+    _check_stats("partials", partials, x, (partials.shape[0], 3, b, c))
+    out = torch.empty_like(x, memory_format=torch.channels_last)
+    mean = torch.empty(b, c, dtype=torch.float32, device=x.device)
+    rstd = torch.empty(b, c, dtype=torch.float32, device=x.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = _lib().modnorm_instance_apply(
+            x.data_ptr(), None if mod is None else mod.data_ptr(), partials.data_ptr(),
+            partials.shape[0], out.data_ptr(), mean.data_ptr(), rstd.data_ptr(), b, h * w, c,
+            eps, _DTYPE_CODE[x.dtype], int(lrelu), LRELU_SLOPE, stream)
+    if err != 0:
+        raise RuntimeError(f"modnorm_instance_apply launch failed with CUDA error {err}")
+    launches["instance_apply"] += 1
+    return out, mean, rstd
+
+
+@_instance_apply_op.register_fake
+def _instance_apply_fake(x, mod, partials, eps, lrelu):
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty_like(x, memory_format=torch.channels_last),
+            torch.empty(x.shape[0], x.shape[1], **f32), torch.empty(x.shape[0], x.shape[1], **f32))
+
+
+@torch.library.custom_op("deepsee::modnorm_instance_backward_sums", mutates_args=())
+def _instance_backward_sums_op(x: torch.Tensor, mod: Optional[torch.Tensor], gout: torch.Tensor,
+                               mean: torch.Tensor, rstd: torch.Tensor, lrelu: bool
+                               ) -> torch.Tensor:
+    """The backward sums launch: the plain version on CPU tensors; on CUDA
+    the checks, the launch and its count, or a raise."""
+    if x.device.type == "cpu":
+        return modnorm_instance_backward_sums_plain(x, mod, gout, mean, rstd, lrelu=lrelu)
+    _check_instance_stats(x, mod, gout, mean, rstd)
+    b, c, h, w = x.shape
+    plan = instance_reduce_plan(b, h * w, c)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part = torch.empty(2 * b * plan.chunks * c, **f32)
+    done = torch.zeros(b * plan.grid[1], dtype=torch.int32, device=x.device)
+    sums = torch.empty(2, b, c, **f32)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = _lib().modnorm_instance_backward_sums(
+            x.data_ptr(), None if mod is None else mod.data_ptr(), gout.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), part.data_ptr(), done.data_ptr(), sums.data_ptr(),
+            b, h * w, c, plan.lanes, plan.chunks, plan.chunk, _DTYPE_CODE[x.dtype], int(lrelu),
+            LRELU_SLOPE, stream)
+    if err != 0:
+        raise RuntimeError(f"modnorm_instance_backward_sums launch failed with CUDA error {err}")
+    launches["instance_backward_sums"] += 1
+    return sums
+
+
+@_instance_backward_sums_op.register_fake
+def _instance_backward_sums_fake(x, mod, gout, mean, rstd, lrelu):
+    return torch.empty(2, x.shape[0], x.shape[1], dtype=torch.float32, device=x.device)
+
+
+@torch.library.custom_op("deepsee::modnorm_instance_backward_apply", mutates_args=())
+def _instance_backward_apply_op(x: torch.Tensor, mod: Optional[torch.Tensor], gout: torch.Tensor,
+                                mean: torch.Tensor, rstd: torch.Tensor, sums: torch.Tensor,
+                                count: float, lrelu: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward apply launch: the plain version on CPU tensors; on CUDA
+    the checks, the launch and its count, or a raise.  grad_mod is an empty
+    tensor where there is no mod."""
+    if x.device.type == "cpu":
+        gx, gmod = modnorm_instance_backward_apply_plain(x, mod, gout, mean, rstd, sums, count,
+                                                         lrelu=lrelu)
+        return gx, (gmod if gmod is not None else x.new_empty(0))
+    _check_instance_stats(x, mod, gout, mean, rstd)
+    b, c, h, w = x.shape
+    _check_stats("sums", sums, x, (2, b, c))
+    gx = torch.empty_like(x, memory_format=torch.channels_last)
+    gmod = (torch.empty_like(mod, memory_format=torch.channels_last) if mod is not None
+            else x.new_empty(0))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = _lib().modnorm_instance_backward_apply(
+            x.data_ptr(), None if mod is None else mod.data_ptr(), gout.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), sums.data_ptr(), gx.data_ptr(),
+            None if mod is None else gmod.data_ptr(), b, h * w, c, count, _DTYPE_CODE[x.dtype],
+            int(lrelu), LRELU_SLOPE, stream)
+    if err != 0:
+        raise RuntimeError(f"modnorm_instance_backward_apply launch failed with CUDA error {err}")
+    launches["instance_backward_apply"] += 1
+    return gx, gmod
+
+
+@_instance_backward_apply_op.register_fake
+def _instance_backward_apply_fake(x, mod, gout, mean, rstd, sums, count, lrelu):
+    return (torch.empty_like(x, memory_format=torch.channels_last),
+            torch.empty_like(mod, memory_format=torch.channels_last) if mod is not None
+            else x.new_empty(0))
+
+
+class SplitInstanceModnorm(torch.autograd.Function):
+    """The instance mode with each sample's statistics over the stripes of
+    every rank: the partials launch, `all_reduce` (in place, sum) of the
+    [world, 3, B, C] rows, the apply launch; its backward: the sums launch,
+    `grad_all_reduce` of the [2, B, C] sums, the apply launch over `count`
+    pixels per sample (the whole map's).  Returns (out, mean, rstd), the
+    statistics (B, C), equal on every rank.  `rank` and `world` are this
+    rank's place in the group the callables reduce over; every rank must
+    call it with the same B and C, in the same order."""
+
+    @staticmethod
+    def forward(ctx, x, mod, eps: float, lrelu: bool, count: float, rank: int, world: int,
+                all_reduce, grad_all_reduce):
+        partials = torch.ops.deepsee.modnorm_instance_partials(x, rank, world)
+        all_reduce(partials)
+        out, mean, rstd = torch.ops.deepsee.modnorm_instance_apply(x, mod, partials, eps, lrelu)
+        ctx.mark_non_differentiable(mean, rstd)
+        ctx.save_for_backward(x, mod, mean, rstd)
+        ctx.count, ctx.lrelu, ctx.grad_all_reduce = count, lrelu, grad_all_reduce
+        return out, mean, rstd
+
+    @staticmethod
+    def backward(ctx, gout, _grad_mean, _grad_rstd):
+        x, mod, mean, rstd = ctx.saved_tensors
+        if not gout.is_contiguous(memory_format=torch.channels_last):
+            gout = gout.contiguous(memory_format=torch.channels_last)
+            layout_copies["backward"] += 1
+        sums = torch.ops.deepsee.modnorm_instance_backward_sums(x, mod, gout, mean, rstd,
+                                                                ctx.lrelu)
+        ctx.grad_all_reduce(sums)
+        gx, gmod = torch.ops.deepsee.modnorm_instance_backward_apply(
+            x, mod, gout, mean, rstd, sums, ctx.count, ctx.lrelu)
+        return (gx, (gmod if mod is not None else None)) + (None,) * 7

@@ -5,6 +5,14 @@ Port of deepsee_tpu/ops/resize.py.  Every method is the JAX package's dense
 float32, except torch-convention nearest: its matrix has one 1 per row, so
 it is the gather `F.interpolate(mode="nearest")` computes, done in the
 input's dtype.  tests/test_torch_ops.py holds both against the JAX package.
+
+Where maps are striped over ranks (deepsee_torch/parallel/spatial.py), x and
+the result are this rank's stripes: `resize2d` takes its sizes as the
+stripes' and applies this rank's block of the whole map's matrix along H,
+raising where a weight of the stripe's output rows falls outside its input
+rows (a resize that is not local to the stripes).  The HR -> LR bicubic
+(taps 8i+2 .. 8i+5 of an 8x reduction) and every nearest resize of the
+models are local.
 """
 
 from __future__ import annotations
@@ -15,6 +23,8 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from deepsee_torch.parallel import spatial
 
 __all__ = ["resize_matrix", "resize2d", "upsample_nearest_2x"]
 
@@ -108,10 +118,15 @@ def resize2d(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "bicubic",
         return x
     fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
            else torch.contiguous_format)
+    mat_h = resize_matrix(h, out_hw[0], method, antialias)
+    if spatial.active():
+        in_h, out_h = spatial.global_height(h), spatial.global_height(out_hw[0])
+        mat_h = spatial.stripe_block(resize_matrix(in_h, out_h, method, antialias),
+                                     spatial.Rows.even(in_h), spatial.Rows.even(out_h))
     if method == "nearest" and not antialias:
         y = F.interpolate(x, size=tuple(out_hw), mode="nearest")
     else:
-        mh = torch.from_numpy(resize_matrix(h, out_hw[0], method, antialias)).to(x.device)
+        mh = torch.from_numpy(np.ascontiguousarray(mat_h)).to(x.device)
         mw = torch.from_numpy(resize_matrix(w, out_hw[1], method, antialias)).to(x.device)
         y = torch.einsum("oh,bchw,pw->bcop", mh, x.float(), mw).to(x.dtype)
     return y.contiguous(memory_format=fmt)

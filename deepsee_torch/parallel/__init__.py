@@ -1,7 +1,7 @@
 """Parallelism over processes, port of deepsee_tpu/parallel/: the processes,
 their (data, model) layout and the data-parallel collectives (`distributed`),
 tensor parallelism's plan and shards (`shard`) and its collectives
-(`tensor`)."""
+(`tensor`), spatial sharding's stripes, halos and sums (`spatial`)."""
 
 from deepsee_torch.parallel.distributed import (all_reduce_grads, all_reduce_mean, barrier,
                                                 broadcast_module_state, gather_rows,

@@ -54,26 +54,35 @@ def world_size() -> int:
 
 
 # the layout of the default group's ranks: set_model_axis
-_LAYOUT: Dict = {"model_axis": 1, "model": None, "data": None}
+_LAYOUT: Dict = {"model_axis": 1, "model": None, "data": None, "partition": "tensor"}
 
 
 def reset_layout() -> None:
     """Back to model_axis 1 (data parallelism alone), the groups dropped."""
-    _LAYOUT.update(model_axis=1, model=None, data=None)
+    _LAYOUT.update(model_axis=1, model=None, data=None, partition="tensor")
 
 
-def set_model_axis(model_axis: int) -> None:
+def partition() -> str:
+    """How the model group is used: "tensor" (channel shards of the convs,
+    parallel/shard.py) or "spatial" (stripes of every map, parallel/spatial.py)."""
+    return _LAYOUT["partition"]
+
+
+def set_model_axis(model_axis: int, partition: str = "tensor") -> None:
     """Lay the default group's ranks out as (data, model) with `model_axis`
-    model ranks per data index, and make the two groups of this rank.  Every
-    rank calls it, with the same value: each group is made by all ranks
-    (torch.distributed.new_group), even those outside it."""
+    model ranks per data index, and make the two groups of this rank; the
+    model group serves `partition`.  Every rank calls it, with the same
+    values: each group is made by all ranks (torch.distributed.new_group),
+    even those outside it."""
     world = world_size()
     if model_axis < 1 or world % model_axis:
         raise ValueError(f"model_axis {model_axis} does not divide the world of {world} "
                          "process(es)")
     if model_axis == _LAYOUT["model_axis"]:
+        _LAYOUT["partition"] = partition
         return
     reset_layout()
+    _LAYOUT["partition"] = partition
     if model_axis == 1:
         return
     model_groups = [dist.new_group(list(range(d * model_axis, (d + 1) * model_axis)))

@@ -155,12 +155,14 @@ def shard_system(system, mesh: MeshConfig) -> None:
     """Shard G, E, D and the VGG19 of `system` over this rank's model group
     (model_axis ranks, as `distributed.set_model_axis` laid them out), from
     the full weights every rank holds alike, kernels narrower than
-    MIN_SHARD_CH replicated."""
+    MIN_SHARD_CH replicated.  Under a spatial layout, which stripes the
+    activations (parallel/spatial.py), every parameter stays whole: nothing
+    is cut."""
     n = distributed.model_world()
     if mesh.model_axis != n:
         raise ValueError(f"model_axis {mesh.model_axis}, but the model group has {n} rank(s)")
     if mesh.spatial:
-        raise NotImplementedError("spatial sharding shards activations, not weights")
+        return
     for net in system.networks().values():
         shard_module(net, shard_plan(net, n, MIN_SHARD_CH))
 

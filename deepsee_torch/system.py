@@ -27,6 +27,14 @@ calls `train_preprocess`, `train_generate`, `discriminate` and
 
 Random draws (style noise, random_style_matrix, the coin) take an explicit
 torch.Generator on the system's device; `no_noise=True` draws nothing.
+
+Spatial sharding (`parallel.spatial.use_mesh` with a "spatial" MeshConfig,
+every rank of the model group running the same calls): the batch holds this
+rank's stripe of H of every image and label map (`spatial.shard_rows`), the
+parameters are whole on every rank, and `preprocess` / `encode_style` /
+`generate` compute this rank's stripes of what one process computes; the
+style matrix is whole on every rank.  `spatial.gather_rows` puts the fakes
+back together.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from deepsee_torch.models.encoder import build_encoder
 from deepsee_torch.models.generator import DeepSEEGenerator
 from deepsee_torch.models.vgg import VGG19Features
 from deepsee_torch.ops.preprocess import downsample_image, one_hot_label
+from deepsee_torch.parallel import spatial
 from deepsee_torch.weights import jax_to_state_dict, vgg_jax_to_state_dict
 
 Batch = Dict[str, torch.Tensor]
@@ -152,7 +161,7 @@ class SRSystem:
             out["guiding_label"] = one_hot_label(out["guiding_label"], cfg.semantic_nc)
         if "image_hr" in out and "image_lr" not in out:
             out["image_lr"] = downsample_image(
-                out["image_hr"].float(), (cfg.start_size, cfg.start_size),
+                out["image_hr"].float(), (spatial.local_height(cfg.start_size), cfg.start_size),
                 method=cfg.downsampling_method)
         return out
 

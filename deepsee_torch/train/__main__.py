@@ -20,8 +20,12 @@ column/row shards of the wide convs (the JAX package's --model_axis):
 
     torchrun --nproc_per_node D*M -m deepsee_torch.train --multihost --data_axis D --model_axis M ...
 
-Refused with a message naming its slice: --partition spatial (spatial
-sharding).
+Spatial sharding over M ranks per data index, each holding a horizontal
+stripe of every map and the whole networks (M must divide start_size and
+crop_size / 16; the JAX package's --partition spatial):
+
+    torchrun --nproc_per_node D*M -m deepsee_torch.train --multihost --data_axis D \
+        --model_axis M --partition spatial ...
 
 --remat rematerializes the generator's blocks in the backward
 (--remat_policy full: each block recomputed whole; convs: the conv outputs
@@ -91,7 +95,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--model_axis", type=int, default=1,
                    help="tensor-parallel ranks per data index (column/row shards of the convs)")
     p.add_argument("--partition", default="tensor", choices=("tensor", "spatial"),
-                   help="only tensor: spatial sharding belongs to a later slice")
+                   help="how --model_axis is used: tensor (column/row shards of the convs) "
+                        "or spatial (horizontal stripes of every map)")
     p.add_argument("--remat", action="store_true",
                    help="gradient checkpointing of the generator's blocks (the reference's "
                         "--efficient)")
@@ -99,9 +104,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="full: recompute whole blocks (least memory); convs: keep the conv "
                         "outputs, recompute the norms, activations and modulation convs")
     args = p.parse_args(argv)
+    mesh = mesh_config(args)
     try:
-        mesh_config(args).check_ported()
-    except NotImplementedError as e:
+        mesh.check_ported(get_preset(args.name).model if mesh.spatial else None)
+    except ValueError as e:
         p.error(f"--{e}")
     return args
 

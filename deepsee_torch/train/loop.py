@@ -35,6 +35,14 @@ over the model group (parallel/shard.py).  The evaluation and the display
 run replicated networks with the gathered weights (`_inference_system`,
 the JAX trainer's eval_variables / host_local_variables): every rank joins
 the gather, rank 0 alone writes.
+
+Spatial sharding (partition "spatial", deepsee_tpu/train/loop.py:76-81,
+:109-115, :262-310): the model ranks of a data index read the same rows and
+the step keeps each rank's stripe of H (train/steps.py); the networks are
+whole on every rank, so the checkpoints are one process's files, which load
+either way.  The display runs the eval-mode networks on every rank's stripes
+and gathers the first sample's whole image; the evaluation runs each rank's
+whole images (`spatial.whole`).
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ import torch
 from deepsee_torch.config import Experiment, MeshConfig
 from deepsee_torch.data import DataLoader, DevicePrefetcher, create_dataset
 from deepsee_torch.eval.evaluator import InferenceEvaluator, evaluate_set, get_validation_loader
-from deepsee_torch.parallel import distributed, shard
+from deepsee_torch.parallel import distributed, shard, spatial
 from deepsee_torch.system import SRSystem
 from deepsee_torch.train.state import TrainState, create_train_state, set_epoch_lr
 from deepsee_torch.train.steps import make_train_step
@@ -91,7 +99,7 @@ class Trainer:
         """The system the evaluation and the display run: the training one;
         under tensor parallelism a replicated copy of G and E that takes the
         gathered weights now (every rank calls it)."""
-        if distributed.model_world() == 1:
+        if distributed.model_world() == 1 or self.exp.mesh.spatial:
             return self.system
         if self._gathered is None:
             self._gathered = SRSystem(self.exp.replace(is_train=False, mesh=MeshConfig()),
@@ -163,7 +171,7 @@ class Trainer:
                             counter.time_per_iter)
                     if counter.needs_displaying():
                         system = self._inference_system()
-                        if main:
+                        if main or spatial.active():  # every rank joins the stripes' gather
                             self._display(system, visualizer, batch, epoch,
                                           counter.total_steps_so_far)
                     if counter.needs_saving():
@@ -177,12 +185,14 @@ class Trainer:
                                 system, tc.num_evaluation_samples,
                                 inception_weights=tc.inception_weights or None,
                                 alexnet_weights=tc.alexnet_weights or None)
-                        result = evaluate_set(evaluator, eval_loader)
+                        with spatial.whole():
+                            result = evaluate_set(evaluator, eval_loader)
                         counter.record_fid(result.get("FID", 500.0), "train",
                                            tc.num_evaluation_samples)
                         counter.record_metrics(result, "train", tc.num_evaluation_samples)
                         if val_loader is not None:
-                            result = evaluate_set(evaluator, val_loader)
+                            with spatial.whole():
+                                result = evaluate_set(evaluator, val_loader)
                             counter.record_fid(result.get("FID", 500.0), "validation",
                                                tc.num_evaluation_samples)
                             counter.record_metrics(result, "validation",
@@ -212,28 +222,33 @@ class Trainer:
 
     def _display(self, system: SRSystem, visualizer: Visualizer, batch: Dict, epoch: int,
                  step: int) -> None:
-        """The first sample's label, LR input, eval-mode output and HR image."""
+        """The first sample's label, LR input, eval-mode output and HR image.
+        Where maps are striped, every rank runs its stripes and joins the
+        gather of the first sample's; rank 0 writes."""
         nets = [n for n in (system.generator, system.encoder) if n is not None]
         for n in nets:
             n.eval()
         try:
-            pre = system.preprocess(batch)
+            pre = system.preprocess(spatial.shard_rows(batch))
             fake, _ = system.generate(pre, use_full=system.cfg.full_style_image)
         finally:
             for n in nets:
                 n.train()
         visuals = {"input_label": pre["label"], "image_lr": pre["image_lr"],
                    "synthesized_image": fake, "real_image": pre["image_hr"]}
-        visualizer.display_current_results(
-            {k: np.asarray(v[0].float().cpu()) for k, v in visuals.items()}, epoch, step)
+        visuals = {k: spatial.gather_rows(v[:1], dim=1)[0] for k, v in visuals.items()}
+        if distributed.is_main_process():
+            visualizer.display_current_results(
+                {k: np.asarray(v.float().cpu()) for k, v in visuals.items()}, epoch, step)
 
 
 def check_data_parallel(exp: Experiment, world: int) -> None:
     """Raise unless the port runs `exp` over `world` ranks: a layout it has
-    (`MeshConfig.check_ported`: data and tensor parallelism) whose ranks,
-    dcn_axis x data_axis x model_axis, are the world's processes."""
+    (`MeshConfig.check_ported`: data and tensor parallelism, spatial
+    sharding that stripes the model's maps evenly) whose ranks, dcn_axis x
+    data_axis x model_axis, are the world's processes."""
     mesh = exp.mesh
-    mesh.check_ported()
+    mesh.check_ported(exp.model)
     ranks = mesh.n_devices
     if min(mesh.data_axis, mesh.dcn_axis, mesh.model_axis) < 1 or ranks != world:
         layout = (f"data_axis {mesh.data_axis} x dcn_axis {mesh.dcn_axis} = {ranks} "

@@ -19,7 +19,9 @@ buffers from data rank 0 of its data group (`broadcast_networks`) after
 creation and after a restore.  Under tensor parallelism (exp.mesh's
 model_axis > 1) every rank makes the full weights alike, keeps its shards
 (parallel/shard.py) and builds both optimizers over them, so the Adam
-moments shard as their parameters do.
+moments shard as their parameters do.  Under spatial sharding (partition
+"spatial") the parameters, and so the Adam moments, stay whole on every
+rank.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 
 from deepsee_torch.config import TrainConfig
 from deepsee_torch.models.vgg import load_vgg19_state_dict
-from deepsee_torch.parallel import distributed, shard
+from deepsee_torch.parallel import distributed, shard, spatial
 from deepsee_torch.system import SRSystem
 
 MINI_LR_SCALE = 0.25
@@ -128,12 +130,13 @@ def create_train_state(system: SRSystem, *, init: bool = True) -> TrainState:
     weights, the layout of exp.mesh (its model groups made and the networks
     sharded over them where model_axis > 1), both optimizers and the step's
     generators, all from exp.train.seed; under a process group, the
-    networks then data rank 0's."""
+    networks then data rank 0's.  A spatial layout stripes the maps over the
+    model group (`spatial.use_mesh`) and keeps the networks whole."""
     tc = system.exp.train
     if init:
         system.init(torch.Generator().manual_seed(tc.seed))
     load_vgg_weights(system, tc.vgg_weights)
-    distributed.set_model_axis(system.exp.mesh.model_axis)
+    spatial.use_mesh(system.exp.mesh)
     if distributed.model_world() > 1:
         shard.shard_system(system, system.exp.mesh)
     broadcast_networks(system)

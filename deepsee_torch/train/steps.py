@@ -38,6 +38,13 @@ sums D's channel-sharded features over the model group, and before the data
 group's all-reduce the replicated parameters' gradients are averaged over
 the model group (`tensor.mean_replicated_grads`), which keeps them bit for
 bit equal on every model rank.
+
+Spatial sharding (exp.mesh.partition "spatial"): each model rank keeps its
+stripe of H of the batch (`spatial.shard_rows`), every loss is the whole
+map's mean on every rank (the discriminator's outputs by their layouts,
+`MultiscaleDiscriminator.output_rows`), and each rank's gradient of a
+parameter, a partial sum over its stripe, is summed over the model group
+(`spatial.sum_replicated_grads`) before the data group's mean.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from deepsee_torch.losses import feature_matching_loss, gan_loss, vgg_loss
-from deepsee_torch.parallel import distributed
+from deepsee_torch.parallel import distributed, spatial
 from deepsee_torch.parallel import tensor as tp
 from deepsee_torch.system import SRSystem, _nchw
 from deepsee_torch.train.state import TrainState, g_params
@@ -69,12 +76,16 @@ def _step_optimizer(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor],
                     loss: torch.Tensor) -> None:
     """The gradient of `loss` with respect to `params` alone, zeros where a
     parameter took no part (as jax.grad gives), the replicated ones'
-    averaged over the model group (tensor parallelism), all averaged over
-    the data group, then one optimizer step."""
+    averaged over the model group (tensor parallelism) or each rank's share
+    summed over it (spatial sharding), all averaged over the data group,
+    then one optimizer step."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
-    tp.mean_replicated_grads(params)
+    if spatial.active():
+        spatial.sum_replicated_grads(params)
+    else:
+        tp.mean_replicated_grads(params)
     distributed.all_reduce_grads(params)
     opt.step()
     opt.zero_grad(set_to_none=True)
@@ -88,16 +99,25 @@ def make_train_step(system: SRSystem, *, do_g: bool = True
     on the device."""
     tc = system.exp.train
 
+    def d_rows(pre: Dict):
+        """The layouts of D's outputs where maps are striped, else None."""
+        if not spatial.active():
+            return None
+        return system.discriminator.output_rows(spatial.global_height(pre["image_hr"].shape[1]))
+
     def g_update(state: TrainState, pre: Dict) -> Tuple[Logs, torch.Tensor]:
         use_full, no_noise = draw_coins(system, state.coin_rng)
         fake = system.train_generate(pre, use_full=use_full, no_noise=no_noise,
                                      generator=state.noise_rng)
         pred_fake, pred_real = system.discriminate(pre["input_semantics"], fake,
                                                    pre["image_hr"])
-        losses = {"GAN": gan_loss(pred_fake, True, mode=tc.gan_mode, for_discriminator=False)}
+        rows = d_rows(pre)
+        losses = {"GAN": gan_loss(pred_fake, True, mode=tc.gan_mode, for_discriminator=False,
+                                  rows=rows)}
         if not tc.no_ganfeat_loss:
             losses["GAN_Feat"] = feature_matching_loss(
-                pred_fake, pred_real, tc.lambda_feat, system.discriminator.sharded_outputs())
+                pred_fake, pred_real, tc.lambda_feat, system.discriminator.sharded_outputs(),
+                rows)
         if system.vgg is not None:
             with torch.no_grad():
                 real_feats = system.vgg_features(_nchw(pre["image_hr"]))
@@ -113,14 +133,15 @@ def make_train_step(system: SRSystem, *, do_g: bool = True
                                              generator=state.noise_rng)
         pred_fake, pred_real = system.discriminate(pre["input_semantics"], fake.detach(),
                                                    pre["image_hr"])
-        losses = {"D_Fake": gan_loss(pred_fake, False, mode=tc.gan_mode),
-                  "D_real": gan_loss(pred_real, True, mode=tc.gan_mode)}
+        rows = d_rows(pre)
+        losses = {"D_Fake": gan_loss(pred_fake, False, mode=tc.gan_mode, rows=rows),
+                  "D_real": gan_loss(pred_real, True, mode=tc.gan_mode, rows=rows)}
         params: List[torch.Tensor] = list(system.discriminator.parameters())
         _step_optimizer(state.opt_d, params, sum(losses.values()))
         return losses
 
     def step(state: TrainState, batch: Dict) -> Logs:
-        pre = system.train_preprocess(batch)
+        pre = system.train_preprocess(spatial.shard_rows(batch))
         logs: Logs = {}
         fake = None
         if do_g:

@@ -1,5 +1,5 @@
-"""One rank of the port's data- and tensor-parallel tests
-(tests/test_torch_dist_*.py, tests/test_torch_tp_*.py).
+"""One rank of the port's data-parallel, tensor-parallel and spatial tests
+(tests/test_torch_dist_*.py, tests/test_torch_tp_*.py, tests/test_torch_sp_*.py).
 
     python tests/_torch_dist_worker.py OUT_DIR TASK[,TASK...]
 
@@ -539,11 +539,256 @@ def _tp_cli_task(out_dir: str):
     return {"train_exit": code}
 
 
+# -- spatial sharding (tests/test_torch_sp_*.py) --------------------------------------
+
+# the windows of the presets, (k, s, p): the 3x3 convs at stride 1 and 2, D's
+# 4x4 convs at stride 2 and 1; "pool" the 3x3 stride-2 pool between D's
+# scales, "d_chain" the pool and D's four windows in a row (uneven stripes,
+# and at 1 x 4 stripes of one row under a 4-row window)
+SP_WINDOWS = {"3x3s1": [(3, 1, 1)], "3x3s2": [(3, 2, 1)], "4x4s2": [(4, 2, 2)],
+              "4x4s1": [(4, 1, 2)], "pool": [], "d_chain": [(4, 2, 2), (4, 2, 2), (4, 1, 2),
+                                                            (4, 1, 2)]}
+SP_PLANTED = ("zero_halo", "stripe_stats")
+
+
+def sp_mesh(model_axis: int = 2) -> MeshConfig:
+    """This world laid out as (world / model_axis) x model_axis, spatial."""
+    return MeshConfig(data_axis=distributed.world_size() // model_axis, model_axis=model_axis,
+                      partition="spatial")
+
+
+def planted(fault):
+    """The planted faults the spatial tests must catch: "zero_halo" (every
+    rank pads its own stripe's edges with zeros: the halo exchange returns
+    zeros) and "stripe_stats" (K1's statistics per stripe: the all-reduces
+    of its partials and sums do nothing)."""
+    from deepsee_torch.parallel import spatial
+
+    if fault is None:
+        return _Patches()
+    if fault == "zero_halo":
+        gather = spatial._all_gather
+        return _Patches((spatial, "_all_gather", lambda kind, t: (
+            [torch.zeros_like(t)] * distributed.model_world() if kind.startswith("halo")
+            else gather(kind, t))))
+    if fault == "stripe_stats":
+        return _Patches((spatial, "_stats_reduce", lambda kind, group: (lambda t: None)))
+    raise ValueError(fault)
+
+
+def _stripe_rows(full, rows):
+    """This rank's rows of a whole NCHW tensor under the layout `rows` (the
+    whole tensor where nothing is striped)."""
+    if rows is None:
+        return full
+    lo, hi = rows.span()
+    return full[:, :, lo:hi]
+
+
+def window_run(case: str, seed: int = 21, width: int = 12):
+    """A window case of SP_WINDOWS on (2, 8, 32, width) or "discriminator"
+    (the tiny model's multiscale D in train mode, its instance norms across
+    the stripes, on 64 rows: its pooled scale leaves each of 4 ranks a row)
+    float32, laid out as the active mesh stripes it:
+    the output and the input's gradient (gathered whole) and the parameters'
+    gradients (summed over the model group) of sum(y * w) for seeded x, w."""
+    from deepsee_torch.models.discriminator import MultiscaleDiscriminator
+    from deepsee_torch.ops.pooling import avg_pool_3x3_s2
+    from deepsee_torch.parallel import spatial
+
+    g = torch.Generator().manual_seed(seed)
+    cfg = tiny_test_experiment().model
+    channels, height = (cfg.semantic_nc + 3, 64) if case == "discriminator" else (8, 32)
+    x_full = torch.randn(2, channels, height, width, generator=g)
+    rows = spatial.Rows.even(height) if spatial.active() else None
+    x = _stripe_rows(x_full, rows).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    if case == "discriminator":
+        net = MultiscaleDiscriminator(cfg).train()
+        for m in net.modules():
+            if hasattr(m, "init_params"):
+                m.init_params(g)
+        outs = [t for scale in net(x) for t in scale]
+        layouts = ([r for scale in net.output_rows(height) for r in scale] if rows is not None
+                   else [None] * len(outs))
+        params = list(net.parameters())
+    else:
+        convs = []
+        for k, s, p in SP_WINDOWS[case]:
+            conv = tlayers.Conv2d(channels, channels, k, s, p)
+            with torch.no_grad():
+                conv.weight.copy_(0.2 * torch.randn(conv.weight.shape, generator=g))
+                conv.bias.copy_(0.1 * torch.randn(conv.bias.shape, generator=g))
+            convs.append(conv)
+        y, r = x, rows
+        if case in ("pool", "d_chain"):
+            y = avg_pool_3x3_s2(y, r)
+            r = None if r is None else r.window(3, 2, 1)
+        for conv in convs:
+            y = tlayers.leaky_relu(conv(y, rows=r))
+            r = None if r is None else r.window(conv.kernel_size, conv.stride, conv.padding)
+        outs, layouts, params = [y], [r], [p for c in convs for p in c.parameters()]
+    loss = 0.0
+    for t, r in zip(outs, layouts):
+        height_out = t.shape[2] if r is None else r.height
+        w = torch.randn(t.shape[0], t.shape[1], height_out, t.shape[3], generator=g)
+        loss = loss + (t * _stripe_rows(w, r)).sum()
+    loss.backward()
+    spatial.sum_replicated_grads(params)
+    return {"outs": [spatial.gather_rows(t.detach(), 2, r) for t, r in zip(outs, layouts)],
+            "x_grad": spatial.gather_rows(x.grad, 2, rows),
+            "grads": [p.grad.clone() for p in params],
+            "rows": [None if r is None else r.bounds for r in layouts]}
+
+
+def _sp_ops_task(out_dir: str):
+    """Every window case laid out 1 x world, and the discriminator case
+    under each planted fault, with the collectives' counts."""
+    from deepsee_torch.parallel import spatial
+
+    spatial.use_mesh(MeshConfig(model_axis=distributed.world_size(), partition="spatial"))
+    spatial.reset_counts()
+    out = {case: window_run(case) for case in list(SP_WINDOWS) + ["discriminator"]}
+    out["counts"] = {k: dict(v) for k, v in spatial.counts.items()}
+    for fault in SP_PLANTED:
+        with planted(fault):
+            out[fault] = window_run("discriminator")
+    return out
+
+
+SP_INFER_CONFIGS = ("tiny", "fmcap")
+
+
+def sp_infer_exp(name: str):
+    """The inference configurations held against the JAX package: the tiny
+    one (tests/test_spatial_sharding.py) and the 32x PureSEAN tail with the
+    fm-cap quirk at crop 128 (tests/test_512_spatial.py)."""
+    from deepsee_torch.config import DataConfig, Experiment, ModelConfig, TrainConfig
+
+    if name == "tiny":
+        return tiny_test_experiment().replace(is_train=False)
+    cfg = ModelConfig(start_size=8, crop_size=128, load_size=512, ngf=2, nef=2,
+                      regional_style_size=128, max_fm_size=32, add_noise=False,
+                      compute_dtype="float32")
+    return Experiment(name="t512sp", model=cfg, train=TrainConfig(batch_size=2),
+                      data=DataConfig(), is_train=False)
+
+
+def sp_infer_run(name: str, weights, batch, planted_fault=None):
+    """preprocess -> encode (mini trunk) -> generate, no noise, on this data
+    rank's rows of `batch` (numpy NHWC) and this model rank's stripe of H:
+    the fake gathered whole and the style."""
+    from deepsee_torch.parallel import spatial
+
+    system = SRSystem(sp_infer_exp(name), device="cpu")
+    for net, module in system.networks().items():
+        module.load_state_dict(weights[net])
+    batch = spatial.shard_rows(rows(batch, distributed.data_rank(), distributed.data_world()))
+    with planted(planted_fault):
+        fake, style = system.generate(system.preprocess(batch), use_full=False, no_noise=True)
+    return {"fake": spatial.gather_rows(fake, dim=1).clone(), "style": style.clone()}
+
+
+def _sp_infer_task(out_dir: str):
+    from deepsee_torch.parallel import spatial
+
+    mesh = sp_mesh()
+    spatial.use_mesh(mesh)
+    out = {}
+    for name in SP_INFER_CONFIGS:
+        data = torch.load(os.path.join(out_dir, f"infer_{name}.pt"), weights_only=False)
+        out[name] = sp_infer_run(name, data["weights"], data["batch"])
+    if mesh.data_axis == 1:
+        data = torch.load(os.path.join(out_dir, "infer_tiny.pt"), weights_only=False)
+        for fault in SP_PLANTED:
+            out[f"tiny_{fault}"] = sp_infer_run("tiny", data["weights"], data["batch"], fault)
+    return out
+
+
+def _sp_step_task(out_dir: str):
+    """The spatial 1 x 2 (or 2 x 2) runs of the tiny model from
+    OUT_DIR/weights.pt: "noise", and at one data rank "seeded" (held
+    against JAX), "noise_remat" ("full") and the first "noise" step under
+    each planted fault; the collectives' counts of the "noise" run."""
+    from deepsee_torch.parallel import spatial
+
+    weights = torch.load(os.path.join(out_dir, "weights.pt"), weights_only=True)
+    mesh = sp_mesh()
+    spatial.reset_counts()
+    out = {"noise": step_run(weights, mesh=mesh)}
+    out["counts"] = {k: dict(v) for k, v in spatial.counts.items()}
+    if mesh.data_axis == 1:
+        out["seeded"] = step_run(weights, model=dict(add_noise=False), seeded_draws=True,
+                                 mesh=mesh)
+        spatial.reset_counts()
+        out["noise_remat"] = step_run(weights, train=dict(remat=True), mesh=mesh)
+        out["remat_counts"] = {k: dict(v) for k, v in spatial.counts.items()}
+        out["replayed"] = dict(spatial.replayed)
+        for fault in SP_PLANTED:
+            with planted(fault):
+                out[fault] = step_run(weights, mesh=mesh, steps=1)
+    return out
+
+
+def sp_trainer_exp(root: str):
+    """The spatial trainer task's experiment: the tiny model at batch 2, a
+    display and an evaluation of 4 samples after 2 steps, laid out as
+    `sp_mesh` where there are ranks."""
+    exp = tp_trainer_exp(root)
+    mesh = sp_mesh() if distributed.world_size() > 1 else MeshConfig()
+    return exp.replace(mesh=mesh, train=dataclasses.replace(exp.train, display_freq=4))
+
+
+def _sp_trainer_task(out_dir: str):
+    """(1) Two fresh steps with a display and an evaluation, the latest
+    checkpoint written, the state and the displayed visuals; (2) the
+    one-process checkpoint in OUT_DIR/one restored (the state right after)
+    and one more step."""
+    from deepsee_torch.train import loop
+
+    shown = {}
+
+    class Capture(loop.Visualizer):
+        def display_current_results(self, visuals, epoch, step):
+            shown.update(visuals)
+
+    with _Patches((loop, "Visualizer", Capture)), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fresh = loop.Trainer(sp_trainer_exp(os.path.join(out_dir, "sp")), device="cpu")
+        fresh.run(trainer_batches(), max_steps=2)
+        out = {"fresh": trainer_state(fresh), "shown": shown}
+        resumed = loop.Trainer(sp_trainer_exp(os.path.join(out_dir, "one")), device="cpu",
+                               continue_train=True)
+        out["restored"] = trainer_state(resumed)
+        resumed.run(trainer_batches(), max_steps=3)
+        out["resumed"] = trainer_state(resumed)
+    return out
+
+
+def _sp_cli_task(out_dir: str):
+    """python -m deepsee_torch.train --multihost --model_axis 2 --partition
+    spatial on the tiny model (its own process group)."""
+    from deepsee_torch.train import __main__ as train_cli
+
+    def preset(name):
+        return tiny_test_experiment().replace(name=name)
+
+    os.environ["MASTER_PORT"] = os.environ["CLI_PORTS"].split(",")[0]
+    with _Patches((train_cli, "get_preset", preset)), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        code = train_cli.main(["--name", "tiny", "--multihost", "--model_axis", "2",
+                               "--partition", "spatial", "--device", "cpu", "--synthetic",
+                               "--batch_size", "2", "--max_steps", "2", "--checkpoints_dir",
+                               os.path.join(out_dir, "sp_cli")])
+    return {"train_exit": code}
+
+
 TASKS = {"step": _step_task, "norms": _norms_task, "eval": lambda out_dir: eval_run(),
          "trainer": _trainer_task, "tp_step": _tp_step_task, "tp_wide": _tp_wide_task,
-         "tp_ops": _tp_ops_task, "tp_trainer": _tp_trainer_task}
+         "tp_ops": _tp_ops_task, "tp_trainer": _tp_trainer_task, "sp_ops": _sp_ops_task,
+         "sp_infer": _sp_infer_task, "sp_step": _sp_step_task, "sp_trainer": _sp_trainer_task}
 # tasks that join no group themselves (the CLIs do, with --multihost)
-UNGROUPED = {"cli": _cli_task, "tp_cli": _tp_cli_task}
+UNGROUPED = {"cli": _cli_task, "tp_cli": _tp_cli_task, "sp_cli": _sp_cli_task}
 
 
 def free_ports(n: int):

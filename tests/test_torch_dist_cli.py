@@ -1,7 +1,8 @@
 """The data-parallel layer's refusals and one-process behaviour, without
 processes (the CLIs over two ranks: tests/test_torch_dist_trainer.py):
 `--data_axis` or `--model_axis` without a world of its size is refused, and
-spatial sharding is refused naming its slice; the encoder's and the
+a spatial layout the model's maps cannot take is refused naming its
+constraint; the encoder's and the
 discriminator's batch norms take the global batch's statistics over a
 simulated second rank; without a process group every function of
 deepsee_torch.parallel is the one-process identity."""
@@ -44,8 +45,10 @@ def test_model_axis_needs_a_world_of_its_size(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--partition", "spatial"], "spatial-sharding slice")])
+    (["--partition", "spatial", "--model_axis", "3"], "model_axis 3 does not divide start_size")])
 def test_layouts_of_later_slices_are_refused(capsys, flags, slice_name):
+    """A spatial layout whose stripes the preset's maps cannot take is
+    refused at parse time, naming the constraint."""
     with pytest.raises(SystemExit):
         cli.parse_args(flags + ["--synthetic"])
     assert slice_name in capsys.readouterr().err
@@ -105,9 +108,11 @@ def test_encoder_and_discriminator_batch_norms_take_the_global_batch(monkeypatch
 
 
 @pytest.mark.parametrize("mesh,slice_name", [
-    (MeshConfig(partition="spatial"), "spatial-sharding slice")])
+    (MeshConfig(partition="spatial", model_axis=3), "model_axis 3 does not divide start_size")])
 def test_trainer_refuses_the_layouts_of_later_slices(mesh, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
+    """A spatial layout that does not stripe the model's maps evenly is
+    refused, naming the constraint."""
+    with pytest.raises(ValueError, match=slice_name):
         check_data_parallel(tiny_test_experiment().replace(mesh=mesh), 1)
 
 

@@ -704,6 +704,97 @@ def test_split_kernels_at_one_rank_are_the_one_process_kernels(cuda_device):
         assert torch.equal(a, b)
 
 
+# K1's instance mode split across the stripes of a map (spatial sharding):
+# the partials launch, the merge-and-apply launch, the backward's sums and its
+# apply, at the shapes of the 32x 512^2 spatial step at two ranks (the full
+# trunk's first maps, D's uneven stripes) and a few small ones, each map cut
+# into two uneven "ranks" of rows in one process; the rows' sum stands for
+# the all-reduce.
+SPLIT_INSTANCE_SHAPES = {"E 512^2 b1": ((1, 32, 512, 512), 256),
+                         "E 256^2 b1": ((1, 256, 256, 256), 128),
+                         "D 129 b2": ((2, 64, 129, 257), 64),
+                         "D 66 b4": ((4, 256, 66, 66), 32),
+                         "small": ((3, 16, 9, 7), 4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_mod", [True, False])
+@pytest.mark.parametrize("case", list(SPLIT_INSTANCE_SHAPES))
+def test_instance_split_kernels_match_plain_on_card(cuda_device, case, with_mod, dtype):
+    """Each launch against its plain version on the same inputs, the merged
+    statistics against the one-launch instance kernel's over the whole map,
+    and one launch per stage and stripe."""
+    shape, cut = SPLIT_INSTANCE_SHAPES[case]
+    x, mod, _, _ = _inputs(cuda_device, dtype, shape=shape, with_mod=with_mod)
+    gout = _inputs(cuda_device, dtype, shape=shape, with_mod=False, seed=1)[0]
+    cl = torch.channels_last
+
+    def stripes(t):
+        return [] if t is None else [t[:, :, :cut].contiguous(memory_format=cl),
+                                     t[:, :, cut:].contiguous(memory_format=cl)]
+
+    xs, gs = stripes(x), stripes(gout)
+    ms = stripes(mod) or [None, None]
+    before = dict(mn.launches)
+    partials = sum(mn.modnorm_instance_partials(s, r, 2) for r, s in enumerate(xs))
+    torch.cuda.synchronize()
+    want_partials = torch.stack([mn.modnorm_instance_partials_plain(s) for s in xs])
+    assert torch.equal(partials[:, 0], want_partials[:, 0])  # the counts
+    torch.testing.assert_close(partials[:, 1:], want_partials[:, 1:], rtol=1e-5, atol=1e-5)
+    whole = mn.modnorm_train(x, mod, stats="instance", lrelu=True)
+    for s, m in zip(xs, ms):
+        out, mean, rstd = mn.modnorm_instance_apply(s, m, partials, lrelu=True)
+        torch.cuda.synchronize()
+        want, wmean, wrstd = mn.modnorm_instance_apply_plain(s, m, partials, lrelu=True)
+        torch.testing.assert_close(mean, wmean, rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(rstd, wrstd, rtol=1e-6, atol=0)
+        torch.testing.assert_close(mean, whole[1], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(rstd, whole[2], rtol=1e-5, atol=0)
+        assert out.is_contiguous(memory_format=cl) and out.dtype == dtype
+        assert _train_within(out, want, dtype)
+    _, mean, rstd = mn.modnorm_instance_apply(xs[0], ms[0], partials, lrelu=True)
+    sums = sum(mn.modnorm_instance_backward_sums(s, m, g, mean, rstd, lrelu=True)
+               for s, m, g in zip(xs, ms, gs))
+    torch.cuda.synchronize()
+    want_sums = sum(mn.modnorm_instance_backward_sums_plain(s, m, g, mean, rstd, lrelu=True)
+                    for s, m, g in zip(xs, ms, gs))
+    torch.testing.assert_close(sums, want_sums, rtol=1e-5,
+                               atol=1e-5 * float(want_sums.abs().max()))
+    count = shape[2] * shape[3]
+    for s, m, g in zip(xs, ms, gs):
+        gx, gmod = mn.modnorm_instance_backward_apply(s, m, g, mean, rstd, sums, count,
+                                                      lrelu=True)
+        torch.cuda.synchronize()
+        wgx, wgmod = mn.modnorm_instance_backward_apply_plain(s, m, g, mean, rstd, sums, count,
+                                                              lrelu=True)
+        assert _train_within(gx, wgx, dtype)
+        assert (gmod is None) == (not with_mod)
+        if with_mod:
+            assert _train_within(gmod, wgmod, dtype)
+    launched = {k: mn.launches[k] - before[k] for k in mn.launches}
+    assert launched == dict.fromkeys(mn.launches, 0) | {
+        "instance_partials": 2, "instance_apply": 3, "instance_backward_sums": 2,
+        "instance_backward_apply": 2, "instance_train": 1}
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_instance_split_kernels_are_deterministic_on_card(cuda_device):
+    """The sums launch adds its chunks in chunk order in whichever block
+    finishes last: the same inputs give the same sums, bit for bit."""
+    x, mod, _, _ = _inputs(cuda_device, torch.bfloat16, shape=(2, 64, 129, 257))
+    gout = _inputs(cuda_device, torch.bfloat16, shape=(2, 64, 129, 257), with_mod=False,
+                   seed=1)[0]
+    part = mn.modnorm_instance_partials(x)
+    _, mean, rstd = mn.modnorm_instance_apply(x, mod, part, lrelu=True)
+    first = mn.modnorm_instance_backward_sums(x, mod, gout, mean, rstd, lrelu=True)
+    for _ in range(5):
+        assert torch.equal(mn.modnorm_instance_backward_sums(x, mod, gout, mean, rstd,
+                                                             lrelu=True), first)
+        assert torch.equal(mn.modnorm_instance_partials(x), part)
+
+
 @pytest.mark.cuda
 def test_split_kernels_refuse_what_they_do_not_take(cuda_device):
     x, mod, _, _ = _inputs(cuda_device, torch.bfloat16, shape=(2, 64, 9, 9))

@@ -126,7 +126,8 @@ def test_trainer_raises_at_an_evaluation_trigger(tmp_path, monkeypatch):
     assert os.path.exists(os.path.join(run_dir, "latest_train_state.pth"))
 
 
-@pytest.mark.parametrize("flags,slice_name", [(["--partition", "spatial"], "spatial-sharding")])
+@pytest.mark.parametrize("flags,slice_name", [
+    (["--partition", "spatial", "--model_axis", "3"], "does not divide start_size")])
 def test_cli_refuses_flags_of_later_slices(capsys, flags, slice_name):
     argv = ["--name", "8x_independent_256x256"] + flags + ["--synthetic"]
     with pytest.raises(SystemExit):
