@@ -1493,11 +1493,12 @@ def _grads_rel(got, want):
 
 
 def _nudge(system: SRSystem, ulps: int, generator: torch.Generator) -> None:
-    """Scale every G, E and D parameter by (1 + ulps * 2^-23 * r),
-    r ~ N(0, 1): a change at float32's rounding level."""
+    """Scale every G, E and D parameter (D where the system has one) by
+    (1 + ulps * 2^-23 * r), r ~ N(0, 1): a change at float32's rounding
+    level."""
     with torch.no_grad():
         for net in (system.generator, system.encoder, system.discriminator):
-            for p in net.parameters():
+            for p in (net.parameters() if net is not None else ()):
                 p.mul_(1 + ulps * 2.0 ** -23 * torch.randn(p.shape, generator=generator)
                        .to(p.device))
 
@@ -3387,6 +3388,189 @@ def _grad_readings(got, want, part: str = "") -> dict:
     return out
 
 
+# int8 inference under tensor parallelism: PRESET at full width in eval mode,
+# float32 (TF32 off), one main-path call at TP_INT8_BATCH on the model ranks
+# against one process.  Every sharded conv's scales and k_q are held bit for
+# bit, on its rank, against the plain quantization of the model group's
+# gathered input and weight: that is the check that sees a wrong scale.  The
+# fake is compared with one process's at the JAX package's mesh test's
+# limits (tests/test_int8_inference.py:191-243), but the ranks' inputs part
+# from one process's in the last bits (K1 on channel blocks sums in another
+# order, the row convs add dequantized partials), and a one-ulp change moves
+# int8 levels: on the H100 the sound run read 4.75e-3 mean / 0.039 max, one
+# process under a one-ulp nudge of its weights 5.70e-3 / 0.036 (PERF.md).
+# So the fake's limit is the larger of the JAX test's and TP_INT8_NOISE
+# times the nudge's spread of this run; whether it is within the JAX test's
+# is printed.
+TP_INT8_BATCH = 2
+TP_INT8_MIN_CH = 64            # int8_inference()'s default
+MAX_TP_INT8_MEAN_ABS = 5e-3
+MAX_TP_INT8_MAX_ABS = 0.08
+TP_INT8_NOISE = 2.0
+TP_INT8_KERNELS = {  # name in the kernels line -> (launch counter, the launch's role)
+    "int8_quantize_weight_column_maxima": ("weight_column_maxima", "(b)'s first launch for a "
+                                           "column block: this rank's column maxima"),
+    "int8_quantize_weight_row_maxima": ("weight_row_maxima", "(b)'s first launch for a row "
+                                        "block: s_c, this rank's row maxima and max|x'|"),
+    "int8_quantize_weight_scales": ("weight_scales", "(b)'s second launch under a shard: s_c, "
+                                    "s_k, s_x and k_q from the model group's maxima"),
+}
+# the one PyTorch call that computes the column maxima launch's function
+TP_COLUMN_MAXIMA_LIBRARY = "torch.linalg.vector_norm(w, inf, dim=(0, 2, 3))"
+
+
+def _whole_layer_bits(x, weight, role: str, smooth: bool, got: dict) -> dict:
+    """Whether one rank's s_c, s_x, s_k and k_q (OIHW) of a sharded conv
+    are, bit for bit, its block of the plain quantization of the whole
+    layer: the model group's input and weight gathered (x's channel blocks
+    for a row block)."""
+    from deepsee_torch.parallel import distributed
+
+    group, n, r = distributed.model_group(), distributed.model_world(), distributed.model_rank()
+
+    def gathered(t, dim):
+        parts = [torch.empty_like(t.contiguous()) for _ in range(n)]
+        torch.distributed.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    if role == "column":
+        q = ic.quantize_plain(x, gathered(weight, 0), smooth)
+        cut = slice(r * weight.shape[0], (r + 1) * weight.shape[0])
+        want = {"s_c": q.s_c, "s_x": q.s_x, "s_k": q.s_k[cut], "k_q": q.k_q[cut]}
+    else:
+        whole_x = gathered(x, 1).contiguous(memory_format=torch.channels_last)
+        q = ic.quantize_plain(whole_x, gathered(weight, 1), smooth)
+        cut = slice(r * weight.shape[1], (r + 1) * weight.shape[1])
+        want = {"s_c": q.s_c[cut], "s_x": q.s_x, "s_k": q.s_k, "k_q": q.k_q[:, cut]}
+    return {k: bool(torch.equal(got[k], v.cpu())) for k, v in want.items()}
+
+
+@contextlib.contextmanager
+def _int8_recorded(calls: list):
+    """Every quantized conv's quantization while open, in call order, on the
+    CPU: {"role": "column" / "row" for a tensor-parallel block, else None,
+    "s_c", "s_x", "s_k", "k_q" (OIHW)}, from the wrappers of (c) and (d)
+    (their plain versions where DEVICE is the CPU); a sharded conv's also
+    "whole_layer" (`_whole_layer_bits`)."""
+    cuda = DEVICE != "cpu"
+    names = ("quantize_activation", "int8_conv_igemm") if cuda else (
+        "quantize_activation_plain", "igemm_plain")
+    saved = [ic.int8_conv_sharded] + [getattr(ic, n) for n in names]
+    role = [None]  # a sharded call's role
+
+    def sharded(x, weight, bias, stride, padding, smooth, shard_role, *args):
+        role[0] = shard_role
+        try:
+            y = saved[0](x, weight, bias, stride, padding, smooth, shard_role, *args)
+        finally:
+            role[0] = None
+        n = len(calls)
+        bits = _whole_layer_bits(x, weight, shard_role, smooth, calls[-1])
+        del calls[n:]  # the plain quantization's own, where DEVICE is the CPU
+        calls[-1]["whole_layer"] = bits
+        return y
+
+    def activation(x, s_c, *args):
+        out = saved[1](x, s_c, *args)
+        s_x = args[0] if cuda else out[0]
+        calls.append({"role": role[0], "s_c": s_c.cpu(), "s_x": s_x.cpu()})
+        return out
+
+    def igemm(x_q, k_q, s_x, s_k, *args):
+        cin = calls[-1]["s_c"].numel()
+        calls[-1].update(s_k=s_k.cpu(), k_q=(k_q[..., :cin].permute(0, 3, 1, 2) if cuda
+                                             else k_q).cpu().contiguous())
+        return saved[2](x_q, k_q, s_x, s_k, *args)
+
+    ic.int8_conv_sharded = layers_mod.int8_conv_sharded = sharded
+    setattr(ic, names[0], activation)
+    setattr(ic, names[1], igemm)
+    try:
+        yield
+    finally:
+        ic.int8_conv_sharded = layers_mod.int8_conv_sharded = saved[0]
+        for name, fn in zip(names, saved[1:]):
+            setattr(ic, name, fn)
+
+
+def _tp_int8(nudge_ulps: int = 0) -> dict:
+    """One float32 int8 main-path call of PRESET at full width, seeded
+    weights (nudged by `nudge_ulps`), laid out over this process's world
+    (model_axis = world) or in one process: the fake (CPU), every quantized
+    conv's quantization (`_int8_recorded`; a sharded conv's against the
+    whole layer's), K4's launches and the MAX all-reduces."""
+    from deepsee_torch.parallel import distributed, shard
+    from deepsee_torch.parallel import tensor as tp
+
+    world = distributed.world_size()
+    exp = get_preset(PRESET).replace(is_train=False)
+    exp = exp.replace(model=dataclasses.replace(exp.model, compute_dtype="float32"),
+                      mesh=MeshConfig(model_axis=world))
+    system = SRSystem(exp, device=DEVICE)
+    system.init(torch.Generator().manual_seed(SEED))
+    randomize_weights(system.networks().values(), torch.Generator().manual_seed(SEED + 1))
+    if nudge_ulps:
+        _nudge(system, nudge_ulps, torch.Generator().manual_seed(SEED + 7))
+    if world > 1:
+        distributed.set_model_axis(world)
+        shard.shard_system(system, exp.mesh)
+    batch = make_batch(system.cfg, TP_INT8_BATCH)
+    calls: list = []
+    ic.reset_launches()
+    tp.reset_counts()
+    with int8_inference(min_ch=TP_INT8_MIN_CH), _int8_recorded(calls):
+        fake = run_path(system, batch)
+    torch.cuda.synchronize()
+    out = {"fake": fake.float().cpu(), "calls": calls, "launches": dict(ic.launches),
+           "max_calls": tp.counts["max"]["calls"], "max_bytes": tp.counts["max"]["bytes"]}
+    ic.reset_launches()
+    del system
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_int8_roles(cfg: ModelConfig, world: int) -> dict:
+    """{"column": n, "row": n, None: n}: the convs of one main-path call that
+    int8_inference(TP_INT8_MIN_CH) quantizes (the mini encoder's and every
+    generator block's, the whole layer's cin and cout >= TP_INT8_MIN_CH),
+    each in the role `shard.shard_plan` gives its weight at `world` model
+    ranks and MIN_SHARD_CH."""
+    from deepsee_torch.models.normalization import _Modulated
+    from deepsee_torch.parallel import shard
+
+    exp = get_preset(PRESET).replace(is_train=False)
+    with torch.device("meta"):
+        system = SRSystem(exp, device="meta")
+    roles = {"column": 0, "row": 0, None: 0}
+    for net in (system.encoder, system.generator):
+        plan = shard.shard_plan(net, world, shard.MIN_SHARD_CH)
+        for name, m in net.named_modules():
+            if name.startswith("encoder_full"):
+                continue  # the full trunk runs with use_full
+            if isinstance(m, layers_mod.Conv2d):
+                key = f"{name}.{'weight_orig' if m.spectral else 'weight'}"
+            elif isinstance(m, _Modulated):  # its modulation conv, the shard of its gamma
+                gamma = "mlp_gamma" if hasattr(m, "mlp_gamma") else "mlp_style_gamma"
+                key = f"{name}.{gamma}.weight"
+            else:
+                continue
+            weight = dict(net.named_parameters())[key]
+            if min(weight.shape[:2]) >= TP_INT8_MIN_CH and weight.dim() == 4:
+                roles[plan[key]] += 1
+    return roles
+
+
+def tp_int8_launches(roles: dict) -> dict:
+    """K4's launches per call of one model rank: (a), (c), (d) per quantized
+    conv, the one-launch (b) per replicated one, the two launches of the
+    split (b) per column or row block (smoothing)."""
+    n = sum(roles.values())
+    return int8_launches(n) | {"quantize_weight": roles[None],
+                               "weight_column_maxima": roles["column"],
+                               "weight_row_maxima": roles["row"],
+                               "weight_scales": roles["column"] + roles["row"]}
+
+
 def tp_rank(rank: int, port: int, out_dir: str) -> None:
     """One of TP_WORLD model ranks on the one card over gloo (NCCL takes one
     card per rank), TF32 off: the float32 gradients, sound and with the
@@ -3410,10 +3594,210 @@ def tp_rank(rank: int, port: int, out_dir: str) -> None:
             torch.cuda.empty_cache()
             result["bfloat16"] = _tp_steps("bfloat16", TP_BF16_STEPS, timed=True)
         result["k1_shapes"] = sorted(shapes)
+        result["int8"] = _tp_int8()
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         distributed.reset_layout()
         torch.distributed.destroy_process_group()
+
+
+def tp_int8_check(ranks, one: dict, nudged: dict, smi: str) -> dict:
+    """The model ranks' int8 call (`_tp_int8`) against one process's: the
+    fakes bit for bit alike, within the larger of MAX_TP_INT8_MEAN_ABS /
+    _MAX_ABS and TP_INT8_NOISE times one process's own spread under a
+    one-ulp nudge (`nudged`) of one process's; every sharded conv's s_c,
+    s_x, s_k and k_q on every rank bit for bit its block of the whole
+    layer's plain quantization (and how many of them, the ranks' blocks put
+    together, equal one process's: printed); K4's launches per call and
+    rank against `tp_int8_launches` of the plan's roles, one process's
+    against `int8_per_call` (one launch of (b) per conv); a MAX all-reduce
+    per sharded conv.  The "tp int8" line."""
+    got = [r["int8"] for r in ranks]
+    fakes = [g["fake"] for g in got]
+    if any(not torch.equal(f, fakes[0]) for f in fakes):
+        raise AssertionError("the model ranks' int8 fakes differ")
+    if fakes[0].shape != one["fake"].shape or not bool(torch.isfinite(fakes[0]).all()):
+        raise AssertionError(f"tp int8: shape {tuple(fakes[0].shape)} or values not finite")
+    err = (fakes[0] - one["fake"]).abs()
+    spread = (nudged["fake"] - one["fake"]).abs()
+    limits = {"mean_abs": max(MAX_TP_INT8_MEAN_ABS, TP_INT8_NOISE * float(spread.mean())),
+              "max_abs": max(MAX_TP_INT8_MAX_ABS, TP_INT8_NOISE * float(spread.max()))}
+    roles = tp_int8_roles(get_preset(PRESET).model, TP_WORLD)
+    want_launches = tp_int8_launches(roles)
+    one_want = int8_per_call(int8_conv_shapes(get_preset(PRESET).model, TP_INT8_BATCH,
+                                              full_trunk=False, min_ch=TP_INT8_MIN_CH))
+    sharded = {"column": {"convs": 0, "whole_layer": 0, "one_process_equal": 0, "wrong": []},
+               "row": {"convs": 0, "whole_layer": 0, "one_process_equal": 0, "wrong": []}}
+    for i, call in enumerate(got[0]["calls"]):
+        role = call["role"]
+        if role is None:
+            continue
+        blocks = [g["calls"][i] for g in got]
+        acc = sharded[role]
+        acc["convs"] += 1
+        whole = all(all(b["whole_layer"].values()) for b in blocks)
+        acc["whole_layer"] += whole
+        if not whole:
+            acc["wrong"].append({"call": i, "ranks": [b["whole_layer"] for b in blocks]})
+        if role == "column":
+            pieces = {"s_c": blocks[0]["s_c"], "s_x": blocks[0]["s_x"],
+                      "s_k": torch.cat([b["s_k"] for b in blocks]),
+                      "k_q": torch.cat([b["k_q"] for b in blocks])}
+        else:
+            pieces = {"s_c": torch.cat([b["s_c"] for b in blocks]), "s_x": blocks[0]["s_x"],
+                      "s_k": blocks[0]["s_k"], "k_q": torch.cat([b["k_q"] for b in blocks], 1)}
+        acc["one_process_equal"] += all(torch.equal(v, one["calls"][i][k])
+                                        for k, v in pieces.items())
+    n_sharded = roles["column"] + roles["row"]
+    record = {"preset": PRESET, "model_ranks": TP_WORLD, "batch": TP_INT8_BATCH,
+              "dtype": "float32", "fake_mean_abs_err": float(err.mean()),
+              "fake_max_abs_err": float(err.max()),
+              "one_process_nudged_1ulp": {"mean_abs": float(spread.mean()),
+                                          "max_abs": float(spread.max())},
+              "limits": limits,
+              "within_jax_mesh_test_limits": (float(err.mean()) < MAX_TP_INT8_MEAN_ABS
+                                              and float(err.max()) < MAX_TP_INT8_MAX_ABS),
+              "sharded_convs": sharded, "roles_per_call": {str(k): v for k, v in roles.items()},
+              "launches_per_call_and_rank": got[0]["launches"],
+              "expected_launches": want_launches,
+              "one_process_launches": one["launches"], "one_process_expected": one_want,
+              "max_collectives_per_call": got[0]["max_calls"],
+              "max_kib_per_call": got[0]["max_bytes"] / 1024, "expected_max_collectives": n_sharded,
+              "card": smi}
+    log("tp int8 " + json.dumps(record))
+    if float(err.mean()) >= limits["mean_abs"] or float(err.max()) >= limits["max_abs"]:
+        raise AssertionError(f"tp int8: the fake parts from one process's: {record}")
+    if any(acc["wrong"] for acc in sharded.values()) or \
+            [sharded[r]["convs"] for r in ("column", "row")] != [roles["column"], roles["row"]]:
+        raise AssertionError(f"tp int8: the sharded scales are not the whole layer's: {sharded}")
+    if any(g["launches"] != want_launches for g in got) or one["launches"] != one_want:
+        raise AssertionError(f"tp int8: launches {[g['launches'] for g in got]} / one process "
+                             f"{one['launches']}, expected {want_launches} / {one_want}")
+    if any(g["max_calls"] != n_sharded for g in got):
+        raise AssertionError(f"tp int8: {got[0]['max_calls']} MAX all-reduces, expected "
+                             f"{n_sharded}")
+    return record
+
+
+def _tp_weight_blocks(calls):
+    """{(role, (cout, cin, kh, kw) of the rank's block): count per call} of
+    the split (b) launches of one rank's recorded int8 call."""
+    out: dict = {}
+    for c in calls:
+        if c["role"] is None:
+            continue
+        key = (c["role"], tuple(c["k_q"].shape))
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _tp_weight_bounds(role: str, wshape):
+    """(ms, bound_by) of each split (b) launch at a block of `wshape`: each
+    input read once and each output written once over the HBM rate, or its
+    float32 operations over the CUDA-core rate."""
+    cout, cin, kh, kw = wshape
+    nw, kq = cout * cin * kh * kw, cout * kh * kw * ic.padded_channels(cin)
+
+    def bound(nbytes, ops):
+        t = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / F32_FLOPS_PER_S}
+        by = max(t, key=t.get)
+        return t[by] * 1e3, by
+
+    if role == "column":
+        return {"weight_column_maxima": bound(4 * nw + 4 * cin, 2 * nw),
+                "weight_scales": bound(4 * nw + 16 * cin + kq + 4 * (cout + 1), 6 * nw)}
+    return {"weight_row_maxima": bound(4 * nw + 12 * cin + 4 * (cout + 1), 4 * nw),
+            "weight_scales": bound(4 * nw + 4 * cin + 4 * (cout + 1) + kq + 4 * (cout + 1),
+                                   5 * nw)}
+
+
+def tp_int8_kernel_rows(ranks, smi: str) -> dict:
+    """The split (b) at every block shape of the ranks' int8 call: both
+    launches on two blocks of a seeded weight (the MAX all-reduce as the
+    elementwise maximum of the two blocks' first launches) bit for bit
+    their plain versions, then each launch's device ms at the block, its
+    plain version's ms, its bound, and for the column maxima the library
+    call's ms (TP_COLUMN_MAXIMA_LIBRARY; none for the others).  Per call and
+    rank: the sums over the call's launches."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    dev = torch.device(DEVICE)
+    totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "launches": 0,
+                  "library_ms": 0.0 if k == "weight_column_maxima" else None,
+                  "bound_by": set()} for k, _ in TP_INT8_KERNELS.values()}
+    rows = []
+    for (role, wshape), count in sorted(_tp_weight_blocks(ranks[0]["int8"]["calls"]).items()):
+        cout, cin, kh, kw = wshape
+        whole = (2 * cout, cin, kh, kw) if role == "column" else (cout, 2 * cin, kh, kw)
+        weight = torch.randn(whole, generator=gen, device=dev) * 0.05
+        xcin = whole[1]
+        x = (torch.randn((TP_INT8_BATCH, xcin, 16, 16), generator=gen, device=dev)
+             * torch.logspace(-1.5, 0.5, xcin, device=dev)[:, None, None])
+        ws = [w.contiguous() for w in weight.chunk(2, 0 if role == "column" else 1)]
+        xs = [x, x] if role == "column" else list(x.chunk(2, 1))
+        maxima = [ic.absmax_channels_plain(t) for t in xs]
+        if role == "column":
+            first = [ic.weight_column_maxima(w) for w in ws]
+            want_first = [ic.weight_column_maxima_plain(w) for w in ws]
+            top = torch.maximum(*first)
+            second = [ic.quantize_weight_columns(w, *m, top) for w, m in zip(ws, maxima)]
+            want_second = [ic.quantize_weight_columns_plain(w, *m, top)
+                           for w, m in zip(ws, maxima)]
+            fns = {"weight_column_maxima": (
+                       lambda: ic.weight_column_maxima(ws[0]),
+                       lambda: ic.weight_column_maxima_plain(ws[0]),
+                       lambda: torch.linalg.vector_norm(ws[0], float("inf"), dim=(0, 2, 3))),
+                   "weight_scales": (lambda: ic.quantize_weight_columns(ws[0], *maxima[0], top),
+                                     lambda: ic.quantize_weight_columns_plain(ws[0], *maxima[0],
+                                                                              top), None)}
+        else:
+            first = [ic.weight_row_maxima(w, *m, True) for w, m in zip(ws, maxima)]
+            want_first = [ic.weight_row_maxima_plain(w, *m, True) for w, m in zip(ws, maxima)]
+            top = torch.maximum(first[0][1], first[1][1])
+            second = [ic.quantize_weight_rows(w, f[0], top) for w, f in zip(ws, first)]
+            want_second = [ic.quantize_weight_rows_plain(w, f[0], top)
+                           for w, f in zip(ws, first)]
+            s_c0 = first[0][0]
+            fns = {"weight_row_maxima": (
+                       lambda: ic.weight_row_maxima(ws[0], *maxima[0], True),
+                       lambda: ic.weight_row_maxima_plain(ws[0], *maxima[0], True), None),
+                   "weight_scales": (lambda: ic.quantize_weight_rows(ws[0], s_c0, top),
+                                     lambda: ic.quantize_weight_rows_plain(ws[0], s_c0, top),
+                                     None)}
+        torch.cuda.synchronize()
+
+        def same(got, want):
+            if isinstance(got, torch.Tensor):
+                if got.dim() == 4 and got.dtype == torch.int8:  # k_q: (Cout, kh, kw, Cp)
+                    return bool(torch.equal(got[..., :want.shape[1]].permute(0, 3, 1, 2), want))
+                return bool(torch.equal(got, want))
+            return all(same(g, w) for g, w in zip(got, want))
+
+        ok = all(same(g, w) for g, w in zip(first + second, want_first + want_second))
+        bounds = _tp_weight_bounds(role, wshape)
+        times = {}
+        for key, (kernel, plain, library) in fns.items():
+            times[key] = {"ms": _device_ms([kernel], target_ms=SP_TIMING_MS),
+                          "plain_ms": _event_ms(plain, reps=3),
+                          "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
+            if library is not None:
+                times[key]["library_ms"] = _device_ms([library], target_ms=SP_TIMING_MS)
+            acc = totals[key]
+            acc["launches"] += count
+            acc["bound_by"].add(bounds[key][1])
+            for k in ("ms", "plain_ms", "bound_ms") + (("library_ms",) if library else ()):
+                acc[k] += times[key][k] * count
+        row = {"role": role, "block": list(wshape), "per_call": count, "bit_for_bit": ok,
+               "times": times, "card": smi}
+        log("tp int8 kernel " + json.dumps(row))
+        if not ok:
+            raise AssertionError(f"the split (b) differs from its plain version: {row}")
+        rows.append(row)
+        del weight, x, ws, xs, first, second
+    for acc in totals.values():
+        acc["bound_by"] = "bytes" if acc["bound_by"] != {"operations"} else "operations"
+    ic.reset_launches()
+    torch.cuda.empty_cache()
+    return {"totals": totals, "rows": len(rows)}
 
 
 def tp_phase(smi: str) -> dict:
@@ -3437,10 +3821,12 @@ def tp_phase(smi: str) -> dict:
             warnings.simplefilter("ignore")
             return ({"sound": _tp_grads(), "nudged": _tp_grads(nudge_ulps=1)},
                     _tp_steps("float32", TP_F32_STEPS),
-                    _tp_steps("float32", TP_F32_STEPS, nudge_ulps=1)["state"])
+                    _tp_steps("float32", TP_F32_STEPS, nudge_ulps=1)["state"],
+                    (_tp_int8(), _tp_int8(nudge_ulps=1)))
 
     try:
-        ranks, (one_grads, one, nudged) = spawned_ranks(tp_rank, TP_WORLD, root, one_process)
+        ranks, (one_grads, one, nudged, one_int8) = spawned_ranks(tp_rank, TP_WORLD, root,
+                                                                  one_process)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     grad_sums = [_checksum(r["grads"]) for r in ranks]
@@ -3525,8 +3911,11 @@ def tp_phase(smi: str) -> dict:
            for key in bf16[0]["k1_forward_widths_per_step"] if key.startswith("batch")):
         raise AssertionError("a batch-statistics K1 call of the ranks is not on a channel "
                              "block of the one process's")
+    int8 = tp_int8_check(ranks, *one_int8, smi)
+    int8_kernels = tp_int8_kernel_rows(ranks, smi)
     log(f"tp phase: {time.perf_counter() - t0:.1f} s")
-    return {k: int(v) for k, v in bf16[0]["k1_launches_per_step"].items()}
+    return {"k1": {k: int(v) for k, v in bf16[0]["k1_launches_per_step"].items()},
+            "int8_launches": int8["launches_per_call_and_rank"], "int8": int8_kernels}
 
 
 # -- spatial-sharding phase ---------------------------------------------------------
@@ -4143,8 +4532,13 @@ def int8_conv_shapes(cfg: ModelConfig, batch: int, full_trunk: bool, encode: boo
 
 
 def int8_per_call(shapes) -> dict:
-    n = sum(r[-1] for r in shapes)
-    return dict.fromkeys(INT8_STAGES, n)
+    """Every int8 launch counter per call of one process: n of each of
+    (a)-(d), none of the tensor-parallel (b)'s."""
+    return int8_launches(sum(r[-1] for r in shapes))
+
+
+def int8_launches(n: int) -> dict:
+    return dict.fromkeys(ic.launches, 0) | dict.fromkeys(INT8_STAGES, n)
 
 
 def _int8_inputs(xshape, wshape, dtype, gen):
@@ -4545,7 +4939,7 @@ def int8_serving(system: SRSystem, smi: str) -> dict:
             n = sum(batches.get(f"int8/{name}", 0) * k for name, k in want_nodes.items())
             log(f"int8 serving launches in the window: {launches} (expected {n} each from "
                 f"{json.dumps(batches)} batches)")
-            if launches != dict.fromkeys(INT8_STAGES, n):
+            if launches != int8_launches(n):
                 raise AssertionError(f"int8 serving: int8 launches {launches}, expected {n}")
             u8_diff, style_diff, regrouped, call_s = check_responses(programs, served,
                                                                      requests, results)
@@ -4806,7 +5200,7 @@ def kernels_line(rows, launches, norms, train=None, dp=None, int8=None, tp=None,
             "library_call": library_call,
             "per": f"one training step ({PRESET} b{TRAIN_BATCH}, faithful schedule; sum over "
                    "its launches), device time",
-            "tp_launches_per_step_and_rank": tp[mode],
+            "tp_launches_per_step_and_rank": tp["k1"][mode],
             "tp_per": f"one tensor-parallel step of one of {TP_WORLD} model ranks ({PRESET} "
                       f"b{TP_BATCH}, on each rank's channel block)",
             "sp_launches_per_step_and_rank": int(sp["launches"].get(mode, 0)),
@@ -4857,6 +5251,9 @@ def kernels_line(rows, launches, norms, train=None, dp=None, int8=None, tp=None,
             "per": f"one int8 main-path call ({PRESET} b{BATCH} under int8_inference(); sum "
                    "over its launches), device time",
         }
+        entry["tp_launches_per_call_and_rank"] = tp["int8_launches"][key]
+        entry["tp_per"] = (f"one int8 main-path call of one of {TP_WORLD} model ranks ({PRESET} "
+                           f"b{TP_INT8_BATCH}, float32)")
         if key == "igemm":
             entry["bf16_cudnn_ms"] = int8["times"]["bf16_cudnn_ms"]
             entry["bf16_cudnn_note"] = ("library (bf16, not the same function): F.conv2d in "
@@ -4865,6 +5262,19 @@ def kernels_line(rows, launches, norms, train=None, dp=None, int8=None, tp=None,
             entry["library_gemm_note"] = INT8_LIBRARY_GEMM
             entry["host_us_per_launch"] = int8["times"]["igemm_host_us"]
         out.append(entry)
+    for name, (key, role) in TP_INT8_KERNELS.items():
+        t = tp["int8"]["totals"][key]
+        out.append({
+            "name": name, "route": "cuda", "source": INT8_SOURCE, "replaces": INT8_SITE,
+            "replaces_note": INT8_SITE_NOTE + "; " + role,
+            "launches": tp["int8_launches"][key], "max_abs_err": 0.0,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_call": (TP_COLUMN_MAXIMA_LIBRARY if t["library_ms"] is not None else None),
+            "per": f"one int8 main-path call of one of {TP_WORLD} model ranks ({PRESET} "
+                   f"b{TP_INT8_BATCH}, float32; sum over its launches at the ranks' block "
+                   "shapes), device time; bit for bit the plain version (max_abs_err 0)",
+        })
     return {"kernels": out}
 
 

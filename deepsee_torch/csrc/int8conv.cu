@@ -764,6 +764,23 @@ igemm_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ 
 // Without smoothing s_c is 1: no column pass, no grid barrier, a plain
 // launch.  fmaxf drops NaN as the earlier design did (a NaN weight's level
 // is -127 either way); an all-zero column keeps mk at 1e-8.
+//
+// Under tensor parallelism a rank holds a block of the weight, and the JAX
+// package's maxima are the whole layer's: a kernel cannot wait for another
+// process, so (b) splits around the model group's MAX all-reduce
+// (deepsee_torch/ops/int8conv.py::int8_conv_sharded), two launches of this
+// kernel in the modes below (MODE), each bit for bit the one-process
+// sequence on the reduced maxima:
+//   * a column block (its output channels; x whole): kColumnMaxima, phase 1
+//     alone (this rank's column maxima into mk, no barrier); the all-reduce
+//     of mk; kColumnScales, phases 2 and 3 from the group's mk;
+//   * a row block (its input channels; x its channel block): kRowMaxima,
+//     phases 1 and 2 (s_c is the rank's own: every output channel of its
+//     columns is here) and each row's max |v| and block 0's max RN(mx_raw /
+//     s_c) into `maxima` [Cout + 1]; the all-reduce of maxima; kRowScales,
+//     s_k, s_x and k_q from s_c and the group's maxima (the weight read
+//     again).  Without smoothing a column block needs nothing of the group
+//     (the one-process launch), a row block the two maxima.
 constexpr int kWeightThreads = 1024;
 constexpr int kUnitCols = 2;         // input channels of a unit
 constexpr int kWeightMaxRows = 32;   // output channels per block, at most
@@ -779,7 +796,18 @@ struct WeightArgs {
   float* s_x;
   int8_t* k_q;
   unsigned* mk;  // SMOOTH: the column maxima across blocks (bit patterns), zero at launch
+  float* maxima;  // kRowMaxima / kRowScales: each row's max |v|, then max |x'| [Cout + 1]
   int Cout, Cin, Cp, taps;
+};
+
+// (b)'s launches: the one-process launch, and under a tensor-parallel shard
+// the two launches around the model group's MAX all-reduce
+enum WeightMode : int {
+  kWhole = 0,         // one process: everything
+  kColumnMaxima = 1,  // column block: the column maxima into mk
+  kColumnScales = 2,  // column block: s_c, s_x, s_k, k_q from the reduced mk
+  kRowMaxima = 3,     // row block: s_c, the row maxima and max |x'| into maxima
+  kRowScales = 4,     // row block: s_k, s_x, k_q from s_c and the reduced maxima
 };
 
 // k_q's level of v: clip(rint(RN(v / sk)), +-127) as the low byte
@@ -848,7 +876,7 @@ __device__ __forceinline__ void row_merge(unsigned* row_max, int r, float m) {
   }
 }
 
-template <int TAPS, bool SMOOTH>
+template <int TAPS, bool SMOOTH, int MODE = kWhole>
 __global__ void __launch_bounds__(kWeightThreads, 1)
 quantize_weight_kernel(const WeightArgs a) {
   PHASE_MARK(0);
@@ -873,37 +901,45 @@ quantize_weight_kernel(const WeightArgs a) {
   float v[NV];
   if (cached && my_q < pairs) load_unit<(TAPS > 0 ? TAPS : 1)>(a, o_begin + tid / Q, my_q, v);
   // this thread's first column's mx and mx_raw, loaded while the weight loads
-  const float mx0 = tid < a.Cin ? __ldg(a.mx + tid) : 0.0f;
-  const float raw0 = b == 0 && tid < a.Cin ? __ldg(a.mx_raw + tid) : 0.0f;
+  // (the launches that take them)
+  constexpr bool kScalesX = MODE != kColumnMaxima && MODE != kRowScales;
+  const float mx0 = kScalesX && tid < a.Cin ? __ldg(a.mx + tid) : 0.0f;
+  const float raw0 = kScalesX && b == 0 && tid < a.Cin ? __ldg(a.mx_raw + tid) : 0.0f;
   if (tid < kWeightMaxRows) row_max[tid] = 0u;
   // value k of a unit u that is not in registers, from L2
   auto value = [&](int u, int k) { return unit_value(a, o_begin + u / Q, u % Q, k); };
 
-  if constexpr (SMOOTH) {
-    for (int c = tid; c < a.Cin; c += kWeightThreads) mk_s[c] = 0u;
+  if constexpr (MODE == kRowScales) {  // s_c from the first launch
+    for (int c = tid; c < a.Cin; c += kWeightThreads) sc_s[c] = __ldg(a.s_c + c);
     __syncthreads();
-    for (int u = tid; u < units; u += kWeightThreads) {
-      const int q = u % Q;
-      if (q >= pairs) continue;
+  } else if constexpr (SMOOTH) {
+    if constexpr (MODE != kColumnScales) {  // phase 1 (the column maxima)
+      for (int c = tid; c < a.Cin; c += kWeightThreads) mk_s[c] = 0u;
+      __syncthreads();
+      for (int u = tid; u < units; u += kWeightThreads) {
+        const int q = u % Q;
+        if (q >= pairs) continue;
 #pragma unroll
-      for (int j = 0; j < kUnitCols; ++j) {
-        if (kUnitCols * q + j >= a.Cin) break;
-        float m = 0.0f;
-        if (cached && u == tid) {
+        for (int j = 0; j < kUnitCols; ++j) {
+          if (kUnitCols * q + j >= a.Cin) break;
+          float m = 0.0f;
+          if (cached && u == tid) {
 #pragma unroll
-          for (int t = 0; t < (TAPS > 0 ? TAPS : 1); ++t) m = fmaxf(m, fabsf(v[j * taps + t]));
-        } else {
-          for (int t = 0; t < taps; ++t) m = fmaxf(m, fabsf(value(u, j * taps + t)));
+            for (int t = 0; t < (TAPS > 0 ? TAPS : 1); ++t) m = fmaxf(m, fabsf(v[j * taps + t]));
+          } else {
+            for (int t = 0; t < taps; ++t) m = fmaxf(m, fabsf(value(u, j * taps + t)));
+          }
+          if (m > 0.0f) atomicMax(mk_s + kUnitCols * q + j, __float_as_uint(m));
         }
-        if (m > 0.0f) atomicMax(mk_s + kUnitCols * q + j, __float_as_uint(m));
       }
+      __syncthreads();
+      for (int c = tid; c < a.Cin; c += kWeightThreads)
+        if (mk_s[c] != 0u) atomicMax(a.mk + c, mk_s[c]);
+      if constexpr (MODE == kColumnMaxima) return;
+      PHASE_MARK(1);
+      cg::this_grid().sync();
+      PHASE_MARK(2);
     }
-    __syncthreads();
-    for (int c = tid; c < a.Cin; c += kWeightThreads)
-      if (mk_s[c] != 0u) atomicMax(a.mk + c, mk_s[c]);
-    PHASE_MARK(1);
-    cg::this_grid().sync();
-    PHASE_MARK(2);
     for (int c = tid; c < a.Cin; c += kWeightThreads) {
       const float mk = fmaxf(__uint_as_float(__ldcg(a.mk + c)), kFloor);
       sc_s[c] = __fdiv_rn(__fsqrt_rn(c == tid ? mx0 : __ldg(a.mx + c)), __fsqrt_rn(mk));
@@ -913,9 +949,12 @@ quantize_weight_kernel(const WeightArgs a) {
     for (int c = tid; c < a.Cin; c += kWeightThreads) sc_s[c] = 1.0f;
     __syncthreads();
   }
-  for (int c = c_begin + tid; c < c_end; c += kWeightThreads) a.s_c[c] = sc_s[c];
+  if constexpr (MODE != kRowScales)
+    for (int c = c_begin + tid; c < c_end; c += kWeightThreads) a.s_c[c] = sc_s[c];
   PHASE_MARK(3);
-  if (b == 0) {  // s_x (without smoothing RN(mx_raw / 1) is mx_raw)
+  if constexpr (MODE == kRowScales) {  // s_x from the group's max |x'|
+    if (b == 0 && tid == 0) a.s_x[0] = __fdiv_rn(fmaxf(__ldg(a.maxima + a.Cout), kFloor), kLevels);
+  } else if (b == 0) {  // s_x (without smoothing RN(mx_raw / 1) is mx_raw)
     float m = 0.0f;
     for (int c = tid; c < a.Cin; c += kWeightThreads) {
       const float raw = c == tid ? raw0 : __ldg(a.mx_raw + c);
@@ -927,7 +966,8 @@ quantize_weight_kernel(const WeightArgs a) {
     if (tid == 0) {
       float r = 0.0f;
       for (int w = 0; w < kWeightThreads / 32; ++w) r = fmaxf(r, red[w]);
-      a.s_x[0] = __fdiv_rn(fmaxf(r, kFloor), kLevels);
+      if constexpr (MODE == kRowMaxima) a.maxima[a.Cout] = r;
+      else a.s_x[0] = __fdiv_rn(fmaxf(r, kFloor), kLevels);
     }
     PHASE_MARK(4);
   }
@@ -943,22 +983,30 @@ quantize_weight_kernel(const WeightArgs a) {
         m = fmaxf(m, fabsf(v[k]));
       }
     }
-    row_merge(row_max, tid / Q, m);
+    if constexpr (MODE != kRowScales) row_merge(row_max, tid / Q, m);
   }
   PHASE_MARK(5);
-  for (int u = tid + (TAPS > 0 ? kWeightThreads : 0); u < units; u += kWeightThreads) {
-    const int q = u % Q;
-    if (q >= pairs) continue;
-    float m = 0.0f;
-    for (int k = 0; k < nv; ++k) {
-      const int c = kUnitCols * q + k / taps;
-      if (c < a.Cin) m = fmaxf(m, fabsf(__fmul_rn(value(u, k), sc_s[c])));
+  if constexpr (MODE != kRowScales) {
+    for (int u = tid + (TAPS > 0 ? kWeightThreads : 0); u < units; u += kWeightThreads) {
+      const int q = u % Q;
+      if (q >= pairs) continue;
+      float m = 0.0f;
+      for (int k = 0; k < nv; ++k) {
+        const int c = kUnitCols * q + k / taps;
+        if (c < a.Cin) m = fmaxf(m, fabsf(__fmul_rn(value(u, k), sc_s[c])));
+      }
+      if (m > 0.0f) atomicMax(row_max + u / Q, __float_as_uint(m));
     }
-    if (m > 0.0f) atomicMax(row_max + u / Q, __float_as_uint(m));
   }
   __syncthreads();
+  if constexpr (MODE == kRowMaxima) {  // this rank's row maxima, for the all-reduce
+    if (tid < o_end - o_begin) a.maxima[o_begin + tid] = __uint_as_float(row_max[tid]);
+    return;
+  }
   if (tid < o_end - o_begin) {
-    const float sk = __fdiv_rn(fmaxf(__uint_as_float(row_max[tid]), kFloor), kLevels);
+    const float top = MODE == kRowScales ? __ldg(a.maxima + o_begin + tid)
+                                         : __uint_as_float(row_max[tid]);
+    const float sk = __fdiv_rn(fmaxf(top, kFloor), kLevels);
     row_sk[tid] = sk;
     row_rk[tid] = __frcp_rn(sk);
     a.s_k[o_begin + tid] = sk;
@@ -1074,32 +1122,59 @@ extern "C" int int8_absmax_channels(const void* x, void* part, void* mx_raw, voi
   return status();
 }
 
-// (b) with the plan of ops/int8conv.py::weight_plan: `grid` blocks (at most
-// Cout and kWeightMaxRows output channels each, and with smoothing at most
-// what the card holds at once).  With smoothing `mk` is the caller's
-// (Cin,) 32-bit scratch on `stream`, zeroed here before the launch, so
-// launches on different streams never share it.  cudaErrorInvalidValue for
-// a plan the kernel does not take; the cooperative launch itself returns
-// cudaErrorCooperativeLaunchTooLarge for a grid the card cannot hold at once.
-extern "C" int int8_quantize_weight(const void* w, const void* mx, const void* mx_raw,
-                                    void* s_c, void* s_k, void* s_x, void* k_q, void* mk,
-                                    int Cout, int Cin, int Cp, int taps, int smooth, int grid,
-                                    void* stream) {
+namespace {
+
+// (b)'s kernel for (MODE, taps, smoothing): the column modes smooth by
+// definition, and kRowScales reads s_c, whatever it was.
+template <typename F>
+const void* kernel_ptr(F* kernel) {
+  return reinterpret_cast<const void*>(kernel);
+}
+
+template <int TAPS>
+const void* weight_kernel(int mode, bool smooth) {
+  switch (mode) {
+    case kWhole:
+      return smooth ? kernel_ptr(quantize_weight_kernel<TAPS, true>)
+                    : kernel_ptr(quantize_weight_kernel<TAPS, false>);
+    case kColumnMaxima:
+      return kernel_ptr(quantize_weight_kernel<TAPS, true, kColumnMaxima>);
+    case kColumnScales:
+      return kernel_ptr(quantize_weight_kernel<TAPS, true, kColumnScales>);
+    case kRowMaxima:
+      return smooth ? kernel_ptr(quantize_weight_kernel<TAPS, true, kRowMaxima>)
+                    : kernel_ptr(quantize_weight_kernel<TAPS, false, kRowMaxima>);
+    default:
+      return kernel_ptr(quantize_weight_kernel<TAPS, true, kRowScales>);
+  }
+}
+
+// One launch of (b) in `mode` with the plan of ops/int8conv.py::weight_plan:
+// `grid` blocks (at most Cout and kWeightMaxRows output channels each, and
+// where a barrier is crossed at most what the card holds at once).  Where
+// the launch takes column maxima (kWhole and kRowMaxima with smoothing,
+// kColumnMaxima) `mk` is the caller's (Cin,) 32-bit buffer on `stream`,
+// zeroed here before the launch, so launches on different streams never
+// share it; kColumnScales reads it as the caller gives it.  kWhole and
+// kRowMaxima with smoothing are cooperative launches.
+// cudaErrorInvalidValue for a plan or mode the kernel does not take; the
+// cooperative launch itself returns cudaErrorCooperativeLaunchTooLarge for
+// a grid the card cannot hold at once.
+int launch_weight(int mode, const void* w, const void* mx, const void* mx_raw, void* s_c,
+                  void* s_k, void* s_x, void* k_q, void* mk, void* maxima, int Cout, int Cin,
+                  int Cp, int taps, int smooth, int grid, void* stream) {
+  const bool columns = mode == kColumnMaxima || mode == kColumnScales;
+  const bool rows = mode == kRowMaxima || mode == kRowScales;
+  const bool reads_mk = smooth && (mode == kWhole || mode == kRowMaxima || columns);
   if (Cout < 1 || Cin < 1 || Cin > kWeightMaxCin || taps < 1 || Cp % 16 || Cp < Cin ||
-      grid < 1 || grid > Cout || (Cout + grid - 1) / grid > kWeightMaxRows ||
-      (smooth && mk == nullptr))
+      grid < 1 || grid > Cout || (Cout + grid - 1) / grid > kWeightMaxRows || mode < kWhole ||
+      mode > kRowScales || (columns && !smooth) || (reads_mk && mk == nullptr) ||
+      (rows && maxima == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel;
-  if (taps == 9)
-    kernel = smooth ? reinterpret_cast<const void*>(quantize_weight_kernel<9, true>)
-                    : reinterpret_cast<const void*>(quantize_weight_kernel<9, false>);
-  else if (taps == 1)
-    kernel = smooth ? reinterpret_cast<const void*>(quantize_weight_kernel<1, true>)
-                    : reinterpret_cast<const void*>(quantize_weight_kernel<1, false>);
-  else
-    kernel = smooth ? reinterpret_cast<const void*>(quantize_weight_kernel<0, true>)
-                    : reinterpret_cast<const void*>(quantize_weight_kernel<0, false>);
-  const int smem = Cin * 4 * (smooth ? 2 : 1);
+  const void* kernel = taps == 9   ? weight_kernel<9>(mode, smooth)
+                       : taps == 1 ? weight_kernel<1>(mode, smooth)
+                                   : weight_kernel<0>(mode, smooth);
+  const int smem = Cin * 4 * (reads_mk ? 2 : 1);
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024 &&  // beyond the default: Cin above 6144 with smoothing
       (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
@@ -1114,10 +1189,11 @@ extern "C" int int8_quantize_weight(const void* w, const void* mx, const void* m
   args.s_x = static_cast<float*>(s_x);
   args.k_q = static_cast<int8_t*>(k_q);
   args.mk = static_cast<unsigned*>(mk);
+  args.maxima = static_cast<float*>(maxima);
   args.Cout = Cout; args.Cin = Cin; args.Cp = Cp; args.taps = taps;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeCooperative;
-  attr.val.cooperative = smooth ? 1 : 0;
+  attr.val.cooperative = smooth && (mode == kWhole || mode == kRowMaxima) ? 1 : 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(kWeightThreads);
@@ -1125,13 +1201,37 @@ extern "C" int int8_quantize_weight(const void* w, const void* mx, const void* m
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  if (smooth &&
+  if (reads_mk && mode != kColumnScales &&
       (e = cudaMemsetAsync(mk, 0, sizeof(unsigned) * Cin, cfg.stream)) != cudaSuccess)
     return static_cast<int>(e);
   void* argv[] = {&args};
   e = cudaLaunchKernelExC(&cfg, kernel, argv);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+}  // namespace
+
+// (b) in one process: s_c, s_k, s_x and k_q in one launch (kWhole; see
+// launch_weight).
+extern "C" int int8_quantize_weight(const void* w, const void* mx, const void* mx_raw,
+                                    void* s_c, void* s_k, void* s_x, void* k_q, void* mk,
+                                    int Cout, int Cin, int Cp, int taps, int smooth, int grid,
+                                    void* stream) {
+  return launch_weight(kWhole, w, mx, mx_raw, s_c, s_k, s_x, k_q, mk, nullptr, Cout, Cin, Cp,
+                       taps, smooth, grid, stream);
+}
+
+// (b) under a tensor-parallel shard: one of its two launches around the
+// model group's MAX all-reduce (`mode` 1-4, WeightMode; see launch_weight).
+// Pointers a mode does not use may be null.
+extern "C" int int8_quantize_weight_split(int mode, const void* w, const void* mx,
+                                          const void* mx_raw, void* s_c, void* s_k, void* s_x,
+                                          void* k_q, void* mk, void* maxima, int Cout, int Cin,
+                                          int Cp, int taps, int smooth, int grid, void* stream) {
+  if (mode == kWhole) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_weight(mode, w, mx, mx_raw, s_c, s_k, s_x, k_q, mk, maxima, Cout, Cin, Cp, taps,
+                       smooth, grid, stream);
 }
 
 extern "C" int int8_quantize_activation(const void* x, const void* s_c, const void* s_x,

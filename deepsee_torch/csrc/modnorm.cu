@@ -744,9 +744,8 @@ constexpr int kTileChannels = kMaxLanes * kVec;  // channels per block, at most
 // `resident` vectors live in shared-memory slot v.  `part` receives each
 // run's (mean, M2) per channel: [2][runs][C].  STATS_ONLY (launch A of the
 // cross-rank forward) stops after the merge of the runs and writes the
-// launch's (count, mean, M2) per set and channel to stats_out, [3][sets][C]
-// (one set for the batch statistics; N with INSTANCE, the instance split's
-// partials launch); the other outputs are not touched.
+// launch's (count, mean, M2) per channel to stats_out, [3][1][C]; the other
+// outputs are not touched.
 //
 // INSTANCE is the instance forward's "grid" variant (ops/modnorm.py::
 // instance_plan): the same kernel over `sets` = N statistics sets of H*W
@@ -927,7 +926,7 @@ modnorm_batch_kernel(const T* __restrict__ x, const T* __restrict__ mod, T* __re
       for (int h = 0; h < G; ++h)
         chan_merge<1>(n, &m, &q, s_grp[0][h * tile + tid], &s_grp[1][h * tile + tid],
                       &s_grp[2][h * tile + tid]);
-      if (STATS_ONLY) {  // [3][sets][C]: one set for the batch, N for the instance split
+      if (STATS_ONLY) {  // [3][sets][C], one set: the batch's
         if (rr == 0) {
           const int64_t o = static_cast<int64_t>(set) * C + c;
           const int64_t NC = static_cast<int64_t>(sets) * C;
@@ -1416,24 +1415,24 @@ backward_apply_kernel(const T* __restrict__ x, const T* __restrict__ mod,
 // partials too.  The instance mode splits as the batch mode does across ranks
 // (SplitInstanceModnorm in deepsee_torch/ops/modnorm.py), with N statistics
 // sets where the batch split has one:
-//   * the partials launch: modnorm_batch_kernel with STATS_ONLY and INSTANCE,
-//     the grid variant's statistics alone (runs of each (sample, channel
-//     tile) slab merged across a grid barrier where a slab has more than one),
-//     this rank's (count, mean, M2) per sample and channel into [3][N][C];
+//   * the partials launch (modnorm_instance_partials_kernel): this rank's
+//     (count, mean, M2) per sample and channel into its [3][N][C] row of the
+//     [world][3][N][C] buffer, the other rows zeroed by the same launch;
 //   * the caller all-reduces the [world][3][N][C] rows over the model group;
 //   * the apply launch (modnorm_instance_apply_kernel): the rows of each
 //     sample merged in rank order with Chan's formula, then (x - mean) * rstd,
 //     the modulation and the leaky ReLU, as the instance kernel applies them;
-//   * the backward's sums launch (instance_backward_sums_kernel): per sample
-//     and channel the sums of gy and gy * x_hat over this rank's pixels, the
-//     blocks of a (sample, channel tile) adding theirs in chunk order in the
-//     last block to finish (a counter per slab, no float atomics);
+//   * the backward's sums launch (modnorm_instance_sums_kernel): per sample
+//     and channel the sums of gy and gy * x_hat over this rank's pixels;
 //   * the caller all-reduces the [2][N][C] sums;
 //   * the backward's apply launch (instance_backward_apply_kernel): grad_x
 //     and grad_mod from the sums over the global count of a sample's pixels
 //     (the stripes may be uneven: the count is the caller's, not P).
-// Simple kernels: each reads x (and mod, gout) once per launch, so the split
-// moves about twice the bytes of the one-launch modes.
+// Each launch reads x (and mod, gout) once, so the split moves about twice
+// the bytes of the one-launch modes.  At the discriminator's small stripes
+// the two statistics launches are bound by latency, not bytes (a load, two
+// block reductions, a cluster barrier: ~4-5 us a launch in a CUDA graph on
+// the H100, where the bytes take 0.2-1.3 us).
 
 // The apply launch.  Grid (blocks, N): block (i, n) merges sample n's rows of
 // `stats` for all C channels into shared memory (mean, rstd), block (0, n)
@@ -1482,94 +1481,381 @@ modnorm_instance_apply_kernel(const T* __restrict__ x, const T* __restrict__ mod
   }
 }
 
-// The backward's sums launch.  Grid (chunks, C / (8 L), N): block (k, g, n)
-// sums gy and gy * x_hat over chunk k of sample n's pixels for the L 8-channel
-// vectors of group g (threads as backward_partial_kernel's), writes them to
-// part [2][N][chunks][C], and the last block of (n, g) to finish adds the
-// chunks in order into sums [2][N][C].
-template <typename T, bool HAS_MOD, bool LRELU>
-__global__ void __launch_bounds__(kThreads)
-instance_backward_sums_kernel(const T* __restrict__ x, const T* __restrict__ mod,
-                              const T* __restrict__ gout, const float* __restrict__ mean,
-                              const float* __restrict__ rstd, float* __restrict__ part,
-                              unsigned* __restrict__ done, float* __restrict__ sums, int N,
-                              int64_t HW, int C, int L, int64_t chunk, float slope) {
-  __shared__ float s_a[kWarps][kTileChannels];
-  __shared__ float s_b[kWarps][kTileChannels];
-  __shared__ bool s_last;
-  const int tid = threadIdx.x, lane = tid % L, R = kThreads / L;
-  const int n = blockIdx.z, chunks = gridDim.x;
-  const int c0 = blockIdx.y * L * kVec, c = c0 + lane * kVec;
-  const int64_t base = static_cast<int64_t>(n) * HW;
-  const int64_t start = blockIdx.x * chunk;
-  const int64_t end = start + chunk < HW ? start + chunk : HW;
-  float m[kVec], r[kVec];
-  load8(mean + static_cast<int64_t>(n) * C + c, m);
-  load8(rstd + static_cast<int64_t>(n) * C + c, r);
-  float a[kVec], b[kVec];
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) a[j] = b[j] = 0.f;
-#pragma unroll 2
-  for (int64_t q = start + tid / L; q < end; q += R) {
-    const int64_t px = base + q;
-    float xv[kVec], gv[kVec], sv[kVec], bv[kVec], xh[kVec], gz[kVec], gy[kVec];
-    load8(x + px * C + c, xv);
-    load8(gout + px * C + c, gv);
-    if (HAS_MOD) {
-      load8(mod + px * 2 * C + c, sv);
-      load8(mod + px * 2 * C + C + c, bv);
-    }
-    backward_terms<kVec, HAS_MOD, LRELU, true>(xv, gv, sv, bv, m, r, slope, xh, gz, gy);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      a[j] += gy[j];
-      b[j] += __fmul_rn(gy[j], xh[j]);
-    }
+// The split's two statistics launches split each (sample, channel tile)
+// slab along its pixels over the blocks of a thread-block cluster, as the
+// one-process instance kernels do: block rank r of a cluster of K takes
+// pixels [r * HW / K, (r + 1) * HW / K) of sample blockIdx.y's stripe at the
+// channels of tile blockIdx.x / K; thread tid takes the chunk's 16-byte
+// vectors tid + k * kThreads (pixel v / L, channels lane * V.., lane =
+// tid % L).  A slab is read once, so nothing needs to stay on chip; what
+// bounds a streaming block is the bytes it keeps in flight.  So each thread
+// streams its vectors through its own slots of a ring in shared memory with
+// 16-byte cp.async copies, in groups of kRingLoads: kRingStages - 1 groups
+// in flight (80 KB a block) while it sums the oldest, without registers
+// held for them and without a barrier (a thread reads only the slots it
+// filled); two blocks share an SM.  (A ring of 12 stages, one block per
+// SM, measured no faster on the H100: scripts/split_plans.py.)  A thread's sums run in
+// groups too: every kSplitFlush groups join its outer sums, so no float32
+// sum grows over more than a few hundred terms.  The block adds its
+// threads' sums by shuffles and then its warps in order; the cluster's
+// rank-0 block reads every rank's sums from the others' shared memory
+// (distributed shared memory) and merges them in rank order, and the other
+// blocks leave once it has read them.  Fixed orders throughout: the same
+// inputs give the same bits, no float atomics, no grid barrier, no scratch
+// in device memory, one launch.
+constexpr int kRingStages = 6;   // groups a thread's ring holds
+constexpr int kRingLoads = 4;    // 16-byte copies a group
+constexpr int kRingBytes = kRingStages * kRingLoads * kThreads * 16;  // dynamic shared memory
+constexpr int kSplitFlush = 16;  // groups per inner sum
+
+// thread tid's slot u of ring stage s
+__device__ __forceinline__ uint4* ring_slot(uint4* ring, int s, int u) {
+  return ring + (s * kRingLoads + u) * kThreads + threadIdx.x;
+}
+
+// The slab split of a split statistics launch, as the one-process instance
+// kernels cut it.
+template <typename T>
+struct SlabChunk {
+  static constexpr int V = 16 / sizeof(T);  // channels per 16-byte vector
+  int K, rank, L, shift, lane, npix, nk, ct;
+  int64_t first;  // the chunk's first pixel, in the whole (N, HW) batch
+
+  __device__ SlabChunk(int64_t HW, int tile) {
+    cg::cluster_group cluster = cg::this_cluster();
+    K = static_cast<int>(cluster.num_blocks());
+    rank = static_cast<int>(cluster.block_rank());
+    L = tile / V;
+    shift = __ffs(L) - 1;
+    const int tid = threadIdx.x;
+    lane = tid & (L - 1);
+    const int64_t start = rank * HW / K;
+    npix = static_cast<int>((rank + 1) * HW / K - start);
+    const int nvec = npix * L;
+    nk = tid < nvec ? (nvec - 1 - tid) / kThreads + 1 : 0;
+    ct = blockIdx.x / K;
+    first = static_cast<int64_t>(blockIdx.y) * HW + start;
   }
+  // the chunk's pixel of the thread's vector k
+  __device__ int64_t pix(int k) const {
+    return static_cast<int64_t>((threadIdx.x + k * kThreads) >> shift);
+  }
+};
+
+// a and b summed over the block's threads of one lane (the same channels),
+// by shuffles within each warp and then over the warps in order; thread
+// j < tile writes channel j's sums to out_a[j] and out_b[j].  Ends with
+// every thread past a barrier.
+template <int V>
+__device__ __forceinline__ void block_sum2(float* a, float* b, int L, int tile,
+                                           float (*s_a)[kMaxTile], float (*s_b)[kMaxTile],
+                                           float* out_a, float* out_b) {
+  const int tid = threadIdx.x, wl = tid & 31;
   for (int off = 16; off >= L; off >>= 1) {
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      a[j] += __shfl_xor_sync(0xffffffffu, a[j], off);
-      b[j] += __shfl_xor_sync(0xffffffffu, b[j], off);
+    for (int k = 0; k < V; ++k) {
+      a[k] += __shfl_xor_sync(0xffffffffu, a[k], off);
+      b[k] += __shfl_xor_sync(0xffffffffu, b[k], off);
     }
   }
-  const int wl = tid & 31;
   if (wl < L) {
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      s_a[tid >> 5][wl * kVec + j] = a[j];
-      s_b[tid >> 5][wl * kVec + j] = b[j];
+    for (int k = 0; k < V; ++k) {
+      s_a[tid >> 5][wl * V + k] = a[k];
+      s_b[tid >> 5][wl * V + k] = b[k];
     }
   }
   __syncthreads();
-  const int64_t total = static_cast<int64_t>(N) * chunks * C;
-  const int64_t row = (static_cast<int64_t>(n) * chunks + blockIdx.x) * C + c0 + tid;
-  if (tid < L * kVec) {
+  if (tid < tile) {
     float sa = 0.f, sb = 0.f;
+#pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       sa += s_a[w][tid];
       sb += s_b[w][tid];
     }
-    part[row] = sa;
-    part[total + row] = sb;
-    __threadfence();
+    out_a[tid] = sa;
+    out_b[tid] = sb;
   }
   __syncthreads();
-  if (tid == 0)
-    s_last = atomicAdd(&done[static_cast<int64_t>(n) * gridDim.y + blockIdx.y], 1u) ==
-             static_cast<unsigned>(chunks - 1);
-  __syncthreads();
-  if (s_last && tid < L * kVec) {
-    float sa = 0.f, sb = 0.f;
-    for (int k = 0; k < chunks; ++k) {
-      const int64_t i = (static_cast<int64_t>(n) * chunks + k) * C + c0 + tid;
-      sa += __ldcg(part + i);
-      sb += __ldcg(part + total + i);
+}
+
+// The partials launch.  Grid (cluster * C / tile, N), cluster (cluster, 1,
+// 1) (ops/modnorm.py::instance_partials_plan), kRingBytes of dynamic shared
+// memory.  Each block sums d = x - P and d * d over its chunk, P the mean of
+// the chunk's first kThreads / L pixels (each thread's first vector, which
+// it needs first anyway: the batch kernel's shifted-data form without a
+// pilot load of its own; no division per pixel), and turns them into the
+// chunk's (count, mean, centred M2) once; the rank-0 block merges the K
+// chunks' with Chan's formula in rank order into row `row` of stats
+// [world][3][N][C], and zeroes the slab's entries of the other world - 1
+// rows itself (the caller all-reduces the rows).  Chan's weights of each
+// rank's merge depend on the pixel counts alone: they are formed before the
+// cluster barrier, so rank 0's merge is a chain of multiply-adds.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+modnorm_instance_partials_kernel(const T* __restrict__ x, float* __restrict__ stats, int row,
+                                 int world, int64_t HW, int C, int tile) {
+  constexpr int V = SlabChunk<T>::V;
+  extern __shared__ uint4 ring[];
+  __shared__ float s_a[kWarps][kMaxTile];
+  __shared__ float s_b[kWarps][kMaxTile];
+  __shared__ float s_sum[2][kMaxTile];
+  __shared__ float s_pilot[kMaxTile];
+  __shared__ float s_part[2 * kMaxTile];      // (mean[tile], m2[tile]), read by rank 0
+  __shared__ float s_w[2][kMaxCluster];       // Chan's weights of rank k: nb / nn, n nb / nn
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const SlabChunk<T> ch(HW, tile);
+  const int tid = threadIdx.x;
+  PHASE_MARK(0);
+  const T* xt = x + ch.first * C + ch.ct * tile + ch.lane * V;  // pixel q: xt + q * C
+  const int groups = (ch.nk + kRingLoads - 1) / kRingLoads;
+  auto fetch = [&](int g) {  // group g into its stage, committed even where empty
+    if (g < groups) {
+#pragma unroll
+      for (int u = 0; u < kRingLoads; ++u) {
+        const int k = g * kRingLoads + u;
+        if (k < ch.nk) cp_async16(ring_slot(ring, g % kRingStages, u), xt + ch.pix(k) * C);
+      }
     }
-    const int64_t o = static_cast<int64_t>(n) * C + c0 + tid;
-    sums[o] = sa;
-    sums[static_cast<int64_t>(N) * C + o] = sb;
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int g = 0; g < kRingStages - 1; ++g) fetch(g);
+  const int64_t NC = static_cast<int64_t>(gridDim.y) * C;
+  const int64_t o = static_cast<int64_t>(blockIdx.y) * C + ch.ct * tile;  // the slab's first
+  if (ch.rank == 0 && tid < tile) {
+    for (int w = 0; w < world; ++w) {
+      if (w == row) continue;
+#pragma unroll
+      for (int s = 0; s < 3; ++s) stats[(3 * static_cast<int64_t>(w) + s) * NC + o + tid] = 0.f;
+    }
   }
+  // P: the first group landed, each thread's first vector summed per lane
+  cp_async_wait<kRingStages - 2>();
+  PHASE_MARK(1);
+  float P[V];
+  if (ch.nk > 0) {
+    unpack16<T>(*ring_slot(ring, 0, 0), P);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) P[j] = 0.f;
+  }
+  block_sum<V>(P, ch.L, tile, static_cast<float>(min(ch.npix, kThreads / ch.L)), s_a, s_pilot);
+  PHASE_MARK(2);
+  float s1[V], s2[V], t1[V], t2[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    P[j] = s_pilot[ch.lane * V + j];
+    s1[j] = s2[j] = t1[j] = t2[j] = 0.f;
+  }
+  for (int g = 0; g < groups; ++g) {
+    if (g > 0) cp_async_wait<kRingStages - 2>();
+#pragma unroll
+    for (int u = 0; u < kRingLoads; ++u) {
+      if (g * kRingLoads + u < ch.nk) {
+        float v[V];
+        unpack16<T>(*ring_slot(ring, g % kRingStages, u), v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float d = v[j] - P[j];
+          s1[j] += d;
+          s2[j] = fmaf(d, d, s2[j]);
+        }
+      }
+    }
+    fetch(g + kRingStages - 1);  // into the stage summed last time round
+    if (g % kSplitFlush == kSplitFlush - 1) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        t1[j] += s1[j];
+        t2[j] += s2[j];
+        s1[j] = s2[j] = 0.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    t1[j] += s1[j];
+    t2[j] += s2[j];
+  }
+  PHASE_MARK(3);
+  block_sum2<V>(t1, t2, ch.L, tile, s_a, s_b, s_sum[0], s_sum[1]);
+  if (tid < tile) {  // the chunk's mean and centred M2 of channel tid
+    const float n = static_cast<float>(ch.npix), a = s_sum[0][tid];
+    const float da = a / n;
+    s_part[tid] = s_pilot[tid] + da;
+    s_part[tile + tid] = fmaxf(s_sum[1][tid] - a * da, 0.f);
+  }
+  if (tid < ch.K) {  // chan_merge's weights of rank tid, from the exact pixel counts
+    const float n = static_cast<float>(tid * HW / ch.K);
+    const float nb = static_cast<float>((tid + 1) * HW / ch.K) - n;
+    const float fb = nb / (n + nb);
+    s_w[0][tid] = fb;
+    s_w[1][tid] = n * fb;
+  }
+  PHASE_MARK(4);
+
+  // rank 0: thread j reads channel j's partials of every rank from their
+  // blocks' shared memory at once and merges them in rank order (Chan's
+  // formula, as chan_merge); the other blocks leave once rank 0 has read
+  // them (the split barrier)
+  cluster.sync();
+  PHASE_MARK(5);
+  if (ch.rank != 0) {
+    cluster_arrive();
+  } else {
+    float mb[kMaxCluster], qb[kMaxCluster];
+    if (tid < tile) {
+#pragma unroll
+      for (int k = 0; k < kMaxCluster; ++k) {
+        if (k < ch.K) {
+          const float* p = cluster.map_shared_rank(s_part, k);
+          mb[k] = p[tid];
+          qb[k] = p[tile + tid];
+        }
+      }
+    }
+    cluster_arrive();
+    if (tid < tile) {
+      float m = 0.f, q = 0.f;
+#pragma unroll
+      for (int k = 0; k < kMaxCluster; ++k) {
+        if (k < ch.K) {
+          const float d = mb[k] - m;
+          m += d * s_w[0][k];
+          q += qb[k] + d * d * s_w[1][k];
+        }
+      }
+      float* out = stats + 3 * static_cast<int64_t>(row) * NC + o + tid;
+      out[0] = static_cast<float>(HW);
+      out[NC] = m;
+      out[2 * NC] = q;
+    }
+  }
+  PHASE_MARK(6);
+  cluster_wait();  // no block's shared memory goes while rank 0 may read it
+  PHASE_MARK(7);
+}
+
+// The backward's sums launch.  Grid, clusters and ring as the partials
+// launch's (ops/modnorm.py::instance_sums_plan): a group holds
+// kRingLoads / NT pixels' vectors of x, gout (and the modulation's two
+// halves).  Each block sums gy and gy * x_hat over its chunk (x_hat, gz and
+// gy recomputed with the forward's operations), reading each tensor once;
+// the rank-0 block adds the K chunks' sums in rank order into sums
+// [2][N][C].
+template <typename T, bool HAS_MOD, bool LRELU>
+__global__ void __launch_bounds__(kThreads, 2)
+modnorm_instance_sums_kernel(const T* __restrict__ x, const T* __restrict__ mod,
+                             const T* __restrict__ gout, const float* __restrict__ mean,
+                             const float* __restrict__ rstd, float* __restrict__ sums,
+                             int64_t HW, int C, int tile, float slope) {
+  constexpr int V = SlabChunk<T>::V;
+  constexpr int NT = HAS_MOD ? 4 : 2;      // tensors read per pixel
+  constexpr int U = kRingLoads / NT;       // vectors a group
+  extern __shared__ uint4 ring[];
+  __shared__ float s_a[kWarps][kMaxTile];
+  __shared__ float s_b[kWarps][kMaxTile];
+  __shared__ float s_part[2 * kMaxTile];   // sums of gy and gy * x_hat, read by rank 0
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const SlabChunk<T> ch(HW, tile);
+  const int tid = threadIdx.x;
+  PHASE_MARK(0);
+  const int c0 = ch.ct * tile + ch.lane * V;
+  auto at = [&](int t, int k) {  // tensor t's vector k
+    const int64_t q = ch.first + ch.pix(k);
+    const T* p = t == 0 ? x + q * C : t == 1 ? gout + q * C : mod + q * 2 * C + (t == 3 ? C : 0);
+    return p + c0;
+  };
+  const int groups = (ch.nk + U - 1) / U;
+  auto fetch = [&](int g) {
+    if (g < groups) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (g * U + u < ch.nk) {
+#pragma unroll
+          for (int t = 0; t < NT; ++t)
+            cp_async16(ring_slot(ring, g % kRingStages, u * NT + t), at(t, g * U + u));
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int g = 0; g < kRingStages - 1; ++g) fetch(g);
+  float m[V], r[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    m[j] = mean[static_cast<int64_t>(blockIdx.y) * C + c0 + j];
+    r[j] = rstd[static_cast<int64_t>(blockIdx.y) * C + c0 + j];
+  }
+  float sa[V], sb[V], ta[V], tb[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) sa[j] = sb[j] = ta[j] = tb[j] = 0.f;
+  for (int g = 0; g < groups; ++g) {
+    cp_async_wait<kRingStages - 2>();
+    if (g == 0) PHASE_MARK(1);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (g * U + u >= ch.nk) continue;
+      float xv[V], gv[V], sv[V], bv[V], h[V], gz[V], gy[V];
+      unpack16<T>(*ring_slot(ring, g % kRingStages, u * NT), xv);
+      unpack16<T>(*ring_slot(ring, g % kRingStages, u * NT + 1), gv);
+      if constexpr (HAS_MOD) {
+        unpack16<T>(*ring_slot(ring, g % kRingStages, u * NT + 2), sv);
+        unpack16<T>(*ring_slot(ring, g % kRingStages, u * NT + 3), bv);
+      }
+      backward_terms<V, HAS_MOD, LRELU, true>(xv, gv, sv, bv, m, r, slope, h, gz, gy);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        sa[j] += gy[j];
+        sb[j] += __fmul_rn(gy[j], h[j]);
+      }
+    }
+    fetch(g + kRingStages - 1);  // into the stage summed last time round
+    if (g % kSplitFlush == kSplitFlush - 1) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        ta[j] += sa[j];
+        tb[j] += sb[j];
+        sa[j] = sb[j] = 0.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    ta[j] += sa[j];
+    tb[j] += sb[j];
+  }
+  PHASE_MARK(3);
+  block_sum2<V>(ta, tb, ch.L, tile, s_a, s_b, s_part, s_part + tile);
+  PHASE_MARK(4);
+
+  // rank 0 reads every rank's sums at once and adds them in rank order;
+  // the other blocks leave once rank 0 has read them (the split barrier)
+  cluster.sync();
+  PHASE_MARK(5);
+  float v[kMaxCluster];
+  if (ch.rank == 0 && tid < 2 * tile) {
+#pragma unroll
+    for (int k = 0; k < kMaxCluster; ++k)
+      v[k] = k < ch.K ? cluster.map_shared_rank(s_part, k)[tid] : 0.f;
+  }
+  cluster_arrive();
+  if (ch.rank == 0 && tid < 2 * tile) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxCluster; ++k)
+      if (k < ch.K) s += v[k];
+    const int64_t NC = static_cast<int64_t>(gridDim.y) * C;
+    sums[(tid < tile ? 0 : NC) + static_cast<int64_t>(blockIdx.y) * C + ch.ct * tile +
+         tid % tile] = s;
+  }
+  PHASE_MARK(6);
+  cluster_wait();  // no block's shared memory goes while rank 0 may read it
+  PHASE_MARK(7);
 }
 
 // The backward's apply launch.  Grid (blocks, N): block (i, n) turns sample
@@ -1697,10 +1983,25 @@ const void* instance_grid_kernel(int dtype, bool has_mod, bool lrelu) {
                     : instance_grid_kernel<__nv_bfloat16>(has_mod, lrelu);
 }
 
-// The instance split's partials launch: the grid variant's statistics alone.
+// The instance split's partials launch.
 const void* instance_partials_kernel(int dtype) {
-  return dtype == 0 ? fn(modnorm_batch_kernel<float, false, false, true, true>)
-                    : fn(modnorm_batch_kernel<__nv_bfloat16, false, false, true, true>);
+  return dtype == 0 ? fn(modnorm_instance_partials_kernel<float>)
+                    : fn(modnorm_instance_partials_kernel<__nv_bfloat16>);
+}
+
+template <typename T>
+const void* instance_sums_kernel(bool has_mod, bool lrelu) {
+  if (has_mod)
+    return lrelu ? fn(modnorm_instance_sums_kernel<T, true, true>)
+                 : fn(modnorm_instance_sums_kernel<T, true, false>);
+  return lrelu ? fn(modnorm_instance_sums_kernel<T, false, true>)
+               : fn(modnorm_instance_sums_kernel<T, false, false>);
+}
+
+// The instance split's backward sums launch for (dtype, flags).
+const void* instance_sums_kernel(int dtype, bool has_mod, bool lrelu) {
+  return dtype == 0 ? instance_sums_kernel<float>(has_mod, lrelu)
+                    : instance_sums_kernel<__nv_bfloat16>(has_mod, lrelu);
 }
 
 template <typename T, bool STREAM>
@@ -1910,17 +2211,6 @@ void launch_instance_apply(const void* x, const void* mod, const float* stats, i
 }
 
 template <typename T, bool HAS_MOD, bool LRELU>
-void launch_instance_backward_sums(const void* x, const void* mod, const void* gout,
-                                   const float* mean, const float* rstd, float* part,
-                                   unsigned* done, float* sums, int N, int64_t HW, int C, int L,
-                                   int chunks, int64_t chunk, float slope, cudaStream_t stream) {
-  instance_backward_sums_kernel<T, HAS_MOD, LRELU>
-      <<<dim3(chunks, C / (kVec * L), N), kThreads, 0, stream>>>(
-          static_cast<const T*>(x), static_cast<const T*>(mod), static_cast<const T*>(gout),
-          mean, rstd, part, done, sums, N, HW, C, L, chunk, slope);
-}
-
-template <typename T, bool HAS_MOD, bool LRELU>
 void launch_instance_backward_apply(const void* x, const void* mod, const void* gout,
                                     const float* mean, const float* rstd, const float* sums,
                                     void* gx, void* gmod, int N, int64_t HW, int C, float count,
@@ -1935,13 +2225,6 @@ void launch_instance_backward_apply(const void* x, const void* mod, const void* 
 template <typename T, bool M, bool R>
 struct InstanceApply {
   template <typename... A> static void run(A... a) { launch_instance_apply<T, M, R>(a...); }
-};
-
-template <typename T, bool M, bool R>
-struct InstanceBackwardSums {
-  template <typename... A> static void run(A... a) {
-    launch_instance_backward_sums<T, M, R>(a...);
-  }
 };
 
 template <typename T, bool M, bool R>
@@ -2054,10 +2337,9 @@ int launch_batch(const void* x, const void* mod, void* out, void* part, void* me
       sets < 1 || P % sets || runs < 1 || runs % sets || runs / sets > P / sets ||
       runs / sets > kMaxRunsPerSet || smem < 0 || smem % 16)
     return invalid();
-  const void* kernel = !instance ? batch_kernel(dtype, mod != nullptr, lrelu != 0,
-                                                stats != nullptr)
-                      : stats != nullptr ? instance_partials_kernel(dtype)
-                                         : instance_grid_kernel(dtype, mod != nullptr, lrelu != 0);
+  const void* kernel = instance ? instance_grid_kernel(dtype, mod != nullptr, lrelu != 0)
+                               : batch_kernel(dtype, mod != nullptr, lrelu != 0,
+                                              stats != nullptr);
   const int64_t grid = static_cast<int64_t>(runs) * (C / tile);
   const bool cooperative = !instance || runs > sets;
   const int per_sm = blocks_per_sm(kernel, smem);
@@ -2262,28 +2544,28 @@ extern "C" int modnorm_backward_batch_apply(const void* x, const void* mod, cons
 
 // ---- the instance split across ranks (see the kernels above) ----------------
 
-// Blocks of the instance split's partials kernel an SM holds with `smem`
-// bytes of dynamic shared memory; -1 where the card cannot say.
-extern "C" int modnorm_instance_partials_blocks_per_sm(int dtype, int smem) {
-  const int n = blocks_per_sm(instance_partials_kernel(dtype), smem);
-  cudaGetLastError();
-  return n;
-}
-
-// The partials launch: this rank's (count, mean, centred M2) per sample and
-// channel over its H*W pixels into `stats`, [3][N][C] float32 (its row of the
-// [world][3][N][C] buffer the caller all-reduces).  The plan is
-// deepsee_torch/ops/modnorm.py::instance_partials_plan's: `runs` = N times the
-// runs per slab, cooperative where a slab has more than one (`part` scratch
-// of 2 * runs * C floats).
-extern "C" int modnorm_instance_partials(const void* x, void* part, void* stats, int N,
-                                         int64_t HW, int C, int tile, int runs, int smem,
+// The partials launch (deepsee_torch/ops/modnorm.py::instance_partials_plan):
+// `cluster` blocks per (sample, channel tile) slab, `smem` bytes of ring
+// (kRingBytes, the plan's); this rank's (count, mean, centred M2) per sample and
+// channel into row `row` of `stats`, [world][3][N][C] float32, and zeros
+// into its other rows.  One cluster launch; cudaErrorInvalidValue for a
+// plan the kernel does not take.
+extern "C" int modnorm_instance_partials(const void* x, void* stats, int row, int world, int N,
+                                         int64_t HW, int C, int tile, int cluster, int smem,
                                          int dtype, void* stream) {
-  if (stats == nullptr || N < 1 || HW < 1 || runs < N || runs % N ||
-      (runs > N && part == nullptr))
+  if (stats == nullptr || world < 1 || row < 0 || row >= world || smem != kRingBytes ||
+      !cluster_split_ok(N, HW, C, tile, cluster, dtype))
     return invalid();
-  return launch_batch(x, nullptr, nullptr, part, nullptr, nullptr, stats, N * HW, C, tile, runs,
-                      N, true, smem, 0.f, dtype, 0, 0.f, stream);
+  const void* kernel = instance_partials_kernel(dtype);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (cluster_launch(kernel, N, C, tile, cluster, smem, static_cast<cudaStream_t>(stream),
+                     &cfg, &attr) == nullptr)
+    return invalid();
+  void* args[] = {&x, &stats, &row, &world, &HW, &C, &tile};
+  const cudaError_t e = cudaLaunchKernelExC(&cfg, kernel, args);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 // The apply launch: the `world` rows of `stats` ([world][3][N][C] float32,
@@ -2309,33 +2591,29 @@ extern "C" int modnorm_instance_apply(const void* x, const void* mod, const void
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward's sums launch: sums = [sum gy | sum gy * x_hat] per sample and
-// channel over this rank's pixels, [2][N][C] float32.  The plan (L, chunks,
-// chunk) is deepsee_torch/ops/modnorm.py::instance_reduce_plan's; `part` is
-// scratch of 2 * N * chunks * C floats, `done` N * C / (8 L) zeroed counters.
+// The backward's sums launch (deepsee_torch/ops/modnorm.py::
+// instance_sums_plan): sums = [sum gy | sum gy * x_hat] per sample and
+// channel over this rank's pixels, [2][N][C] float32, `cluster` blocks per
+// (sample, channel tile) slab, `smem` bytes of ring (kRingBytes).  One
+// cluster launch; cudaErrorInvalidValue for a plan the kernel does not
+// take.
 extern "C" int modnorm_instance_backward_sums(const void* x, const void* mod, const void* gout,
-                                              const void* mean, const void* rstd, void* part,
-                                              void* done, void* sums, int N, int64_t HW, int C,
-                                              int L, int chunks, int64_t chunk, int dtype,
-                                              int lrelu, float slope, void* stream) {
-  if (N < 1 || N > 65535 || HW < 1 || chunks < 1 || chunk < 1 || chunk * chunks < HW ||
-      (chunks - 1) * chunk >= HW || (L != 1 && L != 2 && L != 4 && L != 8) || C < kVec * L ||
-      C % (kVec * L) || C / (kVec * L) > 65535)
+                                              const void* mean, const void* rstd, void* sums,
+                                              int N, int64_t HW, int C, int tile, int cluster,
+                                              int smem, int dtype, int lrelu, float slope,
+                                              void* stream) {
+  if (sums == nullptr || smem != kRingBytes || !cluster_split_ok(N, HW, C, tile, cluster, dtype))
     return invalid();
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(mean);
-  const float* r = static_cast<const float*>(rstd);
-  float* p = static_cast<float*>(part);
-  unsigned* d = static_cast<unsigned*>(done);
-  float* sm = static_cast<float*>(sums);
-  if (dtype == 0)
-    dispatch_flags<float, InstanceBackwardSums>(mod != nullptr, lrelu != 0, x, mod, gout, m, r,
-                                                p, d, sm, N, HW, C, L, chunks, chunk, slope, s);
-  else
-    dispatch_flags<__nv_bfloat16, InstanceBackwardSums>(mod != nullptr, lrelu != 0, x, mod,
-                                                        gout, m, r, p, d, sm, N, HW, C, L,
-                                                        chunks, chunk, slope, s);
-  return static_cast<int>(cudaGetLastError());
+  const void* kernel = instance_sums_kernel(dtype, mod != nullptr, lrelu != 0);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (cluster_launch(kernel, N, C, tile, cluster, smem, static_cast<cudaStream_t>(stream),
+                     &cfg, &attr) == nullptr)
+    return invalid();
+  void* args[] = {&x, &mod, &gout, &mean, &rstd, &sums, &HW, &C, &tile, &slope};
+  const cudaError_t e = cudaLaunchKernelExC(&cfg, kernel, args);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 // The backward's apply launch: grad_x (x's layout) and, where `mod` is given,

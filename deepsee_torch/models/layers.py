@@ -44,7 +44,7 @@ import torch.nn.functional as F
 
 from deepsee_torch.config import parse_nonspade_norm
 from deepsee_torch.models.remat import saving_conv_output
-from deepsee_torch.ops.int8conv import int8_conv
+from deepsee_torch.ops.int8conv import int8_conv, int8_conv_sharded
 from deepsee_torch.ops.modnorm import (merge_partials, modnorm, modnorm_batch_partials_plain,
                                        modnorm_train)
 from deepsee_torch.ops.norms import leaky_relu
@@ -86,8 +86,17 @@ def int8_mode_active() -> bool:
     return _INT8_MODE["on"]
 
 
-def quantizes(training: bool, cin: int, cout: int) -> bool:
-    """Whether a conv of cin -> cout channels runs int8 (layers.py:167-169)."""
+def quantizes(training: bool, cin: int, cout: int, shard=None) -> bool:
+    """Whether a conv of cin -> cout channels runs int8 (layers.py:167-169).
+    cin and cout are the weight's as this rank holds it: under a tensor
+    parallel `shard` ("column": a block of the output channels; "row": of
+    the input channels) the decision is the whole layer's, the same on
+    every rank and in one process."""
+    n = distributed.model_world() if shard is not None else 1
+    if shard == tp.ROW:
+        cin *= n
+    elif shard == tp.COLUMN:
+        cout *= n
     return (_INT8_MODE["on"] and not training and cin >= _INT8_MODE["min_ch"]
             and cout >= _INT8_MODE["min_ch"])
 
@@ -127,21 +136,26 @@ def draw_injection_noise(shape, generator: Optional[torch.Generator],
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
            stride: int = 1, padding: int = 1, *, training: bool = True,
-           rows: Optional[spatial.Rows] = None) -> torch.Tensor:
+           rows: Optional[spatial.Rows] = None, shard=None) -> torch.Tensor:
     """F.conv2d in x's dtype, with a channels_last result.  An eval-mode conv
     (training=False) that `quantizes` under `int8_inference` runs `int8_conv`
     instead: the float32 weight quantized, the result cast to x's dtype and
     then the bias added in that dtype, in the JAX package's order.  Where
     maps are striped, x is this rank's stripe (of layout `rows`, even where
-    None) and the result its output stripe under the owner rule."""
+    None) and the result its output stripe under the owner rule.  `shard`
+    is the weight's tensor-parallel role (None: replicated); a quantized
+    block takes the whole layer's scales (`int8_conv_sharded`)."""
     pad = padding
     if spatial.active():
-        if quantizes(training, weight.shape[1], weight.shape[0]):
+        if quantizes(training, weight.shape[1], weight.shape[0], shard):
             raise NotImplementedError("int8 inference under the spatial layout is not ported "
                                       "yet (ROADMAP.md: K4 under the mesh layouts)")
         x = spatial.window(x, weight.shape[2], stride, padding, rows)
         pad = (0, padding)
-    elif quantizes(training, weight.shape[1], weight.shape[0]):
+    elif quantizes(training, weight.shape[1], weight.shape[0], shard):
+        if shard is not None and distributed.model_world() > 1:
+            return int8_conv_sharded(x, weight, bias, stride, padding, _INT8_MODE["smooth"],
+                                     shard, tp.all_reduce_max)
         return int8_conv(x, weight, bias, stride, padding, _INT8_MODE["smooth"])
     y = F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
                  stride=stride, padding=pad)
@@ -270,7 +284,7 @@ class Conv2d(nn.Module):
         # package's checkpoint_name(y, "conv_out")); the power iteration is not
         with saving_conv_output():
             y = conv2d(x, weight, None if row else self.bias, self.stride, self.padding,
-                       training=self.training, rows=rows)
+                       training=self.training, rows=rows, shard=self.shard)
         if row:
             y = tp.reduce(y)
             if self.bias is not None:

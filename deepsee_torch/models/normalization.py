@@ -240,7 +240,7 @@ class SPADE(_Modulated):
         weight = torch.cat([self.mlp_gamma.weight, self.mlp_beta.weight])
         bias = torch.cat([self.mlp_gamma.bias + 1.0, self.mlp_beta.bias])
         mod = conv2d(tp.conv_input(actv, False, self.mod_shard), weight, bias,
-                     padding=self.ks // 2, training=self.training)
+                     padding=self.ks // 2, training=self.training, shard=self.mod_shard)
         return self._normalize(x, sharded, mod, lrelu)
 
 
@@ -284,12 +284,13 @@ class _SEANCore(_Modulated):
     def _mod_conv(self, inp: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   up2: bool) -> torch.Tensor:
         if up2:
-            if not quantizes(self.training, weight.shape[1], weight.shape[0]):
+            if not quantizes(self.training, weight.shape[1], weight.shape[0], self.mod_shard):
                 return conv_on_nearest_up2(inp, weight, bias)
             # the int8 conv has no fold: the literal upsample, then the conv
             # (normalization.py:130-137)
             inp = resize2d(inp, (2 * inp.shape[2], 2 * inp.shape[3]), method="nearest")
-        return conv2d(inp, weight, bias, padding=self.ks // 2, training=self.training)
+        return conv2d(inp, weight, bias, padding=self.ks // 2, training=self.training,
+                      shard=self.mod_shard)
 
 
 class SEANBlock(_SEANCore):

@@ -25,6 +25,14 @@ hand-written kernels of deepsee_torch/csrc/int8conv.cu -- (a)
 |acc| <= 127 * 127 * K stays far below 2^53).  There is no fallback from one
 to the other.  Importing this module registers the op.
 
+Under tensor parallelism a rank holds a block of a conv's weight, and the
+scales must still be the whole layer's, as the JAX package's mesh runs take
+them: `int8_conv_sharded` splits (b) into this rank's maxima, a MAX
+all-reduce over the model group that the caller passes in, and the rest of
+(b) from the reduced maxima, so the scales and k_q equal one process's bit
+for bit.  Its stages are the kernels' wrappers, each of which launches its
+kernel on CUDA tensors and runs its plain version on CPU tensors.
+
 The launch plans are pure Python, so the CPU tests reach them:
 `weight_plan` gives (b)'s blocks their runs of output channels and their
 threads their units; `quantize_plan` sizes (c)'s grid; `igemm_plan`
@@ -44,7 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,7 +67,11 @@ __all__ = ["int8_conv", "int8_conv_plain", "quantize_plain", "igemm_plain", "Qua
            "divide_check", "QuantizePlan", "quantize_plan", "WeightPlan", "weight_plan",
            "weight_rows", "IgemmPlan", "igemm_plan",
            "igemm_tile", "igemm_loads",
-           "padded_channels", "conv_out_size", "launches", "plain_calls", "reset_launches"]
+           "padded_channels", "conv_out_size", "launches", "plain_calls", "reset_launches",
+           "int8_conv_sharded", "weight_column_maxima", "quantize_weight_columns",
+           "weight_row_maxima", "quantize_weight_rows", "weight_column_maxima_plain",
+           "quantize_weight_columns_plain", "weight_row_maxima_plain",
+           "quantize_weight_rows_plain"]
 
 FLOOR = 1e-8
 LEVELS = 127.0
@@ -92,7 +104,13 @@ WEIGHT_UNIT_COLUMNS = 2   # input channels of a unit: a 16-bit word of k_q per t
 # launches in the source (partials and merge), counted as one.  `plain_calls`
 # counts the op's plain version on CPU tensors, so CPU runs can count
 # quantized convs too.
-launches = {"absmax": 0, "quantize_weight": 0, "quantize_activation": 0, "igemm": 0}
+#
+# Under a tensor-parallel shard (`int8_conv_sharded`) (b) is two launches
+# around the model group's MAX all-reduce: "weight_column_maxima" or
+# "weight_row_maxima" (this rank's maxima, by the block's role) and
+# "weight_scales" (the scales and k_q from the group's).
+launches = {"absmax": 0, "quantize_weight": 0, "quantize_activation": 0, "igemm": 0,
+            "weight_column_maxima": 0, "weight_row_maxima": 0, "weight_scales": 0}
 plain_calls = {"int8_conv": 0}
 
 
@@ -157,25 +175,85 @@ def smooth_scales_plain(weight: torch.Tensor, mx: torch.Tensor, smooth: bool) ->
     return _div_rn(_sqrt_rn(mx), _sqrt_rn(mk))
 
 
+def _scale(top: torch.Tensor) -> torch.Tensor:
+    """max(top, 1e-8) / 127: a weight row's s_k or the activation's s_x."""
+    return _div_rn(top.clamp_min(FLOOR), torch.tensor(LEVELS))
+
+
+def _smoothed(weight: torch.Tensor, s_c: torch.Tensor) -> torch.Tensor:
+    return weight.float() * s_c[:, None, None]
+
+
+def _weight_levels(w: torch.Tensor, s_k: torch.Tensor) -> torch.Tensor:
+    """k_q = clip(round(k' / s_k), +-127) as OIHW int8."""
+    k_q = torch.clamp(torch.round(_div_rn(w, s_k[:, None, None, None])), -LEVELS, LEVELS)
+    return k_q.to(torch.int8)
+
+
 def quantize_weight_plain(weight: torch.Tensor, s_c: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Steps 4-5 for the weight: k' = k * s_c, s_k = max(max|k'_o|, 1e-8) /
     127, k_q = clip(round(k' / s_k), +-127) as OIHW int8."""
-    w = weight.float() * s_c[:, None, None]
-    s_k = _div_rn(w.abs().amax(dim=(1, 2, 3)).clamp_min(FLOOR), torch.tensor(LEVELS))
-    k_q = torch.clamp(torch.round(_div_rn(w, s_k[:, None, None, None])), -LEVELS, LEVELS)
-    return s_k, k_q.to(torch.int8)
+    w = _smoothed(weight, s_c)
+    s_k = _scale(w.abs().amax(dim=(1, 2, 3)))
+    return s_k, _weight_levels(w, s_k)
 
 
-def quantize_activation_plain(x: torch.Tensor, s_c: torch.Tensor
+def quantize_activation_plain(x: torch.Tensor, s_c: torch.Tensor,
+                              s_x: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Steps 4 and 6 for the activation: x' = x / s_c, s_x = max(max|x'|,
-    1e-8) / 127, x_q = clip(round(x' / s_x), +-127) as NCHW channels_last
-    int8."""
+    1e-8) / 127 (unless given: the model group's, for a channel block of
+    x), x_q = clip(round(x' / s_x), +-127) as NCHW channels_last int8."""
     xs = _div_rn(x.float(), s_c[:, None, None])
-    s_x = _div_rn(xs.abs().amax().clamp_min(FLOOR), torch.tensor(LEVELS))
+    if s_x is None:
+        s_x = _scale(xs.abs().amax())
     x_q = torch.clamp(torch.round(_div_rn(xs, s_x)), -LEVELS, LEVELS)
     return s_x, x_q.to(torch.int8).contiguous(memory_format=torch.channels_last)
+
+
+# -- (b) split around the model group's maxima (tensor parallelism) --------------
+#
+# A column block (this rank's output channels, x whole) needs the whole
+# layer's column maxima mk; a row block (this rank's input channels and x's
+# channel block) the whole layer's row maxima of k' = k * s_c and max|x'|.
+# Each is one rank's partial maxima, a MAX all-reduce over the model group,
+# and the rest of (b) from the reduced maxima: bit for bit what one process
+# computes from the whole weight and x.
+
+def weight_column_maxima_plain(weight: torch.Tensor) -> torch.Tensor:
+    """(b)'s first launch for a column block: max|k_c| over this block's
+    output channels and the taps, (Cin,) float32, unclamped."""
+    return weight.float().abs().amax(dim=(0, 2, 3))
+
+
+def quantize_weight_columns_plain(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tensor,
+                                  mk: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """(b)'s second launch for a column block: (s_c, s_k, s_x, k_q) from the
+    group's column maxima mk (unclamped), x's maxima and this block."""
+    s_c = _div_rn(_sqrt_rn(mx), _sqrt_rn(mk.float().clamp_min(FLOOR)))
+    s_k, k_q = quantize_weight_plain(weight, s_c)
+    return s_c, s_k, _scale(_div_rn(mx_raw, s_c).amax()), k_q
+
+
+def weight_row_maxima_plain(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tensor,
+                            smooth: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(b)'s first launch for a row block: s_c (this block's columns are
+    whole here) and the maxima (Cout + 1,): max|k'_o| of each output channel
+    over this block's columns, then max|x'| over x's channel block."""
+    s_c = smooth_scales_plain(weight, mx, smooth)
+    rows = _smoothed(weight, s_c).abs().amax(dim=(1, 2, 3))
+    return s_c, torch.cat([rows, _div_rn(mx_raw, s_c).amax()[None]])
+
+
+def quantize_weight_rows_plain(weight: torch.Tensor, s_c: torch.Tensor, maxima: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(b)'s second launch for a row block: (s_k, s_x, k_q) from s_c and the
+    group's maxima."""
+    s_k = _scale(maxima[:-1].float())
+    return s_k, _scale(maxima[-1].float()), _weight_levels(_smoothed(weight, s_c), s_k)
 
 
 def quantize_plain(x: torch.Tensor, weight: torch.Tensor, smooth: bool) -> Quantized:
@@ -386,10 +464,11 @@ def _lib() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.int8_absmax_channels.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, p]
     lib.int8_quantize_weight.argtypes = [p] * 8 + [i32] * 6 + [p]
+    lib.int8_quantize_weight_split.argtypes = [i32] + [p] * 9 + [i32] * 6 + [p]
     lib.int8_quantize_activation.argtypes = [p, p, p, p] + [i32] * 6 + [p]
     lib.int8_conv_igemm.argtypes = [p, p, p, p, p, p] + [i32] * 17 + [p]
     lib.int8_divide_check.argtypes = [p, p, i32, p, p, p, p]
-    for fn in (lib.int8_absmax_channels, lib.int8_quantize_weight,
+    for fn in (lib.int8_absmax_channels, lib.int8_quantize_weight, lib.int8_quantize_weight_split,
                lib.int8_quantize_activation, lib.int8_conv_igemm, lib.int8_divide_check):
         fn.restype = ctypes.c_int
     return lib
@@ -440,8 +519,23 @@ def _check_vector(name: str, t: torch.Tensor, n: int, device: torch.device) -> N
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _plain_here(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether a wrapper runs its plain version: its tensors lie on the CPU.
+    Tensors on two devices are refused."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"int8conv: tensors on {sorted(map(str, devices))}")
+    return next(iter(devices)).type == "cpu"
+
+
+# Each wrapper below launches its kernel on CUDA tensors and runs its plain
+# version on CPU tensors, in the plain version's layouts (k_q OIHW, x_q
+# without padding channels), which the CPU (d) takes.
+
 def absmax_channels(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel (a): (max|x_c|, max(max|x_c|, 1e-8)) over N, H, W, float32 (C,)."""
+    if _plain_here(x):
+        return absmax_channels_plain(x)
     _check_activation("x", x, tuple(_DTYPE_CODE))
     b, c, h, w = x.shape
     pixels = b * h * w
@@ -470,6 +564,10 @@ def quantize_weight(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tensor
     the column maxima in a (Cin,) scratch of this call, taken from the
     caching allocator on the current stream and zeroed there, so calls on
     other streams never share it)."""
+    if _plain_here(weight, mx_raw, mx):
+        s_c = smooth_scales_plain(weight, mx, smooth)
+        s_k, k_q = quantize_weight_plain(weight, s_c)
+        return s_c, s_k, _scale(_div_rn(mx_raw, s_c).amax()), k_q
     _check_cuda("weight", weight, (torch.float32,), 4)
     if not weight.is_contiguous():
         raise ValueError("int8conv: weight must be contiguous OIHW")
@@ -494,9 +592,102 @@ def quantize_weight(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tensor
     return s_c, s_k, s_x, k_q
 
 
+# (b)'s launches under a shard (int8conv.cu's WeightMode)
+_COLUMN_MAXIMA, _COLUMN_SCALES, _ROW_MAXIMA, _ROW_SCALES = 1, 2, 3, 4
+
+
+def _weight_split(mode: int, weight: torch.Tensor, smooth: bool, *, mx_raw=None, mx=None,
+                  s_c=None, s_k=None, s_x=None, k_q=None, mk=None, maxima=None) -> None:
+    """One launch of (b) under a shard, `weight_plan`'s grid, into the
+    given outputs; its count."""
+    _check_cuda("weight", weight, (torch.float32,), 4)
+    if not weight.is_contiguous():
+        raise ValueError("int8conv: weight must be contiguous OIHW")
+    cout, cin, kh, kw = weight.shape
+    for name, t, n in (("mx_raw", mx_raw, cin), ("mx", mx, cin), ("s_c", s_c, cin),
+                       ("mk", mk, cin), ("maxima", maxima, cout + 1)):
+        if t is not None:
+            _check_vector(name, t, n, weight.device)
+    plan = weight_plan(cout, cin, kh * kw, smooth, card_sms(weight.device))
+    ptr = [None if t is None else t.data_ptr() for t in (mx, mx_raw, s_c, s_k, s_x, k_q, mk,
+                                                         maxima)]
+    with torch.cuda.device(weight.device):
+        err = _lib().int8_quantize_weight_split(mode, weight.data_ptr(), *ptr, cout, cin,
+                                                padded_channels(cin), kh * kw, int(smooth),
+                                                plan.grid, _stream(weight))
+    _check(err, "quantize_weight_split")
+    launches[{_COLUMN_MAXIMA: "weight_column_maxima",
+              _ROW_MAXIMA: "weight_row_maxima"}.get(mode, "weight_scales")] += 1
+
+
+def weight_column_maxima(weight: torch.Tensor) -> torch.Tensor:
+    """(b)'s first launch for a column block (smoothing): max|k_c| over its
+    output channels and taps, (Cin,) float32 (bit patterns merged by
+    atomicMax in a buffer zeroed on the stream)."""
+    if _plain_here(weight):
+        return weight_column_maxima_plain(weight)
+    mk = torch.empty(weight.shape[1], dtype=torch.float32, device=weight.device)
+    _weight_split(_COLUMN_MAXIMA, weight, True, mk=mk)
+    return mk
+
+
+def quantize_weight_columns(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tensor,
+                            mk: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                                       torch.Tensor]:
+    """(b)'s second launch for a column block: (s_c, s_k, s_x, k_q) from the
+    model group's column maxima `mk` and x's maxima, as `quantize_weight`
+    gives them (k_q (Cout, kh, kw, Cp))."""
+    if _plain_here(weight, mx_raw, mx, mk):
+        return quantize_weight_columns_plain(weight, mx_raw, mx, mk)
+    cout, cin, kh, kw = weight.shape
+    dev = weight.device
+    s_c = torch.empty(cin, dtype=torch.float32, device=dev)
+    s_k = torch.empty(cout, dtype=torch.float32, device=dev)
+    s_x = torch.empty((), dtype=torch.float32, device=dev)
+    k_q = torch.empty((cout, kh, kw, padded_channels(cin)), dtype=torch.int8, device=dev)
+    _weight_split(_COLUMN_SCALES, weight, True, mx_raw=mx_raw, mx=mx, s_c=s_c, s_k=s_k,
+                  s_x=s_x, k_q=k_q, mk=mk)
+    return s_c, s_k, s_x, k_q
+
+
+def weight_row_maxima(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tensor,
+                      smooth: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(b)'s first launch for a row block: s_c (Cin,) and the maxima (Cout +
+    1,): each output channel's max|k'| over this block's columns, then
+    max|x'| over x's channel block (cooperative where it smooths, as
+    `quantize_weight`)."""
+    if _plain_here(weight, mx_raw, mx):
+        return weight_row_maxima_plain(weight, mx_raw, mx, smooth)
+    cout, cin = weight.shape[:2]
+    dev = weight.device
+    s_c = torch.empty(cin, dtype=torch.float32, device=dev)
+    maxima = torch.empty(cout + 1, dtype=torch.float32, device=dev)
+    mk = torch.empty(cin, dtype=torch.float32, device=dev) if smooth else None
+    _weight_split(_ROW_MAXIMA, weight, smooth, mx_raw=mx_raw, mx=mx, s_c=s_c, mk=mk,
+                  maxima=maxima)
+    return s_c, maxima
+
+
+def quantize_weight_rows(weight: torch.Tensor, s_c: torch.Tensor, maxima: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(b)'s second launch for a row block: (s_k, s_x, k_q) from s_c and the
+    model group's maxima."""
+    if _plain_here(weight, s_c, maxima):
+        return quantize_weight_rows_plain(weight, s_c, maxima)
+    cout, cin, kh, kw = weight.shape
+    dev = weight.device
+    s_k = torch.empty(cout, dtype=torch.float32, device=dev)
+    s_x = torch.empty((), dtype=torch.float32, device=dev)
+    k_q = torch.empty((cout, kh, kw, padded_channels(cin)), dtype=torch.int8, device=dev)
+    _weight_split(_ROW_SCALES, weight, True, s_c=s_c, s_k=s_k, s_x=s_x, k_q=k_q, maxima=maxima)
+    return s_k, s_x, k_q
+
+
 def quantize_activation(x: torch.Tensor, s_c: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     """Kernel (c): x_q = clip(rint((x / s_c) / s_x), +-127), int8 (N, Cp, H, W)
     channels_last with zero padding channels."""
+    if _plain_here(x, s_c, s_x):
+        return quantize_activation_plain(x, s_c, s_x)[1]
     _check_activation("x", x, tuple(_DTYPE_CODE))
     b, c, h, w = x.shape
     _check_vector("s_c", s_c, c, x.device)
@@ -526,6 +717,8 @@ def int8_conv_igemm(x_q: torch.Tensor, k_q: torch.Tensor, s_x: torch.Tensor,
     with k_q (Cout, kh, kw, Cp), dequantized, cast to out_dtype, + bias in
     out_dtype; (N, Cout, Ho, Wo) channels_last.  The tile is
     `igemm_plan`'s; the stride runs from 1 to 8 (TMA's element strides)."""
+    if _plain_here(x_q, k_q, s_x, s_k, bias):
+        return igemm_plain(x_q, k_q, s_x, s_k, bias, stride, padding, out_dtype)
     _check_activation("x_q", x_q, (torch.int8,))
     _check_cuda("k_q", k_q, (torch.int8,), 4)
     n, cp, h, w = x_q.shape
@@ -606,6 +799,39 @@ def _int8_conv_op(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Te
                          f"{tuple(x.shape)}")
     mx_raw, mx = absmax_channels(x)
     s_c, s_k, s_x, k_q = quantize_weight(weight, mx_raw, mx, smooth)
+    x_q = quantize_activation(x, s_c, s_x)
+    return int8_conv_igemm(x_q, k_q, s_x, s_k, bias, stride, padding, x.dtype)
+
+
+def int8_conv_sharded(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                      stride: int, padding: int, smooth: bool, shard: str,
+                      all_reduce_max: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """`int8_conv` of one rank's block of a tensor-parallel conv: `shard`
+    "column" (the weight's block of output channels, x whole) or "row" (its
+    block of input channels and x's channel block, the caller summing the
+    ranks' outputs and adding the bias after).  The maxima that decide the
+    scales are the whole layer's, as one process takes them: (b) splits
+    around `all_reduce_max` (the elementwise max over the model group, in
+    place or not), so s_c, s_k, s_x and k_q are one process's bit for bit,
+    and each rank dequantizes its partial product with them.  Kernels (a),
+    the two launches of (b), (c), (d), which run their plain versions on
+    CPU tensors."""
+    if shard not in ("column", "row"):
+        raise ValueError(f"int8conv: shard must be 'column' or 'row', got {shard!r}")
+    if weight.dim() != 4 or weight.shape[1] != x.shape[1]:
+        raise ValueError(f"int8conv: weight {tuple(weight.shape)} does not fit x "
+                         f"{tuple(x.shape)}")
+    if _plain_here(x, weight, bias):
+        plain_calls["int8_conv"] += 1
+    mx_raw, mx = absmax_channels(x)
+    if shard == "column" and not smooth:  # nothing of the group is needed
+        s_c, s_k, s_x, k_q = quantize_weight(weight, mx_raw, mx, False)
+    elif shard == "column":
+        mk = all_reduce_max(weight_column_maxima(weight))
+        s_c, s_k, s_x, k_q = quantize_weight_columns(weight, mx_raw, mx, mk)
+    else:
+        s_c, maxima = weight_row_maxima(weight, mx_raw, mx, smooth)
+        s_k, s_x, k_q = quantize_weight_rows(weight, s_c, all_reduce_max(maxima))
     x_q = quantize_activation(x, s_c, s_x)
     return int8_conv_igemm(x_q, k_q, s_x, s_k, bias, stride, padding, x.dtype)
 

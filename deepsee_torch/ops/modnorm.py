@@ -65,7 +65,8 @@ __all__ = ["modnorm", "modnorm_plain", "launches", "reset_launches",
            "modnorm_batch_apply_plain", "merge_partials", "modnorm_backward_sums",
            "modnorm_backward_sums_plain", "modnorm_backward_apply",
            "modnorm_backward_apply_plain", "SyncModnormTrain", "modnorm_train_sync",
-           "instance_partials_plan", "instance_reduce_plan", "modnorm_instance_partials",
+           "split_plan", "check_split_plan",
+           "modnorm_instance_partials",
            "modnorm_instance_partials_plain", "modnorm_instance_apply",
            "modnorm_instance_apply_plain", "modnorm_instance_backward_sums",
            "modnorm_instance_backward_sums_plain", "modnorm_instance_backward_apply",
@@ -379,7 +380,7 @@ def _check_cluster_plan(kernel: str, plan: InstancePlan, shape: Tuple[int, int, 
     cluster kernels share, unless there are none."""
     b, c, h, w = shape
     esize = torch.finfo(dtype).bits // 8
-    if plan.variant not in ("on-chip", "streaming"):
+    if plan.variant not in ("on-chip", "streaming", "ring"):
         problems.append(f"unknown variant {plan.variant!r}")
     if plan.tile < 1 or c % plan.tile or plan.tile * esize not in (16, SECTOR, 2 * SECTOR, LINE):
         problems.append(f"tile {plan.tile} for C={c} {dtype}")
@@ -463,15 +464,14 @@ def _lib() -> ctypes.CDLL:
     lib.modnorm_backward_batch_apply.argtypes = [p, p, p, p, p, p, p, p, p, i64, i32, f32, i32,
                                                  i32, f32, p]
     lib.modnorm_backward_batch_apply.restype = ctypes.c_int
-    lib.modnorm_instance_partials_blocks_per_sm.argtypes = [i32, i32]
-    lib.modnorm_instance_partials_blocks_per_sm.restype = ctypes.c_int
-    lib.modnorm_instance_partials.argtypes = [p, p, p, i32, i64, i32, i32, i32, i32, i32, p]
+    lib.modnorm_instance_partials.argtypes = [p, p, i32, i32, i32, i64, i32, i32, i32, i32, i32,
+                                              p]
     lib.modnorm_instance_partials.restype = ctypes.c_int
     lib.modnorm_instance_apply.argtypes = [p, p, p, i32, p, p, p, i32, i64, i32, f32, i32, i32,
                                            f32, p]
     lib.modnorm_instance_apply.restype = ctypes.c_int
-    lib.modnorm_instance_backward_sums.argtypes = [p, p, p, p, p, p, p, p, i32, i64, i32, i32,
-                                                   i32, i64, i32, i32, f32, p]
+    lib.modnorm_instance_backward_sums.argtypes = [p, p, p, p, p, p, i32, i64, i32, i32, i32,
+                                                   i32, i32, i32, f32, p]
     lib.modnorm_instance_backward_sums.restype = ctypes.c_int
     lib.modnorm_instance_backward_apply.argtypes = [p, p, p, p, p, p, p, p, i32, i64, i32, f32,
                                                     i32, i32, f32, p]
@@ -1356,63 +1356,75 @@ def modnorm_train_sync(x: torch.Tensor, mod: Optional[torch.Tensor] = None, *,
 # stripe of every sample, so an instance norm's (sample, channel) statistics
 # are partials.  SplitInstanceModnorm splits the instance mode as
 # SyncModnormTrain splits the batch mode, with one statistics set per sample:
-# the partials launch (the grid variant's statistics alone, [3, B, C] rows of
-# (count, mean, M2)), an all-reduce of the [world, 3, B, C] rows, the merge-
-# and-apply launch; in the backward, the sums launch ([2, B, C] sums of gy and
-# gy * x_hat), an all-reduce, and the apply launch over the global count of a
-# sample's pixels, which the caller passes: the stripes may be uneven.
+# the partials launch ([3, B, C] rows of (count, mean, M2) in this rank's row
+# of a [world, 3, B, C] buffer whose other rows the launch zeroes), an
+# all-reduce of the rows, the merge-and-apply launch; in the backward, the
+# sums launch ([2, B, C] sums of gy and gy * x_hat), an all-reduce, and the
+# apply launch over the global count of a sample's pixels, which the caller
+# passes: the stripes may be uneven.  The two statistics launches stream
+# each (sample, channel tile) slab once through the blocks of one
+# thread-block cluster and merge the blocks' partials in rank order through
+# distributed shared memory (`split_plan`).
+
+# The split's statistics launches aim at SPLIT_BLOCKS blocks, at least
+# SPLIT_MIN_BLOCKS where the slabs allow, in clusters of at most
+# PORTABLE_CLUSTER blocks unless more are needed to reach SPLIT_MIN_BLOCKS:
+# on the H100 every stripe of the spatial step ran fastest at 64-96 blocks,
+# slower where clusters of 16 filled all 132 SMs, and clusters of 12 ran
+# slower than of 8 (scripts/split_plans.py).
+SPLIT_BLOCKS = 96
+SPLIT_MIN_BLOCKS = 64
+PORTABLE_CLUSTER = 8
+# the kernels' cp.async ring (kRingBytes): every block's dynamic shared
+# memory; two blocks share an SM
+SPLIT_RING_BYTES = 6 * 4 * THREADS * 16
 
 
-MAX_RUNS_PER_SET = 46340      # the kernel's kMaxRunsPerSet
-
-
-def instance_partials_plan(shape: Tuple[int, int, int, int], dtype: torch.dtype,
-                           blocks_per_sm: int = BATCH_BLOCKS_PER_SM, sms: int = SMS
-                           ) -> BatchPlan:
-    """The partials launch for x of `shape` (B, C, H, W): the batch
-    forward's kernel over B statistics sets, the widest channel tile up to a
-    128-byte line, as many runs of each (sample, tile) slab as fill the
-    `blocks_per_sm` * `sms` blocks the card holds at once (at least one; a
-    slab of one run needs no grid barrier and so no co-residency), each
-    run's first pixels kept in shared memory.  `runs` counts the runs of
-    every slab of a tile (B times the runs per slab), `pixels_per_run` is a
-    slab's longest run."""
+def split_plan(shape: Tuple[int, int, int, int], dtype: torch.dtype) -> InstancePlan:
+    """The cluster launch of the instance split's partials and backward
+    sums (with or without a modulation) for x of `shape` (B, C, H, W): a
+    "ring" split of each (sample, channel tile) slab over the blocks of
+    one cluster, each thread streaming its vectors once through its slots
+    of a cp.async ring of SPLIT_RING_BYTES.  The tile is the widest up to two 32-byte sectors of
+    a pixel whose slabs, in clusters of up to 16 blocks (and up to H*W),
+    reach SPLIT_MIN_BLOCKS blocks (a narrower one where they do not); the
+    cluster takes SPLIT_BLOCKS / slabs blocks, at most PORTABLE_CLUSTER
+    where that still reaches SPLIT_MIN_BLOCKS: many small slabs take small
+    clusters, a few large ones clusters of up to 16 (the measured optimum
+    lies below one block per SM, whatever the card's SM count)."""
     b, c, h, w = shape
     esize = _check_shape(shape, dtype)
-    tile = _widest(c, esize, LINE, 2 * SECTOR, SECTOR, SECTOR // 2)
-    tiles, capacity, hw, pixel_bytes = c // tile, blocks_per_sm * sms, h * w, tile * esize
-    per_slab = max(1, min(capacity // (tiles * b), math.ceil(hw / (THREADS // (pixel_bytes // 16))),
-                          MAX_RUNS_PER_SET))
-    pixels = math.ceil(hw / per_slab)
-    resident = min(pixels, _batch_room(blocks_per_sm) // pixel_bytes)
-    return BatchPlan(tile, per_slab * b, pixels, resident, resident * pixel_bytes, blocks_per_sm,
-                     sms, per_slab * b * tiles)
+    if b > 65535:
+        raise ValueError("modnorm: instance mode takes at most 65535 samples")
+    hw = h * w
+    tiles = [n // esize for n in (2 * SECTOR, SECTOR, SECTOR // 2)
+             if n // esize >= 8 and c % (n // esize) == 0]
+    tile = next((t for t in tiles if b * c // t * min(MAX_CLUSTER, hw) >= SPLIT_MIN_BLOCKS),
+                tiles[-1])
+    slabs = b * c // tile
+    cluster = min(MAX_CLUSTER, hw, math.ceil(SPLIT_BLOCKS / slabs))
+    if cluster > PORTABLE_CLUSTER and slabs * PORTABLE_CLUSTER >= SPLIT_MIN_BLOCKS:
+        cluster = PORTABLE_CLUSTER
+    return InstancePlan("ring", tile, cluster, math.ceil(hw / cluster), SPLIT_RING_BYTES, 0,
+                        (cluster * c // tile, b))
 
 
-@functools.cache
-def instance_partials_blocks_per_sm(dtype: torch.dtype) -> int:
-    """Blocks of the partials launch the current card holds per SM with the
-    shared memory its plan gives them: BATCH_BLOCKS_PER_SM where they fit."""
-    for n in range(BATCH_BLOCKS_PER_SM, 0, -1):
-        if _lib().modnorm_instance_partials_blocks_per_sm(_DTYPE_CODE[dtype],
-                                                          _batch_room(n)) >= n:
-            return n
-    raise RuntimeError("modnorm: the card holds no block of the instance partials launch")
-
-
-def instance_reduce_plan(b: int, hw: int, c: int) -> ReducePlan:
-    """The backward sums launch over `b` samples of `hw` pixels: as
-    `reduce_plan`, the chunks of each sample's pixels filling one wave of
-    blocks over the batch."""
-    if c % 8 or c < 8 or hw < 1 or b < 1:
-        raise ValueError(f"modnorm: training needs C % 8 == 0 and a nonempty x, got "
-                         f"{b} x {hw} pixels x {c} channels")
-    lanes = next(n for n in (8, 4, 2, 1) if (c // 8) % n == 0)
-    rows, groups = THREADS // lanes, c // (8 * lanes)
-    chunks = max(1, min(math.ceil(REDUCE_BLOCKS / (groups * b)), math.ceil(hw / (8 * rows))))
-    chunk = math.ceil(hw / chunks)
-    chunks = math.ceil(hw / chunk)
-    return ReducePlan(lanes, chunks, chunk, (chunks, groups))
+def check_split_plan(plan: InstancePlan, shape: Tuple[int, int, int, int],
+                     dtype: torch.dtype) -> None:
+    """Raise ValueError unless the split's statistics launches can take
+    `plan` for x of `shape`: a ring split (SPLIT_RING_BYTES of shared
+    memory, nothing held in registers) of a tile the cluster kernels take,
+    1 to 16 blocks per slab, none empty."""
+    problems = []
+    if plan.variant != "ring":
+        problems.append(f"variant {plan.variant!r}")
+    if plan.smem_bytes != SPLIT_RING_BYTES:
+        problems.append(f"{plan.smem_bytes} bytes of ring")
+    if plan.register_vectors:
+        problems.append(f"{plan.register_vectors} vectors per thread in registers")
+    if shape[0] > 65535:
+        problems.append("more than 65535 samples")
+    _check_cluster_plan("instance split", plan, shape, dtype, problems)
 
 
 def modnorm_instance_partials_plain(x: torch.Tensor) -> torch.Tensor:
@@ -1504,7 +1516,8 @@ def _check_instance_stats(x, mod, gout, mean, rstd) -> None:
 @torch.library.custom_op("deepsee::modnorm_instance_partials", mutates_args=())
 def _instance_partials_op(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
     """The partials launch: the plain version on CPU tensors; on CUDA the
-    checks, the launch and its count, or a raise."""
+    checks and one cluster launch (`split_plan`), which also
+    zeroes the other ranks' rows, and its count, or a raise."""
     if not 0 <= rank < world:
         raise ValueError(f"modnorm: rank {rank} of a world of {world}")
     b, c = x.shape[:2]
@@ -1514,17 +1527,13 @@ def _instance_partials_op(x: torch.Tensor, rank: int, world: int) -> torch.Tenso
         return out
     _check_train(x, None)
     _, _, h, w = x.shape
-    out = torch.zeros(world, 3, b, c, dtype=torch.float32, device=x.device)
+    out = torch.empty(world, 3, b, c, dtype=torch.float32, device=x.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
     with torch.cuda.device(x.device):
-        plan = instance_partials_plan((b, c, h, w), x.dtype,
-                                      instance_partials_blocks_per_sm(x.dtype),
-                                      card_sms(x.device))
-        part = (torch.empty(2 * plan.runs * c, dtype=torch.float32, device=x.device)
-                if plan.runs > b else None)
+        plan = split_plan((b, c, h, w), x.dtype)
         err = _lib().modnorm_instance_partials(
-            x.data_ptr(), None if part is None else part.data_ptr(), out[rank].data_ptr(), b,
-            h * w, c, plan.tile, plan.runs, plan.smem_bytes, _DTYPE_CODE[x.dtype], stream)
+            x.data_ptr(), out.data_ptr(), rank, world, b, h * w, c, plan.tile, plan.cluster,
+            plan.smem_bytes, _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"modnorm_instance_partials launch failed with CUDA error {err}")
     launches["instance_partials"] += 1
@@ -1577,23 +1586,21 @@ def _instance_backward_sums_op(x: torch.Tensor, mod: Optional[torch.Tensor], gou
                                mean: torch.Tensor, rstd: torch.Tensor, lrelu: bool
                                ) -> torch.Tensor:
     """The backward sums launch: the plain version on CPU tensors; on CUDA
-    the checks, the launch and its count, or a raise."""
+    the checks and one cluster launch (`split_plan`) and its count,
+    or a raise."""
     if x.device.type == "cpu":
         return modnorm_instance_backward_sums_plain(x, mod, gout, mean, rstd, lrelu=lrelu)
     _check_instance_stats(x, mod, gout, mean, rstd)
     b, c, h, w = x.shape
-    plan = instance_reduce_plan(b, h * w, c)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    part = torch.empty(2 * b * plan.chunks * c, **f32)
-    done = torch.zeros(b * plan.grid[1], dtype=torch.int32, device=x.device)
-    sums = torch.empty(2, b, c, **f32)
+    sums = torch.empty(2, b, c, dtype=torch.float32, device=x.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
     with torch.cuda.device(x.device):
+        plan = split_plan((b, c, h, w), x.dtype)
         err = _lib().modnorm_instance_backward_sums(
             x.data_ptr(), None if mod is None else mod.data_ptr(), gout.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), part.data_ptr(), done.data_ptr(), sums.data_ptr(),
-            b, h * w, c, plan.lanes, plan.chunks, plan.chunk, _DTYPE_CODE[x.dtype], int(lrelu),
-            LRELU_SLOPE, stream)
+            mean.data_ptr(), rstd.data_ptr(), sums.data_ptr(), b, h * w, c, plan.tile,
+            plan.cluster, plan.smem_bytes, _DTYPE_CODE[x.dtype], int(lrelu), LRELU_SLOPE,
+            stream)
     if err != 0:
         raise RuntimeError(f"modnorm_instance_backward_sums launch failed with CUDA error {err}")
     launches["instance_backward_sums"] += 1

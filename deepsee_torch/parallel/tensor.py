@@ -19,8 +19,12 @@ Four autograd functions over the model group (`distributed.model_group`):
                activation for a channel-local consumer (K1 on the block
                input, a row conv's input).
 
+Beside them, outside autograd, `all_reduce_max`: the elementwise maximum
+over the model group, the whole layer's maxima of an int8 conv's block
+(ops/int8conv.py::int8_conv_sharded; the JAX package's global max-reduce).
+
 Rank r of n holds the contiguous block [r * C / n, (r + 1) * C / n) of a
-sharded dimension of C.  These four, their non-autograd twins
+sharded dimension of C.  These five, the non-autograd twins
 (`all_reduce_values`, `all_gather_values`) and `mean_replicated_grads`
 are the only places where a tensor-parallel collective runs; each counts its collectives (`counts`:
 calls and the bytes of the tensor each produces) and the channel slices it
@@ -38,7 +42,7 @@ import torch.distributed as dist
 
 from deepsee_torch.parallel import distributed
 
-KINDS = ("copy", "reduce", "gather", "scatter")
+KINDS = ("copy", "reduce", "gather", "scatter", "max")
 counts: Dict[str, Dict[str, int]] = {k: {"calls": 0, "bytes": 0} for k in KINDS}
 layout_copies = {"slice": 0}
 
@@ -207,6 +211,18 @@ def mean_replicated_grads(params) -> None:
     flat.div_(n)
     for p, g in zip(replicated, flat.split([p.numel() for p in replicated])):
         p.grad = g.view_as(p)
+
+
+def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+    """A new tensor: the elementwise maximum of x over the model group,
+    outside autograd, counted as "max"."""
+    if distributed.model_world() == 1:
+        return x
+    with torch.no_grad():
+        out = x.detach().clone()
+        dist.all_reduce(_dense(out), op=dist.ReduceOp.MAX, group=distributed.model_group())
+        _count("max", out)
+        return out
 
 
 def all_reduce_values(x: torch.Tensor) -> torch.Tensor:

@@ -147,6 +147,40 @@ def instance_phases(workdir: str, gen) -> None:
                 plan.grid[0] * plan.grid[1], cluster_names)
 
 
+def split_phases(workdir: str, gen) -> None:
+    """K1's instance-split statistics launches at three stripes of the
+    spatial step (split_kernels_in_turns.SHAPES: the largest, a middle and
+    the smallest), bf16, their chosen plans."""
+    lib = build("modnorm", workdir)
+    p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    lib.modnorm_instance_partials.argtypes = [p, p, i32, i32, i32, i64, i32, i32, i32, i32, i32,
+                                              p]
+    lib.modnorm_instance_backward_sums.argtypes = [p, p, p, p, p, p, i32, i64, i32, i32, i32,
+                                                   i32, i32, i32, f32, p]
+    dev = torch.device("cuda")
+    names = ["start", "first group", "P", "streamed", "block sums", "cluster barrier",
+             "rank 0 done", "end"]
+    for shape in [(2, 256, 128, 256), (4, 64, 64, 129), (4, 128, 16, 33)]:
+        b, c, h, w = shape
+        x = cs._kernel_inputs(shape, False, torch.bfloat16, gen)[0]
+        g = cs._kernel_inputs(shape, False, torch.bfloat16, gen)[0]
+        stats = torch.empty((2, 3, b, c), device=dev)
+        mean, rstd = torch.zeros((b, c), device=dev), torch.ones((b, c), device=dev)
+        sums = torch.empty((2, b, c), device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        plan = mn.split_plan(shape, torch.bfloat16)
+        phases(f"partials {list(shape)} tile {plan.tile} x{plan.cluster}", lib,
+               lambda: lib.modnorm_instance_partials(x.data_ptr(), stats.data_ptr(), 0, 2, b,
+                                                     h * w, c, plan.tile, plan.cluster,
+                                                     plan.smem_bytes, 1, stream),
+               plan.grid[0] * plan.grid[1], names)
+        phases(f"sums {list(shape)} tile {plan.tile} x{plan.cluster}", lib,
+               lambda: lib.modnorm_instance_backward_sums(
+                   x.data_ptr(), None, g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                   sums.data_ptr(), b, h * w, c, plan.tile, plan.cluster, plan.smem_bytes, 1, 1,
+                   mn.LRELU_SLOPE, stream), plan.grid[0] * plan.grid[1], names)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA device", file=sys.stderr)
@@ -154,8 +188,10 @@ def main() -> int:
     _build.build_all()
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     with tempfile.TemporaryDirectory() as workdir:
-        weight_phases(workdir, gen)
-        instance_phases(workdir, gen)
+        if "--split-only" not in sys.argv:
+            weight_phases(workdir, gen)
+            instance_phases(workdir, gen)
+        split_phases(workdir, gen)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     return 0

@@ -462,10 +462,136 @@ def eval_generator_run():
     return {"fake": fake.clone(), "style": style.clone()}
 
 
+# int8 inference under tensor parallelism: every conv of at least this many
+# channels (the whole layer's) quantizes, as the JAX package's mesh test runs
+# it (tests/test_int8_inference.py:191-243)
+TP_INT8_MIN_CH = 8
+
+
+def int8_generator_run():
+    """`eval_generator_run` under int8_inference(min_ch=TP_INT8_MIN_CH): the
+    fake and the style, the quantized convs this process ran and the MAX
+    all-reduces it made."""
+    from deepsee_torch.ops import int8conv as ic
+    from deepsee_torch.parallel import tensor as tp
+
+    ic.reset_launches()
+    tp.reset_counts()
+    with tlayers.int8_inference(min_ch=TP_INT8_MIN_CH):
+        out = eval_generator_run()
+    return dict(out, quantized_convs=torch.tensor(ic.plain_calls["int8_conv"]),
+                max_calls=torch.tensor(tp.counts["max"]["calls"]))
+
+
+JAX_VARIABLES = "jax_int8_variables.pkl"  # (g, e) numpy trees the test writes into OUT_DIR
+
+
+def int8_jax_weights_run(out_dir: str):
+    """The tiny eval system holding the JAX package's variables that the
+    test wrote into out_dir (`SRSystem.load_jax_variables`), laid out as
+    `tp_mesh` where there are ranks, under int8_inference(min_ch=
+    TP_INT8_MIN_CH): the fake of `batch_for`'s batch, for the JAX package's
+    one-device int8 fake of the same weights and batch."""
+    import pickle
+
+    with open(os.path.join(out_dir, JAX_VARIABLES), "rb") as f:
+        g, e = pickle.load(f)
+    exp = tiny_test_experiment().replace(is_train=False)
+    system = SRSystem(exp, device="cpu")
+    system.load_jax_variables(g, e)
+    if distributed.world_size() > 1:
+        mesh = tp_mesh()
+        distributed.set_model_axis(mesh.model_axis)
+        shard.shard_system(system, mesh)
+    with tlayers.int8_inference(min_ch=TP_INT8_MIN_CH):
+        fake, _ = system.generate(system.preprocess(batch_for(exp.model, False, batch=2)),
+                                  use_full=False)
+    return {"fake": fake.clone()}
+
+
+class _Recorded:
+    """Every call of int8conv's plain activation quantizer and integer
+    product while open: the s_c, s_x, x_q, and k_q, s_k of each quantized
+    conv, in call order."""
+
+    def __init__(self):
+        from deepsee_torch.ops import int8conv as ic
+
+        self.ic, self.calls = ic, []
+        self.saved = ic.quantize_activation_plain, ic.igemm_plain
+
+    def __enter__(self):
+        act, igemm = self.saved
+
+        def recording_act(x, s_c, *a, **k):
+            s_x, x_q = act(x, s_c, *a, **k)
+            self.calls.append({"s_c": s_c.clone(), "s_x": s_x.clone(), "x_q": x_q.clone()})
+            return s_x, x_q
+
+        def recording_igemm(x_q, k_q, s_x, s_k, *a, **k):
+            self.calls[-1].update(k_q=k_q.clone(), s_k=s_k.clone())
+            return igemm(x_q, k_q, s_x, s_k, *a, **k)
+
+        self.ic.quantize_activation_plain, self.ic.igemm_plain = recording_act, recording_igemm
+        return self
+
+    def __exit__(self, *exc):
+        self.ic.quantize_activation_plain, self.ic.igemm_plain = self.saved
+
+
+INT8_CONV_MODES = ("smooth", "nosmooth")
+
+
+def int8_convs_run(mode: str):
+    """An eval-mode conv pair (16 -> 32 -> 16 channels, 3x3) under
+    int8_inference(min_ch=TP_INT8_MIN_CH, smooth=mode == "smooth"), the
+    first column- and the second row-sharded where there are model ranks,
+    on an activation whose channel ranges spread over two decades: each
+    conv's output (the column conv's gathered) and its quantization (s_c,
+    s_x, s_k, k_q OIHW, x_q NCHW) with the sharded pieces gathered, as one
+    process computes them for the whole layer."""
+    from deepsee_torch.parallel import tensor as tp
+
+    g = torch.Generator().manual_seed(9)
+    convs = [tlayers.Conv2d(16, 32, 3), tlayers.Conv2d(32, 16, 3)]
+    for conv in convs:
+        conv.init_params(g)
+        with torch.no_grad():
+            spread = 1.0 + 20.0 * torch.rand(conv.weight.shape[1], generator=g)
+            conv.weight.mul_(spread[:, None, None])  # column maxima far apart
+            conv.bias.copy_(0.1 * torch.randn(conv.bias.shape, generator=g))
+        conv.eval()
+    scales = torch.logspace(-1.5, 0.5, 16)[:, None, None]
+    x = (torch.randn(2, 16, 8, 8, generator=g) * scales).contiguous(
+        memory_format=torch.channels_last)
+    sharded = distributed.model_world() > 1
+    if sharded:
+        shard.shard_module(convs[0], {"weight": tp.COLUMN, "bias": tp.COLUMN})
+        shard.shard_module(convs[1], {"weight": tp.ROW, "bias": None})
+    tp.reset_counts()
+    with tlayers.int8_inference(min_ch=TP_INT8_MIN_CH, smooth=mode == "smooth"), \
+            torch.no_grad(), _Recorded() as rec:
+        h = convs[0](x)
+        y = convs[1](tlayers.leaky_relu(h), sharded=convs[0].out_sharded)
+    out = {"h": tp.full(h, convs[0].out_sharded), "y": y,
+           "max_calls": torch.tensor(tp.counts["max"]["calls"])}
+    column, row = rec.calls
+    if sharded:  # the blocks of each rank gathered: column along Cout, row along Cin
+        column = dict(column, k_q=tp.all_gather_values(column["k_q"], 0),
+                      s_k=tp.all_gather_values(column["s_k"], 0))
+        row = dict(row, k_q=tp.all_gather_values(row["k_q"], 1),
+                   x_q=tp.all_gather_values(row["x_q"], 1),
+                   s_c=tp.all_gather_values(row["s_c"], 0))
+    return dict(out, column=column, row=row)
+
+
 def _tp_ops_task(out_dir: str):
     distributed.set_model_axis(TP_MODEL_AXIS)
     return {"conv_pair": conv_pair_run(), "sean_norm_0": sean_run(False),
-            "sean_norm_1": sean_run(True), "eval_generator": eval_generator_run()}
+            "sean_norm_1": sean_run(True), "eval_generator": eval_generator_run(),
+            "int8_generator": int8_generator_run(),
+            "int8_jax_weights": int8_jax_weights_run(out_dir),
+            **{f"int8_convs_{m}": int8_convs_run(m) for m in INT8_CONV_MODES}}
 
 
 def tp_trainer_exp(root: str, **train):

@@ -419,3 +419,76 @@ def test_fma_emulation_rounds_once():
         best = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
                                          int(np.float32(v).view(np.uint32)) & 1))
         assert gi == best
+
+
+# -- (b) split around the model group's maxima ------------------------------------
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("smooth", [True, False])
+@pytest.mark.parametrize("shard", ["column", "row"])
+def test_split_weight_quantization_is_one_process_bit_for_bit(shard, smooth, world):
+    """The split (b)'s plain versions on each of `world` blocks of a weight,
+    with the MAX all-reduce as an elementwise maximum over the blocks: every
+    block's s_c, s_k, s_x and k_q are the whole layer's, bit for bit, and
+    `int8_conv_sharded` gives each block's share of the one-process conv
+    (the row blocks' partial outputs summing to it within float32
+    rounding)."""
+    rng = np.random.default_rng(3)
+    cout, cin = 48, 64
+    spread = 10.0 ** rng.uniform(-1.5, 0.5, size=(1, cin, 1, 1))
+    x = torch.from_numpy((rng.standard_normal((2, cin, 6, 7)) * spread).astype(np.float32))
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.from_numpy((rng.standard_normal((cout, cin, 3, 3)) * 0.05 * 10.0 **
+                          rng.uniform(0, 1.3, size=(1, cin, 1, 1))).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+    want = ic.quantize_plain(x, w, smooth)
+    dim = 0 if shard == "column" else 1
+    ws = w.chunk(world, dim)
+    xs = [x] * world if shard == "column" else [
+        c.contiguous(memory_format=torch.channels_last) for c in x.chunk(world, 1)]
+
+    def group_max(parts):
+        top = torch.stack(parts).amax(0)
+        return lambda t: top
+
+    maxima = [ic.absmax_channels_plain(xi) for xi in xs]
+    if shard == "column":
+        if smooth:
+            reduce_ = group_max([ic.weight_column_maxima_plain(wi) for wi in ws])
+            got = [ic.quantize_weight_columns_plain(wi, raw, mx, reduce_(None))
+                   for wi, (raw, mx) in zip(ws, maxima)]
+            for s_c, s_k, s_x, k_q in got:
+                assert torch.equal(s_c, want.s_c) and torch.equal(s_x, want.s_x)
+            assert torch.equal(torch.cat([g[1] for g in got]), want.s_k)
+            assert torch.equal(torch.cat([g[3] for g in got]), want.k_q)
+    else:
+        firsts = [ic.weight_row_maxima_plain(wi, raw, mx, smooth)
+                  for wi, (raw, mx) in zip(ws, maxima)]
+        reduce_ = group_max([m for _, m in firsts])
+        got = [ic.quantize_weight_rows_plain(wi, s_c, reduce_(None))
+               for wi, (s_c, _) in zip(ws, firsts)]
+        assert torch.equal(torch.cat([s_c for s_c, _ in firsts]), want.s_c)
+        for s_k, s_x, _ in got:
+            assert torch.equal(s_k, want.s_k) and torch.equal(s_x, want.s_x)
+        assert torch.equal(torch.cat([g[2] for g in got], 1), want.k_q)
+    whole = ic.int8_conv_plain(x, w, bias, 1, 1, smooth)
+    max_parts = {"column": [ic.weight_column_maxima_plain(wi) for wi in ws],
+                 "row": [ic.weight_row_maxima_plain(wi, *m, smooth)[1]
+                         for wi, m in zip(ws, maxima)]}[shard]
+    reduce_ = group_max(max_parts)
+    if shard == "column":
+        ys = [ic.int8_conv_sharded(x, wi, bi, 1, 1, smooth, shard, reduce_)
+              for wi, bi in zip(ws, bias.chunk(world))]
+        assert torch.equal(torch.cat(ys, 1), whole)
+    else:
+        y = sum(ic.int8_conv_sharded(xi, wi, None, 1, 1, smooth, shard, reduce_)
+                for xi, wi in zip(xs, ws)) + bias[:, None, None]
+        err = float((y.double() - whole.double()).norm() / whole.double().norm())
+        assert err <= 1e-6, err
+
+
+def test_split_weight_refuses_another_shard():
+    x = torch.zeros(1, 16, 4, 4).contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):
+        ic.int8_conv_sharded(x, torch.zeros(8, 16, 3, 3), None, 1, 1, True, "spatial",
+                             lambda t: t)

@@ -779,10 +779,60 @@ def test_instance_split_kernels_match_plain_on_card(cuda_device, case, with_mod,
     torch.cuda.empty_cache()
 
 
+# the instance split at rank 0's stripes of the 32x 512^2 spatial step at two
+# ranks (bf16 in the step; the lrelu flag as the step's call), each x one
+# stripe: the partials and the backward sums launches
+SPLIT_STEP_SHAPES = {"E 2x32x256x512": ((2, 32, 256, 512), True),
+                     "E 2x64x128x256": ((2, 64, 128, 256), True),
+                     "E 2x128x64x128": ((2, 128, 64, 128), True),
+                     "E 2x256x128x256": ((2, 256, 128, 256), True),
+                     "E 2x128x128x256": ((2, 128, 128, 256), False),
+                     "D 4x64x64x129": ((4, 64, 64, 129), True),
+                     "D 4x128x32x65": ((4, 128, 32, 65), True),
+                     "D 4x256x32x66": ((4, 256, 32, 66), True),
+                     "D 4x64x32x65": ((4, 64, 32, 65), True),
+                     "D 4x128x16x33": ((4, 128, 16, 33), True),
+                     "D 4x256x16x34": ((4, 256, 16, 34), True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(SPLIT_STEP_SHAPES))
+def test_instance_split_statistics_at_the_step_shapes(cuda_device, case, dtype):
+    """The partials launch (row 1 of a world of 3: the other rows zeros, no
+    memset) and the sums launch (with and without a modulation) against
+    their plain versions at the card tests' tolerances, one launch each,
+    and a repeat bit for bit."""
+    shape, lrelu = SPLIT_STEP_SHAPES[case]
+    x, mod, _, _ = _inputs(cuda_device, dtype, shape=shape)
+    gout = _inputs(cuda_device, dtype, shape=shape, with_mod=False, seed=1)[0]
+    before = dict(mn.launches)
+    part = mn.modnorm_instance_partials(x, 1, 3)
+    again = mn.modnorm_instance_partials(x, 1, 3)
+    torch.cuda.synchronize()
+    assert not part[0].any() and not part[2].any()
+    want = mn.modnorm_instance_partials_plain(x)
+    assert torch.equal(part[1, 0], want[0])
+    torch.testing.assert_close(part[1, 1:], want[1:], rtol=1e-5, atol=1e-5)
+    assert torch.equal(part, again)
+    _, mean, rstd = mn.modnorm_instance_apply(x, mod, part, lrelu=lrelu)
+    for m in (None, mod):
+        sums = mn.modnorm_instance_backward_sums(x, m, gout, mean, rstd, lrelu=lrelu)
+        second = mn.modnorm_instance_backward_sums(x, m, gout, mean, rstd, lrelu=lrelu)
+        torch.cuda.synchronize()
+        want_sums = mn.modnorm_instance_backward_sums_plain(x, m, gout, mean, rstd, lrelu=lrelu)
+        torch.testing.assert_close(sums, want_sums, rtol=1e-5,
+                                   atol=1e-5 * float(want_sums.abs().max()))
+        assert torch.equal(sums, second)
+    launched = {k: mn.launches[k] - before[k] for k in mn.launches}
+    assert launched["instance_partials"] == 2 and launched["instance_backward_sums"] == 4
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.cuda
 def test_instance_split_kernels_are_deterministic_on_card(cuda_device):
-    """The sums launch adds its chunks in chunk order in whichever block
-    finishes last: the same inputs give the same sums, bit for bit."""
+    """The partials and sums launches merge their blocks' partials in rank
+    order: the same inputs give the same results, bit for bit."""
     x, mod, _, _ = _inputs(cuda_device, torch.bfloat16, shape=(2, 64, 129, 257))
     gout = _inputs(cuda_device, torch.bfloat16, shape=(2, 64, 129, 257), with_mod=False,
                    seed=1)[0]
@@ -866,7 +916,8 @@ def test_int8_kernels_match_plain_on_card(cuda_device, case, smooth, dtype):
     x_q = ic.quantize_activation(x, s_c, s_x)
     y = ic.int8_conv_igemm(x_q, k_q, s_x, s_k, bias, stride, pad, dtype)
     torch.cuda.synchronize()
-    assert {k: ic.launches[k] - before[k] for k in before} == dict.fromkeys(before, 1)
+    assert {k: ic.launches[k] - before[k] for k in before} == dict.fromkeys(before, 0) | \
+        dict.fromkeys(("absmax", "quantize_weight", "quantize_activation", "igemm"), 1)
     for got, ref in ((mx_raw, want.mx_raw), (mx, want.mx), (s_c, want.s_c), (s_k, want.s_k),
                      (s_x, want.s_x)):
         assert torch.equal(got, ref)
@@ -922,6 +973,106 @@ def test_int8_quantize_weight_matches_plain_on_card(cuda_device, case, smooth):
     assert not bool(k_q[..., cin:].any())
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# (b) under a tensor-parallel shard: the column and row blocks of two model
+# ranks of the main path's 512-wide trunk convs and of a modulation conv,
+# beside odd shapes (5x5 taps at run time; an odd Cin block)
+INT8_SPLIT_WEIGHTS = {"512x512": (512, 512, 3, 3), "mod 256->1024": (1024, 256, 3, 3),
+                      "5x5": (48, 40, 5, 5), "cin 62": (64, 62, 3, 3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smooth", [True, False])
+@pytest.mark.parametrize("shard", ["column", "row"])
+@pytest.mark.parametrize("case", list(INT8_SPLIT_WEIGHTS))
+def test_int8_split_quantize_weight_matches_plain_on_card(cuda_device, case, shard, smooth):
+    """(b)'s two launches on each of two blocks, the MAX all-reduce as an
+    elementwise maximum of the blocks' first launches: every launch's
+    outputs bit for bit its plain version's, and the blocks' scales and k_q
+    one process's for the whole weight; a repeat gives the same bits."""
+    cout, cin, kh, kw = INT8_SPLIT_WEIGHTS[case]
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = (torch.randn((2, cin, 5, 6), generator=g, device=cuda_device)
+         * torch.logspace(-2, 1, cin, device=cuda_device)[:, None, None])
+    x[:, 0] = 0.0
+    weight = torch.randn((cout, cin, kh, kw), generator=g, device=cuda_device) * 0.05
+    weight[:, 1] = 0.0
+    want = ic.quantize_plain(x.contiguous(memory_format=torch.channels_last), weight, smooth)
+    dim = 0 if shard == "column" else 1
+    ws = [w.contiguous() for w in weight.chunk(2, dim)]
+    xs = [x, x] if shard == "column" else [t.contiguous() for t in x.chunk(2, 1)]
+    maxima = [ic.absmax_channels_plain(t) for t in xs]
+
+    def run():
+        before = dict(ic.launches)
+        if shard == "column" and not smooth:
+            return [ic.quantize_weight(w, *m, False) for w, m in zip(ws, maxima)], None
+        if shard == "column":
+            parts = [ic.weight_column_maxima(w) for w in ws]
+            torch.cuda.synchronize()
+            for w, part in zip(ws, parts):
+                assert torch.equal(part, ic.weight_column_maxima_plain(w))
+            top = torch.maximum(*parts)
+            got = [ic.quantize_weight_columns(w, *m, top) for w, m in zip(ws, maxima)]
+            torch.cuda.synchronize()
+            for w, m, (s_c, s_k, s_x, k_q) in zip(ws, maxima, got):
+                p_sc, p_sk, p_sx, p_kq = ic.quantize_weight_columns_plain(w, *m, top)
+                assert torch.equal(s_c, p_sc) and torch.equal(s_k, p_sk)
+                assert torch.equal(s_x, p_sx)
+                assert torch.equal(k_q[..., :cin].permute(0, 3, 1, 2), p_kq)
+        else:
+            firsts = [ic.weight_row_maxima(w, *m, smooth) for w, m in zip(ws, maxima)]
+            torch.cuda.synchronize()
+            for w, m, (s_c, part) in zip(ws, maxima, firsts):
+                p_sc, p_part = ic.weight_row_maxima_plain(w, *m, smooth)
+                assert torch.equal(s_c, p_sc) and torch.equal(part, p_part)
+            top = torch.maximum(firsts[0][1], firsts[1][1])
+            rows = [ic.quantize_weight_rows(w, s_c, top) for w, (s_c, _) in zip(ws, firsts)]
+            torch.cuda.synchronize()
+            for w, (s_c, _), (s_k, s_x, k_q) in zip(ws, firsts, rows):
+                p_sk, p_sx, p_kq = ic.quantize_weight_rows_plain(w, s_c, top)
+                assert torch.equal(s_k, p_sk) and torch.equal(s_x, p_sx)
+                c_blk = w.shape[1]
+                assert torch.equal(k_q[..., :c_blk].permute(0, 3, 1, 2), p_kq)
+            got = [(s_c, s_k, s_x, k_q) for (s_c, _), (s_k, s_x, k_q) in zip(firsts, rows)]
+        launched = {k: ic.launches[k] - before[k] for k in ic.launches}
+        return got, launched
+
+    got, launched = run()
+    if launched is not None:
+        assert launched[f"weight_{shard}_maxima"] == 2 and launched["weight_scales"] == 2
+        assert launched["quantize_weight"] == 0
+    blocks = [ws[i].shape[1] for i in range(2)]
+    k_q = [k[..., :(cin if shard == "column" else blocks[i])].permute(0, 3, 1, 2)
+           for i, (_, _, _, k) in enumerate(got)]
+    if shard == "column":
+        for s_c, _, s_x, _ in got:
+            assert torch.equal(s_c, want.s_c) and torch.equal(s_x, want.s_x)
+        assert torch.equal(torch.cat([g_[1] for g_ in got]), want.s_k)
+        assert torch.equal(torch.cat(k_q), want.k_q)
+    else:
+        assert torch.equal(torch.cat([g_[0] for g_ in got]), want.s_c)
+        for _, s_k, s_x, _ in got:
+            assert torch.equal(s_k, want.s_k) and torch.equal(s_x, want.s_x)
+        assert torch.equal(torch.cat(k_q, 1), want.k_q)
+    again, _ = run()
+    for first, second in zip(got, again):
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_int8_split_quantize_weight_refuses_what_it_does_not_take(cuda_device):
+    weight = torch.randn(64, 32, 3, 3, device=cuda_device)
+    mx_raw, mx = ic.absmax_channels_plain(torch.randn(1, 32, 4, 4, device=cuda_device))
+    s_c, maxima = ic.weight_row_maxima(weight, mx_raw, mx, True)
+    for call in (lambda: ic.weight_column_maxima(weight.double()),
+                 lambda: ic.quantize_weight_columns(weight, mx_raw, mx, mx[:16]),
+                 lambda: ic.weight_row_maxima(weight.cpu(), mx_raw, mx, True),
+                 lambda: ic.quantize_weight_rows(weight, s_c, maxima[:-1])):
+        with pytest.raises(ValueError):
+            call()
 
 
 @pytest.mark.cuda

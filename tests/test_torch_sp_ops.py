@@ -182,16 +182,17 @@ def test_batch_split_plain_versions_on_uneven_stripes(lrelu):
 
 
 def test_plans_of_the_instance_split():
-    """The partials launch fills the card's blocks with runs of each slab
-    and none is empty; the sums launch's chunks cover every sample's
-    pixels."""
+    """The partials and sums launches split each (sample, channel tile) slab
+    over one cluster of 1 to 16 blocks, none empty, their chunks covering
+    every pixel of every sample (tests/test_torch_sp_plans.py holds them at
+    the spatial step's shapes)."""
     for shape, dtype in (((1, 64, 256, 512), torch.bfloat16), ((2, 16, 64, 128), torch.float32),
                          ((8, 512, 8, 16), torch.bfloat16)):
         b, c, h, w = shape
-        plan = mn.instance_partials_plan(shape, dtype)
-        per_slab = plan.runs // b
-        assert plan.runs % b == 0 and 1 <= per_slab <= h * w
-        assert per_slab == 1 or plan.grid <= plan.blocks_per_sm * plan.sms
-        assert plan.pixels_per_run == -(-h * w // per_slab)
-        red = mn.instance_reduce_plan(b, h * w, c)
-        assert red.chunk * red.chunks >= h * w > red.chunk * (red.chunks - 1)
+        for plan in (mn.split_plan(shape, dtype),):
+            mn.check_split_plan(plan, shape, dtype)
+            assert 1 <= plan.cluster <= min(16, h * w) and tuple(plan.grid)[1] == b
+            assert plan.pixels_per_cta == -(-h * w // plan.cluster)
+            chunks = mn.instance_chunks(h * w, plan.cluster)
+            assert chunks[0][0] == 0 and chunks[-1][1] == h * w and all(
+                e > s_ and s_ == prev for (s_, e), (_, prev) in zip(chunks, [(0, 0)] + chunks))
