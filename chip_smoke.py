@@ -135,6 +135,18 @@
    against one process's; then every K1 call across the stripes (the
    instance split's four launches, the batch split's) against its plain
    version in bf16 and float32 at the ranks' stripe shapes, timed in bf16.
+   int8 on stripes (the "sp int8" line): the same two inference paths under
+   int8_inference(), float32 and bf16, against one process's int8 fake
+   (mean and max |error| within 5e-3 / 0.08, or twice one process's one-ulp
+   spread), every quantized conv's scales and k_q on every rank bit for bit
+   the plain quantization of its input gathered whole, K4's launches, MAX
+   all-reduces and int8 halo bytes per call and rank against the counts
+   reckoned from the config; K4 at every stripe shape of the main path's
+   call, (d) on the stripes' slabs at pad_h 0 bit for bit its plain version,
+   timed beside its bound and the bf16 cuDNN conv of the same slabs (the
+   kernels line's `*_on_stripes` rows).  The "nospade" generator of the main
+   preset at b8 on stripes against one process, float32 relative L2 (the
+   "sp nospade" line).
    Shortened for it (PR 14's counts in the comments beside them): the remat
    probe at b20, the b16 disk-fed steps from batches decoded beforehand,
    the loader at 1 and 4 workers, the 1-ulp nudge of the card-vs-CPU step,
@@ -4120,8 +4132,9 @@ def _sp_infer() -> dict:
 def sp_rank(rank: int, port: int, out_dir: str) -> None:
     """One of SP_WORLD model ranks on the one card over gloo, TF32 off: the
     float32 step, each planted fault's, the inference paths in float32 and
-    bf16, then (once the parent's runs are done: out_dir/go) the bf16 timed
-    steps, into out_dir/rank<R>.pt."""
+    bf16, bf16 and int8 (`_sp_int8`), the "nospade" generator, then (once
+    the parent's runs are done: out_dir/go) the bf16 timed steps, into
+    out_dir/rank<R>.pt."""
     from deepsee_torch.parallel import distributed
 
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(SP_WORLD), MASTER_ADDR="127.0.0.1",
@@ -4136,6 +4149,8 @@ def sp_rank(rank: int, port: int, out_dir: str) -> None:
             for fault in SP_FAULTS:
                 result[fault] = _sp_steps("float32", SP_F32_BATCH, 1, fault=fault)
             result["infer"] = _sp_infer()
+            result["int8"] = _sp_int8()
+            result["nospade"] = _sp_nospade()
             torch.cuda.empty_cache()
             while not os.path.exists(os.path.join(out_dir, "go")):
                 time.sleep(0.2)
@@ -4345,6 +4360,401 @@ def sp_kernel_phase(ranks) -> dict:
     return {"totals": totals, "errs": errs, "rows": len(rows)}
 
 
+# -- int8 inference and the "nospade" generator on stripes (sp_phase) ---------------
+
+SP_INT8_DTYPES = ("float32", "bfloat16")
+# the striped int8 fake against one process's: the JAX package's mesh test's
+# tolerances (tests/test_int8_inference.py:191-243), or SP_INT8_NOISE times one
+# process's own spread under a one-ulp nudge of the float32 weights where that
+# is larger (the rule of the "tp int8" line).  The bf16 path takes its
+# preset's float32 spread: a level that moves across a rounding edge of the
+# per-tensor s_x moves the output by the same amount in either dtype, and
+# bf16's own rounding steps are coarser, so the float32 spread is the smaller
+# one.  On the seeded weights of the first card run (NVIDIA H100 80GB HBM3,
+# 700 W) the stripes read 5.5e-3 / 6.4e-3 mean off one process (float32 /
+# bf16) where one process's one-ulp spread reads 6.0e-3.
+MAX_SP_INT8_MEAN_ABS = 5e-3
+MAX_SP_INT8_MAX_ABS = 0.08
+SP_INT8_NOISE = 2.0
+# the path whose stripe shapes K4 is checked and timed at, in bf16
+SP_INT8_TIMED = PRESET
+SP_NOSPADE_BATCH = 8
+
+
+@contextlib.contextmanager
+def _sp_int8_recorded(calls: list):
+    """Every quantized conv of the path while open, in call order, from the
+    wrappers of (b), (c) and (d): the shapes of its input stripe ("x"), of
+    (d)'s x_q slab ("slab", Cp channels), of the weight, the stride and
+    (d)'s (pad_h, pad_w); the halo collectives between (c) and (d) (the
+    int8 halo: calls, bytes); and, where maps are striped, whether its s_c,
+    s_k, s_x and k_q are bit for bit the plain quantization of the conv's
+    input gathered whole over the model group ("scales")."""
+    from deepsee_torch.parallel import spatial
+
+    saved = ic.quantize_weight, ic.quantize_activation, ic.int8_conv_igemm
+
+    def weight(w, mx_raw, mx, smooth):
+        out = saved[0](w, mx_raw, mx, smooth)
+        calls.append({"w": list(w.shape), "smooth": smooth, "_weight": w, "_got": out})
+        return out
+
+    def activation(x, s_c, s_x):
+        call = calls[-1]
+        w, got = call.pop("_weight"), call.pop("_got")
+        call["x"] = list(x.shape)
+        if spatial.active():
+            q = ic.quantize_plain(spatial.gather_rows(x), w, call["smooth"])
+            k_q = got[3]
+            if k_q.device.type == "cuda":   # (Cout, kh, kw, Cp) -> OIHW
+                k_q = k_q[..., :x.shape[1]].permute(0, 3, 1, 2)
+            call["scales"] = {k: bool(torch.equal(a, b)) for k, a, b in
+                              (("s_c", got[0], q.s_c), ("s_k", got[1], q.s_k),
+                               ("s_x", got[2], q.s_x), ("k_q", k_q, q.k_q))}
+            del q
+        call["_halo"] = (spatial.counts["halo"]["calls"], spatial.counts["halo"]["bytes"])
+        return saved[1](x, s_c, s_x)
+
+    def igemm(x_q, k_q, s_x, s_k, bias, stride, padding, out_dtype):
+        call = calls[-1]
+        c0, b0 = call.pop("_halo")
+        call.update(slab=list(x_q.shape), stride=stride, pad=list(ic.pads(padding)),
+                    halo_calls=spatial.counts["halo"]["calls"] - c0,
+                    halo_bytes=spatial.counts["halo"]["bytes"] - b0)
+        return saved[2](x_q, k_q, s_x, s_k, bias, stride, padding, out_dtype)
+
+    ic.quantize_weight, ic.quantize_activation, ic.int8_conv_igemm = weight, activation, igemm
+    try:
+        yield
+    finally:
+        ic.quantize_weight, ic.quantize_activation, ic.int8_conv_igemm = saved
+
+
+def _sp_int8(nudge_ulps: int = 0) -> dict:
+    """Each SP_INFER preset's inference path under int8_inference() (min_ch
+    64, SmoothQuant) with the striped bf16 inference's seeded weights
+    (nudged by `nudge_ulps` float32 ulps: float32 alone then), in float32
+    and bf16, on this rank's stripes where the world is laid out spatially:
+    (preset, dtype) -> the whole fake (CPU), K4's launches, the call's MAX
+    all-reduces and halos (calls, bytes) and its quantized convs
+    (`_sp_int8_recorded`)."""
+    from deepsee_torch.parallel import distributed, spatial
+
+    spatial.use_mesh(MeshConfig(model_axis=distributed.world_size(), partition="spatial"))
+    out = {}
+    for preset, batch_n in SP_INFER.items():
+        seeded = seeded_system(preset)
+        if nudge_ulps:
+            _nudge(seeded, nudge_ulps, torch.Generator().manual_seed(SEED + 7))
+        for dtype in ("float32",) if nudge_ulps else SP_INT8_DTYPES:
+            system = _like(seeded, dtype, DEVICE)
+            guided = system.cfg.guiding_style_image
+            batch = spatial.shard_rows(make_batch(system.cfg, batch_n, guided=guided))
+            calls: list = []
+            ic.reset_launches()
+            spatial.reset_counts()
+            with int8_inference(), _sp_int8_recorded(calls):
+                fake = run_path(system, batch, use_full=guided)
+            torch.cuda.synchronize()
+            out[(preset, dtype)] = {
+                "fake": spatial.gather_rows(fake, dim=1).float().cpu(),
+                "launches": dict(ic.launches), "calls": calls,
+                "collectives": {k: dict(spatial.counts[k]) for k in ("max", "halo")}}
+            ic.reset_launches()
+            del system, fake
+        del seeded
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sp_nospade() -> dict:
+    """PRESET's "nospade" generator (Pix2PixResnetBlock blocks: reflection
+    padding, instance norms), float32 in eval mode with seeded weights, on
+    the seeded batch's LR image and semantics at SP_NOSPADE_BATCH, on this
+    rank's stripes where the world is laid out spatially: the whole fake
+    (CPU), K1's launches and the halos of the call."""
+    from deepsee_torch.models.generator import DeepSEEGenerator
+    from deepsee_torch.parallel import distributed, spatial
+
+    spatial.use_mesh(MeshConfig(model_axis=distributed.world_size(), partition="spatial"))
+    exp = get_preset(PRESET).replace(is_train=False)
+    exp = exp.replace(model=dataclasses.replace(exp.model, compute_dtype="float32"))
+    system = SRSystem(exp, device=DEVICE)
+    net = DeepSEEGenerator(exp.model, variant="nospade").to(DEVICE).eval()
+    generator = torch.Generator().manual_seed(SEED)
+    for m in net.modules():
+        if hasattr(m, "init_params"):
+            m.init_params(generator)
+    randomize_weights([net], torch.Generator().manual_seed(SEED + 1))
+    system.generator, system.encoder = net, None  # the generator alone: no style
+    pre = system.preprocess(spatial.shard_rows(make_batch(exp.model, SP_NOSPADE_BATCH)))
+    mn.reset_launches()
+    spatial.reset_counts()
+    fake, _ = system.generate(pre)
+    torch.cuda.synchronize()
+    out = {"fake": spatial.gather_rows(fake, dim=1).float().cpu(),
+           "launches": {k: v for k, v in mn.launches.items() if v},
+           "halo": dict(spatial.counts["halo"])}
+    mn.reset_launches()
+    del system, net, pre, fake
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_int8_expected(cfg: ModelConfig, batch_n: int, full_trunk: bool, world: int) -> dict:
+    """One call of the path under int8_inference() reckoned from the config
+    (`int8_conv_shapes`): its quantized convs, K4's launches per call and
+    rank, one MAX all-reduce of (mx_raw, mx) (2 Cin float32) per conv, and
+    the int8 halos per call and rank: each conv's all-gather of every
+    rank's edge rows (its window's top and bottom rows under the owner
+    rule, `spatial._halo_plan` on even stripes) of Cp int8 channels."""
+    shapes = int8_conv_shapes(cfg, batch_n, full_trunk)
+    return dict(_sp_int8_reckoned([(x, w, s, p, n) for x, w, s, p, n in shapes], world),
+                launches=int8_per_call(shapes))
+
+
+def _sp_int8_reckoned(convs, world: int) -> dict:
+    """convs: (x (B, Cin, H, W) of the whole map, weight shape, stride,
+    padding, count)."""
+    from deepsee_torch.parallel import spatial
+
+    halo_calls = halo_bytes = 0
+    for (b, cin, h, w), (_, _, k, _), stride, pad, count in convs:
+        _, top, bottom, _, _ = spatial._halo_plan(spatial.Rows.even(h, world).bounds, k, stride,
+                                                 pad)
+        if (k, stride, pad) != (1, 1, 0) and (top or bottom):
+            halo_calls += count
+            halo_bytes += count * world * b * (top + bottom) * w * ic.padded_channels(cin)
+    return {"convs": sum(c[-1] for c in convs), "max_calls": sum(c[-1] for c in convs),
+            "max_bytes": sum(2 * c[0][1] * 4 * c[-1] for c in convs),
+            "int8_halo_calls": halo_calls, "int8_halo_bytes": halo_bytes}
+
+
+def sp_int8_check(ranks, one: dict, nudged: dict, smi: str) -> dict:
+    """The "sp int8" line, per (preset, dtype) of `_sp_int8`: the model
+    ranks' fakes bit for bit alike, against one process's int8 fake (mean
+    and max |error| within MAX_SP_INT8_MEAN_ABS / _MAX_ABS or SP_INT8_NOISE
+    times one process's float32 one-ulp spread, where larger); every
+    quantized conv's s_c, s_k, s_x and k_q on every rank bit for bit the
+    whole map's plain quantization of its gathered input; K4's launches per
+    call and rank equal one process's; one MAX all-reduce per quantized
+    conv and the int8 halos as reckoned from the recorded shapes, and for
+    PRESET the launches, MAX all-reduces and int8 halos as reckoned from the
+    config (`sp_int8_expected`)."""
+    readings, failures = {}, []
+    for (preset, dtype), want in one.items():
+        tag = f"{preset} b{SP_INFER[preset]} {dtype}"
+        got = [r["int8"][(preset, dtype)] for r in ranks]
+        fake = got[0]["fake"]
+        if any(not torch.equal(g["fake"], fake) for g in got):
+            raise AssertionError(f"sp int8 {tag}: the model ranks' fakes differ")
+        if fake.shape != want["fake"].shape or not bool(torch.isfinite(fake).all()):
+            raise AssertionError(f"sp int8 {tag}: shape {tuple(fake.shape)} or values not finite")
+        err = (fake - want["fake"]).abs()
+        s = (nudged[(preset, "float32")]["fake"] - one[(preset, "float32")]["fake"]).abs()
+        spread = {"mean_abs": float(s.mean()), "max_abs": float(s.max())}
+        limits = {k: max(v, SP_INT8_NOISE * spread[k]) for k, v in
+                  (("mean_abs", MAX_SP_INT8_MEAN_ABS), ("max_abs", MAX_SP_INT8_MAX_ABS))}
+        calls = got[0]["calls"]
+        wrong = [{"rank": r, "call": i, "scales": c.get("scales")} for r, g in enumerate(got)
+                 for i, c in enumerate(g["calls"]) if not all(c.get("scales", {0: False}).values())]
+        recorded = _sp_int8_reckoned([((c["x"][0], c["x"][1], c["x"][2] * SP_WORLD, c["x"][3]),
+                                       c["w"], c["stride"], c["pad"][1], 1) for c in calls],
+                                     SP_WORLD)
+        cfg = get_preset(preset).model
+        config = (sp_int8_expected(cfg, SP_INFER[preset], False, SP_WORLD) if preset == PRESET
+                  else None)  # `int8_conv_shapes` reckons the 8x paths
+        measured = {"max_calls": got[0]["collectives"]["max"]["calls"],
+                    "max_bytes": got[0]["collectives"]["max"]["bytes"],
+                    "int8_halo_calls": sum(c["halo_calls"] for c in calls),
+                    "int8_halo_bytes": sum(c["halo_bytes"] for c in calls)}
+        rec = {"mean_abs_err": float(err.mean()), "max_abs_err": float(err.max()),
+               "psnr_db_vs_one_process": psnr_db(fake, want["fake"]),
+               "one_process_float32_nudged_1ulp": spread, "limits": limits,
+               "within_jax_mesh_test_limits": (float(err.mean()) < MAX_SP_INT8_MEAN_ABS
+                                               and float(err.max()) < MAX_SP_INT8_MAX_ABS),
+               "convs_per_call": len(calls),
+               "scales_whole_map_bit_for_bit": len(calls) * len(got) - len(wrong),
+               "scales_checked": len(calls) * len(got), "wrong": wrong[:4],
+               "k4_launches_per_call_and_rank": got[0]["launches"],
+               "one_process_launches": want["launches"],
+               "collectives_per_call_and_rank": measured,
+               "all_halos_per_call_and_rank": got[0]["collectives"]["halo"],
+               "reckoned_from_recorded_shapes": recorded,
+               "reckoned_from_config": config}
+        readings[tag] = rec
+        if float(err.mean()) >= limits["mean_abs"] or float(err.max()) >= limits["max_abs"]:
+            failures.append(f"{tag}: the fake parts from one process's int8 fake")
+        if wrong or not calls:
+            failures.append(f"{tag}: {len(wrong)} convs' scales are not the whole map's")
+        if any(g["launches"] != want["launches"] for g in got) or \
+                got[0]["launches"]["igemm"] != len(calls):
+            failures.append(f"{tag}: K4 launches {got[0]['launches']} != one process's "
+                            f"{want['launches']}")
+        if any(measured[k] != recorded[k] for k in measured):
+            failures.append(f"{tag}: collectives {measured} != reckoned {recorded}")
+        if config and (config["launches"] != got[0]["launches"]
+                       or any(measured[k] != config[k] for k in measured)):
+            failures.append(f"{tag}: launches / collectives not as the config reckons them "
+                            f"({config})")
+    log("sp int8 " + json.dumps(dict(readings, card=smi)))
+    if failures:
+        raise AssertionError(f"sp int8: {failures}")
+    return readings
+
+
+def sp_nospade_check(ranks, one: dict, smi: str) -> dict:
+    """The "sp nospade" line: the model ranks' nospade fakes bit for bit
+    alike and within MAX_SP_INFER_F32_REL (relative L2) of one process's;
+    K1's instance split launched where one process launches the instance
+    mode, as many times."""
+    fakes = [r["nospade"]["fake"] for r in ranks]
+    if any(not torch.equal(f, fakes[0]) for f in fakes):
+        raise AssertionError("sp nospade: the model ranks' fakes differ")
+    if fakes[0].shape != one["fake"].shape or not bool(torch.isfinite(fakes[0]).all()):
+        raise AssertionError(f"sp nospade: shape {tuple(fakes[0].shape)} or values not finite")
+    launches = ranks[0]["nospade"]["launches"]
+    n = one["launches"].get("instance", 0)
+    rec = {"preset": PRESET, "variant": "nospade", "model_ranks": SP_WORLD,
+           "batch": SP_NOSPADE_BATCH, "dtype": "float32",
+           "rel_l2": _rel_l2(fakes[0], one["fake"]), "limit": MAX_SP_INFER_F32_REL,
+           "fake_std": float(one["fake"].std()),
+           "k1_launches_per_call_and_rank": launches, "one_process_k1_launches": one["launches"],
+           "halos_per_call_and_rank": ranks[0]["nospade"]["halo"], "card": smi}
+    log("sp nospade " + json.dumps(rec))
+    if not rec["rel_l2"] <= MAX_SP_INFER_F32_REL or not rec["fake_std"] > 0.05:
+        raise AssertionError(f"sp nospade: parts from one process or is flat: {rec}")
+    if not n or launches != {"instance_partials": n, "instance_apply": n}:
+        raise AssertionError(f"sp nospade: K1 launches {launches} do not stand for one "
+                             f"process's {one['launches']}")
+    return rec
+
+
+def _slab_igemm_check(slab, wshape, stride, pad, dtype, gen) -> dict:
+    """(d) on a stripe's slab at (pad_h, pad_w) = `pad` (pad_h 0: the halo
+    rows hold H's padding), on the plain quantization's x_q and k_q: bit for
+    bit `igemm_plain`'s output."""
+    x, w, bias = _int8_inputs(slab, wshape, dtype, gen)
+    q = ic.quantize_plain(x, w, True)
+    del x
+    cin, cp = slab[1], ic.padded_channels(slab[1])
+    x_q = torch.zeros((slab[0], cp) + tuple(slab[2:]), dtype=torch.int8, device=q.x_q.device)
+    x_q[:, :cin] = q.x_q
+    x_q = x_q.contiguous(memory_format=torch.channels_last)
+    k_q = torch.zeros((wshape[0],) + tuple(wshape[2:]) + (cp,), dtype=torch.int8,
+                      device=x_q.device)
+    k_q[..., :cin] = q.k_q.permute(0, 2, 3, 1)
+    y = ic.int8_conv_igemm(x_q, k_q, q.s_x, q.s_k, bias, stride, pad, dtype)
+    ref = ic.igemm_plain(q.x_q, q.k_q, q.s_x, q.s_k, bias, stride, pad, dtype)
+    torch.cuda.synchronize()
+    row = {"slab": list(slab), "w": list(wshape), "stride": stride, "pad": list(pad),
+           "dtype": str(dtype)[6:], "bit_for_bit": bool(torch.equal(y, ref)),
+           "max_abs_err": float((y.float() - ref.float()).abs().max())}
+    del q, x_q, k_q, y, ref
+    if not row["bit_for_bit"]:
+        raise AssertionError(f"(d) on a stripe's slab differs from its plain version: {row}")
+    return row
+
+
+def sp_int8_times(xshape, slab, wshape, stride, pad, gen) -> dict:
+    """Device ms of (a)-(c) at a stripe's shape and of (d) on its slab at
+    `pad` (bf16), of the bf16 cuDNN conv that the striped bf16 path runs on
+    the same slab, of one library call for (a); the plain versions' ms."""
+    dtype = torch.bfloat16
+    x0, w, bias = _int8_inputs(xshape, wshape, dtype, gen)
+    extra = min(3, (120 << 20) // (math.prod(slab) * 2))
+    pool = [x0] + [_int8_inputs(xshape, wshape, dtype, gen)[0] for _ in range(extra)]
+    slabs = [_int8_inputs(slab, wshape, dtype, gen)[0] for _ in range(extra + 1)]
+    mx_raw, mx = ic.absmax_channels(x0)
+    s_c, s_k, s_x, k_q = ic.quantize_weight(w, mx_raw, mx, True)
+    qslabs = [ic.quantize_activation(s, s_c, s_x) for s in slabs]
+    wb, bb = w.to(dtype), bias.to(dtype)
+    ms = functools.partial(_device_ms, target_ms=SP_TIMING_MS)
+    t = {"absmax": ms([lambda x=x: ic.absmax_channels(x) for x in pool]),
+         "quantize_weight": ms([lambda: ic.quantize_weight(w, mx_raw, mx, True)]),
+         "quantize_activation": ms([lambda x=x: ic.quantize_activation(x, s_c, s_x)
+                                    for x in pool]),
+         "igemm": ms([lambda xq=xq: ic.int8_conv_igemm(xq, k_q, s_x, s_k, bias, stride, pad,
+                                                       dtype) for xq in qslabs]),
+         "bf16_cudnn": ms([lambda s=s: F.conv2d(s, wb, bb, stride=stride, padding=pad)
+                           for s in slabs]),
+         "absmax_library": ms([lambda x=x: torch.linalg.vector_norm(x, float("inf"),
+                                                                    dim=(0, 2, 3))
+                               for x in pool])}
+    q = ic.quantize_plain(x0, w, True)
+    qs = ic.quantize_plain(slabs[0], w, True)
+    t["plain"] = {
+        "absmax": _event_ms(lambda: ic.absmax_channels_plain(x0), reps=1),
+        "quantize_weight": _event_ms(lambda: ic.quantize_weight_plain(
+            w, ic.smooth_scales_plain(w, mx, True)), reps=1),
+        "quantize_activation": _event_ms(lambda: ic.quantize_activation_plain(x0, q.s_c),
+                                         reps=1),
+        "igemm": _event_ms(lambda: ic.igemm_plain(qs.x_q, qs.k_q, qs.s_x, qs.s_k, bias, stride,
+                                                  pad, dtype), reps=1)}
+    del pool, slabs, qslabs, q, qs
+    torch.cuda.empty_cache()
+    return t
+
+
+def sp_int8_kernel_rows(ranks, smi: str) -> dict:
+    """K4 at every stripe shape of rank 0's bf16 striped int8 call of
+    SP_INT8_TIMED: (a)-(d) against their plain versions at the stripe
+    (`int8_check`, bf16), (d) on the stripe's slab at pad_h 0 bit for bit
+    its plain version (bf16, float32), each kernel timed there (`sp_int8_
+    times`) beside its bound and the bf16 cuDNN conv of the same slab.
+    Per call and rank: the sums over the call's launches."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    record = ranks[0]["int8"][(SP_INT8_TIMED, "bfloat16")]
+    distinct: dict = {}
+    for c in record["calls"]:
+        key = (tuple(c["x"]), tuple(c["slab"]), tuple(c["w"]), c["stride"], tuple(c["pad"]))
+        distinct[key] = distinct.get(key, 0) + 1
+    totals = {s: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "launches": 0,
+                  "library_ms": 0.0 if s == "absmax" else None,
+                  "bound_by": {"bytes": 0.0, "operations": 0.0}} for s in INT8_STAGES}
+    errs = dict.fromkeys(INT8_STAGES, 0.0)
+    cudnn_ms = 0.0
+    for (xshape, slab_q, wshape, stride, pad), n in sorted(distinct.items()):
+        slab = (slab_q[0], xshape[1]) + slab_q[2:]   # the float slab: the stripe's channels
+        check = int8_check(xshape, wshape, stride, pad[1], torch.bfloat16, True, gen)
+        slab_rows = [_slab_igemm_check(slab, wshape, stride, pad, d, gen)
+                     for d in (torch.bfloat16, torch.float32)]
+        errs["absmax"] = max(errs["absmax"], check["absmax_max_abs_err"])
+        errs["quantize_weight"] = max(errs["quantize_weight"], check["scale_max_abs_err"])
+        errs["igemm"] = max([errs["igemm"]] + [r["max_abs_err"] for r in slab_rows])
+        t = sp_int8_times(xshape, slab, wshape, stride, pad, gen)
+        bounds = _int8_bounds(xshape, wshape, stride, pad, 2)
+        bounds["igemm"] = _int8_bounds(slab, wshape, stride, pad, 2)["igemm"]
+        for stage in INT8_STAGES:
+            acc = totals[stage]
+            acc["launches"] += n
+            acc["ms"] += t[stage] * n
+            acc["plain_ms"] += t["plain"][stage] * n
+            acc["bound_ms"] += bounds[stage][0] * n
+            acc["bound_by"][bounds[stage][1]] += bounds[stage][0] * n
+        totals["absmax"]["library_ms"] += t["absmax_library"] * n
+        cudnn_ms += t["bf16_cudnn"] * n
+        log("sp int8 kernel " + json.dumps({
+            "x_stripe": list(xshape), "slab": list(slab), "w": list(wshape), "stride": stride,
+            "pad": list(pad), "per_call": n, "ms": {s: t[s] for s in INT8_STAGES},
+            "bound_ms": {s: bounds[s][0] for s in INT8_STAGES},
+            "bound_share": {s: bounds[s][0] / t[s] for s in INT8_STAGES},
+            "plain_ms": t["plain"],
+            "bf16_cudnn_ms (library, bf16, not the same function)": t["bf16_cudnn"],
+            "igemm_plan": igemm_plan_text(slab, wshape, stride, pad),
+            "slab_checks": slab_rows, "card": smi}))
+    for acc in totals.values():  # the kind that bounds most of the time
+        acc["bound_by"] = max(acc["bound_by"], key=acc["bound_by"].get)
+    ic.reset_launches()
+    torch.cuda.empty_cache()
+    out = {"totals": totals, "errs": errs, "bf16_cudnn_ms": cudnn_ms, "shapes": len(distinct),
+           "launches": {k: record["launches"][v] for k, (v, _) in INT8_KERNELS.items()},
+           "all_launches": record["launches"]}
+    log("sp int8 kernels per striped call of one rank (bf16, device ms) " + json.dumps(
+        dict(out, card=smi)))
+    return out
+
+
 def sp_phase(smi: str) -> dict:
     """Spatial sharding on the one card: SP_WORLD spawned model ranks over
     gloo, SP_PRESET at full width with every map cut into two horizontal
@@ -4352,12 +4762,15 @@ def sp_phase(smi: str) -> dict:
     Adam step at b1: the ranks' states bit for bit alike and within
     MAX_SP_UPDATE_REL / MAX_SP_RUNNING_REL of one process, which each planted
     fault must break.  Inference on stripes (PRESET b8, SP_PRESET b2) against
-    one process: float32 relative L2, bf16 PSNR.  bf16 b2: the "sp" line (ms
-    per step and rank, gloo's host ms, the collectives per step and their
-    MiB, K1's launches per step against one process's, peak GiB per rank
-    against one process's).  Then every K1 call across the stripes held
-    against its plain version and timed (`sp_kernel_phase`).  Returns the
-    kernels line's numbers."""
+    one process: float32 relative L2, bf16 PSNR; the same paths under
+    int8_inference() (the "sp int8" line, `sp_int8_check`) and PRESET's
+    "nospade" generator (the "sp nospade" line, `sp_nospade_check`).  bf16
+    b2: the "sp" line (ms per step and rank, gloo's host ms, the collectives
+    per step and their MiB, K1's launches per step against one process's,
+    peak GiB per rank against one process's).  Then every K1 call across
+    the stripes held against its plain version and timed
+    (`sp_kernel_phase`), and K4 at the striped int8 call's stripe shapes
+    (`sp_int8_kernel_rows`).  Returns the kernels line's numbers."""
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="deepsee_sp_")
 
@@ -4368,14 +4781,17 @@ def sp_phase(smi: str) -> dict:
                 one = _sp_steps("float32", SP_F32_BATCH, 1)
                 nudged = _sp_steps("float32", SP_F32_BATCH, 1, nudge_ulps=1)["state"]
                 infer = _sp_infer()
+                int8 = (_sp_int8(), _sp_int8(nudge_ulps=1))
+                nospade = _sp_nospade()
             torch.cuda.empty_cache()
-            return one, nudged, infer
+            return one, nudged, infer, int8, nospade
         finally:
             with open(os.path.join(root, "go"), "w"):
                 pass
 
     try:
-        ranks, (one, nudged, infer) = spawned_ranks(sp_rank, SP_WORLD, root, one_process)
+        ranks, (one, nudged, infer, one_int8, one_nospade) = spawned_ranks(
+            sp_rank, SP_WORLD, root, one_process)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     limits = {"update_rel": MAX_SP_UPDATE_REL, "running_rel": MAX_SP_RUNNING_REL}
@@ -4417,6 +4833,9 @@ def sp_phase(smi: str) -> dict:
                 r.get("psnr_db_vs_one_process", math.inf) < MIN_SP_INFER_PSNR_DB:
             raise AssertionError(f"spatial inference {tag} parts from one process: {r}")
     del infer
+    sp_int8_check(ranks, *one_int8, smi)
+    sp_nospade_check(ranks, one_nospade, smi)
+    del one_int8, one_nospade
     torch.cuda.empty_cache()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -4446,8 +4865,9 @@ def sp_phase(smi: str) -> dict:
     if any(got_launches.get(k) for k in SP_ONE_PROCESS.values()):
         raise AssertionError(f"a one-process K1 mode ran on the stripes: {got_launches}")
     kernels = sp_kernel_phase(ranks)
+    int8_kernels = sp_int8_kernel_rows(ranks, smi)
     log(f"sp phase: {time.perf_counter() - t0:.1f} s")
-    return dict(kernels, launches=got_launches)
+    return dict(kernels, launches=got_launches, int8=int8_kernels)
 
 
 # -- int8 phase ------------------------------------------------------------------
@@ -4606,7 +5026,8 @@ def _int8_bounds(xshape, wshape, stride, pad, esize: int):
     multiply-adds at the int8 tensor-core rate, the rest in float32)."""
     b, cin, h, w = xshape
     cout, _, kh, kw = wshape
-    ho, wo = ic.conv_out_size(h, kh, stride, pad), ic.conv_out_size(w, kw, stride, pad)
+    ph, pw = ic.pads(pad)
+    ho, wo = ic.conv_out_size(h, kh, stride, ph), ic.conv_out_size(w, kw, stride, pw)
     n, nw, m = b * cin * h * w, cout * cin * kh * kw, b * ho * wo
     nq = b * ic.padded_channels(cin) * h * w
     kq = cout * kh * kw * ic.padded_channels(cin)
@@ -5170,7 +5591,9 @@ def kernels_line(rows, launches, norms, train=None, dp=None, int8=None, tp=None,
     `dp_phase`'s numbers), with their launches per spatial step and rank
     beside (`sp`: `sp_phase`'s); the instance mode split across stripes per
     spatial step and rank (`sp`); the int8 conv's kernels per int8
-    main-path call (`int8`: `int8_phase`'s)."""
+    main-path call (`int8`: `int8_phase`'s), with their launches per
+    tensor-parallel and per striped call and rank beside, and the same
+    kernels per striped int8 call and rank (`sp`)."""
     out = []
     for name, (mode, library_call) in KERNEL_INFO.items():
         per_call = path_kernel_times(rows, norms, mode)
@@ -5254,6 +5677,10 @@ def kernels_line(rows, launches, norms, train=None, dp=None, int8=None, tp=None,
         entry["tp_launches_per_call_and_rank"] = tp["int8_launches"][key]
         entry["tp_per"] = (f"one int8 main-path call of one of {TP_WORLD} model ranks ({PRESET} "
                            f"b{TP_INT8_BATCH}, float32)")
+        entry["sp_launches_per_call_and_rank"] = sp["int8"]["launches"][name]
+        entry["sp_per"] = (f"one striped int8 main-path call of one of {SP_WORLD} model ranks "
+                           f"({SP_INT8_TIMED} b{SP_INFER[SP_INT8_TIMED]}, bf16; the rows "
+                           f"{name}_on_stripes)")
         if key == "igemm":
             entry["bf16_cudnn_ms"] = int8["times"]["bf16_cudnn_ms"]
             entry["bf16_cudnn_note"] = ("library (bf16, not the same function): F.conv2d in "
@@ -5261,6 +5688,26 @@ def kernels_line(rows, launches, norms, train=None, dp=None, int8=None, tp=None,
             entry["library_gemm_ms"] = int8["times"]["library_gemm_ms"]
             entry["library_gemm_note"] = INT8_LIBRARY_GEMM
             entry["host_us_per_launch"] = int8["times"]["igemm_host_us"]
+        out.append(entry)
+    for name, (key, library_call) in INT8_KERNELS.items():
+        t = sp["int8"]["totals"][key]
+        entry = {
+            "name": f"{name}_on_stripes", "route": "cuda", "source": INT8_SOURCE,
+            "replaces": INT8_SITE,
+            "replaces_note": INT8_SITE_NOTE + "; under the spatial layout (int8_conv_striped)",
+            "launches": sp["int8"]["launches"][name], "max_abs_err": sp["int8"]["errs"][key],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_call": library_call,
+            "per": f"one striped int8 main-path call of one of {SP_WORLD} model ranks "
+                   f"({SP_INT8_TIMED} b{SP_INFER[SP_INT8_TIMED]}, bf16; sum over its launches "
+                   "at the stripe shapes, (d) on the stripes' slabs at pad_h 0; the MAX "
+                   "all-reduce and the halo between the launches not timed), device time",
+        }
+        if key == "igemm":
+            entry["bf16_cudnn_ms"] = sp["int8"]["bf16_cudnn_ms"]
+            entry["bf16_cudnn_note"] = ("library (bf16, not the same function): F.conv2d in "
+                                        "bf16 on the same slabs at padding (0, p)")
         out.append(entry)
     for name, (key, role) in TP_INT8_KERNELS.items():
         t = tp["int8"]["totals"][key]

@@ -64,10 +64,11 @@
 // [N][H][W][Cp]: an M tile is an hbox x wbox rectangle of one image's
 // output pixels (4 x 32 at 32^2, 2 x 64 at 64^2, 1 x 128 from 128^2 on;
 // ragged at the image's edge), and tap (r, q) loads the box shifted by
-// (r - pad, q - pad), strided by the map's elementStrides for stride 2.
-// TMA's zero fill outside the tensor is the conv's padding, and it fills
-// the channels of a BK-byte chunk past Cp (Cp 80 read as 128), so wgmma's
-// 32-byte K step never straddles a tap.  k_q is a 3-D map [Cout][tap][Cp].
+// (r - pad_h, q - pad_w), strided by the map's elementStrides for stride 2.
+// TMA's zero fill outside the tensor is the conv's padding, per axis (a
+// stripe's slab, whose halo rows hold H's padding, comes at pad_h 0), and
+// it fills the channels of a BK-byte chunk past Cp (Cp 80 read as 128), so
+// wgmma's 32-byte K step never straddles a tap.  k_q is a 3-D map [Cout][tap][Cp].
 // Tiles are walked N fastest: the blocks in flight share A rectangles, and
 // all of k_q (at most 4.7 MB here) stays in the L2; the producer runs ahead
 // into the next tile while the consumers dequantize the last one
@@ -350,7 +351,7 @@ struct IgemmArgs {
   const float* s_k;
   const float* bias;
   void* y;
-  int Ho, Wo, Cout, kw, stride, pad, chunks, iters;
+  int Ho, Wo, Cout, kw, stride, pad_h, pad_w, chunks, iters;
   int hbox, wbox, tiles_h, tiles_w, tiles_n, tiles;
 };
 
@@ -680,7 +681,7 @@ igemm_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ 
       uint32_t phase = 0;
       for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
         const Tile tl = tile_at<BN>(a, t);
-        const int h0 = tl.ho0 * a.stride - a.pad, w0 = tl.wo0 * a.stride - a.pad;
+        const int h0 = tl.ho0 * a.stride - a.pad_h, w0 = tl.wo0 * a.stride - a.pad_w;
         int r = 0, q = 0, c = 0;
         for (int i = 0; i < a.iters; ++i) {
           const uint32_t full = bars + 8 * stage, dst = ring + stage * R::kStage;
@@ -1282,12 +1283,12 @@ extern "C" int int8_divide_check(const void* a, const void* b, int n, void* fast
 // two tensor maps from it and launches.
 extern "C" int int8_conv_igemm(const void* x_q, const void* k_q, const void* s_x,
                                const void* s_k, const void* bias, void* y, int N, int H, int W,
-                               int Cp, int Cout, int kh, int kw, int stride, int pad, int Ho,
-                               int Wo, int hbox, int wbox, int bk, int bn, int grid,
-                               int out_dtype, void* stream) {
+                               int Cp, int Cout, int kh, int kw, int stride, int pad_h,
+                               int pad_w, int Ho, int Wo, int hbox, int wbox, int bk, int bn,
+                               int grid, int out_dtype, void* stream) {
   if (hbox * wbox != kBM || (bk != 64 && bk != 128) || (bn != 128 && bn != 256) ||
       stride < 1 || stride > 8 || wbox * stride > 256 || hbox * stride > 256 || Cp % 16 ||
-      grid < 1)
+      grid < 1 || pad_h < 0 || pad_w < 0)
     return kBadPlan;
   const EncodeTiled encode = encode_tiled();
   if (!encode) return kNoEncoder;
@@ -1321,7 +1322,8 @@ extern "C" int int8_conv_igemm(const void* x_q, const void* k_q, const void* s_x
   a.s_k = static_cast<const float*>(s_k);
   a.bias = static_cast<const float*>(bias);
   a.y = y;
-  a.Ho = Ho; a.Wo = Wo; a.Cout = Cout; a.kw = kw; a.stride = stride; a.pad = pad;
+  a.Ho = Ho; a.Wo = Wo; a.Cout = Cout; a.kw = kw; a.stride = stride;
+  a.pad_h = pad_h; a.pad_w = pad_w;
   a.chunks = (Cp + bk - 1) / bk;
   a.iters = taps * a.chunks;
   a.hbox = hbox; a.wbox = wbox;

@@ -22,7 +22,9 @@ replicated activations (models/blocks.py), and `conv_img` is replicated.
 Spatial sharding: every map is this rank's stripe; `initial`, the blocks'
 3x3 convs and `conv_img` take their halos (models/layers.py::conv2d), the
 1x1 conv_s and the nearest upsamples are local.  The "nospade" variant's
-reflection pad is refused there (ROADMAP.md queues it).
+reflection-padded convs take a halo whose rows beyond the global top and
+bottom mirror rows 1 and H-2 (`spatial.window`'s "reflect" edge) and pad W
+by mirroring locally; stripes of fewer than 2 rows are refused there.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from deepsee_torch.config import ModelConfig
 from deepsee_torch.models import remat as remat_mod
@@ -39,7 +40,6 @@ from deepsee_torch.models.blocks import SPADEResnetBlock
 from deepsee_torch.models.layers import Conv2d, NonSpadeNormConv
 from deepsee_torch.ops.norms import leaky_relu
 from deepsee_torch.ops.resize import upsample_nearest_2x
-from deepsee_torch.parallel import spatial
 from deepsee_torch.parallel import tensor as tp
 
 VARIANTS = ("deepsee", "nostyle", "nospade", "puresean")
@@ -49,24 +49,24 @@ class Pix2PixResnetBlock(nn.Module):
     """Plain pix2pixHD resblock (ablation.py:13-29): reflect pad -> spectral
     3x3 conv -> instance norm -> ReLU, twice, plus the identity.  Its convs
     sit where the reference's Sequential puts them, `conv_block.1.0` and
-    `conv_block.4.0`; each instance norm is one `modnorm` launch."""
+    `conv_block.4.0`, and pad by reflection (`padding_mode` "reflect": on
+    stripes, a reflect halo of one row and W mirrored locally); each
+    instance norm is one `modnorm` launch, or K1's instance split over the
+    stripes."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.conv_block = nn.Module()
         for slot in ("1", "4"):
-            self.conv_block.add_module(slot, NonSpadeNormConv(dim, dim, 3, 1, 0,
-                                                              "spectralinstance"))
+            self.conv_block.add_module(slot, NonSpadeNormConv(dim, dim, 3, 1, 1,
+                                                              "spectralinstance",
+                                                              padding_mode="reflect"))
 
     def forward(self, x: torch.Tensor, seg: Optional[torch.Tensor] = None,
                 style: Optional[torch.Tensor] = None, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if spatial.active():
-            raise NotImplementedError("the 'nospade' generator's reflection pad under the spatial "
-                                      "layout is not ported (ROADMAP.md)")
         conv0, conv1 = self.conv_block._modules["1"], self.conv_block._modules["4"]
-        y = torch.relu(conv0(F.pad(x, (1, 1, 1, 1), mode="reflect")))
-        return x + conv1(F.pad(y, (1, 1, 1, 1), mode="reflect"))
+        return x + conv1(torch.relu(conv0(x)))
 
 
 def _block(cfg: ModelConfig, variant: str, styled: bool, puresean: bool) -> nn.Module:

@@ -23,12 +23,14 @@ collectives in between are parallel/tensor.py's.
 
 Spatial sharding (parallel/spatial.py): where maps are striped over the
 model group, every conv takes its halo first (`spatial.window`: the
-neighbours' rows, zeros at the global top and bottom only) and convolves
-with padding 0 along H; a layer that may see uneven stripes (the
-discriminator's) takes their layout as `rows`.  The batch norms' statistics
-cover every rank, data x model, the instance norms' every stripe of a
-sample, and the injected noise is drawn for the whole map and cut to the
-stripe, as one process draws it.
+neighbours' rows, zeros at the global top and bottom only, or mirrored rows
+for a reflection-padded conv) and convolves with padding 0 along H; a layer
+that may see uneven stripes (the discriminator's) takes their layout as
+`rows`.  A conv that quantizes under `int8_inference` takes its maxima over
+every stripe (`int8_conv_striped`) and its halo as int8.  The batch norms'
+statistics cover every rank, data x model, the instance norms' every stripe
+of a sample, and the injected noise is drawn for the whole map and cut to
+the stripe, as one process draws it.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import torch.nn.functional as F
 
 from deepsee_torch.config import parse_nonspade_norm
 from deepsee_torch.models.remat import saving_conv_output
-from deepsee_torch.ops.int8conv import int8_conv, int8_conv_sharded
+from deepsee_torch.ops.int8conv import int8_conv, int8_conv_sharded, int8_conv_striped
 from deepsee_torch.ops.modnorm import (merge_partials, modnorm, modnorm_batch_partials_plain,
                                        modnorm_train)
 from deepsee_torch.ops.norms import leaky_relu
@@ -134,29 +136,56 @@ def draw_injection_noise(shape, generator: Optional[torch.Generator],
         lambda s: torch.randn(s, generator=generator, device=device), shape)
 
 
+def _reflect_w(t: torch.Tensor, p: int) -> torch.Tensor:
+    """t padded by p columns mirrored at each side of W (F.pad's "reflect"
+    along W alone), in any dtype; channels_last."""
+    w = t.shape[3]
+    cols = list(range(p, 0, -1)) + list(range(w)) + list(range(w - 2, w - 2 - p, -1))
+    out = t.index_select(3, torch.tensor(cols, device=t.device))
+    return out.contiguous(memory_format=torch.channels_last)
+
+
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
            stride: int = 1, padding: int = 1, *, training: bool = True,
-           rows: Optional[spatial.Rows] = None, shard=None) -> torch.Tensor:
-    """F.conv2d in x's dtype, with a channels_last result.  An eval-mode conv
-    (training=False) that `quantizes` under `int8_inference` runs `int8_conv`
-    instead: the float32 weight quantized, the result cast to x's dtype and
-    then the bias added in that dtype, in the JAX package's order.  Where
-    maps are striped, x is this rank's stripe (of layout `rows`, even where
-    None) and the result its output stripe under the owner rule.  `shard`
-    is the weight's tensor-parallel role (None: replicated); a quantized
-    block takes the whole layer's scales (`int8_conv_sharded`)."""
+           rows: Optional[spatial.Rows] = None, shard=None,
+           padding_mode: str = "zeros") -> torch.Tensor:
+    """F.conv2d in x's dtype, with a channels_last result; `padding_mode`
+    "reflect" pads x by mirroring (F.pad's "reflect") and convolves at 0.
+    An eval-mode conv (training=False) that `quantizes` under
+    `int8_inference` runs `int8_conv` instead: the float32 weight quantized,
+    the result cast to x's dtype and then the bias added in that dtype, in
+    the JAX package's order.  Where maps are striped, x is this rank's
+    stripe (of layout `rows`, even where None) and the result its output
+    stripe under the owner rule; a quantized conv there takes the whole
+    map's scales (`int8_conv_striped`, its halo exchanged as int8).
+    `shard` is the weight's tensor-parallel role (None: replicated); a
+    quantized block takes the whole layer's scales (`int8_conv_sharded`).
+    The two layouts exclude each other (MeshConfig.partition)."""
+    if padding_mode not in spatial.EDGES:
+        raise ValueError(f"padding_mode must be one of {spatial.EDGES}, got {padding_mode!r}")
+    reflect = padding_mode == "reflect"
+    quantized = quantizes(training, weight.shape[1], weight.shape[0], shard)
     pad = padding
     if spatial.active():
-        if quantizes(training, weight.shape[1], weight.shape[0], shard):
-            raise NotImplementedError("int8 inference under the spatial layout is not ported "
-                                      "yet (ROADMAP.md: K4 under the mesh layouts)")
-        x = spatial.window(x, weight.shape[2], stride, padding, rows)
-        pad = (0, padding)
-    elif quantizes(training, weight.shape[1], weight.shape[0], shard):
-        if shard is not None and distributed.model_world() > 1:
-            return int8_conv_sharded(x, weight, bias, stride, padding, _INT8_MODE["smooth"],
+        k = weight.shape[2]
+
+        def halo(t: torch.Tensor) -> torch.Tensor:
+            slab = spatial.window(t, k, stride, padding, rows, edge=padding_mode)
+            return _reflect_w(slab, padding) if reflect else slab
+
+        pad = (0, 0 if reflect else padding)
+        if quantized:
+            return int8_conv_striped(x, weight, bias, stride, pad, _INT8_MODE["smooth"], halo,
+                                     spatial.all_reduce_max)
+        x = halo(x)
+    else:
+        if reflect:
+            x, pad = F.pad(x, (padding,) * 4, mode="reflect"), 0
+        if quantized and shard is not None and distributed.model_world() > 1:
+            return int8_conv_sharded(x, weight, bias, stride, pad, _INT8_MODE["smooth"],
                                      shard, tp.all_reduce_max)
-        return int8_conv(x, weight, bias, stride, padding, _INT8_MODE["smooth"])
+        if quantized:
+            return int8_conv(x, weight, bias, stride, pad, _INT8_MODE["smooth"])
     y = F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
                  stride=stride, padding=pad)
     return y.contiguous(memory_format=torch.channels_last)
@@ -218,6 +247,9 @@ class Conv2d(nn.Module):
     torch.nn.utils.spectral_norm does, so the next forward's update does
     not touch tensors autograd saved, and the gradient flows through W only.
 
+    With `padding_mode` "reflect" the input is padded by mirroring, as the
+    "nospade" generator's blocks pad it (`conv2d`).
+
     Under tensor parallelism sigma is the full matrix's: the power
     iteration and u . W v sum their partial products over the model group
     (`_power_iteration`, `_sigma`); weight_u and weight_v stay full and
@@ -227,9 +259,11 @@ class Conv2d(nn.Module):
 
 
     def __init__(self, fin: int, fout: int, kernel_size: int = 3, stride: int = 1,
-                 padding: int = 1, bias: bool = True, spectral: bool = False):
+                 padding: int = 1, bias: bool = True, spectral: bool = False,
+                 padding_mode: str = "zeros"):
         super().__init__()
         self.stride, self.padding, self.spectral = stride, padding, spectral
+        self.padding_mode = padding_mode
         self.kernel_size = kernel_size
         w = nn.Parameter(torch.zeros(fout, fin, kernel_size, kernel_size))
         if spectral:
@@ -284,7 +318,8 @@ class Conv2d(nn.Module):
         # package's checkpoint_name(y, "conv_out")); the power iteration is not
         with saving_conv_output():
             y = conv2d(x, weight, None if row else self.bias, self.stride, self.padding,
-                       training=self.training, rows=rows, shard=self.shard)
+                       training=self.training, rows=rows, shard=self.shard,
+                       padding_mode=self.padding_mode)
         if row:
             y = tp.reduce(y)
             if self.bias is not None:
@@ -439,11 +474,12 @@ class NonSpadeNormConv(nn.Module):
     """
 
     def __init__(self, fin: int, fout: int, kernel_size: int = 3, stride: int = 1,
-                 padding: int = 1, norm: str = "spectralinstance"):
+                 padding: int = 1, norm: str = "spectralinstance", padding_mode: str = "zeros"):
         super().__init__()
         spectral, self.sub = parse_nonspade_norm(norm)
         self.add_module("0", Conv2d(fin, fout, kernel_size, stride, padding,
-                                    bias=self.sub == "none", spectral=spectral))
+                                    bias=self.sub == "none", spectral=spectral,
+                                    padding_mode=padding_mode))
         if self.sub in ("batch", "sync_batch"):
             self.add_module("1", TorchBatchNorm(fout, affine=True))
 

@@ -33,6 +33,14 @@ all-reduce over the model group that the caller passes in, and the rest of
 for bit.  Its stages are the kernels' wrappers, each of which launches its
 kernel on CUDA tensors and runs its plain version on CPU tensors.
 
+Under the spatial layout a rank holds a horizontal stripe of the map, and
+the maxima must still be the whole map's: `int8_conv_striped` runs (a) on
+the stripe, takes the model group's MAX all-reduce of its maxima (exact, so
+one process's bit for bit), then (b) and (c) as one process does, and hands
+(d) the stripe's x_q with its halo rows (int8, from the caller's window)
+at a padding of 0 along H.  Kernel (d) and its plan take the padding per
+axis, (pad_h, pad_w), for that.
+
 The launch plans are pure Python, so the CPU tests reach them:
 `weight_plan` gives (b)'s blocks their runs of output channels and their
 threads their units; `quantize_plan` sizes (c)'s grid; `igemm_plan`
@@ -52,7 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -67,11 +75,11 @@ __all__ = ["int8_conv", "int8_conv_plain", "quantize_plain", "igemm_plain", "Qua
            "divide_check", "QuantizePlan", "quantize_plan", "WeightPlan", "weight_plan",
            "weight_rows", "IgemmPlan", "igemm_plan",
            "igemm_tile", "igemm_loads",
-           "padded_channels", "conv_out_size", "launches", "plain_calls", "reset_launches",
-           "int8_conv_sharded", "weight_column_maxima", "quantize_weight_columns",
-           "weight_row_maxima", "quantize_weight_rows", "weight_column_maxima_plain",
-           "quantize_weight_columns_plain", "weight_row_maxima_plain",
-           "quantize_weight_rows_plain"]
+           "padded_channels", "conv_out_size", "pads", "launches", "plain_calls",
+           "reset_launches", "int8_conv_sharded", "int8_conv_striped", "weight_column_maxima",
+           "quantize_weight_columns", "weight_row_maxima", "quantize_weight_rows",
+           "weight_column_maxima_plain", "quantize_weight_columns_plain",
+           "weight_row_maxima_plain", "quantize_weight_rows_plain"]
 
 FLOOR = 1e-8
 LEVELS = 127.0
@@ -126,6 +134,17 @@ def padded_channels(cin: int) -> int:
 
 def conv_out_size(size: int, k: int, stride: int, padding: int) -> int:
     return (size + 2 * padding - k) // stride + 1
+
+
+Padding = Union[int, Tuple[int, int]]
+
+
+def pads(padding: Padding) -> Tuple[int, int]:
+    """(pad_h, pad_w) of a padding given as one int or per axis."""
+    if isinstance(padding, int):
+        return padding, padding
+    ph, pw = padding
+    return int(ph), int(pw)
 
 
 # -- the plain version ---------------------------------------------------------
@@ -266,14 +285,16 @@ def quantize_plain(x: torch.Tensor, weight: torch.Tensor, smooth: bool) -> Quant
 
 
 def igemm_plain(x_q: torch.Tensor, k_q: torch.Tensor, s_x: torch.Tensor, s_k: torch.Tensor,
-                bias: Optional[torch.Tensor], stride: int, padding: int,
+                bias: Optional[torch.Tensor], stride: int, padding: Padding,
                 out_dtype: torch.dtype) -> torch.Tensor:
     """Step 7 and the bias: the s8 x s8 -> s32 product as an exact float64
     conv (in batch slices of at most PLAIN_ELEMENTS outputs), rounded to
-    float32, times (s_x * s_k); cast to out_dtype; + bias in out_dtype."""
+    float32, times (s_x * s_k); cast to out_dtype; + bias in out_dtype.
+    `padding` is one int or (pad_h, pad_w)."""
     n, _, h, w = x_q.shape
     cout, _, kh, kw = k_q.shape
-    ho, wo = conv_out_size(h, kh, stride, padding), conv_out_size(w, kw, stride, padding)
+    padding = pads(padding)
+    ho, wo = conv_out_size(h, kh, stride, padding[0]), conv_out_size(w, kw, stride, padding[1])
     k64 = k_q.double()
     scale = (s_x * s_k)[:, None, None]
     rows = max(1, PLAIN_ELEMENTS // max(1, cout * ho * wo))
@@ -402,8 +423,9 @@ class IgemmPlan(NamedTuple):
 
 
 def igemm_plan(x_shape: Tuple[int, int, int, int], k_shape: Tuple[int, int, int, int],
-               stride: int, padding: int, sms: int = SMS) -> IgemmPlan:
-    """The plan for x_q of shape (N, Cp, H, W) and k_q (Cout, kh, kw, Cp).
+               stride: int, padding: Padding, sms: int = SMS) -> IgemmPlan:
+    """The plan for x_q of shape (N, Cp, H, W) and k_q (Cout, kh, kw, Cp),
+    `padding` one int or (pad_h, pad_w).
 
     bk: 64 bytes (64-byte swizzle) for Cp <= 64, else 128 (128-byte swizzle);
     bn: 256, or 128 for Cout <= 128; as many ring stages as 192 KB hold (at
@@ -415,7 +437,8 @@ def igemm_plan(x_shape: Tuple[int, int, int, int], k_shape: Tuple[int, int, int,
     if not 1 <= stride <= TMA_MAX_ELEMENT_STRIDE:
         raise ValueError(f"int8conv: stride {stride}: TMA's element strides run from 1 to "
                          f"{TMA_MAX_ELEMENT_STRIDE}")
-    ho, wo = conv_out_size(h, kh, stride, padding), conv_out_size(w, kw, stride, padding)
+    ph, pw = pads(padding)
+    ho, wo = conv_out_size(h, kh, stride, ph), conv_out_size(w, kw, stride, pw)
     bk = 64 if cp <= 64 else 128
     bn = 128 if cout <= 128 else 256
     stage = (IGEMM_BM + bn) * bk
@@ -443,12 +466,14 @@ def igemm_tile(plan: IgemmPlan, t: int) -> Tuple[int, int, int, int]:
 
 
 def igemm_loads(plan: IgemmPlan, tile: Tuple[int, int, int, int], kw: int, stride: int,
-                padding: int):
+                padding: Padding):
     """The producer's TMA coordinates for one tile, in K order: for each tap
     (r, q) and channel chunk, ((c, w, h, image) of the x_q box, (c, tap, n0)
-    of the k_q box)."""
+    of the k_q box).  The box's corner is shifted by pad_h along H and pad_w
+    along W; TMA fills zeros outside the tensor."""
     img, ho0, wo0, n0 = tile
-    h0, w0 = ho0 * stride - padding, wo0 * stride - padding
+    ph, pw = pads(padding)
+    h0, w0 = ho0 * stride - ph, wo0 * stride - pw
     for tap in range(plan.taps):
         r, q = divmod(tap, kw)
         for c in range(plan.chunks):
@@ -466,7 +491,7 @@ def _lib() -> ctypes.CDLL:
     lib.int8_quantize_weight.argtypes = [p] * 8 + [i32] * 6 + [p]
     lib.int8_quantize_weight_split.argtypes = [i32] + [p] * 9 + [i32] * 6 + [p]
     lib.int8_quantize_activation.argtypes = [p, p, p, p] + [i32] * 6 + [p]
-    lib.int8_conv_igemm.argtypes = [p, p, p, p, p, p] + [i32] * 17 + [p]
+    lib.int8_conv_igemm.argtypes = [p, p, p, p, p, p] + [i32] * 18 + [p]
     lib.int8_divide_check.argtypes = [p, p, i32, p, p, p, p]
     for fn in (lib.int8_absmax_channels, lib.int8_quantize_weight, lib.int8_quantize_weight_split,
                lib.int8_quantize_activation, lib.int8_conv_igemm, lib.int8_divide_check):
@@ -712,11 +737,12 @@ def quantize_activation(x: torch.Tensor, s_c: torch.Tensor, s_x: torch.Tensor) -
 
 def int8_conv_igemm(x_q: torch.Tensor, k_q: torch.Tensor, s_x: torch.Tensor,
                     s_k: torch.Tensor, bias: Optional[torch.Tensor], stride: int,
-                    padding: int, out_dtype: torch.dtype) -> torch.Tensor:
+                    padding: Padding, out_dtype: torch.dtype) -> torch.Tensor:
     """Kernel (d): the implicit-GEMM conv of x_q (N, Cp, H, W) channels_last
-    with k_q (Cout, kh, kw, Cp), dequantized, cast to out_dtype, + bias in
-    out_dtype; (N, Cout, Ho, Wo) channels_last.  The tile is
-    `igemm_plan`'s; the stride runs from 1 to 8 (TMA's element strides)."""
+    with k_q (Cout, kh, kw, Cp) at `padding` (one int or (pad_h, pad_w)),
+    dequantized, cast to out_dtype, + bias in out_dtype; (N, Cout, Ho, Wo)
+    channels_last.  The tile is `igemm_plan`'s; the stride runs from 1 to 8
+    (TMA's element strides)."""
     if _plain_here(x_q, k_q, s_x, s_k, bias):
         return igemm_plain(x_q, k_q, s_x, s_k, bias, stride, padding, out_dtype)
     _check_activation("x_q", x_q, (torch.int8,))
@@ -728,7 +754,8 @@ def int8_conv_igemm(x_q: torch.Tensor, k_q: torch.Tensor, s_x: torch.Tensor,
                          f"share a channel count that {CHANNEL_ALIGN} divides")
     if out_dtype not in _DTYPE_CODE:
         raise ValueError(f"int8conv: out_dtype must be float32 or bfloat16, got {out_dtype}")
-    if not 1 <= stride <= TMA_MAX_ELEMENT_STRIDE or padding < 0:
+    ph, pw = pads(padding)
+    if not 1 <= stride <= TMA_MAX_ELEMENT_STRIDE or min(ph, pw) < 0:
         raise ValueError(f"int8conv: stride {stride} (1 to {TMA_MAX_ELEMENT_STRIDE}) and "
                          f"padding {padding}")
     _check_vector("s_k", s_k, cout, x_q.device)
@@ -736,17 +763,17 @@ def int8_conv_igemm(x_q: torch.Tensor, k_q: torch.Tensor, s_x: torch.Tensor,
         raise ValueError("int8conv: s_x must be one float32 on x_q's device")
     if bias is not None:
         _check_vector("bias", bias, cout, x_q.device)
-    ho, wo = conv_out_size(h, kh, stride, padding), conv_out_size(w, kw, stride, padding)
+    ho, wo = conv_out_size(h, kh, stride, ph), conv_out_size(w, kw, stride, pw)
     if ho < 1 or wo < 1:
         raise ValueError(f"int8conv: no output for {h}x{w} with a {kh}x{kw} kernel")
-    plan = igemm_plan(tuple(x_q.shape), tuple(k_q.shape), stride, padding,
+    plan = igemm_plan(tuple(x_q.shape), tuple(k_q.shape), stride, (ph, pw),
                       card_sms(x_q.device))
     y = torch.empty((n, cout, ho, wo), dtype=out_dtype, device=x_q.device,
                     memory_format=torch.channels_last)
     with torch.cuda.device(x_q.device):
         err = _lib().int8_conv_igemm(x_q.data_ptr(), k_q.data_ptr(), s_x.data_ptr(),
                                      s_k.data_ptr(), None if bias is None else bias.data_ptr(),
-                                     y.data_ptr(), n, h, w, cp, cout, kh, kw, stride, padding,
+                                     y.data_ptr(), n, h, w, cp, cout, kh, kw, stride, ph, pw,
                                      ho, wo, plan.hbox, plan.wbox, plan.bk, plan.bn, plan.grid,
                                      _DTYPE_CODE[out_dtype], _stream(x_q))
     _check(err, "int8_conv_igemm")
@@ -834,6 +861,32 @@ def int8_conv_sharded(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torc
         s_k, s_x, k_q = quantize_weight_rows(weight, s_c, all_reduce_max(maxima))
     x_q = quantize_activation(x, s_c, s_x)
     return int8_conv_igemm(x_q, k_q, s_x, s_k, bias, stride, padding, x.dtype)
+
+
+def int8_conv_striped(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                      stride: int, padding: Padding, smooth: bool,
+                      halo: Callable[[torch.Tensor], torch.Tensor],
+                      all_reduce_max: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """`int8_conv` of one rank's horizontal stripe x of a map striped over
+    the model group.  (a) takes the stripe's maxima and `all_reduce_max`
+    (the elementwise max over the model group) makes them the whole map's,
+    in one call on (mx_raw, mx): a max is exact in any order, so (b)'s
+    s_c, s_k, s_x, k_q and (c)'s x_q are one process's bit for bit.  (c)
+    quantizes the stripe; `halo(x_q)` is the int8 slab that this rank's
+    output rows read (the neighbours' rows, the global edges' padding: the
+    caller's window), and (d) convolves it at `padding` ((pad_h, pad_w):
+    pad_h 0, the halo holding H's).  Kernels (a)-(d), which run their plain
+    versions on CPU tensors."""
+    if weight.dim() != 4 or weight.shape[1] != x.shape[1]:
+        raise ValueError(f"int8conv: weight {tuple(weight.shape)} does not fit x "
+                         f"{tuple(x.shape)}")
+    if _plain_here(x, weight, bias):
+        plain_calls["int8_conv"] += 1
+    c = x.shape[1]
+    mx_raw, mx = all_reduce_max(torch.cat(absmax_channels(x))).split(c)
+    s_c, s_k, s_x, k_q = quantize_weight(weight, mx_raw, mx, smooth)
+    x_q = quantize_activation(x, s_c, s_x)
+    return int8_conv_igemm(halo(x_q), k_q, s_x, s_k, bias, stride, padding, x.dtype)
 
 
 @_int8_conv_op.register_fake

@@ -20,8 +20,10 @@ in `replayed` too:
 
   * `window`: the rows a window needs from the neighbouring stripes (the
     halo), as many ranks up or down as it takes, zeros at the global top and
-    bottom only; an autograd function whose backward sends each halo row's
-    gradient back and adds it into its owner's row ("halo", "halo_grad");
+    bottom only (or, with edge "reflect", rows 1.. and ..H-2 of the first and
+    last stripes mirrored there); an autograd function whose backward sends
+    each halo row's gradient back and adds it into its owner's row, and a
+    mirrored row's into its source ("halo", "halo_grad");
   * `reduce`: all-reduce (sum) forward, identity backward: a loss's local
     sum ("reduce");
   * `sum_shared`: all-reduce forward and backward: a sum over H whose
@@ -34,7 +36,10 @@ in `replayed` too:
     partial sum over this rank's stripe, summed over the model group
     ("grads");
   * `gather_rows`: the stripes put back together, for the display and
-    checks ("gather").
+    checks ("gather");
+  * `all_reduce_max`: the elementwise maximum, outside autograd: an int8
+    conv's maxima over the whole map (ops/int8conv.py::int8_conv_striped,
+    "max").
 
 Every rank of a model group must call them with the same layouts, in the
 same order.  With one model rank, or outside `use_mesh` (and inside
@@ -55,7 +60,9 @@ import torch.distributed as dist
 from deepsee_torch.ops import modnorm as mn
 from deepsee_torch.parallel import distributed
 
-KINDS = ("halo", "halo_grad", "reduce", "shared", "stats", "stats_grad", "grads", "gather")
+KINDS = ("halo", "halo_grad", "reduce", "shared", "stats", "stats_grad", "grads", "gather",
+         "max")
+EDGES = ("zeros", "reflect")
 counts: Dict[str, Dict[str, int]] = {k: {"calls": 0, "bytes": 0} for k in KINDS}
 # the collectives issued again by a remat recompute (models/remat.py), also in counts
 replayed = {"calls": 0, "bytes": 0}
@@ -244,6 +251,28 @@ def _halo_plan(bounds: Tuple[int, ...], k: int, s: int, p: int):
     return tuple(reads), top, bottom, max(0, halo_up), max(0, halo_down)
 
 
+@functools.lru_cache(maxsize=None)
+def _mirrors(bounds: Tuple[int, ...], k: int, s: int, p: int):
+    """Per rank, the local rows that a reflect edge mirrors above and below
+    its stripe (the slab's first and last rows): global row -i reads row i,
+    row H - 1 + i reads row H - 1 - i, as jnp.pad / F.pad's "reflect" does.
+    Raises, the same on every rank, where a mirrored row lies outside the
+    stripe that reads it (a stripe too short for the reflection)."""
+    rows = Rows(bounds)
+    height, out = bounds[-1], []
+    for m, (a, b) in enumerate(rows.reads(k, s, p)):
+        lo, hi = rows.span(m)
+        src = [-g for g in range(a, min(b, 0))], [2 * (height - 1) - g
+                                                   for g in range(max(a, height), b)]
+        if any(not lo <= r < hi for r in src[0] + src[1]):
+            raise ValueError(f"a reflect edge of {p} rows (window {k}x{k}, stride {s}) mirrors "
+                             f"rows {src[0] + src[1]} of the map of {height}, outside the "
+                             f"stripe [{lo}, {hi}) that reads them: the stripes are too short "
+                             "for the reflection; use fewer model ranks for this map")
+        out.append(tuple(tuple(r - lo for r in rs) for rs in src))
+    return tuple(out)
+
+
 def _edges(t: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
     """(B, top + bottom, W, C): t's (NHWC) first `top` rows, zeros after
     them where t has fewer, then its last `bottom` rows, zeros before them
@@ -267,17 +296,23 @@ def _all_gather(kind: str, t: torch.Tensor) -> List[torch.Tensor]:
 
 class _Window(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, bounds, k, s, p):
+    def forward(ctx, x, bounds, k, s, p, edge):
         rows = Rows(bounds)
         reads, top, bottom, up, down = _halo_plan(bounds, k, s, p)
         m, n, height = distributed.model_rank(), len(bounds) - 1, bounds[-1]
+        mirrors = _mirrors(bounds, k, s, p)[m] if edge == "reflect" else ((), ())
         xn = x.permute(0, 2, 3, 1)
         parts = (_all_gather("halo", _edges(xn, top, bottom)) if top or bottom else None)
         a, b = reads[m]
         pieces = []
-        zeros = lambda r: xn.new_zeros((xn.shape[0], r) + xn.shape[2:])  # noqa: E731
+
+        def edge_rows(r, mirrored):
+            if mirrored:
+                return xn.index_select(1, torch.tensor(mirrored, device=xn.device))
+            return xn.new_zeros((xn.shape[0], r) + xn.shape[2:])
+
         if a < 0:
-            pieces.append(zeros(min(b, 0) - a))
+            pieces.append(edge_rows(min(b, 0) - a, mirrors[0]))
         for j in range(n):
             lo, hi = rows.span(j)
             r0, r1 = max(a, lo, 0), min(b, hi, height)
@@ -291,14 +326,14 @@ class _Window(torch.autograd.Function):
                 base = top + bottom - (hi - r0)
                 pieces.append(parts[j][:, base:base + r1 - r0])
         if b > height:
-            pieces.append(zeros(b - max(a, height)))
-        ctx.plan = (bounds, reads, up, down, x.shape[2])
+            pieces.append(edge_rows(b - max(a, height), mirrors[1]))
+        ctx.plan = (bounds, reads, up, down, x.shape[2], mirrors)
         slab = torch.cat(pieces, dim=1).permute(0, 3, 1, 2)
         return slab.contiguous(memory_format=torch.channels_last)
 
     @staticmethod
     def backward(ctx, g):
-        bounds, reads, up, down, h = ctx.plan
+        bounds, reads, up, down, h, mirrors = ctx.plan
         rows, m, n, height = Rows(bounds), distributed.model_rank(), len(bounds) - 1, bounds[-1]
         gn = g.permute(0, 2, 3, 1)
         lo, hi = rows.span(m)
@@ -307,6 +342,11 @@ class _Window(torch.autograd.Function):
         r0, r1 = max(a, lo), min(b, hi)
         if r0 < r1:
             out[:, r0 - lo:r1 - lo] += gn[:, r0 - a:r1 - a]
+        # a mirrored row's gradient into its source row
+        for mirrored, first in ((mirrors[0], 0), (mirrors[1], max(a, height) - a)):
+            if mirrored:
+                out.index_add_(1, torch.tensor(mirrored, device=gn.device),
+                               gn[:, first:first + len(mirrored)])
         if up or down:
             # my top halo rows [lo - up, lo) and bottom ones [hi, hi + down), zeros
             # where I read none of them
@@ -329,23 +369,28 @@ class _Window(torch.autograd.Function):
                         out[:, s0 - lo:s1 - lo] += parts[i][:, first + s0 - start:
                                                             first + s1 - start]
         gx = out.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        return gx, None, None, None, None
+        return gx, None, None, None, None, None
 
 
-def window(x: torch.Tensor, k: int, s: int, p: int, rows: Optional[Rows] = None) -> torch.Tensor:
+def window(x: torch.Tensor, k: int, s: int, p: int, rows: Optional[Rows] = None,
+           edge: str = "zeros") -> torch.Tensor:
     """The rows of the global map that this rank's output stripe of a k-row
     window (stride s, padding p) reads: its own rows, the neighbours' halo
-    rows and zeros beyond the global top and bottom (never between the
-    stripes).  A window over the result with padding 0 along H gives this
-    rank's output rows.  `rows` is x's layout (its even stripes where
-    None)."""
+    rows and, beyond the global top and bottom (never between the
+    stripes), zeros or with `edge` "reflect" the mirrored rows 1.. and
+    ..H-2 (which the first and last stripes must hold).  A window over the
+    result with padding 0 along H gives this rank's output rows.  `rows` is
+    x's layout (its even stripes where None).  Any dtype the process
+    group's all-gather takes (an int8 conv's x_q too)."""
+    if edge not in EDGES:
+        raise ValueError(f"edge must be one of {EDGES}, got {edge!r}")
     if k == 1 and s == 1 and p == 0:   # a 1x1 conv reads its own rows
         return x
     rows = rows_of(x) if rows is None else rows
     if tuple(x.shape[2:3]) != (rows.span()[1] - rows.span()[0],):
         raise ValueError(f"this rank's stripe has {x.shape[2]} rows, the layout {rows.bounds} "
                          f"gives it {rows.span()}")
-    return _Window.apply(x, rows.bounds, k, s, p)
+    return _Window.apply(x, rows.bounds, k, s, p, edge)
 
 
 # -- reductions --------------------------------------------------------------------
@@ -400,6 +445,16 @@ def mean(t: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
         return t.float().mean()
     height = rows.height if rows is not None else t.shape[2] * distributed.model_world()
     return reduce(t.float().sum()) / (t.numel() // t.shape[2] * height)
+
+
+def all_reduce_max(t: torch.Tensor) -> torch.Tensor:
+    """A new tensor: the elementwise maximum of t over the model group,
+    outside autograd, counted as "max"."""
+    with torch.no_grad():
+        out = t.detach().contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=distributed.model_group())
+    _count("max", out)
+    return out
 
 
 def sum_replicated_grads(params: Sequence[torch.Tensor]) -> None:

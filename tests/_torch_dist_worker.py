@@ -152,7 +152,7 @@ def nudge(system: SRSystem, ulps: int, seed: int) -> None:
     chip_smoke.py's `_nudge`)."""
     generator = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for net in (system.generator, system.encoder, system.discriminator):
+        for net in filter(None, (system.generator, system.encoder, system.discriminator)):
             for p in net.parameters():
                 p.mul_(1 + ulps * 2.0 ** -23 * torch.randn(p.shape, generator=generator))
 
@@ -667,13 +667,18 @@ def _tp_cli_task(out_dir: str):
 
 # -- spatial sharding (tests/test_torch_sp_*.py) --------------------------------------
 
-# the windows of the presets, (k, s, p): the 3x3 convs at stride 1 and 2, D's
-# 4x4 convs at stride 2 and 1; "pool" the 3x3 stride-2 pool between D's
+# the windows of the presets, (k, s, p[, padding mode]): the 3x3 convs at
+# stride 1 and 2, D's 4x4 convs at stride 2 and 1, the "nospade" generator's
+# reflection-padded 3x3 conv; "pool" the 3x3 stride-2 pool between D's
 # scales, "d_chain" the pool and D's four windows in a row (uneven stripes,
 # and at 1 x 4 stripes of one row under a 4-row window)
 SP_WINDOWS = {"3x3s1": [(3, 1, 1)], "3x3s2": [(3, 2, 1)], "4x4s2": [(4, 2, 2)],
-              "4x4s1": [(4, 1, 2)], "pool": [], "d_chain": [(4, 2, 2), (4, 2, 2), (4, 1, 2),
-                                                            (4, 1, 2)]}
+              "4x4s1": [(4, 1, 2)], "3x3reflect": [(3, 1, 1, "reflect")], "pool": [],
+              "d_chain": [(4, 2, 2), (4, 2, 2), (4, 1, 2), (4, 1, 2)]}
+# the window cases, the tiny model's discriminator and a train-mode
+# "nospade" generator block (Pix2PixResnetBlock: its reflect windows, its
+# instance norms across the stripes)
+SP_OPS_CASES = list(SP_WINDOWS) + ["discriminator", "pix2pix"]
 SP_PLANTED = ("zero_halo", "stripe_stats")
 
 
@@ -712,13 +717,15 @@ def _stripe_rows(full, rows):
 
 
 def window_run(case: str, seed: int = 21, width: int = 12):
-    """A window case of SP_WINDOWS on (2, 8, 32, width) or "discriminator"
-    (the tiny model's multiscale D in train mode, its instance norms across
-    the stripes, on 64 rows: its pooled scale leaves each of 4 ranks a row)
-    float32, laid out as the active mesh stripes it:
+    """A window case of SP_WINDOWS on (2, 8, 32, width), "pix2pix" (a
+    train-mode Pix2PixResnetBlock of 8 channels on the same) or
+    "discriminator" (the tiny model's multiscale D in train mode, its
+    instance norms across the stripes, on 64 rows: its pooled scale leaves
+    each of 4 ranks a row) float32, laid out as the active mesh stripes it:
     the output and the input's gradient (gathered whole) and the parameters'
     gradients (summed over the model group) of sum(y * w) for seeded x, w."""
     from deepsee_torch.models.discriminator import MultiscaleDiscriminator
+    from deepsee_torch.models.generator import Pix2PixResnetBlock
     from deepsee_torch.ops.pooling import avg_pool_3x3_s2
     from deepsee_torch.parallel import spatial
 
@@ -738,10 +745,19 @@ def window_run(case: str, seed: int = 21, width: int = 12):
         layouts = ([r for scale in net.output_rows(height) for r in scale] if rows is not None
                    else [None] * len(outs))
         params = list(net.parameters())
+    elif case == "pix2pix":
+        block = Pix2PixResnetBlock(channels).train()
+        for m in block.modules():
+            if hasattr(m, "init_params"):
+                m.init_params(g)
+        with torch.no_grad():  # weights of trained-like size, not the init's gain 0.02
+            for p in block.parameters():
+                p.copy_(0.3 * torch.randn(p.shape, generator=g))
+        outs, layouts, params = [block(x)], [rows], list(block.parameters())
     else:
         convs = []
-        for k, s, p in SP_WINDOWS[case]:
-            conv = tlayers.Conv2d(channels, channels, k, s, p)
+        for k, s, p, *mode in SP_WINDOWS[case]:
+            conv = tlayers.Conv2d(channels, channels, k, s, p, padding_mode=(mode or ["zeros"])[0])
             with torch.no_grad():
                 conv.weight.copy_(0.2 * torch.randn(conv.weight.shape, generator=g))
                 conv.bias.copy_(0.1 * torch.randn(conv.bias.shape, generator=g))
@@ -774,7 +790,7 @@ def _sp_ops_task(out_dir: str):
 
     spatial.use_mesh(MeshConfig(model_axis=distributed.world_size(), partition="spatial"))
     spatial.reset_counts()
-    out = {case: window_run(case) for case in list(SP_WINDOWS) + ["discriminator"]}
+    out = {case: window_run(case) for case in SP_OPS_CASES}
     out["counts"] = {k: dict(v) for k, v in spatial.counts.items()}
     for fault in SP_PLANTED:
         with planted(fault):
@@ -815,6 +831,115 @@ def sp_infer_run(name: str, weights, batch, planted_fault=None):
     return {"fake": spatial.gather_rows(fake, dim=1).clone(), "style": style.clone()}
 
 
+# int8 inference on stripes: every conv of at least this many channels
+# quantizes, as the JAX package's mesh test runs it
+# (tests/test_int8_inference.py:191-243)
+SP_INT8_MIN_CH = 8
+SP_INT8_MODES = ("smooth", "nosmooth")
+# the planted fault of the int8 runs: no MAX all-reduce, each stripe
+# quantizing with its own maxima
+SP_INT8_PLANTED = "stripe_maxima"
+
+
+class _StripedScales:
+    """Every quantized conv's s_c, s_k, s_x and k_q while open, and one
+    process's quantization of the conv's input gathered whole (the model
+    group's stripes): {"got": ..., "want": ...} per conv in call order, from
+    the wrappers of (b) and (c) that `int8_conv_striped` calls."""
+
+    def __init__(self):
+        from deepsee_torch.ops import int8conv as ic
+
+        self.ic, self.calls = ic, []
+        self.saved = ic.quantize_weight, ic.quantize_activation
+
+    def __enter__(self):
+        from deepsee_torch.parallel import spatial
+
+        weight_fn, act_fn = self.saved
+
+        def weight(w, mx_raw, mx, smooth):
+            out = weight_fn(w, mx_raw, mx, smooth)
+            self.calls.append({"weight": w.detach().clone(), "smooth": smooth,
+                               "got": dict(zip(("s_c", "s_k", "s_x", "k_q"), out))})
+            return out
+
+        def activation(x, s_c, s_x):
+            call = self.calls[-1]
+            q = self.ic.quantize_plain(spatial.gather_rows(x), call.pop("weight"),
+                                       call["smooth"])
+            call["want"] = {"s_c": q.s_c, "s_k": q.s_k, "s_x": q.s_x, "k_q": q.k_q}
+            return act_fn(x, s_c, s_x)
+
+        self.ic.quantize_weight, self.ic.quantize_activation = weight, activation
+        return self
+
+    def __exit__(self, *exc):
+        self.ic.quantize_weight, self.ic.quantize_activation = self.saved
+
+
+def sp_int8_run(weights, batch, mode: str = "smooth", fault=None, nudge_seed=None):
+    """The tiny system of SP_INFER_CONFIGS holding `weights` under
+    int8_inference(min_ch=SP_INT8_MIN_CH, smooth=mode == "smooth"): the
+    preprocess -> encode -> generate of `sp_infer_run` on this data rank's
+    rows of `batch` and this model rank's stripes (the whole batch where
+    there are no ranks): the fake gathered whole, the quantized convs and
+    the MAX all-reduces (calls, bytes) and halos (calls, bytes) they made,
+    and where the map is striped every conv's scales beside one process's
+    quantization of its gathered input (`_StripedScales`).  `fault`
+    SP_INT8_PLANTED: the MAX all-reduce the identity.  `nudge_seed`: the
+    weights nudged by one ulp (`nudge`)."""
+    from deepsee_torch.ops import int8conv as ic
+    from deepsee_torch.parallel import spatial
+
+    system = SRSystem(sp_infer_exp("tiny"), device="cpu")
+    for net, module in system.networks().items():
+        module.load_state_dict(weights[net])
+    if nudge_seed is not None:
+        nudge(system, 1, nudge_seed)  # G and E: an inference system has no D
+    batch = spatial.shard_rows(rows(batch, distributed.data_rank(), distributed.data_world()))
+    patches = (_Patches((spatial, "all_reduce_max", lambda t: t)) if fault == SP_INT8_PLANTED
+               else _Patches())
+    recorder = _StripedScales() if spatial.active() else _Patches()
+    ic.reset_launches()
+    spatial.reset_counts()
+    with tlayers.int8_inference(min_ch=SP_INT8_MIN_CH, smooth=mode == "smooth"), patches, \
+            recorder:
+        pre = system.preprocess(batch)
+        counts = {k: dict(spatial.counts[k]) for k in ("max", "halo")}
+        fake, _ = system.generate(pre, use_full=False, no_noise=True)
+        counts = {k: {n: spatial.counts[k][n] - counts[k][n] for n in ("calls", "bytes")}
+                  for k in counts}
+    return {"fake": spatial.gather_rows(fake, dim=1).clone(),
+            "quantized_convs": ic.plain_calls["int8_conv"], "collectives": counts,
+            "scales": getattr(recorder, "calls", None)}
+
+
+def sp_nospade_run(data):
+    """The tiny "nospade" generator (Pix2PixResnetBlock blocks) in eval mode
+    holding data["weights"], on this data rank's rows of data["inputs"] (lr,
+    seg, style: numpy NHWC, style (B, 19, S)) and this model rank's stripes
+    of lr and seg: the fake (B, H, W, 3) gathered whole."""
+    import numpy as np
+
+    from deepsee_torch.models.generator import DeepSEEGenerator
+    from deepsee_torch.parallel import spatial
+
+    net = DeepSEEGenerator(tiny_test_experiment().model, variant="nospade").eval()
+    net.load_state_dict(data["weights"])
+    mine = rows(data["inputs"], distributed.data_rank(), distributed.data_world())
+    if spatial.active():
+        mine = dict(mine, lr=spatial.stripe(mine["lr"], 1), seg=spatial.stripe(mine["seg"], 1))
+
+    def nchw(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+
+    with torch.no_grad():
+        fake = net(nchw(mine["lr"]), nchw(mine["seg"]), torch.from_numpy(mine["style"]))
+    return {"fake": spatial.gather_rows(fake, dim=2).permute(0, 2, 3, 1).clone()}
+
+
 def _sp_infer_task(out_dir: str):
     from deepsee_torch.parallel import spatial
 
@@ -824,10 +949,16 @@ def _sp_infer_task(out_dir: str):
     for name in SP_INFER_CONFIGS:
         data = torch.load(os.path.join(out_dir, f"infer_{name}.pt"), weights_only=False)
         out[name] = sp_infer_run(name, data["weights"], data["batch"])
+    data = torch.load(os.path.join(out_dir, "infer_tiny.pt"), weights_only=False)
+    for mode in SP_INT8_MODES:
+        out[f"int8_{mode}"] = sp_int8_run(data["weights"], data["batch"], mode)
+    out["nospade"] = sp_nospade_run(torch.load(os.path.join(out_dir, "nospade.pt"),
+                                               weights_only=False))
     if mesh.data_axis == 1:
-        data = torch.load(os.path.join(out_dir, "infer_tiny.pt"), weights_only=False)
         for fault in SP_PLANTED:
             out[f"tiny_{fault}"] = sp_infer_run("tiny", data["weights"], data["batch"], fault)
+        out[f"int8_{SP_INT8_PLANTED}"] = sp_int8_run(data["weights"], data["batch"],
+                                                     fault=SP_INT8_PLANTED)
     return out
 
 

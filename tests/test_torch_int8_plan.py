@@ -18,7 +18,8 @@ import torch.nn.functional as F
 
 from deepsee_torch.ops import int8conv as ic
 
-# name: (x (N, Cin, H, W), weight (Cout, Cin, kh, kw), stride, padding)
+# name: (x (N, Cin, H, W), weight (Cout, Cin, kh, kw), stride, padding: one
+# int or (pad_h, pad_w); a stripe's slab with its halo rows comes at pad_h 0)
 CASES = {
     "19x23 cin 72 (Cp 80 read as 128)": ((2, 72, 19, 23), (40, 72, 3, 3), 1, 1),
     "7x5 Cp 64, Cout 20": ((3, 64, 7, 5), (20, 64, 3, 3), 1, 1),
@@ -29,6 +30,10 @@ CASES = {
     "a row wider than 128": ((1, 16, 3, 150), (8, 16, 3, 3), 1, 1),
     "stride 3": ((1, 16, 20, 20), (8, 16, 3, 3), 3, 1),
     "5x5, padding 2": ((1, 16, 11, 13), (8, 16, 5, 5), 1, 2),
+    "slab: pad_h 0, pad_w 1": ((2, 72, 10, 23), (40, 72, 3, 3), 1, (0, 1)),
+    "slab at stride 2: pad_h 0, pad_w 1": ((2, 32, 11, 23), (24, 32, 3, 3), 2, (0, 1)),
+    "slab 5x5: pad_h 0, pad_w 2": ((1, 16, 12, 13), (8, 16, 5, 5), 1, (0, 2)),
+    "pad_h 2, pad_w 0": ((1, 16, 9, 150), (8, 16, 3, 3), 1, (2, 0)),
 }
 
 
@@ -74,7 +79,8 @@ def _emulate(plan, x_q, k_q, stride, pad):
     many times each output was written."""
     n, _, h, w = x_q.shape
     cout, kh, kw, cp = k_q.shape
-    ho, wo = ic.conv_out_size(h, kh, stride, pad), ic.conv_out_size(w, kw, stride, pad)
+    ph, pw = ic.pads(pad)
+    ho, wo = ic.conv_out_size(h, kh, stride, ph), ic.conv_out_size(w, kw, stride, pw)
     x_nhwc = x_q.permute(0, 2, 3, 1)                 # [N][H][W][Cp]
     k_3d = k_q.reshape(cout, kh * kw, cp)            # [Cout][tap][Cp]
     out = torch.zeros((n, ho, wo, cout), dtype=torch.long)
@@ -105,7 +111,8 @@ def test_emulated_tma_gather_gives_the_exact_product(case):
     plan = ic.igemm_plan(tuple(x_q.shape), tuple(k_q.shape), stride, pad)
     acc, writes = _emulate(plan, x_q, k_q, stride, pad)
     assert bool((writes == 1).all()), "every output written exactly once"
-    want = F.conv2d(x_q.double(), k_q.permute(0, 3, 1, 2).double(), stride=stride, padding=pad)
+    want = F.conv2d(x_q.double(), k_q.permute(0, 3, 1, 2).double(), stride=stride,
+                    padding=ic.pads(pad))
     assert torch.equal(acc.permute(0, 3, 1, 2), want.long())
     for dtype in (torch.float32, torch.bfloat16):
         for b in (bias, None):
@@ -135,7 +142,8 @@ def test_plan_fits_the_kernel(case):
     assert 3 <= plan.stages <= ic.IGEMM_MAX_STAGES and plan.stages * stage <= ic.IGEMM_RING_BYTES
     assert plan.smem <= 232448                      # an H100 block's shared memory
     assert plan.grid == min(plan.tiles, 132)
-    ho, wo = ic.conv_out_size(h, kh, stride, pad), ic.conv_out_size(w, kw, stride, pad)
+    ph, pw = ic.pads(pad)
+    ho, wo = ic.conv_out_size(h, kh, stride, ph), ic.conv_out_size(w, kw, stride, pw)
     assert plan.tiles == n * -(-ho // plan.hbox) * -(-wo // plan.wbox) * -(-cout // plan.bn)
 
 

@@ -1,10 +1,11 @@
 """deepsee_torch stands alone: it imports neither JAX nor flax nor
-deepsee_tpu, it imports and decodes images where Pillow is not installed,
-it refuses to fall back to the CPU, and chip_smoke.py fails without a card
-and outside a checkout."""
+deepsee_tpu (nor does its notebook, Demo_torch.ipynb), it imports and
+decodes images where Pillow is not installed, it refuses to fall back to
+the CPU, and chip_smoke.py fails without a card and outside a checkout."""
 
 import ast
 import dataclasses
+import json
 import os
 import pathlib
 import shutil
@@ -20,11 +21,22 @@ from deepsee_torch.system import SRSystem
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "deepsee_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = ("jax", "flax", "deepsee_tpu")
+NOTEBOOK = REPO / "Demo_torch.ipynb"
 
 
-@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def _sources(path):
+    """A file's source, or each code cell's of a notebook."""
+    if path.suffix == ".ipynb":
+        return ["".join(c["source"]) for c in json.loads(path.read_text())["cells"]
+                if c["cell_type"] == "code"]
+    return [path.read_text()]
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [NOTEBOOK], ids=lambda p: str(p.relative_to(REPO)))
 def test_port_file_imports_no_jax(path):
-    for node in ast.walk(ast.parse(path.read_text())):
+    sources = _sources(path)
+    assert sources
+    for node in (n for source in sources for n in ast.walk(ast.parse(source))):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):

@@ -932,6 +932,27 @@ def test_int8_kernels_match_plain_on_card(cuda_device, case, smooth, dtype):
     assert torch.equal(whole, y)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("smooth", [True, False])
+@pytest.mark.parametrize("case", ["conv 512 64^2", "down1 stride 2", "1x1"])
+def test_int8_conv_striped_on_one_stripe_is_the_op(cuda_device, case, smooth):
+    """`int8_conv_striped` on a map of one stripe (the MAX all-reduce the
+    identity; the halo the padding's zero rows, as int8): one launch of
+    each of (a)-(d), (d) at pad_h 0, the output bit for bit the op's."""
+    x, weight, bias, stride, pad = _int8_inputs(cuda_device, torch.bfloat16, case)
+
+    def halo(x_q):
+        rows = x_q.new_zeros(x_q.shape[:2] + (pad,) + x_q.shape[3:])
+        return torch.cat([rows, x_q, rows], 2).contiguous(memory_format=torch.channels_last)
+
+    before = dict(ic.launches)
+    y = ic.int8_conv_striped(x, weight, bias, stride, (0, pad), smooth, halo, lambda t: t)
+    torch.cuda.synchronize()
+    assert {k: ic.launches[k] - before[k] for k in before} == dict.fromkeys(before, 0) | \
+        dict.fromkeys(("absmax", "quantize_weight", "quantize_activation", "igemm"), 1)
+    assert torch.equal(y, ic.int8_conv(x, weight, bias, stride, pad, smooth))
+
+
 # (b) alone: (Cout, Cin, kh, kw) of every quantized conv of the int8 main and
 # 8x guided paths, chip_smoke.py's ragged weights, one whose threads take
 # several units each, a 5x5 (taps at run time) and an odd Cin
@@ -1155,7 +1176,9 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 
 
 # (d) alone at ragged shapes: x (B, Cin, H, W), weight (Cout, Cin, kh, kw),
-# stride, padding; the tile's rectangle and N tile stick out of each
+# stride, padding (one int or (pad_h, pad_w): a stripe's slab, whose halo
+# rows hold H's padding, at pad_h 0); the tile's rectangle and N tile stick
+# out of each
 IGEMM_SHAPES = {
     "19x23 cin 72 (Cp 80) cout 40": ((3, 72, 19, 23), (40, 72, 3, 3), 1, 1),
     "7x5 Cp 64 cout 20": ((3, 64, 7, 5), (20, 64, 3, 3), 1, 1),
@@ -1165,6 +1188,10 @@ IGEMM_SHAPES = {
     "M not a multiple of 128, two N tiles": ((3, 256, 13, 11), (264, 256, 3, 3), 1, 1),
     "Cp 16 cout 36": ((2, 8, 21, 10), (36, 8, 3, 3), 1, 1),
     "a row wider than 128": ((1, 128, 4, 150), (128, 128, 3, 3), 1, 1),
+    "slab pad_h 0": ((2, 512, 34, 64), (512, 512, 3, 3), 1, (0, 1)),
+    "slab pad_h 0 Cp 144 cout 1024": ((2, 144, 18, 32), (1024, 144, 3, 3), 1, (0, 1)),
+    "slab pad_h 0 stride 2": ((2, 64, 33, 64), (128, 64, 3, 3), 2, (0, 1)),
+    "pad_h 2 pad_w 0": ((1, 64, 9, 40), (72, 64, 3, 3), 1, (2, 0)),
 }
 
 

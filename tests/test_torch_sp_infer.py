@@ -12,6 +12,19 @@ JAX init made nontrivial (test_torch_layers.realistic_variables: the bare
 init saturates every pixel at +-1, which any layout matches).  The style
 matrix, whole on every rank, within 1e-6.  Each planted fault (zero halos,
 statistics per stripe) breaks the tiny configuration's match.
+
+int8 inference on stripes (the JAX package runs `_int8_conv` under its
+spatial mesh and holds it to one device, tests/test_int8_inference.py:191-243):
+the tiny system under int8_inference(min_ch=8), smooth and not, against one
+process on each data rank's rows (mean |error| < 5e-3, max < 0.08, or twice
+one process's own spread under a one-ulp nudge, whichever is larger; the
+model ranks bit for bit alike), and at 1 x 2 against the JAX package's
+one-device int8 fake of the same weights and batch (5e-3 / 0.08).  Every
+striped conv's s_c, s_k, s_x and k_q, teacher-forced, are one process's
+quantization of the conv's gathered input bit for bit: a MAX all-reduce
+makes the stripes' maxima the whole map's.  Without it (the planted fault),
+they are not.  The "nospade" generator (reflection-padded blocks) in eval
+mode on stripes against the JAX package's on one device.
 """
 
 import functools
@@ -26,13 +39,20 @@ import torch
 import _torch_dist_worker as worker
 from deepsee_tpu.config import DataConfig, Experiment, ModelConfig, TrainConfig
 from deepsee_tpu.config import tiny_test_experiment as jax_tiny
+from deepsee_tpu.models import generator as jgen
+from deepsee_tpu.models import layers as jl
 from deepsee_tpu.system import SRSystem as JaxSystem
+from deepsee_torch.models import generator as tgen
 from deepsee_torch.system import SRSystem
-from test_torch_layers import realistic_variables
+from test_torch_layers import load, realistic_variables
 from torch_data_corpus import one_torch_thread  # noqa: F401 (autouse)
 
 LAYOUTS = {"1x2": 2, "2x2": 4}
 RTOL, ATOL = 1e-4, 1e-5
+# int8 against one device: the JAX package's mesh test's tolerances
+INT8_MEAN_ABS, INT8_MAX_ABS = 5e-3, 0.08
+INT8_NOISE = 2.0        # times one process's own spread under a one-ulp nudge
+NOSPADE_BATCH = 2
 
 
 def _jax_exp(name):
@@ -65,13 +85,45 @@ def _reference(name, tmp):
         pre = system.preprocess(bt)
         return system.generate(g, e, pre, use_full=False, no_noise=True, train=False)
 
-    fake, style, _ = infer(g, e, {k: jnp.asarray(v) for k, v in batch.items()})
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    fake, style, _ = infer(g, e, jbatch)
+    int8_fake = None
+    if name == "tiny":
+        with jl.int8_inference(min_ch=worker.SP_INT8_MIN_CH):
+            int8_fake = np.asarray(jax.jit(lambda g, e, bt: system.generate(
+                g, e, system.preprocess(bt), use_full=False, no_noise=True, train=False)[0])(
+                    g, e, jbatch))
     port = SRSystem(worker.sp_infer_exp(name), device="cpu")
     port.load_jax_variables(g, e)
     weights = {net: m.state_dict() for net, m in port.networks().items()}
     for layout in LAYOUTS:
         torch.save({"weights": weights, "batch": batch}, f"{tmp}/{layout}/infer_{name}.pt")
-    return np.asarray(fake), np.asarray(style), weights, batch
+    return np.asarray(fake), np.asarray(style), weights, batch, int8_fake
+
+
+def _nospade_reference(tmp):
+    """The JAX package's tiny "nospade" generator on one device (eval mode,
+    realistic weights) and its inputs; the port's weights and the inputs
+    for the ranks."""
+    cfg = jax_tiny().model
+    rng = np.random.RandomState(5)
+    b, s, c = NOSPADE_BATCH, cfg.start_size, cfg.crop_size
+    inputs = {"lr": np.tanh(rng.randn(b, s, s, 3)).astype(np.float32),
+              "seg": np.eye(cfg.semantic_nc, dtype=np.float32)[
+                  rng.randint(0, cfg.semantic_nc, (b, c, c))],
+              "style": np.tanh(rng.randn(b, cfg.label_nc, cfg.regional_style_size)
+                               ).astype(np.float32)}
+    args = tuple(jnp.asarray(inputs[k]) for k in ("lr", "seg", "style"))
+    jmod = jgen.DeepSEEGenerator(cfg, variant="nospade")
+    init = jmod.init({"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)},
+                     *args, train=True)
+    v = realistic_variables(init, 9)
+    want = np.asarray(jmod.apply(v, *args, train=False))
+    weights = load(tgen.DeepSEEGenerator(worker.tiny_test_experiment().model,
+                                         variant="nospade"), v).state_dict()
+    for layout in LAYOUTS:
+        torch.save({"weights": weights, "inputs": inputs}, f"{tmp}/{layout}/nospade.pt")
+    return want
 
 
 @functools.cache
@@ -79,11 +131,27 @@ def _runs(tmp):
     for layout in LAYOUTS:
         os.makedirs(f"{tmp}/{layout}")
     want = {name: _reference(name, tmp) for name in worker.SP_INFER_CONFIGS}
+    want["nospade"] = _nospade_reference(tmp)
     spawned = {layout: worker.Spawned(f"{tmp}/{layout}", ["sp_infer"], world=world)
                for layout, world in LAYOUTS.items()}
-    one = {name: worker.sp_infer_run(name, w, b) for name, (_, _, w, b) in want.items()}
+    one = {name: worker.sp_infer_run(name, *want[name][2:4]) for name in worker.SP_INFER_CONFIGS}
+    one["int8"] = _int8_one_process(*want["tiny"][2:4])
     return want, one, {layout: [r["sp_infer"] for r in s.results(timeout=240.0)[0]]
                        for layout, s in spawned.items()}
+
+
+def _int8_one_process(weights, batch):
+    """(layout, mode) -> one process's int8 fake on each data rank's rows of
+    the layout, put together, and the same with the weights nudged by one
+    ulp."""
+    out = {}
+    for layout, world in LAYOUTS.items():
+        data = world // 2
+        for mode in worker.SP_INT8_MODES:
+            out[(layout, mode)] = [torch.cat([worker.sp_int8_run(
+                weights, worker.rows(batch, d, data), mode, nudge_seed=seed)["fake"]
+                for d in range(data)]) for seed in (None, 31)]
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -127,3 +195,85 @@ def test_planted_faults_break_the_match(runs, fault):
     want, _, ranks = runs
     got = _fakes(ranks["1x2"], f"tiny_{fault}")
     assert np.abs(got - want["tiny"][0]).max() > 10 * (ATOL + RTOL * np.abs(want["tiny"][0]).max())
+
+
+def _int8_limits(one, nudged):
+    spread = (nudged - one).abs()
+    return (max(INT8_MEAN_ABS, INT8_NOISE * float(spread.mean())),
+            max(INT8_MAX_ABS, INT8_NOISE * float(spread.max())))
+
+
+@pytest.mark.parametrize("mode", worker.SP_INT8_MODES)
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_striped_int8_matches_one_process(runs, layout, mode):
+    """The fakes of the model ranks of each data rank bit for bit alike, and
+    within the int8 limits of one process on the data rank's rows; one MAX
+    all-reduce per quantized conv, as many quantized convs as one process
+    runs, and int8 halos."""
+    _, one, ranks = runs
+    want, nudged = one["int8"][(layout, mode)]
+    got = [r[f"int8_{mode}"] for r in ranks[layout]]
+    for a, b in zip(got[::2], got[1::2]):
+        assert torch.equal(a["fake"], b["fake"])
+    fake = torch.cat([g["fake"] for g in got[::2]])
+    err = (fake - want).abs()
+    mean_limit, max_limit = _int8_limits(want, nudged)
+    assert float(err.mean()) < mean_limit and float(err.max()) < max_limit, \
+        (float(err.mean()), float(err.max()), mean_limit, max_limit)
+    n = worker.sp_int8_run(*runs[0]["tiny"][2:4], mode)["quantized_convs"]
+    for g in got:
+        assert g["quantized_convs"] == n > 0
+        assert g["collectives"]["max"]["calls"] == n
+        assert g["collectives"]["halo"]["calls"] > 0
+
+
+def test_striped_int8_matches_jax(runs):
+    """1 x 2 on the JAX package's variables against its one-device int8
+    fake of the same batch, at the JAX mesh test's tolerances."""
+    want, _, ranks = runs
+    got = ranks["1x2"][0]["int8_smooth"]["fake"].numpy()
+    jax_fake = want["tiny"][4]
+    assert got.shape == jax_fake.shape
+    err = np.abs(got - jax_fake)
+    assert float(err.mean()) < INT8_MEAN_ABS and float(err.max()) < INT8_MAX_ABS, \
+        (float(err.mean()), float(err.max()))
+
+
+def _scales_equal(call):
+    return {k: bool(torch.equal(call["got"][k], call["want"][k]))
+            for k in ("s_c", "s_k", "s_x", "k_q")}
+
+
+@pytest.mark.parametrize("mode", worker.SP_INT8_MODES)
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_striped_int8_scales_are_one_process(runs, layout, mode):
+    """Teacher-forced: every striped conv's s_c, s_k, s_x and k_q on every
+    rank, bit for bit one process's quantization of the conv's input
+    gathered over the model group."""
+    _, _, ranks = runs
+    for r, rank in enumerate(ranks[layout]):
+        calls = rank[f"int8_{mode}"]["scales"]
+        assert calls and len(calls) == rank[f"int8_{mode}"]["quantized_convs"]
+        for i, call in enumerate(calls):
+            assert all(_scales_equal(call).values()), (r, i, _scales_equal(call))
+
+
+def test_planted_stripe_maxima_break_the_scales(runs):
+    """Without the MAX all-reduce each stripe quantizes with its own maxima:
+    the check above fails on most convs."""
+    _, _, ranks = runs
+    calls = ranks["1x2"][0][f"int8_{worker.SP_INT8_PLANTED}"]["scales"]
+    wrong = sum(not all(_scales_equal(c).values()) for c in calls)
+    assert wrong > len(calls) // 2, (wrong, len(calls))
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_nospade_generator_on_stripes_matches_jax(runs, layout):
+    """The "nospade" generator in eval mode on stripes (reflect halos, K1's
+    instance split) against the JAX package's on one device."""
+    want, _, ranks = runs
+    got = np.concatenate([r["nospade"]["fake"].numpy() for r in ranks[layout][::2]])
+    assert float(np.std(want["nospade"])) > 0.05
+    np.testing.assert_allclose(got, want["nospade"], rtol=RTOL, atol=ATOL)
+    for a, b in zip(ranks[layout][::2], ranks[layout][1::2]):
+        assert torch.equal(a["nospade"]["fake"], b["nospade"]["fake"])

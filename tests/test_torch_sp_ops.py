@@ -7,12 +7,15 @@
   * the halo windows over gloo ranks in processes of their own
     (tests/_torch_dist_worker.py, task "sp_ops"), laid out 1 x 2 and 1 x 4:
     every (k, s, p) of the presets (3x3 at stride 1 and 2, D's 4x4 at stride
-    2 and 1), the 3x3 stride-2 pool between D's scales, the pool and D's
-    four windows in a row (uneven stripes; at 1 x 4 stripes of one row under
-    a 4-row window, a halo wider than one neighbour) and the tiny model's
-    multiscale discriminator in train mode (its instance norms across the
-    stripes): the output, the input's gradient and the parameters'
-    gradients against one process within 1e-5 relative L2;
+    2 and 1), the "nospade" generator's reflection-padded 3x3 conv (a
+    reflect window; one process pads with F.pad's "reflect"), the 3x3
+    stride-2 pool between D's scales, the pool and D's four windows in a row
+    (uneven stripes; at 1 x 4 stripes of one row under a 4-row window, a
+    halo wider than one neighbour), a train-mode Pix2PixResnetBlock and the
+    tiny model's multiscale discriminator in train mode (their instance
+    norms across the stripes): the output, the input's gradient and the
+    parameters' gradients (summed over the model group) against one process
+    within 1e-5 relative L2;
   * each planted fault (zero halos: each rank pads its own edges;
     statistics per stripe) moves the discriminator's outputs by more than
     1e-3 relative L2.
@@ -29,7 +32,7 @@ from torch_data_corpus import one_torch_thread  # noqa: F401 (autouse)
 
 LAYOUTS = {"1x2": 2, "1x4": 4}
 REL = 1e-5
-CASES = list(worker.SP_WINDOWS) + ["discriminator"]
+CASES = worker.SP_OPS_CASES
 
 
 def _rel(got, want):
@@ -97,6 +100,18 @@ def test_planted_faults_break_the_discriminator(runs, layout, fault):
     one, ranks = runs
     got = ranks[layout][0][fault]["outs"]
     assert max(_rel(a, b) for a, b in zip(got, one["discriminator"]["outs"])) > 1e-3
+
+
+def test_reflect_edge_refuses_stripes_too_short():
+    """A reflect edge mirrors rows 1 and H-2 into the first and last
+    stripes' halos, from those stripes' own rows (local rows 1 and 0 at two
+    stripes of 2); every rank refuses stripes of one row, which do not hold
+    them."""
+    from deepsee_torch.parallel import spatial
+
+    assert spatial._mirrors((0, 2, 4), 3, 1, 1) == (((1,), ()), ((), (0,)))
+    with pytest.raises(ValueError, match="too short for the reflection"):
+        spatial._mirrors((0, 1, 2, 3, 4), 3, 1, 1)
 
 
 def _uneven(x, cuts=(3,)):
