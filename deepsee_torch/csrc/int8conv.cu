@@ -769,19 +769,20 @@ igemm_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ 
 // Under tensor parallelism a rank holds a block of the weight, and the JAX
 // package's maxima are the whole layer's: a kernel cannot wait for another
 // process, so (b) splits around the model group's MAX all-reduce
-// (deepsee_torch/ops/int8conv.py::int8_conv_sharded), two launches of this
-// kernel in the modes below (MODE), each bit for bit the one-process
-// sequence on the reduced maxima:
-//   * a column block (its output channels; x whole): kColumnMaxima, phase 1
-//     alone (this rank's column maxima into mk, no barrier); the all-reduce
-//     of mk; kColumnScales, phases 2 and 3 from the group's mk;
-//   * a row block (its input channels; x its channel block): kRowMaxima,
-//     phases 1 and 2 (s_c is the rank's own: every output channel of its
-//     columns is here) and each row's max |v| and block 0's max RN(mx_raw /
-//     s_c) into `maxima` [Cout + 1]; the all-reduce of maxima; kRowScales,
-//     s_k, s_x and k_q from s_c and the group's maxima (the weight read
-//     again).  Without smoothing a column block needs nothing of the group
-//     (the one-process launch), a row block the two maxima.
+// (deepsee_torch/ops/int8conv.py::int8_conv_sharded) into two launches,
+// each bit for bit the one-process sequence on the reduced maxima:
+//   * a column block (its output channels; x whole): `column_maxima_kernel`
+//     (this rank's column maxima into mk); the all-reduce of mk;
+//     `weight_scales_kernel<..., COLUMNS>` (s_c, s_x, s_k and k_q from the
+//     group's mk), both below;
+//   * a row block (its input channels; x its channel block): this kernel in
+//     the mode kRowMaxima, phases 1 and 2 (s_c is the rank's own: every
+//     output channel of its columns is here) and each row's max |v| and
+//     block 0's max RN(mx_raw / s_c) into `maxima` [Cout + 1]; the
+//     all-reduce of maxima; `weight_scales_kernel` (s_k, s_x and k_q from
+//     s_c and the group's maxima).  Without smoothing a column block needs
+//     nothing of the group (the one-process launch), a row block the two
+//     maxima.
 constexpr int kWeightThreads = 1024;
 constexpr int kUnitCols = 2;         // input channels of a unit
 constexpr int kWeightMaxRows = 32;   // output channels per block, at most
@@ -797,18 +798,15 @@ struct WeightArgs {
   float* s_x;
   int8_t* k_q;
   unsigned* mk;  // SMOOTH: the column maxima across blocks (bit patterns), zero at launch
-  float* maxima;  // kRowMaxima / kRowScales: each row's max |v|, then max |x'| [Cout + 1]
+  float* maxima;  // kRowMaxima: each row's max |v|, then max |x'| [Cout + 1]
   int Cout, Cin, Cp, taps;
 };
 
-// (b)'s launches: the one-process launch, and under a tensor-parallel shard
-// the two launches around the model group's MAX all-reduce
+// this kernel's launches: the one-process launch, and the first launch of
+// a row block under a tensor-parallel shard
 enum WeightMode : int {
-  kWhole = 0,         // one process: everything
-  kColumnMaxima = 1,  // column block: the column maxima into mk
-  kColumnScales = 2,  // column block: s_c, s_x, s_k, k_q from the reduced mk
-  kRowMaxima = 3,     // row block: s_c, the row maxima and max |x'| into maxima
-  kRowScales = 4,     // row block: s_k, s_x, k_q from s_c and the reduced maxima
+  kWhole = 0,      // one process: everything
+  kRowMaxima = 1,  // row block: s_c, the row maxima and max |x'| into maxima
 };
 
 // k_q's level of v: clip(rint(RN(v / sk)), +-127) as the low byte
@@ -902,45 +900,38 @@ quantize_weight_kernel(const WeightArgs a) {
   float v[NV];
   if (cached && my_q < pairs) load_unit<(TAPS > 0 ? TAPS : 1)>(a, o_begin + tid / Q, my_q, v);
   // this thread's first column's mx and mx_raw, loaded while the weight loads
-  // (the launches that take them)
-  constexpr bool kScalesX = MODE != kColumnMaxima && MODE != kRowScales;
-  const float mx0 = kScalesX && tid < a.Cin ? __ldg(a.mx + tid) : 0.0f;
-  const float raw0 = kScalesX && b == 0 && tid < a.Cin ? __ldg(a.mx_raw + tid) : 0.0f;
+  const float mx0 = tid < a.Cin ? __ldg(a.mx + tid) : 0.0f;
+  const float raw0 = b == 0 && tid < a.Cin ? __ldg(a.mx_raw + tid) : 0.0f;
   if (tid < kWeightMaxRows) row_max[tid] = 0u;
   // value k of a unit u that is not in registers, from L2
   auto value = [&](int u, int k) { return unit_value(a, o_begin + u / Q, u % Q, k); };
 
-  if constexpr (MODE == kRowScales) {  // s_c from the first launch
-    for (int c = tid; c < a.Cin; c += kWeightThreads) sc_s[c] = __ldg(a.s_c + c);
+  if constexpr (SMOOTH) {
+    // phase 1 (the column maxima)
+    for (int c = tid; c < a.Cin; c += kWeightThreads) mk_s[c] = 0u;
     __syncthreads();
-  } else if constexpr (SMOOTH) {
-    if constexpr (MODE != kColumnScales) {  // phase 1 (the column maxima)
-      for (int c = tid; c < a.Cin; c += kWeightThreads) mk_s[c] = 0u;
-      __syncthreads();
-      for (int u = tid; u < units; u += kWeightThreads) {
-        const int q = u % Q;
-        if (q >= pairs) continue;
+    for (int u = tid; u < units; u += kWeightThreads) {
+      const int q = u % Q;
+      if (q >= pairs) continue;
 #pragma unroll
-        for (int j = 0; j < kUnitCols; ++j) {
-          if (kUnitCols * q + j >= a.Cin) break;
-          float m = 0.0f;
-          if (cached && u == tid) {
+      for (int j = 0; j < kUnitCols; ++j) {
+        if (kUnitCols * q + j >= a.Cin) break;
+        float m = 0.0f;
+        if (cached && u == tid) {
 #pragma unroll
-            for (int t = 0; t < (TAPS > 0 ? TAPS : 1); ++t) m = fmaxf(m, fabsf(v[j * taps + t]));
-          } else {
-            for (int t = 0; t < taps; ++t) m = fmaxf(m, fabsf(value(u, j * taps + t)));
-          }
-          if (m > 0.0f) atomicMax(mk_s + kUnitCols * q + j, __float_as_uint(m));
+          for (int t = 0; t < (TAPS > 0 ? TAPS : 1); ++t) m = fmaxf(m, fabsf(v[j * taps + t]));
+        } else {
+          for (int t = 0; t < taps; ++t) m = fmaxf(m, fabsf(value(u, j * taps + t)));
         }
+        if (m > 0.0f) atomicMax(mk_s + kUnitCols * q + j, __float_as_uint(m));
       }
-      __syncthreads();
-      for (int c = tid; c < a.Cin; c += kWeightThreads)
-        if (mk_s[c] != 0u) atomicMax(a.mk + c, mk_s[c]);
-      if constexpr (MODE == kColumnMaxima) return;
-      PHASE_MARK(1);
-      cg::this_grid().sync();
-      PHASE_MARK(2);
     }
+    __syncthreads();
+    for (int c = tid; c < a.Cin; c += kWeightThreads)
+      if (mk_s[c] != 0u) atomicMax(a.mk + c, mk_s[c]);
+    PHASE_MARK(1);
+    cg::this_grid().sync();
+    PHASE_MARK(2);
     for (int c = tid; c < a.Cin; c += kWeightThreads) {
       const float mk = fmaxf(__uint_as_float(__ldcg(a.mk + c)), kFloor);
       sc_s[c] = __fdiv_rn(__fsqrt_rn(c == tid ? mx0 : __ldg(a.mx + c)), __fsqrt_rn(mk));
@@ -950,12 +941,9 @@ quantize_weight_kernel(const WeightArgs a) {
     for (int c = tid; c < a.Cin; c += kWeightThreads) sc_s[c] = 1.0f;
     __syncthreads();
   }
-  if constexpr (MODE != kRowScales)
-    for (int c = c_begin + tid; c < c_end; c += kWeightThreads) a.s_c[c] = sc_s[c];
+  for (int c = c_begin + tid; c < c_end; c += kWeightThreads) a.s_c[c] = sc_s[c];
   PHASE_MARK(3);
-  if constexpr (MODE == kRowScales) {  // s_x from the group's max |x'|
-    if (b == 0 && tid == 0) a.s_x[0] = __fdiv_rn(fmaxf(__ldg(a.maxima + a.Cout), kFloor), kLevels);
-  } else if (b == 0) {  // s_x (without smoothing RN(mx_raw / 1) is mx_raw)
+  if (b == 0) {  // s_x (without smoothing RN(mx_raw / 1) is mx_raw)
     float m = 0.0f;
     for (int c = tid; c < a.Cin; c += kWeightThreads) {
       const float raw = c == tid ? raw0 : __ldg(a.mx_raw + c);
@@ -984,20 +972,18 @@ quantize_weight_kernel(const WeightArgs a) {
         m = fmaxf(m, fabsf(v[k]));
       }
     }
-    if constexpr (MODE != kRowScales) row_merge(row_max, tid / Q, m);
+    row_merge(row_max, tid / Q, m);
   }
   PHASE_MARK(5);
-  if constexpr (MODE != kRowScales) {
-    for (int u = tid + (TAPS > 0 ? kWeightThreads : 0); u < units; u += kWeightThreads) {
-      const int q = u % Q;
-      if (q >= pairs) continue;
-      float m = 0.0f;
-      for (int k = 0; k < nv; ++k) {
-        const int c = kUnitCols * q + k / taps;
-        if (c < a.Cin) m = fmaxf(m, fabsf(__fmul_rn(value(u, k), sc_s[c])));
-      }
-      if (m > 0.0f) atomicMax(row_max + u / Q, __float_as_uint(m));
+  for (int u = tid + (TAPS > 0 ? kWeightThreads : 0); u < units; u += kWeightThreads) {
+    const int q = u % Q;
+    if (q >= pairs) continue;
+    float m = 0.0f;
+    for (int k = 0; k < nv; ++k) {
+      const int c = kUnitCols * q + k / taps;
+      if (c < a.Cin) m = fmaxf(m, fabsf(__fmul_rn(value(u, k), sc_s[c])));
     }
+    if (m > 0.0f) atomicMax(row_max + u / Q, __float_as_uint(m));
   }
   __syncthreads();
   if constexpr (MODE == kRowMaxima) {  // this rank's row maxima, for the all-reduce
@@ -1005,8 +991,7 @@ quantize_weight_kernel(const WeightArgs a) {
     return;
   }
   if (tid < o_end - o_begin) {
-    const float top = MODE == kRowScales ? __ldg(a.maxima + o_begin + tid)
-                                         : __uint_as_float(row_max[tid]);
+    const float top = __uint_as_float(row_max[tid]);
     const float sk = __fdiv_rn(fmaxf(top, kFloor), kLevels);
     row_sk[tid] = sk;
     row_rk[tid] = __frcp_rn(sk);
@@ -1045,6 +1030,295 @@ quantize_weight_kernel(const WeightArgs a) {
         }
         dst[t * Q] = static_cast<uint16_t>(word);
       }
+    }
+  }
+  PHASE_MARK(6);
+}
+
+// -- (b) under a shard, redesigned: the column maxima and the scales ---------
+// Both launches are latency-bound at the blocks of the serving path (a
+// 512 x 256 3x3 block is 4.7 MB, 1.4 us at the HBM rate; the launch alone
+// costs ~1 us in a CUDA graph): they were modes of the one-process kernel
+// above, whose units make every warp load 32 runs of 72 bytes 72 bytes
+// apart (18 cache lines a load, the L1's wavefronts queueing the loads
+// behind them), whose column maxima needed a memset and global atomics, and
+// whose block 0 formed s_x alone between two barriers.
+//
+// `column_maxima_kernel`: block b owns the input channels [b * cols, (b +
+// 1) * cols): in OIHW they are one run of L = cols * taps floats in every
+// row, so R = threads / L rows are read at once, lane after lane along the
+// runs (a warp load touches 2-4 lines), each thread on one fixed value of
+// the run, up to kColumnLoads rows in flight, its max |w| kept in a
+// register.  The lanes of a warp that hold one column (__match_any_sync)
+// reduce their maxima, their leader merges the result into the column's
+// shared slot, and after one barrier each column's max is written once: no
+// memset, no global atomics, no scratch.  The plan
+// (ops/int8conv.py::column_maxima_plan) takes at most two blocks per SM
+// (one of 1024 threads per SM, with wider runs, measured slower) and L <=
+// threads.
+//
+// `weight_scales_kernel`: block b owns the output channels [b * Cout / G,
+// (b + 1) * Cout / G), a contiguous run of the weight, which it copies into
+// shared memory by 16-byte cp.async (the loads coalesced, all in flight at
+// once) while it forms s_c for every input channel (COLUMNS: from the
+// group's mk and mx, writing its share of s_c; else loaded; a thread's
+// columns' loads issued together), block 0
+// folding max RN(mx_raw / s_c) into the same loop so that s_x waits on no
+// serial pass.  Then, as the one-process kernel, each thread takes units (an
+// output channel's two input channels over the taps), its first one held in
+// registers from shared memory (8-byte reads: a half-warp's fall on
+// distinct banks) to its k_q stores; COLUMNS merges each row's max |v|
+// (warp-reduced where a warp shares its row), s_k, and the levels go out
+// two a 16-bit word per tap (a warp writes 64 contiguous bytes).  The plan (ops/int8conv.py::scales_plan) gives a block about one
+// unit a thread and rows that fit its shared memory.
+constexpr int kColumnThreads = 512;
+constexpr int kColumnLoads = 16;    // rows of a thread's run value in flight
+constexpr int kScalesThreads = 256;
+constexpr int kScalesAhead = 4;     // input channels a thread loads at once in the prologue
+
+template <int TAPS>
+__global__ void __launch_bounds__(kColumnThreads)
+column_maxima_kernel(const float* __restrict__ w, float* __restrict__ mk, int Cout, int Cin,
+                     int taps_rt, int cols) {
+  PHASE_MARK(0);
+  __shared__ unsigned colmax[kColumnThreads];
+  const int taps = TAPS > 0 ? TAPS : taps_rt;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int c0 = blockIdx.x * cols;
+  const int n = min(cols, Cin - c0);  // this block's columns
+  const int L = n * taps, R = kColumnThreads / L;
+  const int e = tid % L, r0 = tid / L;
+  if (tid < n) colmax[tid] = 0u;
+  __syncthreads();
+  float m = 0.0f;
+  if (r0 < R) {
+    const float* src = w + static_cast<int64_t>(c0) * taps + e;
+    const int64_t row = static_cast<int64_t>(Cin) * taps;
+    for (int o = r0; o < Cout; o += kColumnLoads * R) {
+      float f[kColumnLoads];
+#pragma unroll
+      for (int u = 0; u < kColumnLoads; ++u)
+        f[u] = o + u * R < Cout ? __ldg(src + (o + u * R) * row) : 0.0f;
+#pragma unroll
+      for (int u = 0; u < kColumnLoads; ++u) m = fmaxf(m, fabsf(f[u]));
+    }
+  }
+  PHASE_MARK(7);
+  // max |w| >= 0 orders as its bit pattern
+  const int j = r0 < R ? e / taps : -1;
+  const unsigned group = __match_any_sync(0xffffffffu, j);
+  const unsigned top = __reduce_max_sync(group, __float_as_uint(m));
+  if (j >= 0 && lane == __ffs(group) - 1) atomicMax(colmax + j, top);
+  __syncthreads();
+  if (tid < n) mk[c0 + tid] = __uint_as_float(colmax[tid]);
+  PHASE_MARK(8);
+}
+
+struct ScalesArgs {
+  const float* w;
+  const float* mx;       // COLUMNS
+  const float* mx_raw;   // COLUMNS
+  const float* mk;       // COLUMNS: the model group's column maxima (unclamped)
+  const float* s_c_in;   // rows: the first launch's s_c
+  const float* maxima;   // rows: the model group's row maxima, then max |x'| [Cout + 1]
+  float* s_c;            // COLUMNS
+  float* s_k;
+  float* s_x;
+  int8_t* k_q;
+  int Cout, Cin, Cp, taps;
+};
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int TAPS, bool COLUMNS>
+__global__ void __launch_bounds__(kScalesThreads)
+weight_scales_kernel(const ScalesArgs a) {
+  PHASE_MARK(0);
+  constexpr int NT = TAPS > 0 ? TAPS : 1;
+  extern __shared__ __align__(16) float scales_smem[];
+  const int taps = TAPS > 0 ? TAPS : a.taps, row_len = a.Cin * taps;
+  const int srow = (row_len + 3) / 4 * 4;                     // a staged row's floats
+  float* sc_s = scales_smem;                                  // s_c [Cin]
+  float* stage = scales_smem + (a.Cin + 3) / 4 * 4;           // the block's rows [rows][srow]
+  __shared__ unsigned row_max[kWeightMaxRows];
+  __shared__ float row_sk[kWeightMaxRows], row_rk[kWeightMaxRows];
+  __shared__ float xpart[kScalesThreads / 32];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, G = gridDim.x, b = blockIdx.x;
+  const int o_begin = static_cast<int>(static_cast<int64_t>(b) * a.Cout / G);
+  const int o_end = static_cast<int>(static_cast<int64_t>(b + 1) * a.Cout / G);
+  const int rows = o_end - o_begin;
+  const float* src = a.w + static_cast<int64_t>(o_begin) * row_len;
+  // the block's rows into shared memory, every load in flight at once
+  if (row_len % 4 == 0 && reinterpret_cast<uintptr_t>(a.w) % 16 == 0) {
+    for (int i = tid; i < rows * row_len / 4; i += kScalesThreads)
+      cp_async16(stage + 4 * i, src + 4 * i);
+  } else {
+    for (int i = tid; i < rows * row_len; i += kScalesThreads)
+      cp_async4(stage + (i / row_len) * srow + i % row_len, src + i);
+  }
+  // s_c for every column (and block 0's max RN(mx_raw / s_c)), or loaded;
+  // rows: s_k of the block's rows and s_x from the group's maxima
+  if (tid < kWeightMaxRows) row_max[tid] = 0u;
+  // kScalesAhead columns a thread at once: their loads in flight together
+  float xq = 0.0f;
+  for (int c0 = tid; c0 < a.Cin; c0 += kScalesAhead * kScalesThreads) {
+    float in[kScalesAhead], top[kScalesAhead], raw[kScalesAhead];
+#pragma unroll
+    for (int i = 0; i < kScalesAhead; ++i) {
+      const int c = c0 + i * kScalesThreads;
+      const bool ok = c < a.Cin;
+      in[i] = ok ? __ldg((COLUMNS ? a.mx : a.s_c_in) + c) : 1.0f;
+      top[i] = COLUMNS && ok ? __ldg(a.mk + c) : 1.0f;
+      raw[i] = COLUMNS && ok && b == 0 ? __ldg(a.mx_raw + c) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kScalesAhead; ++i) {
+      const int c = c0 + i * kScalesThreads;
+      if (c >= a.Cin) break;
+      float sc = in[i];
+      if constexpr (COLUMNS) {
+        sc = __fdiv_rn(__fsqrt_rn(sc), __fsqrt_rn(fmaxf(top[i], kFloor)));
+        if (b == 0) xq = fmaxf(xq, __fdiv_rn(raw[i], sc));
+        if (c >= static_cast<int64_t>(b) * a.Cin / G &&
+            c < static_cast<int64_t>(b + 1) * a.Cin / G)
+          a.s_c[c] = sc;
+      }
+      sc_s[c] = sc;
+    }
+  }
+  if constexpr (COLUMNS) {
+    if (b == 0) {
+      xq = __uint_as_float(__reduce_max_sync(0xffffffffu, __float_as_uint(xq)));
+      if (lane == 0) xpart[warp] = xq;
+    }
+  } else {
+    if (tid < rows) {
+      const float sk = __fdiv_rn(fmaxf(__ldg(a.maxima + o_begin + tid), kFloor), kLevels);
+      row_sk[tid] = sk;
+      row_rk[tid] = __frcp_rn(sk);
+      a.s_k[o_begin + tid] = sk;
+    }
+    if (b == 0 && tid == 0) a.s_x[0] = __fdiv_rn(fmaxf(__ldg(a.maxima + a.Cout), kFloor), kLevels);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  PHASE_MARK(3);
+  if constexpr (COLUMNS) {
+    if (b == 0 && tid == kScalesThreads - 1) {
+      float r = xpart[0];
+      for (int i = 1; i < kScalesThreads / 32; ++i) r = fmaxf(r, xpart[i]);
+      a.s_x[0] = __fdiv_rn(fmaxf(r, kFloor), kLevels);
+    }
+  }
+
+  // unit u: row u / Q, input channels 2q, 2q + 1 (q = u % Q) over the taps
+  const int Q = a.Cp / kUnitCols, pairs = (a.Cin + kUnitCols - 1) / kUnitCols;
+  const int units = rows * Q;
+  // value k (column 2q + k / taps, tap k % taps) of unit u, times s_c
+  auto value = [&](int u, int k) {
+    const int q = u % Q, c = kUnitCols * q + k / taps;
+    return c < a.Cin ? __fmul_rn(stage[(u / Q) * srow + kUnitCols * q * taps + k], sc_s[c])
+                     : 0.0f;
+  };
+  // this thread's first unit in registers (taps 1 or 9): its 2 * taps values
+  // by 8-byte reads, its two s_c by one
+  constexpr int NV = TAPS > 0 ? kUnitCols * TAPS : 1;
+  float v[NV];
+  const bool cached = TAPS > 0 && tid < units && tid % Q < pairs;
+  if (cached) {
+    const int q = tid % Q;
+    const float* base = stage + (tid / Q) * srow + kUnitCols * q * NT;
+    const float2 sc = reinterpret_cast<const float2*>(sc_s)[q];
+    const bool whole = kUnitCols * q + 1 < a.Cin;  // else only the first column is in the row
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      if (whole) {
+        const float2 f = reinterpret_cast<const float2*>(base)[i];
+        v[2 * i] = f.x;
+        v[2 * i + 1] = f.y;
+      } else {
+        v[2 * i] = 2 * i < NT ? base[2 * i] : 0.0f;
+        v[2 * i + 1] = 2 * i + 1 < NT ? base[2 * i + 1] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NV; ++k)  // past Cin (an odd Cin's last pair): zero
+      v[k] = kUnitCols * q + k / NT < a.Cin ? __fmul_rn(v[k], k < NT ? sc.x : sc.y) : 0.0f;
+  }
+  if constexpr (COLUMNS) {
+    // each row's max |v|: every lane of a warp takes part in row_merge
+    for (int u0 = 0; u0 < units; u0 += kScalesThreads) {
+      const int u = u0 + tid;
+      float m = 0.0f;
+      if (u0 == 0 && cached) {
+#pragma unroll
+        for (int k = 0; k < NV; ++k) m = fmaxf(m, fabsf(v[k]));
+      } else if (u < units && u % Q < pairs) {
+        for (int k = 0; k < kUnitCols * taps; ++k) m = fmaxf(m, fabsf(value(u, k)));
+      }
+      row_merge(row_max, u < units ? u / Q : 0, m);
+    }
+    __syncthreads();
+    if (tid < rows) {
+      const float sk = __fdiv_rn(fmaxf(__uint_as_float(row_max[tid]), kFloor), kLevels);
+      row_sk[tid] = sk;
+      row_rk[tid] = __frcp_rn(sk);
+      a.s_k[o_begin + tid] = sk;
+    }
+    __syncthreads();
+    PHASE_MARK(5);
+  }
+  // k_q: two levels a word, one word per tap
+  for (int u = tid; u < units; u += kScalesThreads) {
+    const int r = u / Q, q = u % Q;
+    const float sk = row_sk[r], rk = row_rk[r];
+    const bool fast = divisor_ok(sk);
+    uint16_t* dst =
+        reinterpret_cast<uint16_t*>(a.k_q + static_cast<int64_t>(o_begin + r) * taps * a.Cp) + q;
+    if (TAPS > 0 && u == tid && cached) {
+      // weight_level_by_product for the 2 * taps values at once, its rare
+      // exact division after: independent chains, no branch between them
+      // (a value past Cin is 0 and its level 0)
+      uint32_t lv[2 * NT];
+      uint32_t near = 0u;
+#pragma unroll
+      for (int k = 0; k < 2 * NT; ++k) {
+        const float c = fminf(fmaxf(__fmul_rn(v[k % NV], rk), -kLevels), kLevels);
+        const float rounded = __fadd_rn(c, kRoundMagic);
+        near |= (fabsf(__fsub_rn(c, __fsub_rn(rounded, kRoundMagic))) > kNearHalf ? 1u : 0u)
+                << k;
+        lv[k] = __float_as_uint(rounded) & 0xffu;
+      }
+      if (near != 0u) {
+#pragma unroll
+        for (int k = 0; k < 2 * NT; ++k)
+          if ((near >> k) & 1u) lv[k] = weight_level_exact(v[k % NV], sk, rk, fast);
+      }
+#pragma unroll
+      for (int t = 0; t < NT; ++t) dst[t * Q] = static_cast<uint16_t>(lv[t] | (lv[NT + t] << 8));
+      continue;
+    }
+    for (int t = 0; t < taps; ++t) {
+      uint32_t word = 0u;
+      if (q < pairs) {
+#pragma unroll
+        for (int j = 0; j < kUnitCols; ++j)
+          if (kUnitCols * q + j < a.Cin)
+            word |= weight_level_by_product(value(u, j * taps + t), sk, rk, fast) << (8 * j);
+      }
+      dst[t * Q] = static_cast<uint16_t>(word);
     }
   }
   PHASE_MARK(6);
@@ -1125,8 +1399,7 @@ extern "C" int int8_absmax_channels(const void* x, void* part, void* mx_raw, voi
 
 namespace {
 
-// (b)'s kernel for (MODE, taps, smoothing): the column modes smooth by
-// definition, and kRowScales reads s_c, whatever it was.
+// (b)'s kernel for (MODE, taps, smoothing)
 template <typename F>
 const void* kernel_ptr(F* kernel) {
   return reinterpret_cast<const void*>(kernel);
@@ -1134,48 +1407,33 @@ const void* kernel_ptr(F* kernel) {
 
 template <int TAPS>
 const void* weight_kernel(int mode, bool smooth) {
-  switch (mode) {
-    case kWhole:
-      return smooth ? kernel_ptr(quantize_weight_kernel<TAPS, true>)
-                    : kernel_ptr(quantize_weight_kernel<TAPS, false>);
-    case kColumnMaxima:
-      return kernel_ptr(quantize_weight_kernel<TAPS, true, kColumnMaxima>);
-    case kColumnScales:
-      return kernel_ptr(quantize_weight_kernel<TAPS, true, kColumnScales>);
-    case kRowMaxima:
-      return smooth ? kernel_ptr(quantize_weight_kernel<TAPS, true, kRowMaxima>)
-                    : kernel_ptr(quantize_weight_kernel<TAPS, false, kRowMaxima>);
-    default:
-      return kernel_ptr(quantize_weight_kernel<TAPS, true, kRowScales>);
-  }
+  if (mode == kWhole)
+    return smooth ? kernel_ptr(quantize_weight_kernel<TAPS, true>)
+                  : kernel_ptr(quantize_weight_kernel<TAPS, false>);
+  return smooth ? kernel_ptr(quantize_weight_kernel<TAPS, true, kRowMaxima>)
+                : kernel_ptr(quantize_weight_kernel<TAPS, false, kRowMaxima>);
 }
 
 // One launch of (b) in `mode` with the plan of ops/int8conv.py::weight_plan:
 // `grid` blocks (at most Cout and kWeightMaxRows output channels each, and
-// where a barrier is crossed at most what the card holds at once).  Where
-// the launch takes column maxima (kWhole and kRowMaxima with smoothing,
-// kColumnMaxima) `mk` is the caller's (Cin,) 32-bit buffer on `stream`,
-// zeroed here before the launch, so launches on different streams never
-// share it; kColumnScales reads it as the caller gives it.  kWhole and
-// kRowMaxima with smoothing are cooperative launches.
-// cudaErrorInvalidValue for a plan or mode the kernel does not take; the
-// cooperative launch itself returns cudaErrorCooperativeLaunchTooLarge for
-// a grid the card cannot hold at once.
+// where a barrier is crossed at most what the card holds at once).  With
+// smoothing `mk` is the caller's (Cin,) 32-bit buffer on `stream`, zeroed
+// here before the launch, so launches on different streams never share it,
+// and the launch is cooperative.  cudaErrorInvalidValue for a plan or mode
+// the kernel does not take; the cooperative launch itself returns
+// cudaErrorCooperativeLaunchTooLarge for a grid the card cannot hold at once.
 int launch_weight(int mode, const void* w, const void* mx, const void* mx_raw, void* s_c,
                   void* s_k, void* s_x, void* k_q, void* mk, void* maxima, int Cout, int Cin,
                   int Cp, int taps, int smooth, int grid, void* stream) {
-  const bool columns = mode == kColumnMaxima || mode == kColumnScales;
-  const bool rows = mode == kRowMaxima || mode == kRowScales;
-  const bool reads_mk = smooth && (mode == kWhole || mode == kRowMaxima || columns);
   if (Cout < 1 || Cin < 1 || Cin > kWeightMaxCin || taps < 1 || Cp % 16 || Cp < Cin ||
-      grid < 1 || grid > Cout || (Cout + grid - 1) / grid > kWeightMaxRows || mode < kWhole ||
-      mode > kRowScales || (columns && !smooth) || (reads_mk && mk == nullptr) ||
-      (rows && maxima == nullptr))
+      grid < 1 || grid > Cout || (Cout + grid - 1) / grid > kWeightMaxRows ||
+      (mode != kWhole && mode != kRowMaxima) || (smooth && mk == nullptr) ||
+      (mode == kRowMaxima && maxima == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const void* kernel = taps == 9   ? weight_kernel<9>(mode, smooth)
                        : taps == 1 ? weight_kernel<1>(mode, smooth)
                                    : weight_kernel<0>(mode, smooth);
-  const int smem = Cin * 4 * (reads_mk ? 2 : 1);
+  const int smem = Cin * 4 * (smooth ? 2 : 1);
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024 &&  // beyond the default: Cin above 6144 with smoothing
       (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
@@ -1194,7 +1452,7 @@ int launch_weight(int mode, const void* w, const void* mx, const void* mx_raw, v
   args.Cout = Cout; args.Cin = Cin; args.Cp = Cp; args.taps = taps;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeCooperative;
-  attr.val.cooperative = smooth && (mode == kWhole || mode == kRowMaxima) ? 1 : 0;
+  attr.val.cooperative = smooth ? 1 : 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(kWeightThreads);
@@ -1202,13 +1460,19 @@ int launch_weight(int mode, const void* w, const void* mx, const void* mx_raw, v
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  if (reads_mk && mode != kColumnScales &&
-      (e = cudaMemsetAsync(mk, 0, sizeof(unsigned) * Cin, cfg.stream)) != cudaSuccess)
+  if (smooth && (e = cudaMemsetAsync(mk, 0, sizeof(unsigned) * Cin, cfg.stream)) != cudaSuccess)
     return static_cast<int>(e);
   void* argv[] = {&args};
   e = cudaLaunchKernelExC(&cfg, kernel, argv);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+template <bool COLUMNS>
+const void* scales_kernel(int taps) {
+  return taps == 9   ? kernel_ptr(weight_scales_kernel<9, COLUMNS>)
+         : taps == 1 ? kernel_ptr(weight_scales_kernel<1, COLUMNS>)
+                     : kernel_ptr(weight_scales_kernel<0, COLUMNS>);
 }
 
 }  // namespace
@@ -1223,16 +1487,78 @@ extern "C" int int8_quantize_weight(const void* w, const void* mx, const void* m
                        taps, smooth, grid, stream);
 }
 
-// (b) under a tensor-parallel shard: one of its two launches around the
-// model group's MAX all-reduce (`mode` 1-4, WeightMode; see launch_weight).
-// Pointers a mode does not use may be null.
-extern "C" int int8_quantize_weight_split(int mode, const void* w, const void* mx,
-                                          const void* mx_raw, void* s_c, void* s_k, void* s_x,
-                                          void* k_q, void* mk, void* maxima, int Cout, int Cin,
-                                          int Cp, int taps, int smooth, int grid, void* stream) {
-  if (mode == kWhole) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_weight(mode, w, mx, mx_raw, s_c, s_k, s_x, k_q, mk, maxima, Cout, Cin, Cp, taps,
-                       smooth, grid, stream);
+// (b)'s first launch for a row block under a tensor-parallel shard: s_c and
+// the maxima [Cout + 1] (kRowMaxima; see launch_weight).
+extern "C" int int8_weight_row_maxima(const void* w, const void* mx, const void* mx_raw,
+                                      void* s_c, void* mk, void* maxima, int Cout, int Cin,
+                                      int Cp, int taps, int smooth, int grid, void* stream) {
+  return launch_weight(kRowMaxima, w, mx, mx_raw, s_c, nullptr, nullptr, nullptr, mk, maxima,
+                       Cout, Cin, Cp, taps, smooth, grid, stream);
+}
+
+// (b)'s first launch for a column block: mk [Cin] = max |w| over the output
+// channels and taps (`column_maxima_kernel`, the plan of
+// ops/int8conv.py::column_maxima_plan: `grid` blocks of `cols` columns).
+extern "C" int int8_weight_column_maxima(const void* w, void* mk, int Cout, int Cin, int taps,
+                                         int grid, int cols, void* stream) {
+  if (Cout < 1 || Cin < 1 || taps < 1 || cols < 1 || cols * taps > kColumnThreads ||
+      grid != (Cin + cols - 1) / cols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* wf = static_cast<const float*>(w);
+  auto* out = static_cast<float*>(mk);
+  if (taps == 9)
+    column_maxima_kernel<9><<<grid, kColumnThreads, 0, st>>>(wf, out, Cout, Cin, taps, cols);
+  else if (taps == 1)
+    column_maxima_kernel<1><<<grid, kColumnThreads, 0, st>>>(wf, out, Cout, Cin, taps, cols);
+  else
+    column_maxima_kernel<0><<<grid, kColumnThreads, 0, st>>>(wf, out, Cout, Cin, taps, cols);
+  return status();
+}
+
+// (b)'s second launch under a shard (`weight_scales_kernel`, the plan of
+// ops/int8conv.py::scales_plan: `grid` blocks, `smem` bytes of dynamic
+// shared memory for s_c and the block's rows): `columns` 1, a column
+// block's s_c, s_k, s_x and k_q from mx, mx_raw and the group's mk; 0, a
+// row block's s_k, s_x and k_q from its s_c and the group's maxima.
+// Pointers the mode does not use may be null.
+extern "C" int int8_weight_scales(int columns, const void* w, const void* mx, const void* mx_raw,
+                                  const void* mk, const void* s_c_in, const void* maxima,
+                                  void* s_c, void* s_k, void* s_x, void* k_q, int Cout, int Cin,
+                                  int Cp, int taps, int grid, int smem, void* stream) {
+  const int rows = grid > 0 ? (Cout + grid - 1) / grid : 0;
+  const int64_t need =
+      ((Cin + 3) / 4 + static_cast<int64_t>(rows) * ((static_cast<int64_t>(Cin) * taps + 3) / 4))
+      * 16;
+  if (Cout < 1 || Cin < 1 || taps < 1 || Cp % 16 || Cp < Cin || grid < 1 || grid > Cout ||
+      rows > kWeightMaxRows || smem < need || s_k == nullptr || s_x == nullptr ||
+      k_q == nullptr || (columns && (mx == nullptr || mx_raw == nullptr || mk == nullptr ||
+                                     s_c == nullptr)) ||
+      (!columns && (s_c_in == nullptr || maxima == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = columns ? scales_kernel<true>(taps) : scales_kernel<false>(taps);
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024 &&
+      (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+          cudaSuccess)
+    return static_cast<int>(e);
+  ScalesArgs args;
+  args.w = static_cast<const float*>(w);
+  args.mx = static_cast<const float*>(mx);
+  args.mx_raw = static_cast<const float*>(mx_raw);
+  args.mk = static_cast<const float*>(mk);
+  args.s_c_in = static_cast<const float*>(s_c_in);
+  args.maxima = static_cast<const float*>(maxima);
+  args.s_c = static_cast<float*>(s_c);
+  args.s_k = static_cast<float*>(s_k);
+  args.s_x = static_cast<float*>(s_x);
+  args.k_q = static_cast<int8_t*>(k_q);
+  args.Cout = Cout; args.Cin = Cin; args.Cp = Cp; args.taps = taps;
+  void* argv[] = {&args};
+  e = cudaLaunchKernel(kernel, dim3(grid), dim3(kScalesThreads), argv, smem,
+                       static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 extern "C" int int8_quantize_activation(const void* x, const void* s_c, const void* s_x,

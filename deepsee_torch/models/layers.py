@@ -27,10 +27,10 @@ neighbours' rows, zeros at the global top and bottom only, or mirrored rows
 for a reflection-padded conv) and convolves with padding 0 along H; a layer
 that may see uneven stripes (the discriminator's) takes their layout as
 `rows`.  A conv that quantizes under `int8_inference` takes its maxima over
-every stripe (`int8_conv_striped`) and its halo as int8.  The batch norms'
-statistics cover every rank, data x model, the instance norms' every stripe
-of a sample, and the injected noise is drawn for the whole map and cut to
-the stripe, as one process draws it.
+every stripe and every data rank's rows (`int8_conv_striped`) and its halo
+as int8.  The batch norms' statistics cover every rank, data x model, the
+instance norms' every stripe of a sample, and the injected noise is drawn
+for the whole map and cut to the stripe, as one process draws it.
 """
 
 from __future__ import annotations
@@ -160,7 +160,11 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     map's scales (`int8_conv_striped`, its halo exchanged as int8).
     `shard` is the weight's tensor-parallel role (None: replicated); a
     quantized block takes the whole layer's scales (`int8_conv_sharded`).
-    The two layouts exclude each other (MeshConfig.partition)."""
+    Under either layout a quantized conv's activation maxima cover the
+    global batch, every data rank's rows (the JAX mesh program's global
+    max); with data ranks alone (the evaluator's `--multihost`) each rank
+    keeps its own batch's, as the JAX evaluator's processes do.  The two
+    layouts exclude each other (MeshConfig.partition)."""
     if padding_mode not in spatial.EDGES:
         raise ValueError(f"padding_mode must be one of {spatial.EDGES}, got {padding_mode!r}")
     reflect = padding_mode == "reflect"
@@ -181,9 +185,12 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     else:
         if reflect:
             x, pad = F.pad(x, (padding,) * 4, mode="reflect"), 0
-        if quantized and shard is not None and distributed.model_world() > 1:
+        if quantized and distributed.model_world() > 1 and (shard is not None
+                                                            or distributed.data_world() > 1):
             return int8_conv_sharded(x, weight, bias, stride, pad, _INT8_MODE["smooth"],
-                                     shard, tp.all_reduce_max)
+                                     shard, tp.all_reduce_max,
+                                     tp.all_reduce_batch_max
+                                     if distributed.data_world() > 1 else None)
         if quantized:
             return int8_conv(x, weight, bias, stride, pad, _INT8_MODE["smooth"])
     y = F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),

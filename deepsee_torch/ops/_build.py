@@ -4,7 +4,7 @@ Each source in `deepsee_torch/csrc/` is compiled on first use into its own
 shared library with a plain C interface: the CUDA kernels (`*.cu`) with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o lib<name>.so <name>.cu
+         -Xcompiler -fPIC --split-compile=0 -o lib<name>.so <name>.cu
 
 and the host image codec (`codec.cpp`, a copy of deepsee_tpu/native/codec.cpp)
 with the flags of deepsee_tpu/native/Makefile:
@@ -14,7 +14,9 @@ with the flags of deepsee_tpu/native/Makefile:
 
 into `deepsee_torch/_build/<hash>/`, where the hash covers every source and
 the flags, so an edited source rebuilds and an unchanged one is reused.  The
-sources asked for compile at once, one compiler process each.  Nothing here
+sources asked for compile at once, one compiler process each, and each
+`nvcc` optimizes its kernels on as many threads as the host has
+(`--split-compile=0`).  Nothing here
 runs at import time: the CPU tests import every module on machines without
 nvcc.
 """
@@ -34,7 +36,7 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "--split-compile=0")
 # -ffp-contract=off: the codec's float32 normalize rounds like numpy's (no FMA)
 GXX_FLAGS = ("-O3", "-Wall", "-Wextra", "-fPIC", "-std=c++17", "-ffp-contract=off", "-shared")
 GXX_LIBS = ("-ljpeg", "-lpng", "-lz")

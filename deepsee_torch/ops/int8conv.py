@@ -30,20 +30,25 @@ scales must still be the whole layer's, as the JAX package's mesh runs take
 them: `int8_conv_sharded` splits (b) into this rank's maxima, a MAX
 all-reduce over the model group that the caller passes in, and the rest of
 (b) from the reduced maxima, so the scales and k_q equal one process's bit
-for bit.  Its stages are the kernels' wrappers, each of which launches its
-kernel on CUDA tensors and runs its plain version on CPU tensors.
+for bit.  Where data ranks hold the other rows of the batch, a MAX
+all-reduce over them takes (a)'s maxima over the global batch first, as the
+JAX mesh program's max runs over its data axis too.  Its stages are the
+kernels' wrappers, each of which launches its kernel on CUDA tensors and
+runs its plain version on CPU tensors.
 
 Under the spatial layout a rank holds a horizontal stripe of the map, and
 the maxima must still be the whole map's: `int8_conv_striped` runs (a) on
-the stripe, takes the model group's MAX all-reduce of its maxima (exact, so
-one process's bit for bit), then (b) and (c) as one process does, and hands
+the stripe, takes a MAX all-reduce of its maxima over every rank (the
+stripes and the data ranks' rows: exact, so one process's on the global
+batch bit for bit), then (b) and (c) as one process does, and hands
 (d) the stripe's x_q with its halo rows (int8, from the caller's window)
 at a padding of 0 along H.  Kernel (d) and its plan take the padding per
 axis, (pad_h, pad_w), for that.
 
 The launch plans are pure Python, so the CPU tests reach them:
 `weight_plan` gives (b)'s blocks their runs of output channels and their
-threads their units; `quantize_plan` sizes (c)'s grid; `igemm_plan`
+threads their units, `column_maxima_plan` and `scales_plan` the blocks of
+(b)'s launches under a shard; `quantize_plan` sizes (c)'s grid; `igemm_plan`
 chooses (d)'s tile (the output-pixel rectangle, BN, BK, the ring's stages,
 the persistent grid) and the boxes of its two TMA tensor maps, and `igemm_tile` /
 `igemm_loads` give the tile order and the coordinates that the kernel's
@@ -73,7 +78,8 @@ __all__ = ["int8_conv", "int8_conv_plain", "quantize_plain", "igemm_plain", "Qua
            "quantize_activation_plain",
            "absmax_channels", "quantize_weight", "quantize_activation", "int8_conv_igemm",
            "divide_check", "QuantizePlan", "quantize_plan", "WeightPlan", "weight_plan",
-           "weight_rows", "IgemmPlan", "igemm_plan",
+           "weight_rows", "ColumnMaximaPlan", "column_maxima_plan", "ScalesPlan", "scales_plan",
+           "IgemmPlan", "igemm_plan",
            "igemm_tile", "igemm_loads",
            "padded_channels", "conv_out_size", "pads", "launches", "plain_calls",
            "reset_launches", "int8_conv_sharded", "int8_conv_striped", "weight_column_maxima",
@@ -107,6 +113,11 @@ WEIGHT_THREADS = 1024
 WEIGHT_MAX_ROWS = 32
 WEIGHT_MAX_CIN = 8192
 WEIGHT_UNIT_COLUMNS = 2   # input channels of a unit: a 16-bit word of k_q per tap
+# (b) under a shard: the column maxima's and the scales' blocks
+# (int8conv.cu's kColumnThreads, kScalesThreads)
+COLUMN_THREADS = 512
+SCALES_THREADS = 256
+SMEM_MAX = 232448 - 1024    # a block's shared memory on the H100, less the static arrays
 
 # Kernel launches, one per wrapper call that launches its kernel: (a) is two
 # launches in the source (partials and merge), counted as one.  `plain_calls`
@@ -388,10 +399,61 @@ def weight_plan(cout: int, cin: int, taps: int, smooth: bool = True,
                       cin * 4 * (2 if smooth else 1))
 
 
-def weight_rows(plan: WeightPlan, n: int, block: int) -> Tuple[int, int]:
-    """The [begin, end) output channels of `block` (n = Cout: the kernel's
-    o_begin, o_end); with n = Cin, the input channels whose s_c it writes."""
+def weight_rows(plan, n: int, block: int) -> Tuple[int, int]:
+    """The [begin, end) output channels of `block` of a `weight_plan` or
+    `scales_plan` (n = Cout: the kernel's o_begin, o_end); with n = Cin, the
+    input channels whose s_c it writes."""
     return block * n // plan.grid, (block + 1) * n // plan.grid
+
+
+class ColumnMaximaPlan(NamedTuple):
+    """(b)'s column-maxima launch under a shard: `grid` blocks of
+    COLUMN_THREADS, block b owning the input channels [b * columns, (b + 1) *
+    columns) (the last one the rest): in every row a run of columns * taps
+    floats, COLUMN_THREADS // (columns * taps) rows of it read at once."""
+    grid: int
+    columns: int
+
+
+def column_maxima_plan(cin: int, taps: int, sms: int = SMS) -> ColumnMaximaPlan:
+    """The fewest columns a block that keep the grid within two blocks per
+    SM, and a run that fits the block's threads."""
+    if min(cin, taps) < 1 or taps > COLUMN_THREADS:
+        raise ValueError(f"int8conv: the column maxima take 1 to {COLUMN_THREADS} taps and "
+                         f"a column or more, got {taps} taps, {cin} columns")
+    columns = max(1, min(-(-cin // (2 * sms)), COLUMN_THREADS // taps))
+    return ColumnMaximaPlan(-(-cin // columns), columns)
+
+
+class ScalesPlan(NamedTuple):
+    """(b)'s scales launch under a shard: `grid` blocks of SCALES_THREADS,
+    block b owning the output channels `weight_rows(plan, cout, b)`, at most
+    `rows`; `smem`: the dynamic shared memory (s_c, then the block's rows of
+    the weight, each padded to 16 bytes)."""
+    grid: int
+    rows: int
+    smem: int
+
+
+def scales_plan(cout: int, cin: int, taps: int, sms: int = SMS) -> ScalesPlan:
+    """About one unit (an output channel's two input channels over the
+    taps) a thread, and at least a block per SM where there are the output
+    channels for it; fewer rows a block where its rows would not fit its
+    shared memory."""
+    if min(cout, cin, taps) < 1:
+        raise ValueError(f"int8conv: no weight of ({cout}, {cin}, {taps} taps)")
+    sc_bytes, row_bytes = -(-cin // 4) * 16, -(-cin * taps // 4) * 16
+    fit = min(WEIGHT_MAX_ROWS, (SMEM_MAX - sc_bytes) // row_bytes)
+    if fit < 1:
+        raise ValueError(f"int8conv: the scales stage whole output channels in shared memory; "
+                         f"one of {cin} x {taps} taps needs {row_bytes + sc_bytes} bytes, more "
+                         f"than {SMEM_MAX}")
+    units = padded_channels(cin) // WEIGHT_UNIT_COLUMNS
+    grid = min(cout, max(sms, -(-cout * units // SCALES_THREADS)))
+    if -(-cout // grid) > fit:
+        grid = -(-cout // fit)
+    rows = -(-cout // grid)
+    return ScalesPlan(grid, rows, sc_bytes + rows * row_bytes)
 
 
 class IgemmPlan(NamedTuple):
@@ -489,11 +551,14 @@ def _lib() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.int8_absmax_channels.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, p]
     lib.int8_quantize_weight.argtypes = [p] * 8 + [i32] * 6 + [p]
-    lib.int8_quantize_weight_split.argtypes = [i32] + [p] * 9 + [i32] * 6 + [p]
+    lib.int8_weight_row_maxima.argtypes = [p] * 6 + [i32] * 6 + [p]
+    lib.int8_weight_column_maxima.argtypes = [p, p] + [i32] * 5 + [p]
+    lib.int8_weight_scales.argtypes = [i32] + [p] * 10 + [i32] * 6 + [p]
     lib.int8_quantize_activation.argtypes = [p, p, p, p] + [i32] * 6 + [p]
     lib.int8_conv_igemm.argtypes = [p, p, p, p, p, p] + [i32] * 18 + [p]
     lib.int8_divide_check.argtypes = [p, p, i32, p, p, p, p]
-    for fn in (lib.int8_absmax_channels, lib.int8_quantize_weight, lib.int8_quantize_weight_split,
+    for fn in (lib.int8_absmax_channels, lib.int8_quantize_weight, lib.int8_weight_row_maxima,
+               lib.int8_weight_column_maxima, lib.int8_weight_scales,
                lib.int8_quantize_activation, lib.int8_conv_igemm, lib.int8_divide_check):
         fn.restype = ctypes.c_int
     return lib
@@ -617,43 +682,61 @@ def quantize_weight(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tensor
     return s_c, s_k, s_x, k_q
 
 
-# (b)'s launches under a shard (int8conv.cu's WeightMode)
-_COLUMN_MAXIMA, _COLUMN_SCALES, _ROW_MAXIMA, _ROW_SCALES = 1, 2, 3, 4
+# (b)'s launches under a shard
 
-
-def _weight_split(mode: int, weight: torch.Tensor, smooth: bool, *, mx_raw=None, mx=None,
-                  s_c=None, s_k=None, s_x=None, k_q=None, mk=None, maxima=None) -> None:
-    """One launch of (b) under a shard, `weight_plan`'s grid, into the
-    given outputs; its count."""
+def _check_weight(weight: torch.Tensor) -> None:
     _check_cuda("weight", weight, (torch.float32,), 4)
     if not weight.is_contiguous():
         raise ValueError("int8conv: weight must be contiguous OIHW")
-    cout, cin, kh, kw = weight.shape
-    for name, t, n in (("mx_raw", mx_raw, cin), ("mx", mx, cin), ("s_c", s_c, cin),
-                       ("mk", mk, cin), ("maxima", maxima, cout + 1)):
-        if t is not None:
-            _check_vector(name, t, n, weight.device)
-    plan = weight_plan(cout, cin, kh * kw, smooth, card_sms(weight.device))
-    ptr = [None if t is None else t.data_ptr() for t in (mx, mx_raw, s_c, s_k, s_x, k_q, mk,
-                                                         maxima)]
-    with torch.cuda.device(weight.device):
-        err = _lib().int8_quantize_weight_split(mode, weight.data_ptr(), *ptr, cout, cin,
-                                                padded_channels(cin), kh * kw, int(smooth),
-                                                plan.grid, _stream(weight))
-    _check(err, "quantize_weight_split")
-    launches[{_COLUMN_MAXIMA: "weight_column_maxima",
-              _ROW_MAXIMA: "weight_row_maxima"}.get(mode, "weight_scales")] += 1
 
 
 def weight_column_maxima(weight: torch.Tensor) -> torch.Tensor:
     """(b)'s first launch for a column block (smoothing): max|k_c| over its
-    output channels and taps, (Cin,) float32 (bit patterns merged by
-    atomicMax in a buffer zeroed on the stream)."""
+    output channels and taps, (Cin,) float32 (`column_maxima_plan`'s blocks,
+    each the maxima of its own input channels, written once)."""
     if _plain_here(weight):
         return weight_column_maxima_plain(weight)
-    mk = torch.empty(weight.shape[1], dtype=torch.float32, device=weight.device)
-    _weight_split(_COLUMN_MAXIMA, weight, True, mk=mk)
+    _check_weight(weight)
+    cout, cin, kh, kw = weight.shape
+    plan = column_maxima_plan(cin, kh * kw, card_sms(weight.device))
+    mk = torch.empty(cin, dtype=torch.float32, device=weight.device)
+    with torch.cuda.device(weight.device):
+        err = _lib().int8_weight_column_maxima(weight.data_ptr(), mk.data_ptr(), cout, cin,
+                                               kh * kw, plan.grid, plan.columns,
+                                               _stream(weight))
+    _check(err, "weight_column_maxima")
+    launches["weight_column_maxima"] += 1
     return mk
+
+
+def _weight_scales(weight: torch.Tensor, *, mx_raw=None, mx=None, mk=None, s_c_in=None,
+                   maxima=None) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """(b)'s second launch under a shard, `scales_plan`'s grid: a column
+    block's (s_c, s_k, s_x, k_q) where mk is given, a row block's (None,
+    s_k, s_x, k_q) from s_c_in and maxima."""
+    _check_weight(weight)
+    cout, cin, kh, kw = weight.shape
+    columns = mk is not None
+    for name, t, n in (("mx_raw", mx_raw, cin), ("mx", mx, cin), ("mk", mk, cin),
+                       ("s_c", s_c_in, cin), ("maxima", maxima, cout + 1)):
+        if t is not None:
+            _check_vector(name, t, n, weight.device)
+    dev = weight.device
+    plan = scales_plan(cout, cin, kh * kw, card_sms(dev))
+    cp = padded_channels(cin)
+    s_c = torch.empty(cin, dtype=torch.float32, device=dev) if columns else None
+    s_k = torch.empty(cout, dtype=torch.float32, device=dev)
+    s_x = torch.empty((), dtype=torch.float32, device=dev)
+    k_q = torch.empty((cout, kh, kw, cp), dtype=torch.int8, device=dev)
+    ptr = [None if t is None else t.data_ptr()
+           for t in (mx, mx_raw, mk, s_c_in, maxima, s_c, s_k, s_x, k_q)]
+    with torch.cuda.device(dev):
+        err = _lib().int8_weight_scales(int(columns), weight.data_ptr(), *ptr, cout, cin, cp,
+                                        kh * kw, plan.grid, plan.smem, _stream(weight))
+    _check(err, "weight_scales")
+    launches["weight_scales"] += 1
+    return s_c, s_k, s_x, k_q
 
 
 def quantize_weight_columns(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tensor,
@@ -664,32 +747,33 @@ def quantize_weight_columns(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torc
     gives them (k_q (Cout, kh, kw, Cp))."""
     if _plain_here(weight, mx_raw, mx, mk):
         return quantize_weight_columns_plain(weight, mx_raw, mx, mk)
-    cout, cin, kh, kw = weight.shape
-    dev = weight.device
-    s_c = torch.empty(cin, dtype=torch.float32, device=dev)
-    s_k = torch.empty(cout, dtype=torch.float32, device=dev)
-    s_x = torch.empty((), dtype=torch.float32, device=dev)
-    k_q = torch.empty((cout, kh, kw, padded_channels(cin)), dtype=torch.int8, device=dev)
-    _weight_split(_COLUMN_SCALES, weight, True, mx_raw=mx_raw, mx=mx, s_c=s_c, s_k=s_k,
-                  s_x=s_x, k_q=k_q, mk=mk)
-    return s_c, s_k, s_x, k_q
+    return _weight_scales(weight, mx_raw=mx_raw, mx=mx, mk=mk)
 
 
 def weight_row_maxima(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tensor,
                       smooth: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """(b)'s first launch for a row block: s_c (Cin,) and the maxima (Cout +
     1,): each output channel's max|k'| over this block's columns, then
-    max|x'| over x's channel block (cooperative where it smooths, as
-    `quantize_weight`)."""
+    max|x'| over x's channel block (`weight_plan`'s grid, cooperative where
+    it smooths, as `quantize_weight`)."""
     if _plain_here(weight, mx_raw, mx):
         return weight_row_maxima_plain(weight, mx_raw, mx, smooth)
-    cout, cin = weight.shape[:2]
+    _check_weight(weight)
+    cout, cin, kh, kw = weight.shape
     dev = weight.device
+    for name, t in (("mx_raw", mx_raw), ("mx", mx)):
+        _check_vector(name, t, cin, dev)
+    plan = weight_plan(cout, cin, kh * kw, smooth, card_sms(dev))
     s_c = torch.empty(cin, dtype=torch.float32, device=dev)
     maxima = torch.empty(cout + 1, dtype=torch.float32, device=dev)
-    mk = torch.empty(cin, dtype=torch.float32, device=dev) if smooth else None
-    _weight_split(_ROW_MAXIMA, weight, smooth, mx_raw=mx_raw, mx=mx, s_c=s_c, mk=mk,
-                  maxima=maxima)
+    mk = torch.empty(cin, dtype=torch.int32, device=dev) if smooth else None
+    with torch.cuda.device(dev):
+        err = _lib().int8_weight_row_maxima(weight.data_ptr(), mx.data_ptr(), mx_raw.data_ptr(),
+                                            s_c.data_ptr(), None if mk is None else mk.data_ptr(),
+                                            maxima.data_ptr(), cout, cin, padded_channels(cin),
+                                            kh * kw, int(smooth), plan.grid, _stream(weight))
+    _check(err, "weight_row_maxima")
+    launches["weight_row_maxima"] += 1
     return s_c, maxima
 
 
@@ -699,13 +783,7 @@ def quantize_weight_rows(weight: torch.Tensor, s_c: torch.Tensor, maxima: torch.
     model group's maxima."""
     if _plain_here(weight, s_c, maxima):
         return quantize_weight_rows_plain(weight, s_c, maxima)
-    cout, cin, kh, kw = weight.shape
-    dev = weight.device
-    s_k = torch.empty(cout, dtype=torch.float32, device=dev)
-    s_x = torch.empty((), dtype=torch.float32, device=dev)
-    k_q = torch.empty((cout, kh, kw, padded_channels(cin)), dtype=torch.int8, device=dev)
-    _weight_split(_ROW_SCALES, weight, True, s_c=s_c, s_k=s_k, s_x=s_x, k_q=k_q, maxima=maxima)
-    return s_k, s_x, k_q
+    return _weight_scales(weight, s_c_in=s_c, maxima=maxima)[1:]
 
 
 def quantize_activation(x: torch.Tensor, s_c: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
@@ -830,29 +908,38 @@ def _int8_conv_op(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Te
     return int8_conv_igemm(x_q, k_q, s_x, s_k, bias, stride, padding, x.dtype)
 
 
+MaxReduce = Callable[[torch.Tensor], torch.Tensor]
+
+
 def int8_conv_sharded(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-                      stride: int, padding: int, smooth: bool, shard: str,
-                      all_reduce_max: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+                      stride: int, padding: int, smooth: bool, shard: Optional[str],
+                      all_reduce_max: MaxReduce,
+                      batch_max: Optional[MaxReduce] = None) -> torch.Tensor:
     """`int8_conv` of one rank's block of a tensor-parallel conv: `shard`
     "column" (the weight's block of output channels, x whole) or "row" (its
     block of input channels and x's channel block, the caller summing the
-    ranks' outputs and adding the bias after).  The maxima that decide the
-    scales are the whole layer's, as one process takes them: (b) splits
-    around `all_reduce_max` (the elementwise max over the model group, in
-    place or not), so s_c, s_k, s_x and k_q are one process's bit for bit,
-    and each rank dequantizes its partial product with them.  Kernels (a),
-    the two launches of (b), (c), (d), which run their plain versions on
-    CPU tensors."""
-    if shard not in ("column", "row"):
-        raise ValueError(f"int8conv: shard must be 'column' or 'row', got {shard!r}")
+    ranks' outputs and adding the bias after), or None (the weight whole on
+    every rank, x whole).  The maxima that decide the scales are the whole
+    layer's, as one process takes them: (b) splits around `all_reduce_max`
+    (the elementwise max over the model group, in place or not), so s_c,
+    s_k, s_x and k_q are one process's bit for bit, and each rank
+    dequantizes its partial product with them.  Where x holds this rank's
+    rows of a batch that other data ranks share, `batch_max` (the max over
+    them) takes (a)'s maxima over the global batch first; None: x holds
+    the whole batch.  Kernels (a), (b) (two launches for a block), (c), (d),
+    which run their plain versions on CPU tensors."""
+    if shard not in ("column", "row", None):
+        raise ValueError(f"int8conv: shard must be 'column', 'row' or None, got {shard!r}")
     if weight.dim() != 4 or weight.shape[1] != x.shape[1]:
         raise ValueError(f"int8conv: weight {tuple(weight.shape)} does not fit x "
                          f"{tuple(x.shape)}")
     if _plain_here(x, weight, bias):
         plain_calls["int8_conv"] += 1
     mx_raw, mx = absmax_channels(x)
-    if shard == "column" and not smooth:  # nothing of the group is needed
-        s_c, s_k, s_x, k_q = quantize_weight(weight, mx_raw, mx, False)
+    if batch_max is not None:
+        mx_raw, mx = batch_max(torch.cat([mx_raw, mx])).split(x.shape[1])
+    if shard is None or (shard == "column" and not smooth):  # nothing of the model group
+        s_c, s_k, s_x, k_q = quantize_weight(weight, mx_raw, mx, smooth)
     elif shard == "column":
         mk = all_reduce_max(weight_column_maxima(weight))
         s_c, s_k, s_x, k_q = quantize_weight_columns(weight, mx_raw, mx, mk)
@@ -866,17 +953,18 @@ def int8_conv_sharded(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torc
 def int8_conv_striped(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                       stride: int, padding: Padding, smooth: bool,
                       halo: Callable[[torch.Tensor], torch.Tensor],
-                      all_reduce_max: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+                      all_reduce_max: MaxReduce) -> torch.Tensor:
     """`int8_conv` of one rank's horizontal stripe x of a map striped over
     the model group.  (a) takes the stripe's maxima and `all_reduce_max`
-    (the elementwise max over the model group) makes them the whole map's,
-    in one call on (mx_raw, mx): a max is exact in any order, so (b)'s
-    s_c, s_k, s_x, k_q and (c)'s x_q are one process's bit for bit.  (c)
-    quantizes the stripe; `halo(x_q)` is the int8 slab that this rank's
-    output rows read (the neighbours' rows, the global edges' padding: the
-    caller's window), and (d) convolves it at `padding` ((pad_h, pad_w):
-    pad_h 0, the halo holding H's).  Kernels (a)-(d), which run their plain
-    versions on CPU tensors."""
+    (the elementwise max over every rank that holds a stripe of the global
+    batch's maps: the model group's stripes and the data ranks' rows) makes
+    them the whole batch's, in one call on (mx_raw, mx): a max is exact in
+    any order, so (b)'s s_c, s_k, s_x, k_q and (c)'s x_q are one process's
+    on the global batch bit for bit.  (c) quantizes the stripe; `halo(x_q)`
+    is the int8 slab that this rank's output rows read (the neighbours'
+    rows, the global edges' padding: the caller's window), and (d)
+    convolves it at `padding` ((pad_h, pad_w): pad_h 0, the halo holding
+    H's).  Kernels (a)-(d), which run their plain versions on CPU tensors."""
     if weight.dim() != 4 or weight.shape[1] != x.shape[1]:
         raise ValueError(f"int8conv: weight {tuple(weight.shape)} does not fit x "
                          f"{tuple(x.shape)}")

@@ -37,12 +37,12 @@ in `replayed` too:
     ("grads");
   * `gather_rows`: the stripes put back together, for the display and
     checks ("gather");
-  * `all_reduce_max`: the elementwise maximum, outside autograd: an int8
-    conv's maxima over the whole map (ops/int8conv.py::int8_conv_striped,
-    "max").
+  * `all_reduce_max`: the elementwise maximum over the whole world, data x
+    model, outside autograd: an int8 conv's maxima over the global batch's
+    whole maps (ops/int8conv.py::int8_conv_striped, "max").
 
-Every rank of a model group must call them with the same layouts, in the
-same order.  With one model rank, or outside `use_mesh` (and inside
+Every rank of a model group (of the world, for the batch statistics and
+the int8 maxima) must call them with the same layouts, in the same order.  With one model rank, or outside `use_mesh` (and inside
 `whole()`), nothing here is active and every map is whole.
 """
 
@@ -448,11 +448,13 @@ def mean(t: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
 
 
 def all_reduce_max(t: torch.Tensor) -> torch.Tensor:
-    """A new tensor: the elementwise maximum of t over the model group,
-    outside autograd, counted as "max"."""
+    """A new tensor: the elementwise maximum of t over every rank's rows and
+    stripes, data x model (the whole world, as `batch_modnorm`'s
+    statistics), outside autograd, counted as "max": an int8 conv's maxima
+    over the global batch's whole maps."""
     with torch.no_grad():
         out = t.detach().contiguous().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=distributed.model_group())
+        dist.all_reduce(out, op=dist.ReduceOp.MAX)
     _count("max", out)
     return out
 

@@ -21,16 +21,20 @@ Four autograd functions over the model group (`distributed.model_group`):
 
 Beside them, outside autograd, `all_reduce_max`: the elementwise maximum
 over the model group, the whole layer's maxima of an int8 conv's block
-(ops/int8conv.py::int8_conv_sharded; the JAX package's global max-reduce).
+(ops/int8conv.py::int8_conv_sharded; the JAX package's global max-reduce);
+and `all_reduce_batch_max`, the one collective here over the data group:
+an int8 conv's activation maxima over the global batch, where data ranks
+hold its rows (the JAX mesh program's max over its data axis).
 
 Rank r of n holds the contiguous block [r * C / n, (r + 1) * C / n) of a
 sharded dimension of C.  These five, the non-autograd twins
-(`all_reduce_values`, `all_gather_values`) and `mean_replicated_grads`
-are the only places where a tensor-parallel collective runs; each counts its collectives (`counts`:
+(`all_reduce_values`, `all_gather_values`), `mean_replicated_grads` and
+`all_reduce_batch_max` are the only places where a tensor-parallel
+collective runs; each counts its collectives (`counts`:
 calls and the bytes of the tensor each produces) and the channel slices it
 copies into channels_last memory (`layout_copies`).  Every rank of a model
-group must call them with the same shapes, in the same order.  With one
-model rank each is the identity and counts nothing.
+group (data group) must call them with the same shapes, in the same order.
+With one model rank (data rank) each is the identity and counts nothing.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch.distributed as dist
 
 from deepsee_torch.parallel import distributed
 
-KINDS = ("copy", "reduce", "gather", "scatter", "max")
+KINDS = ("copy", "reduce", "gather", "scatter", "max", "batch_max")
 counts: Dict[str, Dict[str, int]] = {k: {"calls": 0, "bytes": 0} for k in KINDS}
 layout_copies = {"slice": 0}
 
@@ -222,6 +226,19 @@ def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
         out = x.detach().clone()
         dist.all_reduce(_dense(out), op=dist.ReduceOp.MAX, group=distributed.model_group())
         _count("max", out)
+        return out
+
+
+def all_reduce_batch_max(x: torch.Tensor) -> torch.Tensor:
+    """A new tensor: the elementwise maximum of x over the data group (the
+    ranks that hold the other rows of the global batch), outside autograd,
+    counted as "batch_max"."""
+    if distributed.data_world() == 1:
+        return x
+    with torch.no_grad():
+        out = x.detach().contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=distributed.data_group())
+        _count("batch_max", out)
         return out
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes inside one launch of K4 (b) and of K1's instance forward.
 
-    python3 scripts/kernel_phases.py
+    python3 scripts/kernel_phases.py [--split-only | --tp-only]
 
 Builds deepsee_torch/csrc/int8conv.cu and modnorm.cu with
 -DDEEPSEE_PHASE_MARKS, which turns the sources' PHASE_MARK(k) points
@@ -21,7 +21,14 @@ median and latest block, in ns after the first block started.  The marks:
 * K1's grid variant (`modnorm_batch_kernel<..., INSTANCE>`) at the full
   trunk's shapes of that step: the pilot mean, the streamed vectors, the
   sums, the grid barrier, the merged statistics, the streamed apply, the
-  end.
+  end;
+* with --tp-only, K4 (b)'s launches under a tensor-parallel shard at the
+  block shapes of one rank's int8 main-path call
+  (scripts/tp_weight_kernels_in_turns.py's BLOCKS): the column maxima, the
+  row maxima and the scales of a column and of a row block, smoothing, with
+  the marks each launch passes (through the entries the tree's library has:
+  the redesigned `int8_weight_column_maxima` / `int8_weight_scales`, or the
+  earlier modes of one kernel, so that a parent tree runs it too).
 
 Single launches, not CUDA graphs: the numbers show the order and size of
 each phase, not the launch's device time, which chip_smoke.py and
@@ -37,7 +44,8 @@ import subprocess
 import sys
 import tempfile
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path[:0] = [os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                os.path.dirname(os.path.abspath(__file__))]
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -181,6 +189,79 @@ def split_phases(workdir: str, gen) -> None:
                    mn.LRELU_SLOPE, stream), plan.grid[0] * plan.grid[1], names)
 
 
+def tp_phases(workdir: str, gen) -> None:
+    """(b)'s launches under a shard, smoothing, at each block shape of one
+    rank's tensor-parallel int8 call: the redesigned column maxima and
+    scales (`int8_weight_column_maxima`, `int8_weight_scales`) where the
+    library has them, else the earlier modes of `quantize_weight_kernel`
+    (`int8_quantize_weight_split`, modes 1-4)."""
+    import tp_weight_kernels_in_turns as tpk
+
+    lib = build("int8conv", workdir)
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    redesigned = hasattr(lib, "int8_weight_scales")
+    if redesigned:
+        lib.int8_weight_column_maxima.argtypes = [p, p] + [i32] * 5 + [p]
+        lib.int8_weight_scales.argtypes = [i32] + [p] * 10 + [i32] * 6 + [p]
+        lib.int8_weight_row_maxima.argtypes = [p] * 6 + [i32] * 6 + [p]
+    else:
+        lib.int8_quantize_weight_split.argtypes = [i32] + [p] * 9 + [i32] * 6 + [p]
+    dev = torch.device("cuda")
+    names = ["start", "column maxima", "grid barrier", "s_c", "s_x", "row maxima", "end",
+             "loaded", "merged"]
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = mn.card_sms(dev)
+    for role, wshape, _ in tpk.BLOCKS:
+        cout, cin, kh, kw = wshape
+        taps, cp = kh * kw, ic.padded_channels(cin)
+        w = torch.randn(wshape, generator=gen, device=dev) * 0.05
+        mx_raw, mx = ic.absmax_channels_plain(torch.randn((2, cin, 5, 6), generator=gen,
+                                                          device=dev))
+        s_c, s_k = torch.rand(cin, device=dev) + 0.5, torch.empty(cout, device=dev)
+        s_x = torch.empty((), device=dev)
+        k_q = torch.empty((cout, kh, kw, cp), dtype=torch.int8, device=dev)
+        mk = ic.weight_column_maxima_plain(w)
+        bits = torch.empty(cin, dtype=torch.int32, device=dev)
+        maxima = torch.rand(cout + 1, device=dev) + 0.1
+        plan = ic.weight_plan(cout, cin, taps, True, sms)
+        ptr = [t.data_ptr() for t in (w, mx, mx_raw, s_c, s_k, s_x, k_q)]
+
+        def split(mode, scratch=mk):
+            return lambda: lib.int8_quantize_weight_split(
+                mode, *ptr, scratch.data_ptr(), maxima.data_ptr(), cout, cin, cp, taps, 1,
+                plan.grid, stream)
+
+        def scales(columns: bool):
+            sp = ic.scales_plan(cout, cin, taps, sms)
+            return lambda: lib.int8_weight_scales(
+                int(columns), w.data_ptr(), mx.data_ptr(), mx_raw.data_ptr(), mk.data_ptr(),
+                s_c.data_ptr(), maxima.data_ptr(), s_c.data_ptr() if columns else None,
+                s_k.data_ptr(), s_x.data_ptr(), k_q.data_ptr(), cout, cin, cp, taps, sp.grid,
+                sp.smem, stream), sp.grid
+
+        if redesigned and role == "column":
+            cplan = ic.column_maxima_plan(cin, taps, sms)
+            out = torch.empty(cin, device=dev)
+            phases(f"column maxima {list(wshape)}", lib,
+                   lambda: lib.int8_weight_column_maxima(w.data_ptr(), out.data_ptr(), cout, cin,
+                                                         taps, cplan.grid, cplan.columns, stream),
+                   cplan.grid, names)
+            launch, grid = scales(True)
+            phases(f"column scales {list(wshape)}", lib, launch, grid, names)
+        elif redesigned:
+            phases(f"row maxima {list(wshape)}", lib, lambda: lib.int8_weight_row_maxima(
+                w.data_ptr(), mx.data_ptr(), mx_raw.data_ptr(), s_c.data_ptr(), bits.data_ptr(),
+                maxima.data_ptr(), cout, cin, cp, taps, 1, plan.grid, stream), plan.grid, names)
+            launch, grid = scales(False)
+            phases(f"row scales {list(wshape)}", lib, launch, grid, names)
+        elif role == "column":
+            phases(f"column maxima {list(wshape)}", lib, split(1), plan.grid, names)
+            phases(f"column scales {list(wshape)}", lib, split(2), plan.grid, names)
+        else:
+            phases(f"row maxima {list(wshape)}", lib, split(3), plan.grid, names)
+            phases(f"row scales {list(wshape)}", lib, split(4), plan.grid, names)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA device", file=sys.stderr)
@@ -188,10 +269,13 @@ def main() -> int:
     _build.build_all()
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     with tempfile.TemporaryDirectory() as workdir:
-        if "--split-only" not in sys.argv:
-            weight_phases(workdir, gen)
-            instance_phases(workdir, gen)
-        split_phases(workdir, gen)
+        if "--tp-only" in sys.argv:
+            tp_phases(workdir, gen)
+        else:
+            if "--split-only" not in sys.argv:
+                weight_phases(workdir, gen)
+                instance_phases(workdir, gen)
+            split_phases(workdir, gen)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     return 0

@@ -443,20 +443,31 @@ def sean_run(norm_1: bool):
             "running": (norm.running_mean.clone(), norm.running_var.clone())}
 
 
-def eval_generator_run():
-    """The tiny model in eval mode (K1's affine mode), seeded trained-like
-    weights, laid out as `tp_mesh` where there are ranks: the fake and the
-    style of a batch."""
+def _tp_eval_system(load=None, laid_out: bool = True):
+    """The tiny model in eval mode, seeded trained-like weights (or those
+    `load(system)` gives it), laid out as `tp_mesh` where there are ranks
+    (and `laid_out`)."""
     from deepsee_torch.weights import randomize_weights
 
     exp = tiny_test_experiment().replace(is_train=False)
     system = SRSystem(exp, device="cpu")
-    system.init(torch.Generator().manual_seed(2))
-    randomize_weights(system.networks().values(), torch.Generator().manual_seed(3))
-    if distributed.world_size() > 1:
+    if load is None:
+        system.init(torch.Generator().manual_seed(2))
+        randomize_weights(system.networks().values(), torch.Generator().manual_seed(3))
+    else:
+        load(system)
+    if laid_out and distributed.world_size() > 1:
         mesh = tp_mesh()
         distributed.set_model_axis(mesh.model_axis)
         shard.shard_system(system, mesh)
+    return exp, system
+
+
+def eval_generator_run():
+    """The tiny model in eval mode (K1's affine mode), seeded trained-like
+    weights, laid out as `tp_mesh` where there are ranks: the fake and the
+    style of a batch."""
+    exp, system = _tp_eval_system()
     batch = batch_for(exp.model, False, batch=2)
     fake, style = system.generate(system.preprocess(batch), use_full=False)
     return {"fake": fake.clone(), "style": style.clone()}
@@ -470,43 +481,208 @@ TP_INT8_MIN_CH = 8
 
 def int8_generator_run():
     """`eval_generator_run` under int8_inference(min_ch=TP_INT8_MIN_CH): the
-    fake and the style, the quantized convs this process ran and the MAX
-    all-reduces it made."""
+    fake and the style, the quantized convs this process ran, those of them
+    that ran as a block (`int8_conv_sharded`), and the MAX all-reduces it
+    made over the model group ("max") and the data group ("batch_max"),
+    calls and bytes."""
     from deepsee_torch.ops import int8conv as ic
     from deepsee_torch.parallel import tensor as tp
 
+    sharded, blocks = tlayers.int8_conv_sharded, [0]
+
+    def counted(*a, **k):
+        blocks[0] += 1
+        return sharded(*a, **k)
+
     ic.reset_launches()
     tp.reset_counts()
-    with tlayers.int8_inference(min_ch=TP_INT8_MIN_CH):
+    with tlayers.int8_inference(min_ch=TP_INT8_MIN_CH), \
+            _Patches((tlayers, "int8_conv_sharded", counted)):
         out = eval_generator_run()
     return dict(out, quantized_convs=torch.tensor(ic.plain_calls["int8_conv"]),
-                max_calls=torch.tensor(tp.counts["max"]["calls"]))
+                sharded_convs=torch.tensor(blocks[0]),
+                max_calls=torch.tensor(tp.counts["max"]["calls"]),
+                collectives={k: dict(tp.counts[k]) for k in ("max", "batch_max")})
 
 
 JAX_VARIABLES = "jax_int8_variables.pkl"  # (g, e) numpy trees the test writes into OUT_DIR
 
 
-def int8_jax_weights_run(out_dir: str):
+def int8_jax_weights_run(out_dir: str, batch: int = 2):
     """The tiny eval system holding the JAX package's variables that the
     test wrote into out_dir (`SRSystem.load_jax_variables`), laid out as
     `tp_mesh` where there are ranks, under int8_inference(min_ch=
-    TP_INT8_MIN_CH): the fake of `batch_for`'s batch, for the JAX package's
-    one-device int8 fake of the same weights and batch."""
+    TP_INT8_MIN_CH): the fake of this data rank's rows of `batch_for`'s
+    batch of `batch`, for the JAX package's int8 fake of the same weights
+    and batch (on one device, or its mesh program)."""
     import pickle
 
     with open(os.path.join(out_dir, JAX_VARIABLES), "rb") as f:
         g, e = pickle.load(f)
-    exp = tiny_test_experiment().replace(is_train=False)
-    system = SRSystem(exp, device="cpu")
-    system.load_jax_variables(g, e)
-    if distributed.world_size() > 1:
-        mesh = tp_mesh()
-        distributed.set_model_axis(mesh.model_axis)
-        shard.shard_system(system, mesh)
+    exp, system = _tp_eval_system(lambda system: system.load_jax_variables(g, e))
+    mine = rows(batch_for(exp.model, False, batch=batch), distributed.data_rank(),
+                distributed.data_world())
     with tlayers.int8_inference(min_ch=TP_INT8_MIN_CH):
-        fake, _ = system.generate(system.preprocess(batch_for(exp.model, False, batch=2)),
-                                  use_full=False)
+        fake, _ = system.generate(system.preprocess(mine), use_full=False)
     return {"fake": fake.clone()}
+
+
+# the planted fault of the int8 runs at 2 x 2: the activation maxima over the
+# model group only, each data rank quantizing with its own rows' scales
+INT8_PLANTED_BATCH = "model_group_maxima"
+TP_INT8_BATCH = 4           # the 2 x 2 int8 runs' global batch: two rows per data rank
+
+
+def _data_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every data rank's rows of t (dim 0), in data-rank order: one
+    all-gather over the data group, outside the layouts' counts."""
+    n = distributed.data_world()
+    if n == 1:
+        return t
+    t = t.detach().contiguous()
+    parts = [torch.empty_like(t) for _ in range(n)]
+    torch.distributed.all_gather(parts, t, group=distributed.data_group())
+    return torch.cat(parts)
+
+
+def _model_blocks(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model group's blocks of t along `dim`, concatenated (not counted)."""
+    n = distributed.model_world()
+    t = t.detach().contiguous()
+    parts = [torch.empty_like(t) for _ in range(n)]
+    torch.distributed.all_gather(parts, t, group=distributed.model_group())
+    return torch.cat(parts, dim)
+
+
+class _ShardedScales:
+    """Every quantized conv of the tensor-parallel layout while open
+    (`int8_conv_sharded`, which takes them all where data ranks share the
+    batch), teacher-forced: whether its s_c, s_k, s_x, k_q and x_q on this
+    rank are, bit for bit, this rank's part of one process's quantization
+    of the whole layer on the global batch (the conv's input gathered over
+    the data group, and over the model group for a row block; the weight's
+    blocks gathered).  {"shard", "equal": {name: bool}} per conv."""
+
+    def __init__(self):
+        from deepsee_torch.ops import int8conv as ic
+
+        self.ic, self.calls = ic, []
+        self.saved = tlayers.int8_conv_sharded, ic.quantize_activation, ic.int8_conv_igemm
+
+    def __enter__(self):
+        sharded, act, igemm = self.saved
+        got = {}
+
+        def recording_act(x, s_c, s_x):
+            x_q = act(x, s_c, s_x)
+            got.update(s_c=s_c, s_x=s_x, x_q=x_q)
+            return x_q
+
+        def recording_igemm(x_q, k_q, s_x, s_k, *a, **k):
+            got.update(k_q=k_q, s_k=s_k)
+            return igemm(x_q, k_q, s_x, s_k, *a, **k)
+
+        def recording_sharded(x, weight, bias, stride, padding, smooth, shard_, *a):
+            got.clear()
+            y = sharded(x, weight, bias, stride, padding, smooth, shard_, *a)
+            self.calls.append({"shard": shard_, "equal": self._equal(x, weight, smooth, shard_,
+                                                                      dict(got))})
+            return y
+
+        tlayers.int8_conv_sharded = recording_sharded
+        self.ic.quantize_activation, self.ic.int8_conv_igemm = recording_act, recording_igemm
+        return self
+
+    @staticmethod
+    def _equal(x, weight, smooth, shard_, got):
+        from deepsee_torch.ops import int8conv as ic
+        from deepsee_torch.parallel import tensor as tp
+
+        n, d = x.shape[0], distributed.data_rank()
+        mine = slice(d * n, (d + 1) * n)
+        m = distributed.model_rank()
+        whole_x = _model_blocks(x, 1) if shard_ == tp.ROW else x
+        whole_w = (weight if shard_ is None else
+                   _model_blocks(weight, 0 if shard_ == tp.COLUMN else 1))
+        q = ic.quantize_plain(_data_rows(whole_x), whole_w, smooth)
+        want = {"s_c": q.s_c, "s_k": q.s_k, "s_x": q.s_x, "k_q": q.k_q, "x_q": q.x_q[mine]}
+        if shard_ == tp.COLUMN:
+            cut = slice(m * weight.shape[0], (m + 1) * weight.shape[0])
+            want.update(s_k=q.s_k[cut], k_q=q.k_q[cut])
+        elif shard_ == tp.ROW:
+            cut = slice(m * weight.shape[1], (m + 1) * weight.shape[1])
+            want.update(s_c=q.s_c[cut], k_q=q.k_q[:, cut], x_q=q.x_q[mine][:, cut])
+        return {k: bool(torch.equal(got[k], v)) for k, v in want.items()}
+
+    def __exit__(self, *exc):
+        tlayers.int8_conv_sharded = self.saved[0]
+        self.ic.quantize_activation, self.ic.int8_conv_igemm = self.saved[1:]
+
+
+def tp_int8_run(mode: str = "smooth", fault=None):
+    """The tiny eval system of `eval_generator_run` under int8_inference(
+    min_ch=TP_INT8_MIN_CH, smooth=mode == "smooth"), laid out as `tp_mesh`
+    where there are ranks, on this data rank's rows of a batch of
+    TP_INT8_BATCH: the fake of those rows, the quantized convs, the MAX
+    all-reduces over the model group ("max") and the data group
+    ("batch_max"), and where there are ranks every conv's quantization
+    against one process's on the global batch (`_ShardedScales`).  `fault`
+    INT8_PLANTED_BATCH: the data group's all-reduce the identity."""
+    from deepsee_torch.ops import int8conv as ic
+    from deepsee_torch.parallel import tensor as tp
+
+    exp, system = _tp_eval_system()
+    mine = rows(batch_for(exp.model, False, batch=TP_INT8_BATCH), distributed.data_rank(),
+                distributed.data_world())
+    patches = (_Patches((tp, "all_reduce_batch_max", lambda t: t))
+               if fault == INT8_PLANTED_BATCH else _Patches())
+    recorder = _ShardedScales() if distributed.world_size() > 1 else _Patches()
+    ic.reset_launches()
+    tp.reset_counts()
+    with tlayers.int8_inference(min_ch=TP_INT8_MIN_CH, smooth=mode == "smooth"), patches, \
+            recorder:
+        fake, _ = system.generate(system.preprocess(mine), use_full=False)
+    return {"fake": fake.clone(), "quantized_convs": ic.plain_calls["int8_conv"],
+            "collectives": {k: dict(tp.counts[k]) for k in ("max", "batch_max")},
+            "scales": getattr(recorder, "calls", None)}
+
+
+def _tp_int8_task(out_dir: str):
+    distributed.set_model_axis(TP_MODEL_AXIS)
+    out = {f"int8_{m}": tp_int8_run(m) for m in INT8_CONV_MODES}
+    out[f"int8_{INT8_PLANTED_BATCH}"] = tp_int8_run(fault=INT8_PLANTED_BATCH)
+    out["int8_jax_weights"] = int8_jax_weights_run(out_dir, batch=TP_INT8_BATCH)
+    return out
+
+
+def eval_int8_run(order=None):
+    """The evaluator under int8_inference(min_ch=TP_INT8_MIN_CH) on the tiny
+    system of `eval_generator_run`, without FID and LPIPS, as `eval_run`
+    sweeps (data ranks alone, as `evaluate --multihost`: this rank's stripe
+    where there are ranks, or the samples `order` lists): the result and
+    each quantized conv's s_x in call order, as `int8_conv`'s plain version
+    takes it (the activation scale of its own batch)."""
+    from deepsee_torch.ops import int8conv as ic
+
+    exp, system = _tp_eval_system(laid_out=False)
+    dataset = SyntheticDataset(exp, length=EVAL_SAMPLES)
+    if order is not None:
+        dataset = _Reordered(dataset, order)
+    loader = DataLoader(dataset, EVAL_BATCH, shuffle=False, drop_last=True, num_workers=1,
+                        shard_index=distributed.rank(), num_shards=distributed.world_size())
+    ev = InferenceEvaluator(system, EVAL_SAMPLES, compute_fid=False, compute_lpips=False)
+    scales, plain = [], ic.quantize_plain
+
+    def recording(x, weight, smooth):
+        q = plain(x, weight, smooth)
+        scales.append(q.s_x.clone())
+        return q
+
+    with tlayers.int8_inference(min_ch=TP_INT8_MIN_CH), \
+            _Patches((ic, "quantize_plain", recording)):
+        result = ev.run(loader)
+    result.pop("eval_seconds")
+    return {"result": result, "s_x": torch.stack(scales)}
 
 
 class _Recorded:
@@ -842,10 +1018,11 @@ SP_INT8_PLANTED = "stripe_maxima"
 
 
 class _StripedScales:
-    """Every quantized conv's s_c, s_k, s_x and k_q while open, and one
+    """Every quantized conv's s_c, s_k, s_x, k_q and x_q while open, and one
     process's quantization of the conv's input gathered whole (the model
-    group's stripes): {"got": ..., "want": ...} per conv in call order, from
-    the wrappers of (b) and (c) that `int8_conv_striped` calls."""
+    group's stripes, every data rank's rows): {"got": ..., "want": ...} per
+    conv in call order, this rank's stripe of its rows of x_q, from the
+    wrappers of (b) and (c) that `int8_conv_striped` calls."""
 
     def __init__(self):
         from deepsee_torch.ops import int8conv as ic
@@ -866,16 +1043,28 @@ class _StripedScales:
 
         def activation(x, s_c, s_x):
             call = self.calls[-1]
-            q = self.ic.quantize_plain(spatial.gather_rows(x), call.pop("weight"),
+            q = self.ic.quantize_plain(_data_rows(spatial.gather_rows(x)), call.pop("weight"),
                                        call["smooth"])
-            call["want"] = {"s_c": q.s_c, "s_k": q.s_k, "s_x": q.s_x, "k_q": q.k_q}
-            return act_fn(x, s_c, s_x)
+            n, d = x.shape[0], distributed.data_rank()
+            call["want"] = {"s_c": q.s_c, "s_k": q.s_k, "s_x": q.s_x, "k_q": q.k_q,
+                            "x_q": spatial.stripe(q.x_q[d * n:(d + 1) * n], 2)}
+            call["got"]["x_q"] = act_fn(x, s_c, s_x)
+            return call["got"]["x_q"]
 
         self.ic.quantize_weight, self.ic.quantize_activation = weight, activation
         return self
 
     def __exit__(self, *exc):
         self.ic.quantize_weight, self.ic.quantize_activation = self.saved
+
+
+def _model_group_max(t: torch.Tensor) -> torch.Tensor:
+    """The planted INT8_PLANTED_BATCH on stripes: the maxima over the model
+    group's stripes only."""
+    out = t.detach().contiguous().clone()
+    torch.distributed.all_reduce(out, op=torch.distributed.ReduceOp.MAX,
+                                 group=distributed.model_group())
+    return out
 
 
 def sp_int8_run(weights, batch, mode: str = "smooth", fault=None, nudge_seed=None):
@@ -887,8 +1076,9 @@ def sp_int8_run(weights, batch, mode: str = "smooth", fault=None, nudge_seed=Non
     the MAX all-reduces (calls, bytes) and halos (calls, bytes) they made,
     and where the map is striped every conv's scales beside one process's
     quantization of its gathered input (`_StripedScales`).  `fault`
-    SP_INT8_PLANTED: the MAX all-reduce the identity.  `nudge_seed`: the
-    weights nudged by one ulp (`nudge`)."""
+    SP_INT8_PLANTED: the MAX all-reduce the identity; INT8_PLANTED_BATCH:
+    over the model group only.  `nudge_seed`: the weights nudged by one ulp
+    (`nudge`)."""
     from deepsee_torch.ops import int8conv as ic
     from deepsee_torch.parallel import spatial
 
@@ -898,8 +1088,9 @@ def sp_int8_run(weights, batch, mode: str = "smooth", fault=None, nudge_seed=Non
     if nudge_seed is not None:
         nudge(system, 1, nudge_seed)  # G and E: an inference system has no D
     batch = spatial.shard_rows(rows(batch, distributed.data_rank(), distributed.data_world()))
-    patches = (_Patches((spatial, "all_reduce_max", lambda t: t)) if fault == SP_INT8_PLANTED
-               else _Patches())
+    patches = _Patches(*{SP_INT8_PLANTED: [(spatial, "all_reduce_max", lambda t: t)],
+                         INT8_PLANTED_BATCH: [(spatial, "all_reduce_max", _model_group_max)]
+                         }.get(fault, []))
     recorder = _StripedScales() if spatial.active() else _Patches()
     ic.reset_launches()
     spatial.reset_counts()
@@ -959,6 +1150,9 @@ def _sp_infer_task(out_dir: str):
             out[f"tiny_{fault}"] = sp_infer_run("tiny", data["weights"], data["batch"], fault)
         out[f"int8_{SP_INT8_PLANTED}"] = sp_int8_run(data["weights"], data["batch"],
                                                      fault=SP_INT8_PLANTED)
+    else:
+        out[f"int8_{INT8_PLANTED_BATCH}"] = sp_int8_run(data["weights"], data["batch"],
+                                                        fault=INT8_PLANTED_BATCH)
     return out
 
 
@@ -1042,7 +1236,8 @@ def _sp_cli_task(out_dir: str):
 
 TASKS = {"step": _step_task, "norms": _norms_task, "eval": lambda out_dir: eval_run(),
          "trainer": _trainer_task, "tp_step": _tp_step_task, "tp_wide": _tp_wide_task,
-         "tp_ops": _tp_ops_task, "tp_trainer": _tp_trainer_task, "sp_ops": _sp_ops_task,
+         "tp_ops": _tp_ops_task, "tp_int8": _tp_int8_task, "tp_trainer": _tp_trainer_task,
+         "eval_int8": lambda out_dir: eval_int8_run(), "sp_ops": _sp_ops_task,
          "sp_infer": _sp_infer_task, "sp_step": _sp_step_task, "sp_trainer": _sp_trainer_task}
 # tasks that join no group themselves (the CLIs do, with --multihost)
 UNGROUPED = {"cli": _cli_task, "tp_cli": _tp_cli_task, "sp_cli": _sp_cli_task}

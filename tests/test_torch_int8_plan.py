@@ -500,3 +500,126 @@ def test_split_weight_refuses_another_shard():
     with pytest.raises(ValueError):
         ic.int8_conv_sharded(x, torch.zeros(8, 16, 3, 3), None, 1, 1, True, "spatial",
                              lambda t: t)
+
+
+# -- (b) under a shard: the column maxima's and the scales' launches ------------
+#
+# numpy emulations of int8conv.cu's `column_maxima_kernel` and
+# `weight_scales_kernel` at their plans: which thread reads which value, how
+# the partial maxima merge, where each level lands in the k_q tile and how
+# the tile is stored, held against the plain versions at every block shape
+# of the main path's tensor-parallel int8 call and at odd shapes
+SPLIT_BLOCKS = {"column 64x64": (64, 64, 3, 3), "column 256x512": (256, 512, 3, 3),
+                "column 512x128": (512, 128, 3, 3), "column 512x256": (512, 256, 3, 3),
+                "row 256x64": (256, 64, 3, 3), "5x5": (48, 40, 5, 5), "cin 62": (64, 62, 3, 3),
+                "1x1": (96, 3, 1, 1), "mod 256->1024": (1024, 256, 3, 3)}
+
+
+def _split_weight(shape, seed=5):
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal(shape) * 0.05 * 10.0 ** rng.uniform(0, 1.3, size=(1, shape[1], 1, 1))
+         ).astype(np.float32)
+    w[:, 1 % shape[1]] = 0.0  # an all-zero column
+    return torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_BLOCKS))
+def test_column_maxima_plan_reads_every_value_once(case):
+    """Block b's threads t < R * L hold the run value e = t % L of rows
+    t // L, t // L + R, ... of its own columns (L = columns * taps, R =
+    COLUMN_THREADS // L): every column in one block, so every weight value
+    read by exactly one thread; the threads' maxima merged by column (e //
+    taps, the key the lanes of a warp group by) give max|k_c| exactly; the
+    grid is at most two blocks per SM."""
+    cout, cin, kh, kw = SPLIT_BLOCKS[case]
+    taps = kh * kw
+    plan = ic.column_maxima_plan(cin, taps, sms=ic.SMS)
+    assert plan.grid <= 2 * ic.SMS
+    w = np.abs(_split_weight((cout, cin, kh, kw)).numpy().reshape(cout, cin * taps))
+    owner = np.zeros(cin, int)
+    got = np.full(cin, -1.0, np.float32)
+    for b in range(plan.grid):
+        c0 = b * plan.columns
+        n = min(plan.columns, cin - c0)
+        length = n * taps
+        rows = ic.COLUMN_THREADS // length
+        assert n >= 1 and rows >= 1
+        owner[c0:c0 + n] += 1
+        run = np.zeros((-(-cout // rows) * rows, length), np.float32)
+        run[:cout] = w[:, c0 * taps:c0 * taps + length]
+        held = run.reshape(-1, rows * length).max(0)   # thread t's max: t = r * L + e
+        column = (np.arange(rows * length) % length) // taps
+        for j in range(n):
+            got[c0 + j] = held[column == j].max()
+    assert (owner == 1).all()
+    want = ic.weight_column_maxima_plain(_split_weight((cout, cin, kh, kw)))
+    assert np.array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("columns", [True, False])
+@pytest.mark.parametrize("case", list(SPLIT_BLOCKS))
+def test_scales_plan_units_give_k_q(case, columns):
+    """Block b stages its rows [b * Cout / G, (b + 1) * Cout / G) in shared
+    memory (16-byte copies where a row is a multiple of 4 floats, else one
+    float at a time into rows padded to 16 bytes); unit u (row u // Q,
+    input channels 2q, 2q + 1, q = u % Q, Q = Cp / 2) reads its 2 * taps
+    values from the stage at r * srow + 2q * taps + k and writes one 16-bit
+    word per tap at k_q's [o][t][2q]: every word once, the levels of the
+    plain version (zeros in the padding channels); every output channel in
+    one block, at most WEIGHT_MAX_ROWS a block, s_c and the rows within the
+    plan's shared memory."""
+    cout, cin, kh, kw = SPLIT_BLOCKS[case]
+    taps, cp = kh * kw, ic.padded_channels(cin)
+    weight = _split_weight((cout, cin, kh, kw))
+    rng = np.random.default_rng(8)
+    if columns:
+        mx = torch.from_numpy(rng.uniform(0.01, 3.0, cin).astype(np.float32))
+        _, _, _, want = ic.quantize_weight_columns_plain(
+            weight, mx, mx.clamp_min(ic.FLOOR), ic.weight_column_maxima_plain(weight))
+    else:
+        s_c = torch.from_numpy(rng.uniform(0.5, 2.0, cin).astype(np.float32))
+        rows = ic._smoothed(weight, s_c).abs().amax(dim=(1, 2, 3))
+        _, _, want = ic.quantize_weight_rows_plain(weight, s_c,
+                                                   torch.cat([rows, torch.ones(1)]))
+    levels = np.zeros((cout, taps, cp), np.uint8)
+    levels[..., :cin] = want.permute(0, 2, 3, 1).reshape(cout, taps, cin).numpy().view(np.uint8)
+    plan = ic.scales_plan(cout, cin, taps, sms=ic.SMS)
+    row_len, srow, q_per_row = cin * taps, -(-cin * taps // 4) * 4, cp // 2
+    assert plan.rows <= ic.WEIGHT_MAX_ROWS and plan.smem <= ic.SMEM_MAX
+    assert plan.smem == (-(-cin // 4) + plan.rows * srow // 4) * 16
+    flat = weight.numpy().reshape(cout, row_len)
+    k_q = np.zeros((cout, taps, q_per_row), np.uint16)
+    writes = np.zeros((cout, taps, q_per_row), int)
+    owned = np.zeros(cout, int)
+    for b in range(plan.grid):
+        lo, hi = ic.weight_rows(plan, cout, b)
+        assert 1 <= hi - lo <= plan.rows
+        owned[lo:hi] += 1
+        stage = np.full((hi - lo) * srow, np.nan, np.float32)
+        if row_len % 4 == 0:
+            stage[:] = flat[lo:hi].reshape(-1)
+        else:
+            i = np.arange((hi - lo) * row_len)
+            stage[(i // row_len) * srow + i % row_len] = flat[lo:hi].reshape(-1)
+        r, q = np.divmod(np.arange((hi - lo) * q_per_row), q_per_row)
+        k = np.arange(2 * taps)
+        c = 2 * q[:, None] + k // taps
+        inside = c < cin
+        staged = stage[np.where(inside, r[:, None] * srow + 2 * q[:, None] * taps + k, 0)]
+        direct = flat[lo + r[:, None], np.minimum(c, cin - 1) * taps + k % taps]
+        assert np.array_equal(staged[inside], direct[inside])
+        for t in range(taps):
+            k_q[lo + r, t, q] = (levels[lo + r, t, 2 * q].astype(np.uint16)
+                                 | levels[lo + r, t, 2 * q + 1].astype(np.uint16) << 8)
+            np.add.at(writes, (lo + r, t, q), 1)
+    assert (owned == 1).all() and (writes == 1).all()
+    assert np.array_equal(k_q.view(np.uint8).reshape(cout, taps, cp), levels)
+
+
+def test_split_plans_refuse_what_the_kernels_cannot_take():
+    with pytest.raises(ValueError):
+        ic.column_maxima_plan(64, ic.COLUMN_THREADS + 1)
+    with pytest.raises(ValueError):           # one output channel beyond a block's memory
+        ic.scales_plan(64, 8192, 9)
+    with pytest.raises(ValueError):
+        ic.scales_plan(0, 64, 9)

@@ -14,17 +14,22 @@ matrix, whole on every rank, within 1e-6.  Each planted fault (zero halos,
 statistics per stripe) breaks the tiny configuration's match.
 
 int8 inference on stripes (the JAX package runs `_int8_conv` under its
-spatial mesh and holds it to one device, tests/test_int8_inference.py:191-243):
-the tiny system under int8_inference(min_ch=8), smooth and not, against one
-process on each data rank's rows (mean |error| < 5e-3, max < 0.08, or twice
-one process's own spread under a one-ulp nudge, whichever is larger; the
-model ranks bit for bit alike), and at 1 x 2 against the JAX package's
-one-device int8 fake of the same weights and batch (5e-3 / 0.08).  Every
-striped conv's s_c, s_k, s_x and k_q, teacher-forced, are one process's
-quantization of the conv's gathered input bit for bit: a MAX all-reduce
-makes the stripes' maxima the whole map's.  Without it (the planted fault),
-they are not.  The "nospade" generator (reflection-padded blocks) in eval
-mode on stripes against the JAX package's on one device.
+spatial mesh and holds it to one device, tests/test_int8_inference.py:191-243:
+its scales are global max-reduces over the whole batch and map): the tiny
+system under int8_inference(min_ch=8), smooth and not, at 1 x 2 and 2 x 2
+against one process on the whole batch (mean |error| < 5e-3, max < 0.08,
+or twice one process's own spread under a one-ulp nudge, whichever is
+larger; the model ranks bit for bit alike), at 1 x 2 against the JAX
+package's one-device int8 fake of the same weights and batch, and at 2 x 2
+against the JAX package's own mesh program on MeshConfig(2, 2) (5e-3 /
+0.08 both).  Every striped conv's s_c, s_k, s_x, k_q and x_q,
+teacher-forced, are one process's quantization of the conv's input
+gathered over the stripes and the data ranks' rows, bit for bit: one MAX
+all-reduce over every rank makes the maxima the global batch's.  Without
+it (the planted fault at 1 x 2), or over the model group only (at 2 x 2:
+each data rank's own rows), they are not.  The "nospade" generator
+(reflection-padded blocks) in eval mode on stripes against the JAX
+package's on one device.
 """
 
 import functools
@@ -46,6 +51,7 @@ from deepsee_torch.models import generator as tgen
 from deepsee_torch.system import SRSystem
 from test_torch_layers import load, realistic_variables
 from torch_data_corpus import one_torch_thread  # noqa: F401 (autouse)
+from torch_jax_mesh import int8_mesh_fake
 
 LAYOUTS = {"1x2": 2, "2x2": 4}
 RTOL, ATOL = 1e-4, 1e-5
@@ -93,6 +99,9 @@ def _reference(name, tmp):
             int8_fake = np.asarray(jax.jit(lambda g, e, bt: system.generate(
                 g, e, system.preprocess(bt), use_full=False, no_noise=True, train=False)[0])(
                     g, e, jbatch))
+        int8_fake = {"one_device": int8_fake,  # the mesh program: while the ranks run
+                     "mesh": functools.partial(int8_mesh_fake, system, g, e, batch, spatial=True,
+                                               min_ch=worker.SP_INT8_MIN_CH)}
     port = SRSystem(worker.sp_infer_exp(name), device="cpu")
     port.load_jax_variables(g, e)
     weights = {net: m.state_dict() for net, m in port.networks().items()}
@@ -136,22 +145,17 @@ def _runs(tmp):
                for layout, world in LAYOUTS.items()}
     one = {name: worker.sp_infer_run(name, *want[name][2:4]) for name in worker.SP_INFER_CONFIGS}
     one["int8"] = _int8_one_process(*want["tiny"][2:4])
+    want["tiny"][4]["mesh"] = want["tiny"][4]["mesh"]()
     return want, one, {layout: [r["sp_infer"] for r in s.results(timeout=240.0)[0]]
                        for layout, s in spawned.items()}
 
 
 def _int8_one_process(weights, batch):
-    """(layout, mode) -> one process's int8 fake on each data rank's rows of
-    the layout, put together, and the same with the weights nudged by one
-    ulp."""
-    out = {}
-    for layout, world in LAYOUTS.items():
-        data = world // 2
-        for mode in worker.SP_INT8_MODES:
-            out[(layout, mode)] = [torch.cat([worker.sp_int8_run(
-                weights, worker.rows(batch, d, data), mode, nudge_seed=seed)["fake"]
-                for d in range(data)]) for seed in (None, 31)]
-    return out
+    """mode -> one process's int8 fake on the whole batch, and the same with
+    the weights nudged by one ulp: what every layout gives, its scales the
+    global batch's."""
+    return {mode: [worker.sp_int8_run(weights, batch, mode, nudge_seed=seed)["fake"]
+                   for seed in (None, 31)] for mode in worker.SP_INT8_MODES}
 
 
 @pytest.fixture(scope="module")
@@ -207,11 +211,11 @@ def _int8_limits(one, nudged):
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_striped_int8_matches_one_process(runs, layout, mode):
     """The fakes of the model ranks of each data rank bit for bit alike, and
-    within the int8 limits of one process on the data rank's rows; one MAX
-    all-reduce per quantized conv, as many quantized convs as one process
-    runs, and int8 halos."""
+    put together within the int8 limits of one process on the whole batch;
+    one MAX all-reduce per quantized conv (over the world), as many
+    quantized convs as one process runs, and int8 halos."""
     _, one, ranks = runs
-    want, nudged = one["int8"][(layout, mode)]
+    want, nudged = one["int8"][mode]
     got = [r[f"int8_{mode}"] for r in ranks[layout]]
     for a, b in zip(got[::2], got[1::2]):
         assert torch.equal(a["fake"], b["fake"])
@@ -232,24 +236,38 @@ def test_striped_int8_matches_jax(runs):
     fake of the same batch, at the JAX mesh test's tolerances."""
     want, _, ranks = runs
     got = ranks["1x2"][0]["int8_smooth"]["fake"].numpy()
-    jax_fake = want["tiny"][4]
+    jax_fake = want["tiny"][4]["one_device"]
     assert got.shape == jax_fake.shape
     err = np.abs(got - jax_fake)
     assert float(err.mean()) < INT8_MEAN_ABS and float(err.max()) < INT8_MAX_ABS, \
         (float(err.mean()), float(err.max()))
 
 
+def test_striped_int8_matches_the_jax_mesh_program(runs):
+    """2 x 2 on the JAX package's variables against its own mesh program on
+    MeshConfig(2, 2) (spatial; 4 of the 8 CPU devices) on the same batch, at
+    its mesh test's tolerances: the port's data ranks take the global
+    batch's scales, as the mesh program's global max does."""
+    want, _, ranks = runs
+    got = _fakes(ranks["2x2"], "int8_smooth")
+    mesh_fake = want["tiny"][4]["mesh"]
+    assert got.shape == mesh_fake.shape
+    err = np.abs(got - mesh_fake)
+    assert float(err.mean()) < INT8_MEAN_ABS and float(err.max()) < INT8_MAX_ABS, \
+        (float(err.mean()), float(err.max()))
+
+
 def _scales_equal(call):
     return {k: bool(torch.equal(call["got"][k], call["want"][k]))
-            for k in ("s_c", "s_k", "s_x", "k_q")}
+            for k in ("s_c", "s_k", "s_x", "k_q", "x_q")}
 
 
 @pytest.mark.parametrize("mode", worker.SP_INT8_MODES)
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_striped_int8_scales_are_one_process(runs, layout, mode):
-    """Teacher-forced: every striped conv's s_c, s_k, s_x and k_q on every
-    rank, bit for bit one process's quantization of the conv's input
-    gathered over the model group."""
+    """Teacher-forced: every striped conv's s_c, s_k, s_x, k_q and x_q on
+    every rank, bit for bit one process's quantization of the conv's input
+    gathered over the model group and the data ranks (the global batch)."""
     _, _, ranks = runs
     for r, rank in enumerate(ranks[layout]):
         calls = rank[f"int8_{mode}"]["scales"]
@@ -258,13 +276,17 @@ def test_striped_int8_scales_are_one_process(runs, layout, mode):
             assert all(_scales_equal(call).values()), (r, i, _scales_equal(call))
 
 
-def test_planted_stripe_maxima_break_the_scales(runs):
-    """Without the MAX all-reduce each stripe quantizes with its own maxima:
-    the check above fails on most convs."""
+@pytest.mark.parametrize("layout, fault", [("1x2", worker.SP_INT8_PLANTED),
+                                           ("2x2", worker.INT8_PLANTED_BATCH)])
+def test_planted_maxima_break_the_scales(runs, layout, fault):
+    """Without the MAX all-reduce each stripe quantizes with its own maxima;
+    with it over the model group only, each data rank with its own rows':
+    the check above fails on most convs, on every rank."""
     _, _, ranks = runs
-    calls = ranks["1x2"][0][f"int8_{worker.SP_INT8_PLANTED}"]["scales"]
-    wrong = sum(not all(_scales_equal(c).values()) for c in calls)
-    assert wrong > len(calls) // 2, (wrong, len(calls))
+    for rank in ranks[layout]:
+        calls = rank[f"int8_{fault}"]["scales"]
+        wrong = sum(not all(_scales_equal(c).values()) for c in calls)
+        assert wrong > len(calls) // 2, (wrong, len(calls))
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))

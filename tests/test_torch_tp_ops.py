@@ -17,7 +17,15 @@ against the same functions in one process:
     style;
   * int8 inference under that layout (below): the tiny system against one
     process and, holding the JAX package's weights, against the JAX
-    package's one-device int8 output; a column- and a row-sharded int8 conv.
+    package's one-device int8 output; a column- and a row-sharded int8 conv;
+  * int8 inference laid out 2 x 2 (4 ranks, tasks "tp_int8"): every
+    quantized conv's scales, k_q and x_q the global batch's, teacher-forced,
+    which a planted fault (the maxima over the model group only) breaks; the
+    fake against one process on the whole batch and against the JAX
+    package's own mesh program on MeshConfig(2, 2);
+  * the evaluator on 2 data ranks under int8 (as `evaluate --multihost
+    --int8`, task "eval_int8"): each rank's activation scales its own
+    batch's, as the JAX evaluator's processes take them.
 
 Tolerance: 1e-5 relative L2 (the sums run in another order); the ranks
 bit for bit alike.
@@ -39,6 +47,7 @@ from deepsee_tpu.models import layers as jl
 from deepsee_tpu.system import SRSystem as JaxSystem
 from test_torch_layers import realistic_variables
 from torch_data_corpus import one_torch_thread  # noqa: F401 (autouse)
+from torch_jax_mesh import int8_mesh_fake
 from torch_seeded import batch_for
 
 REL_L2 = 1e-5
@@ -60,17 +69,44 @@ def _jax_system():
 
 @functools.cache
 def _runs(tmp):
-    with open(os.path.join(tmp, worker.JAX_VARIABLES), "wb") as f:
-        pickle.dump(_jax_system()[1:], f)
-    spawned = worker.Spawned(tmp, ["tp_ops"])
+    os.makedirs(os.path.join(tmp, "2x2"))
+    for out in (tmp, os.path.join(tmp, "2x2")):
+        with open(os.path.join(out, worker.JAX_VARIABLES), "wb") as f:
+            pickle.dump(_jax_system()[1:], f)
+    spawned = worker.Spawned(tmp, ["eval_int8", "tp_ops"])
+    spawned_2x2 = worker.Spawned(os.path.join(tmp, "2x2"), ["tp_int8"], world=4)
     one = {name: run() for name, run in RUNS.items()}
     ranks, _ = spawned.results()
-    return [r["tp_ops"] for r in ranks], one
+    return [r["tp_ops"] for r in ranks], one, [r["eval_int8"] for r in ranks], spawned_2x2
+
+
+@functools.cache
+def _runs_2x2(tmp):
+    """The 2 x 2 ranks' "tp_int8" results, the JAX mesh program's int8 fake
+    (compiled while the ranks run) and one process's int8 runs on the whole
+    batch."""
+    spawned = _runs(tmp)[3]
+    jsys, g, e = _jax_system()
+    mesh = int8_mesh_fake(jsys, g, e, batch_for(worker.tiny_test_experiment().model, False,
+                                                 batch=worker.TP_INT8_BATCH),
+                          spatial=False, min_ch=worker.TP_INT8_MIN_CH)
+    one = {mode: worker.tp_int8_run(mode) for mode in worker.INT8_CONV_MODES}
+    return [r["tp_int8"] for r in spawned.results(timeout=240.0)[0]], mesh, one
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    return _runs(str(tmp_path_factory.mktemp("tp_ops")))
+def tmp(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("tp_ops"))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp):
+    return _runs(tmp)[:2]
+
+
+@pytest.fixture(scope="module")
+def runs_2x2(tmp):
+    return _runs_2x2(tmp)
 
 
 def _leaves(tree, path=""):
@@ -158,6 +194,17 @@ def test_int8_generator_matches_one_process(runs):
         assert torch.equal(got["fake"], ranks[0]["int8_generator"]["fake"])
 
 
+def test_int8_collectives_at_one_data_rank(runs):
+    """1 x 2: one MAX all-reduce over the model group per sharded conv (the
+    column and row blocks smooth), none over the data group: no collective
+    beyond the model group's where the data group is one rank."""
+    ranks, _ = runs
+    for rank in ranks:
+        got = rank["int8_generator"]
+        assert int(got["max_calls"]) == int(got["sharded_convs"]) > 0
+        assert got["collectives"]["batch_max"] == {"calls": 0, "bytes": 0}
+
+
 def test_int8_generator_matches_jax(runs):
     """The tiny system 1 x 2 under int8_inference(min_ch=8), holding the
     JAX package's variables (`load_jax_variables`), against the JAX
@@ -240,3 +287,88 @@ def test_quantizes_decides_from_the_whole_layer(monkeypatch, shard_, world, cin,
         assert layers.quantizes(False, cin, cout, shard_) is want
         assert layers.quantizes(True, cin, cout, shard_) is False
     assert layers.quantizes(False, cin, cout, shard_) is False
+
+
+# -- int8 over data x model ranks (2 x 2) and over data ranks alone ---------------
+#
+# The JAX mesh program's scales are global max-reduces over the whole batch:
+# under a layout with a model axis the port's data ranks take (a)'s maxima
+# over the data group too (`tensor.all_reduce_batch_max`), so every scale is
+# one process's on the global batch, bit for bit.  The evaluator, jitted
+# per process in the JAX package, keeps each process's batch's scales.
+
+
+def _equal_calls(rank, key):
+    return [all(call["equal"].values()) for call in rank[key]["scales"]]
+
+
+@pytest.mark.parametrize("mode", worker.INT8_CONV_MODES)
+def test_int8_2x2_scales_are_the_global_batch(runs_2x2, mode):
+    """Teacher-forced: every quantized conv (column, row and replicated) on
+    every rank, its s_c, s_k, s_x, k_q and x_q this rank's part of one
+    process's quantization of the whole layer on the global batch, bit for
+    bit; one MAX all-reduce over the data group per quantized conv."""
+    ranks, _, _ = runs_2x2
+    for r, rank in enumerate(ranks):
+        got = rank[f"int8_{mode}"]
+        calls = got["scales"]
+        assert len(calls) == got["quantized_convs"] > 0
+        assert {c["shard"] for c in calls} == {"column", "row", None}
+        assert all(_equal_calls(rank, f"int8_{mode}")), (r, [c for c in calls
+                                                            if not all(c["equal"].values())])
+        assert got["collectives"]["batch_max"]["calls"] == len(calls)
+
+
+def test_int8_2x2_planted_model_group_maxima_break_the_scales(runs_2x2):
+    """With the activation maxima over the model group only (each data rank
+    its own rows'), the check above fails on most convs of every rank."""
+    ranks, _, _ = runs_2x2
+    for rank in ranks:
+        equal = _equal_calls(rank, f"int8_{worker.INT8_PLANTED_BATCH}")
+        assert sum(not e for e in equal) > len(equal) // 2, equal
+
+
+@pytest.mark.parametrize("mode", worker.INT8_CONV_MODES)
+def test_int8_2x2_matches_one_process_on_the_whole_batch(runs_2x2, mode):
+    """The data ranks' fakes put together against one process on the whole
+    batch: at the JAX mesh test's tolerances and within INT8_CONV_REL_L2
+    (only the row convs' sums run in another order); the model ranks of a
+    data rank bit for bit alike."""
+    ranks, _, one = runs_2x2
+    got = [rank[f"int8_{mode}"]["fake"] for rank in ranks]
+    for a, b in zip(got[::2], got[1::2]):
+        assert torch.equal(a, b)
+    fake, want = torch.cat(got[::2]), one[mode]["fake"]
+    err = (fake - want).abs()
+    assert float(err.mean()) < INT8_MEAN_ABS and float(err.max()) < INT8_MAX_ABS, \
+        (float(err.mean()), float(err.max()))
+    assert _rel_l2(fake, want) <= INT8_CONV_REL_L2
+
+
+def test_int8_2x2_matches_the_jax_mesh_program(runs_2x2):
+    """2 x 2 holding the JAX package's variables against its own mesh
+    program on MeshConfig(2, 2) (4 of the 8 CPU devices, tensor shards at
+    min_shard_ch 8) on the same batch, at its mesh test's tolerances."""
+    ranks, mesh, _ = runs_2x2
+    got = np.concatenate([rank["int8_jax_weights"]["fake"].numpy() for rank in ranks[::2]])
+    assert got.shape == mesh.shape
+    err = np.abs(got - mesh)
+    assert float(err.mean()) < INT8_MEAN_ABS and float(err.max()) < INT8_MAX_ABS, \
+        (float(err.mean()), float(err.max()))
+
+
+def test_multihost_int8_evaluator_keeps_each_rank_scales(tmp):
+    """The evaluator on 2 data ranks under int8 (`evaluate --multihost
+    --int8`'s path): each rank's activation scales, conv by conv, are one
+    process's on that rank's own batches, not shared between the ranks, and
+    the gathered result is what one process gives on the same batches."""
+    ranks = _runs(tmp)[2]
+    stripes = [list(range(r, worker.EVAL_SAMPLES, 2)) for r in range(2)]
+    for rank, stripe in zip(ranks, stripes):
+        assert torch.equal(rank["s_x"], worker.eval_int8_run(stripe)["s_x"])
+    assert not torch.equal(ranks[0]["s_x"], ranks[1]["s_x"])
+    want = worker.eval_int8_run(stripes[0] + stripes[1])["result"]
+    for rank in ranks:  # a NaN (MS-SSIM at 32^2) equal to a NaN
+        assert set(rank["result"]) == set(want)
+        assert all(rank["result"][k] == v or (np.isnan(v) and np.isnan(rank["result"][k]))
+                   for k, v in want.items())
