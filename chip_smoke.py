@@ -32,7 +32,7 @@
 6. Evaluation phase (`evaluation_phase`, the shape of scripts/bench_eval.py):
    deepsee_torch.eval's InferenceEvaluator on the main path's bf16 system
    with FID and LPIPS (seeded random metric networks), batch 16, 128
-   synthetic samples: one warm-up sweep and three timed ones (img/s,
+   synthetic samples: one warm-up sweep and EVAL_SWEEPS timed ones (img/s,
    eval_seconds), the device-only sweep over resident batches, the FID's
    host seconds and share, the idle share of a profiled sweep, one profiled
    batch's device ms by stage with K1's launches checked against the path's
@@ -72,8 +72,7 @@
    forced); the guided 8x path under int8 and its int8 export; the main
    model exported bf16 and int8 at trace batch 8, the int8 program against
    the live system, both served by one daemon under the aliases bf16 and
-   int8 (32 mixed requests, every response against its program); the
-   serve, demo and evaluate CLIs with their int8 flags, in processes.
+   int8 (32 mixed requests, every response against its program).
 10. Training phase (`training_phase`): each training kernel (batch
    statistics, instance with statistics out, both backwards) against its
    plain version at every shape of the b4 and b16 steps, bf16 and float32,
@@ -83,24 +82,24 @@
    step gradients against float32; the faithful b4 and b16 and reuse_fake
    b4 steps with K1's launches per step checked against `train_norms`,
    timed and profiled; faithful against reuse_fake at b16 in turns; the
-   Trainer with a save and a resume; the training CLI for 20 steps with
-   one in-training evaluation (fid_iter.txt and metrics_iter.txt).
+   Trainer with a save and a resume.
 11. The 32x 512^2 train step and remat (`train512_phase`; it runs first,
    right after the build, while the card holds nothing else, so that its
    memory limits are its own):
    32x_guided_512x512 at full width, bf16, faithful schedule, without remat
-   and with each policy ("full", "convs"): ms per step (CUDA events over 3
-   steps after a warm-up; at the profiled b8 points also one step alone
-   through `profiling.timed`) and peak GiB (`profiling.device_memory_stats`)
-   at b2, b4, b8 and the probes b16, b20, b24 (out of memory at a probe is
-   the policy's limit), K1's launches per step against `train_norms` (with
-   remat, one more forward launch per generator norm); the main preset at
+   and with each policy ("full", "convs"): ms per step (CUDA events over
+   REMAT_STEP_REPS steps after a warm-up; at the profiled b8 point also one
+   step alone through `profiling.timed`) and peak GiB
+   (`profiling.device_memory_stats`) at REMAT_GRID and the probes b16, b24
+   (out of memory at a probe is the policy's limit), K1's launches per step
+   against `train_norms` (with remat, one more forward launch per generator
+   norm); the main preset at
    b16 per policy; a float32 32x b1 step with each policy against one
    without (cuDNN deterministic: buffers and generator states bit for bit,
    gradients within MAX_REMAT_GRAD_REL), which the recompute without its
    replay (a planted fault) must break.
 12. Data phase (`data_phase`): the codec or Pillow route against the
-   committed corpus, the loader, disk-fed steps and sweeps, the data CLIs.
+   committed corpus, the loader, disk-fed steps and sweeps.
 13. Data-parallel phase (`dp_phase`): K1's batch modes split around the
    cross-rank collective (launch A, launch B; the backward's sums and
    pass) against their plain versions and the one-launch kernels at every
@@ -110,8 +109,7 @@
    (TF32 off) bit for bit alike across ranks and within MAX_DP_UPDATE_REL
    and MAX_DP_RUNNING_REL of one process at b8, which a planted fault
    (per-rank statistics) must break;
-   bf16 ms per step, gloo's host ms, K1's launches per step; then the
-   training CLI under torchrun with NCCL at world size 1.
+   bf16 ms per step, gloo's host ms, K1's launches per step.
 14. Tensor-parallel phase (`tp_phase`): two model ranks spawned on the one
    card over gloo, PRESET at full width (every trunk conv column- or
    row-sharded, min_shard_ch 128), b2 on both: float32 (TF32 off) 2 Adam
@@ -147,11 +145,20 @@
    kernels line's `*_on_stripes` rows).  The "nospade" generator of the main
    preset at b8 on stripes against one process, float32 relative L2 (the
    "sp nospade" line).
-   Shortened for it (PR 14's counts in the comments beside them): the remat
-   probe at b20, the b16 disk-fed steps from batches decoded beforehand,
-   the loader at 1 and 4 workers, the 1-ulp nudge of the card-vs-CPU step,
-   and fewer timed repeats (TRAIN_STEP_REPS, TRAIN_CLI_STEPS,
-   REMAT_STEP_REPS, EVAL_SWEEPS, DATA_TIMED, DP_CLI_STEPS, TP_BF16_STEPS).
+16. CLI phase (`cli_phase`, last, beside no timed phase): every CLI at
+   once, each in a process of its own: the training CLI for
+   TRAIN_CLI_STEPS steps with one in-training evaluation (fid_iter.txt and
+   metrics_iter.txt), the training and evaluation CLIs on a CelebAMask-HQ
+   tree (the checkpoint files, the CSV's IDs), the training CLI under
+   torchrun with NCCL at world size 1, and the serve, demo and evaluate
+   CLIs with their int8 flags.
+   Shortened for the time limit (the earlier counts in the comments beside
+   them): the remat probe at b20 and the grid's b4, the remat profile of
+   "full", the b16 disk-fed steps from batches decoded beforehand, the
+   loader at 1 and 4 workers, the 1-ulp nudge of the card-vs-CPU step,
+   fewer timed repeats (TRAIN_STEP_REPS, TRAIN_CLI_STEPS, REMAT_STEP_REPS,
+   EVAL_SWEEPS, DATA_TIMED, DP_CLI_STEPS, TP_BF16_STEPS, SP_BF16_STEPS) and
+   shorter timed CUDA graphs (`_device_ms`, SP_TIMING_MS); every check stays.
 
 Prints each phase's seconds on one line, the card's name and power limit,
 one {"kernels": [...]} line (the inference kernels per main-path call, the
@@ -389,7 +396,7 @@ def _event_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fns, target_ms: float = 20.0, max_calls: int = 1000) -> float:
+def _device_ms(fns, target_ms: float = 10.0, max_calls: int = 1000) -> float:
     """Device ms per call of cycling through `fns`: the calls are captured in
     a CUDA graph and five replays timed with CUDA events, so the host's work
     per call (checks, allocation, the ctypes call) is not in the number; the
@@ -515,12 +522,19 @@ def kernel_phase(cfg: ModelConfig, batch: int):
 
 def make_batch(cfg: ModelConfig, batch: int, guided: bool = False):
     """A seeded batch as bench.py makes it: the HR image and its label map
-    and, for the guided model, a guiding image and its label map."""
+    and, for the guided model, a guiding image and its label map (made once
+    per shape, `_seeded_batch`: the phases ask for the same ones again, and
+    no caller writes into them)."""
+    return dict(_seeded_batch(cfg.crop_size, cfg.label_nc, batch, guided))
+
+
+@functools.lru_cache(maxsize=None)
+def _seeded_batch(crop_size: int, label_nc: int, batch: int, guided: bool) -> dict:
     rng = np.random.RandomState(SEED)
-    hw = (batch, cfg.crop_size, cfg.crop_size)
+    hw = (batch, crop_size, crop_size)
     keys = ("image_hr", "label") + (("guiding_image", "guiding_label") if guided else ())
     return {k: (np.tanh(rng.randn(*hw, 3)).astype(np.float32) if "image" in k
-                else rng.randint(0, cfg.label_nc, hw).astype(np.int32)) for k in keys}
+                else rng.randint(0, label_nc, hw).astype(np.int32)) for k in keys}
 
 
 def run_path(system: SRSystem, batch, use_full: bool = False):
@@ -1174,7 +1188,7 @@ NUDGE_ULPS = (8,)   # (1, 8) until PR 14; the 1-ulp step dropped for the smoke's
 # relative L2 per network: set from the first H100 run, which measured G
 # 0.023, E 0.152, D 0.118 (bf16 keeps ~3 digits), with ~2x room.
 MAX_BF16_TRAIN_GRAD_REL = 0.3
-TRAIN_STEP_REPS = 3                # 5 until PR 14
+TRAIN_STEP_REPS = 2                # 5, then 3 before
 TRAIN_CLI_STEPS = 12                # 20 until PR 14; the evaluation still at sample 48
 
 
@@ -1767,9 +1781,8 @@ def profile_train(tag: str, system: SRSystem, state, step, batch, ms_per_step: f
 def trainer_phase(smi: str) -> None:
     """Trainer.run on seeded batches for a few steps with a save, a resume
     and one more step; the saved net_SR / net_E load into an inference
-    SRSystem that generates a finite image.  Then the CLI,
-    `python -m deepsee_torch.train --synthetic`, for TRAIN_CLI_STEPS steps
-    in a process of its own."""
+    SRSystem that generates a finite image.  (Its CLI runs in the CLI
+    phase: `trainer_cli`.)"""
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="deepsee_train_")
     try:
@@ -1797,29 +1810,41 @@ def trainer_phase(smi: str) -> None:
         if not bool(torch.isfinite(fake).all()):
             raise AssertionError("trainer: the trained weights generate a non-finite image")
         del inference
+        log("trainer " + json.dumps({"files": files, "card": smi,
+                                     "wall_s": time.perf_counter() - t0}))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def trainer_cli(smi: str) -> dict:
+    """`python -m deepsee_torch.train --synthetic` for TRAIN_CLI_STEPS steps
+    in a process of its own, with one in-training evaluation
+    (fid_iter.txt and metrics_iter.txt, one line each)."""
+    root = tempfile.mkdtemp(prefix="deepsee_train_cli_")
+    try:
         cli = [sys.executable, "-m", "deepsee_torch.train", "--name", PRESET, "--synthetic",
                "--max_steps", str(TRAIN_CLI_STEPS), "--device", DEVICE, "--checkpoints_dir",
-               os.path.join(root, "cli"), *TRAIN_CLI_EVAL]
+               root, *TRAIN_CLI_EVAL]
         t_cli = time.perf_counter()
         run = subprocess.run(cli, capture_output=True, text=True, timeout=600)
         cli_s = time.perf_counter() - t_cli
         if run.returncode != 0 or f"trained {TRAIN_CLI_STEPS} steps on {DEVICE}" not in run.stdout:
             raise AssertionError(f"the training CLI failed: {run.stdout[-2000:]}"
                                  f"{run.stderr[-2000:]}")
-        cli_files = sorted(os.listdir(os.path.join(root, "cli", PRESET)))
+        cli_files = sorted(os.listdir(os.path.join(root, PRESET)))
         history = {}
         for name in ("fid_iter.txt", "metrics_iter.txt"):
-            path = os.path.join(root, "cli", PRESET, name)
+            path = os.path.join(root, PRESET, name)
             if not os.path.exists(path):
                 raise AssertionError(f"the training CLI's evaluation wrote no {name}")
             with open(path) as f:
                 history[name] = f.read().splitlines()
             if len(history[name]) != 1:
                 raise AssertionError(f"the training CLI evaluated {len(history[name])} times")
-        log("trainer " + json.dumps({"files": files, "cli": " ".join(cli[1:]),
-                                     "cli_s": cli_s, "cli_files": cli_files,
-                                     "cli_evaluation": history, "card": smi,
-                                     "wall_s": time.perf_counter() - t0}))
+        record = {"cli": " ".join(cli[1:]), "cli_s": cli_s, "cli_files": cli_files,
+                  "cli_evaluation": history, "card": smi}
+        log("trainer cli " + json.dumps(record))
+        return record
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1854,12 +1879,12 @@ def training_phase(smi: str):
 # -- the 32x 512^2 train step and remat --------------------------------------
 
 REMAT_POLICIES = (None, "full", "convs")   # None: no remat
-REMAT_GRID = (2, 4, 8)                     # timed, every policy
+REMAT_GRID = (2, 8)                        # timed, every policy ((2, 4, 8) before)
 REMAT_PROBES = (16, 24)                    # timed where they fit; out of memory is that
                                            # policy's limit (b20 dropped: PR 13 measured it)
-REMAT_STEP_REPS = 2                        # 3 until PR 14
+REMAT_STEP_REPS = 1                        # 3, then 2 before
 REMAT_PROFILED = 8                         # one step traced at this batch ...
-REMAT_PROFILED_POLICIES = (None, "full")   # ... under these policies
+REMAT_PROFILED_POLICIES = (None,)          # ... under these policies (and "full" before)
 # remat against no remat, float32 at the 32x preset's full width, batch 1,
 # cuDNN deterministic: buffers and generator states bit for bit, each
 # network's gradients (concatenated) within this relative L2
@@ -2034,7 +2059,7 @@ def train512_phase(smi: str) -> dict:
 
 EVAL_BATCH = 16
 EVAL_SAMPLES = 128
-EVAL_SWEEPS = 2        # 3 until PR 14
+EVAL_SWEEPS = 1        # 3, then 2 before
 # the training CLI's evaluation: in its 20 b4 steps (80 samples) the count of
 # samples crosses a multiple of 48 once; 16 samples per evaluation
 TRAIN_CLI_EVAL = ("--evaluation_freq", "48", "--num_evaluation_samples", "16")
@@ -2571,8 +2596,8 @@ def data_phase(smi: str, resident: dict, synthetic_sweep: dict) -> None:
     alone per worker count, disk-fed training (faithful b4 and b16 of the
     main preset, beside `resident`, the training phase's resident-batch
     steps; a few guided b4 steps), the
-    disk-fed evaluation sweep (beside `synthetic_sweep`), and the two CLIs
-    from the tree."""
+    disk-fed evaluation sweep (beside `synthetic_sweep`).  (Its two CLIs
+    run in the CLI phase: `data_cli_tree`.)"""
     t0 = time.perf_counter()
     route = decode_routes(smi)
     root = tempfile.mkdtemp(prefix="deepsee_data_")
@@ -2589,10 +2614,18 @@ def data_phase(smi: str, resident: dict, synthetic_sweep: dict) -> None:
             **disk_fed_train("guided", DATA_GUIDED, TRAIN_BATCH, tree, root, DATA_GUIDED_STEPS),
             "route": route, "card": smi}))
         disk_fed_sweep(tree, synthetic_sweep, smi)
-        data_clis(tree, root, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"data phase: {time.perf_counter() - t0:.1f} s")
+
+
+def data_cli_tree(smi: str) -> None:
+    """`data_clis` on a tree of its own (`data_tree`)."""
+    root = tempfile.mkdtemp(prefix="deepsee_data_cli_")
+    try:
+        data_clis(data_tree(os.path.join(root, "tree")), root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # -- profile ---------------------------------------------------------------
@@ -3084,8 +3117,8 @@ def dp_phase(smi: str):
     batch DP_WORLD x DP_PER_RANK: float32 (TF32 off) bit for bit alike
     across ranks and against one process at the global batch, beside a
     planted fault that must fail that comparison; bf16 timed, with
-    K1's launches per step. (3) The training CLI under torchrun with NCCL
-    at world size 1.  Returns the kernels line's split entries' numbers."""
+    K1's launches per step.  Returns the kernels line's split entries'
+    numbers."""
     t0 = time.perf_counter()
     cfg = get_preset(PRESET).model
     rows = split_kernel_checks(cfg)
@@ -3145,14 +3178,13 @@ def dp_phase(smi: str):
         raise AssertionError(f"dp K1 launches per step {per_step} != {want}")
     if any(r["launches"] != bf16[0]["launches"] for r in bf16):
         raise AssertionError("the ranks launched K1 differently")
-    cli = dp_cli(smi)
     log(f"dp phase: {time.perf_counter() - t0:.1f} s")
     errs = {"fwd": max(max(r["fwd_max_abs_err"], r["vs_one_launch_max_abs_err"]) for r in rows),
             "bwd": max(max(r["bwd_max_abs_err"], r["bwd_vs_one_process_max_abs_err"])
                        for r in rows)}
     launches = {name: sum(bf16[0]["launches"][k] for k in keys) // DP_STEPS
                 for name, (_, keys, _) in SPLIT_INFO.items()}
-    return {"times": times, "errs": errs, "launches": launches, "cli": cli}
+    return {"times": times, "errs": errs, "launches": launches}
 
 
 # -- tensor-parallel phase --------------------------------------------------------
@@ -3160,7 +3192,7 @@ def dp_phase(smi: str):
 TP_WORLD = 2                   # model_axis 2, data_axis 1: both ranks hold the global batch
 TP_BATCH = 2
 TP_F32_STEPS = 2
-TP_BF16_STEPS = 2              # 3 until PR 14
+TP_BF16_STEPS = 1              # 3, then 2 before
 # float32 (TF32 off): the two ranks' gathered state after TP_F32_STEPS faithful
 # Adam steps from the seeded weights, against one process at b2 from the same
 # weights, batch and draws, read as the dp phase reads its ranks
@@ -3429,6 +3461,10 @@ TP_INT8_KERNELS = {  # name in the kernels line -> (launch counter, the launch's
 }
 # the one PyTorch call that computes the column maxima launch's function
 TP_COLUMN_MAXIMA_LIBRARY = "torch.linalg.vector_norm(w, inf, dim=(0, 2, 3))"
+# where the time of the design a launch replaced stands (it can no longer run here)
+TP_INT8_EARLIER = {"weight_row_maxima": "PERF.md section 6, row 'K4 (b) under a shard, row "
+                                        "maxima': the cooperative launch with a memset that "
+                                        "row_maxima_kernel replaced, timed in turns with it"}
 
 
 def _whole_layer_bits(x, weight, role: str, smooth: bool, got: dict) -> dict:
@@ -3718,6 +3754,8 @@ def _tp_weight_bounds(role: str, wshape):
     if role == "column":
         return {"weight_column_maxima": bound(4 * nw + 4 * cin, 2 * nw),
                 "weight_scales": bound(4 * nw + 16 * cin + kq + 4 * (cout + 1), 6 * nw)}
+    # the function's Cout + 1 maxima (the row-maxima launch's rows of them,
+    # one per cluster, are bytes of its design, not of the function)
     return {"weight_row_maxima": bound(4 * nw + 12 * cin + 4 * (cout + 1), 4 * nw),
             "weight_scales": bound(4 * nw + 4 * cin + 4 * (cout + 1) + kq + 4 * (cout + 1),
                                    5 * nw)}
@@ -3762,13 +3800,14 @@ def tp_int8_kernel_rows(ranks, smi: str) -> dict:
                                      lambda: ic.quantize_weight_columns_plain(ws[0], *maxima[0],
                                                                               top), None)}
         else:
-            first = [ic.weight_row_maxima(w, *m, True) for w, m in zip(ws, maxima)]
+            launched = [ic.weight_row_maxima(w, *m, True) for w, m in zip(ws, maxima)]
             want_first = [ic.weight_row_maxima_plain(w, *m, True) for w, m in zip(ws, maxima)]
-            top = torch.maximum(first[0][1], first[1][1])
-            second = [ic.quantize_weight_rows(w, f[0], top) for w, f in zip(ws, first)]
+            top = torch.maximum(launched[0][1], launched[1][1])
+            second = [ic.quantize_weight_rows(w, f[0], top) for w, f in zip(ws, launched)]
             want_second = [ic.quantize_weight_rows_plain(w, f[0], top)
-                           for w, f in zip(ws, first)]
-            s_c0 = first[0][0]
+                           for w, f in zip(ws, launched)]
+            first = [(s_c, parts.amax(0)) for s_c, parts in launched]  # the clusters' rows folded
+            s_c0 = launched[0][0]
             fns = {"weight_row_maxima": (
                        lambda: ic.weight_row_maxima(ws[0], *maxima[0], True),
                        lambda: ic.weight_row_maxima_plain(ws[0], *maxima[0], True), None),
@@ -3936,10 +3975,10 @@ SP_WORLD = 2                   # model_axis 2, spatial: each rank a horizontal s
 SP_PRESET = PRESET_512         # where feature maps, not weights, fill the card
 SP_F32_BATCH = 1
 SP_BF16_BATCH = 2
-SP_BF16_STEPS = 2
+SP_BF16_STEPS = 1              # 2 before
 SP_INFER = {PRESET: 8, PRESET_512: 2}    # inference paths at these batches
 SP_FAULTS = ("zero_halo", "stripe_stats")
-SP_TIMING_MS = 10.0            # each timed CUDA graph of `sp_stage_times` lasts about this
+SP_TIMING_MS = 5.0             # each timed CUDA graph of `sp_stage_times` lasts about this
 # float32 (TF32 off): the two ranks' states after one faithful Adam step of
 # SP_PRESET at b1 from the seeded weights, against one process from the same
 # weights, batch and draws (`_dp_readings`: per network the relative L2 of the
@@ -5536,7 +5575,6 @@ def int8_phase(system: SRSystem, smi: str) -> dict:
     torch.cuda.empty_cache()
 
     serving = int8_serving(system, smi)
-    clis = int8_clis(smi)
     ic.reset_launches()
     log(f"int8 phase: {time.perf_counter() - t_phase:.1f} s")
     errs = {"absmax": max(r["absmax_max_abs_err"] for r in rows),
@@ -5544,7 +5582,7 @@ def int8_phase(system: SRSystem, smi: str) -> dict:
             "quantize_activation": 0.0 if all(r["x_q_equal"] for r in rows) else None,
             "igemm": max(r["max_abs_err"] for r in rows)}
     return {"launches": launches, "times": path["kernels"], "errs": errs,
-            "serving": serving, "accuracy": accuracy, "clis": clis}
+            "serving": serving, "accuracy": accuracy}
 
 
 # -- main ----------------------------------------------------------------------
@@ -5721,8 +5759,40 @@ def kernels_line(rows, launches, norms, train=None, dp=None, int8=None, tp=None,
             "per": f"one int8 main-path call of one of {TP_WORLD} model ranks ({PRESET} "
                    f"b{TP_INT8_BATCH}, float32; sum over its launches at the ranks' block "
                    "shapes), device time; bit for bit the plain version (max_abs_err 0)",
-        })
+        } | ({"earlier": TP_INT8_EARLIER[key]} if key in TP_INT8_EARLIER else {}))
     return {"kernels": out}
+
+
+# -- the CLIs -------------------------------------------------------------------
+
+def cli_phase(smi: str) -> dict:
+    """Every CLI that the smoke drives, all at once, each group in a thread
+    of its own and each CLI in a process of its own: the training CLI with
+    one in-training evaluation (`trainer_cli`), the training and evaluation
+    CLIs on a data tree (`data_cli_tree`), the training CLI under torchrun
+    with NCCL at world size 1 (`dp_cli`) and the int8 flags of the serving,
+    demo and evaluation CLIs (`int8_clis`), each with its own checks.  Run
+    one after another, each spent most of its time on its process's own
+    start (imports, building the networks); run together, those overlap.
+    Waits for them all and raises if one failed."""
+    jobs = {"trainer": trainer_cli, "data": data_cli_tree, "dp": dp_cli, "int8": int8_clis}
+    results, errors = {}, {}
+
+    def run(name, fn):
+        try:
+            results[name] = fn(smi)
+        except Exception as e:  # raised below, once every group has ended
+            errors[name] = e
+
+    threads = [threading.Thread(target=run, args=item) for item in jobs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise AssertionError(f"CLI groups failed: {sorted(errors)}") from next(
+            iter(errors.values()))
+    return results
 
 
 def main() -> int:
@@ -5767,6 +5837,8 @@ def main() -> int:
     dp = phase("dp", dp_phase, smi)
     tp = phase("tp", tp_phase, smi)
     sp = phase("sp", sp_phase, smi)
+    torch.cuda.empty_cache()
+    phase("clis", cli_phase, smi)
     if any(ic.launches.values()):
         raise AssertionError(f"int8 kernels launched outside int8_inference: {ic.launches}")
 

@@ -775,14 +775,13 @@ igemm_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ 
 //     (this rank's column maxima into mk); the all-reduce of mk;
 //     `weight_scales_kernel<..., COLUMNS>` (s_c, s_x, s_k and k_q from the
 //     group's mk), both below;
-//   * a row block (its input channels; x its channel block): this kernel in
-//     the mode kRowMaxima, phases 1 and 2 (s_c is the rank's own: every
-//     output channel of its columns is here) and each row's max |v| and
-//     block 0's max RN(mx_raw / s_c) into `maxima` [Cout + 1]; the
-//     all-reduce of maxima; `weight_scales_kernel` (s_k, s_x and k_q from
-//     s_c and the group's maxima).  Without smoothing a column block needs
-//     nothing of the group (the one-process launch), a row block the two
-//     maxima.
+//   * a row block (its input channels; x its channel block):
+//     `row_maxima_kernel` (s_c is the rank's own: every output channel of
+//     its columns is here; each row's max |v| and max RN(mx_raw / s_c)
+//     into `maxima` [Cout + 1]); the all-reduce of maxima;
+//     `weight_scales_kernel` (s_k, s_x and k_q from s_c and the group's
+//     maxima), both below.  Without smoothing a column block needs nothing
+//     of the group (the one-process launch), a row block the two maxima.
 constexpr int kWeightThreads = 1024;
 constexpr int kUnitCols = 2;         // input channels of a unit
 constexpr int kWeightMaxRows = 32;   // output channels per block, at most
@@ -798,15 +797,7 @@ struct WeightArgs {
   float* s_x;
   int8_t* k_q;
   unsigned* mk;  // SMOOTH: the column maxima across blocks (bit patterns), zero at launch
-  float* maxima;  // kRowMaxima: each row's max |v|, then max |x'| [Cout + 1]
   int Cout, Cin, Cp, taps;
-};
-
-// this kernel's launches: the one-process launch, and the first launch of
-// a row block under a tensor-parallel shard
-enum WeightMode : int {
-  kWhole = 0,      // one process: everything
-  kRowMaxima = 1,  // row block: s_c, the row maxima and max |x'| into maxima
 };
 
 // k_q's level of v: clip(rint(RN(v / sk)), +-127) as the low byte
@@ -875,7 +866,7 @@ __device__ __forceinline__ void row_merge(unsigned* row_max, int r, float m) {
   }
 }
 
-template <int TAPS, bool SMOOTH, int MODE = kWhole>
+template <int TAPS, bool SMOOTH>
 __global__ void __launch_bounds__(kWeightThreads, 1)
 quantize_weight_kernel(const WeightArgs a) {
   PHASE_MARK(0);
@@ -955,8 +946,7 @@ quantize_weight_kernel(const WeightArgs a) {
     if (tid == 0) {
       float r = 0.0f;
       for (int w = 0; w < kWeightThreads / 32; ++w) r = fmaxf(r, red[w]);
-      if constexpr (MODE == kRowMaxima) a.maxima[a.Cout] = r;
-      else a.s_x[0] = __fdiv_rn(fmaxf(r, kFloor), kLevels);
+      a.s_x[0] = __fdiv_rn(fmaxf(r, kFloor), kLevels);
     }
     PHASE_MARK(4);
   }
@@ -986,10 +976,6 @@ quantize_weight_kernel(const WeightArgs a) {
     if (m > 0.0f) atomicMax(row_max + u / Q, __float_as_uint(m));
   }
   __syncthreads();
-  if constexpr (MODE == kRowMaxima) {  // this rank's row maxima, for the all-reduce
-    if (tid < o_end - o_begin) a.maxima[o_begin + tid] = __uint_as_float(row_max[tid]);
-    return;
-  }
   if (tid < o_end - o_begin) {
     const float top = __uint_as_float(row_max[tid]);
     const float sk = __fdiv_rn(fmaxf(top, kFloor), kLevels);
@@ -1071,10 +1057,58 @@ quantize_weight_kernel(const WeightArgs a) {
 // (warp-reduced where a warp shares its row), s_k, and the levels go out
 // two a 16-bit word per tap (a warp writes 64 contiguous bytes).  The plan (ops/int8conv.py::scales_plan) gives a block about one
 // unit a thread and rows that fit its shared memory.
+//
+// `row_maxima_kernel` (formerly the mode kRowMaxima of the one-process
+// kernel: a memset of a (Cin,) scratch, a cooperative launch, 132 blocks'
+// global atomicMax onto the same Cin words, a grid barrier, every block then
+// forming all Cin of s_c, block 0 alone max |x'|): block b owns the input
+// channels [b * cols, (b + 1) * cols) (cols a power of two) and every
+// output channel, so its columns' maxima and s_c need nothing of another
+// block.  It copies its run of cols * taps floats of every row into shared
+// memory by 4-byte cp.async (coalesced along the runs, every load in flight
+// at once); then thread t takes column t % cols of every (kRowThreads /
+// cols)-th row: max_t |w| over the taps into a [Cout][cols + 1] table and
+// the column's max |w| in a register, merged over the warp's lanes of that
+// column by shuffles and over the warps by shared atomics (RN(. * s_c) is
+// monotone, so a row's max |RN(w * s_c)| over the block's columns is
+// max_c RN(max_t |w| * s_c)); after one barrier the block's threads form s_c
+// and max RN(mx_raw / s_c) of its columns, after another each thread takes
+// whole rows of the table.  (A first design reduced the taps as the loads
+// returned, a warp-wide reduction per load: several times slower on the
+// H100.)  The blocks of a
+// thread-block cluster merge their Cout + 1 maxima by atomicMax on bit
+// patterns into rank 0's shared memory (distributed shared memory; rank 0
+// zeroes it first, behind a split cluster barrier that the loads overlap;
+// the copies are `vec` floats wide where the runs allow),
+// and after one more cluster barrier rank 0 writes them once: maxima
+// [parts][Cout + 1], one row per cluster (ops/int8conv.py::row_maxima_plan).
+// No memset, no global atomics, no scratch, no grid barrier.
 constexpr int kColumnThreads = 512;
 constexpr int kColumnLoads = 16;    // rows of a thread's run value in flight
+constexpr int kRowThreads = 512;
+constexpr int kRowMaxCols = 32;     // a row-maxima block's columns: a power of two up to a warp
+constexpr int kRowMaxCluster = 16;  // blocks of a row-maxima cluster, at most
 constexpr int kScalesThreads = 256;
 constexpr int kScalesAhead = 4;     // input channels a thread loads at once in the prologue
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
 
 template <int TAPS>
 __global__ void __launch_bounds__(kColumnThreads)
@@ -1114,33 +1148,146 @@ column_maxima_kernel(const float* __restrict__ w, float* __restrict__ mk, int Co
   PHASE_MARK(8);
 }
 
+struct RowArgs {
+  const float* w;
+  const float* mx;
+  const float* mx_raw;
+  float* s_c;     // [Cin]
+  float* maxima;  // [parts][Cout + 1]: each row's max |v| over a cluster's columns, then max |x'|
+  int Cout, Cin, taps, cols;
+  int vec;        // floats a copy: 1, 2 or 4, dividing Cin * taps and cols * taps
+};
+
+// The split cluster barrier: arrive (release) and wait (acquire) apart, so
+// that the first one overlaps the loads.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <int TAPS, bool SMOOTH>
+__global__ void __launch_bounds__(kRowThreads)
+row_maxima_kernel(const RowArgs a) {
+  PHASE_MARK(0);
+  extern __shared__ __align__(16) float rows_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int taps = TAPS > 0 ? TAPS : a.taps;
+  const int cols = a.cols;  // a power of two, at most 32
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int c0 = blockIdx.x * a.cols;
+  const int n = max(0, min(cols, a.Cin - c0));  // this block's columns (none past Cin)
+  const int L = n * taps;                       // their run in every row
+  const int ts = cols + 1;                      // odd: a warp's rows on distinct banks
+  float* stage = rows_smem;                                           // [Cout][L]
+  float* tm = stage + a.Cout * cols * taps;                           // [Cout][ts]
+  unsigned* acc = reinterpret_cast<unsigned*>(tm + a.Cout * ts);      // [Cout + 1], rank 0's
+  unsigned* col_max = acc + a.Cout + 1;                               // [cols]
+  float* sc = reinterpret_cast<float*>(col_max + cols);               // [cols]
+  // the block's runs into shared memory, every load in flight at once:
+  // `vec` floats a copy where the runs and the weight allow (the last
+  // block's shorter run may not)
+  const float* src = a.w + static_cast<int64_t>(c0) * taps;
+  const int64_t row = static_cast<int64_t>(a.Cin) * taps;
+  const int vec = L % a.vec == 0 && reinterpret_cast<uintptr_t>(a.w) % (4 * a.vec) == 0
+                      ? a.vec : 1;
+  const int Lv = L / vec;
+  for (int i = tid; i < a.Cout * Lv; i += kRowThreads) {
+    const int o = i / Lv, e = (i - o * Lv) * vec;
+    float* dst = stage + o * L + e;
+    const float* from = src + o * row + e;
+    if (vec == 4) cp_async16(dst, from);
+    else if (vec == 2) cp_async8(dst, from);
+    else cp_async4(dst, from);
+  }
+  const float mx0 = tid < n ? __ldg(a.mx + c0 + tid) : 0.0f;
+  const float raw0 = tid < n ? __ldg(a.mx_raw + c0 + tid) : 0.0f;
+  if (tid < cols) col_max[tid] = 0u;
+  if (rank == 0)  // the cluster's maxima meet here
+    for (int o = tid; o <= a.Cout; o += kRowThreads) acc[o] = 0u;
+  cluster_arrive();  // rank 0's zeros, released while the loads fly
+  cp_async_wait_all();
+  __syncthreads();
+  PHASE_MARK(7);
+
+  // thread t: column j = t % cols of rows t / cols, t / cols + kRowThreads / cols, ...;
+  // each (row, column)'s max over the taps into the table (a warp's reads
+  // `taps` words apart), the column's max |w| in a register
+  const int j = tid % cols;
+  float m = 0.0f;
+  if (j < n) {
+    for (int o = tid / cols; o < a.Cout; o += kRowThreads / cols) {
+      const float* v = stage + o * L + j * taps;
+      float t = 0.0f;
+#pragma unroll
+      for (int k = 0; k < (TAPS > 0 ? TAPS : 1); ++k) t = fmaxf(t, fabsf(v[k]));
+      for (int k = TAPS > 0 ? TAPS : 1; k < taps; ++k) t = fmaxf(t, fabsf(v[k]));
+      tm[o * ts + j] = t;
+      m = fmaxf(m, t);
+    }
+  }
+  if constexpr (SMOOTH) {  // the lanes of one column, then each warp's max (>= 0: bit order)
+    for (int off = 16; off >= cols; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane < n) atomicMax(col_max + lane, __float_as_uint(m));
+  }
+  __syncthreads();
+  PHASE_MARK(8);
+
+  // s_c of the block's columns; their max RN(mx_raw / s_c) and, after one
+  // barrier, each row's max over the columns of RN(max_t |w| * s_c) (RN(. *
+  // s_c) is monotone, so it is the max of |RN(w * s_c)| over the columns and
+  // taps) merged into rank 0's maxima by distributed shared memory atomics
+  unsigned* to = cluster.map_shared_rank(acc, 0);
+  cluster_wait();
+  if (tid < n) {
+    const float s = SMOOTH ? __fdiv_rn(__fsqrt_rn(mx0),
+                                       __fsqrt_rn(fmaxf(__uint_as_float(col_max[tid]), kFloor)))
+                           : 1.0f;
+    sc[tid] = s;
+    a.s_c[c0 + tid] = s;
+    atomicMax(to + a.Cout, __float_as_uint(SMOOTH ? __fdiv_rn(raw0, s) : raw0));
+  }
+  __syncthreads();
+  PHASE_MARK(3);
+  if (n > 0) {
+    for (int o = tid; o < a.Cout; o += kRowThreads) {
+      float r = 0.0f;
+      for (int i = 0; i < n; ++i) {
+        const float t = tm[o * ts + i];
+        r = fmaxf(r, SMOOTH ? __fmul_rn(t, sc[i]) : t);
+      }
+      if (r > 0.0f) atomicMax(to + o, __float_as_uint(r));
+    }
+  }
+  PHASE_MARK(5);
+  cluster_arrive();  // every block's atomics, released to rank 0
+  cluster_wait();
+  PHASE_MARK(9);
+  if (rank == 0) {
+    float* out = a.maxima + static_cast<int64_t>(blockIdx.x / K) * (a.Cout + 1);
+    for (int o = tid; o <= a.Cout; o += kRowThreads) out[o] = __uint_as_float(acc[o]);
+  }
+  PHASE_MARK(6);
+}
+
 struct ScalesArgs {
   const float* w;
   const float* mx;       // COLUMNS
   const float* mx_raw;   // COLUMNS
   const float* mk;       // COLUMNS: the model group's column maxima (unclamped)
   const float* s_c_in;   // rows: the first launch's s_c
-  const float* maxima;   // rows: the model group's row maxima, then max |x'| [Cout + 1]
+  const float* maxima;   // rows: the model group's row maxima, then max |x'| [parts][Cout + 1]
   float* s_c;            // COLUMNS
   float* s_k;
   float* s_x;
   int8_t* k_q;
-  int Cout, Cin, Cp, taps;
+  int Cout, Cin, Cp, taps, parts;
 };
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
 
 template <int TAPS, bool COLUMNS>
 __global__ void __launch_bounds__(kScalesThreads)
@@ -1204,13 +1351,21 @@ weight_scales_kernel(const ScalesArgs a) {
       if (lane == 0) xpart[warp] = xq;
     }
   } else {
+    // the row maxima's clusters folded: each row's max over the parts
+    auto folded = [&](int o) {
+      float top = 0.0f;
+      for (int k = 0; k < a.parts; ++k)
+        top = fmaxf(top, __ldg(a.maxima + static_cast<int64_t>(k) * (a.Cout + 1) + o));
+      return top;
+    };
     if (tid < rows) {
-      const float sk = __fdiv_rn(fmaxf(__ldg(a.maxima + o_begin + tid), kFloor), kLevels);
+      const float sk = __fdiv_rn(fmaxf(folded(o_begin + tid), kFloor), kLevels);
       row_sk[tid] = sk;
       row_rk[tid] = __frcp_rn(sk);
       a.s_k[o_begin + tid] = sk;
     }
-    if (b == 0 && tid == 0) a.s_x[0] = __fdiv_rn(fmaxf(__ldg(a.maxima + a.Cout), kFloor), kLevels);
+    if (b == 0 && tid == kScalesThreads - 1)
+      a.s_x[0] = __fdiv_rn(fmaxf(folded(a.Cout), kFloor), kLevels);
   }
   cp_async_wait_all();
   __syncthreads();
@@ -1399,40 +1554,36 @@ extern "C" int int8_absmax_channels(const void* x, void* part, void* mx_raw, voi
 
 namespace {
 
-// (b)'s kernel for (MODE, taps, smoothing)
 template <typename F>
 const void* kernel_ptr(F* kernel) {
   return reinterpret_cast<const void*>(kernel);
 }
 
+// (b)'s kernel for (taps, smoothing)
 template <int TAPS>
-const void* weight_kernel(int mode, bool smooth) {
-  if (mode == kWhole)
-    return smooth ? kernel_ptr(quantize_weight_kernel<TAPS, true>)
-                  : kernel_ptr(quantize_weight_kernel<TAPS, false>);
-  return smooth ? kernel_ptr(quantize_weight_kernel<TAPS, true, kRowMaxima>)
-                : kernel_ptr(quantize_weight_kernel<TAPS, false, kRowMaxima>);
+const void* weight_kernel(bool smooth) {
+  return smooth ? kernel_ptr(quantize_weight_kernel<TAPS, true>)
+                : kernel_ptr(quantize_weight_kernel<TAPS, false>);
 }
 
-// One launch of (b) in `mode` with the plan of ops/int8conv.py::weight_plan:
-// `grid` blocks (at most Cout and kWeightMaxRows output channels each, and
-// where a barrier is crossed at most what the card holds at once).  With
-// smoothing `mk` is the caller's (Cin,) 32-bit buffer on `stream`, zeroed
-// here before the launch, so launches on different streams never share it,
-// and the launch is cooperative.  cudaErrorInvalidValue for a plan or mode
-// the kernel does not take; the cooperative launch itself returns
+// One launch of (b) with the plan of ops/int8conv.py::weight_plan: `grid`
+// blocks (at most Cout and kWeightMaxRows output channels each, and where a
+// barrier is crossed at most what the card holds at once).  With smoothing
+// `mk` is the caller's (Cin,) 32-bit buffer on `stream`, zeroed here before
+// the launch, so launches on different streams never share it, and the
+// launch is cooperative.  cudaErrorInvalidValue for a plan the kernel does
+// not take; the cooperative launch itself returns
 // cudaErrorCooperativeLaunchTooLarge for a grid the card cannot hold at once.
-int launch_weight(int mode, const void* w, const void* mx, const void* mx_raw, void* s_c,
-                  void* s_k, void* s_x, void* k_q, void* mk, void* maxima, int Cout, int Cin,
-                  int Cp, int taps, int smooth, int grid, void* stream) {
+int launch_weight(const void* w, const void* mx, const void* mx_raw, void* s_c, void* s_k,
+                  void* s_x, void* k_q, void* mk, int Cout, int Cin, int Cp, int taps,
+                  int smooth, int grid, void* stream) {
   if (Cout < 1 || Cin < 1 || Cin > kWeightMaxCin || taps < 1 || Cp % 16 || Cp < Cin ||
       grid < 1 || grid > Cout || (Cout + grid - 1) / grid > kWeightMaxRows ||
-      (mode != kWhole && mode != kRowMaxima) || (smooth && mk == nullptr) ||
-      (mode == kRowMaxima && maxima == nullptr))
+      (smooth && mk == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel = taps == 9   ? weight_kernel<9>(mode, smooth)
-                       : taps == 1 ? weight_kernel<1>(mode, smooth)
-                                   : weight_kernel<0>(mode, smooth);
+  const void* kernel = taps == 9   ? weight_kernel<9>(smooth)
+                       : taps == 1 ? weight_kernel<1>(smooth)
+                                   : weight_kernel<0>(smooth);
   const int smem = Cin * 4 * (smooth ? 2 : 1);
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024 &&  // beyond the default: Cin above 6144 with smoothing
@@ -1448,7 +1599,6 @@ int launch_weight(int mode, const void* w, const void* mx, const void* mx_raw, v
   args.s_x = static_cast<float*>(s_x);
   args.k_q = static_cast<int8_t*>(k_q);
   args.mk = static_cast<unsigned*>(mk);
-  args.maxima = static_cast<float*>(maxima);
   args.Cout = Cout; args.Cin = Cin; args.Cp = Cp; args.taps = taps;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeCooperative;
@@ -1468,6 +1618,13 @@ int launch_weight(int mode, const void* w, const void* mx, const void* mx_raw, v
   return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
+template <bool SMOOTH>
+const void* row_kernel(int taps) {
+  return taps == 9   ? kernel_ptr(row_maxima_kernel<9, SMOOTH>)
+         : taps == 1 ? kernel_ptr(row_maxima_kernel<1, SMOOTH>)
+                     : kernel_ptr(row_maxima_kernel<0, SMOOTH>);
+}
+
 template <bool COLUMNS>
 const void* scales_kernel(int taps) {
   return taps == 9   ? kernel_ptr(weight_scales_kernel<9, COLUMNS>)
@@ -1477,23 +1634,65 @@ const void* scales_kernel(int taps) {
 
 }  // namespace
 
-// (b) in one process: s_c, s_k, s_x and k_q in one launch (kWhole; see
+// (b) in one process: s_c, s_k, s_x and k_q in one launch (see
 // launch_weight).
 extern "C" int int8_quantize_weight(const void* w, const void* mx, const void* mx_raw,
                                     void* s_c, void* s_k, void* s_x, void* k_q, void* mk,
                                     int Cout, int Cin, int Cp, int taps, int smooth, int grid,
                                     void* stream) {
-  return launch_weight(kWhole, w, mx, mx_raw, s_c, s_k, s_x, k_q, mk, nullptr, Cout, Cin, Cp,
-                       taps, smooth, grid, stream);
+  return launch_weight(w, mx, mx_raw, s_c, s_k, s_x, k_q, mk, Cout, Cin, Cp, taps, smooth, grid,
+                       stream);
 }
 
-// (b)'s first launch for a row block under a tensor-parallel shard: s_c and
-// the maxima [Cout + 1] (kRowMaxima; see launch_weight).
+// (b)'s first launch for a row block under a tensor-parallel shard
+// (`row_maxima_kernel`, the plan of ops/int8conv.py::row_maxima_plan):
+// `grid` blocks of `cols` input channels (a power of two up to 32), in
+// clusters of `cluster`, copying `vec` floats at a time (1, 2 or 4,
+// dividing Cin * taps and cols * taps), `smem` bytes of dynamic shared
+// memory; s_c [Cin] and maxima [grid / cluster][Cout + 1].
+// cudaErrorInvalidValue for a plan the kernel does not take.
 extern "C" int int8_weight_row_maxima(const void* w, const void* mx, const void* mx_raw,
-                                      void* s_c, void* mk, void* maxima, int Cout, int Cin,
-                                      int Cp, int taps, int smooth, int grid, void* stream) {
-  return launch_weight(kRowMaxima, w, mx, mx_raw, s_c, nullptr, nullptr, nullptr, mk, maxima,
-                       Cout, Cin, Cp, taps, smooth, grid, stream);
+                                      void* s_c, void* maxima, int Cout, int Cin, int taps,
+                                      int smooth, int grid, int cols, int cluster, int vec,
+                                      int smem, void* stream) {
+  const int64_t need =
+      (static_cast<int64_t>(Cout) * (cols * taps + cols + 2) + 1 + 2 * cols) * 4;
+  const int used = cols > 0 ? (Cin + cols - 1) / cols : 0;  // blocks that hold columns
+  if (Cout < 1 || Cin < 1 || taps < 1 || cols < 1 || cols > kRowMaxCols || (cols & (cols - 1)) ||
+      cluster < 1 || cluster > kRowMaxCluster || grid % cluster || grid < used ||
+      grid - cluster >= used || (vec != 1 && vec != 2 && vec != 4) ||
+      (static_cast<int64_t>(Cin) * taps) % vec || (cols * taps) % vec || smem < need ||
+      w == nullptr || mx == nullptr ||
+      mx_raw == nullptr || s_c == nullptr || maxima == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = smooth ? row_kernel<true>(taps) : row_kernel<false>(taps);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  RowArgs args;
+  args.w = static_cast<const float*>(w);
+  args.mx = static_cast<const float*>(mx);
+  args.mx_raw = static_cast<const float*>(mx_raw);
+  args.s_c = static_cast<float*>(s_c);
+  args.maxima = static_cast<float*>(maxima);
+  args.Cout = Cout; args.Cin = Cin; args.taps = taps; args.cols = cols; args.vec = vec;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kRowThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  void* argv[] = {&args};
+  e = cudaLaunchKernelExC(&cfg, kernel, argv);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 // (b)'s first launch for a column block: mk [Cin] = max |w| over the output
@@ -1520,18 +1719,20 @@ extern "C" int int8_weight_column_maxima(const void* w, void* mk, int Cout, int 
 // ops/int8conv.py::scales_plan: `grid` blocks, `smem` bytes of dynamic
 // shared memory for s_c and the block's rows): `columns` 1, a column
 // block's s_c, s_k, s_x and k_q from mx, mx_raw and the group's mk; 0, a
-// row block's s_k, s_x and k_q from its s_c and the group's maxima.
+// row block's s_k, s_x and k_q from its s_c and the group's maxima, `parts`
+// rows of Cout + 1 (the row maxima's clusters) folded by their max.
 // Pointers the mode does not use may be null.
 extern "C" int int8_weight_scales(int columns, const void* w, const void* mx, const void* mx_raw,
                                   const void* mk, const void* s_c_in, const void* maxima,
                                   void* s_c, void* s_k, void* s_x, void* k_q, int Cout, int Cin,
-                                  int Cp, int taps, int grid, int smem, void* stream) {
+                                  int Cp, int taps, int parts, int grid, int smem,
+                                  void* stream) {
   const int rows = grid > 0 ? (Cout + grid - 1) / grid : 0;
   const int64_t need =
       ((Cin + 3) / 4 + static_cast<int64_t>(rows) * ((static_cast<int64_t>(Cin) * taps + 3) / 4))
       * 16;
-  if (Cout < 1 || Cin < 1 || taps < 1 || Cp % 16 || Cp < Cin || grid < 1 || grid > Cout ||
-      rows > kWeightMaxRows || smem < need || s_k == nullptr || s_x == nullptr ||
+  if (Cout < 1 || Cin < 1 || taps < 1 || parts < 1 || Cp % 16 || Cp < Cin || grid < 1 ||
+      grid > Cout || rows > kWeightMaxRows || smem < need || s_k == nullptr || s_x == nullptr ||
       k_q == nullptr || (columns && (mx == nullptr || mx_raw == nullptr || mk == nullptr ||
                                      s_c == nullptr)) ||
       (!columns && (s_c_in == nullptr || maxima == nullptr)))
@@ -1553,7 +1754,7 @@ extern "C" int int8_weight_scales(int columns, const void* w, const void* mx, co
   args.s_k = static_cast<float*>(s_k);
   args.s_x = static_cast<float*>(s_x);
   args.k_q = static_cast<int8_t*>(k_q);
-  args.Cout = Cout; args.Cin = Cin; args.Cp = Cp; args.taps = taps;
+  args.Cout = Cout; args.Cin = Cin; args.Cp = Cp; args.taps = taps; args.parts = parts;
   void* argv[] = {&args};
   e = cudaLaunchKernel(kernel, dim3(grid), dim3(kScalesThreads), argv, smem,
                        static_cast<cudaStream_t>(stream));

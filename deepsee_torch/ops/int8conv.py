@@ -47,13 +47,13 @@ axis, (pad_h, pad_w), for that.
 
 The launch plans are pure Python, so the CPU tests reach them:
 `weight_plan` gives (b)'s blocks their runs of output channels and their
-threads their units, `column_maxima_plan` and `scales_plan` the blocks of
-(b)'s launches under a shard; `quantize_plan` sizes (c)'s grid; `igemm_plan`
-chooses (d)'s tile (the output-pixel rectangle, BN, BK, the ring's stages,
-the persistent grid) and the boxes of its two TMA tensor maps, and `igemm_tile` /
-`igemm_loads` give the tile order and the coordinates that the kernel's
-producer hands TMA, from which tests/test_torch_int8_plan.py rebuilds the
-product on the CPU.
+threads their units, `column_maxima_plan`, `row_maxima_plan` and
+`scales_plan` the blocks of (b)'s launches under a shard; `quantize_plan`
+sizes (c)'s grid; `igemm_plan` chooses (d)'s tile (the output-pixel
+rectangle, BN, BK, the ring's stages, the persistent grid) and the boxes of
+its two TMA tensor maps, and `igemm_tile` / `igemm_loads` give the tile
+order and the coordinates that the kernel's producer hands TMA, from which
+tests/test_torch_int8_plan.py rebuilds the product on the CPU.
 
 Activations are NCHW tensors in channels_last memory (bf16 or float32), the
 weight OIHW float32.  The kernels' intermediates keep the GEMM's layouts:
@@ -78,7 +78,8 @@ __all__ = ["int8_conv", "int8_conv_plain", "quantize_plain", "igemm_plain", "Qua
            "quantize_activation_plain",
            "absmax_channels", "quantize_weight", "quantize_activation", "int8_conv_igemm",
            "divide_check", "QuantizePlan", "quantize_plan", "WeightPlan", "weight_plan",
-           "weight_rows", "ColumnMaximaPlan", "column_maxima_plan", "ScalesPlan", "scales_plan",
+           "weight_rows", "ColumnMaximaPlan", "column_maxima_plan", "RowMaximaPlan",
+           "row_maxima_plan", "row_maxima_smem", "ScalesPlan", "scales_plan",
            "IgemmPlan", "igemm_plan",
            "igemm_tile", "igemm_loads",
            "padded_channels", "conv_out_size", "pads", "launches", "plain_calls",
@@ -117,6 +118,13 @@ WEIGHT_UNIT_COLUMNS = 2   # input channels of a unit: a 16-bit word of k_q per t
 # (int8conv.cu's kColumnThreads, kScalesThreads)
 COLUMN_THREADS = 512
 SCALES_THREADS = 256
+# (b)'s row maxima under a shard (row_maxima_kernel): blocks of ROW_THREADS,
+# a power of two up to ROW_MAX_COLUMNS input channels each, in clusters of
+# ROW_CLUSTER (at most ROW_MAX_CLUSTER) blocks
+ROW_THREADS = 512
+ROW_MAX_COLUMNS = 32
+ROW_CLUSTER = 8
+ROW_MAX_CLUSTER = 16
 SMEM_MAX = 232448 - 1024    # a block's shared memory on the H100, less the static arrays
 
 # Kernel launches, one per wrapper call that launches its kernel: (a) is two
@@ -249,7 +257,10 @@ def quantize_activation_plain(x: torch.Tensor, s_c: torch.Tensor,
 # channel block) the whole layer's row maxima of k' = k * s_c and max|x'|.
 # Each is one rank's partial maxima, a MAX all-reduce over the model group,
 # and the rest of (b) from the reduced maxima: bit for bit what one process
-# computes from the whole weight and x.
+# computes from the whole weight and x.  On the card a row block's maxima
+# come in parts, one per cluster of the row-maxima launch's blocks (each
+# part over its own input channels), and the all-reduce carries them all:
+# the scales launch folds them, a max being exact in any order.
 
 def weight_column_maxima_plain(weight: torch.Tensor) -> torch.Tensor:
     """(b)'s first launch for a column block: max|k_c| over this block's
@@ -281,9 +292,11 @@ def weight_row_maxima_plain(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torc
 def quantize_weight_rows_plain(weight: torch.Tensor, s_c: torch.Tensor, maxima: torch.Tensor
                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(b)'s second launch for a row block: (s_k, s_x, k_q) from s_c and the
-    group's maxima."""
-    s_k = _scale(maxima[:-1].float())
-    return s_k, _scale(maxima[-1].float()), _weight_levels(_smoothed(weight, s_c), s_k)
+    group's maxima ((parts, Cout + 1) folded by their max over the parts,
+    or (Cout + 1,))."""
+    top = maxima.float().reshape(-1, weight.shape[0] + 1).amax(0)
+    s_k = _scale(top[:-1])
+    return s_k, _scale(top[-1]), _weight_levels(_smoothed(weight, s_c), s_k)
 
 
 def quantize_plain(x: torch.Tensor, weight: torch.Tensor, smooth: bool) -> Quantized:
@@ -425,6 +438,74 @@ def column_maxima_plan(cin: int, taps: int, sms: int = SMS) -> ColumnMaximaPlan:
     return ColumnMaximaPlan(-(-cin // columns), columns)
 
 
+class RowMaximaPlan(NamedTuple):
+    """(b)'s row-maxima launch under a shard: `grid` blocks of ROW_THREADS,
+    block b owning the input channels [b * columns, (b + 1) * columns) over
+    every output channel (none past Cin; `columns` a power of two up to
+    ROW_MAX_COLUMNS), staged in its shared memory; clusters of `cluster`
+    blocks, cluster k merging its blocks' maxima into row k of the (parts,
+    Cout + 1) maxima; `vec`: floats a copy of the runs (1, 2 or 4: the
+    widest that divides Cin * taps and columns * taps, so that every copy
+    lies on its own width); `smem`: the dynamic shared memory
+    (`row_maxima_smem`)."""
+    grid: int
+    columns: int
+    cluster: int
+    parts: int
+    vec: int
+    smem: int
+
+
+def row_maxima_smem(cout: int, taps: int, columns: int) -> int:
+    """The row maxima's shared memory: the block's [Cout][columns * taps]
+    runs, the [Cout][columns + 1] table of their maxima over the taps, the
+    Cout + 1 maxima, the columns' maxima and s_c."""
+    return (cout * (columns * taps + columns + 2) + 1 + 2 * columns) * 4
+
+
+def row_maxima_plan(cout: int, cin: int, taps: int) -> RowMaximaPlan:
+    """The fewest columns a block (a power of two) that keep the grid within
+    two blocks per SM and let a run of columns * taps floats be copied 16
+    bytes at a time where Cin * taps allows it (4 columns of 3x3 taps; on
+    the H100 the main path's blocks ran fastest so among the plans that keep
+    the maxima to a few rows, scripts/row_maxima_plans.py), fewer where the
+    block's runs would not fit its shared memory; clusters of ROW_CLUSTER
+    blocks (fewer where the grid is smaller)."""
+    if min(cout, cin, taps) < 1:
+        raise ValueError(f"int8conv: no weight of ({cout}, {cin}, {taps} taps)")
+    widest = next(v for v in (4, 2, 1) if cin * taps % v == 0)
+    columns = _pow2_at_least(-(-cin // (2 * SMS)))
+    while columns < ROW_MAX_COLUMNS and columns * taps % widest:
+        columns *= 2
+    columns = min(ROW_MAX_COLUMNS, columns)
+    while columns > 1 and row_maxima_smem(cout, taps, columns) > SMEM_MAX:
+        columns //= 2
+    return _row_maxima_launch(cout, cin, taps, columns, ROW_CLUSTER)
+
+
+def _row_maxima_launch(cout: int, cin: int, taps: int, columns: int,
+                       cluster: int) -> RowMaximaPlan:
+    """The launch of blocks of `columns` input channels in clusters of
+    `cluster` (fewer where the grid is smaller), the last cluster holding
+    columns; ValueError where the kernel cannot take it."""
+    if not 1 <= cluster <= ROW_MAX_CLUSTER:
+        raise ValueError(f"int8conv: the row maxima take clusters of 1 to {ROW_MAX_CLUSTER} "
+                         f"blocks, got {cluster}")
+    if columns < 1 or columns > ROW_MAX_COLUMNS or columns & (columns - 1):
+        raise ValueError(f"int8conv: a row-maxima block takes a power of two up to "
+                         f"{ROW_MAX_COLUMNS} columns, got {columns}")
+    smem = row_maxima_smem(cout, taps, columns)
+    if smem > SMEM_MAX:
+        raise ValueError(f"int8conv: the row maxima stage {cout} output channels x {columns} "
+                         f"columns x {taps} taps in shared memory: {smem} bytes, more than "
+                         f"{SMEM_MAX}")
+    used = -(-cin // columns)
+    cluster = min(cluster, used)
+    grid = -(-used // cluster) * cluster
+    vec = next(v for v in (4, 2, 1) if cin * taps % v == 0 and columns * taps % v == 0)
+    return RowMaximaPlan(grid, columns, cluster, grid // cluster, vec, smem)
+
+
 class ScalesPlan(NamedTuple):
     """(b)'s scales launch under a shard: `grid` blocks of SCALES_THREADS,
     block b owning the output channels `weight_rows(plan, cout, b)`, at most
@@ -551,9 +632,9 @@ def _lib() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.int8_absmax_channels.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, p]
     lib.int8_quantize_weight.argtypes = [p] * 8 + [i32] * 6 + [p]
-    lib.int8_weight_row_maxima.argtypes = [p] * 6 + [i32] * 6 + [p]
+    lib.int8_weight_row_maxima.argtypes = [p] * 5 + [i32] * 9 + [p]
     lib.int8_weight_column_maxima.argtypes = [p, p] + [i32] * 5 + [p]
-    lib.int8_weight_scales.argtypes = [i32] + [p] * 10 + [i32] * 6 + [p]
+    lib.int8_weight_scales.argtypes = [i32] + [p] * 10 + [i32] * 7 + [p]
     lib.int8_quantize_activation.argtypes = [p, p, p, p] + [i32] * 6 + [p]
     lib.int8_conv_igemm.argtypes = [p, p, p, p, p, p] + [i32] * 18 + [p]
     lib.int8_divide_check.argtypes = [p, p, i32, p, p, p, p]
@@ -719,9 +800,18 @@ def _weight_scales(weight: torch.Tensor, *, mx_raw=None, mx=None, mk=None, s_c_i
     cout, cin, kh, kw = weight.shape
     columns = mk is not None
     for name, t, n in (("mx_raw", mx_raw, cin), ("mx", mx, cin), ("mk", mk, cin),
-                       ("s_c", s_c_in, cin), ("maxima", maxima, cout + 1)):
+                       ("s_c", s_c_in, cin)):
         if t is not None:
             _check_vector(name, t, n, weight.device)
+    parts = 1
+    if maxima is not None:  # (parts, Cout + 1) or (Cout + 1,)
+        if (maxima.dim() not in (1, 2) or maxima.shape[-1] != cout + 1 or maxima.numel() == 0
+                or maxima.device != weight.device or maxima.dtype != torch.float32
+                or not maxima.is_contiguous()):
+            raise ValueError(f"int8conv: maxima must be contiguous float32 (parts, {cout + 1}) "
+                             f"on {weight.device}, got {tuple(maxima.shape)} {maxima.dtype} "
+                             f"on {maxima.device}")
+        parts = maxima.numel() // (cout + 1)
     dev = weight.device
     plan = scales_plan(cout, cin, kh * kw, card_sms(dev))
     cp = padded_channels(cin)
@@ -733,7 +823,7 @@ def _weight_scales(weight: torch.Tensor, *, mx_raw=None, mx=None, mk=None, s_c_i
            for t in (mx, mx_raw, mk, s_c_in, maxima, s_c, s_k, s_x, k_q)]
     with torch.cuda.device(dev):
         err = _lib().int8_weight_scales(int(columns), weight.data_ptr(), *ptr, cout, cin, cp,
-                                        kh * kw, plan.grid, plan.smem, _stream(weight))
+                                        kh * kw, parts, plan.grid, plan.smem, _stream(weight))
     _check(err, "weight_scales")
     launches["weight_scales"] += 1
     return s_c, s_k, s_x, k_q
@@ -752,10 +842,10 @@ def quantize_weight_columns(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torc
 
 def weight_row_maxima(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tensor,
                       smooth: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(b)'s first launch for a row block: s_c (Cin,) and the maxima (Cout +
-    1,): each output channel's max|k'| over this block's columns, then
-    max|x'| over x's channel block (`weight_plan`'s grid, cooperative where
-    it smooths, as `quantize_weight`)."""
+    """(b)'s first launch for a row block: s_c (Cin,) and the maxima (parts,
+    Cout + 1): row k over the input channels of `row_maxima_plan`'s cluster
+    k, written once by that cluster; their max over the parts is
+    `weight_row_maxima_plain`'s (Cout + 1,), which a CPU tensor gets."""
     if _plain_here(weight, mx_raw, mx):
         return weight_row_maxima_plain(weight, mx_raw, mx, smooth)
     _check_weight(weight)
@@ -763,15 +853,14 @@ def weight_row_maxima(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tens
     dev = weight.device
     for name, t in (("mx_raw", mx_raw), ("mx", mx)):
         _check_vector(name, t, cin, dev)
-    plan = weight_plan(cout, cin, kh * kw, smooth, card_sms(dev))
+    plan = row_maxima_plan(cout, cin, kh * kw)
     s_c = torch.empty(cin, dtype=torch.float32, device=dev)
-    maxima = torch.empty(cout + 1, dtype=torch.float32, device=dev)
-    mk = torch.empty(cin, dtype=torch.int32, device=dev) if smooth else None
+    maxima = torch.empty((plan.parts, cout + 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().int8_weight_row_maxima(weight.data_ptr(), mx.data_ptr(), mx_raw.data_ptr(),
-                                            s_c.data_ptr(), None if mk is None else mk.data_ptr(),
-                                            maxima.data_ptr(), cout, cin, padded_channels(cin),
-                                            kh * kw, int(smooth), plan.grid, _stream(weight))
+                                            s_c.data_ptr(), maxima.data_ptr(), cout, cin,
+                                            kh * kw, int(smooth), plan.grid, plan.columns,
+                                            plan.cluster, plan.vec, plan.smem, _stream(weight))
     _check(err, "weight_row_maxima")
     launches["weight_row_maxima"] += 1
     return s_c, maxima
@@ -780,7 +869,8 @@ def weight_row_maxima(weight: torch.Tensor, mx_raw: torch.Tensor, mx: torch.Tens
 def quantize_weight_rows(weight: torch.Tensor, s_c: torch.Tensor, maxima: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(b)'s second launch for a row block: (s_k, s_x, k_q) from s_c and the
-    model group's maxima."""
+    model group's maxima ((parts, Cout + 1), folded by their max over the
+    parts in the launch)."""
     if _plain_here(weight, s_c, maxima):
         return quantize_weight_rows_plain(weight, s_c, maxima)
     return _weight_scales(weight, s_c_in=s_c, maxima=maxima)[1:]

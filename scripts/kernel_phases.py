@@ -203,12 +203,16 @@ def tp_phases(workdir: str, gen) -> None:
     if redesigned:
         lib.int8_weight_column_maxima.argtypes = [p, p] + [i32] * 5 + [p]
         lib.int8_weight_scales.argtypes = [i32] + [p] * 10 + [i32] * 6 + [p]
-        lib.int8_weight_row_maxima.argtypes = [p] * 6 + [i32] * 6 + [p]
+        if hasattr(ic, "row_maxima_plan"):  # the row maxima's own kernel, the folded parts
+            lib.int8_weight_row_maxima.argtypes = [p] * 5 + [i32] * 9 + [p]
+            lib.int8_weight_scales.argtypes = [i32] + [p] * 10 + [i32] * 7 + [p]
+        else:
+            lib.int8_weight_row_maxima.argtypes = [p] * 6 + [i32] * 6 + [p]
     else:
         lib.int8_quantize_weight_split.argtypes = [i32] + [p] * 9 + [i32] * 6 + [p]
     dev = torch.device("cuda")
     names = ["start", "column maxima", "grid barrier", "s_c", "s_x", "row maxima", "end",
-             "loaded", "merged"]
+             "loaded", "merged", "cluster merged"]
     stream = torch.cuda.current_stream().cuda_stream
     sms = mn.card_sms(dev)
     for role, wshape, _ in tpk.BLOCKS:
@@ -233,11 +237,12 @@ def tp_phases(workdir: str, gen) -> None:
 
         def scales(columns: bool):
             sp = ic.scales_plan(cout, cin, taps, sms)
+            parts = (1,) if hasattr(ic, "row_maxima_plan") else ()  # one row of maxima
             return lambda: lib.int8_weight_scales(
                 int(columns), w.data_ptr(), mx.data_ptr(), mx_raw.data_ptr(), mk.data_ptr(),
                 s_c.data_ptr(), maxima.data_ptr(), s_c.data_ptr() if columns else None,
-                s_k.data_ptr(), s_x.data_ptr(), k_q.data_ptr(), cout, cin, cp, taps, sp.grid,
-                sp.smem, stream), sp.grid
+                s_k.data_ptr(), s_x.data_ptr(), k_q.data_ptr(), cout, cin, cp, taps, *parts,
+                sp.grid, sp.smem, stream), sp.grid
 
         if redesigned and role == "column":
             cplan = ic.column_maxima_plan(cin, taps, sms)
@@ -248,6 +253,16 @@ def tp_phases(workdir: str, gen) -> None:
                    cplan.grid, names)
             launch, grid = scales(True)
             phases(f"column scales {list(wshape)}", lib, launch, grid, names)
+        elif redesigned and hasattr(ic, "row_maxima_plan"):
+            rplan = ic.row_maxima_plan(cout, cin, taps)
+            parts = torch.empty((rplan.parts, cout + 1), device=dev)
+            phases(f"row maxima {list(wshape)} {rplan.grid} blocks of {rplan.columns} columns, "
+                   f"clusters of {rplan.cluster}", lib, lambda: lib.int8_weight_row_maxima(
+                       w.data_ptr(), mx.data_ptr(), mx_raw.data_ptr(), s_c.data_ptr(),
+                       parts.data_ptr(), cout, cin, taps, 1, rplan.grid, rplan.columns,
+                       rplan.cluster, rplan.vec, rplan.smem, stream), rplan.grid, names)
+            launch, grid = scales(False)
+            phases(f"row scales {list(wshape)}", lib, launch, grid, names)
         elif redesigned:
             phases(f"row maxima {list(wshape)}", lib, lambda: lib.int8_weight_row_maxima(
                 w.data_ptr(), mx.data_ptr(), mx_raw.data_ptr(), s_c.data_ptr(), bits.data_ptr(),

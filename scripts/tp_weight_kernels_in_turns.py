@@ -89,12 +89,14 @@ def check_and_time(role: str, block, gen) -> dict:
         fns = {"weight_column_maxima": lambda: ic.weight_column_maxima(ws[0]),
                "weight_scales": lambda: ic.quantize_weight_columns(ws[0], *maxima[0], top)}
     else:
-        first = [ic.weight_row_maxima(w, *m, True) for w, m in zip(ws, maxima)]
+        launched = [ic.weight_row_maxima(w, *m, True) for w, m in zip(ws, maxima)]
         want_first = [ic.weight_row_maxima_plain(w, *m, True) for w, m in zip(ws, maxima)]
-        top = torch.maximum(first[0][1], first[1][1])
-        second = [ic.quantize_weight_rows(w, f[0], top) for w, f in zip(ws, first)]
-        want_second = [ic.quantize_weight_rows_plain(w, f[0], top) for w, f in zip(ws, first)]
-        s_c0 = first[0][0]
+        top = torch.maximum(launched[0][1], launched[1][1])
+        second = [ic.quantize_weight_rows(w, f[0], top) for w, f in zip(ws, launched)]
+        want_second = [ic.quantize_weight_rows_plain(w, f[0], top) for w, f in zip(ws, launched)]
+        # the maxima folded over their parts, where the launch gives them in parts
+        first = [(s_c, m.reshape(-1, cout + 1).amax(0)) for s_c, m in launched]
+        s_c0 = launched[0][0]
         fns = {"weight_row_maxima": lambda: ic.weight_row_maxima(ws[0], *maxima[0], True),
                "weight_scales": lambda: ic.quantize_weight_rows(ws[0], s_c0, top)}
     torch.cuda.synchronize()

@@ -623,3 +623,147 @@ def test_split_plans_refuse_what_the_kernels_cannot_take():
         ic.scales_plan(64, 8192, 9)
     with pytest.raises(ValueError):
         ic.scales_plan(0, 64, 9)
+
+
+# -- (b) under a shard: the row maxima's launch ------------------------------------
+#
+# A numpy emulation of int8conv.cu's `row_maxima_kernel` at its plan: which
+# thread stages which value, which thread takes which (row, column) of the
+# staged runs, how the columns' maxima merge over a warp's lanes and the
+# warps, how s_c and max|x'| form, and how a cluster's blocks merge their
+# maxima, each rank a share; held against `weight_row_maxima_plain` at the
+# row blocks of the main path's tensor-parallel int8 call (1 x 2) and at
+# edges (odd Cin, Cin that 16 does not divide, fewer output channels than
+# SMs, one tap, one input channel, 5x5 taps)
+ROW_BLOCKS = {"encoder conv2.1.0": (256, 64, 3, 3), "generator 512x256": (512, 256, 3, 3),
+              "cin 31": (64, 31, 3, 3), "cin 17, cout 7": (7, 17, 3, 3),
+              "1x1 cin 200": (40, 200, 1, 1), "cin 1": (64, 1, 3, 3), "5x5": (130, 96, 5, 5)}
+
+
+def _emulate_row_maxima(weight, mx_raw, mx, smooth: bool, plan):
+    """(s_c, maxima (parts, Cout + 1)) as the kernel forms them, and how
+    often each weight value was staged, each (row, column) of a block's
+    table and each output written."""
+    cout, cin, kh, kw = weight.shape
+    taps, cols, threads = kh * kw, plan.columns, ic.ROW_THREADS
+    a = np.abs(weight.numpy().reshape(cout, cin * taps))
+    reads = np.zeros(a.shape, int)
+    s_c = np.full(cin, np.nan, np.float32)
+    s_c_writes = np.zeros(cin, int)
+    blocks = []
+    for b in range(plan.grid):
+        c0 = b * cols
+        n = max(0, min(cols, cin - c0))
+        length = n * taps
+        row = np.zeros(cout + 1, np.float32)
+        blocks.append(row)
+        if n == 0:
+            continue
+        vec = plan.vec if length % plan.vec == 0 else 1    # the stage, by cp.async of vec floats
+        assert (c0 * taps) % vec == 0 and (cin * taps) % vec == 0
+        i = np.arange(cout * length // vec)
+        o, e = i // (length // vec), i % (length // vec) * vec
+        stage = np.zeros((cout, length), np.float32)
+        for k in range(vec):
+            stage[o, e + k] = a[o, c0 * taps + e + k]
+            np.add.at(reads, (o, c0 * taps + e + k), 1)
+        t = np.arange(threads)                             # thread t: column t % cols
+        j = t % cols
+        step = threads // cols                             # of rows t // cols, + step, ...
+        o = t[:, None] // cols + step * np.arange(-(-cout // step))[None, :]
+        mine = (o < cout) & (j[:, None] < n)
+        tt, oo = np.broadcast_to(t[:, None], o.shape)[mine], o[mine]
+        taps_max = stage.reshape(cout, n, taps).max(2)     # each (row, column) over its taps
+        table = np.full((cout, n), np.nan, np.float32)
+        table[oo, j[tt]] = taps_max[oo, j[tt]]
+        table_writes = np.zeros((cout, n), int)
+        np.add.at(table_writes, (oo, j[tt]), 1)
+        assert (table_writes == 1).all()
+        m = np.zeros(threads, np.float32)
+        np.maximum.at(m, tt, taps_max[oo, j[tt]])
+        # a warp's lanes of one column (xor offsets 16 .. cols), then its lanes < n over the warps
+        warp_max = m.reshape(-1, 32 // cols, cols).max(1)     # (warps, cols)
+        col = warp_max[:, :n].max(0)
+        cs = slice(c0, c0 + n)
+        if smooth:
+            sc = ic._div_rn(ic._sqrt_rn(mx[cs]), ic._sqrt_rn(torch.from_numpy(col)
+                                                              .clamp_min(ic.FLOOR))).numpy()
+            row[cout] = ic._div_rn(mx_raw[cs], torch.from_numpy(sc)).max()
+        else:
+            sc = np.ones(n, np.float32)
+            row[cout] = mx_raw[cs].max()
+        s_c[cs] = sc
+        s_c_writes[cs] += 1
+        row[:cout] = (table * sc[None, :]).max(1)         # float32 products, rounded once
+    maxima = np.full((plan.parts, cout + 1), np.nan, np.float32)
+    writes = np.zeros(maxima.shape, int)
+    for k in range(plan.parts):
+        merged = np.stack(blocks[k * plan.cluster:(k + 1) * plan.cluster]).max(0)
+        for q in range(plan.cluster):
+            lo, hi = q * (cout + 1) // plan.cluster, (q + 1) * (cout + 1) // plan.cluster
+            maxima[k, lo:hi] = merged[lo:hi]
+            writes[k, lo:hi] += 1
+    return s_c, maxima, reads, s_c_writes, writes
+
+
+def _row_inputs(shape, seed=9):
+    rng = np.random.default_rng(seed)
+    raw = torch.from_numpy((10.0 ** rng.uniform(-2, 1, shape[1])).astype(np.float32))
+    raw[0] = 0.0                                       # a channel of zeros
+    return _split_weight(shape, seed), raw, raw.clamp_min(ic.FLOOR)
+
+
+@pytest.mark.parametrize("smooth", [True, False])
+@pytest.mark.parametrize("case", list(ROW_BLOCKS))
+def test_row_maxima_plan_reads_every_value_once(case, smooth):
+    """The chosen plan and two of wider blocks in smaller clusters: every
+    weight value staged once, every table entry, s_c and cluster maximum
+    written once, s_c bit for bit the plain version's, each cluster's row
+    of maxima the plain version's over that cluster's input channels alone,
+    and the rows folded by their max the plain version's maxima."""
+    cout, cin, kh, kw = ROW_BLOCKS[case]
+    taps = kh * kw
+    weight, mx_raw, mx = _row_inputs((cout, cin, kh, kw))
+    want_sc, want = ic.weight_row_maxima_plain(weight, mx_raw, mx, smooth)
+    plans = [ic.row_maxima_plan(cout, cin, taps)]
+    if cin >= 4:
+        plans.append(ic._row_maxima_launch(cout, cin, taps, 4, 2))
+        plans.append(ic._row_maxima_launch(cout, cin, taps, 2, 4))
+    for plan in plans:
+        cols = plan.columns
+        assert cols & (cols - 1) == 0 and cols <= ic.ROW_MAX_COLUMNS
+        assert plan.grid % plan.cluster == 0 and plan.parts == plan.grid // plan.cluster
+        assert plan.grid * cols >= cin > (plan.grid - plan.cluster) * cols
+        assert plan.smem == ic.row_maxima_smem(cout, taps, cols) <= ic.SMEM_MAX
+        assert plan.vec in (1, 2, 4) and (cin * taps) % plan.vec == (cols * taps) % plan.vec == 0
+        assert plan.vec == 4 or (cin * taps) % (2 * plan.vec) or (cols * taps) % (2 * plan.vec)
+        s_c, maxima, reads, s_c_writes, writes = _emulate_row_maxima(weight, mx_raw, mx, smooth,
+                                                                     plan)
+        assert (reads == 1).all() and (s_c_writes == 1).all() and (writes == 1).all()
+        assert np.array_equal(s_c, want_sc.numpy())
+        assert np.array_equal(maxima.max(0), want.numpy())
+        span = cols * plan.cluster
+        for k in range(plan.parts):
+            cs = slice(k * span, (k + 1) * span)
+            _, part = ic.weight_row_maxima_plain(weight[:, cs], mx_raw[cs], mx[cs], smooth)
+            assert np.array_equal(maxima[k], part.numpy())
+        _, _, kq = ic.quantize_weight_rows_plain(weight, want_sc, torch.from_numpy(maxima))
+        assert torch.equal(kq, ic.quantize_weight_rows_plain(weight, want_sc, want)[2])
+
+
+def test_row_maxima_plan_sizes_the_grid():
+    """At most two blocks per SM where a block's columns stay within
+    ROW_MAX_COLUMNS and its runs within its shared memory; narrower blocks
+    where they would not fit; refusals of what the kernel cannot take."""
+    for cout, cin, taps in ((512, 256, 9), (256, 64, 9), (64, 8192, 9), (40, 200, 1)):
+        plan = ic.row_maxima_plan(cout, cin, taps)
+        assert plan.grid <= max(2 * ic.SMS, -(-cin // ic.ROW_MAX_COLUMNS) + plan.cluster)
+    wide = ic.row_maxima_plan(4096, 8192, 9)
+    assert wide.columns < 32 and wide.smem <= ic.SMEM_MAX
+    for plan, args in ((ic.row_maxima_plan, (6000, 64, 9)),   # one column beyond the memory
+                       (ic.row_maxima_plan, (0, 64, 9)),
+                       (ic._row_maxima_launch, (64, 64, 9, 3, 8)),
+                       (ic._row_maxima_launch, (64, 64, 9, 64, 8)),
+                       (ic._row_maxima_launch, (64, 64, 9, 4, ic.ROW_MAX_CLUSTER + 1))):
+        with pytest.raises(ValueError):
+            plan(*args)

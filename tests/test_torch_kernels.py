@@ -997,10 +997,14 @@ def test_int8_quantize_weight_matches_plain_on_card(cuda_device, case, smooth):
 
 
 # (b) under a tensor-parallel shard: the column and row blocks of two model
-# ranks of the main path's 512-wide trunk convs and of a modulation conv,
-# beside odd shapes (5x5 taps at run time; an odd Cin block)
+# ranks of the main path's 512-wide trunk convs, of the mini encoder's
+# conv2.1.0 and of a modulation conv, beside odd shapes (5x5 taps at run
+# time; odd Cin blocks, Cin blocks that 16 does not divide, fewer output
+# channels than SMs, one tap, Cin blocks of one channel)
 INT8_SPLIT_WEIGHTS = {"512x512": (512, 512, 3, 3), "mod 256->1024": (1024, 256, 3, 3),
-                      "5x5": (48, 40, 5, 5), "cin 62": (64, 62, 3, 3)}
+                      "encoder 256x128": (256, 128, 3, 3), "5x5": (48, 40, 5, 5),
+                      "cin 62": (64, 62, 3, 3), "cin 34": (100, 34, 3, 3),
+                      "1x1 cin 400": (40, 400, 1, 1), "cin 2": (64, 2, 3, 3)}
 
 
 @pytest.mark.cuda
@@ -1047,7 +1051,9 @@ def test_int8_split_quantize_weight_matches_plain_on_card(cuda_device, case, sha
             torch.cuda.synchronize()
             for w, m, (s_c, part) in zip(ws, maxima, firsts):
                 p_sc, p_part = ic.weight_row_maxima_plain(w, *m, smooth)
-                assert torch.equal(s_c, p_sc) and torch.equal(part, p_part)
+                assert part.shape == (ic.row_maxima_plan(*w.shape[:2], kh * kw).parts,
+                                      w.shape[0] + 1)
+                assert torch.equal(s_c, p_sc) and torch.equal(part.amax(0), p_part)
             top = torch.maximum(firsts[0][1], firsts[1][1])
             rows = [ic.quantize_weight_rows(w, s_c, top) for w, (s_c, _) in zip(ws, firsts)]
             torch.cuda.synchronize()
@@ -1091,7 +1097,7 @@ def test_int8_split_quantize_weight_refuses_what_it_does_not_take(cuda_device):
     for call in (lambda: ic.weight_column_maxima(weight.double()),
                  lambda: ic.quantize_weight_columns(weight, mx_raw, mx, mx[:16]),
                  lambda: ic.weight_row_maxima(weight.cpu(), mx_raw, mx, True),
-                 lambda: ic.quantize_weight_rows(weight, s_c, maxima[:-1])):
+                 lambda: ic.quantize_weight_rows(weight, s_c, maxima[..., :-1])):
         with pytest.raises(ValueError):
             call()
 
@@ -1126,6 +1132,33 @@ def test_int8_quantize_weight_on_two_streams_at_once(cuda_device):
             assert torch.equal(s_c, want_sc) and torch.equal(s_k, want_sk)
             assert torch.equal(s_x, want_sx)
             assert torch.equal(k_q[..., :cin].permute(0, 3, 1, 2), want_kq)
+
+
+@pytest.mark.cuda
+def test_int8_row_maxima_on_two_streams_at_once(cuda_device):
+    """(b)'s row-maxima launch on two streams with no order between them,
+    twenty launches each, at the main path's two row-block shapes: every
+    call's s_c and maxima (folded over the parts) equal the plain
+    version's (no scratch, no memset: each launch's clusters merge in their
+    own shared memory)."""
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    cases = []
+    for cout, cin in ((512, 256), (256, 64)):
+        x = torch.randn((2, cin, 5, 6), generator=g, device=cuda_device)
+        weight = torch.randn((cout, cin, 3, 3), generator=g, device=cuda_device) * 0.05
+        mx_raw, mx = ic.absmax_channels_plain(x)
+        cases.append(((weight, mx_raw, mx), ic.weight_row_maxima_plain(weight, mx_raw, mx, True)))
+    streams = [torch.cuda.Stream(cuda_device) for _ in cases]
+    results = [[] for _ in cases]
+    torch.cuda.synchronize()
+    for _ in range(20):
+        for (args, _), stream, got in zip(cases, streams, results):
+            with torch.cuda.stream(stream):
+                got.append(ic.weight_row_maxima(*args, True))
+    torch.cuda.synchronize()
+    for (_, (want_sc, want_maxima)), got in zip(cases, results):
+        for s_c, maxima in got:
+            assert torch.equal(s_c, want_sc) and torch.equal(maxima.amax(0), want_maxima)
 
 
 @pytest.mark.cuda
